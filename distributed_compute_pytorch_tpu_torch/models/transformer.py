@@ -1,0 +1,95 @@
+"""Transformer block — port of
+``distributed_compute_pytorch_tpu/models/transformer.py`` (the pre-LN
+causal block the GPT-2 serving path runs).
+
+Fused QKV projection, multi-head attention through the dispatcher
+(``ops/attention.py::attention``: the flash kernel on CUDA), tanh-GELU
+MLP. Two entry points, as in the reference: ``forward`` (the reference's
+``apply``, pre-LN branch) for a whole window — the admission prefill,
+which captures each layer's K/V through ``kv_sink`` — and
+``decode_step`` for one paged decode tick. Inference only: dropout and
+the training-side layout pins wait for the training slice.
+"""
+
+from __future__ import annotations
+
+import torch.nn.functional as F
+from torch import nn
+
+from distributed_compute_pytorch_tpu_torch.models import layers as L
+from distributed_compute_pytorch_tpu_torch.ops import attention as A
+
+
+def _qkv_heads(block, h, num_heads: int):
+    qkv = block.qkv(h)
+    q, k, v = qkv.split(h.shape[-1], dim=-1)
+    return (A.split_heads(q, num_heads), A.split_heads(k, num_heads),
+            A.split_heads(v, num_heads))
+
+
+def attention_sublayer(block, x, *, num_heads: int, causal: bool = False,
+                       kv_mask=None, kv_sink: list | None = None):
+    """Fused-QKV multi-head attention + output projection (reference
+    ``:67-125``). ``kv_mask``: optional ``[b, t]`` key validity (nonzero =
+    attend). ``kv_sink``: when given, this window's split-head ``(k, v)``
+    ``[b, h, t, hd]`` are appended to it (the prefill capture)."""
+    q, k, v = _qkv_heads(block, x, num_heads)
+    if kv_sink is not None:
+        kv_sink.append((k, v))
+    o = A.attention(q, k, v, causal=causal, kv_mask=kv_mask)
+    return block.attn_out(A.merge_heads(o))
+
+
+def attention_decode_tick(block, x, cache, pos, *, num_heads: int):
+    """The attention half of one paged decode tick (reference
+    ``:142-163``): ln1 -> fused QKV -> the pool write + paged attention
+    (``ops/attention.py::cache_write_and_attend``, in place on the pool)
+    -> attn_out residual. ``pos``: int32 ``[B]`` per-row slots. Returns
+    ``(x + attn_residual, cache)``."""
+    q, k, v = _qkv_heads(block, block.ln1(x), num_heads)
+    o, cache = A.cache_write_and_attend(q, k, v, cache, pos)
+    return x + block.attn_out(A.merge_heads(o)), cache
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LN transformer block with fused-QKV MHA and a tanh-GELU MLP."""
+
+    def __init__(self, d_model: int, num_heads: int, d_ff: int, *,
+                 causal: bool = True, device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        self.d_model, self.num_heads, self.causal = d_model, num_heads, causal
+        self.ln1 = L.LayerNorm(d_model, **kw)
+        self.qkv = L.Dense(d_model, 3 * d_model, **kw)
+        self.attn_out = L.Dense(d_model, d_model, **kw)
+        self.ln2 = L.LayerNorm(d_model, **kw)
+        self.mlp_in = L.Dense(d_model, d_ff, **kw)
+        self.mlp_out = L.Dense(d_ff, d_model, **kw)
+
+    def init(self, generator):
+        for layer in (self.ln1, self.qkv, self.attn_out, self.ln2,
+                      self.mlp_in, self.mlp_out):
+            layer.init(generator)
+
+    def _mlp(self, x):
+        # jax.nn.gelu defaults to the tanh approximation (reference :236)
+        return self.mlp_out(F.gelu(self.mlp_in(x), approximate="tanh"))
+
+    def forward(self, x, *, kv_mask=None, kv_sink: list | None = None):
+        """The reference's ``apply`` (pre-LN branch, ``:251-264``) over a
+        whole ``[b, t, d]`` window."""
+        x = x + attention_sublayer(self, self.ln1(x),
+                                   num_heads=self.num_heads,
+                                   causal=self.causal, kv_mask=kv_mask,
+                                   kv_sink=kv_sink)
+        return x + self._mlp(self.ln2(x))
+
+    def decode_step(self, x, cache, pos):
+        """One paged decode tick (reference ``:273-292``): ``x [B, 1, d]``
+        at per-row slots ``pos [B]``; writes this step's K/V into
+        ``cache["kv"]`` in place and attends slots ``0..pos``."""
+        if not self.causal:
+            raise ValueError("decode needs a causal block")
+        x, cache = attention_decode_tick(self, x, cache, pos,
+                                         num_heads=self.num_heads)
+        return x + self._mlp(self.ln2(x)), cache

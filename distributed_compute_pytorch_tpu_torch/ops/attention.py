@@ -1,0 +1,136 @@
+"""Attention ops — port of ``distributed_compute_pytorch_tpu/ops/attention.py``.
+
+The dense math here (``dot_product_attention``, ``cached_attention``,
+``gather_kv_blocks``) is the REFERENCE the kernels are held to: it is the
+plain version the CPU path runs and ``chip_smoke.py`` compares against.
+On CUDA tensors the serving path goes through the hand-written kernels:
+
+- :func:`attention` -> ``ops/flash_attention.py`` (admission prefill);
+- :func:`cache_write_and_attend` -> ``ops/cache_update.py`` (the paged K/V
+  slot write, in place) and ``ops/decode_attention.py`` (the paged read
+  through the block table, with no gathered copy of the cache).
+
+Layouts follow the JAX package: ``[batch, heads, seq, head_dim]``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_FILL = -1e30   # finite mask fill: a fully-masked row averages, never NaN
+
+
+def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
+                          scale: float | None = None):
+    """Multi-head scaled dot-product attention over ``[b, h, t, d]``
+    (reference ``ops/attention.py:21-54``): logits and softmax in f32,
+    bottom-right causal alignment ``row >= col - (kv_len - q_len)``
+    (excluded keys take no weight), then the boolean ``mask`` (True =
+    attend; broadcastable to ``[b, h, q_len, kv_len]``) with the finite
+    ``-1e30`` fill. The probabilities are cast to ``q.dtype`` before the
+    value product, as the reference does."""
+    q_len, head_dim = q.shape[-2:]
+    kv_len = k.shape[-2]
+    scale = head_dim ** -0.5 if scale is None else scale
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        row = torch.arange(q_len, device=q.device)[:, None]
+        col = torch.arange(kv_len, device=q.device)[None, :]
+        logits = logits.masked_fill(row < col - (kv_len - q_len),
+                                    float("-inf"))
+    if mask is not None:
+        logits = logits.masked_fill(~mask, NEG_FILL)
+    weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(weights, v)
+
+
+def attention(q, k, v, *, causal: bool = False, scale: float | None = None,
+              kv_mask=None):
+    """The attention dispatcher (reference ``:74-115``): the flash kernel
+    on CUDA tensors, its plain dense version on CPU tensors
+    (``ops/flash_attention.py::flash_attention`` decides by device).
+    ``kv_mask``: optional ``[b, kv_len]`` key validity, nonzero = attend."""
+    from distributed_compute_pytorch_tpu_torch.ops.flash_attention import (
+        flash_attention)
+    return flash_attention(q, k, v, causal=causal, scale=scale,
+                           kv_mask=kv_mask)
+
+
+def split_heads(x, num_heads: int):
+    """``[b, t, d]`` -> ``[b, h, t, d/h]`` (a view)."""
+    b, t, d = x.shape
+    return x.reshape(b, t, num_heads, d // num_heads).transpose(1, 2)
+
+
+def merge_heads(x):
+    """``[b, h, t, hd]`` -> ``[b, t, h*hd]``."""
+    b, h, t, hd = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * hd)
+
+
+def _pos_vector(pos, batch: int, device) -> torch.Tensor:
+    """A scalar or ``[B]`` position as an int32 ``[B]`` tensor."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=device)
+    return pos.reshape(-1).expand(batch) if pos.ndim == 0 else pos
+
+
+def cached_attention(q, k_cache, v_cache, pos, *, scale: float | None = None):
+    """Single-position decode attention over a dense ``[B, Hk, T, hd]``
+    cache (reference ``:143-204``, the scalar / per-row ``pos`` forms):
+    row ``b`` attends slots ``0..pos[b]``, the rest masked with the
+    finite fill. GQA folds the query's group into its length-1 sequence
+    dim, so the narrow cache is read as is. Returns ``[B, H, 1, hd]``."""
+    B, H, q_len, hd = q.shape
+    hk, t_max = k_cache.shape[1], k_cache.shape[2]
+    grouped = H != hk
+    if grouped:
+        if q_len != 1:
+            raise ValueError("GQA cached attention takes one query position")
+        q = q.reshape(B, hk, H // hk, hd)
+    pos = _pos_vector(pos, B, q.device)
+    slots = torch.arange(t_max, device=q.device)
+    valid = slots[None, None, None, :] <= pos[:, None, None, None]
+    out = dot_product_attention(q, k_cache, v_cache, mask=valid, scale=scale)
+    return out.reshape(B, H, q_len, hd) if grouped else out
+
+
+def gather_kv_blocks(pool_leaf, table):
+    """The logical per-row view of a paged pool leaf (reference
+    ``:283-310``): ``pool_leaf [s, P, hk, bt, hd]`` through ``table
+    [B, nb]`` -> ``[s, B, hk, nb * bt, hd]``; row ``b``'s slot ``t`` is
+    ``pool_leaf[:, table[b, t // bt], :, t % bt]``. This copy is what the
+    paged decode kernel avoids; it stays as that kernel's plain version."""
+    g = pool_leaf[:, table.long()]             # [s, B, nb, hk, bt, hd]
+    s, B, nb, hk, bt, hd = g.shape
+    return g.permute(0, 1, 3, 2, 4, 5).reshape(s, B, hk, nb * bt, hd)
+
+
+def cache_write_and_attend(q, k, v, cache, pos):
+    """One decode tick against the PAGED float pool (reference
+    ``:313-353``, ``:447-452``): ``cache = {"kv": [2, P, hk, bt, hd],
+    "table": int32 [B, nb]}``. Row ``b`` writes its K/V at the physical
+    (block, offset) its table maps logical slot ``pos[b]`` to — IN PLACE
+    in ``cache["kv"]``, where the JAX package donates the buffer — then
+    attends its logical slots ``0..pos[b]`` through the table. The
+    horizon is the table's, ``nb * bt``; the slot lookup clamps to the
+    last table entry, which only parked rows (all-trash tables) reach.
+
+    ``q, k, v``: ``[B, H(k), 1, hd]``. Returns ``(o [B, H, 1, hd],
+    cache)``. Only the paged float format is ported; the dense cache and
+    the int8 pool raise."""
+    from distributed_compute_pytorch_tpu_torch.ops.cache_update import (
+        kv_pool_insert)
+    from distributed_compute_pytorch_tpu_torch.ops.decode_attention import (
+        paged_decode_attention)
+    if set(cache) != {"kv", "table"}:
+        raise NotImplementedError(
+            f"cache_write_and_attend takes the paged float pool "
+            f"{{'kv', 'table'}}; got keys {sorted(cache)}")
+    pool, table = cache["kv"], cache["table"]
+    bt, nb = pool.shape[3], table.shape[1]
+    pos = _pos_vector(pos, q.shape[0], q.device)
+    slot = torch.clamp(pos // bt, max=nb - 1).long()
+    blk = table.gather(1, slot[:, None])[:, 0].contiguous()
+    off = (pos % bt).contiguous()
+    kv_pool_insert(pool, k[:, :, 0], v[:, :, 0], blk, off)
+    return paged_decode_attention(q, pool, table, pos), cache

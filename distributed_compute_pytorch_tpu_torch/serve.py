@@ -1,0 +1,448 @@
+"""Segment-wise continuous batching — the port of
+``distributed_compute_pytorch_tpu/serve.py``'s serving core (greedy).
+
+A fixed pool of ``slots`` cache rows decodes in segments of ``segment``
+ticks while finished rows take the next queued request:
+
+- **Paged block-pool KV cache.** Each layer's cache is a pool of
+  fixed-size blocks ``{"kv": [2, pool_blocks, hk, kv_block_tokens, hd]}``
+  in the model's float dtype, and each row maps its LOGICAL slots
+  ``[0, t_max)`` onto physical blocks through a per-row block table
+  (host-side, refcounted: ``kv_pool.BlockPool``). Decode writes resolve
+  ``pos -> (table[pos // bt], pos % bt)`` and attention reads through the
+  table (``ops/attention.py::cache_write_and_attend``: the
+  ``kv_pool_insert`` and ``paged_decode`` CUDA kernels). The pool is
+  updated IN PLACE (the JAX package donates the buffers instead).
+  Parked and free rows point at the reserved trash block, where their
+  per-tick garbage writes never touch a live block.
+- **Batched admission.** Every pending request that has a free row is
+  stacked into ONE prefill per admission wave, laid out from logical
+  slot 0 in a ``prompt_buf``-wide window (the ``flash_fwd`` kernel,
+  causal with the pad mask). Each prompt's tokens but the last are
+  prefilled and their K/V scattered to the row's blocks (pad tokens aim
+  at an out-of-range block id and are dropped); the LAST prompt token
+  becomes the row's current token, consumed by its first decode tick.
+- **Per-row positions.** Every row advances its own write position, so
+  ``t_max`` bounds one request (``prompt_buf + ceil(max_new / segment) *
+  segment``), not the stream; rows recycle indefinitely.
+- **Overlapped host scheduler.** Segment N+1 is dispatched BEFORE segment
+  N's tokens are fetched: each segment's tokens are copied to pinned host
+  memory behind a CUDA event right after its launches, and the harvest
+  waits on that event alone, so the card runs segment N+1 while the host
+  harvests N and admits. Sound because rows are independent and budget
+  completion is host-known; an eos'd row burns at most the one segment
+  in flight, whose late writes land in blocks the next admission
+  overwrites or in slots past any live position.
+
+Admission is strict FIFO: a free row always takes the queue head. A
+request whose segment-rounded budget can never fit a row would block the
+head forever, so it is set aside up front, everything else is served,
+then :class:`HorizonError` is raised carrying the completed outputs.
+
+This slice is greedy only (a request with ``temperature > 0`` raises) and
+leaves out the reference's radix prefix cache, width buckets, chunked
+prefill, speculation, the int8 pool, tiers, handoff, the journal,
+deadlines, cancel, shed, drain, reconstruction and telemetry.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from distributed_compute_pytorch_tpu_torch.device import resolve_device
+from distributed_compute_pytorch_tpu_torch.kv_pool import BlockPool
+from distributed_compute_pytorch_tpu_torch.ops.cache_update import (
+    kv_pool_insert)
+
+# the reference's default block size for float pools (its Pallas slot
+# window); the CUDA kernels take any block size
+DEFAULT_BLOCK_TOKENS = 8
+
+
+@dataclass
+class Request:
+    """One generation request: ``tokens`` (prompt ids) in, up to
+    ``max_new`` greedy continuations out (fewer if ``eos_id`` fires).
+    ``temperature`` must be 0: sampling is not ported yet."""
+
+    tokens: list
+    max_new: int
+    temperature: float = 0.0
+
+
+@dataclass
+class _Slot:
+    """Host-side bookkeeping for one cache row."""
+
+    req_index: int = -1        # position in the request list (-1 = free)
+    remaining: int = 0
+    out: list = field(default_factory=list)
+    blocks: list = field(default_factory=list)   # owned pool blocks
+
+    def free(self):
+        self.req_index = -1
+        self.remaining = 0
+        self.out = []
+        self.blocks = []
+
+
+class HorizonError(RuntimeError):
+    """A request's segment-rounded budget can never fit the per-row
+    horizon (``prompt_buf + ceil(max_new/segment)*segment > t_max``).
+
+    Raised AFTER every admissible request has been served; ``outputs``
+    holds the completed results (in request order, ``[]`` for the
+    rejected requests)."""
+
+    def __init__(self, message: str, outputs: list):
+        super().__init__(message)
+        self.outputs = outputs
+
+
+class _Fetch:
+    """One dispatched segment's tokens on their way to the host: on CUDA
+    a non-blocking copy into pinned memory behind an event, so waiting
+    for it waits for that segment alone, not for work queued after it."""
+
+    def __init__(self, toks: torch.Tensor):
+        if toks.device.type == "cuda":
+            self._host = torch.empty(toks.shape, dtype=toks.dtype,
+                                     pin_memory=True)
+            self._host.copy_(toks, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = toks, None
+
+    def result(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+class ContinuousBatcher:
+    """Fixed-pool continuous batching for one causal LM over a paged
+    block-table KV cache (greedy decoding).
+
+    Args:
+      model: a ``models.gpt2.GPT2`` (any model with ``embed``,
+        ``blocks[i].forward/decode_step``, ``readout``, ``kv_cache_spec``)
+        on the batcher's device; it serves in its parameter dtype.
+      params: a state dict to load into ``model`` first, or ``None`` to
+        serve the model's current weights.
+      slots: cache rows decoding concurrently (the static batch).
+      t_max: each ROW's logical length bound, rounded up to whole blocks:
+        one request needs ``prompt_buf + ceil(max_new/segment)*segment <=
+        t_max``.
+      prompt_buf: the admission window; longer prompts are rejected.
+      segment: decode ticks per dispatch.
+      eos_id: optional stop token (rows stop early and free their slot).
+      admit_policy: ``"fifo"`` (the only policy ported).
+      kv_block_tokens: logical slots per pool block (default 8).
+      pool_blocks: physical blocks per layer pool (default and minimum
+        ``slots * (t_max // bt) + 1``: every row's worst case plus the
+        trash block).
+      device: ``None``/``"cuda"`` (raises without CUDA) or ``"cpu"``.
+    """
+
+    def __init__(self, model, params=None, *, slots: int, t_max: int,
+                 prompt_buf: int, segment: int = 16,
+                 eos_id: int | None = None, admit_policy: str = "fifo",
+                 kv_block_tokens: int | None = None,
+                 pool_blocks: int | None = None, device=None):
+        self.device = resolve_device(device)
+        if prompt_buf > t_max:
+            raise ValueError(f"prompt_buf {prompt_buf} > t_max {t_max}")
+        if admit_policy != "fifo":
+            raise ValueError(f"admit_policy {admit_policy!r} is not ported; "
+                             f"only 'fifo'")
+        if slots < 1 or segment < 1:
+            raise ValueError("slots and segment must be >= 1")
+        if kv_block_tokens is not None and kv_block_tokens < 1:
+            raise ValueError(
+                f"kv_block_tokens must be >= 1, got {kv_block_tokens}")
+        if model.device != self.device:
+            raise ValueError(f"model is on {model.device}, the batcher on "
+                             f"{self.device}")
+        if params is not None:
+            model.load_state_dict(params)
+        self.model = model
+        self.B = slots
+        self.Tb = prompt_buf
+        self.S = segment
+        self.eos_id = eos_id
+        self.bt = kv_block_tokens or DEFAULT_BLOCK_TOKENS
+        self.t_max = -(-t_max // self.bt) * self.bt
+        self.nb = self.t_max // self.bt          # table entries per row
+        min_blocks = slots * self.nb + 1         # + the trash block
+        if pool_blocks is None:
+            pool_blocks = min_blocks
+        if pool_blocks < min_blocks:
+            raise ValueError(
+                f"pool_blocks={pool_blocks} < slots*blocks_per_row+1="
+                f"{min_blocks}: a full pool could deadlock admission")
+        hk, hd = model.kv_cache_spec()
+        # per-layer block pools [2(k/v), P, hk, bt, hd] in the model's
+        # float dtype, written in place by the kv_pool_insert kernel
+        self._caches = [
+            {"kv": torch.zeros(2, pool_blocks, hk, self.bt, hd,
+                               dtype=model.dtype, device=self.device)}
+            for _ in model.blocks]
+        self._cur_tok = torch.zeros(slots, dtype=torch.long,
+                                    device=self.device)
+        self._n_logical = torch.zeros(slots, dtype=torch.long,
+                                      device=self.device)
+        self._pool = BlockPool(pool_blocks)
+        self._tables = np.full((slots, self.nb), BlockPool.TRASH, np.int32)
+        # per-row slot of the last written token (host-tracked: admission
+        # rewinds a row to its head length - 1; each segment advances
+        # every row by S; parked rows sit at 0 writing into trash)
+        self._row_pos = [0] * slots
+        self.ticks = 0
+        self.stats = {"prefill_calls": 0, "fetches_overlapped": 0}
+        self.last_slot_leaks = 0   # rows still owned at serve() exit
+        self.last_block_leaks = 0  # pool refs unaccounted at serve() exit
+        self.last_ttft_s: list = []  # per request: serve start -> 1st token
+
+    # ---- device work -----------------------------------------------------
+
+    def _prefill_wave(self, entries):
+        """ONE multi-row prefill of ``entries`` ``(row, tokens)``: every
+        prompt's head (all but the last token) at logical positions
+        ``0..n-2`` from column 0 of the ``prompt_buf``-wide window, its
+        K/V scattered into the row's blocks (pad columns aim at block id
+        ``P`` and are dropped). Each row then rewinds to ``head_len - 1``
+        with its last prompt token current. Dispatch only — no fetch."""
+        heads = [len(tokens) - 1 for _, tokens in entries]
+        if max(heads) > 0:
+            K, W, bt = len(entries), self.Tb, self.bt
+            prompt = np.zeros((K, W), np.int64)
+            pmask = np.zeros((K, W), np.float32)
+            blk = np.full((K, W), self._pool.num_blocks, np.int32)
+            off = np.zeros((K, W), np.int32)
+            for j, ((b, tokens), n) in enumerate(zip(entries, heads)):
+                prompt[j, :n] = tokens[:n]
+                pmask[j, :n] = 1.0
+                logical = np.arange(n)
+                blk[j, :n] = self._tables[b][logical // bt]
+                off[j, :n] = logical % bt
+            self._admit(*(torch.from_numpy(a).to(self.device)
+                          for a in (prompt, pmask, blk, off)))
+        rows = torch.tensor([b for b, _ in entries], device=self.device)
+        self._cur_tok[rows] = torch.tensor(
+            [tokens[-1] for _, tokens in entries], device=self.device)
+        self._n_logical[rows] = torch.tensor(heads, device=self.device)
+        for (b, _), n in zip(entries, heads):
+            self._row_pos[b] = n - 1
+
+    def _admit(self, prompt, pmask, blk, off):
+        """The admission forward (reference ``_admit_impl``, prefix cache
+        off): every block's ``forward`` over the wave with the pad mask,
+        each layer's captured K/V written to the pool."""
+        model = self.model
+        K, W = prompt.shape
+        x = model.embed(prompt, torch.arange(W, device=self.device))
+        blk, off = blk.reshape(-1), off.reshape(-1)
+        for block, cache in zip(model.blocks, self._caches):
+            sink: list = []
+            x = block(x, kv_mask=pmask, kv_sink=sink)
+            (k, v), = sink                     # [K, hk, W, hd] views
+            hk, hd = k.shape[1], k.shape[3]
+            kv_pool_insert(cache["kv"],
+                           k.transpose(1, 2).reshape(K * W, hk, hd),
+                           v.transpose(1, 2).reshape(K * W, hk, hd),
+                           blk, off)
+
+    def _segment(self, tables, positions0) -> torch.Tensor:
+        """``S`` greedy decode ticks for every row at its OWN position
+        (``positions0 [B]`` = each row's last written slot; tick ``i``
+        writes slot ``positions0 + 1 + i``). Returns the ``[B, S]`` tokens
+        on the device (reference ``_segment_impl``; its ``lax.scan`` is a
+        loop here)."""
+        model = self.model
+        tables = torch.from_numpy(tables).to(self.device)
+        positions0 = torch.tensor(positions0, dtype=torch.int32,
+                                  device=self.device)
+        tok, n_log = self._cur_tok, self._n_logical
+        out = []
+        for i in range(self.S):
+            pos = positions0 + (1 + i)
+            x = model.embed(tok[:, None], n_log[:, None])
+            for block, cache in zip(model.blocks, self._caches):
+                x, _ = block.decode_step(
+                    x, {"kv": cache["kv"], "table": tables}, pos)
+            tok = torch.argmax(model.readout(x)[:, -1], dim=-1)
+            n_log = n_log + 1
+            out.append(tok)
+        self._cur_tok, self._n_logical = tok, n_log
+        return torch.stack(out, dim=1)
+
+    # ---- host scheduler --------------------------------------------------
+
+    def _rounded_need(self, max_new: int) -> int:
+        """Decode slots a request consumes past its head: the
+        segment-rounded budget (a row runs whole segments)."""
+        return -(-max_new // self.S) * self.S
+
+    def _fits(self, req: Request) -> bool:
+        return self.Tb + self._rounded_need(req.max_new) <= self.t_max
+
+    def _validate_one(self, r: Request) -> str | None:
+        if len(r.tokens) > self.Tb:
+            return (f"prompt of {len(r.tokens)} tokens exceeds "
+                    f"prompt_buf={self.Tb}")
+        if len(r.tokens) == 0:
+            return "empty prompt"
+        if r.max_new < 1:
+            return f"max_new must be >= 1, got {r.max_new}"
+        if r.temperature < 0.0:
+            return f"temperature must be >= 0, got {r.temperature}"
+        if r.temperature > 0.0:
+            return ("sampling (temperature > 0) is not ported yet: this "
+                    "batcher serves greedy requests only")
+        vocab = self.model.config.vocab_size
+        bad = [t for t in r.tokens if not 0 <= t < vocab]
+        if bad:
+            return (f"token ids {bad[:8]} outside the model vocab "
+                    f"[0, {vocab})")
+        return None
+
+    def _assign_blocks(self, b: int, slot: _Slot, head_len: int,
+                       max_new: int) -> None:
+        """Allocate row ``b``'s worst-case extent and point its table at
+        it (reference ``_assign_blocks`` without the prefix attach)."""
+        extent = head_len + self._rounded_need(max_new)
+        nblocks = -(-extent // self.bt)
+        slot.blocks = self._pool.alloc(nblocks)
+        self._tables[b, :] = BlockPool.TRASH
+        self._tables[b, :nblocks] = slot.blocks
+
+    def serve(self, requests: list[Request]) -> list[list[int]]:
+        """Run every request through the pool; returns each request's
+        generated tokens (trimmed at eos), in request order. Invalid
+        requests raise ``ValueError``; requests that can never fit a row
+        raise :class:`HorizonError` after the rest complete."""
+        for r in requests:
+            err = self._validate_one(r)
+            if err is not None:
+                raise ValueError(err)
+        with torch.no_grad():
+            outputs, rejected = self._run(requests)
+        if rejected:
+            worst = max(self._rounded_need(requests[i].max_new)
+                        for i in rejected)
+            raise HorizonError(
+                f"per-row horizon exhausted for {len(rejected)} "
+                f"request(s): prompt_buf={self.Tb} + segment-rounded "
+                f"max_new (worst {worst}) exceeds t_max={self.t_max} — "
+                f"raise t_max or shrink max_new (completed outputs are "
+                f"on this error's .outputs)", outputs)
+        return outputs
+
+    def _run(self, requests: list[Request]):
+        """The overlapped dispatch/harvest loop. Returns ``(outputs,
+        horizon-rejected indices)``."""
+        t0 = time.monotonic()
+        n = len(requests)
+        results: list = [None] * n
+        ttft: list = [None] * n
+        queue = [i for i in range(n) if self._fits(requests[i])]
+        rejected = [i for i in range(n) if not self._fits(requests[i])]
+        table = [_Slot() for _ in range(self.B)]
+
+        def free_row(b):
+            slot = table[b]
+            if slot.blocks:
+                self._pool.release(slot.blocks)
+            self._tables[b, :] = BlockPool.TRASH
+            slot.free()
+
+        def admit_wave():
+            """ONE prefill for every queued request that has a free row,
+            strictly in arrival order."""
+            free = [b for b, s in enumerate(table) if s.req_index < 0]
+            take = queue[:len(free)]
+            if not take:
+                return
+            del queue[:len(take)]
+            entries = []
+            for b, ri in zip(free, take):
+                req, slot = requests[ri], table[b]
+                slot.req_index, slot.out = ri, []
+                slot.remaining = req.max_new
+                self._assign_blocks(b, slot, len(req.tokens) - 1,
+                                    req.max_new)
+                entries.append((b, list(req.tokens)))
+            self._prefill_wave(entries)
+            self.stats["prefill_calls"] += 1
+
+        def dispatch_segment():
+            """Dispatch ONE segment (no fetch), or None when no row has
+            budget left. Budget depletion is applied here, at dispatch,
+            so the next segment can be decided before this one's tokens
+            arrive. Rows outside the plan park at position 0 behind an
+            all-trash table."""
+            plan = []
+            for b, slot in enumerate(table):
+                if slot.req_index >= 0 and slot.remaining > 0:
+                    take = min(slot.remaining, self.S)
+                    plan.append((b, slot.req_index, take,
+                                 slot.remaining - take <= 0))
+            if not plan:
+                return None
+            active = {b for b, _, _, _ in plan}
+            tables_now = self._tables.copy()
+            for b in range(self.B):
+                if b not in active:
+                    tables_now[b, :] = BlockPool.TRASH
+                    self._row_pos[b] = 0
+            fetch = _Fetch(self._segment(tables_now, self._row_pos))
+            for b in range(self.B):
+                self._row_pos[b] += self.S
+            self.ticks += self.S
+            for b, _, take, _ in plan:
+                table[b].remaining -= take
+            return fetch, plan
+
+        def harvest(seg, overlapped: bool):
+            """THE one device->host fetch per segment."""
+            fetch, plan = seg
+            if overlapped:
+                self.stats["fetches_overlapped"] += 1
+            toks = fetch.result()
+            now = time.monotonic()
+            for b, ri, take, done in plan:
+                slot = table[b]
+                if results[ri] is not None or slot.req_index != ri:
+                    continue   # finished (eos) while this was in flight
+                slot.out.extend(int(t) for t in toks[b, :take])
+                if ttft[ri] is None and slot.out:
+                    ttft[ri] = now - t0
+                if self.eos_id is not None and self.eos_id in slot.out:
+                    slot.out = slot.out[:slot.out.index(self.eos_id) + 1]
+                    done = True
+                if done:
+                    results[ri] = slot.out
+                    free_row(b)
+
+        admit_wave()
+        seg = dispatch_segment()
+        while seg is not None:
+            nxt = dispatch_segment()      # overlap: N+1 before fetching N
+            harvest(seg, overlapped=nxt is not None)
+            admit_wave()                  # freed rows -> next wave
+            if nxt is None:
+                nxt = dispatch_segment()  # revived by fresh admissions
+            seg = nxt
+
+        leaked = [b for b, s in enumerate(table) if s.req_index >= 0]
+        self.last_slot_leaks = len(leaked)
+        for b in leaked:
+            free_row(b)
+        self.last_block_leaks = self._pool.leak_check()
+        self.last_ttft_s = ttft
+        return [r if r is not None else [] for r in results], rejected
