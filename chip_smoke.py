@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port: the quickest proof that the port
-builds, is right and serves on one NVIDIA GPU.
+builds, is right, serves and trains on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -14,10 +14,11 @@ imports nothing of JAX. Phases, one JSON line each:
    compiled by ``nvcc`` (in parallel), with the build seconds and each
    kernel's register/spill report;
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   CUDA tensors at the serving path's shapes, in bf16 and f32, with the
-   tolerances below, and timed beside its plain version, its roofline
-   bound and (where one exists) one PyTorch library call computing the
-   same function;
+   CUDA tensors at its path's shapes (serving for the forward, pool write
+   and paged decode; GPT-2-small training for the flash backward and
+   fused AdamW), with the tolerances below, and timed beside its plain
+   version, its roofline bound and (where one exists) one PyTorch library
+   call computing the same function;
 4. serve: GPT-2-small at full width (random weights from a fixed seed)
    through ``ContinuousBatcher.serve`` — 32 staggered requests, 16 slots,
    in bf16 and then in f32. Each kernel's launch counter is zeroed just
@@ -25,10 +26,23 @@ imports nothing of JAX. Phases, one JSON line each:
    schedule implies. Every output is checked teacher-forced against one
    full-sequence forward with plain dense attention;
 5. serve_profile: the bf16 serve run once more under ``torch.profiler``,
-   its device time by kernel group and its device busy share.
+   its device time by kernel group and its device busy share;
+6. train: GPT-2-small at full width and depth (dropout 0.1), bf16 compute
+   over f32 masters, ``adamw_fused``, 20 steps on one 8 x 1024 batch
+   through ``train/step.py::make_step_fns``; the counters are zeroed just
+   before and read just after, and must equal 20 x (12, 12, 12, 1); the
+   loss must fall by at least 1 nat and stay finite;
+7. train_parity: f32, dropout 0, two layers at full width: the gradients
+   of one step through the kernels against autograd of the dense math,
+   and five steps' losses against the same steps with
+   ``fused_adamw_plain``;
+8. train_cli: the port's trainer CLI for one epoch of ``synthetic-lm``
+   at GPT-2-small widths, then ``--resume --epochs 2``;
+9. train_profile: five train steps under ``torch.profiler``.
 
-Then the ``{"kernels": [...]}`` line (launches from the bf16 serve run),
-the raw ``nvidia-smi`` line, and last the ``{"ok": true, ...}`` line. Any
+Then the ``{"kernels": [...]}`` line (launches from the bf16 serve run for
+the serving kernels, from the train phase for the training kernels), the
+raw ``nvidia-smi`` line, and last the ``{"ok": true, ...}`` line. Any
 failed check exits non-zero before the ``ok`` line. Roofline bounds use
 the H100 SXM data-sheet peaks: 3.35 TB/s HBM, 989 TFLOP/s bf16 (tensor
 cores), 67 TFLOP/s f32 (no tensor cores).
@@ -38,9 +52,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -55,6 +73,23 @@ TOL = {"bf16": 3e-2, "f32": 1e-4}
 # the margin is four ulps. f32: only the summation order differs.
 MARGIN = {"bf16": 0.125, "f32": 1e-3}
 LAYERS = 12
+# the flash backward: outputs rounded to bf16 from f32 sums taken in
+# another order are one bf16 ulp apart at most, so the backward's errors
+# are taken relative to the output's largest magnitude where that exceeds
+# 1 (TOL as above); f32 sums differ in order only
+# fused AdamW, kernel against plain, relative to each buffer's largest
+# magnitude: the same f32 elementwise ops, which nvcc may contract to FMAs
+ADAMW_TOL = 1e-6
+TRAIN_STEPS = 20
+TRAIN_BATCH, TRAIN_T = 8, 1024
+# peak lr of the train phase: warmup-cosine from 0 over TRAIN_STEPS
+# updates (2 warm-up), enough to memorise one batch by more than 1 nat
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
+PARITY_LAYERS, PARITY_STEPS = 2, 5
+# train_parity: gradient leaves kernel vs plain, relative to each leaf's
+# largest magnitude, and the losses, relative
+GRAD_TOL, LOSS_TOL = 1e-3, 1e-4
+ROOT = Path(__file__).resolve().parent
 # a spin kernel of this many clock cycles (about 50 ms on an H100) holds
 # the stream while the host enqueues the timed calls
 SPIN_CYCLES = 100_000_000
@@ -274,6 +309,150 @@ def check_decode(torch, np, DA, dtype, dt):
     }
 
 
+def rel_err(got, want) -> float:
+    """Max abs error over the larger of 1 and the reference's max abs."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp(min=1.0)).item()
+
+
+def check_flash_bwd(torch, np, FA, dtype, dt):
+    """GPT-2-small training shapes: q, k, v, dO [8, 12, 1024, 64], causal;
+    q, k and v are split-head views of one fused QKV and dO comes in the
+    [b, t, h, d] order ``merge_heads``' backward hands over, as in the
+    model. Plus a ragged case: t = 45 < tk = 77, head dim 80, a kv_mask.
+    Returns ``{"flash_bwd_dq": {...}, "flash_bwd_dkv": {...}}``."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(4)
+    res = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    for case, (b, h, t, tk, d, masked) in (
+            ("train", (TRAIN_BATCH, 12, TRAIN_T, TRAIN_T, 64, False)),
+            ("ragged", (3, 5, 45, 77, 80, True))):
+        def inputs():
+            qx = torch.randn(b, t, h * d, generator=gen).to("cuda", dtype)
+            kv = torch.randn(b, tk, 2 * h * d, generator=gen).to("cuda", dtype)
+            q = qx.reshape(b, t, h, d).transpose(1, 2)
+            k = kv[..., :h * d].reshape(b, tk, h, d).transpose(1, 2)
+            v = kv[..., h * d:].reshape(b, tk, h, d).transpose(1, 2)
+            do = torch.randn(b, t, h, d, generator=gen).to(
+                "cuda", dtype).transpose(1, 2)
+            return q, k, v, do
+        mask = None
+        if masked:
+            lengths = torch.randint(1, tk + 1, (b,), generator=gen)
+            lengths[0] = tk
+            mask = (torch.arange(tk)[None] < lengths[:, None]).float().cuda()
+        kw = {"causal": True, "kv_mask": mask}
+        copies = []
+        for _ in range(2):      # two copies: a working set past the L2
+            q, k, v, do = inputs()
+            o, lse = FA.flash_fwd(q, k, v, **kw)
+            delta = (do.float() * o.float()).sum(-1)
+            copies.append((q, k, v, do, lse, delta))
+        q, k, v, do, lse, delta = copies[0]
+        dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        want = FA.flash_bwd_plain(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            require(bool(torch.isfinite(g).all()),
+                    f"flash bwd {case} {dt}: non-finite {name}")
+            errs[name] = (rel_err(g, w),
+                          (g.float() - w.float()).abs().max().item())
+            require(errs[name][0] <= TOL[dt],
+                    f"flash bwd {case} {dt}: {name} error {errs[name][0]} "
+                    f"> {TOL[dt]} (relative to max(1, max|plain|))")
+        for kern, names in (("flash_bwd_dq", ("dq",)),
+                            ("flash_bwd_dkv", ("dk", "dv"))):
+            res[kern][f"{case}_rel_err"] = max(errs[n][0] for n in names)
+            res[kern][f"{case}_max_abs_err"] = max(errs[n][1] for n in names)
+        if case != "train":
+            continue
+        # causal: query row i attends keys 0..i (t = tk)
+        pairs = b * h * t * (t + 1) // 2
+        esz = q.element_size()
+        io = esz * 4 * b * h * t * d + 4 * 2 * b * h * t   # q k v dO, lse delta
+        plain_ms = time_ms(torch, [
+            (lambda c=c: FA.flash_bwd_plain(*c, **kw)) for c in copies],
+            iters=10)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (qg, kg, vg), do)
+        lib_ms = time_ms(torch, [sdpa_fwd_bwd]) - time_ms(torch, [sdpa])
+        for kern, products, out_bytes, fn in (
+                ("flash_bwd_dq", 3, esz * b * h * t * d, FA.flash_bwd_dq),
+                ("flash_bwd_dkv", 4, esz * 2 * b * h * tk * d,
+                 FA.flash_bwd_dkv)):
+            r = res[kern]
+            r["bound_ms"], r["bound_by"] = bound(io + out_bytes,
+                                                 products * 2 * d * pairs, dt)
+            r["gflop"] = products * 2 * d * pairs / 1e9
+            r["ms"] = time_ms(torch, [(lambda c=c, fn=fn: fn(*c, **kw))
+                                      for c in copies])
+            r["plain_ms"] = plain_ms
+            r["plain"] = "flash_bwd_plain (dq, dk and dv together)"
+            r["library_ms"] = lib_ms
+            r["library"] = ("autograd of F.scaled_dot_product_attention "
+                            "(fwd+bwd minus fwd; dq, dk and dv together)")
+            r["shape"] = (f"q, k, v, dO [{b}, {h}, {t}, {d}] causal; "
+                          f"ragged: [3, 5, 45|77, 80] causal + kv_mask")
+    for r in res.values():
+        r["max_abs_err"] = max(r["train_max_abs_err"],
+                               r["ragged_max_abs_err"])
+        r["rel_err"] = max(r["train_rel_err"], r["ragged_rel_err"])
+    return res
+
+
+def check_adamw(torch, FAW, GPT2, GPT2Config):
+    """Every leaf of GPT-2-small (148 leaves, 124,439,808 f32 parameters)
+    laid out by ``FusedAdamW.init`` as flat buffers; three steps of the
+    kernel against ``fused_adamw_plain`` on the same buffers."""
+    model = GPT2(GPT2Config.small()).init(torch.Generator().manual_seed(5))
+    params = dict(model.named_parameters())
+    tx = FAW.fused_adamw(1e-3, weight_decay=0.01)
+    state = tx.init(params)
+    n = state.params.numel()
+    require(len(params) == 148, f"adamw: {len(params)} leaves, want 148")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    want = [state.params.clone(), state.mu.clone(), state.nu.clone()]
+    grads = {k: p.grad for k, p in params.items()}
+    for _ in range(3):
+        state.grads.copy_(torch.randn(n, generator=gen, device="cuda"))
+        sc = tx.scalars(state.count)
+        want = list(FAW.fused_adamw_plain(state.grads, *want, **sc))
+        tx.fused_apply(grads, state, params)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, got, w in zip(("p", "mu", "nu"),
+                            (state.params, state.mu, state.nu), want):
+        e = ((got - w).abs().max() / w.abs().max()).item()
+        require(e <= ADAMW_TOL, f"adamw {name}: relative error {e} > "
+                                f"{ADAMW_TOL}")
+        err = max(err, (got - w).abs().max().item())
+    sc = tx.scalars(state.count)
+    ms = time_ms(torch, [lambda: FAW.fused_adamw_update(
+        state.grads, state.params, state.mu, state.nu, **sc)], iters=20)
+    plain_ms = time_ms(torch, [lambda: FAW.fused_adamw_plain(
+        state.grads, state.params, state.mu, state.nu, **sc)], iters=10)
+    leaves = [p.detach().clone().requires_grad_() for p in params.values()]
+    for leaf, p in zip(leaves, params.values()):
+        leaf.grad = p.grad.clone()
+    opt = torch.optim.AdamW(leaves, lr=1e-3, weight_decay=0.01, fused=True)
+    lib_ms = time_ms(torch, [opt.step], iters=20)
+    b_ms, b_by = bound(28.0 * n, 15.0 * n, "f32")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "library": "torch.optim.AdamW(fused=True).step() over the 148 "
+                       "leaves",
+            "params": n, "leaves": len(params),
+            "shape": f"flat f32 [{n}] (GPT-2-small, 148 leaves), 3 steps"}
+
+
 # ---- phase 4: serve ----------------------------------------------------------
 
 def reference_logits(torch, A, model, tokens):
@@ -365,9 +544,13 @@ def serve_phase(torch, np, mods, model, dt):
     }
 
 
+KERNEL_NAMES = ("flash_fwd", "kv_pool_insert", "paged_decode",
+                "flash_bwd_dq", "flash_bwd_dkv", "fused_adamw")
+
+
 def _kernel_group(name: str) -> str:
-    for kernel in ("flash_fwd", "kv_pool_insert", "paged_decode"):
-        if f"::{kernel}_kernel<" in name:
+    for kernel in KERNEL_NAMES:
+        if f"::{kernel}_kernel" in name:
             return kernel
     low = name.lower()
     if any(s in low for s in ("gemm", "cutlass", "xmma", "nvjet")):
@@ -375,6 +558,28 @@ def _kernel_group(name: str) -> str:
     if low.startswith("memcpy") or low.startswith("memset"):
         return "memcpy/memset"
     return "other PyTorch kernels"
+
+
+def device_time(torch, prof):
+    """``(total_us, {group: [launches, us]}, top kernels)`` from a
+    profile's device-side events."""
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        n, t = kernels.get(e.key, (0, 0.0))
+        kernels[e.key] = (n + e.count, t + us)
+    total_us = sum(t for _, t in kernels.values())
+    groups: dict = {}
+    for name, (n, us) in kernels.items():
+        g = groups.setdefault(_kernel_group(name), [0, 0.0])
+        g[0] += n
+        g[1] += us
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
+    return total_us, groups, top
 
 
 def profile_phase(torch, np, serve, model, dt, wall_s):
@@ -395,22 +600,7 @@ def profile_phase(torch, np, serve, model, dt, wall_s):
         cb.serve(reqs)
         torch.cuda.synchronize()
         wall_prof = time.monotonic() - t0
-    kernels = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        n, t = kernels.get(e.key, (0, 0.0))
-        kernels[e.key] = (n + e.count, t + us)
-    total_us = sum(t for _, t in kernels.values())
-    groups: dict = {}
-    for name, (n, us) in kernels.items():
-        g = groups.setdefault(_kernel_group(name), [0, 0.0])
-        g[0] += n
-        g[1] += us
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
+    total_us, groups, top = device_time(torch, prof)
     return {
         "phase": "serve_profile", "dtype": dt, "requests": len(reqs),
         "ticks": cb.ticks - ticks0, "wall_s_profiled": wall_prof,
@@ -421,6 +611,217 @@ def profile_phase(torch, np, serve, model, dt, wall_s):
                       for g, (n, us) in sorted(groups.items(),
                                                key=lambda kv: -kv[1][1])},
         "top_kernels": [{"name": name[:100], "launches": n, "ms": us / 1e3}
+                        for name, (n, us) in top],
+    }
+
+
+# ---- phases 6-9: train -------------------------------------------------------
+
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_adamw")
+
+
+def train_counts(FA, FAW) -> dict:
+    return {"flash_fwd": FA.launches, "flash_bwd_dq": FA.dq_launches,
+            "flash_bwd_dkv": FA.dkv_launches, "fused_adamw": FAW.launches}
+
+
+def zero_train_counts(FA, FAW) -> None:
+    FA.launches = FA.dq_launches = FA.dkv_launches = FAW.launches = 0
+
+
+def train_setup(torch, np, tm, cfg, *, compute_dtype, lr=TRAIN_LR,
+                steps=TRAIN_STEPS, state_dict=None):
+    """A GPT-2 on the card (f32 masters; random weights from seed 0 or
+    ``state_dict``), ``adamw_fused`` with warmup-cosine from 0, the step
+    functions, a fresh state and the one 8 x 1024 batch (numpy seed 0)."""
+    GPT2, build_optimizer, make_step_fns = tm
+    model = GPT2(cfg)
+    if state_dict is None:
+        model.init(torch.Generator().manual_seed(0))
+    else:
+        model.load_state_dict(state_dict)
+    tx = build_optimizer("adamw_fused", lr, steps_per_epoch=steps,
+                         total_steps=steps, warmup_steps=TRAIN_WARMUP)
+    init_fn, train_step, _ = make_step_fns(model, tx,
+                                           compute_dtype=compute_dtype)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_T))
+    return model, tx, train_step, init_fn(None), torch.from_numpy(
+        tokens).cuda()
+
+
+def train_phase(torch, np, tm, FA, FAW, GPT2Config):
+    model, tx, train_step, state, x = train_setup(
+        torch, np, tm, GPT2Config.small(), compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_counts(FA, FAW)
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, x, x)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(metrics["loss"])
+    launches = train_counts(FA, FAW)
+    losses = [float(v) for v in losses]
+    per_step = {"flash_fwd": LAYERS, "flash_bwd_dq": LAYERS,
+                "flash_bwd_dkv": LAYERS, "fused_adamw": 1}
+    want = {k: TRAIN_STEPS * n for k, n in per_step.items()}
+    require(launches == want, f"train: launches {launches} != {want}")
+    require(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
+    require(losses[-1] <= losses[0] - 1.0,
+            f"train: loss {losses[0]} -> {losses[-1]}, not 1 nat lower")
+    median = sorted(step_ms[3:])[len(step_ms[3:]) // 2]
+    rec = {"phase": "train", "model": "gpt2-small (12 x 768, vocab 50257, "
+           "T 1024, dropout 0.1), random weights seed 0",
+           "batch": [TRAIN_BATCH, TRAIN_T], "compute_dtype": "bf16",
+           "masters": "f32", "optimizer": "adamw_fused", "lr": TRAIN_LR,
+           "warmup_steps": TRAIN_WARMUP, "schedule": "warmup-cosine from 0 "
+           f"over {TRAIN_STEPS} updates", "steps": TRAIN_STEPS,
+           "losses": losses, "loss_drop": losses[0] - losses[-1],
+           "step_ms": step_ms, "median_step_ms_after_3": median,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_T / (median / 1e3),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "launches_per_step": per_step}
+    return rec, (model, tx, train_step, state, x)
+
+
+def parity_phase(torch, np, tm, A, FA, FAW, GPT2Config):
+    """One step's gradients and five steps' losses of the kernel path
+    (``make_step_fns`` + ``adamw_fused``) against the plain path: the
+    model's own layers with dense attention under autograd, and
+    ``fused_adamw_plain`` per leaf with the same step scalars."""
+    import dataclasses
+    cfg = dataclasses.replace(GPT2Config.small(), num_layers=PARITY_LAYERS,
+                              dropout_rate=0.0)
+    model, tx, train_step, state, x = train_setup(
+        torch, np, tm, cfg, compute_dtype=None, steps=PARITY_STEPS)
+    ref = tm[0](cfg)
+    ref.load_state_dict(model.state_dict())
+    ref_params = dict(ref.named_parameters())
+    mu = {n: torch.zeros_like(p) for n, p in ref_params.items()}
+    nu = {n: torch.zeros_like(p) for n, p in ref_params.items()}
+    zero_train_counts(FA, FAW)
+    losses_k, losses_p, grad_errs = [], [], {}
+    for step in range(PARITY_STEPS):
+        state, metrics = train_step(state, x, x)
+        losses_k.append(float(metrics["loss"]))
+        for p in ref_params.values():
+            p.grad = None
+        loss = ref.loss_fn(reference_logits(torch, A, ref, x), x)
+        loss.backward()
+        losses_p.append(float(loss.detach()))
+        if step == 0:
+            for n, p in state.params.items():
+                w = ref_params[n].grad
+                grad_errs[n] = ((p.grad - w).abs().max()
+                                / w.abs().max()).item()
+        sc = tx.scalars(step)
+        with torch.no_grad():
+            for n, p in ref_params.items():
+                new = FAW.fused_adamw_plain(p.grad, p, mu[n], nu[n], **sc)
+                for dst, src in zip((p, mu[n], nu[n]), new):
+                    dst.copy_(src)
+    launches = train_counts(FA, FAW)
+    worst = max(grad_errs, key=grad_errs.get)
+    require(grad_errs[worst] <= GRAD_TOL,
+            f"train_parity: gradient of {worst} off by "
+            f"{grad_errs[worst]} of its max (> {GRAD_TOL})")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
+    require(loss_err <= LOSS_TOL, f"train_parity: losses {losses_k} vs "
+                                  f"plain {losses_p}")
+    require(all(n > 0 for n in launches.values()),
+            f"train_parity: a kernel never launched: {launches}")
+    return {"phase": "train_parity", "dtype": "f32", "layers": PARITY_LAYERS,
+            "batch": [TRAIN_BATCH, TRAIN_T], "steps": PARITY_STEPS,
+            "losses": losses_k, "plain_losses": losses_p,
+            "loss_rel_err": loss_err, "loss_tol": LOSS_TOL,
+            "worst_grad_leaf": worst, "worst_grad_rel_err": grad_errs[worst],
+            "grad_tol": GRAD_TOL, "leaves": len(grad_errs),
+            "launches": launches}
+
+
+CLI_LINES = {
+    "train": re.compile(r"^epoch: (\d+) \[\d+/\d+ \(\d+%\)\]\t Loss:[\d.]+$",
+                        re.M),
+    "eval": re.compile(r"^Test set: Average loss: [\d.]+, Accuracy: "
+                       r"\d+/\d+ \(\d+%\)$", re.M),
+    "time": re.compile(r"^time to complete this epoch: [\d.]+ seconds "
+                       r"\([\d.]+ samples/s\)$", re.M),
+}
+
+
+def cli_phase(torch, interop, GPT2, GPT2Config):
+    """The trainer CLI for one epoch, then resumed for a second: the
+    reference-format lines, a checkpoint the serving reader loads into a
+    GPT-2 of the trained sizes, and a resume that starts at epoch 1."""
+    import dataclasses
+    rec = {"phase": "train_cli"}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt.npz")
+        cmd = [sys.executable, "-m", "distributed_compute_pytorch_tpu_torch.cli",
+               "--model", "gpt2", "--dataset", "synthetic-lm",
+               "--optimizer", "adamw_fused", "--compute_dtype", "bfloat16",
+               "--batch_size", "32", "--ckpt_path", ckpt]
+        for run, extra in (("first", ["--epochs", "1"]),
+                           ("resumed", ["--resume", "--epochs", "2"])):
+            t0 = time.monotonic()
+            res = subprocess.run(cmd + extra, cwd=ROOT, capture_output=True,
+                                 text=True, timeout=600)
+            rec[f"{run}_s"] = time.monotonic() - t0
+            out = res.stdout
+            require(res.returncode == 0, f"train_cli {run}: rc "
+                    f"{res.returncode}\n{out[-2000:]}\n{res.stderr[-4000:]}")
+            for kind, pat in CLI_LINES.items():
+                require(pat.search(out) is not None,
+                        f"train_cli {run}: no {kind} line in\n{out[-2000:]}")
+            epochs = sorted({int(e) for e in CLI_LINES["train"].findall(out)})
+            rec[f"{run}_epochs"] = epochs
+            rec[f"{run}_tail"] = out.strip().splitlines()[-4:]
+            if run == "first":
+                require(epochs == [0], f"train_cli: epochs {epochs}")
+            else:
+                require(re.search(r"resumed from .* at epoch 1\b", out)
+                        is not None and epochs == [1],
+                        f"train_cli: resume did not start at epoch 1:\n"
+                        f"{out[:2000]}")
+            require(os.path.isfile(ckpt), "train_cli: no checkpoint")
+        tree = interop.load_jax_checkpoint(ckpt)
+        cfg = dataclasses.replace(GPT2Config.small(), vocab_size=256,
+                                  max_seq_len=128)
+        model = interop.load_gpt2_params(GPT2(cfg), tree)
+        require(all(bool(torch.isfinite(p).all())
+                    for p in model.parameters()),
+                "train_cli: reloaded checkpoint holds non-finite params")
+        rec["checkpoint_mb"] = os.path.getsize(ckpt) / 1e6
+    return rec
+
+
+def train_profile_phase(torch, train_step, state, x, step_ms, steps=5):
+    """``steps`` more train steps under ``torch.profiler``: device time per
+    step by kernel group; ``device_busy_share`` is the kernels' device
+    time per step over the unprofiled median step time ``step_ms``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = train_step(state, x, x)
+        torch.cuda.synchronize()
+    total_us, groups, top = device_time(torch, prof)
+    per_step_ms = total_us / 1e3 / steps
+    return {
+        "phase": "train_profile", "steps": steps,
+        "device_ms_per_step": per_step_ms,
+        "median_step_ms_unprofiled": step_ms,
+        "device_busy_share": per_step_ms / step_ms if total_us else None,
+        "groups_ms_per_step": {
+            g: {"launches_per_step": n / steps, "ms": us / 1e3 / steps}
+            for g, (n, us) in sorted(groups.items(),
+                                     key=lambda kv: -kv[1][1])},
+        "top_kernels": [{"name": name[:100], "launches": n,
+                         "ms_per_step": us / 1e3 / steps}
                         for name, (n, us) in top],
     }
 
@@ -441,13 +842,18 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
     try:
-        from distributed_compute_pytorch_tpu_torch import serve
+        from distributed_compute_pytorch_tpu_torch import interop, serve
         from distributed_compute_pytorch_tpu_torch.models.gpt2 import (
             GPT2, GPT2Config)
         from distributed_compute_pytorch_tpu_torch.ops import _build
         from distributed_compute_pytorch_tpu_torch.ops import attention as A
         from distributed_compute_pytorch_tpu_torch.ops import (
-            cache_update as CU, decode_attention as DA, flash_attention as FA)
+            cache_update as CU, decode_attention as DA, flash_attention as FA,
+            fused_adamw as FAW)
+        from distributed_compute_pytorch_tpu_torch.train.optim import (
+            build_optimizer)
+        from distributed_compute_pytorch_tpu_torch.train.step import (
+            make_step_fns)
     except ImportError as e:
         print(f"chip_smoke: run from the repository root — the port does "
               f"not import: {e}", file=sys.stderr)
@@ -483,10 +889,15 @@ def main() -> int:
                 "flash_fwd": check_flash(torch, np, FA, dtype, dt),
                 "kv_pool_insert": check_insert(torch, CU, dtype, dt),
                 "paged_decode": check_decode(torch, np, DA, dtype, dt)}
+            results[dt].update(check_flash_bwd(torch, np, FA, dtype, dt))
             for name, res in results[dt].items():
                 record({"phase": "kernel", "name": name, "dtype": dt,
                         "tol": 0.0 if name == "kv_pool_insert" else TOL[dt],
                         **res})
+        adamw = check_adamw(torch, FAW, GPT2, GPT2Config)
+        record({"phase": "kernel", "name": "fused_adamw", "dtype": "f32",
+                "tol": ADAMW_TOL, **adamw})
+        torch.cuda.empty_cache()
 
         base = GPT2(GPT2Config.small()).init(
             torch.Generator().manual_seed(0))
@@ -502,17 +913,37 @@ def main() -> int:
                                      serves[dt]["wall_s"]))
             del model
 
-        sources = {"flash_fwd": FA, "kv_pool_insert": CU, "paged_decode": DA}
+        tm = (GPT2, build_optimizer, make_step_fns)
+        train, (model, _, train_step, state, x) = train_phase(
+            torch, np, tm, FA, FAW, GPT2Config)
+        record(train)
+        record(train_profile_phase(torch, train_step, state, x,
+                                   train["median_step_ms_after_3"]))
+        del model, state, x, train_step
+        torch.cuda.empty_cache()
+        record(parity_phase(torch, np, tm, A, FA, FAW, GPT2Config))
+        torch.cuda.empty_cache()
+        record(cli_phase(torch, interop, GPT2, GPT2Config))
+
+        sources = {"flash_fwd": FA.REPLACES, "kv_pool_insert": CU.REPLACES,
+                   "paged_decode": DA.REPLACES,
+                   "flash_bwd_dq": FA.DQ_REPLACES,
+                   "flash_bwd_dkv": FA.DKV_REPLACES}
         kernels = []
-        for name, mod in sources.items():
+        for name, replaces in sources.items():
             r, r32 = results["bf16"][name], results["f32"][name]
+            serving = name in serves["bf16"]["launches"]
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": f"distributed_compute_pytorch_tpu_torch/csrc/"
                           f"{name}.cu",
-                "replaces": mod.REPLACES,
-                "launches": serves["bf16"]["launches"][name],
-                "launches_f32_run": serves["f32"]["launches"][name],
+                "replaces": replaces,
+                "launches": (serves["bf16"]["launches"][name] if serving
+                             else train["launches"][name]),
+                "launches_from": "serve bf16" if serving else "train",
+                "launches_f32_run": (serves["f32"]["launches"][name]
+                                     if serving else None),
+                "train_launches": train["launches"].get(name),
                 "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
                 "tol": 0.0 if name == "kv_pool_insert" else TOL["bf16"],
                 "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -527,6 +958,21 @@ def main() -> int:
                                             "bound_ms", "bound_by",
                                             "library_ms")},
             })
+        kernels.append({
+            "name": "fused_adamw", "route": "cuda",
+            "source": "distributed_compute_pytorch_tpu_torch/csrc/"
+                      "fused_adamw.cu",
+            "replaces": FAW.REPLACES,
+            "launches": train["launches"]["fused_adamw"],
+            "launches_from": "train", "train_launches":
+                train["launches"]["fused_adamw"],
+            "max_abs_err": adamw["max_abs_err"],
+            "max_err": adamw["max_abs_err"], "tol": ADAMW_TOL,
+            "ms": adamw["ms"], "kernel_ms": adamw["ms"],
+            "plain_ms": adamw["plain_ms"], "bound_ms": adamw["bound_ms"],
+            "bound_by": adamw["bound_by"], "library_ms": adamw["library_ms"],
+            "library": adamw["library"], "dtype": "f32",
+            "shape": adamw["shape"]})
         record({"kernels": kernels})
     except Exception as e:   # noqa: BLE001 — the smoke's one boundary:
         # report the failed phase and exit non-zero, no ok line

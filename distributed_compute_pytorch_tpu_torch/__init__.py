@@ -6,20 +6,32 @@ ported module names its counterpart by location. The port imports
 ``torch`` and ``numpy`` only: never ``jax``, ``optax`` or anything of the
 JAX package, whose jax-free helpers it keeps its own copies of.
 
-Slice 1 is GPT-2 continuous-batching serving:
+Slice 1 is GPT-2 continuous-batching serving; slice 2 is single-GPU
+GPT-2 training:
 
-models    ``layers`` (Dense, LayerNorm, Embedding), ``transformer``
-          (pre-LN block: prefill ``forward`` and paged ``decode_step``),
-          ``gpt2``, ``registry``
+models    ``layers`` (Dense, LayerNorm, Embedding, dropout, the losses),
+          ``transformer`` (pre-LN block: ``forward`` for a training step
+          or the admission prefill, paged ``decode_step``), ``gpt2``
+          (with the loss protocol), ``registry``
 ops       ``attention`` (dense reference math and the paged
           write-and-attend), and one module per hand-written CUDA
-          kernel: ``flash_attention`` (admission prefill),
-          ``cache_update`` (paged K/V slot write), ``decode_attention``
-          (paged decode read); ``_build`` compiles ``csrc/*.cu``
+          kernel family: ``flash_attention`` (forward, and the dQ and
+          dK/dV backward kernels behind the ``FlashAttention`` autograd
+          Function), ``cache_update`` (paged K/V slot write),
+          ``decode_attention`` (paged decode read), ``fused_adamw`` (one
+          launch over every parameter); ``_build`` compiles ``csrc/*.cu``
+train     ``optim`` (AdamW, fused AdamW, warmup-cosine), ``step``
+          (``make_step_fns``: bf16 compute over f32 masters, step-level
+          accumulation), ``checkpoint`` (v1 ``.npz``, params in the JAX
+          layout), ``trainer``
+data      ``sampler``, ``datasets`` (synthetic), ``loader``
+          (``DeviceFeeder``)
+core      ``config`` (the ``dcp-train`` flag subset)
+utils     ``logging`` (the reference's lines), ``fsio``
 kv_pool   host-side refcounted block pool
 serve     ``ContinuousBatcher`` (greedy)
-cli_serve the ``dcp-serve`` subset
-interop   JAX GPT-2 params and v1 checkpoints -> this package
+cli       the ``dcp-train`` subset; cli_serve the ``dcp-serve`` subset
+interop   JAX GPT-2 params and v1 checkpoints <-> this package
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``
 (``device.resolve_device``); without a card they raise.

@@ -1,29 +1,33 @@
-"""JAX -> PyTorch weight interop for the port.
+"""JAX <-> PyTorch weight interop for the port.
 
 - :func:`gpt2_params_from_jax`: the JAX package's GPT-2 params pytree (as
   numpy arrays) -> this package's ``GPT2`` state dict. Dense kernels
   ``[in, out]`` become ``nn.Linear``-style weights ``[out, in]``; the
   stacked ``[num_layers, ...]`` block leaves are unstacked into
   ``blocks.{i}.*``; LayerNorm ``scale`` becomes ``weight``.
-- :func:`load_jax_checkpoint`: a numpy + zlib reader for the v1 ``.npz``
-  checkpoint the JAX trainer writes (``train/checkpoint.py``): leaves
-  flattened with ``"::"``-joined keys, the params under ``.params::``, and
-  a ``__manifest__`` JSON holding a CRC-32 per leaf. Every leaf it returns
-  is verified against its CRC; a mismatch raises
-  :class:`CheckpointCorruptError`.
+- :func:`gpt2_params_to_jax`: the inverse, for writing checkpoints in the
+  JAX layout (``train/checkpoint.py``) and for the parity tests.
+- :func:`read_checkpoint`: a numpy + zlib reader for the v1 ``.npz``
+  checkpoint the JAX trainer and the port's ``train/checkpoint.py`` write:
+  leaves flattened with ``"::"``-joined keys, the params under
+  ``.params::``, and a ``__manifest__`` JSON holding a CRC-32 per leaf.
+  Every leaf it returns is verified against its CRC; a mismatch raises
+  :class:`CheckpointCorruptError`. :func:`load_jax_checkpoint` returns the
+  params subtree of such a file.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import zipfile
 import zlib
 
 import numpy as np
 import torch
 
 _SEP = "::"
-_PARAMS = ".params" + _SEP
+_PARAMS = ".params"
 _DENSE = ("qkv", "attn_out", "mlp_in", "mlp_out")
 _NORMS = ("ln1", "ln2")
 
@@ -62,6 +66,37 @@ def gpt2_params_from_jax(tree) -> dict[str, torch.Tensor]:
     return sd
 
 
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def gpt2_params_to_jax(state_dict) -> dict:
+    """A ``GPT2`` state dict (any device/dtype) -> the JAX package's GPT-2
+    params tree of f32 numpy arrays: weights ``[out, in]`` back to kernels
+    ``[in, out]``, ``blocks.{i}.*`` re-stacked into ``[num_layers, ...]``
+    leaves, LayerNorm ``weight`` back to ``scale``."""
+    sd = {k: _np(v) for k, v in state_dict.items()}
+    n_layers = 1 + max(int(k.split(".")[1]) for k in sd
+                       if k.startswith("blocks."))
+
+    def stack(name, fn=lambda a: a):
+        return np.stack([fn(sd[f"blocks.{i}.{name}"])
+                         for i in range(n_layers)])
+
+    blocks = {}
+    for name in _NORMS:
+        blocks[name] = {"scale": stack(name + ".weight"),
+                        "bias": stack(name + ".bias")}
+    for name in _DENSE:
+        blocks[name] = {"kernel": stack(name + ".weight",
+                                        lambda a: np.ascontiguousarray(a.T)),
+                        "bias": stack(name + ".bias")}
+    return {"wte": {"embedding": sd["wte.weight"]},
+            "wpe": {"embedding": sd["wpe.weight"]},
+            "blocks": blocks,
+            "ln_f": {"scale": sd["ln_f.weight"], "bias": sd["ln_f.bias"]}}
+
+
 def load_gpt2_params(model, tree):
     """Copy converted JAX params into ``model`` (any device/dtype). Raises
     ``ValueError`` naming the first leaf whose shape differs — the model
@@ -82,35 +117,69 @@ def load_gpt2_params(model, tree):
     return model
 
 
-def load_jax_checkpoint(path: str) -> dict:
-    """The params subtree of a JAX v1 checkpoint file as nested dicts of
-    numpy arrays, each leaf verified against the manifest's CRC-32."""
+def read_checkpoint(path: str) -> tuple[dict[str, np.ndarray], dict]:
+    """Every leaf of the v1 file at ``path`` (``"::"``-joined keys), each
+    verified against the manifest's CRC-32, and the manifest. Raises
+    :class:`CheckpointCorruptError` on a mismatch, a leaf without a CRC or
+    an unreadable file, ``ValueError`` on a sharded (v2) directory or
+    another format."""
     if os.path.isdir(path):
         raise ValueError(f"{path} is a sharded (v2) checkpoint directory; "
                          f"only the v1 single-file format is read here")
-    with np.load(path, allow_pickle=False) as z:
-        manifest = json.loads(str(z["__manifest__"]))
+    try:
+        z = np.load(path, allow_pickle=False)
+    except (OSError, ValueError, zipfile.BadZipFile) as e:
+        raise CheckpointCorruptError(
+            f"{path}: unreadable checkpoint file ({e})") from e
+    with z:
+        try:
+            manifest = json.loads(str(z["__manifest__"]))
+        except (KeyError, ValueError, zipfile.BadZipFile) as e:
+            raise CheckpointCorruptError(
+                f"{path}: unreadable manifest ({e})") from e
         if manifest.get("format") != 1:
             raise ValueError(f"{path}: checkpoint format "
                              f"{manifest.get('format')!r}, expected 1")
-        checksums = manifest.get("checksums", {})
-        tree: dict = {}
+        sums = manifest.get("checksums", {})
+        flat = {}
         for key in z.files:
-            if not key.startswith(_PARAMS):
+            if key == "__manifest__":
                 continue
-            arr = z[key]
-            if key not in checksums:
+            try:
+                arr = z[key]
+            except (OSError, ValueError, zipfile.BadZipFile) as e:
+                raise CheckpointCorruptError(
+                    f"{path}: leaf {key!r} unreadable ({e})") from e
+            if key not in sums:
                 raise CheckpointCorruptError(
                     f"{path}: leaf {key!r} has no CRC-32 in the manifest")
-            if _crc(arr) != checksums[key]:
+            if _crc(arr) != sums[key]:
                 raise CheckpointCorruptError(
                     f"{path}: leaf {key!r} failed its CRC-32 integrity "
                     f"check (corrupted checkpoint)")
-            node = tree
-            *parents, leaf = key[len(_PARAMS):].split(_SEP)
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = arr
+            flat[key] = arr
+    return flat, manifest
+
+
+def unflatten(flat: dict, prefix: str) -> dict:
+    """The subtree of ``flat`` under ``prefix`` (e.g. ``".params"``) as
+    nested dicts."""
+    tree: dict = {}
+    for key, arr in flat.items():
+        if not key.startswith(prefix + _SEP):
+            continue
+        node = tree
+        *parents, leaf = key[len(prefix) + len(_SEP):].split(_SEP)
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = arr
+    return tree
+
+
+def load_jax_checkpoint(path: str) -> dict:
+    """The params subtree of a JAX v1 checkpoint file as nested dicts of
+    numpy arrays, every leaf verified against the manifest's CRC-32."""
+    tree = unflatten(read_checkpoint(path)[0], _PARAMS)
     if not tree:
         raise ValueError(f"{path}: no '.params' leaves in the checkpoint")
     return tree

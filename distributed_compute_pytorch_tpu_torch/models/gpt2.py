@@ -3,7 +3,9 @@
 Learned token + position embeddings, pre-LN causal blocks with fused QKV,
 a final LayerNorm and the weight-tied readout through the token table.
 Sizes default to GPT-2-small (12 layers, 12 heads of 64, d_model 768,
-d_ff 3072, vocab 50257, 1024 positions); ``tiny()`` is the test size.
+d_ff 3072, vocab 50257, 1024 positions, dropout 0.1); ``tiny()`` is the
+test size (no dropout). Training uses ``forward(train=True, generator=)``
+and the loss protocol (``loss_fn``, ``loss_sum``, ``eval_metrics``).
 
 The blocks are an ``nn.ModuleList`` (the reference stacks them into
 ``[num_layers, ...]`` leaves for ``lax.scan``; ``interop.py`` unstacks).
@@ -30,6 +32,7 @@ class GPT2Config:
     num_heads: int = 12
     d_model: int = 768
     d_ff: int = 3072
+    dropout_rate: float = 0.1
 
     @classmethod
     def small(cls) -> "GPT2Config":
@@ -39,7 +42,7 @@ class GPT2Config:
     def tiny(cls) -> "GPT2Config":
         """The reference's test size (``gpt2.py:67-72``)."""
         return cls(vocab_size=256, max_seq_len=64, num_layers=2,
-                   num_heads=4, d_model=64, d_ff=128)
+                   num_heads=4, d_model=64, d_ff=128, dropout_rate=0.0)
 
 
 class GPT2(nn.Module):
@@ -55,8 +58,8 @@ class GPT2(nn.Module):
         self.wte = L.Embedding(c.vocab_size, c.d_model, **kw)
         self.wpe = L.Embedding(c.max_seq_len, c.d_model, init_std=0.01, **kw)
         self.blocks = nn.ModuleList(
-            TransformerBlock(c.d_model, c.num_heads, c.d_ff, causal=True,
-                             **kw)
+            TransformerBlock(c.d_model, c.num_heads, c.d_ff,
+                             dropout_rate=c.dropout_rate, causal=True, **kw)
             for _ in range(c.num_layers))
         self.ln_f = L.LayerNorm(c.d_model, **kw)
 
@@ -97,9 +100,35 @@ class GPT2(nn.Module):
         c = self.config
         return c.num_heads, c.d_model // c.num_heads
 
-    def forward(self, tokens):
-        """``tokens [B, T]`` -> logits ``[B, T, vocab]``."""
+    def forward(self, tokens, *, train: bool = False, generator=None):
+        """``tokens [B, T]`` -> logits ``[B, T, vocab]``. ``train`` with a
+        ``generator`` (a ``torch.Generator`` on the model's device) applies
+        dropout to the embeddings and inside every block (reference
+        ``apply``, ``:134-154``); eval mode, or no generator, drops
+        nothing."""
         x = self.embed(tokens)
+        train = train and generator is not None
+        x = L.dropout(x, self.config.dropout_rate, generator, train)
         for block in self.blocks:
-            x = block(x)
+            x = block(x, train=train, generator=generator)
         return self.readout(x)
+
+    # --- loss protocol (next-token prediction: shift inside) ---
+
+    def loss_fn(self, logits, tokens):
+        """Mean next-token cross-entropy (reference ``:158-160``)."""
+        return L.cross_entropy_with_logits(logits[:, :-1], tokens[:, 1:],
+                                           "mean")
+
+    def loss_sum(self, logits, tokens):
+        return L.cross_entropy_with_logits(logits[:, :-1], tokens[:, 1:],
+                                           "sum")
+
+    def eval_metrics(self, logits, tokens, valid=None):
+        """Token-level eval sums (reference ``:166-174``): ``loss_sum``,
+        ``correct`` and ``count`` over the shifted targets, rows weighted
+        by ``valid`` (float ``[B]``)."""
+        pred = logits[:, :-1].argmax(-1)
+        tgt = tokens[:, 1:]
+        per_tok = L.cross_entropy_with_logits(logits[:, :-1], tgt, "none")
+        return L.token_eval_metrics(per_tok, pred == tgt, valid)

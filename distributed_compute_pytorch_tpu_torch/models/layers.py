@@ -1,5 +1,5 @@
 """Layers — port of ``distributed_compute_pytorch_tpu/models/layers.py``
-(the parts the GPT-2 serving path uses).
+(the parts the GPT-2 serving and training paths use).
 
 Each layer is an ``nn.Module`` whose parameters are allocated on the
 module's device (zeros until :meth:`init` or a weight load fills them).
@@ -103,3 +103,44 @@ class Embedding(nn.Module):
 
     def attend(self, x):
         return torch.matmul(x, self.weight.to(x.dtype).t())
+
+
+def dropout(x, rate: float, generator, train: bool):
+    """``nn.Dropout`` (reference ``:143-158``): the identity when not
+    training or ``rate == 0``; otherwise inverted scaling with a keep mask
+    drawn from ``generator``, a ``torch.Generator`` on ``x``'s device."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+def nll_loss(log_probs, targets, reduction: str = "mean"):
+    """``F.nll_loss`` on log-probabilities (reference ``:339-347``), in
+    their dtype."""
+    picked = log_probs.gather(-1, targets[..., None].long())[..., 0]
+    if reduction == "mean":
+        return -picked.mean()
+    if reduction == "sum":
+        return -picked.sum()
+    return -picked
+
+
+def cross_entropy_with_logits(logits, targets, reduction: str = "mean"):
+    """log-softmax + NLL (reference ``:350-352``), in the logits' dtype."""
+    return nll_loss(torch.log_softmax(logits, dim=-1), targets, reduction)
+
+
+def token_eval_metrics(per_tok_loss, correct, valid=None):
+    """Token-level eval sums (reference ``:355-379``, without the
+    per-token mask): ``per_tok_loss``/``correct`` ``[B, T']``; ``valid``
+    an optional float ``[B]`` sequence weight (0.0 for the feeder's
+    wraparound-padded rows). Returns ``loss_sum`` (f32), ``correct`` and
+    ``count`` (int32) device scalars."""
+    per_tok_loss = per_tok_loss.float()
+    w = (torch.ones_like(per_tok_loss) if valid is None
+         else valid.float()[:, None].expand_as(per_tok_loss))
+    return {"loss_sum": (per_tok_loss * w).sum(),
+            "correct": (correct.float() * w).sum().to(torch.int32),
+            "count": w.sum().to(torch.int32)}

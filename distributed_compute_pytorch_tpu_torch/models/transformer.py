@@ -3,12 +3,13 @@
 causal block the GPT-2 serving path runs).
 
 Fused QKV projection, multi-head attention through the dispatcher
-(``ops/attention.py::attention``: the flash kernel on CUDA), tanh-GELU
-MLP. Two entry points, as in the reference: ``forward`` (the reference's
-``apply``, pre-LN branch) for a whole window — the admission prefill,
-which captures each layer's K/V through ``kv_sink`` — and
-``decode_step`` for one paged decode tick. Inference only: dropout and
-the training-side layout pins wait for the training slice.
+(``ops/attention.py::attention``: the flash kernels on CUDA, forward and
+backward), tanh-GELU MLP. Two entry points, as in the reference:
+``forward`` (the reference's ``apply``, pre-LN branch) for a whole window
+— a training step (``train=True``: dropout after ``attn_out`` and after
+``mlp_out``, as the reference places it; never on the attention
+probabilities) or the admission prefill, which captures each layer's K/V
+through ``kv_sink`` — and ``decode_step`` for one paged decode tick.
 """
 
 from __future__ import annotations
@@ -28,16 +29,20 @@ def _qkv_heads(block, h, num_heads: int):
 
 
 def attention_sublayer(block, x, *, num_heads: int, causal: bool = False,
-                       kv_mask=None, kv_sink: list | None = None):
-    """Fused-QKV multi-head attention + output projection (reference
-    ``:67-125``). ``kv_mask``: optional ``[b, t]`` key validity (nonzero =
-    attend). ``kv_sink``: when given, this window's split-head ``(k, v)``
-    ``[b, h, t, hd]`` are appended to it (the prefill capture)."""
+                       dropout_rate: float = 0.0, generator=None,
+                       train: bool = False, kv_mask=None,
+                       kv_sink: list | None = None):
+    """Fused-QKV multi-head attention + output projection + dropout
+    (reference ``:67-125``). ``kv_mask``: optional ``[b, t]`` key validity
+    (nonzero = attend). ``kv_sink``: when given, this window's split-head
+    ``(k, v)`` ``[b, h, t, hd]`` are appended to it (the prefill
+    capture)."""
     q, k, v = _qkv_heads(block, x, num_heads)
     if kv_sink is not None:
         kv_sink.append((k, v))
     o = A.attention(q, k, v, causal=causal, kv_mask=kv_mask)
-    return block.attn_out(A.merge_heads(o))
+    return L.dropout(block.attn_out(A.merge_heads(o)), dropout_rate,
+                     generator, train)
 
 
 def attention_decode_tick(block, x, cache, pos, *, num_heads: int):
@@ -55,10 +60,12 @@ class TransformerBlock(nn.Module):
     """Pre-LN transformer block with fused-QKV MHA and a tanh-GELU MLP."""
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int, *,
-                 causal: bool = True, device=None, dtype=None):
+                 dropout_rate: float = 0.0, causal: bool = True, device=None,
+                 dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         self.d_model, self.num_heads, self.causal = d_model, num_heads, causal
+        self.dropout_rate = dropout_rate
         self.ln1 = L.LayerNorm(d_model, **kw)
         self.qkv = L.Dense(d_model, 3 * d_model, **kw)
         self.attn_out = L.Dense(d_model, d_model, **kw)
@@ -71,18 +78,26 @@ class TransformerBlock(nn.Module):
                       self.mlp_in, self.mlp_out):
             layer.init(generator)
 
-    def _mlp(self, x):
+    def _mlp(self, x, generator=None, train: bool = False):
         # jax.nn.gelu defaults to the tanh approximation (reference :236)
-        return self.mlp_out(F.gelu(self.mlp_in(x), approximate="tanh"))
+        h = self.mlp_out(F.gelu(self.mlp_in(x), approximate="tanh"))
+        return L.dropout(h, self.dropout_rate, generator, train)
 
-    def forward(self, x, *, kv_mask=None, kv_sink: list | None = None):
+    def forward(self, x, *, train: bool = False, generator=None,
+                kv_mask=None, kv_sink: list | None = None):
         """The reference's ``apply`` (pre-LN branch, ``:251-264``) over a
-        whole ``[b, t, d]`` window."""
+        whole ``[b, t, d]`` window. ``train`` with a ``generator`` (a
+        ``torch.Generator`` on ``x``'s device) applies dropout; without a
+        generator nothing is dropped, as the reference skips dropout
+        without an rng."""
+        train = train and generator is not None
         x = x + attention_sublayer(self, self.ln1(x),
                                    num_heads=self.num_heads,
-                                   causal=self.causal, kv_mask=kv_mask,
-                                   kv_sink=kv_sink)
-        return x + self._mlp(self.ln2(x))
+                                   causal=self.causal,
+                                   dropout_rate=self.dropout_rate,
+                                   generator=generator, train=train,
+                                   kv_mask=kv_mask, kv_sink=kv_sink)
+        return x + self._mlp(self.ln2(x), generator, train)
 
     def decode_step(self, x, cache, pos):
         """One paged decode tick (reference ``:273-292``): ``x [B, 1, d]``

@@ -27,7 +27,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("flash_fwd", "kv_pool_insert", "paged_decode")
+KERNELS = ("flash_fwd", "kv_pool_insert", "paged_decode", "flash_bwd_dq",
+           "flash_bwd_dkv", "fused_adamw")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -107,15 +108,16 @@ def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
                            f"(cudaError {rc})")
 
 
-_ARG = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
-        "s": ctypes.POINTER(ctypes.c_longlong)}
+_ARG = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+        "f": ctypes.c_float, "s": ctypes.POINTER(ctypes.c_longlong)}
 
 
 def bind(name: str, spec: str):
     """The C entry ``name`` of kernel ``name``, its ``argtypes`` declared
     from one letter per argument: ``p`` a pointer (or the stream, both
-    ``c_void_p``), ``i`` a ``c_int``, ``f`` a ``c_float``, ``s`` a
-    ``long long`` strides array. Returns ``(lib, fn)``."""
+    ``c_void_p``), ``i`` a ``c_int``, ``l`` a ``c_longlong``, ``f`` a
+    ``c_float``, ``s`` a ``long long`` strides array. Returns ``(lib,
+    fn)``."""
     lib = load(name)
     fn = getattr(lib, name)
     if fn.argtypes is None:

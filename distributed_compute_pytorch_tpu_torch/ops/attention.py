@@ -20,15 +20,11 @@ import torch
 NEG_FILL = -1e30   # finite mask fill: a fully-masked row averages, never NaN
 
 
-def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
-                          scale: float | None = None):
-    """Multi-head scaled dot-product attention over ``[b, h, t, d]``
-    (reference ``ops/attention.py:21-54``): logits and softmax in f32,
-    bottom-right causal alignment ``row >= col - (kv_len - q_len)``
-    (excluded keys take no weight), then the boolean ``mask`` (True =
-    attend; broadcastable to ``[b, h, q_len, kv_len]``) with the finite
-    ``-1e30`` fill. The probabilities are cast to ``q.dtype`` before the
-    value product, as the reference does."""
+def attention_logits(q, k, *, causal: bool = False, mask=None,
+                     scale: float | None = None):
+    """The masked f32 logits of :func:`dot_product_attention`: ``q k^T *
+    scale``, keys past the bottom-right causal limit at ``-inf``, keys the
+    boolean ``mask`` refuses at the finite ``-1e30`` fill."""
     q_len, head_dim = q.shape[-2:]
     kv_len = k.shape[-2]
     scale = head_dim ** -0.5 if scale is None else scale
@@ -40,14 +36,28 @@ def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
                                     float("-inf"))
     if mask is not None:
         logits = logits.masked_fill(~mask, NEG_FILL)
+    return logits
+
+
+def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
+                          scale: float | None = None):
+    """Multi-head scaled dot-product attention over ``[b, h, t, d]``
+    (reference ``ops/attention.py:21-54``): logits and softmax in f32,
+    bottom-right causal alignment ``row >= col - (kv_len - q_len)``
+    (excluded keys take no weight), then the boolean ``mask`` (True =
+    attend; broadcastable to ``[b, h, q_len, kv_len]``) with the finite
+    ``-1e30`` fill. The probabilities are cast to ``q.dtype`` before the
+    value product, as the reference does."""
+    logits = attention_logits(q, k, causal=causal, mask=mask, scale=scale)
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.matmul(weights, v)
 
 
 def attention(q, k, v, *, causal: bool = False, scale: float | None = None,
               kv_mask=None):
-    """The attention dispatcher (reference ``:74-115``): the flash kernel
-    on CUDA tensors, its plain dense version on CPU tensors
+    """The attention dispatcher (reference ``:74-115``), differentiable:
+    the flash kernels (forward, and the dQ / dK-dV backward) on CUDA
+    tensors, their plain versions on CPU tensors
     (``ops/flash_attention.py::flash_attention`` decides by device).
     ``kv_mask``: optional ``[b, kv_len]`` key validity, nonzero = attend."""
     from distributed_compute_pytorch_tpu_torch.ops.flash_attention import (

@@ -7,9 +7,12 @@ JAX set-up, so the card's machine runs it on its own:
 
 The shapes are small and ragged on purpose (odd lengths, head dims 32 to
 128, GQA, parked rows, positions past the horizon): ``chip_smoke.py``
-covers the serving shapes. Tolerances: f32 2e-5 (the kernel sums in
-another order); bf16 3e-2 (the plain version rounds the softmax
-probabilities to bf16 before the value product, the kernel keeps f32).
+covers the serving and training shapes. Tolerances: f32 2e-5 (the kernel
+sums in another order); bf16 3e-2 (the plain version rounds the softmax
+probabilities to bf16 before the value product, the kernel keeps f32; the
+backward's outputs are each rounded to bf16 from f32 sums taken in
+another order, one bf16 ulp apart at most, so their error is taken
+relative to the output's largest magnitude where that exceeds 1).
 """
 
 import numpy as np
@@ -147,3 +150,149 @@ def test_tiny_serve_on_card_matches_cpu(dev):
              cache_update.launches - counts[1],
              decode_attention.launches - counts[2])
     assert all(m > 0 for m in moved), moved
+
+
+# ---- slice 2: the flash backward, fused AdamW and a train step ----------
+
+def _rel_err(got, want):
+    """Max abs error over the larger of 1 and the reference's max abs:
+    bf16 outputs of the kernel and the plain version are each rounded from
+    an f32 value, so they may differ by one bf16 ulp of the output's size."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp(min=1.0)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,tk,d,causal,masked", [
+    (2, 3, 17, 17, 64, True, True),
+    (1, 2, 5, 70, 32, True, False),
+    (2, 1, 1, 9, 128, True, True),
+    (3, 2, 19, 33, 80, False, True),
+    (1, 4, 70, 70, 64, False, False),
+])
+def test_flash_bwd_kernels_match_plain(dev, dtype, b, h, t, tk, d, causal,
+                                       masked):
+    from distributed_compute_pytorch_tpu_torch.ops import flash_attention as F
+    gen = torch.Generator().manual_seed(5)
+    q, do = (_randn(gen, b, h, t, d, dtype=dtype, dev=dev) for _ in range(2))
+    k, v = (_randn(gen, b, h, tk, d, dtype=dtype, dev=dev) for _ in range(2))
+    mask = None
+    if masked:
+        lengths = torch.randint(1, tk + 1, (b,), generator=gen)
+        mask = (torch.arange(tk)[None] < lengths[:, None]).float().to(dev)
+    o, lse = F.flash_fwd(q, k, v, causal=causal, kv_mask=mask)
+    delta = (do.float() * o.float()).sum(-1)
+    kw = {"causal": causal, "kv_mask": mask}
+    before = (F.dq_launches, F.dkv_launches)
+    dq = F.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = F.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (F.dq_launches, F.dkv_launches) == (before[0] + 1, before[1] + 1)
+    want = F.flash_bwd_plain(q, k, v, do, lse, delta, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert g.dtype == dtype and torch.isfinite(g).all(), name
+        assert _rel_err(g, w) <= TOL[dtype], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,masked,scale", [(True, False, None),
+                                                 (True, True, None),
+                                                 (False, True, 0.3)])
+def test_attention_grads_on_card_match_plain_autograd(dev, dtype, causal,
+                                                      masked, scale):
+    """The CUDA forward is differentiable: gradients of q, k and v (split-
+    head views of one fused QKV, as the model makes them) through
+    ``attention(...)`` on the card equal autograd through the plain
+    version."""
+    from distributed_compute_pytorch_tpu_torch.ops import attention as A
+    from distributed_compute_pytorch_tpu_torch.ops import flash_attention as F
+    gen = torch.Generator().manual_seed(6)
+    b, t, h, d = 2, 45, 3, 64
+    qkv0 = _randn(gen, b, t, 3 * h * d, dtype=dtype, dev=dev)
+    g = _randn(gen, b, t, h * d, dtype=dtype, dev=dev)
+    mask = None
+    if masked:
+        mask = (torch.arange(t)[None] < torch.tensor([[t], [t // 2]])
+                ).float().to(dev)
+    grads = []
+    for fn in (A.attention, F.flash_attention_plain):
+        qkv = qkv0.clone().requires_grad_()
+        q, k, v = (A.split_heads(x, h) for x in qkv.split(h * d, dim=-1))
+        o = fn(q, k, v, causal=causal, scale=scale, kv_mask=mask)
+        A.merge_heads(o).backward(g)
+        grads.append(qkv.grad)
+    got, want = grads
+    assert got is not None and torch.isfinite(got).all()
+    for i, name in enumerate("qkv"):
+        sl = slice(i * h * d, (i + 1) * h * d)
+        assert _rel_err(got[..., sl], want[..., sl]) <= TOL[dtype], name
+
+
+@pytest.mark.parametrize("n", [1, 7, 4096, 1_000_003])
+def test_fused_adamw_kernel_matches_plain(dev, n):
+    from distributed_compute_pytorch_tpu_torch.ops import fused_adamw as FA
+    gen = torch.Generator().manual_seed(7)
+    p, mu = (torch.randn(n, generator=gen).to(dev) for _ in range(2))
+    nu = torch.rand(n, generator=gen).to(dev)
+    want = [p.clone(), mu.clone(), nu.clone()]
+    tx = FA.fused_adamw(lambda c: 1e-3 * (c + 1), weight_decay=0.1)
+    before = FA.launches
+    for count in range(3):
+        g = torch.randn(n, generator=gen).to(dev)
+        sc = tx.scalars(count)
+        want = list(FA.fused_adamw_plain(g, *want, **sc))
+        FA.fused_adamw_update(g, p, mu, nu, **sc)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 3
+    for got, w in zip((p, mu, nu), want):
+        torch.testing.assert_close(got, w, atol=1e-6, rtol=1e-6)
+
+
+def test_tiny_train_on_card_matches_cpu(dev):
+    """GPT-2-tiny, f32, three ``adamw_fused`` steps on the card (through the
+    flash forward, both backward kernels and fused AdamW) against the same
+    steps on the CPU: losses to 1e-4, parameters to 1e-4 (Adam's
+    normalised step turns summation-order differences of small gradients
+    into parameter differences of up to about lr x 1e-3)."""
+    from distributed_compute_pytorch_tpu_torch.models.gpt2 import (
+        GPT2, GPT2Config)
+    from distributed_compute_pytorch_tpu_torch.ops import flash_attention as F
+    from distributed_compute_pytorch_tpu_torch.ops import fused_adamw as FA
+    from distributed_compute_pytorch_tpu_torch.train.optim import (
+        build_optimizer)
+    from distributed_compute_pytorch_tpu_torch.train.step import make_step_fns
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPT2Config(vocab_size=256, max_seq_len=32, num_layers=2,
+                     num_heads=4, d_model=64, d_ff=128, dropout_rate=0.0)
+    tokens = np.random.default_rng(8).integers(0, 256, (8, 32))
+    base = GPT2(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    runs = []
+    for device in ("cpu", dev):
+        model = GPT2(cfg, device=device)
+        model.load_state_dict(base.state_dict())
+        tx = build_optimizer("adamw_fused", 1e-3, steps_per_epoch=3,
+                             total_steps=3, warmup_steps=1)
+        init_fn, train_step, _ = make_step_fns(model, tx)
+        state = init_fn(None)
+        x = torch.from_numpy(tokens).to(device)
+        counts = (F.launches, F.dq_launches, F.dkv_launches, FA.launches)
+        losses = [float(train_step(state, x, x)[1]["loss"]) for _ in range(3)]
+        moved = [a - b for a, b in zip(
+            (F.launches, F.dq_launches, F.dkv_launches, FA.launches), counts)]
+        runs.append((losses, {n: p.detach().cpu()
+                              for n, p in state.params.items()}, moved))
+    (l_cpu, p_cpu, m_cpu), (l_gpu, p_gpu, m_gpu) = runs
+    assert m_cpu == [0, 0, 0, 0] and m_gpu == [6, 6, 6, 3]
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-4)
+    d = cfg.d_model
+    for name in p_cpu:
+        got, want = p_gpu[name], p_cpu[name]
+        if name.endswith("qkv.bias"):
+            # the key bias has an exactly zero gradient (a constant added
+            # to every key of a row leaves its softmax as it is), so each
+            # side's Adam step is rounding noise normalised to about lr:
+            # compare the query and value biases only
+            got, want = (torch.cat([w[:d], w[2 * d:]]) for w in (got, want))
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4,
+                                   msg=lambda m: f"{name}: {m}")

@@ -89,6 +89,24 @@ def test_cuda_kernels_refuse_cpu_tensors():
         paged_decode_cuda(q, pool, i32[:, None], i32)
 
 
+def test_training_kernel_launchers_refuse_cpu_tensors():
+    """The fused AdamW launcher never runs its plain version; the flash
+    backward's launch checks refuse a CPU tensor before anything launches
+    (its wrappers, like the dispatchers, send CPU tensors to the plain
+    version instead)."""
+    from distributed_compute_pytorch_tpu_torch.ops.flash_attention import (
+        _bwd_prepare)
+    from distributed_compute_pytorch_tpu_torch.ops.fused_adamw import (
+        fused_adamw_cuda)
+    buf = torch.zeros(8)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_adamw_cuda(buf, buf, buf, buf, lr=1e-3, wd=0.0, c1=1.0,
+                         c2=1.0, b1=0.9, b2=0.999, eps=1e-8)
+    q, lse = torch.zeros(1, 2, 4, 8), torch.zeros(1, 2, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        _bwd_prepare("flash_bwd_dkv", q, q, q, q, lse, lse, True, None)
+
+
 def test_kernel_build_raises_without_nvcc(tmp_path, monkeypatch):
     """Loading a kernel where ``nvcc`` is missing raises, naming it; the
     library name follows the source bytes, so an edited source never
