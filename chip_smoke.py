@@ -16,9 +16,10 @@ imports nothing of JAX. Phases, one JSON line each:
 3. kernels: each hand-written kernel against its plain PyTorch version on
    CUDA tensors at its path's shapes (serving for the forward, pool write
    and paged decode; GPT-2-small training for the flash backward and
-   fused AdamW), with the tolerances below, and timed beside its plain
-   version, its roofline bound and (where one exists) one PyTorch library
-   call computing the same function;
+   fused AdamW; generation for the dense writes and the dense decode),
+   with the tolerances below, and timed beside its plain version, its
+   roofline bound and (where one exists) one PyTorch library call
+   computing the same function;
 4. serve: GPT-2-small at full width (random weights from a fixed seed)
    through ``ContinuousBatcher.serve`` — 32 staggered requests, 16 slots,
    in bf16 and then in f32. Each kernel's launch counter is zeroed just
@@ -27,21 +28,31 @@ imports nothing of JAX. Phases, one JSON line each:
    full-sequence forward with plain dense attention;
 5. serve_profile: the bf16 serve run once more under ``torch.profiler``,
    its device time by kernel group and its device busy share;
-6. train: GPT-2-small at full width and depth (dropout 0.1), bf16 compute
+6. generate: GPT-2-small at full width and depth (the serve phase's
+   weights) through ``infer.generate`` — 16 left-padded prompts of 16-250
+   tokens, 128 new tokens each, greedy — in bf16 and then in f32. The
+   counters are zeroed just before and read just after: ``kv_insert`` and
+   ``dense_decode`` 12 x 127, ``flash_fwd`` 12, every other kernel 0.
+   Every token is checked teacher-forced as in serve. In f32, a sampled
+   run repeated with the same generator seed must repeat its tokens, and
+   ``temperature=1, top_k=1`` must give the greedy tokens;
+7. generate_profile: the bf16 generate once more under ``torch.profiler``;
+8. train: GPT-2-small at full width and depth (dropout 0.1), bf16 compute
    over f32 masters, ``adamw_fused``, 20 steps on one 8 x 1024 batch
    through ``train/step.py::make_step_fns``; the counters are zeroed just
    before and read just after, and must equal 20 x (12, 12, 12, 1); the
    loss must fall by at least 1 nat and stay finite;
-7. train_parity: f32, dropout 0, two layers at full width: the gradients
+9. train_parity: f32, dropout 0, two layers at full width: the gradients
    of one step through the kernels against autograd of the dense math,
    and five steps' losses against the same steps with
    ``fused_adamw_plain``;
-8. train_cli: the port's trainer CLI for one epoch of ``synthetic-lm``
+10. train_cli: the port's trainer CLI for one epoch of ``synthetic-lm``
    at GPT-2-small widths, then ``--resume --epochs 2``;
-9. train_profile: five train steps under ``torch.profiler``.
+11. train_profile: five train steps under ``torch.profiler``.
 
 Then the ``{"kernels": [...]}`` line (launches from the bf16 serve run for
-the serving kernels, from the train phase for the training kernels), the
+the serving kernels, from the bf16 generate run for the generation
+kernels, from the train phase for the training kernels), the
 raw ``nvidia-smi`` line, and last the ``{"ok": true, ...}`` line. Any
 failed check exits non-zero before the ``ok`` line. Roofline bounds use
 the H100 SXM data-sheet peaks: 3.35 TB/s HBM, 989 TFLOP/s bf16 (tensor
@@ -86,6 +97,11 @@ TRAIN_BATCH, TRAIN_T = 8, 1024
 # updates (2 warm-up), enough to memorise one batch by more than 1 nat
 TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
 PARITY_LAYERS, PARITY_STEPS = 2, 5
+# the generate phase: GEN_ROWS prompts of GEN_MIN..GEN_MAX tokens (numpy
+# seed GEN_SEED), left-padded to the longest, GEN_NEW new tokens each;
+# the sampled checks take GEN_SAMPLED_NEW
+GEN_ROWS, GEN_MIN, GEN_MAX, GEN_NEW, GEN_SEED = 16, 16, 250, 128, 1
+GEN_SAMPLED_NEW = 32
 # train_parity: gradient leaves kernel vs plain, relative to each leaf's
 # largest magnitude, and the losses, relative
 GRAD_TOL, LOSS_TOL = 1e-3, 1e-4
@@ -453,6 +469,160 @@ def check_adamw(torch, FAW, GPT2, GPT2Config):
             "shape": f"flat f32 [{n}] (GPT-2-small, 148 leaves), 3 steps"}
 
 
+def gen_batch(np, vocab: int):
+    """The generate phase's traffic: ``(lengths, prompt [16, T0], mask
+    [16, T0])``, left-padded to the longest prompt ``T0``."""
+    rng = np.random.default_rng(GEN_SEED)
+    lens = rng.integers(GEN_MIN, GEN_MAX + 1, GEN_ROWS)
+    T0 = int(lens.max())
+    prompt = np.zeros((GEN_ROWS, T0), np.int64)
+    mask = np.zeros((GEN_ROWS, T0), np.int64)
+    for i, n in enumerate(lens):
+        prompt[i, T0 - n:] = rng.integers(0, vocab, n)
+        mask[i, T0 - n:] = 1
+    return lens, prompt, mask
+
+
+def check_dense_insert(torch, CU, A, dtype, dt, T0):
+    """The generate phase's pair cache ``[2, 16, 12, T0 + 128, 64]``, the
+    updates strided split-head views of one fused QKV: ``kv_insert`` at a
+    0-dim slot (first, interior, last), ``kv_insert_rows`` at per-row slots
+    (0, T - 1 and interior ones), ``cache_insert`` into one plane. Exact.
+    Returns ``{"cache_insert": {...}, "kv_insert": {...},
+    "kv_insert_rows": {...}}``."""
+    gen = torch.Generator().manual_seed(12)
+    B, H, hd, T = GEN_ROWS, 12, 64, T0 + GEN_NEW
+    copies = [torch.randn(2, B, H, T, hd, generator=gen).to("cuda", dtype)
+              for _ in range(3)]
+    qkv = torch.randn(B, 1, 3 * H * hd, generator=gen).to("cuda", dtype)
+    _, k, v = (A.split_heads(x, H) for x in qkv.split(H * hd, dim=-1))
+    slots = torch.arange(T, dtype=torch.int32, device="cuda")
+    rows = torch.randint(T0, T, (B,), generator=gen, dtype=torch.int32)
+    rows[0], rows[1] = 0, T - 1
+    rows = rows.cuda()
+    # the library calls' operands, made once outside the timed calls
+    kv_upd = torch.stack([k, v])                      # [2, B, H, 1, hd]
+    rows_upd = kv_upd[:, :, :, 0].transpose(0, 1)     # [B, 2, H, hd]
+    b_idx, rows_l = torch.arange(B, device="cuda"), rows.long()
+    slot_l = slots[T0:T0 + 1].long()
+    esz = copies[0].element_size()
+    base = copies[0].clone()    # the timing loops below write the copies
+    res = {}
+    for name, cases, planes, launch, plain, library, lib_name in (
+            ("kv_insert", [slots[0], slots[T0], slots[T - 1]], 2,
+             lambda c, p: CU.kv_insert_cuda(c, k, v, p),
+             lambda c, p: CU.kv_insert_plain(c, k, v, p),
+             lambda c, p: c.index_copy_(3, slot_l, kv_upd),
+             "cache.index_copy_(3, pos, stack([k, v]))"),
+            ("kv_insert_rows", [rows], 2,
+             lambda c, p: CU.kv_insert_rows_cuda(c, k, v, p),
+             lambda c, p: CU.kv_insert_plain(c, k, v, p),
+             lambda c, p: c.__setitem__(
+                 (slice(None), b_idx, slice(None), rows_l), rows_upd),
+             "cache[:, arange(B), :, pos] = stack([k, v])"),
+            ("cache_insert", [slots[T0]], 1,
+             lambda c, p: CU.cache_insert_cuda(c[0], k, p),
+             lambda c, p: CU.cache_insert_plain(c[0], k, p),
+             lambda c, p: c[0].index_copy_(2, slot_l, k),
+             "cache.index_copy_(2, pos, k)")):
+        err = 0.0
+        for p in cases:
+            got, want = base.clone(), base.clone()
+            launch(got, p)
+            plain(want, p)
+            torch.cuda.synchronize()
+            err = max(err, (got.float() - want.float()).abs().max().item())
+            require(not torch.equal(got, base),
+                    f"{name} {dt}: nothing was written")
+        require(err == 0.0, f"{name} {dt}: max err {err} != 0")
+        p = cases[-1] if name != "kv_insert" else cases[1]   # = slot_l
+        # each written element read once from the update and written once;
+        # the position read once (one int, or one per row)
+        n_pos = B if name == "kv_insert_rows" else 1
+        nbytes = 2 * planes * B * H * hd * esz + 4 * n_pos
+        b_ms, b_by = bound(nbytes, 0.0, dt)
+        res[name] = {
+            "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": time_ms(torch, [(lambda c=c: launch(c, p)) for c in copies]),
+            "plain_ms": time_ms(torch, [(lambda c=c: plain(c, p))
+                                        for c in copies]),
+            "library_ms": time_ms(torch, [(lambda c=c: library(c, p))
+                                          for c in copies]),
+            "library": lib_name,
+            "shape": (f"cache [{planes}, {B}, {H}, {T}, {hd}] "
+                      f"{'(one plane)' if planes == 1 else ''}, updates "
+                      f"[{B}, {H}, 1, {hd}] split-head views"),
+        }
+    return res
+
+
+def check_dense_decode(torch, np, DA, A, dtype, dt, lens):
+    """The generate phase's read: q ``[16, 12, 1, 64]`` (a split-head view)
+    over the pair cache ``[2, 16, Hk, T0 + 128, 64]`` at a mid-generation
+    lockstep slot and at per-row slots, with and without the left-pad
+    slot mask (pad runs of up to T0 - 16 slots, many whole 32-key chunks),
+    MHA (Hk 12) and 4 query heads per kv head (Hk 3); to TOL. Timed at the
+    generate tick's own call: MHA, lockstep, masked."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(13)
+    T0 = int(lens.max())
+    B, H, hd, T = GEN_ROWS, 12, 64, T0 + GEN_NEW
+    slots = torch.arange(T, dtype=torch.int32, device="cuda")
+    pos = T0 + GEN_NEW // 2
+    mask_np = np.arange(T)[None, :] >= (T0 - lens)[:, None]       # [B, T]
+    mask = torch.from_numpy(mask_np).cuda()
+    rows = torch.randint(T0, T, (B,), generator=gen, dtype=torch.int32)
+    rows[0] = T - 1
+    rows = rows.cuda()
+    out, err = {}, 0.0
+    for hk in (H, H // 4):
+        copies = []
+        for _ in range(3):
+            qx = torch.randn(B, 1, 3 * H * hd, generator=gen).to("cuda", dtype)
+            copies.append((A.split_heads(qx[..., :H * hd], H),
+                           torch.randn(2, B, hk, T, hd, generator=gen).to(
+                               "cuda", dtype)))
+        q, cache = copies[0]
+        for p in (slots[pos], rows):
+            for m in (None, mask):
+                got = DA.dense_decode_cuda(q, cache, p, slot_mask=m)
+                want = DA.dense_decode_plain(q, cache, p, slot_mask=m)
+                torch.cuda.synchronize()
+                require(bool(torch.isfinite(got).all()),
+                        f"dense_decode {dt} Hk {hk}: non-finite")
+                e = (got.float() - want.float()).abs().max().item()
+                require(e <= TOL[dt], f"dense_decode {dt} Hk {hk}: max err "
+                                      f"{e} > {TOL[dt]}")
+                err = max(err, e)
+        if hk != H:
+            continue
+        p = slots[pos]
+        # what this call's data needs: each row's unmasked slots 0..pos
+        keys = int(mask_np[:, :pos + 1].sum())
+        esz = q.element_size()
+        nbytes = (esz * (2 * B * H * hd + 2 * keys * hk * hd) + B * T + 4)
+        out["bound_ms"], out["bound_by"] = bound(nbytes, 4.0 * hd * keys * H,
+                                                 dt)
+        out["ms"] = time_ms(torch, [
+            (lambda q=q, c=c: DA.dense_decode_cuda(q, c, p, slot_mask=mask))
+            for q, c in copies])
+        out["plain_ms"] = time_ms(torch, [
+            (lambda q=q, c=c: DA.dense_decode_plain(q, c, p, slot_mask=mask))
+            for q, c in copies])
+        valid = ((slots <= pos) & mask)[:, None, None, :]
+        out["library_ms"] = time_ms(torch, [
+            (lambda q=q, c=c: F.scaled_dot_product_attention(
+                q, c[0], c[1], attn_mask=valid)) for q, c in copies])
+        out["library"] = ("F.scaled_dot_product_attention(q, k, v, "
+                          "attn_mask=<bool [B, 1, 1, T] valid mask>)")
+        out["shape"] = (f"q [{B}, {H}, 1, {hd}] view, cache [2, {B}, {H}, "
+                        f"{T}, {hd}], lockstep pos {pos}, left-pad slot "
+                        f"mask: {keys} of {B * (pos + 1)} slots live; also "
+                        f"Hk {H // 4}, per-row pos, no mask")
+    out["max_abs_err"] = err
+    return out
+
+
 # ---- phase 4: serve ----------------------------------------------------------
 
 def reference_logits(torch, A, model, tokens):
@@ -544,8 +714,13 @@ def serve_phase(torch, np, mods, model, dt):
     }
 
 
+# the kernel entries checked exactly, and the source of each entry whose
+# file is named otherwise
+EXACT = ("kv_pool_insert", "cache_insert", "kv_insert", "kv_insert_rows")
+SOURCES = {"cache_insert": "kv_insert", "kv_insert_rows": "kv_insert"}
 KERNEL_NAMES = ("flash_fwd", "kv_pool_insert", "paged_decode",
-                "flash_bwd_dq", "flash_bwd_dkv", "fused_adamw")
+                "flash_bwd_dq", "flash_bwd_dkv", "fused_adamw", "kv_insert",
+                "dense_decode")
 
 
 def _kernel_group(name: str) -> str:
@@ -615,7 +790,164 @@ def profile_phase(torch, np, serve, model, dt, wall_s):
     }
 
 
-# ---- phases 6-9: train -------------------------------------------------------
+# ---- phases 6-7: generate ----------------------------------------------------
+
+def gen_counts(FA, CU, DA) -> dict:
+    return {"flash_fwd": FA.launches, "kv_insert": CU.kv_insert_launches,
+            "dense_decode": DA.dense_launches,
+            "kv_insert_rows": CU.kv_insert_rows_launches,
+            "cache_insert": CU.cache_insert_launches,
+            "paged_decode": DA.launches, "kv_pool_insert": CU.launches}
+
+
+def zero_gen_counts(FA, CU, DA) -> None:
+    FA.launches = CU.launches = DA.launches = DA.dense_launches = 0
+    CU.kv_insert_launches = CU.kv_insert_rows_launches = 0
+    CU.cache_insert_launches = 0
+
+
+def teacher_forced_gaps(torch, A, model, lens, prompt, out):
+    """Each row's real prompt and new tokens forwarded alone with plain
+    dense attention: the new tokens' logit gaps below the row maximum,
+    and the top-2 logit gap at each new token (0 = a tie)."""
+    T0 = prompt.shape[1]
+    gaps, margins = [], []
+    with torch.no_grad():
+        for i, n in enumerate(lens):
+            seq = out[i, T0 - n:].cuda()
+            logits = reference_logits(torch, A, model, seq[None, :-1]
+                                      )[0, n - 1:].float()
+            chosen = logits.gather(1, seq[n:, None])[:, 0]
+            top2 = logits.topk(2, dim=1).values
+            gaps.append((top2[:, 0] - chosen).cpu())
+            margins.append((top2[:, 0] - top2[:, 1]).cpu())
+    return torch.stack(gaps), torch.stack(margins)
+
+
+def generate_phase(torch, np, infer, mods, model, dt):
+    """``infer.generate`` of the 16-prompt left-padded batch, greedy, after
+    a 2-token warm-up; the first token's (prefill's) time taken alone."""
+    A, FA, CU, DA = mods
+    lens, prompt_np, mask_np = gen_batch(np, model.config.vocab_size)
+    prompt = torch.from_numpy(prompt_np).cuda()
+    mask = torch.from_numpy(mask_np).cuda()
+    T0 = prompt.shape[1]
+    infer.generate(model, prompt, 2, prompt_mask=mask)
+    prefill_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, caches = infer.prefill(model, prompt, T0 + GEN_NEW, mask)
+            torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        prefill_ms.append(1e3 * (time.perf_counter() - t0))
+        del caches, logits
+    prefill_ms = min(prefill_ms)
+    torch.cuda.reset_peak_memory_stats()
+    zero_gen_counts(FA, CU, DA)
+    t0 = time.perf_counter()
+    out = infer.generate(model, prompt, GEN_NEW, prompt_mask=mask)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = gen_counts(FA, CU, DA)
+    ticks = GEN_NEW - 1
+    want = {"flash_fwd": LAYERS, "kv_insert": LAYERS * ticks,
+            "dense_decode": LAYERS * ticks, "kv_insert_rows": 0,
+            "cache_insert": 0, "paged_decode": 0, "kv_pool_insert": 0}
+    require(launches == want, f"generate {dt}: launches {launches} != the "
+                              f"schedule's {want}")
+    out = out.cpu()
+    require(tuple(out.shape) == (GEN_ROWS, T0 + GEN_NEW)
+            and torch.equal(out[:, :T0], prompt.cpu()),
+            f"generate {dt}: output {tuple(out.shape)} does not extend the "
+            f"prompt")
+    gaps, _ = teacher_forced_gaps(torch, A, model, lens, prompt_np, out)
+    worst = gaps.max().item()
+    require(worst <= MARGIN[dt], f"generate {dt}: a generated token's logit "
+                                 f"is {worst} below the teacher-forced max "
+                                 f"(margin {MARGIN[dt]})")
+    new_tokens = GEN_ROWS * GEN_NEW
+    return {
+        "phase": "generate", "dtype": dt, "model": "gpt2-small (12 x 768, "
+        "vocab 50257), random weights seed 0", "rows": GEN_ROWS,
+        "prompt_lengths": [int(n) for n in lens], "T0": T0,
+        "t_max": T0 + GEN_NEW, "new_per_row": GEN_NEW, "greedy": True,
+        "wall_s": wall, "new_tokens": new_tokens,
+        "new_tokens_per_s": new_tokens / wall,
+        "first_token_ms": prefill_ms,
+        "ms_per_tick": (1e3 * wall - prefill_ms) / ticks, "ticks": ticks,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "teacher_forced_worst_gap": worst,
+        "teacher_forced_mean_gap": gaps.mean().item(), "margin": MARGIN[dt],
+    }, (lens, prompt, mask, out)
+
+
+def sampled_phase(torch, np, infer, A, model, batch):
+    """f32: ``temperature=0.8, top_k=50, top_p=0.95`` twice from generator
+    seed 1 gives the same tokens; ``temperature=1, top_k=1`` gives the
+    greedy tokens wherever the greedy row maximum is not tied."""
+    lens, prompt, mask, greedy = batch
+    T0, n = prompt.shape[1], GEN_SAMPLED_NEW
+
+    def run(**kw):
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        return infer.generate(model, prompt, n, prompt_mask=mask,
+                              generator=gen, **kw).cpu()
+    kw = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+    a, b = run(**kw), run(**kw)
+    require(torch.equal(a, b), "sampled: one generator seed gave two "
+                               "different token streams")
+    top1 = run(temperature=1.0, top_k=1)
+    _, margins = teacher_forced_gaps(torch, A, model, lens, prompt.cpu(),
+                                     greedy)
+    differ = []
+    for i in range(GEN_ROWS):
+        d = (top1[i, T0:] != greedy[i, T0:T0 + n]).nonzero()
+        if len(d):
+            j = int(d[0, 0])
+            # tied: the teacher-forced top two within the f32 margin
+            require(margins[i, j].item() <= MARGIN["f32"],
+                    f"sampled: top_k=1 row {i} left the greedy tokens at "
+                    f"step {j}, where the greedy maximum is not tied")
+            differ.append(i)
+    return {"phase": "generate_sampled", "dtype": "f32", "new_per_row": n,
+            "settings": kw, "repeat_identical": True,
+            "top_k1_rows_equal_greedy": GEN_ROWS - len(differ),
+            "top_k1_rows_differing_at_a_tie": differ,
+            "sampled_tokens_differ_from_greedy": int(
+                (a[:, T0:] != greedy[:, T0:T0 + n]).sum())}
+
+
+def generate_profile_phase(torch, infer, model, batch, wall_s):
+    """The bf16 generate once more under ``torch.profiler``: device time by
+    kernel group, and ``device_busy_share``, the kernels' device time over
+    the UNPROFILED run's wall time ``wall_s``."""
+    from torch.profiler import ProfilerActivity, profile
+    _, prompt, mask, _ = batch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        infer.generate(model, prompt, GEN_NEW, prompt_mask=mask)
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    total_us, groups, top = device_time(torch, prof)
+    return {
+        "phase": "generate_profile", "dtype": "bf16",
+        "ticks": GEN_NEW - 1, "wall_s_profiled": wall_prof,
+        "wall_s_unprofiled": wall_s,
+        "device_ms": total_us / 1e3 if total_us else None,
+        "device_busy_share": (total_us / 1e6 / wall_s) if total_us else None,
+        "groups_ms": {g: {"launches": n, "ms": us / 1e3}
+                      for g, (n, us) in sorted(groups.items(),
+                                               key=lambda kv: -kv[1][1])},
+        "top_kernels": [{"name": name[:100], "launches": n, "ms": us / 1e3}
+                        for name, (n, us) in top],
+    }
+
+
+# ---- phases 8-11: train -------------------------------------------------------
 
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_adamw")
 
@@ -842,7 +1174,8 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
     try:
-        from distributed_compute_pytorch_tpu_torch import interop, serve
+        from distributed_compute_pytorch_tpu_torch import (
+            infer, interop, serve)
         from distributed_compute_pytorch_tpu_torch.models.gpt2 import (
             GPT2, GPT2Config)
         from distributed_compute_pytorch_tpu_torch.ops import _build
@@ -884,16 +1217,21 @@ def main() -> int:
                 "built": built["built"], "ptxas": ptxas})
 
         results = {}
+        gen_lens = gen_batch(np, GPT2Config.small().vocab_size)[0]
         for dtype, dt in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             results[dt] = {
                 "flash_fwd": check_flash(torch, np, FA, dtype, dt),
                 "kv_pool_insert": check_insert(torch, CU, dtype, dt),
                 "paged_decode": check_decode(torch, np, DA, dtype, dt)}
             results[dt].update(check_flash_bwd(torch, np, FA, dtype, dt))
+            results[dt].update(check_dense_insert(torch, CU, A, dtype, dt,
+                                                  int(gen_lens.max())))
+            results[dt]["dense_decode"] = check_dense_decode(
+                torch, np, DA, A, dtype, dt, gen_lens)
             for name, res in results[dt].items():
                 record({"phase": "kernel", "name": name, "dtype": dt,
-                        "tol": 0.0 if name == "kv_pool_insert" else TOL[dt],
-                        **res})
+                        "tol": 0.0 if name in EXACT else TOL[dt], **res})
+            torch.cuda.empty_cache()
         adamw = check_adamw(torch, FAW, GPT2, GPT2Config)
         record({"phase": "kernel", "name": "fused_adamw", "dtype": "f32",
                 "tol": ADAMW_TOL, **adamw})
@@ -913,6 +1251,22 @@ def main() -> int:
                                      serves[dt]["wall_s"]))
             del model
 
+        gens = {}
+        for dtype, dt in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            model = GPT2(GPT2Config.small(), dtype=dtype)
+            model.load_state_dict(base.state_dict())
+            gens[dt], batch = generate_phase(torch, np, infer,
+                                             (A, FA, CU, DA), model, dt)
+            record(gens[dt])
+            if dt == "bf16":
+                record(generate_profile_phase(torch, infer, model, batch,
+                                              gens[dt]["wall_s"]))
+            else:
+                record(sampled_phase(torch, np, infer, A, model, batch))
+            del model, batch
+        del base
+        torch.cuda.empty_cache()
+
         tm = (GPT2, build_optimizer, make_step_fns)
         train, (model, _, train_step, state, x) = train_phase(
             torch, np, tm, FA, FAW, GPT2Config)
@@ -928,24 +1282,31 @@ def main() -> int:
         sources = {"flash_fwd": FA.REPLACES, "kv_pool_insert": CU.REPLACES,
                    "paged_decode": DA.REPLACES,
                    "flash_bwd_dq": FA.DQ_REPLACES,
-                   "flash_bwd_dkv": FA.DKV_REPLACES}
+                   "flash_bwd_dkv": FA.DKV_REPLACES,
+                   "cache_insert": CU.CACHE_INSERT_REPLACES,
+                   "kv_insert": CU.KV_INSERT_REPLACES,
+                   "kv_insert_rows": CU.KV_INSERT_ROWS_REPLACES,
+                   "dense_decode": DA.DENSE_REPLACES}
         kernels = []
         for name, replaces in sources.items():
             r, r32 = results["bf16"][name], results["f32"][name]
-            serving = name in serves["bf16"]["launches"]
+            if name in serves["bf16"]["launches"]:
+                run, launches = "serve bf16", serves["bf16"]["launches"][name]
+            elif name in gens["bf16"]["launches"]:
+                run, launches = "generate bf16", gens["bf16"]["launches"][name]
+            else:
+                run, launches = "train", train["launches"][name]
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": f"distributed_compute_pytorch_tpu_torch/csrc/"
-                          f"{name}.cu",
-                "replaces": replaces,
-                "launches": (serves["bf16"]["launches"][name] if serving
-                             else train["launches"][name]),
-                "launches_from": "serve bf16" if serving else "train",
-                "launches_f32_run": (serves["f32"]["launches"][name]
-                                     if serving else None),
+                          f"{SOURCES.get(name, name)}.cu",
+                "replaces": replaces, "launches": launches,
+                "launches_from": run,
+                "serve_launches": serves["bf16"]["launches"].get(name),
+                "generate_launches": gens["bf16"]["launches"].get(name),
                 "train_launches": train["launches"].get(name),
                 "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
-                "tol": 0.0 if name == "kv_pool_insert" else TOL["bf16"],
+                "tol": 0.0 if name in EXACT else TOL["bf16"],
                 "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"],
@@ -964,8 +1325,9 @@ def main() -> int:
                       "fused_adamw.cu",
             "replaces": FAW.REPLACES,
             "launches": train["launches"]["fused_adamw"],
-            "launches_from": "train", "train_launches":
-                train["launches"]["fused_adamw"],
+            "launches_from": "train", "serve_launches": None,
+            "generate_launches": None,
+            "train_launches": train["launches"]["fused_adamw"],
             "max_abs_err": adamw["max_abs_err"],
             "max_err": adamw["max_abs_err"], "tol": ADAMW_TOL,
             "ms": adamw["ms"], "kernel_ms": adamw["ms"],

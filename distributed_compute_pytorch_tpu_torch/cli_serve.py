@@ -26,9 +26,8 @@ import argparse
 import json
 import sys
 
-import torch
-
-_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+from distributed_compute_pytorch_tpu_torch.cli_generate import (
+    DTYPES, load_model)
 
 
 def _read_requests(path: str, default_new: int) -> list[dict]:
@@ -104,7 +103,7 @@ def main(argv=None) -> int:
     p.add_argument("--max_new_tokens", type=int, default=32,
                    help="budget for requests that don't carry max_new")
     p.add_argument("--eos_id", type=int, default=None)
-    p.add_argument("--dtype", default="f32", choices=tuple(_DTYPES),
+    p.add_argument("--dtype", default="f32", choices=tuple(DTYPES),
                    help="parameter, activation and KV-pool dtype")
     p.add_argument("--device", default=None,
                    help="'cuda' (default; raises without a card) or 'cpu'")
@@ -112,20 +111,13 @@ def main(argv=None) -> int:
     if args.max_new_tokens < 1:
         raise SystemExit("--max_new_tokens must be >= 1")
 
-    from distributed_compute_pytorch_tpu_torch.interop import (
-        load_gpt2_params, load_jax_checkpoint)
-    from distributed_compute_pytorch_tpu_torch.models.registry import (
-        build_model)
     from distributed_compute_pytorch_tpu_torch.serve import (
         ContinuousBatcher, Request)
 
-    model = build_model(args.model, preset=args.model_preset,
-                        max_seq_len=args.max_seq_len, device=args.device)
-    if args.ckpt_path is not None:
-        load_gpt2_params(model, load_jax_checkpoint(args.ckpt_path))
-    else:
-        model.init(torch.Generator().manual_seed(args.init_seed))
-    model.to(_DTYPES[args.dtype])
+    model = load_model(args.model, args.model_preset, None,
+                       args.max_seq_len, ckpt_path=args.ckpt_path,
+                       init_seed=args.init_seed, device=args.device,
+                       dtype=args.dtype)
 
     reqs = _read_requests(args.requests, args.max_new_tokens)
     seen = set()

@@ -1,0 +1,134 @@
+// Dense flash-decode read for Hopper (sm_90a), CUDA C++ with a plain C entry.
+//
+// Replaces: distributed_compute_pytorch_tpu/ops/pallas/decode_attention.py,
+//   `_kernel` (launched by `decode_attention_pallas`). One query token per
+//   (row, head) attends its row's dense KV-pair cache [2, B, Hk, T, hd] over
+//   slots 0..min(pos[b], T - 1), read in place (the two planes through the
+//   base pointer and the plane stride), with an online softmax in f32: the
+//   Pallas kernel's dynamic length bound, with its clamp. It also takes an
+//   optional [B, T] slot mask, which the Pallas kernel lacks: left-padded
+//   generation masks each row's pad slots, so this kernel computes what
+//   `ops/attention.py::cached_attention(..., slot_mask=...)` computes, the
+//   read every generation tick makes.
+//
+// What bounds it on this card: HBM bytes. Each (row, kv head) needs the
+//   K and V rows of its unmasked slots 0..pos, 2 * hd elements each, read
+//   once (a masked slot's K row is not read, its V row is), and does ~4 G
+//   FLOPs per element, far below the card's ~295 FLOP/byte balance point.
+//
+// Design: grid (row, kv head); the block serves the G <= 8 query heads that
+//   share the kv head, so each K and V row is read once for all of them: the
+//   split-key online softmax of decode_common.cuh, where lane j of a chunk
+//   reads contiguous slot j. The length comes from `pos` on the device
+//   (pos[b * pos_stride]: stride 0 for the lockstep tick's one position,
+//   1 for per-row positions), so the host never syncs. A pad run that
+//   covers whole 32-key chunks adds exactly 0, as the reference's -1e30
+//   fill does. The TPU kernel's packed-lane (hd == 64 pairs into 128 lanes)
+//   layout and its fold matrix stay behind.
+
+#include "decode_common.cuh"
+
+namespace {
+
+using decode::DMAX;
+using decode::GMAX;
+using decode::NWARPS;
+
+// contiguous slots of one (row, kv head); mask: that row of the slot mask
+// (nonzero = attend) or null
+struct DenseKeys {
+  long long base;
+  const uint8_t* mask;
+  int hd;
+  __device__ __forceinline__ long long row(int key) const {
+    return base + (long long)key * hd;
+  }
+  static constexpr bool kMasked = true;
+  __device__ __forceinline__ bool valid(int key) const {
+    return mask == nullptr || mask[key] != 0;
+  }
+};
+
+template <typename T, int DV, int GT>
+__global__ void __launch_bounds__(NWARPS * 32)
+dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ cache,
+                    T* __restrict__ out, const int* __restrict__ pos,
+                    const uint8_t* __restrict__ slot_mask, int G, int B, int Hk,
+                    int T_, int hd, int pos_stride, long long q_sb,
+                    long long q_sh, long long o_sb, long long o_sh,
+                    long long m_sb, float scale) {
+  const int b = blockIdx.x, hk = blockIdx.y;
+  const int p = pos[(long long)b * pos_stride];
+  const int n_keys = p < 0 ? 0 : min(p, T_ - 1) + 1;
+  const DenseKeys keys{((long long)b * Hk + hk) * T_ * hd,
+                       slot_mask == nullptr ? nullptr : slot_mask + b * m_sb, hd};
+  const T* vplane = cache + (long long)B * Hk * T_ * hd;
+  decode::attend<T, DV, GT>(q, cache, vplane, out, keys, n_keys, b, hk,
+                            GT == 1 ? 1 : G, hd, q_sb, q_sh, o_sb, o_sh, scale);
+}
+
+template <typename T, int GT>
+void launch_g(const dim3& grid, cudaStream_t stream, const T* q, const T* cache,
+              T* out, const int* pos, const uint8_t* mask, int G, int B, int Hk,
+              int T_, int hd, int pos_stride, const long long* st, float scale) {
+  const dim3 block(NWARPS * 32);
+  switch ((hd + 31) / 32) {
+    case 1: dense_decode_kernel<T, 1, GT><<<grid, block, 0, stream>>>(q, cache, out, pos, mask, G, B, Hk, T_, hd, pos_stride, st[0], st[1], st[2], st[3], st[4], scale); break;
+    case 2: dense_decode_kernel<T, 2, GT><<<grid, block, 0, stream>>>(q, cache, out, pos, mask, G, B, Hk, T_, hd, pos_stride, st[0], st[1], st[2], st[3], st[4], scale); break;
+    case 3: dense_decode_kernel<T, 3, GT><<<grid, block, 0, stream>>>(q, cache, out, pos, mask, G, B, Hk, T_, hd, pos_stride, st[0], st[1], st[2], st[3], st[4], scale); break;
+    default: dense_decode_kernel<T, 4, GT><<<grid, block, 0, stream>>>(q, cache, out, pos, mask, G, B, Hk, T_, hd, pos_stride, st[0], st[1], st[2], st[3], st[4], scale); break;
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* cache, void* out, const int* pos,
+                   const uint8_t* mask, int B, int Hq, int G, int T_, int hd,
+                   int pos_stride, const long long* st, float scale,
+                   cudaStream_t stream) {
+  const int Hk = Hq / G;
+  const dim3 grid(B, Hk);
+  const T* qq = static_cast<const T*>(q);
+  const T* cc = static_cast<const T*>(cache);
+  T* oo = static_cast<T*>(out);
+  if (G == 1)
+    launch_g<T, 1>(grid, stream, qq, cc, oo, pos, mask, G, B, Hk, T_, hd, pos_stride, st, scale);
+  else
+    launch_g<T, GMAX>(grid, stream, qq, cc, oo, pos, mask, G, B, Hk, T_, hd, pos_stride, st, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q: [B, Hq, hd] with element strides (q b, q h) and unit stride on hd;
+// query head h reads kv head h / G, G <= 8. cache: [2, B, Hq / G, T, hd]
+// contiguous, 16-byte aligned. out: [B, Hq, hd] with strides (o b, o h).
+// pos: int32, row b reads pos[b * pos_stride] (pos_stride 0 or 1).
+// slot_mask: null, or uint8 [B, T] with row stride (m b) and unit stride on
+// T. strides = (q b, q h, o b, o h, m b). hd % 8 == 0, hd <= 128. dtype:
+// 0 f32, 1 bf16. Returns the cudaError_t of the launch.
+int dense_decode(const void* q, const void* cache, void* out, const int* pos,
+                 const uint8_t* slot_mask, int dtype, int B, int Hq, int G,
+                 int T, int hd, int pos_stride, const long long* strides,
+                 float scale, void* stream) {
+  if (B < 1 || Hq < 1 || G < 1 || G > GMAX || Hq % G ||
+      Hq / G > 65535 || T < 1 || hd < 8 || hd > DMAX || hd % 8 ||
+      pos_stride < 0 || pos_stride > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == 0)
+    e = launch<float>(q, cache, out, pos, slot_mask, B, Hq, G, T, hd, pos_stride, strides, scale, s);
+  else if (dtype == 1)
+    e = launch<__nv_bfloat16>(q, cache, out, pos, slot_mask, B, Hq, G, T, hd, pos_stride, strides, scale, s);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
+}
+
+const char* dense_decode_error_string(int e) {
+  return cudaGetErrorString(static_cast<cudaError_t>(e));
+}
+
+}  // extern "C"

@@ -82,8 +82,9 @@ class GPT2(nn.Module):
         return self
 
     def embed(self, tokens, positions=None):
-        """Token + learned-position embeddings; ``positions`` defaults to
-        ``arange(T)``. Positions clamp to the table, as the reference's
+        """Token + learned-position embeddings; ``positions`` (``[T]``, or
+        per-row ``[B, T]``: left-padded prompts) defaults to ``arange(T)``.
+        Positions clamp to the table, as the reference's
         gather does: a parked serving row's counter runs past it, and its
         output is discarded."""
         if positions is None:

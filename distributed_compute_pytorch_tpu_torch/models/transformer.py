@@ -9,7 +9,8 @@ backward), tanh-GELU MLP. Two entry points, as in the reference:
 — a training step (``train=True``: dropout after ``attn_out`` and after
 ``mlp_out``, as the reference places it; never on the attention
 probabilities) or the admission prefill, which captures each layer's K/V
-through ``kv_sink`` — and ``decode_step`` for one paged decode tick.
+through ``kv_sink`` — and ``decode_step`` for one decode tick against the
+paged pool (serving) or the dense pair cache (generation).
 """
 
 from __future__ import annotations
@@ -45,14 +46,17 @@ def attention_sublayer(block, x, *, num_heads: int, causal: bool = False,
                      generator, train)
 
 
-def attention_decode_tick(block, x, cache, pos, *, num_heads: int):
-    """The attention half of one paged decode tick (reference
-    ``:142-163``): ln1 -> fused QKV -> the pool write + paged attention
-    (``ops/attention.py::cache_write_and_attend``, in place on the pool)
-    -> attn_out residual. ``pos``: int32 ``[B]`` per-row slots. Returns
-    ``(x + attn_residual, cache)``."""
+def attention_decode_tick(block, x, cache, pos, *, num_heads: int,
+                          slot_mask=None):
+    """The attention half of one decode tick (reference ``:142-163``):
+    ln1 -> fused QKV -> the cache write + attention
+    (``ops/attention.py::cache_write_and_attend``, in place on the cache)
+    -> attn_out residual. ``pos``: a scalar (lockstep) or int32 ``[B]``
+    per-row slots; ``slot_mask``: optional ``[B, T]`` slot validity of a
+    dense cache. Returns ``(x + attn_residual, cache)``."""
     q, k, v = _qkv_heads(block, block.ln1(x), num_heads)
-    o, cache = A.cache_write_and_attend(q, k, v, cache, pos)
+    o, cache = A.cache_write_and_attend(q, k, v, cache, pos,
+                                        slot_mask=slot_mask)
     return x + block.attn_out(A.merge_heads(o)), cache
 
 
@@ -99,12 +103,15 @@ class TransformerBlock(nn.Module):
                                    kv_mask=kv_mask, kv_sink=kv_sink)
         return x + self._mlp(self.ln2(x), generator, train)
 
-    def decode_step(self, x, cache, pos):
-        """One paged decode tick (reference ``:273-292``): ``x [B, 1, d]``
-        at per-row slots ``pos [B]``; writes this step's K/V into
-        ``cache["kv"]`` in place and attends slots ``0..pos``."""
+    def decode_step(self, x, cache, pos, slot_mask=None):
+        """One decode tick (reference ``:273-292``): ``x [B, 1, d]`` at
+        slot ``pos`` (a scalar, or per-row ``[B]``); writes this step's K/V
+        into ``cache["kv"]`` (the paged pool or the dense pair cache) in
+        place and attends slots ``0..pos`` minus those ``slot_mask``
+        (optional ``[B, T]``, dense cache only) refuses."""
         if not self.causal:
             raise ValueError("decode needs a causal block")
         x, cache = attention_decode_tick(self, x, cache, pos,
-                                         num_heads=self.num_heads)
+                                         num_heads=self.num_heads,
+                                         slot_mask=slot_mask)
         return x + self._mlp(self.ln2(x)), cache

@@ -2,11 +2,12 @@
 
 Every ``csrc/<name>.cu`` is compiled with ``nvcc`` into its own shared
 library with a plain C interface and loaded with ``ctypes``: no PyTorch
-headers, so a build takes seconds rather than minutes. The libraries go
-to ``build/torch_kernels/`` at the repository root (listed in
-``.gitignore``), named by a hash of the source and flags, so a checkout
-builds what it needs at first use from its own sources alone and a
-changed source never loads a stale library. The first :func:`load` builds
+headers, so a build takes seconds rather than minutes. Device code that
+two kernels share lives in ``csrc/*.cuh`` headers (``-I csrc``). The
+libraries go to ``build/torch_kernels/`` at the repository root (listed in
+``.gitignore``), named by a hash of the source, the headers and the flags,
+so a checkout builds what it needs at first use from its own sources alone
+and a changed source or header never loads a stale library. The first :func:`load` builds
 every kernel at once, one ``nvcc`` process per source, in parallel.
 
 A failed build raises with the compiler's output; nothing falls back.
@@ -28,7 +29,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = ("flash_fwd", "kv_pool_insert", "paged_decode", "flash_bwd_dq",
-           "flash_bwd_dkv", "fused_adamw")
+           "flash_bwd_dkv", "fused_adamw", "kv_insert", "dense_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,7 +49,9 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -65,7 +68,8 @@ def build_all() -> dict:
         nvcc = nvcc_path()
         for name in todo:
             tmp = _lib_path(name).with_suffix(f".tmp{os.getpid()}")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
             procs[name] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
@@ -129,6 +133,24 @@ def bind(name: str, spec: str):
 def strides_arg(*strides: int):
     """A host ``long long[]`` of element strides for a C entry."""
     return (ctypes.c_longlong * len(strides))(*strides)
+
+
+def pos_arg(pos, device):
+    """``(int32 tensor, stride)`` of a slot position for a C entry that
+    reads row ``b``'s slot at ``pos[b * stride]``: a Python int becomes a
+    one-element tensor on ``device``; a 0-dim tensor is read by every row
+    (stride 0); a ``[B]`` tensor at its own stride, which must be 0 (an
+    expanded scalar) or 1. Raises on another dtype, device or stride."""
+    import torch
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.tensor(pos, dtype=torch.int32, device=device)
+    if pos.device != device or pos.dtype != torch.int32:
+        raise ValueError(f"pos must be an int32 tensor on {device}, got "
+                         f"{pos.dtype} on {pos.device}")
+    stride = 0 if pos.ndim == 0 else pos.stride(0)
+    if stride not in (0, 1):
+        raise ValueError(f"pos must have stride 0 or 1, got {stride}")
+    return pos, stride
 
 
 def stream_ptr(device) -> int:

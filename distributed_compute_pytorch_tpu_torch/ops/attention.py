@@ -3,12 +3,14 @@
 The dense math here (``dot_product_attention``, ``cached_attention``,
 ``gather_kv_blocks``) is the REFERENCE the kernels are held to: it is the
 plain version the CPU path runs and ``chip_smoke.py`` compares against.
-On CUDA tensors the serving path goes through the hand-written kernels:
+On CUDA tensors the serving and generation paths go through the
+hand-written kernels:
 
 - :func:`attention` -> ``ops/flash_attention.py`` (admission prefill);
-- :func:`cache_write_and_attend` -> ``ops/cache_update.py`` (the paged K/V
-  slot write, in place) and ``ops/decode_attention.py`` (the paged read
-  through the block table, with no gathered copy of the cache).
+- :func:`cache_write_and_attend` -> ``ops/cache_update.py`` (the K/V slot
+  write, in place: into the paged pool, or into generation's dense pair
+  cache) and ``ops/decode_attention.py`` (the paged read through the block
+  table, with no gathered copy of the cache, or the dense read).
 
 Layouts follow the JAX package: ``[batch, heads, seq, head_dim]``.
 """
@@ -84,12 +86,15 @@ def _pos_vector(pos, batch: int, device) -> torch.Tensor:
     return pos.reshape(-1).expand(batch) if pos.ndim == 0 else pos
 
 
-def cached_attention(q, k_cache, v_cache, pos, *, scale: float | None = None):
+def cached_attention(q, k_cache, v_cache, pos, *, scale: float | None = None,
+                     slot_mask=None):
     """Single-position decode attention over a dense ``[B, Hk, T, hd]``
     cache (reference ``:143-204``, the scalar / per-row ``pos`` forms):
-    row ``b`` attends slots ``0..pos[b]``, the rest masked with the
-    finite fill. GQA folds the query's group into its length-1 sequence
-    dim, so the narrow cache is read as is. Returns ``[B, H, 1, hd]``."""
+    row ``b`` attends slots ``0..pos[b]`` that the optional ``[B, T]``
+    ``slot_mask`` keeps (nonzero; left-padded prompts mask their pad
+    slots), the rest masked with the finite fill. GQA folds the query's
+    group into its length-1 sequence dim, so the narrow cache is read as
+    is. Returns ``[B, H, 1, hd]``."""
     B, H, q_len, hd = q.shape
     hk, t_max = k_cache.shape[1], k_cache.shape[2]
     grouped = H != hk
@@ -100,6 +105,8 @@ def cached_attention(q, k_cache, v_cache, pos, *, scale: float | None = None):
     pos = _pos_vector(pos, B, q.device)
     slots = torch.arange(t_max, device=q.device)
     valid = slots[None, None, None, :] <= pos[:, None, None, None]
+    if slot_mask is not None:
+        valid = valid & (slot_mask != 0)[:, None, None, :]
     out = dot_product_attention(q, k_cache, v_cache, mask=valid, scale=scale)
     return out.reshape(B, H, q_len, hd) if grouped else out
 
@@ -115,32 +122,54 @@ def gather_kv_blocks(pool_leaf, table):
     return g.permute(0, 1, 3, 2, 4, 5).reshape(s, B, hk, nb * bt, hd)
 
 
-def cache_write_and_attend(q, k, v, cache, pos):
-    """One decode tick against the PAGED float pool (reference
-    ``:313-353``, ``:447-452``): ``cache = {"kv": [2, P, hk, bt, hd],
-    "table": int32 [B, nb]}``. Row ``b`` writes its K/V at the physical
-    (block, offset) its table maps logical slot ``pos[b]`` to — IN PLACE
-    in ``cache["kv"]``, where the JAX package donates the buffer — then
-    attends its logical slots ``0..pos[b]`` through the table. The
-    horizon is the table's, ``nb * bt``; the slot lookup clamps to the
-    last table entry, which only parked rows (all-trash tables) reach.
+def cache_write_and_attend(q, k, v, cache, pos, *, slot_mask=None):
+    """One decode tick's cache write + attention (reference ``:425-466``),
+    for both float cache formats; the write is IN PLACE, where the JAX
+    package donates the buffer. ``q, k, v``: ``[B, H(k), 1, hd]``. Returns
+    ``(o [B, H, 1, hd], cache)``.
 
-    ``q, k, v``: ``[B, H(k), 1, hd]``. Returns ``(o [B, H, 1, hd],
-    cache)``. Only the paged float format is ported; the dense cache and
-    the int8 pool raise."""
-    from distributed_compute_pytorch_tpu_torch.ops.cache_update import (
-        kv_pool_insert)
-    from distributed_compute_pytorch_tpu_torch.ops.decode_attention import (
-        paged_decode_attention)
-    if set(cache) != {"kv", "table"}:
+    - The dense pair cache ``{"kv": [2, B, Hk, T, hd]}`` (generation): a
+      scalar ``pos`` (a Python int or a 0-dim int32 tensor: the lockstep
+      tick) writes every row's K/V at that slot (``kv_insert``), a ``[B]``
+      ``pos`` each row at its own (``kv_insert_rows``); then row ``b``
+      attends slots ``0..pos[b]`` that ``slot_mask`` (optional ``[B, T]``)
+      keeps (``decode_attention``).
+    - The PAGED float pool (serving, reference ``:313-353``): ``{"kv": [2,
+      P, hk, bt, hd], "table": int32 [B, nb]}``. Row ``b`` writes its K/V
+      at the physical (block, offset) its table maps logical slot
+      ``pos[b]`` to, then attends its logical slots ``0..pos[b]`` through
+      the table. The horizon is the table's, ``nb * bt``; the slot lookup
+      clamps to the last table entry, which only parked rows (all-trash
+      tables) reach. No ``slot_mask``: serving lays prompts out from slot
+      0.
+
+    The int8 forms (a ``"scale"`` leaf) raise: they wait for the int8 KV
+    slice (``ROADMAP.md`` queue 3.6)."""
+    from distributed_compute_pytorch_tpu_torch.ops import cache_update as CU
+    from distributed_compute_pytorch_tpu_torch.ops import (
+        decode_attention as DA)
+    if "scale" in cache:
         raise NotImplementedError(
-            f"cache_write_and_attend takes the paged float pool "
-            f"{{'kv', 'table'}}; got keys {sorted(cache)}")
+            "the int8 KV cache form (the 'scale' leaf) waits for the int8 "
+            "KV slice (ROADMAP.md queue 3.6)")
+    if set(cache) == {"kv"}:
+        kv = cache["kv"]
+        if isinstance(pos, torch.Tensor) and pos.ndim:
+            CU.kv_insert_rows(kv, k, v, pos)
+        else:
+            CU.kv_insert(kv, k, v, pos)
+        return DA.decode_attention(q, kv, pos, slot_mask=slot_mask), cache
+    if set(cache) != {"kv", "table"} or slot_mask is not None:
+        raise NotImplementedError(
+            f"cache_write_and_attend takes the dense pair cache {{'kv'}} or "
+            f"the paged float pool {{'kv', 'table'}} without a slot_mask; "
+            f"got keys {sorted(cache)}, slot_mask "
+            f"{'set' if slot_mask is not None else 'None'}")
     pool, table = cache["kv"], cache["table"]
     bt, nb = pool.shape[3], table.shape[1]
     pos = _pos_vector(pos, q.shape[0], q.device)
     slot = torch.clamp(pos // bt, max=nb - 1).long()
     blk = table.gather(1, slot[:, None])[:, 0].contiguous()
     off = (pos % bt).contiguous()
-    kv_pool_insert(pool, k[:, :, 0], v[:, :, 0], blk, off)
-    return paged_decode_attention(q, pool, table, pos), cache
+    CU.kv_pool_insert(pool, k[:, :, 0], v[:, :, 0], blk, off)
+    return DA.paged_decode_attention(q, pool, table, pos), cache

@@ -296,3 +296,139 @@ def test_tiny_train_on_card_matches_cpu(dev):
             got, want = (torch.cat([w[:d], w[2 * d:]]) for w in (got, want))
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4,
                                    msg=lambda m: f"{name}: {m}")
+
+
+# ---- slice 3: the dense KV writes, the dense decode read, generation -----
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_insert_kernels_match_plain(dev, dtype):
+    """``cache_insert``, ``kv_insert`` (a 0-dim position, and a stride-0
+    ``[B]`` view through ``kv_insert_rows``) and ``kv_insert_rows``
+    (first, last, interior and out-of-range slots), the updates strided
+    split-head views of one fused QKV: exact, each counter moved once."""
+    from distributed_compute_pytorch_tpu_torch.ops import attention as A
+    from distributed_compute_pytorch_tpu_torch.ops import cache_update as C
+    gen = torch.Generator().manual_seed(9)
+    B, hk, T, hd = 3, 4, 37, 64
+    qkv = _randn(gen, B, 1, 3 * hk * hd, dtype=dtype, dev=dev)
+    _, k, v = (A.split_heads(x, hk) for x in qkv.split(hk * hd, dim=-1))
+    assert not k.is_contiguous()
+    cache = _randn(gen, 2, B, hk, T, hd, dtype=dtype, dev=dev)
+    slots = torch.arange(T, dtype=torch.int32, device=dev)
+    cases = [
+        ("kv_insert", lambda c: C.kv_insert_cuda(c, k, v, slots[17]),
+         lambda c: C.kv_insert_plain(c, k, v, slots[17])),
+        ("kv_insert_rows", lambda c: C.kv_insert_rows_cuda(
+            c, k, v, slots[T - 1].reshape(1).expand(B)),
+         lambda c: C.kv_insert_plain(c, k, v, slots[T - 1])),
+        ("kv_insert_rows", lambda c: C.kv_insert_rows_cuda(
+            c, k, v, torch.tensor([0, T - 1, T], dtype=torch.int32,
+                                  device=dev)),
+         lambda c: C.kv_insert_plain(c, k, v, torch.tensor(
+             [0, T - 1, T], dtype=torch.int32, device=dev))),
+        ("cache_insert", lambda c: C.cache_insert_cuda(c[1], v, slots[0]),
+         lambda c: C.cache_insert_plain(c[1], v, slots[0])),
+    ]
+    for counter, kernel, plain in cases:
+        before = getattr(C, f"{counter}_launches")
+        got, want = cache.clone(), cache.clone()
+        kernel(got)
+        plain(want)
+        torch.cuda.synchronize()
+        assert getattr(C, f"{counter}_launches") == before + 1
+        assert torch.equal(got, want), counter
+    assert not torch.equal(got, cache)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,hk,hd", [(4, 4, 64), (8, 2, 32), (2, 2, 128),
+                                     (8, 1, 64)])
+@pytest.mark.parametrize("lockstep", [True, False])
+def test_dense_decode_matches_plain(dev, dtype, H, hk, hd, lockstep):
+    """With and without a left-pad slot mask whose runs cover whole
+    32-key chunks (row 1: 70 pads), MHA and GQA, a stride-0 lockstep
+    position and per-row positions (one past the cache: clamped)."""
+    from distributed_compute_pytorch_tpu_torch.ops import attention as A
+    from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
+    gen = torch.Generator().manual_seed(10)
+    B, T = 4, 150
+    qx = _randn(gen, B, 1, 3 * H * hd, dtype=dtype, dev=dev)
+    q = A.split_heads(qx[..., :H * hd], H)                # strided view
+    cache = _randn(gen, 2, B, hk, T, hd, dtype=dtype, dev=dev)
+    mask = torch.ones(B, T, dtype=torch.bool)
+    mask[1, :70] = False
+    mask[2, :3] = False
+    mask = mask.to(dev)
+    if lockstep:
+        pos = torch.arange(100, 102, dtype=torch.int32, device=dev)[0]
+    else:
+        pos = torch.tensor([0, 96, T, 41], dtype=torch.int32, device=dev)
+    for slot_mask in (None, mask):
+        before = D.dense_launches
+        got = D.dense_decode_cuda(q, cache, pos, slot_mask=slot_mask)
+        torch.cuda.synchronize()
+        assert D.dense_launches == before + 1
+        want = D.dense_decode_plain(q, cache, pos, slot_mask=slot_mask)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_dense_kernels_refuse_int8_and_bad_positions(dev):
+    from distributed_compute_pytorch_tpu_torch.ops import cache_update as C
+    from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
+    c8 = torch.zeros(2, 2, 2, 8, 16, dtype=torch.int8, device=dev)
+    u8 = torch.zeros(2, 2, 1, 16, dtype=torch.int8, device=dev)
+    with pytest.raises(NotImplementedError, match="int8"):
+        C.kv_insert_cuda(c8, u8, u8, 0)
+    with pytest.raises(NotImplementedError, match="int8"):
+        D.dense_decode_cuda(u8, c8, 0)
+    c = torch.zeros(2, 2, 2, 8, 16, device=dev)
+    u = torch.zeros(2, 2, 1, 16, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        C.kv_insert_rows_cuda(c, u, u, torch.zeros(2, dtype=torch.int64,
+                                                   device=dev))
+    with pytest.raises(ValueError, match="stride"):
+        C.kv_insert_rows_cuda(c, u, u, torch.zeros(
+            4, dtype=torch.int32, device=dev)[::2])
+
+
+def test_tiny_generate_on_card_teacher_forced(dev):
+    """GPT-2-tiny greedy generation of a left-padded batch on the card, in
+    f32, through ``flash_fwd``, ``kv_insert`` and ``dense_decode``: the
+    CPU's tokens, every token the teacher-forced row maximum of the
+    model's own full forward (within 1e-4: f32 summation order), and the
+    launch counts the schedule implies."""
+    from distributed_compute_pytorch_tpu_torch.infer import generate
+    from distributed_compute_pytorch_tpu_torch.models.gpt2 import (
+        GPT2, GPT2Config)
+    from distributed_compute_pytorch_tpu_torch.ops import cache_update as C
+    from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
+    from distributed_compute_pytorch_tpu_torch.ops import flash_attention as F
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPT2Config(vocab_size=256, max_seq_len=128, num_layers=2,
+                     num_heads=4, d_model=64, d_ff=128)
+    cpu = GPT2(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = GPT2(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(11)
+    lens = [9, 3, 40]
+    T0, N = max(lens), 12
+    prompt = np.zeros((3, T0), np.int64)
+    mask = np.zeros((3, T0), np.int64)
+    for i, n in enumerate(lens):
+        prompt[i, T0 - n:] = rng.integers(0, 256, n)
+        mask[i, T0 - n:] = 1
+    want = generate(cpu, prompt, N, prompt_mask=mask)
+    counts = (F.launches, C.kv_insert_launches, D.dense_launches)
+    got = generate(gpu, prompt, N, prompt_mask=mask).cpu()
+    moved = (F.launches - counts[0], C.kv_insert_launches - counts[1],
+             D.dense_launches - counts[2])
+    assert moved == (2, 2 * (N - 1), 2 * (N - 1)), moved
+    assert torch.equal(got, want)
+    with torch.no_grad():
+        for i, n in enumerate(lens):
+            seq = got[i, T0 - n:].to(dev)
+            logits = gpu(seq[None, :-1])[0, n - 1:].float()
+            chosen = logits.gather(1, seq[n:, None])[:, 0]
+            assert (logits.max(dim=1).values - chosen).max() <= 1e-4

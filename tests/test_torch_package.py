@@ -55,7 +55,10 @@ def test_import_leaves_jax_unloaded():
 def test_entry_points_need_cuda_unless_cpu_is_asked():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
+    from distributed_compute_pytorch_tpu_torch.cli_generate import (
+        main as generate_main)
     from distributed_compute_pytorch_tpu_torch.cli_serve import main
+    from distributed_compute_pytorch_tpu_torch.infer import generate
     from distributed_compute_pytorch_tpu_torch.models.gpt2 import (
         GPT2, GPT2Config)
     from distributed_compute_pytorch_tpu_torch.serve import ContinuousBatcher
@@ -67,15 +70,25 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--init_seed", "0", "--model_preset", "tiny",
               "--requests", "-"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate_main(["--init_seed", "0", "--model_preset", "tiny",
+                       "--prompt", "5"])
+    # generate runs where its model lives: on the CPU only when asked for
+    assert generate(model, [[5, 9]], 2).device.type == "cpu"
+    for flag in (["--device", "cpu"], ["--force-cpu"]):
+        assert generate_main(["--init_seed", "0", "--model_preset", "tiny",
+                              "--prompt", "5", "--max_new_tokens", "2",
+                              *flag]) == 0
 
 
 def test_cuda_kernels_refuse_cpu_tensors():
     """The CUDA launchers never run a plain version: a CPU tensor raises
     (the dispatchers, not the launchers, pick the plain path)."""
     from distributed_compute_pytorch_tpu_torch.ops.cache_update import (
+        cache_insert_cuda, kv_insert_cuda, kv_insert_rows_cuda,
         kv_pool_insert_cuda)
     from distributed_compute_pytorch_tpu_torch.ops.decode_attention import (
-        paged_decode_cuda)
+        dense_decode_cuda, paged_decode_cuda)
     from distributed_compute_pytorch_tpu_torch.ops.flash_attention import (
         flash_fwd)
     q = torch.zeros(1, 2, 1, 8)
@@ -87,6 +100,16 @@ def test_cuda_kernels_refuse_cpu_tensors():
         kv_pool_insert_cuda(pool, q[:, :, 0], q[:, :, 0], i32, i32)
     with pytest.raises(ValueError, match="CUDA"):
         paged_decode_cuda(q, pool, i32[:, None], i32)
+    cache = torch.zeros(2, 1, 2, 4, 8)             # [2, B, Hk, T, hd]
+    with pytest.raises(ValueError, match="CUDA"):
+        cache_insert_cuda(cache[0], q, i32[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        kv_insert_cuda(cache, q, q, i32[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        kv_insert_rows_cuda(cache, q, q, i32)
+    with pytest.raises(ValueError, match="CUDA"):
+        dense_decode_cuda(q, cache, i32, slot_mask=torch.ones(1, 4,
+                                                              dtype=torch.bool))
 
 
 def test_training_kernel_launchers_refuse_cpu_tensors():
