@@ -19,7 +19,10 @@ imports nothing of JAX. Phases, one JSON line each:
    fused AdamW; generation for the dense writes and the dense decode),
    with the tolerances below, and timed beside its plain version, its
    roofline bound and (where one exists) one PyTorch library call
-   computing the same function;
+   computing the same function. The flash forward is also timed at the
+   training shape; the flash backward must take the tensor-core kernels
+   in bf16 and the CUDA-core ones in f32, give the same bits on two
+   launches, and reports its TFLOP/s and share of its bound;
 4. serve: GPT-2-small at full width (random weights from a fixed seed)
    through ``ContinuousBatcher.serve`` — 32 staggered requests, 16 slots,
    in bf16 and then in f32. Each kernel's launch counter is zeroed just
@@ -40,12 +43,13 @@ imports nothing of JAX. Phases, one JSON line each:
 8. train: GPT-2-small at full width and depth (dropout 0.1), bf16 compute
    over f32 masters, ``adamw_fused``, 20 steps on one 8 x 1024 batch
    through ``train/step.py::make_step_fns``; the counters are zeroed just
-   before and read just after, and must equal 20 x (12, 12, 12, 1); the
-   loss must fall by at least 1 nat and stay finite;
+   before and read just after, and must equal 20 x (12, 12, 12, 1), with
+   every backward launch on the tensor-core kernels; the loss must fall
+   by at least 1 nat and stay finite;
 9. train_parity: f32, dropout 0, two layers at full width: the gradients
    of one step through the kernels against autograd of the dense math,
    and five steps' losses against the same steps with
-   ``fused_adamw_plain``;
+   ``fused_adamw_plain`` (f32: the backward's CUDA-core kernels);
 10. train_cli: the port's trainer CLI for one epoch of ``synthetic-lm``
    at GPT-2-small widths, then ``--resume --epochs 2``;
 11. train_profile: five train steps under ``torch.profiler``.
@@ -84,10 +88,22 @@ TOL = {"bf16": 3e-2, "f32": 1e-4}
 # the margin is four ulps. f32: only the summation order differs.
 MARGIN = {"bf16": 0.125, "f32": 1e-3}
 LAYERS = 12
-# the flash backward: outputs rounded to bf16 from f32 sums taken in
-# another order are one bf16 ulp apart at most, so the backward's errors
+# the flash backward: in bf16 the tensor-core kernels round p and ds to
+# bf16 before their products (the plain version keeps f32) and round
+# outputs from f32 sums taken in another order, so the backward's errors
 # are taken relative to the output's largest magnitude where that exceeds
-# 1 (TOL as above); f32 sums differ in order only
+# 1 (TOL as above); f32 sums differ in order only.
+# That largest magnitude is set by the first few causal rows, several
+# times a late row's, so the bf16 backward is also held row by row: each
+# row's (one query of dq, one key of dk or dv) largest error over that
+# row's largest plain magnitude, floored at ROW_FLOOR of the output's RMS
+# (a row whose true value is 0, such as dq of a causal first row, holds
+# only rounding noise), must stay within ROW_TOL: about four times the
+# sound kernels' reading, one bf16 ulp of a row's largest element (2**-7).
+# A planted fault, the plain version with one 64-query x 32-key tile of
+# one head skipped, must exceed it, or the check could not see a dropped
+# tile.
+ROW_TOL, ROW_FLOOR = 3e-2, 1e-2
 # fused AdamW, kernel against plain, relative to each buffer's largest
 # magnitude: the same f32 elementwise ops, which nvcc may contract to FMAs
 ADAMW_TOL = 1e-6
@@ -213,8 +229,33 @@ def check_flash(torch, np, FA, dtype, dt):
             lambda: F.scaled_dot_product_attention(q, k, v,
                                                    attn_mask=attn_mask)])
         out["shape"] = f"q,k,v [{b}, {h}, {t}, {d}] causal + ragged kv_mask"
+    # the training shape: [8, 12, 1024, 64] causal, no mask, split-head
+    # views of one fused QKV, as the train phase calls it
+    b, t, h, d = TRAIN_BATCH, TRAIN_T, 12, 64
+    qkv = torch.randn(b, t, 3 * h * d, generator=gen).to("cuda", dtype)
+    q, k, v = (x.reshape(b, t, h, d).transpose(1, 2)
+               for x in qkv.split(h * d, dim=-1))
+    got, lse = FA.flash_fwd(q, k, v, causal=True)
+    want = FA.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    require(bool(torch.isfinite(got).all()) and bool(
+        torch.isfinite(lse).all()), f"flash train {dt}: non-finite")
+    require(err <= TOL[dt], f"flash train {dt}: max err {err} > {TOL[dt]}")
+    del want
+    out["train_max_abs_err"] = err
+    # q, k, v read and o written once, the f32 lse written; causal pairs
+    pairs = b * h * t * (t + 1) // 2
+    nbytes = q.element_size() * 4 * b * h * t * d + 4 * b * h * t
+    out["train_bound_ms"], out["train_bound_by"] = bound(nbytes, 4 * d * pairs,
+                                                         dt)
+    out["train_ms"] = time_ms(torch, [lambda: FA.flash_fwd(
+        q, k, v, causal=True)])
+    out["train_library_ms"] = time_ms(torch, [
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)])
+    out["train_shape"] = f"q, k, v [{b}, {h}, {t}, {d}] causal, fused-QKV views"
     out["max_abs_err"] = max(out["prefill_max_abs_err"],
-                             out["offset_max_abs_err"])
+                             out["offset_max_abs_err"], err)
     return out
 
 
@@ -332,12 +373,29 @@ def rel_err(got, want) -> float:
             / want.abs().max().clamp(min=1.0)).item()
 
 
+def row_err(got, want) -> float:
+    """The largest, over rows (the last axis), of a row's max abs error
+    over that row's max abs reference, the latter floored at ROW_FLOOR of
+    the reference's RMS."""
+    want = want.float()
+    floor = ROW_FLOOR * want.square().mean().sqrt().item()
+    return ((got.float() - want).abs().amax(-1)
+            / want.abs().amax(-1).clamp(min=floor)).max().item()
+
+
 def check_flash_bwd(torch, np, FA, dtype, dt):
     """GPT-2-small training shapes: q, k, v, dO [8, 12, 1024, 64], causal;
     q, k and v are split-head views of one fused QKV and dO comes in the
     [b, t, h, d] order ``merge_heads``' backward hands over, as in the
     model. Plus a ragged case: t = 45 < tk = 77, head dim 80, a kv_mask.
-    Returns ``{"flash_bwd_dq": {...}, "flash_bwd_dkv": {...}}``."""
+    bf16 must take the tensor-core kernels and f32 the CUDA-core ones
+    (``_tensor_core_path``), and a second launch on the same inputs must
+    give the same bits. In bf16 each output is also held row by row
+    (``row_err``, ROW_TOL), and the planted fault (the plain version with
+    the last query tile of one head skipping one 32-key tile) must fail
+    that check.
+    Returns ``{"flash_bwd_dq": {...},
+    "flash_bwd_dkv": {...}}``."""
     import torch.nn.functional as F
     gen = torch.Generator().manual_seed(4)
     res = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}}
@@ -366,23 +424,68 @@ def check_flash_bwd(torch, np, FA, dtype, dt):
             delta = (do.float() * o.float()).sum(-1)
             copies.append((q, k, v, do, lse, delta))
         q, k, v, do, lse, delta = copies[0]
+        tc0 = (FA.dq_tc_launches, FA.dkv_tc_launches)
         dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
         dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        tc = (FA.dq_tc_launches - tc0[0], FA.dkv_tc_launches - tc0[1])
+        want_tc = (1, 1) if dt == "bf16" else (0, 0)
+        require(tc == want_tc, f"flash bwd {case} {dt}: tensor-core "
+                               f"launches {tc}, want {want_tc}")
+        again = (FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                 *FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
         want = FA.flash_bwd_plain(q, k, v, do, lse, delta, **kw)
         torch.cuda.synchronize()
+        for name, g, g2 in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
+            require(torch.equal(g, g2), f"flash bwd {case} {dt}: two "
+                                        f"launches gave different {name}")
+        del again
+        # the planted fault: the last query tile of (batch 0, head 0)
+        # skips the key tile [lo, lo + 32), as a kernel that dropped one
+        # tile of its walk would: those rows' dq lose those keys, and
+        # those keys' dk and dv lose those rows
+        lo, qs = 32 * (tk // 64), slice(max(t - 64, 0), t)
+        sub = (q[:1, :1, qs], k[:1, :1], v[:1, :1], do[:1, :1, qs],
+               lse[:1, :1, qs], delta[:1, :1, qs])
+        keep = (torch.ones(1, tk, device="cuda") if mask is None
+                else mask[:1].clone())
+        skip = keep.clone()
+        skip[:, lo:lo + 32] = 0
+        part = FA.flash_bwd_plain(*sub, causal=True, kv_mask=keep)
+        fault = [w.float().clone() for w in want]
+        fault[0][0, 0, qs] = FA.flash_bwd_plain(
+            *sub, causal=True, kv_mask=skip)[0][0, 0].float()
+        for f, p in zip(fault[1:], part[1:]):
+            f[0, 0, lo:lo + 32] -= p[0, 0, lo:lo + 32].float()
         errs = {}
-        for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        for name, g, w, f in zip(("dq", "dk", "dv"), (dq, dk, dv), want,
+                                 fault):
             require(bool(torch.isfinite(g).all()),
                     f"flash bwd {case} {dt}: non-finite {name}")
             errs[name] = (rel_err(g, w),
-                          (g.float() - w.float()).abs().max().item())
+                          (g.float() - w.float()).abs().max().item(),
+                          row_err(g, w), row_err(f, w), rel_err(f, w))
             require(errs[name][0] <= TOL[dt],
                     f"flash bwd {case} {dt}: {name} error {errs[name][0]} "
                     f"> {TOL[dt]} (relative to max(1, max|plain|))")
-        for kern, names in (("flash_bwd_dq", ("dq",)),
-                            ("flash_bwd_dkv", ("dk", "dv"))):
-            res[kern][f"{case}_rel_err"] = max(errs[n][0] for n in names)
-            res[kern][f"{case}_max_abs_err"] = max(errs[n][1] for n in names)
+            if dt == "bf16":
+                require(errs[name][2] <= ROW_TOL,
+                        f"flash bwd {case}: {name} row error "
+                        f"{errs[name][2]} > {ROW_TOL}")
+                require(errs[name][3] > ROW_TOL,
+                        f"flash bwd {case}: the planted fault's {name} row "
+                        f"error {errs[name][3]} <= {ROW_TOL}: the row check "
+                        f"cannot see a dropped key tile")
+        del fault, part
+        for i, (kern, names) in enumerate((("flash_bwd_dq", ("dq",)),
+                                           ("flash_bwd_dkv", ("dk", "dv")))):
+            r = res[kern]
+            for j, key in enumerate(("rel_err", "max_abs_err", "row_err")):
+                r[f"{case}_{key}"] = max(errs[n][j] for n in names)
+            # the fault is held by its least visible output
+            r[f"{case}_fault_row_err"] = min(errs[n][3] for n in names)
+            r[f"{case}_fault_rel_err"] = min(errs[n][4] for n in names)
+            r[f"{case}_tensor_core_launches"] = tc[i]
+            r[f"{case}_bit_identical"] = True
         if case != "train":
             continue
         # causal: query row i attends keys 0..i (t = tk)
@@ -410,6 +513,9 @@ def check_flash_bwd(torch, np, FA, dtype, dt):
             r["gflop"] = products * 2 * d * pairs / 1e9
             r["ms"] = time_ms(torch, [(lambda c=c, fn=fn: fn(*c, **kw))
                                       for c in copies])
+            r["tflops"] = r["gflop"] / r["ms"]
+            r["bound_share"] = r["bound_ms"] / r["ms"]
+            r["path"] = "tensor cores" if dt == "bf16" else "CUDA cores"
             r["plain_ms"] = plain_ms
             r["plain"] = "flash_bwd_plain (dq, dk and dv together)"
             r["library_ms"] = lib_ms
@@ -421,6 +527,9 @@ def check_flash_bwd(torch, np, FA, dtype, dt):
         r["max_abs_err"] = max(r["train_max_abs_err"],
                                r["ragged_max_abs_err"])
         r["rel_err"] = max(r["train_rel_err"], r["ragged_rel_err"])
+        r["row_err"] = max(r["train_row_err"], r["ragged_row_err"])
+        r["fault_row_err"] = min(r["train_fault_row_err"],
+                                 r["ragged_fault_row_err"])
     return res
 
 
@@ -717,6 +826,12 @@ def serve_phase(torch, np, mods, model, dt):
 # the kernel entries checked exactly, and the source of each entry whose
 # file is named otherwise
 EXACT = ("kv_pool_insert", "cache_insert", "kv_insert", "kv_insert_rows")
+# per-kernel fields the kernels line carries where a check records them:
+# the flash backward's rate, share of its bound and path; the flash
+# forward at the training shape
+KERNEL_EXTRAS = ("tflops", "bound_share", "path", "train_ms",
+                 "train_bound_ms", "train_library_ms", "row_err",
+                 "fault_row_err")
 SOURCES = {"cache_insert": "kv_insert", "kv_insert_rows": "kv_insert"}
 KERNEL_NAMES = ("flash_fwd", "kv_pool_insert", "paged_decode",
                 "flash_bwd_dq", "flash_bwd_dkv", "fused_adamw", "kv_insert",
@@ -725,7 +840,7 @@ KERNEL_NAMES = ("flash_fwd", "kv_pool_insert", "paged_decode",
 
 def _kernel_group(name: str) -> str:
     for kernel in KERNEL_NAMES:
-        if f"::{kernel}_kernel" in name:
+        if f"::{kernel}_kernel" in name or f"::{kernel}_tc_kernel" in name:
             return kernel
     low = name.lower()
     if any(s in low for s in ("gemm", "cutlass", "xmma", "nvjet")):
@@ -959,6 +1074,12 @@ def train_counts(FA, FAW) -> dict:
 
 def zero_train_counts(FA, FAW) -> None:
     FA.launches = FA.dq_launches = FA.dkv_launches = FAW.launches = 0
+    FA.dq_tc_launches = FA.dkv_tc_launches = 0
+
+
+def tc_counts(FA) -> dict:
+    return {"flash_bwd_dq": FA.dq_tc_launches,
+            "flash_bwd_dkv": FA.dkv_tc_launches}
 
 
 def train_setup(torch, np, tm, cfg, *, compute_dtype, lr=TRAIN_LR,
@@ -995,12 +1116,16 @@ def train_phase(torch, np, tm, FA, FAW, GPT2Config):
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         losses.append(metrics["loss"])
-    launches = train_counts(FA, FAW)
+    launches, tc = train_counts(FA, FAW), tc_counts(FA)
     losses = [float(v) for v in losses]
     per_step = {"flash_fwd": LAYERS, "flash_bwd_dq": LAYERS,
                 "flash_bwd_dkv": LAYERS, "fused_adamw": 1}
     want = {k: TRAIN_STEPS * n for k, n in per_step.items()}
     require(launches == want, f"train: launches {launches} != {want}")
+    # bf16 on GPT-2's aligned fused-QKV views: every backward launch on
+    # the tensor cores
+    want_tc = {k: TRAIN_STEPS * LAYERS for k in tc}
+    require(tc == want_tc, f"train: tensor-core launches {tc} != {want_tc}")
     require(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
     require(losses[-1] <= losses[0] - 1.0,
             f"train: loss {losses[0]} -> {losses[-1]}, not 1 nat lower")
@@ -1015,7 +1140,8 @@ def train_phase(torch, np, tm, FA, FAW, GPT2Config):
            "step_ms": step_ms, "median_step_ms_after_3": median,
            "tokens_per_s": TRAIN_BATCH * TRAIN_T / (median / 1e3),
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "launches": launches, "launches_per_step": per_step}
+           "launches": launches, "launches_per_step": per_step,
+           "tensor_core_launches": tc}
     return rec, (model, tx, train_step, state, x)
 
 
@@ -1055,7 +1181,9 @@ def parity_phase(torch, np, tm, A, FA, FAW, GPT2Config):
                 new = FAW.fused_adamw_plain(p.grad, p, mu[n], nu[n], **sc)
                 for dst, src in zip((p, mu[n], nu[n]), new):
                     dst.copy_(src)
-    launches = train_counts(FA, FAW)
+    launches, tc = train_counts(FA, FAW), tc_counts(FA)
+    require(not any(tc.values()), f"train_parity: f32 took the tensor-core "
+                                  f"backward: {tc}")
     worst = max(grad_errs, key=grad_errs.get)
     require(grad_errs[worst] <= GRAD_TOL,
             f"train_parity: gradient of {worst} off by "
@@ -1071,7 +1199,7 @@ def parity_phase(torch, np, tm, A, FA, FAW, GPT2Config):
             "loss_rel_err": loss_err, "loss_tol": LOSS_TOL,
             "worst_grad_leaf": worst, "worst_grad_rel_err": grad_errs[worst],
             "grad_tol": GRAD_TOL, "leaves": len(grad_errs),
-            "launches": launches}
+            "launches": launches, "tensor_core_launches": tc}
 
 
 CLI_LINES = {
@@ -1143,9 +1271,12 @@ def train_profile_phase(torch, train_step, state, x, step_ms, steps=5):
         torch.cuda.synchronize()
     total_us, groups, top = device_time(torch, prof)
     per_step_ms = total_us / 1e3 / steps
+    bwd_ms = sum(groups.get(k, [0, 0.0])[1]
+                 for k in ("flash_bwd_dq", "flash_bwd_dkv")) / 1e3 / steps
     return {
         "phase": "train_profile", "steps": steps,
         "device_ms_per_step": per_step_ms,
+        "flash_bwd_ms_per_step": bwd_ms,
         "median_step_ms_unprofiled": step_ms,
         "device_busy_share": per_step_ms / step_ms if total_us else None,
         "groups_ms_per_step": {
@@ -1315,6 +1446,7 @@ def main() -> int:
                     "kv_pool_insert": "pool[:, blocks, :, offsets, :] = upd",
                 }.get(name)),
                 "dtype": "bf16", "shape": r["shape"],
+                **{k: r[k] for k in KERNEL_EXTRAS if k in r},
                 "f32": {k: r32[k] for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "bound_by",
                                             "library_ms")},

@@ -12,30 +12,51 @@
 //
 // What bounds it on this card: four T x Tk x d products per head (s, dp,
 //   p^T dO, ds^T Q) against ~(2 t + 4 tk) * d elements of traffic: compute-
-//   bound in principle at training shapes (989 TFLOP/s bf16 on the tensor
-//   cores). This first version does the products with plain f32 FMAs on the
-//   CUDA cores (67 TFLOP/s f32 peak), so FMA, shuffle and shared-memory
-//   issue bound it. Tensor cores (mma.sync / wgmma) are left to a later
-//   change.
+//   bound at training shapes (25.79 GFLOP at [8, 12, 1024, 64] causal, 0.026
+//   ms at 989 TFLOP/s bf16 on the tensor cores).
 //
-// Design: the TPU kernel's sequential q grid axis and its VMEM dk/dv scratch
-//   become a loop inside one thread block, and the dQ / dK-dV split stays,
-//   so no block ever writes another block's output and no atomics are
-//   needed (the reasons of the Pallas file's docstring hold here too). A
-//   block owns a (batch*head, tile of BKB = 32 keys), staged once in shared
-//   memory as f32, and walks query tiles of BQT = 32 rows from the first
-//   one its causal offset reaches ((qi+1)*Bq + offset > ki*Bk in the TPU
-//   kernel) to the end. Four warps own KPW = 8 keys each, with their dK and
-//   dV rows in registers (lane j owns columns j, j+32, ...), written once at
-//   the end. Per query tile, lane i owns query row i for s and dp (Q and dO
-//   rows padded to an odd stride so the lanes hit distinct banks), then
-//   each row's p and ds are broadcast by warp shuffles into the column
-//   sums. Ragged t, tk and d <= 128 are masked in the kernel; shared memory
-//   is sized for the head dim (dynamic, above 48 KB for d > 64).
+// Two kernels, and the wrapper (ops/flash_attention.py::_tensor_core_path)
+// picks one by shape, dtype and alignment before it launches:
+//
+// * flash_bwd_dkv_tc_kernel, the tensor-core path: bf16, d % 8 == 0, every
+//   base pointer and b/h/t stride 16-byte aligned (every bf16 call of the
+//   port's paths). A block owns TC_BK = 64 keys of one (batch, head), four
+//   warps of 16 keys; its K and V tiles stay in shared memory as bf16. It
+//   walks query tiles of WQ = 64 rows (32 at d > 64, for registers) from the
+//   first one its causal offset reaches; each tile's Q, dO, lse and delta
+//   are streamed by cp.async into a double buffer while the previous tile
+//   is computed. Per tile and warp, on mma.sync.m16n8k16 (bf16 in, f32
+//   accumulate) fed by ldmatrix: S^T = K Q^T; P^T = exp(scale S^T - lse)
+//   with the masks; dV += P^T dO with P^T rounded to bf16 and taken
+//   straight from the accumulator registers as the A operand; dP^T =
+//   V dO^T; dS^T = P^T (dP^T - delta); dK += dS^T Q. dK and dV stay in f32
+//   registers and are written once. Only a tile that crosses the causal
+//   diagonal or a ragged edge compares positions. Blocks are ordered so the
+//   first key tiles, which walk the most queries, launch first. No atomics:
+//   two launches give the same bits. Measured by chip_smoke.py at [8, 12,
+//   1024, 64] bf16 causal on an NVIDIA H100 80GB HBM3 at 700 W: 0.160 ms,
+//   161 TFLOP/s, 16 % of the bound (the CUDA-core kernel took 1.99 ms).
+// * flash_bwd_dkv_kernel, the CUDA-core path and the f32 parity path: f32
+//   (and any bf16 call outside the rule) with plain f32 FMAs, so the f32
+//   train parity and tests keep an exact f32 product. A block owns a
+//   (batch*head, tile of BKB = 32 keys), staged once in shared memory as
+//   f32, and walks query tiles of BQT = 32 rows from the first one its
+//   causal offset reaches ((qi+1)*Bq + offset > ki*Bk in the TPU kernel) to
+//   the end. Four warps own KPW = 8 keys each, with their dK and dV rows in
+//   registers (lane j owns columns j, j+32, ...), written once at the end.
+//   Per query tile, lane i owns query row i for s and dp (Q and dO rows
+//   padded to an odd stride so the lanes hit distinct banks), then each
+//   row's p and ds are broadcast by warp shuffles into the column sums.
+//
+// Both keep the TPU kernel's split from dQ (no block writes another block's
+// output; the reasons of the Pallas file's docstring hold here too). Ragged
+// t, tk and d <= 128 are masked in the kernels: the host pads nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "mma_common.cuh"
 
 namespace {
 
@@ -230,6 +251,162 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
   }
 }
 
+// ---- the tensor-core path ---------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TC_BK = 64;  // keys per block: four warps of 16
+
+// Query rows per walked tile: 64, or 32 at DP > 64, where the two 16 x DP
+// f32 accumulators per warp leave too few registers for two 16 x 64
+// score tiles.
+__host__ __device__ constexpr int walk_tile(int dp) { return dp > 64 ? 32 : 64; }
+
+template <int DP>
+constexpr int tc_smem_bytes() {
+  constexpr int RS = DP + mma::PAD, WQ = walk_tile(DP);
+  // ks, vs [TC_BK][RS] and qs, gs [2][WQ][RS] bf16; lse, delta [2][WQ] f32
+  return (2 * TC_BK * RS + 4 * WQ * RS) * 2 + 4 * WQ * 4;
+}
+
+template <int DP>
+__global__ void MMA_LAUNCH_BOUNDS
+flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ g,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ mask, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int H, int t, int tk, int d,
+                        Strides st, float scale, int causal, int offset) {
+  constexpr int RS = DP + mma::PAD;
+  constexpr int WQ = walk_tile(DP);
+  constexpr int NB = DP / 8;  // n8 blocks across the head dim
+  constexpr int NQ = WQ / 8;  // n8 blocks across a query tile
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(tc_smem);                // [TC_BK][RS]
+  bf16* vs = ks + TC_BK * RS;                                 // [TC_BK][RS]
+  bf16* qs = vs + TC_BK * RS;                                 // [2][WQ][RS]
+  bf16* gs = qs + 2 * WQ * RS;                                // [2][WQ][RS]
+  float* lse_s = reinterpret_cast<float*>(gs + 2 * WQ * RS);  // [2][WQ]
+  float* delta_s = lse_s + 2 * WQ;                            // [2][WQ]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * TC_BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bf16* qb = q + b * st.q[0] + h * st.q[1];
+  const bf16* kb = k + b * st.k[0] + h * st.k[1];
+  const bf16* vb = v + b * st.v[0] + h * st.v[1];
+  const bf16* gb = g + b * st.g[0] + h * st.g[1];
+  bf16* dkb = dk + b * st.dk[0] + h * st.dk[1];
+  bf16* dvb = dv + b * st.dv[0] + h * st.dv[1];
+  const float* lse_b = lse + (long long)bh * t;
+  const float* delta_b = delta + (long long)bh * t;
+
+  // from the first query tile whose causal limit reaches this block's keys
+  const int it0 = (causal ? max(0, k0 - offset) : 0) / WQ;
+  const int n_it = (t + WQ - 1) / WQ;
+  auto prefetch = [&](int it, int buf) {
+    const int q0 = it * WQ;
+    mma::load_tile<WQ, DP>(qs + buf * WQ * RS, qb, st.q[2], q0, t, d);
+    mma::load_tile<WQ, DP>(gs + buf * WQ * RS, gb, st.g[2], q0, t, d);
+    mma::load_row_values(lse_s + buf * WQ, lse_b, q0, t, WQ, 0);
+    mma::load_row_values(delta_s + buf * WQ, delta_b, q0, t, WQ, WQ);
+  };
+  mma::load_tile<TC_BK, DP>(ks, kb, st.k[2], k0, tk, d);
+  mma::load_tile<TC_BK, DP>(vs, vb, st.v[2], k0, tk, d);
+  prefetch(it0, 0);
+  mma::cp_async_commit();
+
+  // this lane's two keys: the C fragments' rows
+  const int c2 = (lane % 4) * 2;
+  const int key_lo = k0 + warp * 16 + lane / 4, key_hi = key_lo + 8;
+  const bool ref_lo = mask != nullptr &&
+      !(key_lo < tk && mask[(long long)b * tk + key_lo] > 0.5f);
+  const bool ref_hi = mask != nullptr &&
+      !(key_hi < tk && mask[(long long)b * tk + key_hi] > 0.5f);
+  float acc_k[NB][4], acc_v[NB][4];
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  for (int it = it0; it < n_it; ++it) {
+    const int buf = (it - it0) & 1;
+    if (it + 1 < n_it) prefetch(it + 1, buf ^ 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();
+    __syncthreads();
+    const int q0 = it * WQ;
+    const bf16* qt = qs + buf * WQ * RS;
+    const bf16* gt = gs + buf * WQ * RS;
+    const float* lse_t = lse_s + buf * WQ;
+    const float* delta_t = delta_s + buf * WQ;
+
+    float p[NQ][4], ds[NQ][4];
+    mma::mma_abt<NQ, DP, RS>(p, ks, warp * 16, qt);   // S^T = K Q^T
+    mma::mma_abt<NQ, DP, RS>(ds, vs, warp * 16, gt);  // dP^T = V dO^T
+    // only a tile across the causal diagonal or a ragged edge compares
+    const bool edge = q0 + WQ > t || k0 + TC_BK > tk ||
+                      (causal && k0 + TC_BK - 1 > q0 + offset);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + c2 + (e & 1);
+        const int row = q0 + col;
+        const int key = e < 2 ? key_lo : key_hi;
+        const bool refused = e < 2 ? ref_lo : ref_hi;
+        float pe = __expf((refused ? NEG_FILL : p[j][e] * scale) - lse_t[col]);
+        if (edge && !(row < t && key < tk && (!causal || key <= row + offset)))
+          pe = 0.f;                                  // no weight at all
+        p[j][e] = pe;
+        ds[j][e] = pe * (ds[j][e] - delta_t[col]);
+      }
+    }
+    mma::mma_c_tile<NQ, NB, RS>(acc_v, p, gt);   // dV += P^T dO
+    mma::mma_c_tile<NQ, NB, RS>(acc_k, ds, qt);  // dK += dS^T Q
+    __syncthreads();  // every warp is done with buf before it is refilled
+  }
+
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    const int col = n * 8 + c2;
+    if (col >= d) continue;
+    if (key_lo < tk) {
+      mma::store_bf16x2(dkb + key_lo * st.dk[2] + col, acc_k[n][0] * scale,
+                        acc_k[n][1] * scale);
+      mma::store_bf16x2(dvb + key_lo * st.dv[2] + col, acc_v[n][0], acc_v[n][1]);
+    }
+    if (key_hi < tk) {
+      mma::store_bf16x2(dkb + key_hi * st.dk[2] + col, acc_k[n][2] * scale,
+                        acc_k[n][3] * scale);
+      mma::store_bf16x2(dvb + key_hi * st.dv[2] + col, acc_v[n][2], acc_v[n][3]);
+    }
+  }
+}
+
+template <int DP>
+cudaError_t launch_tc(const void* q, const void* k, const void* v,
+                      const void* g, const float* lse, const float* delta,
+                      const float* mask, void* dk, void* dv, int B, int H,
+                      int t, int tk, int d, const Strides& st, float scale,
+                      int causal, cudaStream_t stream) {
+  constexpr int bytes = tc_smem_bytes<DP>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  // blockIdx.y = key tile: the first (heaviest, under causal) launch first
+  const dim3 grid(B * H, (tk + TC_BK - 1) / TC_BK);
+  const int offset = causal ? tk - t : 0;
+  flash_bwd_dkv_tc_kernel<DP><<<grid, mma::NTHREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta,
+      mask, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, t, tk, d, st,
+      scale, causal, offset);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -238,12 +415,14 @@ extern "C" {
 // `strides` = (q b, h, t; k ...; v ...; g ...; dk ...; dv ...) with unit
 // stride on d. lse, delta: f32 [B, H, t] contiguous. mask: f32 [B, tk]
 // contiguous or null. dtype: 0 f32, 1 bf16 (all tensors but lse, delta and
-// mask alike). Returns the cudaError_t of the launch.
+// mask alike). tensor_cores: 1 takes the tensor-core kernel, which needs
+// bf16, d % 8 == 0 and 16-byte aligned pointers and strides; 0 the CUDA-core
+// kernel. Returns the cudaError_t of the launch.
 int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* g,
                   const float* lse, const float* delta, const float* mask,
                   void* dk, void* dv, int dtype, int B, int H, int t, int tk,
                   int d, const long long* strides, float scale, int causal,
-                  void* stream) {
+                  int tensor_cores, void* stream) {
   if (d < 1 || d > DMAX || t < 1 || tk < 1 || B * H < 1 || B * H > 65535 ||
       (causal && t > tk))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -258,12 +437,24 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* g,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (dtype == 0)
+  if (tensor_cores) {
+    const void* ptrs[] = {q, k, v, g, dk, dv};
+    if (dtype != 1 || !mma::tc_takes(d, ptrs, 6, strides, 18) ||
+        (tk + TC_BK - 1) / TC_BK > 65535)
+      return static_cast<int>(cudaErrorInvalidValue);
+    switch ((d + 31) / 32) {
+      case 1: e = launch_tc<32>(q, k, v, g, lse, delta, mask, dk, dv, B, H, t, tk, d, st, scale, causal, s); break;
+      case 2: e = launch_tc<64>(q, k, v, g, lse, delta, mask, dk, dv, B, H, t, tk, d, st, scale, causal, s); break;
+      case 3: e = launch_tc<96>(q, k, v, g, lse, delta, mask, dk, dv, B, H, t, tk, d, st, scale, causal, s); break;
+      default: e = launch_tc<128>(q, k, v, g, lse, delta, mask, dk, dv, B, H, t, tk, d, st, scale, causal, s); break;
+    }
+  } else if (dtype == 0) {
     e = launch<float>(q, k, v, g, lse, delta, mask, dk, dv, B, H, t, tk, d, st, scale, causal, s);
-  else if (dtype == 1)
+  } else if (dtype == 1) {
     e = launch<__nv_bfloat16>(q, k, v, g, lse, delta, mask, dk, dv, B, H, t, tk, d, st, scale, causal, s);
-  else
+  } else {
     e = cudaErrorInvalidValue;
+  }
   return static_cast<int>(e);
 }
 

@@ -15,8 +15,14 @@ kernels take the split-head views of the fused QKV projection as they are
 (any strides with a unit head-dim stride) and write their outputs in the
 ``[b, t, h, d]`` memory order, so neither side of a call copies.
 
+Each backward source holds two kernels: a tensor-core one (bf16,
+``mma.sync`` fed by ``ldmatrix``) and the CUDA-core one that f32 keeps as
+its exact parity path. :func:`_tensor_core_path` picks one per call from
+shape, dtype and alignment alone, before the launch; nothing falls back.
+
 ``launches``, ``dq_launches`` and ``dkv_launches`` count kernel launches
-(plain calls never count).
+(plain calls never count); ``dq_tc_launches`` and ``dkv_tc_launches``
+count the backward launches that took the tensor-core kernels.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ DKV_REPLACES = ("distributed_compute_pytorch_tpu/ops/pallas/"
 launches = 0
 dq_launches = 0
 dkv_launches = 0
+dq_tc_launches = 0
+dkv_tc_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -144,6 +152,20 @@ def _check_rows(name, lse, delta, b, h, t, dev):
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
 
 
+def _tensor_core_path(dtype, d: int, ptrs, strides) -> bool:
+    """Whether a backward call takes the tensor-core kernel: bf16, head dim
+    ``d % 8 == 0`` (at most 128), every base address in ``ptrs`` (bytes)
+    16-byte aligned and every b/h/t stride in ``strides`` (elements) a
+    multiple of 8 bf16 elements, so every row of every tile arrives in
+    whole 16-byte copies. Every bf16 call on the port's paths meets it
+    (GPT-2's head dims, the fused-QKV split-head views, the
+    ``_like_bthd`` outputs). f32 and any other bf16 call take the CUDA-core
+    kernel. A rule, decided before the launch, not a fallback."""
+    return (dtype == torch.bfloat16 and d % 8 == 0 and d <= 128
+            and all(p % 16 == 0 for p in ptrs)
+            and all(s % 8 == 0 for s in strides))
+
+
 def _like_bthd(x):
     """An uninitialised ``[b, h, t, d]`` tensor laid out ``[b, t, h, d]``
     in memory: ``merge_heads`` of it is a view, and its gradient arrives
@@ -197,7 +219,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     does; ``lse``/``delta`` contiguous f32 ``[b, h, t]``), the plain
     version on CPU tensors. ``dq`` comes back in q's dtype, laid out
     ``[b, t, h, d]`` in memory."""
-    global dq_launches
+    global dq_launches, dq_tc_launches
     _check(q, k, v, causal)
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, do, lse, delta, causal=causal,
@@ -207,17 +229,19 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     tk = k.shape[2]
     scale = d ** -0.5 if scale is None else float(scale)
     dq = _like_bthd(q)
-    lib, fn = _build.bind(DQ_NAME, "pppppppp" "iiiiiisfip")
-    strides = _build.strides_arg(*q.stride()[:3], *k.stride()[:3],
-                                 *v.stride()[:3], *do.stride()[:3],
-                                 *dq.stride()[:3])
+    lib, fn = _build.bind(DQ_NAME, "pppppppp" "iiiiiisfiip")
+    tensors = (q, k, v, do, dq)
+    strides = [s for x in tensors for s in x.stride()[:3]]
+    tc = _tensor_core_path(q.dtype, d, [x.data_ptr() for x in tensors],
+                           strides)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(),
             None if mask is None else mask.data_ptr(), dq.data_ptr(),
-            _DTYPES[q.dtype], b, h, t, tk, d, strides, scale, int(causal),
-            _build.stream_ptr(q.device))
+            _DTYPES[q.dtype], b, h, t, tk, d, _build.strides_arg(*strides),
+            scale, int(causal), int(tc), _build.stream_ptr(q.device))
     _build.check(lib, DQ_NAME, rc)
     dq_launches += 1
+    dq_tc_launches += tc
     return dq
 
 
@@ -227,7 +251,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
     on CUDA tensors (raising on what it does not take), the plain version
     on CPU tensors. Both come back in k's dtype, laid out ``[b, tk, h,
     d]`` in memory."""
-    global dkv_launches
+    global dkv_launches, dkv_tc_launches
     _check(q, k, v, causal)
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, do, lse, delta, causal=causal,
@@ -237,17 +261,20 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
     tk = k.shape[2]
     scale = d ** -0.5 if scale is None else float(scale)
     dk, dv = _like_bthd(k), _like_bthd(v)
-    lib, fn = _build.bind(DKV_NAME, "ppppppppp" "iiiiiisfip")
-    strides = _build.strides_arg(*q.stride()[:3], *k.stride()[:3],
-                                 *v.stride()[:3], *do.stride()[:3],
-                                 *dk.stride()[:3], *dv.stride()[:3])
+    lib, fn = _build.bind(DKV_NAME, "ppppppppp" "iiiiiisfiip")
+    tensors = (q, k, v, do, dk, dv)
+    strides = [s for x in tensors for s in x.stride()[:3]]
+    tc = _tensor_core_path(q.dtype, d, [x.data_ptr() for x in tensors],
+                           strides)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(),
             None if mask is None else mask.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), _DTYPES[q.dtype], b, h, t, tk, d, strides, scale,
-            int(causal), _build.stream_ptr(q.device))
+            dv.data_ptr(), _DTYPES[q.dtype], b, h, t, tk, d,
+            _build.strides_arg(*strides), scale, int(causal), int(tc),
+            _build.stream_ptr(q.device))
     _build.check(lib, DKV_NAME, rc)
     dkv_launches += 1
+    dkv_tc_launches += tc
     return dk, dv
 
 

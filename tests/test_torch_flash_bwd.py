@@ -134,3 +134,46 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="dO shape"):
         F._bwd_prepare("flash_bwd_dkv", q, q, q, q[:, :1], lse, lse, False,
                        None)
+
+
+def _bthd_grad(b, t, h, d, dtype):
+    return torch.zeros(b, t, h, d, dtype=dtype).transpose(1, 2)
+
+
+# (name, tensors of one backward call, whether the tensor-core kernel takes
+# it); built lazily so that collection allocates nothing
+_RULE_CASES = {
+    "fused_qkv_views_bf16": (lambda: [
+        *(A.split_heads(x, 3) for x in torch.zeros(
+            2, 5, 3 * 3 * 64, dtype=torch.bfloat16).split(3 * 64, dim=-1)),
+        _bthd_grad(2, 5, 3, 64, torch.bfloat16)], True),
+    "like_bthd_outputs": (lambda: [
+        F._like_bthd(torch.zeros(2, 3, 5, 64, dtype=torch.bfloat16))
+        for _ in range(4)], True),
+    "f32": (lambda: [torch.zeros(2, 3, 5, 64) for _ in range(4)], False),
+    "head_dim_20": (lambda: [torch.zeros(2, 3, 5, 20, dtype=torch.bfloat16)
+                             for _ in range(4)], False),
+    "base_off_by_one_element": (lambda: [
+        torch.zeros(2, 3, 5, 72, dtype=torch.bfloat16)[..., 1:65],
+        *(torch.zeros(2, 3, 5, 64, dtype=torch.bfloat16)
+          for _ in range(3))], False),
+    "row_stride_not_16_bytes": (lambda: [
+        torch.zeros(2, 5, 3 * 64 + 4, dtype=torch.bfloat16)[..., :3 * 64]
+        .reshape(2, 5, 3, 64).transpose(1, 2),
+        *(torch.zeros(2, 3, 5, 64, dtype=torch.bfloat16)
+          for _ in range(3))], False),
+}
+
+
+@pytest.mark.parametrize("case", list(_RULE_CASES))
+def test_tensor_core_path_rule(case):
+    """The backward's path rule on shapes, dtypes and strides alone: bf16,
+    ``d % 8 == 0``, 16-byte aligned bases and b/h/t strides take the
+    tensor-core kernels; f32, odd head dims and misaligned views the
+    CUDA-core ones."""
+    make, want = _RULE_CASES[case]
+    tensors = make()
+    ptrs = [x.data_ptr() for x in tensors]
+    strides = [s for x in tensors for s in x.stride()[:3]]
+    assert F._tensor_core_path(tensors[0].dtype, tensors[0].shape[-1], ptrs,
+                               strides) is want
