@@ -20,9 +20,11 @@ imports nothing of JAX. Phases, one JSON line each:
    with the tolerances below, and timed beside its plain version, its
    roofline bound and (where one exists) one PyTorch library call
    computing the same function. The flash forward is also timed at the
-   training shape; the flash backward must take the tensor-core kernels
-   in bf16 and the CUDA-core ones in f32, give the same bits on two
-   launches, and reports its TFLOP/s and share of its bound;
+   training shape; the flash kernels, forward and backward, must take the
+   tensor-core kernels in bf16 and the CUDA-core ones in f32, give the
+   same bits on two launches, hold each bf16 row within ``ROW_TOL`` (a
+   planted dropped key tile must fail that check), and report their
+   TFLOP/s and share of their bound;
 4. serve: GPT-2-small at full width (random weights from a fixed seed)
    through ``ContinuousBatcher.serve`` — 32 staggered requests, 16 slots,
    in bf16 and then in f32. Each kernel's launch counter is zeroed just
@@ -44,7 +46,7 @@ imports nothing of JAX. Phases, one JSON line each:
    over f32 masters, ``adamw_fused``, 20 steps on one 8 x 1024 batch
    through ``train/step.py::make_step_fns``; the counters are zeroed just
    before and read just after, and must equal 20 x (12, 12, 12, 1), with
-   every backward launch on the tensor-core kernels; the loss must fall
+   every flash launch on the tensor-core kernels; the loss must fall
    by at least 1 nat and stay finite;
 9. train_parity: f32, dropout 0, two layers at full width: the gradients
    of one step through the kernels against autograd of the dense math,
@@ -78,8 +80,10 @@ from pathlib import Path
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 # kernel vs its plain version on the same inputs. f32: only the summation
-# order differs. bf16: the plain version rounds softmax probabilities to
-# bf16 before the value product, the kernels keep them in f32.
+# order differs. bf16: the plain versions round the softmax probabilities
+# to bf16 before the value product, as the reference does; the decode
+# kernels keep them in f32; the flash forward rounds them too, but
+# unnormalised, and sums in another order.
 TOL = {"bf16": 3e-2, "f32": 1e-4}
 # teacher-forced check: each served token's logit must lie within this
 # margin of the row maximum of a dense full-sequence forward in the same
@@ -94,16 +98,19 @@ LAYERS = 12
 # are taken relative to the output's largest magnitude where that exceeds
 # 1 (TOL as above); f32 sums differ in order only.
 # That largest magnitude is set by the first few causal rows, several
-# times a late row's, so the bf16 backward is also held row by row: each
-# row's (one query of dq, one key of dk or dv) largest error over that
-# row's largest plain magnitude, floored at ROW_FLOOR of the output's RMS
-# (a row whose true value is 0, such as dq of a causal first row, holds
-# only rounding noise), must stay within ROW_TOL: about four times the
-# sound kernels' reading, one bf16 ulp of a row's largest element (2**-7).
-# A planted fault, the plain version with one 64-query x 32-key tile of
-# one head skipped, must exceed it, or the check could not see a dropped
-# tile.
+# times a late row's, so the bf16 flash kernels (forward and backward) are
+# also held row by row: each row's (one query of o or dq, one key of dk
+# or dv) largest error over that row's largest plain magnitude, floored at
+# ROW_FLOOR of the output's RMS (a row whose true value is 0, such as dq
+# of a causal first row, holds only rounding noise), must stay within
+# ROW_TOL: about four times the sound kernels' reading, one bf16 ulp of a
+# row's largest element (2**-7). A planted fault, the plain version with
+# the last 64 queries of one head skipping one 32-key tile, must exceed
+# it, or the check could not see a dropped tile.
 ROW_TOL, ROW_FLOOR = 3e-2, 1e-2
+# the flash forward's logsumexp against the plain version's: both f32 over
+# the same exact products, summed in another order with another exp
+LSE_TOL = 1e-4
 # fused AdamW, kernel against plain, relative to each buffer's largest
 # magnitude: the same f32 elementwise ops, which nvcc may contract to FMAs
 ADAMW_TOL = 1e-6
@@ -178,13 +185,69 @@ def bound(nbytes: float, flops: float, dt: str) -> tuple[float, str]:
 
 # ---- phase 3: kernels ------------------------------------------------------
 
+def flash_fault(FA, q, k, v, want, mask):
+    """The forward's planted fault: ``want`` with the last 64 query rows of
+    (batch 0, head 0) from the plain version with the 32 keys [lo, lo + 32)
+    refused, as a kernel that dropped that tile of their walk would give."""
+    t, tk = q.shape[2], k.shape[2]
+    lo, qs = 32 * (tk // 64), slice(max(t - 64, 0), t)
+    keep = want.new_ones(1, tk).float() if mask is None else mask[:1].clone()
+    keep[:, lo:lo + 32] = 0
+    fault = want.float().clone()
+    fault[0, 0, qs] = FA.flash_attention_plain(
+        q[:1, :1, qs], k[:1, :1], v[:1, :1], causal=True,
+        kv_mask=keep)[0, 0].float()
+    return fault
+
+
 def check_flash(torch, np, FA, dtype, dt):
     """Admission prefill shapes: 8 rows x 12 heads x t = tk = 256 x 64,
     causal with a ragged pad mask (split-head views of a fused QKV, as the
-    model passes them), plus a t = 64, tk = 320 bottom-right offset case."""
+    model passes them), plus a t = 64, tk = 320 bottom-right offset case,
+    and the training shape [8, 12, 1024, 64] causal. bf16 must take the
+    tensor-core kernel and f32 the CUDA-core one (``_tensor_core_path``),
+    a second launch must give the same bits, and ``lse`` must agree with
+    the plain version's to LSE_TOL. In bf16 the output is also held row by
+    row (``row_err``, ROW_TOL), and the planted fault (``flash_fault``)
+    must fail that check."""
     import torch.nn.functional as F
     gen = torch.Generator().manual_seed(1)
-    out = {}
+    out = {"path": "tensor cores" if dt == "bf16" else "CUDA cores"}
+
+    def check(case, q, k, v, mask):
+        kw = {"causal": True, "kv_mask": mask}
+        tc0 = FA.tc_launches
+        got, lse = FA.flash_fwd(q, k, v, **kw)
+        tc = FA.tc_launches - tc0
+        want_tc = 1 if dt == "bf16" else 0
+        require(tc == want_tc, f"flash {case} {dt}: tensor-core launches "
+                               f"{tc}, want {want_tc}")
+        again, lse_again = FA.flash_fwd(q, k, v, **kw)
+        want, lse_want = FA.flash_fwd_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        require(torch.equal(got, again) and torch.equal(lse, lse_again),
+                f"flash {case} {dt}: two launches gave different bits")
+        require(bool(torch.isfinite(got).all()) and bool(
+            torch.isfinite(lse).all()), f"flash {case} {dt}: non-finite")
+        err = (got.float() - want.float()).abs().max().item()
+        require(err <= TOL[dt], f"flash {case} {dt}: max err {err} > "
+                                f"{TOL[dt]}")
+        lse_err = (lse - lse_want).abs().max().item()
+        require(lse_err <= LSE_TOL, f"flash {case} {dt}: lse err {lse_err} "
+                                    f"> {LSE_TOL}")
+        out[f"{case}_max_abs_err"] = err
+        out[f"{case}_lse_max_abs_err"] = lse_err
+        out[f"{case}_tensor_core_launches"] = tc
+        out[f"{case}_bit_identical"] = True
+        if dt == "bf16":
+            r = row_err(got, want)
+            f = row_err(flash_fault(FA, q, k, v, want, mask), want)
+            require(r <= ROW_TOL, f"flash {case}: row error {r} > {ROW_TOL}")
+            require(f > ROW_TOL, f"flash {case}: the planted fault's row "
+                                 f"error {f} <= {ROW_TOL}: the row check "
+                                 f"cannot see a dropped key tile")
+            out[f"{case}_row_err"], out[f"{case}_fault_row_err"] = r, f
+
     for case, (b, t, tk) in (("prefill", (8, 256, 256)),
                              ("offset", (4, 64, 320))):
         h, d = 12, 64
@@ -195,15 +258,7 @@ def check_flash(torch, np, FA, dtype, dt):
         lengths = torch.randint(tk // 8, tk + 1, (b,), generator=gen)
         lengths[0] = tk
         mask = (torch.arange(tk)[None] < lengths[:, None]).float().cuda()
-        got, lse = FA.flash_fwd(q, k, v, causal=True, kv_mask=mask)
-        want = FA.flash_attention_plain(q, k, v, causal=True, kv_mask=mask)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        require(bool(torch.isfinite(got).all()) and bool(
-            torch.isfinite(lse).all()), f"flash {case} {dt}: non-finite")
-        require(err <= TOL[dt], f"flash {case} {dt}: max err {err} > "
-                                f"{TOL[dt]}")
-        out[f"{case}_max_abs_err"] = err
+        check(case, q, k, v, mask)
         if case != "prefill":
             continue
         # data-dependent work: (query, key) pairs the causal rule AND the
@@ -217,9 +272,12 @@ def check_flash(torch, np, FA, dtype, dt):
         esz = q.element_size()
         nbytes = esz * (2 * b * h * t * d + 2 * h * d * int(lengths.sum())) \
             + 4 * b * tk + 4 * b * h * t
+        out["gflop"] = 4 * d * pairs / 1e9
         out["bound_ms"], out["bound_by"] = bound(nbytes, 4 * d * pairs, dt)
         out["ms"] = time_ms(torch, [lambda: FA.flash_fwd(
             q, k, v, causal=True, kv_mask=mask)])
+        out["tflops"] = out["gflop"] / out["ms"]
+        out["bound_share"] = out["bound_ms"] / out["ms"]
         out["plain_ms"] = time_ms(torch, [lambda: FA.flash_attention_plain(
             q, k, v, causal=True, kv_mask=mask)])
         allowed = (keys <= rows)[None, None] & (
@@ -235,27 +293,26 @@ def check_flash(torch, np, FA, dtype, dt):
     qkv = torch.randn(b, t, 3 * h * d, generator=gen).to("cuda", dtype)
     q, k, v = (x.reshape(b, t, h, d).transpose(1, 2)
                for x in qkv.split(h * d, dim=-1))
-    got, lse = FA.flash_fwd(q, k, v, causal=True)
-    want = FA.flash_attention_plain(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    require(bool(torch.isfinite(got).all()) and bool(
-        torch.isfinite(lse).all()), f"flash train {dt}: non-finite")
-    require(err <= TOL[dt], f"flash train {dt}: max err {err} > {TOL[dt]}")
-    del want
-    out["train_max_abs_err"] = err
+    check("train", q, k, v, None)
     # q, k, v read and o written once, the f32 lse written; causal pairs
     pairs = b * h * t * (t + 1) // 2
     nbytes = q.element_size() * 4 * b * h * t * d + 4 * b * h * t
+    out["train_gflop"] = 4 * d * pairs / 1e9
     out["train_bound_ms"], out["train_bound_by"] = bound(nbytes, 4 * d * pairs,
                                                          dt)
     out["train_ms"] = time_ms(torch, [lambda: FA.flash_fwd(
         q, k, v, causal=True)])
+    out["train_tflops"] = out["train_gflop"] / out["train_ms"]
+    out["train_bound_share"] = out["train_bound_ms"] / out["train_ms"]
     out["train_library_ms"] = time_ms(torch, [
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)])
     out["train_shape"] = f"q, k, v [{b}, {h}, {t}, {d}] causal, fused-QKV views"
-    out["max_abs_err"] = max(out["prefill_max_abs_err"],
-                             out["offset_max_abs_err"], err)
+    cases = ("prefill", "offset", "train")
+    out["max_abs_err"] = max(out[f"{c}_max_abs_err"] for c in cases)
+    out["lse_max_abs_err"] = max(out[f"{c}_lse_max_abs_err"] for c in cases)
+    if dt == "bf16":
+        out["row_err"] = max(out[f"{c}_row_err"] for c in cases)
+        out["fault_row_err"] = min(out[f"{c}_fault_row_err"] for c in cases)
     return out
 
 
@@ -771,13 +828,14 @@ def serve_phase(torch, np, mods, model, dt):
     cb.serve(reqs[:2])     # warm-up: the library handles' first calls
     waves0, ticks0 = cb.stats["prefill_calls"], cb.ticks
     torch.cuda.synchronize()
-    FA.launches = CU.launches = DA.launches = 0
+    FA.launches = FA.tc_launches = CU.launches = DA.launches = 0
     t0 = time.monotonic()
     outs = cb.serve(reqs)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {"flash_fwd": FA.launches, "kv_pool_insert": CU.launches,
                 "paged_decode": DA.launches}
+    tc = FA.tc_launches
     waves, ticks = cb.stats["prefill_calls"] - waves0, cb.ticks - ticks0
     want = {"flash_fwd": LAYERS * waves,
             "kv_pool_insert": LAYERS * (waves + ticks),
@@ -786,6 +844,11 @@ def serve_phase(torch, np, mods, model, dt):
             f"serve {dt}: a kernel of the path never launched: {launches}")
     require(launches == want, f"serve {dt}: launches {launches} != the "
                               f"schedule's {want}")
+    # bf16 on GPT-2's aligned fused-QKV views: every forward launch on the
+    # tensor cores; f32 none
+    want_tc = launches["flash_fwd"] if dt == "bf16" else 0
+    require(tc == want_tc, f"serve {dt}: flash_fwd tensor-core launches "
+                           f"{tc}, want {want_tc}")
     require(all(len(o) == r.max_new for o, r in zip(outs, reqs)),
             f"serve {dt}: a request returned fewer than max_new tokens")
     require(cb.last_block_leaks == 0 and cb.last_slot_leaks == 0,
@@ -817,7 +880,8 @@ def serve_phase(torch, np, mods, model, dt):
         "median_ttft_s": ttft[len(ttft) // 2], "max_ttft_s": ttft[-1],
         "wall_ms_per_tick": 1e3 * wall / ticks, "ticks": ticks,
         "admission_waves": waves,
-        "launches": launches, "teacher_forced_worst_gap": worst,
+        "launches": launches, "flash_fwd_tensor_core_launches": tc,
+        "teacher_forced_worst_gap": worst,
         "teacher_forced_mean_gap": gaps.mean().item(),
         "margin": MARGIN[dt],
     }
@@ -827,11 +891,12 @@ def serve_phase(torch, np, mods, model, dt):
 # file is named otherwise
 EXACT = ("kv_pool_insert", "cache_insert", "kv_insert", "kv_insert_rows")
 # per-kernel fields the kernels line carries where a check records them:
-# the flash backward's rate, share of its bound and path; the flash
-# forward at the training shape
+# the flash kernels' rate, share of their bound, path and row errors; the
+# flash forward at the training shape and its lse
 KERNEL_EXTRAS = ("tflops", "bound_share", "path", "train_ms",
-                 "train_bound_ms", "train_library_ms", "row_err",
-                 "fault_row_err")
+                 "train_bound_ms", "train_library_ms", "train_tflops",
+                 "train_bound_share", "row_err", "fault_row_err",
+                 "lse_max_abs_err")
 SOURCES = {"cache_insert": "kv_insert", "kv_insert_rows": "kv_insert"}
 KERNEL_NAMES = ("flash_fwd", "kv_pool_insert", "paged_decode",
                 "flash_bwd_dq", "flash_bwd_dkv", "fused_adamw", "kv_insert",
@@ -916,7 +981,8 @@ def gen_counts(FA, CU, DA) -> dict:
 
 
 def zero_gen_counts(FA, CU, DA) -> None:
-    FA.launches = CU.launches = DA.launches = DA.dense_launches = 0
+    FA.launches = FA.tc_launches = CU.launches = DA.launches = 0
+    DA.dense_launches = 0
     CU.kv_insert_launches = CU.kv_insert_rows_launches = 0
     CU.cache_insert_launches = 0
 
@@ -972,6 +1038,10 @@ def generate_phase(torch, np, infer, mods, model, dt):
             "cache_insert": 0, "paged_decode": 0, "kv_pool_insert": 0}
     require(launches == want, f"generate {dt}: launches {launches} != the "
                               f"schedule's {want}")
+    tc = FA.tc_launches
+    want_tc = LAYERS if dt == "bf16" else 0
+    require(tc == want_tc, f"generate {dt}: flash_fwd tensor-core launches "
+                           f"{tc}, want {want_tc}")
     out = out.cpu()
     require(tuple(out.shape) == (GEN_ROWS, T0 + GEN_NEW)
             and torch.equal(out[:, :T0], prompt.cpu()),
@@ -993,7 +1063,8 @@ def generate_phase(torch, np, infer, mods, model, dt):
         "first_token_ms": prefill_ms,
         "ms_per_tick": (1e3 * wall - prefill_ms) / ticks, "ticks": ticks,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches, "teacher_forced_worst_gap": worst,
+        "launches": launches, "flash_fwd_tensor_core_launches": tc,
+        "teacher_forced_worst_gap": worst,
         "teacher_forced_mean_gap": gaps.mean().item(), "margin": MARGIN[dt],
     }, (lens, prompt, mask, out)
 
@@ -1074,11 +1145,11 @@ def train_counts(FA, FAW) -> dict:
 
 def zero_train_counts(FA, FAW) -> None:
     FA.launches = FA.dq_launches = FA.dkv_launches = FAW.launches = 0
-    FA.dq_tc_launches = FA.dkv_tc_launches = 0
+    FA.tc_launches = FA.dq_tc_launches = FA.dkv_tc_launches = 0
 
 
 def tc_counts(FA) -> dict:
-    return {"flash_bwd_dq": FA.dq_tc_launches,
+    return {"flash_fwd": FA.tc_launches, "flash_bwd_dq": FA.dq_tc_launches,
             "flash_bwd_dkv": FA.dkv_tc_launches}
 
 
@@ -1122,8 +1193,8 @@ def train_phase(torch, np, tm, FA, FAW, GPT2Config):
                 "flash_bwd_dkv": LAYERS, "fused_adamw": 1}
     want = {k: TRAIN_STEPS * n for k, n in per_step.items()}
     require(launches == want, f"train: launches {launches} != {want}")
-    # bf16 on GPT-2's aligned fused-QKV views: every backward launch on
-    # the tensor cores
+    # bf16 on GPT-2's aligned fused-QKV views: every flash launch on the
+    # tensor cores
     want_tc = {k: TRAIN_STEPS * LAYERS for k in tc}
     require(tc == want_tc, f"train: tensor-core launches {tc} != {want_tc}")
     require(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
@@ -1183,7 +1254,7 @@ def parity_phase(torch, np, tm, A, FA, FAW, GPT2Config):
                     dst.copy_(src)
     launches, tc = train_counts(FA, FAW), tc_counts(FA)
     require(not any(tc.values()), f"train_parity: f32 took the tensor-core "
-                                  f"backward: {tc}")
+                                  f"flash kernels: {tc}")
     worst = max(grad_errs, key=grad_errs.get)
     require(grad_errs[worst] <= GRAD_TOL,
             f"train_parity: gradient of {worst} off by "

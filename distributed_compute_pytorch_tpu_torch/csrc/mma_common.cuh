@@ -1,5 +1,5 @@
-// Shared device code of the two tensor-core flash backward kernels
-// (flash_bwd_dq.cu, flash_bwd_dkv.cu), Hopper (sm_90a): bf16 tiles streamed
+// Shared device code of the tensor-core flash kernels (flash_fwd.cu,
+// flash_bwd_dq.cu, flash_bwd_dkv.cu), Hopper (sm_90a): bf16 tiles streamed
 // into shared memory with cp.async, read into mma.sync fragments with
 // ldmatrix, multiplied on the tensor cores with f32 accumulation.
 //
@@ -216,6 +216,35 @@ __device__ __forceinline__ void mma_abt(float (&c)[NBLK][4],
       ldsm_b_nk<RS>(b, b_tile, j * 8, k);
       mma_bf16(c[j], a, b[0], b[1]);
       mma_bf16(c[j + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// The A fragments of rows row0 .. row0 + 15 of a 16 x DP tile, one per k16
+// step, to hold in registers across many products (mma_abt_regs).
+template <int DP, int RS>
+__device__ __forceinline__ void ldsm_a_rows(uint32_t (&a)[DP / 16][4],
+                                            const __nv_bfloat16* tile,
+                                            int row0) {
+#pragma unroll
+  for (int k = 0; k < DP / 16; ++k) ldsm_a<RS>(a[k], tile, row0, k * 16);
+}
+
+// mma_abt with the left operand's A fragments already in registers.
+template <int NBLK, int DP, int RS>
+__device__ __forceinline__ void mma_abt_regs(float (&c)[NBLK][4],
+                                             const uint32_t (&a)[DP / 16][4],
+                                             const __nv_bfloat16* b_tile) {
+#pragma unroll
+  for (int j = 0; j < NBLK; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+#pragma unroll
+  for (int k = 0; k < DP / 16; ++k) {
+#pragma unroll
+    for (int j = 0; j < NBLK; j += 2) {
+      uint32_t b[4];
+      ldsm_b_nk<RS>(b, b_tile, j * 8, k * 16);
+      mma_bf16(c[j], a[k], b[0], b[1]);
+      mma_bf16(c[j + 1], a[k], b[2], b[3]);
     }
   }
 }

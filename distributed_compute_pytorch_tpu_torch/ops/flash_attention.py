@@ -15,14 +15,14 @@ kernels take the split-head views of the fused QKV projection as they are
 (any strides with a unit head-dim stride) and write their outputs in the
 ``[b, t, h, d]`` memory order, so neither side of a call copies.
 
-Each backward source holds two kernels: a tensor-core one (bf16,
-``mma.sync`` fed by ``ldmatrix``) and the CUDA-core one that f32 keeps as
-its exact parity path. :func:`_tensor_core_path` picks one per call from
-shape, dtype and alignment alone, before the launch; nothing falls back.
+Each source holds two kernels: a tensor-core one (bf16, ``mma.sync`` fed
+by ``ldmatrix``) and the CUDA-core one that f32 keeps as its exact parity
+path. :func:`_tensor_core_path` picks one per call from shape, dtype and
+alignment alone, before the launch; nothing falls back.
 
 ``launches``, ``dq_launches`` and ``dkv_launches`` count kernel launches
-(plain calls never count); ``dq_tc_launches`` and ``dkv_tc_launches``
-count the backward launches that took the tensor-core kernels.
+(plain calls never count); ``tc_launches``, ``dq_tc_launches`` and
+``dkv_tc_launches`` count the launches that took the tensor-core kernels.
 """
 
 from __future__ import annotations
@@ -42,6 +42,7 @@ DKV_NAME = "flash_bwd_dkv"
 DKV_REPLACES = ("distributed_compute_pytorch_tpu/ops/pallas/"
                 "flash_attention.py:245")
 launches = 0
+tc_launches = 0
 dq_launches = 0
 dkv_launches = 0
 dq_tc_launches = 0
@@ -153,7 +154,7 @@ def _check_rows(name, lse, delta, b, h, t, dev):
 
 
 def _tensor_core_path(dtype, d: int, ptrs, strides) -> bool:
-    """Whether a backward call takes the tensor-core kernel: bf16, head dim
+    """Whether a call takes the tensor-core kernel: bf16, head dim
     ``d % 8 == 0`` (at most 128), every base address in ``ptrs`` (bytes)
     16-byte aligned and every b/h/t stride in ``strides`` (elements) a
     multiple of 8 bf16 elements, so every row of every tile arrives in
@@ -180,8 +181,10 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale: float | None = None,
     """Launch the forward kernel: returns ``(o [b, h, t, d], lse f32 [b,
     h, t])``. Raises on anything the kernel does not take: non-CUDA or
     mixed devices, dtypes other than f32/bf16 or mixed, a head dim above
-    128 or without unit stride, causal ``t > tk``."""
-    global launches
+    128 or without unit stride, causal ``t > tk``. A call that meets
+    :func:`_tensor_core_path` takes the tensor-core kernel (counted in
+    ``tc_launches``), any other the CUDA-core one."""
+    global launches, tc_launches
     _check(q, k, v, causal)
     b, h, t, d = q.shape
     tk = k.shape[2]
@@ -190,15 +193,18 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale: float | None = None,
     dev = q.device
     o = _like_bthd(q)
     lse = torch.empty(b, h, t, dtype=torch.float32, device=dev)
-    lib, fn = _build.bind(NAME, "ppppppiiiiiisfip")
-    strides = _build.strides_arg(*q.stride()[:3], *k.stride()[:3],
-                                 *v.stride()[:3], *o.stride()[:3])
+    lib, fn = _build.bind(NAME, "ppppppiiiiiisfiip")
+    tensors = (q, k, v, o)
+    strides = [s for x in tensors for s in x.stride()[:3]]
+    tc = _tensor_core_path(q.dtype, d, [x.data_ptr() for x in tensors],
+                           strides)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), None if mask is None else mask.data_ptr(),
-            _DTYPES[q.dtype], b, h, t, tk, d, strides, scale, int(causal),
-            _build.stream_ptr(dev))
+            _DTYPES[q.dtype], b, h, t, tk, d, _build.strides_arg(*strides),
+            scale, int(causal), int(tc), _build.stream_ptr(dev))
     _build.check(lib, NAME, rc)
     launches += 1
+    tc_launches += tc
     return o, lse
 
 

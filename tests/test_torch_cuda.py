@@ -8,13 +8,17 @@ JAX set-up, so the card's machine runs it on its own:
 The shapes are small and ragged on purpose (odd lengths, head dims 32 to
 128, GQA, parked rows, positions past the horizon): ``chip_smoke.py``
 covers the serving and training shapes. Tolerances: f32 2e-5 (the kernel
-sums in another order); bf16 3e-2 (the plain version rounds the softmax
-probabilities to bf16 before the value product, the kernel keeps f32; the
-bf16 backward runs on the tensor cores and rounds p and ds to bf16 before
+sums in another order); bf16 3e-2: the decode kernels, and the flash
+forward's CUDA-core kernel, keep the softmax probabilities in f32 where
+the plain version rounds them to bf16 before the value product; the bf16
+flash forward on the tensor cores rounds them too, but unnormalised, and
+sums in another order; the bf16
+backward runs on the tensor cores and rounds p and ds to bf16 before
 their products, where the plain version keeps f32, and its outputs are
 rounded to bf16 from f32 sums taken in another order, so its error is
-taken relative to the output's largest magnitude where that exceeds 1,
-and row by row relative to each row's own, ``ROW_TOL``).
+taken relative to the output's largest magnitude where that exceeds 1.
+The bf16 flash kernels are also held row by row, relative to each row's
+own magnitude (``ROW_TOL``).
 """
 
 import numpy as np
@@ -37,32 +41,81 @@ def _randn(gen, *shape, dtype, dev):
     return torch.randn(*shape, generator=gen).to(dtype=dtype, device=dev)
 
 
+def _rel_err(got, want):
+    """Max abs error over the larger of 1 and the reference's max abs."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp(min=1.0)).item()
+
+
+# the bf16 flash kernels, row by row (``_row_err``): the first causal rows
+# set the output's largest magnitude, several times a late row's, so
+# ``_rel_err`` alone would pass a fault confined to late rows or one tile;
+# about four times a one-ulp disagreement at a row's largest element
+ROW_TOL = 3e-2
+
+
+def _row_err(got, want):
+    """The largest, over rows (the last axis), of a row's max abs error
+    over that row's max abs reference, the latter floored at 1e-2 of the
+    reference's RMS (a row whose true value is 0, such as dq of a causal
+    first row, holds only rounding noise)."""
+    want = want.float()
+    floor = 1e-2 * want.square().mean().sqrt().item()
+    return ((got.float() - want).abs().amax(-1)
+            / want.abs().amax(-1).clamp(min=floor)).max().item()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,t,tk,d,causal,masked", [
-    (2, 3, 17, 17, 64, True, True),
-    (1, 2, 5, 70, 32, True, False),
-    (2, 1, 1, 9, 128, True, True),
-    (3, 2, 19, 33, 80, False, True),
-    (1, 4, 40, 40, 64, False, False),
+@pytest.mark.parametrize("b,h,t,tk,d,causal,masked,padded", [
+    (2, 3, 17, 17, 64, True, True, False),
+    (1, 2, 5, 70, 32, True, False, False),
+    (2, 1, 1, 9, 128, True, True, False),
+    (3, 2, 19, 33, 80, False, True, False),
+    (1, 4, 40, 40, 64, False, False, False),
+    (2, 2, 150, 150, 128, True, False, False),
+    (2, 3, 100, 230, 64, True, True, False),
+    (2, 3, 90, 130, 20, True, True, False),
+    (2, 3, 45, 45, 64, True, True, True),
 ])
-def test_flash_fwd_matches_plain(dev, dtype, b, h, t, tk, d, causal, masked):
+def test_flash_fwd_matches_plain(dev, dtype, b, h, t, tk, d, causal, masked,
+                                 padded):
+    """bf16 calls that meet the rule (head dim a multiple of 8, 16-byte
+    aligned bases and strides) take the tensor-core kernel; f32, bf16 at
+    d = 20 and, with ``padded`` (t == tk), split-head views of a fused QKV
+    behind 4 elements of padding (base and row stride off 16 bytes) take
+    the CUDA-core one: the counters say which. A second launch gives the
+    same bits."""
+    from distributed_compute_pytorch_tpu_torch.ops import attention as A
     from distributed_compute_pytorch_tpu_torch.ops import flash_attention as F
     gen = torch.Generator().manual_seed(0)
-    q = _randn(gen, b, h, t, d, dtype=dtype, dev=dev)
-    k = _randn(gen, b, h, tk, d, dtype=dtype, dev=dev)
-    v = _randn(gen, b, h, tk, d, dtype=dtype, dev=dev)
+    if padded:
+        qkv = _randn(gen, b, t, 4 + 3 * h * d, dtype=dtype, dev=dev)
+        q, k, v = (A.split_heads(x, h)
+                   for x in qkv[..., 4:].split(h * d, dim=-1))
+    else:
+        q = _randn(gen, b, h, t, d, dtype=dtype, dev=dev)
+        k = _randn(gen, b, h, tk, d, dtype=dtype, dev=dev)
+        v = _randn(gen, b, h, tk, d, dtype=dtype, dev=dev)
     mask = None
     if masked:
         lengths = torch.randint(1, tk + 1, (b,), generator=gen)
         mask = (torch.arange(tk)[None] < lengths[:, None]).float().to(dev)
-    before = F.launches
+    before = (F.launches, F.tc_launches)
     got, lse = F.flash_fwd(q, k, v, causal=causal, kv_mask=mask)
     torch.cuda.synchronize()
-    assert F.launches == before + 1
-    want = F.flash_attention_plain(q, k, v, causal=causal, kv_mask=mask)
+    tc = int(dtype == torch.bfloat16 and d % 8 == 0 and not padded)
+    assert (F.launches - before[0], F.tc_launches - before[1]) == (1, tc)
+    want, lse_want = F.flash_fwd_plain(q, k, v, causal=causal, kv_mask=mask)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+    if dtype == torch.bfloat16:
+        assert _row_err(got, want) <= ROW_TOL
     assert torch.isfinite(lse).all()
+    torch.testing.assert_close(lse, lse_want, atol=2e-5, rtol=2e-5)
+    again, lse_again = F.flash_fwd(q, k, v, causal=causal, kv_mask=mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(lse, lse_again)
 
 
 def test_flash_fwd_takes_split_head_views(dev):
@@ -155,31 +208,6 @@ def test_tiny_serve_on_card_matches_cpu(dev):
 
 
 # ---- slice 2: the flash backward, fused AdamW and a train step ----------
-
-def _rel_err(got, want):
-    """Max abs error over the larger of 1 and the reference's max abs."""
-    want = want.float()
-    return ((got.float() - want).abs().max()
-            / want.abs().max().clamp(min=1.0)).item()
-
-
-# the bf16 backward, row by row (``_row_err``): the first causal rows set
-# the output's largest magnitude, several times a late row's, so
-# ``_rel_err`` alone would pass a fault confined to late rows or one tile;
-# about four times a one-ulp disagreement at a row's largest element
-ROW_TOL = 3e-2
-
-
-def _row_err(got, want):
-    """The largest, over rows (the last axis), of a row's max abs error
-    over that row's max abs reference, the latter floored at 1e-2 of the
-    reference's RMS (a row whose true value is 0, such as dq of a causal
-    first row, holds only rounding noise)."""
-    want = want.float()
-    floor = 1e-2 * want.square().mean().sqrt().item()
-    return ((got.float() - want).abs().amax(-1)
-            / want.abs().amax(-1).clamp(min=floor)).max().item()
-
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,t,tk,d,causal,masked,views", [

@@ -140,8 +140,20 @@ def _bthd_grad(b, t, h, d, dtype):
     return torch.zeros(b, t, h, d, dtype=dtype).transpose(1, 2)
 
 
-# (name, tensors of one backward call, whether the tensor-core kernel takes
-# it); built lazily so that collection allocates nothing
+def _fwd_operands(dtype=torch.bfloat16, d=64, qkv_pad=0, q_offset=0):
+    """q, k, v as split-head views of one fused QKV ``[2, 5, 3 * 3 * d +
+    qkv_pad]`` (q starting ``q_offset`` elements in) and the ``_like_bthd``
+    output: the operands of one forward call."""
+    qkv = torch.zeros(2, 5, 3 * 3 * d + qkv_pad, dtype=dtype)
+    q, k, v = (A.split_heads(qkv[..., i * 3 * d:(i + 1) * 3 * d], 3)
+               for i in range(3))
+    if q_offset:
+        q = A.split_heads(qkv[..., q_offset:q_offset + 3 * d], 3)
+    return [q, k, v, F._like_bthd(q)]
+
+
+# (name, tensors of one backward or forward call, whether the tensor-core
+# kernel takes it); built lazily so that collection allocates nothing
 _RULE_CASES = {
     "fused_qkv_views_bf16": (lambda: [
         *(A.split_heads(x, 3) for x in torch.zeros(
@@ -162,15 +174,23 @@ _RULE_CASES = {
         .reshape(2, 5, 3, 64).transpose(1, 2),
         *(torch.zeros(2, 3, 5, 64, dtype=torch.bfloat16)
           for _ in range(3))], False),
+    "fwd_fused_qkv_views_bf16": (_fwd_operands, True),
+    "fwd_f32": (lambda: _fwd_operands(torch.float32), False),
+    "fwd_head_dim_20": (lambda: _fwd_operands(d=20), False),
+    "fwd_base_off_by_one_element": (lambda: _fwd_operands(q_offset=1),
+                                    False),
+    "fwd_row_stride_not_16_bytes": (lambda: _fwd_operands(qkv_pad=4),
+                                    False),
 }
 
 
 @pytest.mark.parametrize("case", list(_RULE_CASES))
 def test_tensor_core_path_rule(case):
-    """The backward's path rule on shapes, dtypes and strides alone: bf16,
-    ``d % 8 == 0``, 16-byte aligned bases and b/h/t strides take the
-    tensor-core kernels; f32, odd head dims and misaligned views the
-    CUDA-core ones."""
+    """The path rule on shapes, dtypes and strides alone, for the
+    backward's operands and the forward's (q, k, v and the ``_like_bthd``
+    output): bf16, ``d % 8 == 0``, 16-byte aligned bases and b/h/t strides
+    take the tensor-core kernels; f32, odd head dims and misaligned views
+    the CUDA-core ones."""
     make, want = _RULE_CASES[case]
     tensors = make()
     ptrs = [x.data_ptr() for x in tensors]

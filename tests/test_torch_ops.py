@@ -22,14 +22,14 @@ from distributed_compute_pytorch_tpu.ops.attention import (
 from distributed_compute_pytorch_tpu.ops.pallas.cache_update import (
     _pool_scatter, kv_pool_insert_rows_pallas)
 from distributed_compute_pytorch_tpu.ops.pallas.flash_attention import (
-    flash_attention as jax_flash_attention)
+    _flash_fwd, flash_attention as jax_flash_attention)
 from distributed_compute_pytorch_tpu_torch.ops import attention as A
 from distributed_compute_pytorch_tpu_torch.ops.cache_update import (
     kv_pool_insert, kv_pool_insert_plain)
 from distributed_compute_pytorch_tpu_torch.ops.decode_attention import (
     paged_decode_attention, paged_decode_plain)
 from distributed_compute_pytorch_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_plain, flash_fwd_plain)
 
 TOL = 1e-5   # f32, both sides: only the summation order differs
 
@@ -75,6 +75,57 @@ def test_flash_plain_matches_jax_flash(causal, t, tk, lengths):
     _close(flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                            torch.from_numpy(v), causal=causal, kv_mask=tm),
            want)
+
+
+# bf16: both sides round the softmax weights to bf16 before the value
+# product, the JAX kernel the running unnormalised ones, the plain version
+# the normalised ones, and each rounds its output to bf16. Measured over
+# four seeds: 7.8e-3 at most, one bf16 ulp of outputs in [1, 2); the limit
+# (atol + rtol * |want|) allows about two. lse comes from the same exact
+# bf16 products summed in f32 in another order: 4.8e-7 measured.
+BF16_O_TOL, BF16_LSE_TOL = 8e-3, 1e-5
+
+
+@pytest.mark.parametrize("causal,t,tk,lengths,dtype", [
+    (True, 32, 32, None, "float32"),           # causal square
+    (True, 16, 48, None, "float32"),           # causal t < tk: offset 32
+    (True, 32, 32, (32, 11), "float32"),       # causal + ragged kv_mask
+    (False, 16, 32, (32, 5), "float32"),       # non-causal + kv_mask
+    (True, 32, 48, (48, 20), "bfloat16"),      # offset + mask, in bf16
+], ids=["causal", "causal_offset", "causal_masked", "masked",
+        "causal_offset_masked_bf16"])
+def test_flash_fwd_plain_lse_matches_jax_flash_fwd(causal, t, tk, lengths,
+                                                   dtype):
+    """``flash_fwd_plain``'s output and logsumexp (the residual the
+    backward kernels read) against the JAX ``_flash_fwd``, its Pallas
+    ``_fwd_kernel`` in interpret mode, at 16 x 16 blocks with the kv mask
+    as ``[B, 1, tk]``."""
+    rng = np.random.default_rng(1)
+    b, h, d = 2, 2, 16
+    q, k, v = _randn(rng, b, h, t, d), _randn(rng, b, h, tk, d), \
+        _randn(rng, b, h, tk, d)
+    mask = None
+    if lengths is not None:
+        mask = (np.arange(tk)[None, :] < np.asarray(lengths)[:, None]
+                ).astype(np.float32)
+    scale = d ** -0.5
+    jq, jk, jv = (jnp.asarray(x.reshape(b * h, -1, d), dtype=dtype)
+                  for x in (q, k, v))
+    o_want, lse_want = _flash_fwd(
+        jq, jk, jv, None if mask is None else jnp.asarray(mask[:, None]),
+        h, scale, causal, tk - t if causal else 0, 16, 16)
+    tq, tk_, tv = (torch.from_numpy(x).to(getattr(torch, dtype))
+                   for x in (q, k, v))
+    o_got, lse_got = flash_fwd_plain(
+        tq, tk_, tv, causal=causal,
+        kv_mask=None if mask is None else torch.from_numpy(mask))
+    assert o_got.dtype == getattr(torch, dtype)
+    assert lse_got.dtype == torch.float32
+    o_tol = TOL if dtype == "float32" else BF16_O_TOL
+    lse_tol = TOL if dtype == "float32" else BF16_LSE_TOL
+    _close(o_got.float().reshape(b * h, t, d),
+           np.asarray(o_want.astype(jnp.float32)), o_tol)
+    _close(lse_got.reshape(b * h, t, 1), np.asarray(lse_want), lse_tol)
 
 
 def test_flash_rejects_causal_q_longer_than_kv():
