@@ -19,7 +19,11 @@ imports nothing of JAX. Phases, one JSON line each:
    fused AdamW; generation for the dense writes and the dense decode),
    with the tolerances below, and timed beside its plain version, its
    roofline bound and (where one exists) one PyTorch library call
-   computing the same function. The flash forward is also timed at the
+   computing the same function. The int8 forms of the four slot writes
+   (quantizing as they write, exact against ``quantize_kv`` then the
+   indexed writes) and of the two decode reads (to TOL, and row by row to
+   ``ROW_TOL`` in bf16) at the same shapes. The flash forward is also
+   timed at the
    training shape; the flash kernels, forward and backward, must take the
    tensor-core kernels in bf16 and the CUDA-core ones in f32, give the
    same bits on two launches, hold each bf16 row within ``ROW_TOL`` (a
@@ -42,23 +46,43 @@ imports nothing of JAX. Phases, one JSON line each:
    run repeated with the same generator seed must repeat its tokens, and
    ``temperature=1, top_k=1`` must give the greedy tokens;
 7. generate_profile: the bf16 generate once more under ``torch.profiler``;
-8. train: GPT-2-small at full width and depth (dropout 0.1), bf16 compute
+8. the int8 KV cells, after the float ones:
+   serve_int8: the serve phase's 32 requests in bf16 on the int8 KV pool
+   (``kv_dtype="int8"``) beside the bf16 float pool, in turns (float,
+   int8, int8, float). The first run of each pool is one whole
+   ``serve`` call under ``torch.cuda.set_sync_debug_mode("error")``: no
+   host-to-device copy may wait for the card (the harvest's own wait,
+   ``serve._Fetch.result``, is the one allowed sync), and the float
+   pool's tokens must equal the serve phase's. The first int8 run
+   is counted (int8 ``kv_pool_insert`` 12 x (waves + ticks), int8
+   ``paged_decode`` 12 x ticks, ``flash_fwd`` 12 x waves, every other
+   counter 0) and checked teacher-forced, the decoded rows against
+   quantized K/V; tokens/s of each run, device busy (one profiled run of
+   each pool), both pools' bytes and the share of positions where the
+   int8 pool served the float pool's token;
+   generate_int8: the generate phase's 16 prompts with ``kv_quant=True``
+   beside the float cache in turns: int8 ``kv_insert`` and
+   ``dense_decode`` 12 x 127, ``flash_fwd`` 12, every other counter 0;
+   teacher-forced, the rows past each prompt against quantized K/V;
+   tokens/s and both caches' bytes;
+9. train: GPT-2-small at full width and depth (dropout 0.1), bf16 compute
    over f32 masters, ``adamw_fused``, 20 steps on one 8 x 1024 batch
    through ``train/step.py::make_step_fns``; the counters are zeroed just
    before and read just after, and must equal 20 x (12, 12, 12, 1), with
    every flash launch on the tensor-core kernels; the loss must fall
    by at least 1 nat and stay finite;
-9. train_parity: f32, dropout 0, two layers at full width: the gradients
+10. train_parity: f32, dropout 0, two layers at full width: the gradients
    of one step through the kernels against autograd of the dense math,
    and five steps' losses against the same steps with
    ``fused_adamw_plain`` (f32: the backward's CUDA-core kernels);
-10. train_cli: the port's trainer CLI for one epoch of ``synthetic-lm``
+11. train_cli: the port's trainer CLI for one epoch of ``synthetic-lm``
    at GPT-2-small widths, then ``--resume --epochs 2``;
-11. train_profile: five train steps under ``torch.profiler``.
+12. train_profile: five train steps under ``torch.profiler``.
 
 Then the ``{"kernels": [...]}`` line (launches from the bf16 serve run for
 the serving kernels, from the bf16 generate run for the generation
-kernels, from the train phase for the training kernels), the
+kernels, from serve_int8 and generate_int8 for the int8 forms, from the
+train phase for the training kernels), the
 raw ``nvidia-smi`` line, and last the ``{"ok": true, ...}`` line. Any
 failed check exits non-zero before the ``ok`` line. Roofline bounds use
 the H100 SXM data-sheet peaks: 3.35 TB/s HBM, 989 TFLOP/s bf16 (tensor
@@ -789,17 +813,291 @@ def check_dense_decode(torch, np, DA, A, dtype, dt, lens):
     return out
 
 
+# ---- phase 3, int8 forms: the quantizing writes and the int8 reads ----------
+
+Q8_LIBRARY = ("none: no single PyTorch call quantizes per row and writes at "
+              "a slot, or reads int8 K/V with per-row scales")
+
+
+def q8_cache(torch, gen, *shape, copies: int = 1):
+    """``copies`` int8 caches and their f32 scale planes: ``quantize_kv`` of
+    normal floats, as the writes leave them."""
+    from distributed_compute_pytorch_tpu_torch.utils.quantize import (
+        quantize_kv)
+    out = []
+    for _ in range(copies):
+        kv, sc = quantize_kv(torch.randn(*shape, generator=gen))
+        out.append((kv.cuda(), sc.cuda()))
+    return out
+
+
+def check_insert_q8(torch, CU, dtype, dt):
+    """The int8 pool [2, 1025, 12, 16, 64] with its scales: a decode tick's
+    16 float rows (two parked on the trash block) and one admission wave's
+    flattened scatter (16 rows x 256 window, pad tokens aimed out of
+    range), quantized as they are written. Both leaves exact against
+    ``quantize_kv`` followed by the indexed writes."""
+    gen = torch.Generator().manual_seed(32)
+    P, H, bt, hd = 1025, 12, 16, 64
+    copies = q8_cache(torch, gen, 2, P, H, bt, hd, copies=3)
+    out = {}
+    for case, n in (("decode", 16), ("admission", 16 * 256)):
+        kv = torch.randn(n, 3 * H * hd, generator=gen).to("cuda", dtype)
+        k = kv[:, H * hd:2 * H * hd].reshape(n, H, hd)   # fused-QKV views
+        v = kv[:, 2 * H * hd:].reshape(n, H, hd)
+        if case == "decode":
+            blocks = torch.randperm(P - 1, generator=gen)[:n] + 1
+            offsets = torch.randint(0, bt, (n,), generator=gen)
+            blocks[[3, 11]] = 0                          # parked: trash
+            n_valid = n
+        else:
+            blocks = torch.arange(n) // bt + 1
+            offsets = torch.arange(n) % bt
+            valid = torch.rand(n, generator=gen) < 0.6
+            blocks[~valid] = P                           # pad: dropped
+            n_valid = int(valid.sum())
+        blocks = blocks.to("cuda", torch.int32)
+        offsets = offsets.to("cuda", torch.int32)
+        pool, scale = copies[0]
+        want = (pool.clone(), scale.clone())
+        CU.kv_pool_insert_plain(want[0], k, v, blocks, offsets, want[1])
+        got = (pool.clone(), scale.clone())
+        CU.kv_pool_insert_cuda(got[0], k, v, blocks, offsets, scale=got[1])
+        torch.cuda.synchronize()
+        # the trash block takes racing garbage writes: compared elsewhere
+        bad = int((got[0][:, 1:] != want[0][:, 1:]).sum()
+                  + (got[1][:, 1:] != want[1][:, 1:]).sum())
+        require(bad == 0, f"insert_q8 {case} {dt}: {bad} elements differ "
+                          f"from quantize-then-write")
+        require(not torch.equal(got[0], pool), f"insert_q8 {case} {dt}: "
+                                               f"nothing was written")
+        out[f"{case}_elements_differing"] = bad
+        if case != "decode":
+            continue
+        # the float rows read once, the int8 bytes and f32 scales written
+        # once, the block ids and offsets read once
+        nbytes = (2 * n_valid * H * (hd * k.element_size() + hd + 4)
+                  + 8 * n)
+        out["bound_ms"], out["bound_by"] = bound(nbytes, 0.0, dt)
+        out["ms"] = time_ms(torch, [
+            (lambda c=c: CU.kv_pool_insert_cuda(c[0], k, v, blocks, offsets,
+                                                scale=c[1]))
+            for c in copies])
+        out["plain_ms"] = time_ms(torch, [
+            (lambda c=c: CU.kv_pool_insert_plain(c[0], k, v, blocks, offsets,
+                                                 c[1])) for c in copies])
+        out["library_ms"], out["library"] = None, Q8_LIBRARY
+        out["shape"] = (f"int8 pool [2, {P}, {H}, {bt}, {hd}] + f32 scales, "
+                        f"{n} float decode rows (2 parked on trash)")
+    out["max_abs_err"] = 0.0
+    return out
+
+
+def check_decode_q8(torch, np, DA, dtype, dt):
+    """The int8 paged read at the serving shape: as ``check_decode`` (16
+    rows x 12 heads x hd 64 over bt 16, nb 64 tables, ragged positions, a
+    full-horizon row, a parked row) over an int8 pool and its scales; to
+    TOL, and in bf16 row by row to ROW_TOL."""
+    gen = torch.Generator().manual_seed(33)
+    B, H, hd, bt, nb = 16, 12, 64, 16, 64
+    P = B * nb + 1
+    rng = np.random.default_rng(3)
+    table = (rng.permutation(P - 1)[:B * nb] + 1).reshape(B, nb)
+    pos = rng.integers(16, nb * bt, B)
+    pos[5] = nb * bt - 1
+    table[9], pos[9] = 0, 3                               # parked row
+    table = torch.from_numpy(table.astype(np.int32)).cuda()
+    pos_t = torch.from_numpy(pos.astype(np.int32)).cuda()
+    pools = q8_cache(torch, gen, 2, P, H, bt, hd, copies=3)
+    copies = [(torch.randn(B, H, 1, hd, generator=gen).to("cuda", dtype),
+               kv, sc) for kv, sc in pools]
+    q, pool, scale = copies[0]
+    got = DA.paged_decode_cuda(q, pool, table, pos_t, kv_scale=scale)
+    want = DA.paged_decode_plain(q, pool, table, pos_t, kv_scale=scale)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    r_err = row_err(got, want)
+    require(bool(torch.isfinite(got).all()), f"decode_q8 {dt}: non-finite")
+    require(err <= TOL[dt], f"decode_q8 {dt}: max err {err} > {TOL[dt]}")
+    require(dt != "bf16" or r_err <= ROW_TOL,
+            f"decode_q8 {dt}: row error {r_err} > {ROW_TOL}")
+    keys = int((np.minimum(pos, nb * bt - 1) + 1).sum())
+    live_blocks = int((np.minimum(pos, nb * bt - 1) // bt + 1).sum())
+    esz = q.element_size()
+    # q read and o written; each live key's int8 K and V rows and their two
+    # f32 scales read once; the table entries and positions read once
+    nbytes = (esz * 2 * B * H * hd + 2 * keys * H * (hd + 4)
+              + 4 * live_blocks + 4 * B)
+    b_ms, b_by = bound(nbytes, 4.0 * hd * keys * H, dt)
+    return {
+        "max_abs_err": err, "row_err": r_err, "bound_ms": b_ms,
+        "bound_by": b_by,
+        "ms": time_ms(torch, [
+            (lambda q=q, p=p, s=s: DA.paged_decode_cuda(q, p, table, pos_t,
+                                                        kv_scale=s))
+            for q, p, s in copies]),
+        "plain_ms": time_ms(torch, [
+            (lambda q=q, p=p, s=s: DA.paged_decode_plain(q, p, table, pos_t,
+                                                         kv_scale=s))
+            for q, p, s in copies]),
+        "library_ms": None, "library": Q8_LIBRARY,
+        "pool_bytes_per_key": 2 * H * (hd + 4),
+        "shape": (f"q [{B}, {H}, 1, {hd}], int8 pool [2, {P}, {H}, {bt}, "
+                  f"{hd}] + f32 scales, tables [{B}, {nb}], {keys} live "
+                  f"keys"),
+    }
+
+
+def check_dense_insert_q8(torch, CU, A, dtype, dt, T0):
+    """The generate phase's int8 pair cache ``[2, 16, 12, T0 + 128, 64]``
+    with its scales, the float updates strided split-head views of one
+    fused QKV: ``kv_insert`` at a 0-dim slot (first, interior, last),
+    ``kv_insert_rows`` at per-row slots, ``cache_insert`` into one plane.
+    Both leaves exact. Returns ``{"cache_insert_q8": {...}, ...}``."""
+    gen = torch.Generator().manual_seed(34)
+    B, H, hd, T = GEN_ROWS, 12, 64, T0 + GEN_NEW
+    copies = q8_cache(torch, gen, 2, B, H, T, hd, copies=3)
+    qkv = torch.randn(B, 1, 3 * H * hd, generator=gen).to("cuda", dtype)
+    _, k, v = (A.split_heads(x, H) for x in qkv.split(H * hd, dim=-1))
+    slots = torch.arange(T, dtype=torch.int32, device="cuda")
+    rows = torch.randint(T0, T, (B,), generator=gen, dtype=torch.int32)
+    rows[0], rows[1] = 0, T - 1
+    rows = rows.cuda()
+    esz = k.element_size()
+    base = (copies[0][0].clone(), copies[0][1].clone())
+    res = {}
+    for name, cases, planes, launch, plain in (
+            ("kv_insert_q8", [slots[0], slots[T0], slots[T - 1]], 2,
+             lambda c, s, p: CU.kv_insert_cuda(c, k, v, p, scale=s),
+             lambda c, s, p: CU.kv_insert_plain(c, k, v, p, s)),
+            ("kv_insert_rows_q8", [rows], 2,
+             lambda c, s, p: CU.kv_insert_rows_cuda(c, k, v, p, scale=s),
+             lambda c, s, p: CU.kv_insert_plain(c, k, v, p, s)),
+            ("cache_insert_q8", [slots[T0]], 1,
+             lambda c, s, p: CU.cache_insert_cuda(c[0], k, p, scale=s[0]),
+             lambda c, s, p: CU.cache_insert_plain(c[0], k, p, s[0]))):
+        bad = 0
+        for p in cases:
+            got = (base[0].clone(), base[1].clone())
+            want = (base[0].clone(), base[1].clone())
+            launch(*got, p)
+            plain(*want, p)
+            torch.cuda.synchronize()
+            bad += int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
+            require(not torch.equal(got[0], base[0]),
+                    f"{name} {dt}: nothing was written")
+        require(bad == 0, f"{name} {dt}: {bad} elements differ from "
+                          f"quantize-then-write")
+        p = cases[-1] if name != "kv_insert_q8" else cases[1]
+        n_pos = B if name == "kv_insert_rows_q8" else 1
+        # each update element read once (float), its int8 byte and its
+        # row's f32 scale written once, the position read once
+        nbytes = planes * B * H * (hd * esz + hd + 4) + 4 * n_pos
+        b_ms, b_by = bound(nbytes, 0.0, dt)
+        res[name] = {
+            "max_abs_err": 0.0, "elements_differing": bad, "bound_ms": b_ms,
+            "bound_by": b_by,
+            "ms": time_ms(torch, [(lambda c=c: launch(*c, p))
+                                  for c in copies]),
+            "plain_ms": time_ms(torch, [(lambda c=c: plain(*c, p))
+                                        for c in copies]),
+            "library_ms": None, "library": Q8_LIBRARY,
+            "shape": (f"int8 cache [{planes}, {B}, {H}, {T}, {hd}] + f32 "
+                      f"scales{' (one plane)' if planes == 1 else ''}, float "
+                      f"updates [{B}, {H}, 1, {hd}] split-head views"),
+        }
+    return res
+
+
+def check_dense_decode_q8(torch, np, DA, A, dtype, dt, lens):
+    """The generate phase's int8 read: q ``[16, 12, 1, 64]`` (a split-head
+    view) over the int8 pair cache ``[2, 16, Hk, T0 + 128, 64]`` and its
+    scales, lockstep and per-row slots, with and without the left-pad slot
+    mask, MHA and Hk 3; to TOL, and in bf16 row by row to ROW_TOL. Timed at
+    the generate tick's own call: MHA, lockstep, masked."""
+    gen = torch.Generator().manual_seed(35)
+    T0 = int(lens.max())
+    B, H, hd, T = GEN_ROWS, 12, 64, T0 + GEN_NEW
+    slots = torch.arange(T, dtype=torch.int32, device="cuda")
+    pos = T0 + GEN_NEW // 2
+    mask_np = np.arange(T)[None, :] >= (T0 - lens)[:, None]       # [B, T]
+    mask = torch.from_numpy(mask_np).cuda()
+    rows = torch.randint(T0, T, (B,), generator=gen, dtype=torch.int32)
+    rows[0] = T - 1
+    rows = rows.cuda()
+    out, err, r_err = {}, 0.0, 0.0
+    for hk in (H, H // 4):
+        copies = []
+        for kv, sc in q8_cache(torch, gen, 2, B, hk, T, hd, copies=3):
+            qx = torch.randn(B, 1, 3 * H * hd, generator=gen).to("cuda", dtype)
+            copies.append((A.split_heads(qx[..., :H * hd], H), kv, sc))
+        q, cache, scale = copies[0]
+        for p in (slots[pos], rows):
+            for m in (None, mask):
+                got = DA.dense_decode_cuda(q, cache, p, slot_mask=m,
+                                           kv_scale=scale)
+                want = DA.dense_decode_plain(q, cache, p, slot_mask=m,
+                                             kv_scale=scale)
+                torch.cuda.synchronize()
+                require(bool(torch.isfinite(got).all()),
+                        f"dense_decode_q8 {dt} Hk {hk}: non-finite")
+                e, r = ((got.float() - want.float()).abs().max().item(),
+                        row_err(got, want))
+                require(e <= TOL[dt], f"dense_decode_q8 {dt} Hk {hk}: max "
+                                      f"err {e} > {TOL[dt]}")
+                require(dt != "bf16" or r <= ROW_TOL,
+                        f"dense_decode_q8 {dt} Hk {hk}: row error {r} > "
+                        f"{ROW_TOL}")
+                err, r_err = max(err, e), max(r_err, r)
+        if hk != H:
+            continue
+        p = slots[pos]
+        keys = int(mask_np[:, :pos + 1].sum())
+        esz = q.element_size()
+        # q read and o written; each live slot's int8 K and V rows and two
+        # f32 scales read once; the mask and the position read once
+        nbytes = (esz * 2 * B * H * hd + 2 * keys * hk * (hd + 4) + B * T
+                  + 4)
+        out["bound_ms"], out["bound_by"] = bound(nbytes, 4.0 * hd * keys * H,
+                                                 dt)
+        out["ms"] = time_ms(torch, [
+            (lambda q=q, c=c, s=s: DA.dense_decode_cuda(
+                q, c, p, slot_mask=mask, kv_scale=s)) for q, c, s in copies])
+        out["plain_ms"] = time_ms(torch, [
+            (lambda q=q, c=c, s=s: DA.dense_decode_plain(
+                q, c, p, slot_mask=mask, kv_scale=s)) for q, c, s in copies])
+        out["library_ms"], out["library"] = None, Q8_LIBRARY
+        out["shape"] = (f"q [{B}, {H}, 1, {hd}] view, int8 cache [2, {B}, "
+                        f"{H}, {T}, {hd}] + f32 scales, lockstep pos {pos}, "
+                        f"left-pad slot mask: {keys} of {B * (pos + 1)} "
+                        f"slots live; also Hk {H // 4}, per-row pos, no mask")
+    out["max_abs_err"], out["row_err"] = err, r_err
+    return out
+
+
 # ---- phase 4: serve ----------------------------------------------------------
 
-def reference_logits(torch, A, model, tokens):
+def reference_logits(torch, A, model, tokens, q8_from=None):
     """One full-sequence forward with plain dense attention: the model's
-    own layers, no kernel."""
+    own layers, no kernel. With ``q8_from``, the query rows from that
+    position on (those an int8 cache served) attend every key's K and V
+    quantized and dequantized in f32 (``quantize_kv``; the per-row scales
+    commute out of the int8 reads exactly so), the rows before it the float
+    K/V, as the float admission or prefill attends them."""
+    from distributed_compute_pytorch_tpu_torch.utils.quantize import (
+        quantize_kv)
     x = model.embed(tokens)
     for blk in model.blocks:
         h = blk.ln1(x)
         q, k, v = (A.split_heads(z, blk.num_heads)
                    for z in blk.qkv(h).split(h.shape[-1], dim=-1))
         o = A.dot_product_attention(q, k, v, causal=True)
+        if q8_from is not None:
+            (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+            o8 = A.dot_product_attention(q.float(), kq.float() * ks,
+                                         vq.float() * vs, causal=True)
+            o = torch.cat([o[:, :, :q8_from], o8[:, :, q8_from:].to(o.dtype)],
+                          dim=2)
         x = x + blk.attn_out(A.merge_heads(o))
         x = x + blk._mlp(blk.ln2(x))
     return model.readout(x)
@@ -815,10 +1113,31 @@ def serve_requests(np, serve, vocab: int):
                             rng.integers(32, 129, 32))]
 
 
-def batcher(serve, model):
+def batcher(serve, model, kv_dtype="bf16"):
     return serve.ContinuousBatcher(model, slots=16, t_max=1024,
                                    prompt_buf=256, segment=16,
-                                   kv_block_tokens=16)
+                                   kv_block_tokens=16, kv_dtype=kv_dtype)
+
+
+def served_gaps(torch, A, model, reqs, outs, q8: bool):
+    """Each request's tokens forwarded with plain dense attention
+    (``reference_logits``; for an int8 pool the rows from the last prompt
+    token on, which the decode ticks served, read quantized K/V): each
+    served token's logit gap below its row maximum."""
+    gaps = []
+    with torch.no_grad():
+        for r, o in zip(reqs, outs):
+            seq = torch.tensor(r.tokens + o[:-1], device="cuda")
+            split = len(r.tokens) - 1
+            logits = reference_logits(torch, A, model, seq[None],
+                                      q8_from=split if q8 else None
+                                      )[0].float()
+            rows = logits[split:]
+            require(bool(torch.isfinite(rows).all()),
+                    "serve: non-finite reference logits")
+            chosen = rows.gather(1, torch.tensor(o, device="cuda")[:, None])
+            gaps.append((rows.max(dim=1).values - chosen[:, 0]).cpu())
+    return torch.cat(gaps)
 
 
 def serve_phase(torch, np, mods, model, dt):
@@ -853,17 +1172,7 @@ def serve_phase(torch, np, mods, model, dt):
             f"serve {dt}: a request returned fewer than max_new tokens")
     require(cb.last_block_leaks == 0 and cb.last_slot_leaks == 0,
             f"serve {dt}: leaked blocks/slots")
-    gaps = []
-    with torch.no_grad():
-        for r, o in zip(reqs, outs):
-            seq = torch.tensor(r.tokens + o[:-1], device="cuda")
-            logits = reference_logits(torch, A, model, seq[None])[0].float()
-            rows = logits[len(r.tokens) - 1:]
-            require(bool(torch.isfinite(rows).all()),
-                    f"serve {dt}: non-finite reference logits")
-            chosen = rows.gather(1, torch.tensor(o, device="cuda")[:, None])
-            gaps.append((rows.max(dim=1).values - chosen[:, 0]).cpu())
-    gaps = torch.cat(gaps)
+    gaps = served_gaps(torch, A, model, reqs, outs, q8=False)
     worst = gaps.max().item()
     require(worst <= MARGIN[dt], f"serve {dt}: a served token's logit is "
                                  f"{worst} below the teacher-forced max "
@@ -884,12 +1193,154 @@ def serve_phase(torch, np, mods, model, dt):
         "teacher_forced_worst_gap": worst,
         "teacher_forced_mean_gap": gaps.mean().item(),
         "margin": MARGIN[dt],
-    }
+    }, outs
+
+
+# the sync-debug window of the serve_int8 phase: every host sync in one
+# whole serve call raises, except the one the serve loop makes on purpose
+SYNC_ALLOWED = ("serve._Fetch.result: the harvest's wait on its own "
+                "segment's event (sync debug mode set to 0 for that wait "
+                "alone)")
+
+
+def serve_under_sync_check(torch, cb, reqs):
+    """``cb.serve(reqs)`` inside ``torch.cuda.set_sync_debug_mode("error")``:
+    a host-to-device copy, or any other call that waits for the card,
+    raises there (fault 3.1)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return cb.serve(reqs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def q8_counts(FA, CU, DA) -> dict:
+    """Every serving and generation counter, the float and the int8 forms."""
+    return {**gen_counts(FA, CU, DA),
+            "kv_pool_insert_q8": CU.q8_launches,
+            "paged_decode_q8": DA.q8_launches,
+            "kv_insert_q8": CU.kv_insert_q8_launches,
+            "kv_insert_rows_q8": CU.kv_insert_rows_q8_launches,
+            "cache_insert_q8": CU.cache_insert_q8_launches,
+            "dense_decode_q8": DA.dense_q8_launches}
+
+
+def zero_q8_counts(FA, CU, DA) -> None:
+    zero_gen_counts(FA, CU, DA)
+    CU.q8_launches = DA.q8_launches = DA.dense_q8_launches = 0
+    CU.kv_insert_q8_launches = CU.kv_insert_rows_q8_launches = 0
+    CU.cache_insert_q8_launches = 0
+
+
+def pool_bytes(cb) -> int:
+    return sum(t.numel() * t.element_size() for c in cb._caches
+               for t in c.values())
+
+
+def serve_int8_phase(torch, np, mods, model, float_outs):
+    """The serve phase's 32 requests, bf16 compute, on the int8 pool
+    (``kv_dtype="int8"``) beside the bf16 float pool in turns (float, int8,
+    int8, float). The first run of each pool runs under the sync-debug
+    window (fault 3.1); the first int8 run is counted (every int8 kernel
+    launch as the schedule implies, no float-form launch) and each of its
+    tokens checked teacher-forced, decoded rows against quantized K/V. Then
+    one profiled run of each pool gives its device time, and each
+    unprofiled run's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    A, FA, CU, DA, serve = mods
+    reqs = serve_requests(np, serve, model.config.vocab_size)
+    cbs = {kv: batcher(serve, model, kv) for kv in ("bf16", "int8")}
+    for cb in cbs.values():
+        cb.serve(reqs[:2])         # warm-up
+    walls = {"bf16": [], "int8": []}
+    rec = {"phase": "serve_int8", "dtype": "bf16", "requests": len(reqs),
+           "model": "gpt2-small (12 x 768, vocab 50257), random weights "
+                    "seed 0", "slots": 16, "segment": 16,
+           "kv_block_tokens": 16, "t_max": 1024, "prompt_buf": 256,
+           "sync_debug": {"mode": "error", "window": "one whole "
+                          "ContinuousBatcher.serve call per pool",
+                          "allowed": SYNC_ALLOWED, "raised": False}}
+    for run, kv in enumerate(("bf16", "int8", "int8", "bf16")):
+        cb = cbs[kv]
+        checked = run < 2
+        waves0, ticks0 = cb.stats["prefill_calls"], cb.ticks
+        zero_q8_counts(FA, CU, DA)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        outs = (serve_under_sync_check(torch, cb, reqs) if checked
+                else cb.serve(reqs))
+        torch.cuda.synchronize()
+        walls[kv].append(time.monotonic() - t0)
+        launches = q8_counts(FA, CU, DA)
+        require(cb.last_block_leaks == 0 and cb.last_slot_leaks == 0,
+                f"serve_int8 {kv}: leaked blocks/slots")
+        require(all(len(o) == r.max_new for o, r in zip(outs, reqs)),
+                f"serve_int8 {kv}: a request returned fewer than max_new "
+                f"tokens")
+        if kv == "bf16":
+            require(outs == float_outs, "serve_int8: the float pool's "
+                                        "tokens changed under the sync "
+                                        "check or between runs")
+            continue
+        if run != 1:
+            require(outs == int8_outs, "serve_int8: two int8 runs served "
+                                       "different tokens")
+            continue
+        int8_outs = outs
+        waves, ticks = cb.stats["prefill_calls"] - waves0, cb.ticks - ticks0
+        want = {k: 0 for k in launches}
+        want.update(flash_fwd=LAYERS * waves,
+                    kv_pool_insert_q8=LAYERS * (waves + ticks),
+                    paged_decode_q8=LAYERS * ticks)
+        require(launches == want, f"serve_int8: launches {launches} != the "
+                                  f"schedule's {want}")
+        gaps = served_gaps(torch, A, model, reqs, outs, q8=True)
+        worst = gaps.max().item()
+        require(worst <= MARGIN["bf16"],
+                f"serve_int8: a served token's logit is {worst} below the "
+                f"teacher-forced max over quantized K/V (margin "
+                f"{MARGIN['bf16']})")
+        same = sum(int(a == b) for o, f in zip(outs, float_outs)
+                   for a, b in zip(o, f))
+        rec.update(admission_waves=waves, ticks=ticks, launches={
+            k: n for k, n in launches.items() if n},
+            teacher_forced_worst_gap=worst,
+            teacher_forced_mean_gap=gaps.mean().item(),
+            margin=MARGIN["bf16"],
+            positions_agreeing_with_float_pool=same / sum(map(len, outs)))
+    rec["sync_debug"]["checked_runs"] = ["bf16 run 1", "int8 run 1"]
+    new_tokens = sum(r.max_new for r in reqs)
+    device_ms = {}
+    for kv, cb in cbs.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            cb.serve(reqs)
+            torch.cuda.synchronize()
+        total_us, groups, _ = device_time(torch, prof)
+        device_ms[kv] = total_us / 1e3 if total_us else None
+        rec[f"{kv}_groups_ms"] = {
+            g: {"launches": n, "ms": us / 1e3}
+            for g, (n, us) in sorted(groups.items(), key=lambda kv_: -kv_[1][1])}
+    for kv in ("bf16", "int8"):
+        rec[f"{kv}_wall_s"] = walls[kv]
+        rec[f"{kv}_decode_tokens_per_s"] = [new_tokens / w for w in walls[kv]]
+        rec[f"{kv}_device_ms"] = device_ms[kv]
+        rec[f"{kv}_device_busy_share"] = (
+            [device_ms[kv] / 1e3 / w for w in walls[kv]]
+            if device_ms[kv] else None)
+        rec[f"{kv}_pool_bytes"] = pool_bytes(cbs[kv])
+    rec["new_tokens"] = new_tokens
+    rec["pool_bytes_ratio"] = rec["int8_pool_bytes"] / rec["bf16_pool_bytes"]
+    return rec
 
 
 # the kernel entries checked exactly, and the source of each entry whose
 # file is named otherwise
-EXACT = ("kv_pool_insert", "cache_insert", "kv_insert", "kv_insert_rows")
+EXACT = ("kv_pool_insert", "cache_insert", "kv_insert", "kv_insert_rows",
+         "kv_pool_insert_q8", "cache_insert_q8", "kv_insert_q8",
+         "kv_insert_rows_q8")
 # per-kernel fields the kernels line carries where a check records them:
 # the flash kernels' rate, share of their bound, path and row errors; the
 # flash forward at the training shape and its lse
@@ -897,10 +1348,17 @@ KERNEL_EXTRAS = ("tflops", "bound_share", "path", "train_ms",
                  "train_bound_ms", "train_library_ms", "train_tflops",
                  "train_bound_share", "row_err", "fault_row_err",
                  "lse_max_abs_err")
-SOURCES = {"cache_insert": "kv_insert", "kv_insert_rows": "kv_insert"}
+SOURCES = {"cache_insert": "kv_insert", "kv_insert_rows": "kv_insert",
+           "kv_pool_insert_q8": "kv_pool_insert",
+           "paged_decode_q8": "paged_decode", "cache_insert_q8": "kv_insert",
+           "kv_insert_q8": "kv_insert", "kv_insert_rows_q8": "kv_insert",
+           "dense_decode_q8": "dense_decode"}
+# profiler groups: the int8 reads share their float forms' kernel templates
+# (``paged_decode_kernel<T, signed char, ...>``), the int8 writes have
+# kernels of their own
 KERNEL_NAMES = ("flash_fwd", "kv_pool_insert", "paged_decode",
                 "flash_bwd_dq", "flash_bwd_dkv", "fused_adamw", "kv_insert",
-                "dense_decode")
+                "dense_decode", "kv_pool_insert_q8", "kv_insert_q8")
 
 
 def _kernel_group(name: str) -> str:
@@ -987,16 +1445,19 @@ def zero_gen_counts(FA, CU, DA) -> None:
     CU.cache_insert_launches = 0
 
 
-def teacher_forced_gaps(torch, A, model, lens, prompt, out):
+def teacher_forced_gaps(torch, A, model, lens, prompt, out, q8=False):
     """Each row's real prompt and new tokens forwarded alone with plain
     dense attention: the new tokens' logit gaps below the row maximum,
-    and the top-2 logit gap at each new token (0 = a tie)."""
+    and the top-2 logit gap at each new token (0 = a tie). ``q8``: the
+    rows past the prompt, which the decode ticks served from an int8
+    cache, read quantized K/V (``reference_logits``)."""
     T0 = prompt.shape[1]
     gaps, margins = [], []
     with torch.no_grad():
         for i, n in enumerate(lens):
             seq = out[i, T0 - n:].cuda()
-            logits = reference_logits(torch, A, model, seq[None, :-1]
+            logits = reference_logits(torch, A, model, seq[None, :-1],
+                                      q8_from=int(n) if q8 else None
                                       )[0, n - 1:].float()
             chosen = logits.gather(1, seq[n:, None])[:, 0]
             top2 = logits.topk(2, dim=1).values
@@ -1103,6 +1564,72 @@ def sampled_phase(torch, np, infer, A, model, batch):
             "top_k1_rows_differing_at_a_tie": differ,
             "sampled_tokens_differ_from_greedy": int(
                 (a[:, T0:] != greedy[:, T0:T0 + n]).sum())}
+
+
+def generate_int8_phase(torch, np, infer, mods, model, float_out):
+    """The generate phase's 16 left-padded prompts, bf16, with the int8 KV
+    cache (``kv_quant=True``) beside the float cache in turns (float,
+    int8, int8, float): the int8 runs' launch counts (``kv_insert`` and
+    ``dense_decode`` in their int8 forms 12 x 127 each, ``flash_fwd`` 12,
+    nothing else), every token checked teacher-forced with the rows past
+    the prompt reading quantized K/V, both caches' bytes."""
+    A, FA, CU, DA = mods
+    lens, prompt_np, mask_np = gen_batch(np, model.config.vocab_size)
+    prompt = torch.from_numpy(prompt_np).cuda()
+    mask = torch.from_numpy(mask_np).cuda()
+    T0 = prompt.shape[1]
+    infer.generate(model, prompt, 2, prompt_mask=mask, kv_quant=True)
+    walls = {"bf16": [], "int8": []}
+    rec = {"phase": "generate_int8", "dtype": "bf16", "rows": GEN_ROWS,
+           "T0": T0, "t_max": T0 + GEN_NEW, "new_per_row": GEN_NEW,
+           "greedy": True}
+    ticks = GEN_NEW - 1
+    for run, kv in enumerate(("bf16", "int8", "int8", "bf16")):
+        zero_q8_counts(FA, CU, DA)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = infer.generate(model, prompt, GEN_NEW, prompt_mask=mask,
+                             kv_quant=kv == "int8")
+        torch.cuda.synchronize()
+        walls[kv].append(time.perf_counter() - t0)
+        out = out.cpu()
+        if kv == "bf16":
+            require(torch.equal(out, float_out), "generate_int8: the float "
+                                                 "cache's tokens changed")
+            continue
+        launches = q8_counts(FA, CU, DA)
+        want = {k: 0 for k in launches}
+        want.update(flash_fwd=LAYERS, kv_insert_q8=LAYERS * ticks,
+                    dense_decode_q8=LAYERS * ticks)
+        require(launches == want, f"generate_int8: launches {launches} != "
+                                  f"the schedule's {want}")
+        if run == 2:
+            require(torch.equal(out, int8_out), "generate_int8: two int8 "
+                                                "runs gave different tokens")
+            continue
+        int8_out = out
+        gaps, _ = teacher_forced_gaps(torch, A, model, lens, prompt_np, out,
+                                      q8=True)
+        worst = gaps.max().item()
+        require(worst <= MARGIN["bf16"],
+                f"generate_int8: a generated token's logit is {worst} below "
+                f"the teacher-forced max over quantized K/V (margin "
+                f"{MARGIN['bf16']})")
+        rec.update(launches={k: n for k, n in launches.items() if n},
+                   teacher_forced_worst_gap=worst,
+                   teacher_forced_mean_gap=gaps.mean().item(),
+                   margin=MARGIN["bf16"],
+                   positions_agreeing_with_float_cache=(
+                       (out[:, T0:] == float_out[:, T0:]).float().mean()
+                       .item()))
+    hk, hd = model.kv_cache_spec()
+    slots = 2 * GEN_ROWS * hk * (T0 + GEN_NEW) * LAYERS
+    rec.update(
+        {f"{kv}_wall_s": walls[kv] for kv in walls},
+        **{f"{kv}_new_tokens_per_s": [GEN_ROWS * GEN_NEW / w
+                                      for w in walls[kv]] for kv in walls},
+        bf16_cache_bytes=slots * hd * 2, int8_cache_bytes=slots * (hd + 4))
+    return rec
 
 
 def generate_profile_phase(torch, infer, model, batch, wall_s):
@@ -1430,6 +1957,14 @@ def main() -> int:
                                                   int(gen_lens.max())))
             results[dt]["dense_decode"] = check_dense_decode(
                 torch, np, DA, A, dtype, dt, gen_lens)
+            results[dt]["kv_pool_insert_q8"] = check_insert_q8(
+                torch, CU, dtype, dt)
+            results[dt]["paged_decode_q8"] = check_decode_q8(
+                torch, np, DA, dtype, dt)
+            results[dt].update(check_dense_insert_q8(
+                torch, CU, A, dtype, dt, int(gen_lens.max())))
+            results[dt]["dense_decode_q8"] = check_dense_decode_q8(
+                torch, np, DA, A, dtype, dt, gen_lens)
             for name, res in results[dt].items():
                 record({"phase": "kernel", "name": name, "dtype": dt,
                         "tol": 0.0 if name in EXACT else TOL[dt], **res})
@@ -1446,12 +1981,14 @@ def main() -> int:
         for dtype, dt in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             model = GPT2(GPT2Config.small(), dtype=dtype)
             model.load_state_dict(base.state_dict())
-            serves[dt] = serve_phase(torch, np, mods, model, dt)
+            serves[dt], outs = serve_phase(torch, np, mods, model, dt)
             record(serves[dt])
             if dt == "bf16":
                 record(profile_phase(torch, np, serve, model, dt,
                                      serves[dt]["wall_s"]))
-            del model
+                float_served = outs
+            del model, outs
+            torch.cuda.empty_cache()
 
         gens = {}
         for dtype, dt in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
@@ -1463,10 +2000,22 @@ def main() -> int:
             if dt == "bf16":
                 record(generate_profile_phase(torch, infer, model, batch,
                                               gens[dt]["wall_s"]))
+                float_generated = batch[3]
             else:
                 record(sampled_phase(torch, np, infer, A, model, batch))
             del model, batch
-        del base
+        torch.cuda.empty_cache()
+
+        # the int8 KV cells after the float ones, so that those run as
+        # they did before the int8 cells existed
+        model = GPT2(GPT2Config.small(), dtype=torch.bfloat16)
+        model.load_state_dict(base.state_dict())
+        serve8 = serve_int8_phase(torch, np, mods, model, float_served)
+        record(serve8)
+        gen8 = generate_int8_phase(torch, np, infer, (A, FA, CU, DA), model,
+                                   float_generated)
+        record(gen8)
+        del model, base, float_served, float_generated
         torch.cuda.empty_cache()
 
         tm = (GPT2, build_optimizer, make_step_fns)
@@ -1489,15 +2038,21 @@ def main() -> int:
                    "kv_insert": CU.KV_INSERT_REPLACES,
                    "kv_insert_rows": CU.KV_INSERT_ROWS_REPLACES,
                    "dense_decode": DA.DENSE_REPLACES}
+        # the int8 forms replace the same Pallas calls (the reads: the
+        # port's read kernels; the JAX int8 read is XLA)
+        sources.update({f"{name}_q8": sources[name] for name in (
+            "kv_pool_insert", "paged_decode", "cache_insert", "kv_insert",
+            "kv_insert_rows", "dense_decode")})
+        runs = (("serve bf16", serves["bf16"]["launches"]),
+                ("serve_int8 bf16", serve8["launches"]),
+                ("generate bf16", gens["bf16"]["launches"]),
+                ("generate_int8 bf16", gen8["launches"]),
+                ("train", train["launches"]))
         kernels = []
         for name, replaces in sources.items():
             r, r32 = results["bf16"][name], results["f32"][name]
-            if name in serves["bf16"]["launches"]:
-                run, launches = "serve bf16", serves["bf16"]["launches"][name]
-            elif name in gens["bf16"]["launches"]:
-                run, launches = "generate bf16", gens["bf16"]["launches"][name]
-            else:
-                run, launches = "train", train["launches"][name]
+            run, launches = next(((run, n[name]) for run, n in runs
+                                  if name in n), ("generate_int8 bf16", 0))
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": f"distributed_compute_pytorch_tpu_torch/csrc/"
@@ -1506,6 +2061,8 @@ def main() -> int:
                 "launches_from": run,
                 "serve_launches": serves["bf16"]["launches"].get(name),
                 "generate_launches": gens["bf16"]["launches"].get(name),
+                "serve_int8_launches": serve8["launches"].get(name),
+                "generate_int8_launches": gen8["launches"].get(name),
                 "train_launches": train["launches"].get(name),
                 "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
                 "tol": 0.0 if name in EXACT else TOL["bf16"],

@@ -15,8 +15,11 @@ Prints one JSON line per prompt, as the JAX CLI does: ``{"prompt": [...],
 "tokens": [...], "new": [...]}`` (``new`` trimmed after the first
 ``--eos_id``). Runs on CUDA unless ``--device cpu`` (or ``--force-cpu``).
 Not ported yet, each refused with a one-line error naming the flag:
-``--mesh`` (sharded generation), ``--quantize`` (int8), ``--text_prompt`` /
-``--tokenizer`` (text prompts) and ``--model llama|moe``.
+``--mesh`` (sharded generation), ``--quantize`` (int8 weights, which both
+of its values imply: ``int8-kv`` is int8 weights AND an int8 KV cache;
+the int8 KV cache alone is ``infer.generate(kv_quant=True)``),
+``--text_prompt`` / ``--tokenizer`` (text prompts) and ``--model
+llama|moe``.
 """
 
 from __future__ import annotations
@@ -31,10 +34,12 @@ import torch
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 # flag -> the ROADMAP.md item it waits for
-_REFUSED = {"mesh": "sharded generation, queue 4.3",
-            "quantize": "int8 weights and KV cache, queue 4.1-4.2",
-            "text_prompt": "text prompts, queue 4.5",
-            "tokenizer": "text prompts, queue 4.5"}
+_REFUSED = {"mesh": "sharded generation, queue 1.7.3",
+            "quantize": "int8 weights, queue 1.7.1, which both int8 and "
+                        "int8-kv imply; the int8 KV cache alone is "
+                        "infer.generate(kv_quant=True)",
+            "text_prompt": "text prompts, queue 1.7.5",
+            "tokenizer": "text prompts, queue 1.7.5"}
 
 
 def load_model(model_name: str, preset, vocab_size, max_seq_len, *,
@@ -110,7 +115,7 @@ def main(argv=None) -> int:
                              f"{item})")
     if args.model != "gpt2":
         raise SystemExit(f"--model {args.model} is not ported yet "
-                         f"(ROADMAP.md: Llama and MoE generation, queue 4.4)")
+                         f"(ROADMAP.md: Llama and MoE generation, queue 1.7.4)")
 
     from distributed_compute_pytorch_tpu_torch.infer import generate
 

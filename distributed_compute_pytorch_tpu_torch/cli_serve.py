@@ -14,10 +14,12 @@ Prints one JSON line per request, in input order, as the JAX CLI does:
 ``{"id", "prompt", "new", "status": "ok", "cached_prefix": 0}`` (the port
 has no prefix cache yet, so ``cached_prefix`` is always 0).
 
-Runs on CUDA unless ``--device cpu``. Example:
+Runs on CUDA unless ``--device cpu``. ``--kv_dtype int8`` keeps the KV
+pool in int8 with per-row f32 scales (as the JAX CLI's flag). Example:
 
     python -m distributed_compute_pytorch_tpu_torch.cli_serve --init_seed 0 \\
-        --model_preset small --requests prompts.txt --slots 16 --dtype bf16
+        --model_preset small --requests prompts.txt --slots 16 --dtype bf16 \\
+        --kv_dtype int8
 """
 
 from __future__ import annotations
@@ -104,7 +106,12 @@ def main(argv=None) -> int:
                    help="budget for requests that don't carry max_new")
     p.add_argument("--eos_id", type=int, default=None)
     p.add_argument("--dtype", default="f32", choices=tuple(DTYPES),
-                   help="parameter, activation and KV-pool dtype")
+                   help="parameter and activation dtype (and the KV pool's "
+                        "with --kv_dtype bf16)")
+    p.add_argument("--kv_dtype", default="bf16", choices=("bf16", "int8"),
+                   help="KV pool storage: 'bf16' keeps it in the model's "
+                        "--dtype, 'int8' stores int8 K/V with per-row f32 "
+                        "scales (about half the bytes)")
     p.add_argument("--device", default=None,
                    help="'cuda' (default; raises without a card) or 'cpu'")
     args = p.parse_args(argv)
@@ -147,7 +154,8 @@ def main(argv=None) -> int:
                                            for r in reqs)
     cb = ContinuousBatcher(model, slots=args.slots, t_max=t_max,
                            prompt_buf=prompt_buf, segment=S,
-                           eos_id=args.eos_id, device=model.device)
+                           eos_id=args.eos_id, kv_dtype=args.kv_dtype,
+                           device=model.device)
     outs = cb.serve([Request(list(r["tokens"]), r["max_new"]) for r in reqs])
     for r, new in zip(reqs, outs):
         print(json.dumps({"id": r["id"], "prompt": r["tokens"], "new": new,

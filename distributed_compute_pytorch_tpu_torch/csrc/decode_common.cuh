@@ -6,7 +6,8 @@
 // softmax in f32. The two reads differ only in where a key's row lies (a
 // block-table lookup, or contiguous slots) and in whether a slot may be
 // masked, which the `Keys` argument supplies:
-//   long long row(int key)  element offset of the key's row in one K/V plane
+//   long long row(int key)  index of the key's row in one K/V plane (its
+//                           elements start at row * hd, its scale at row)
 //   bool valid(int key)     false for a masked slot: it adds exactly 0
 //   static constexpr bool kMasked  whether valid() can be false; without a
 //                           mask lane 0's key is always live, the running
@@ -24,6 +25,15 @@
 // row measured 2.8x slower on an H100). A chunk whose keys are all masked,
 // before any valid key, leaves the running max at -inf and adds nothing
 // (no exp(-inf - -inf) = NaN). A head with no valid key writes zeros.
+//
+// The int8 cache (C = int8_t; the JAX package reads it in XLA,
+// ops/attention.py::cached_attention_q8): K and V rows are int8 with one f32
+// scale per row in a plane of its own. A lane reads its key's int8 K row
+// with 16-byte loads (8-byte where hd % 16 != 0) and multiplies the score
+// by the key's K scale, as the reference does after its product; the V
+// row is weighted by p * v_scale, kept in f32 (the reference casts that
+// product to the query's dtype before its value product). The bytes
+// streamed per key fall from 2 * hd * sizeof(T) to 2 * (hd + 4).
 
 #pragma once
 
@@ -31,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace decode {
 
@@ -52,6 +64,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
@@ -96,15 +109,58 @@ __device__ __forceinline__ void row_dots(const float (*qs)[DMAX], const __nv_bfl
   }
 }
 
-// T: element type. DV: ceil(hd / 32) output columns per lane. GT: 1 for
+// s[g] += q_g . w over the four int8 values packed in the 32-bit word w
+template <int GT>
+__device__ __forceinline__ void word_dots(const float (*qs)[DMAX], unsigned w, int c,
+                                          int ng, float* s) {
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = static_cast<float>(static_cast<int8_t>(w >> (8 * i)));
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    if (g < ng) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[g] = fmaf(qs[g][c + i], f[i], s[g]);
+    }
+  }
+}
+
+// the int8 row (hd % 8 == 0): 16-byte loads where hd % 16 == 0 (every row
+// then starts 16-byte aligned), else 8-byte loads
+template <int GT>
+__device__ __forceinline__ void row_dots(const float (*qs)[DMAX], const int8_t* row,
+                                         int hd, int ng, float* s) {
+  if (hd % 16 == 0) {
+    for (int c = 0; c < hd; c += 16) {
+      const uint4 u = *reinterpret_cast<const uint4*>(row + c);
+      word_dots<GT>(qs, u.x, c, ng, s);
+      word_dots<GT>(qs, u.y, c + 4, ng, s);
+      word_dots<GT>(qs, u.z, c + 8, ng, s);
+      word_dots<GT>(qs, u.w, c + 12, ng, s);
+    }
+  } else {
+    for (int c = 0; c < hd; c += 8) {
+      const uint2 u = *reinterpret_cast<const uint2*>(row + c);
+      word_dots<GT>(qs, u.x, c, ng, s);
+      word_dots<GT>(qs, u.y, c + 4, ng, s);
+    }
+  }
+}
+
+// T: query and output type. C: cache element type, T or int8_t; for int8
+// kscale and vscale are the planes of per-row f32 scales (else null).
+// DV: ceil(hd / 32) output columns per lane. GT: 1 for
 // plain multi-head attention, else GMAX (the first ng of GT heads are
 // live). Call from every thread of an NWARPS * 32 block.
-template <typename T, int DV, int GT, typename Keys>
-__device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restrict__ kplane,
-                                       const T* __restrict__ vplane, T* __restrict__ out,
+template <typename T, typename C, int DV, int GT, typename Keys>
+__device__ __forceinline__ void attend(const T* __restrict__ q, const C* __restrict__ kplane,
+                                       const C* __restrict__ vplane,
+                                       const float* __restrict__ kscale,
+                                       const float* __restrict__ vscale, T* __restrict__ out,
                                        const Keys& keys, int n_keys, int b, int hk, int ng,
                                        int hd, long long q_sb, long long q_sh,
                                        long long o_sb, long long o_sh, float scale) {
+  constexpr bool kQ8 = std::is_same<C, int8_t>::value;
   __shared__ float qs[GT][DMAX];
   __shared__ float red_m[NWARPS][GT], red_l[NWARPS][GT];
   __shared__ float red_acc[NWARPS][GT][DMAX];
@@ -128,18 +184,25 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
   for (int k0 = warp * 32; k0 < n_keys; k0 += NWARPS * 32) {
     const int key = k0 + lane;
     const bool live = key < n_keys && keys.valid(key);
-    // element offset of this key's row in one plane (a masked key's V row
-    // is read below)
+    // this key's row in one plane, and its elements' offset (a masked
+    // key's V row is read below)
     const long long row = key < n_keys ? keys.row(key) : 0;
+    const long long off = row * hd;
     float s[GT];
 #pragma unroll
     for (int g = 0; g < GT; ++g) s[g] = 0.f;
-    if (live) row_dots<GT>(qs, kplane + row, hd, ng, s);
-    float pr[GT];
+    if (live) row_dots<GT>(qs, kplane + off, hd, ng, s);
+    // int8: the key's K and V scales (0 past the row's last key)
+    float ks = 1.f, vs = 1.f;
+    if constexpr (kQ8) {
+      ks = key < n_keys ? kscale[row] : 0.f;
+      vs = key < n_keys ? vscale[row] : 0.f;
+    }
+    float pr[GT], pw[GT];
 #pragma unroll
     for (int g = 0; g < GT; ++g) {
       if (g < ng) {  // uniform across the block: the shuffles see every lane
-        const float sg = live ? s[g] * scale : -INFINITY;
+        const float sg = !live ? -INFINITY : kQ8 ? s[g] * scale * ks : s[g] * scale;
         const float m_new = fmaxf(m[g], warp_max(sg));
         // m_new is -inf only while every key so far was masked; then
         // l and acc are still 0 and stay so
@@ -147,6 +210,7 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
                                 ? 1.f : expf(m[g] - m_new);
         pr[g] = !Keys::kMasked || live ? expf(sg - m_new) : 0.f;
         l[g] = l[g] * alpha + warp_sum(pr[g]);
+        pw[g] = kQ8 ? pr[g] * vs : pr[g];  // the V row's weight
 #pragma unroll
         for (int x = 0; x < DV; ++x) acc[g][x] *= alpha;
         m[g] = m_new;
@@ -157,8 +221,8 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
     // shuffles of each step)
     const int cnt = min(32, n_keys - k0);
     for (int j = 0; j < cnt; ++j) {
-      const long long rj = __shfl_sync(0xffffffffu, row, j);
-      const T* vr = vplane + rj;
+      const long long rj = __shfl_sync(0xffffffffu, off, j);
+      const C* vr = vplane + rj;
       float vv[DV];
 #pragma unroll
       for (int x = 0; x < DV; ++x) {
@@ -168,7 +232,7 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
 #pragma unroll
       for (int g = 0; g < GT; ++g) {
         if (g < ng) {
-          const float pj = __shfl_sync(0xffffffffu, pr[g], j);
+          const float pj = __shfl_sync(0xffffffffu, pw[g], j);
 #pragma unroll
           for (int x = 0; x < DV; ++x) acc[g][x] = fmaf(pj, vv[x], acc[g][x]);
         }

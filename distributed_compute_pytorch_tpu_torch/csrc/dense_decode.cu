@@ -25,6 +25,12 @@
 //   covers whole 32-key chunks adds exactly 0, as the reference's -1e30
 //   fill does. The TPU kernel's packed-lane (hd == 64 pairs into 128 lanes)
 //   layout and its fold matrix stay behind.
+//
+// The int8 form (`dense_decode_q8`): generation's kv_quant cache, int8 K/V
+//   [2, B, Hk, T, hd] beside f32 scales [2, B, Hk, T, 1]. The JAX package
+//   reads it in XLA (ops/attention.py::cached_attention_q8); here the same
+//   kernel reads the int8 rows and their scales (decode_common.cuh), with
+//   about half the bytes of the bf16 cache per key.
 
 #include "decode_common.cuh"
 
@@ -39,20 +45,20 @@ using decode::NWARPS;
 struct DenseKeys {
   long long base;
   const uint8_t* mask;
-  int hd;
-  __device__ __forceinline__ long long row(int key) const {
-    return base + (long long)key * hd;
-  }
+  __device__ __forceinline__ long long row(int key) const { return base + key; }
   static constexpr bool kMasked = true;
   __device__ __forceinline__ bool valid(int key) const {
     return mask == nullptr || mask[key] != 0;
   }
 };
 
-template <typename T, int DV, int GT>
+// T: query/output type; C: cache element type (T, or int8_t with the f32
+// scale planes kscale/vscale)
+template <typename T, typename C, int DV, int GT>
 __global__ void __launch_bounds__(NWARPS * 32)
-dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ cache,
-                    T* __restrict__ out, const int* __restrict__ pos,
+dense_decode_kernel(const T* __restrict__ q, const C* __restrict__ cache,
+                    const float* __restrict__ kscale, T* __restrict__ out,
+                    const int* __restrict__ pos,
                     const uint8_t* __restrict__ slot_mask, int G, int B, int Hk,
                     int T_, int hd, int pos_stride, long long q_sb,
                     long long q_sh, long long o_sb, long long o_sh,
@@ -60,41 +66,51 @@ dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ cache,
   const int b = blockIdx.x, hk = blockIdx.y;
   const int p = pos[(long long)b * pos_stride];
   const int n_keys = p < 0 ? 0 : min(p, T_ - 1) + 1;
-  const DenseKeys keys{((long long)b * Hk + hk) * T_ * hd,
-                       slot_mask == nullptr ? nullptr : slot_mask + b * m_sb, hd};
-  const T* vplane = cache + (long long)B * Hk * T_ * hd;
-  decode::attend<T, DV, GT>(q, cache, vplane, out, keys, n_keys, b, hk,
-                            GT == 1 ? 1 : G, hd, q_sb, q_sh, o_sb, o_sh, scale);
+  const DenseKeys keys{((long long)b * Hk + hk) * T_,
+                       slot_mask == nullptr ? nullptr : slot_mask + b * m_sb};
+  const long long plane = (long long)B * Hk * T_;  // rows in one K/V plane
+  const C* vplane = cache + plane * hd;
+  const float* vscale = kscale == nullptr ? nullptr : kscale + plane;
+  decode::attend<T, C, DV, GT>(q, cache, vplane, kscale, vscale, out, keys, n_keys, b,
+                               hk, GT == 1 ? 1 : G, hd, q_sb, q_sh, o_sb, o_sh, scale);
 }
 
-template <typename T, int GT>
-void launch_g(const dim3& grid, cudaStream_t stream, const T* q, const T* cache,
-              T* out, const int* pos, const uint8_t* mask, int G, int B, int Hk,
-              int T_, int hd, int pos_stride, const long long* st, float scale) {
+template <typename T, typename C, int GT>
+void launch_g(const dim3& grid, cudaStream_t stream, const T* q, const C* cache,
+              const float* ks, T* out, const int* pos, const uint8_t* mask, int G,
+              int B, int Hk, int T_, int hd, int pos_stride, const long long* st,
+              float scale) {
   const dim3 block(NWARPS * 32);
   switch ((hd + 31) / 32) {
-    case 1: dense_decode_kernel<T, 1, GT><<<grid, block, 0, stream>>>(q, cache, out, pos, mask, G, B, Hk, T_, hd, pos_stride, st[0], st[1], st[2], st[3], st[4], scale); break;
-    case 2: dense_decode_kernel<T, 2, GT><<<grid, block, 0, stream>>>(q, cache, out, pos, mask, G, B, Hk, T_, hd, pos_stride, st[0], st[1], st[2], st[3], st[4], scale); break;
-    case 3: dense_decode_kernel<T, 3, GT><<<grid, block, 0, stream>>>(q, cache, out, pos, mask, G, B, Hk, T_, hd, pos_stride, st[0], st[1], st[2], st[3], st[4], scale); break;
-    default: dense_decode_kernel<T, 4, GT><<<grid, block, 0, stream>>>(q, cache, out, pos, mask, G, B, Hk, T_, hd, pos_stride, st[0], st[1], st[2], st[3], st[4], scale); break;
+    case 1: dense_decode_kernel<T, C, 1, GT><<<grid, block, 0, stream>>>(q, cache, ks, out, pos, mask, G, B, Hk, T_, hd, pos_stride, st[0], st[1], st[2], st[3], st[4], scale); break;
+    case 2: dense_decode_kernel<T, C, 2, GT><<<grid, block, 0, stream>>>(q, cache, ks, out, pos, mask, G, B, Hk, T_, hd, pos_stride, st[0], st[1], st[2], st[3], st[4], scale); break;
+    case 3: dense_decode_kernel<T, C, 3, GT><<<grid, block, 0, stream>>>(q, cache, ks, out, pos, mask, G, B, Hk, T_, hd, pos_stride, st[0], st[1], st[2], st[3], st[4], scale); break;
+    default: dense_decode_kernel<T, C, 4, GT><<<grid, block, 0, stream>>>(q, cache, ks, out, pos, mask, G, B, Hk, T_, hd, pos_stride, st[0], st[1], st[2], st[3], st[4], scale); break;
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* cache, void* out, const int* pos,
-                   const uint8_t* mask, int B, int Hq, int G, int T_, int hd,
-                   int pos_stride, const long long* st, float scale,
-                   cudaStream_t stream) {
+// cache_scale: null for a float cache (C = T), else the f32 [2, B, Hk, T, 1]
+// scales of an int8 cache (C = int8_t)
+template <typename T, typename C>
+cudaError_t launch(const void* q, const void* cache, const float* cache_scale,
+                   void* out, const int* pos, const uint8_t* mask, int B, int Hq,
+                   int G, int T_, int hd, int pos_stride, const long long* st,
+                   float scale, cudaStream_t stream) {
   const int Hk = Hq / G;
   const dim3 grid(B, Hk);
   const T* qq = static_cast<const T*>(q);
-  const T* cc = static_cast<const T*>(cache);
+  const C* cc = static_cast<const C*>(cache);
   T* oo = static_cast<T*>(out);
   if (G == 1)
-    launch_g<T, 1>(grid, stream, qq, cc, oo, pos, mask, G, B, Hk, T_, hd, pos_stride, st, scale);
+    launch_g<T, C, 1>(grid, stream, qq, cc, cache_scale, oo, pos, mask, G, B, Hk, T_, hd, pos_stride, st, scale);
   else
-    launch_g<T, GMAX>(grid, stream, qq, cc, oo, pos, mask, G, B, Hk, T_, hd, pos_stride, st, scale);
+    launch_g<T, C, GMAX>(grid, stream, qq, cc, cache_scale, oo, pos, mask, G, B, Hk, T_, hd, pos_stride, st, scale);
   return cudaGetLastError();
+}
+
+bool bad_shape(int B, int Hq, int G, int T, int hd, int pos_stride) {
+  return B < 1 || Hq < 1 || G < 1 || G > GMAX || Hq % G || Hq / G > 65535 || T < 1 ||
+         hd < 8 || hd > DMAX || hd % 8 || pos_stride < 0 || pos_stride > 1;
 }
 
 }  // namespace
@@ -112,16 +128,33 @@ int dense_decode(const void* q, const void* cache, void* out, const int* pos,
                  const uint8_t* slot_mask, int dtype, int B, int Hq, int G,
                  int T, int hd, int pos_stride, const long long* strides,
                  float scale, void* stream) {
-  if (B < 1 || Hq < 1 || G < 1 || G > GMAX || Hq % G ||
-      Hq / G > 65535 || T < 1 || hd < 8 || hd > DMAX || hd % 8 ||
-      pos_stride < 0 || pos_stride > 1)
+  if (bad_shape(B, Hq, G, T, hd, pos_stride)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == 0)
+    e = launch<float, float>(q, cache, nullptr, out, pos, slot_mask, B, Hq, G, T, hd, pos_stride, strides, scale, s);
+  else if (dtype == 1)
+    e = launch<__nv_bfloat16, __nv_bfloat16>(q, cache, nullptr, out, pos, slot_mask, B, Hq, G, T, hd, pos_stride, strides, scale, s);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
+}
+
+// The int8 form: cache int8 [2, B, Hq / G, T, hd] contiguous, 16-byte
+// aligned; cache_scale f32 [2, B, Hq / G, T, 1] contiguous. The rest as
+// above, dtype 0 f32 or 1 bf16 (the query's).
+int dense_decode_q8(const void* q, const void* cache, const float* cache_scale, void* out,
+                    const int* pos, const uint8_t* slot_mask, int dtype, int B, int Hq,
+                    int G, int T, int hd, int pos_stride, const long long* strides,
+                    float scale, void* stream) {
+  if (bad_shape(B, Hq, G, T, hd, pos_stride) || cache_scale == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = launch<float>(q, cache, out, pos, slot_mask, B, Hq, G, T, hd, pos_stride, strides, scale, s);
+    e = launch<float, int8_t>(q, cache, cache_scale, out, pos, slot_mask, B, Hq, G, T, hd, pos_stride, strides, scale, s);
   else if (dtype == 1)
-    e = launch<__nv_bfloat16>(q, cache, out, pos, slot_mask, B, Hq, G, T, hd, pos_stride, strides, scale, s);
+    e = launch<__nv_bfloat16, int8_t>(q, cache, cache_scale, out, pos, slot_mask, B, Hq, G, T, hd, pos_stride, strides, scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

@@ -26,9 +26,23 @@
 //   is made either. The TPU kernels' 8- and 32-slot write windows (a Mosaic
 //   tiling rule) stay behind: the card writes the one slot directly. The
 //   copy moves 2- or 4-byte words and never looks at their value.
+//
+// The int8 form (`kv_insert_q8`): the same three Pallas kernels on the
+//   int8 tree {"kv": int8 [s, B, Hk, T, hd], "scale": f32 [s, B, Hk, T, 1]}
+//   (the JAX package quantizes outside the kernel and writes both leaves,
+//   each with its own window, 32 slots for int8). Here the kernel takes the
+//   FLOAT update and quantizes it as it writes: one warp per (plane, row,
+//   kv head) reads the hd floats, reduces their absmax with shuffles and
+//   writes hd int8 bytes and one f32 scale at the slot
+//   (quantize_common.cuh, bit for bit the reference's `_q8`), so a decode
+//   tick's quantization costs no launch of its own. Bound: the float
+//   update read once, the int8 bytes and the scale written once (bytes).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "quantize_common.cuh"
 
 namespace {
 
@@ -67,6 +81,42 @@ cudaError_t launch(void* cache, const void* k, const void* v, const int* pos,
   return cudaGetLastError();
 }
 
+// one warp per (plane s, row b, kv head h): quantize the update row and
+// write it, and its scale, at slot pos[b * pos_stride]
+template <typename T>
+__global__ void kv_insert_q8_kernel(int8_t* __restrict__ cache, float* __restrict__ scale,
+                                    const T* __restrict__ k, const T* __restrict__ v,
+                                    const int* __restrict__ pos, int S, int B, int Hk,
+                                    int T_, int hd, int pos_stride, long long k_sb,
+                                    long long k_sh, long long v_sb, long long v_sh) {
+  const long long w = (blockIdx.x * (long long)blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (w >= (long long)S * B * Hk) return;  // uniform across the warp
+  const int h = static_cast<int>(w % Hk);
+  const long long r = w / Hk;
+  const int b = static_cast<int>(r % B);
+  const int s = static_cast<int>(r / B);
+  const int p = pos[(long long)b * pos_stride];
+  if (p < 0 || p >= T_) return;  // dropped (uniform across the warp)
+  const T* src = s == 0 ? k + b * k_sb + h * k_sh : v + b * v_sb + h * v_sh;
+  const long long row = (((long long)s * B + b) * Hk + h) * T_ + p;
+  q8::quantize_row(src, hd, lane, cache + row * hd, scale + row);
+}
+
+template <typename T>
+cudaError_t launch_q8(void* cache, float* scale, const void* k, const void* v,
+                      const int* pos, int S, int B, int Hk, int T_, int hd,
+                      int pos_stride, const long long* st, cudaStream_t stream) {
+  const int threads = 256;  // 8 warps, 8 rows
+  const long long blocks_needed = ((long long)S * B * Hk + 7) / 8;
+  if (blocks_needed > 2147483647LL) return cudaErrorInvalidValue;
+  kv_insert_q8_kernel<T><<<static_cast<unsigned>(blocks_needed), threads, 0, stream>>>(
+      static_cast<int8_t*>(cache), scale, static_cast<const T*>(k),
+      static_cast<const T*>(v), pos, S, B, Hk, T_, hd, pos_stride, st[0], st[1],
+      st[2], st[3]);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -89,6 +139,28 @@ int kv_insert(void* cache, const void* k, const void* v, const int* pos,
     e = launch<uint32_t>(cache, k, v, pos, S, B, Hk, T, w, pos_stride, strides, s);
   else if (elem_size == 2)
     e = launch<uint16_t>(cache, k, v, pos, S, B, Hk, T, w, pos_stride, strides, s);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
+}
+
+// The int8 form. cache: int8 [S, B, Hk, T, hd] contiguous; scale: f32
+// [S, B, Hk, T, 1] contiguous. k, v: FLOAT updates as above (dtype 0 f32,
+// 1 bf16, both of one dtype), quantized per (plane, row, head) as they are
+// written. hd <= 128. Returns the cudaError_t of the launch.
+int kv_insert_q8(void* cache, float* scale, const void* k, const void* v,
+                 const int* pos, int dtype, int S, int B, int Hk, int T, int hd,
+                 int pos_stride, const long long* strides, void* stream) {
+  if (S < 1 || S > 2 || B < 1 || Hk < 1 || T < 1 || hd < 1 || hd > q8::DMAX ||
+      pos_stride < 0 || pos_stride > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == 0)
+    e = launch_q8<float>(cache, scale, k, v, pos, S, B, Hk, T, hd, pos_stride, strides, s);
+  else if (dtype == 1)
+    e = launch_q8<__nv_bfloat16>(cache, scale, k, v, pos, S, B, Hk, T, hd, pos_stride,
+                                 strides, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

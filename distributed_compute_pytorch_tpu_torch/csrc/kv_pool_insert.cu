@@ -25,9 +25,23 @@
 // Parked decode rows all point at the shared trash block, so several rows
 //   may write the same trash slot in one launch. That race is benign: the
 //   trash block is never attended, so whichever value lands is never read.
+//
+// The int8 form (`kv_pool_insert_q8`): the same Pallas kernel on the int8
+//   pool {"kv": int8 [2, P, H, bt, hd], "scale": f32 [2, P, H, bt, 1]}
+//   (serving's kv_dtype="int8"; the JAX package quantizes outside the
+//   kernel, and its admission quantizes inside the XLA scatter). Here the
+//   kernel takes the FLOAT rows and quantizes them as it writes: one warp
+//   per (row, plane, head) reduces the row's absmax with shuffles and
+//   writes hd int8 bytes and one f32 scale (quantize_common.cuh, bit for
+//   bit the reference's `_q8`), both for the decode tick and for the
+//   admission scatter. Bound: the float rows read once, the int8 bytes and
+//   scales written once (bytes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "quantize_common.cuh"
 
 namespace {
 
@@ -68,6 +82,42 @@ cudaError_t launch(void* pool, const void* k, const void* v, const int* blocks,
   return cudaGetLastError();
 }
 
+// one warp per (row n, plane s, head h): quantize update row n's head h and
+// write it, and its scale, at (blocks[n], offsets[n])
+template <typename T>
+__global__ void kv_pool_insert_q8_kernel(int8_t* __restrict__ pool, float* __restrict__ scale,
+                                         const T* __restrict__ k, const T* __restrict__ v,
+                                         const int* __restrict__ blocks,
+                                         const int* __restrict__ offsets, int N, int P,
+                                         int H, int bt, int hd, long long k_sn,
+                                         long long k_sh, long long v_sn, long long v_sh) {
+  const long long w = (blockIdx.x * (long long)blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (w >= 2LL * N * H) return;  // uniform across the warp
+  const int n = static_cast<int>(w / (2 * H));
+  const int rem = static_cast<int>(w % (2 * H));
+  const int s = rem / H, h = rem % H;
+  const int blk = blocks[n], off = offsets[n];
+  if (blk < 0 || blk >= P || off < 0 || off >= bt) return;  // dropped
+  const T* src = s == 0 ? k + n * k_sn + h * k_sh : v + n * v_sn + h * v_sh;
+  const long long row = ((s * (long long)P + blk) * H + h) * bt + off;
+  q8::quantize_row(src, hd, lane, pool + row * hd, scale + row);
+}
+
+template <typename T>
+cudaError_t launch_q8(void* pool, float* scale, const void* k, const void* v,
+                      const int* blocks, const int* offsets, int N, int P, int H,
+                      int bt, int hd, const long long* st, cudaStream_t stream) {
+  const int threads = 256;  // 8 warps, 8 rows
+  const long long blocks_needed = (2LL * N * H + 7) / 8;
+  if (blocks_needed > 2147483647LL) return cudaErrorInvalidValue;
+  kv_pool_insert_q8_kernel<T><<<static_cast<unsigned>(blocks_needed), threads, 0, stream>>>(
+      static_cast<int8_t*>(pool), scale, static_cast<const T*>(k),
+      static_cast<const T*>(v), blocks, offsets, N, P, H, bt, hd, st[0], st[1],
+      st[2], st[3]);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -88,6 +138,29 @@ int kv_pool_insert(void* pool, const void* k, const void* v, const int* blocks,
     e = launch<float>(pool, k, v, blocks, offsets, N, P, H, bt, hd, strides, s);
   else if (dtype == 1)
     e = launch<__nv_bfloat16>(pool, k, v, blocks, offsets, N, P, H, bt, hd, strides, s);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
+}
+
+// The int8 form. pool: int8 [2, P, H, bt, hd] contiguous; scale: f32
+// [2, P, H, bt, 1] contiguous. k, v: FLOAT rows as above (dtype 0 f32, 1
+// bf16, both of one dtype), quantized per (row, plane, head) as they are
+// written. hd <= 128. Returns the cudaError_t of the launch (N == 0
+// launches nothing).
+int kv_pool_insert_q8(void* pool, float* scale, const void* k, const void* v,
+                      const int* blocks, const int* offsets, int dtype, int N, int P,
+                      int H, int bt, int hd, const long long* strides, void* stream) {
+  if (N < 0 || P < 1 || H < 1 || bt < 1 || hd < 1 || hd > q8::DMAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == 0)
+    e = launch_q8<float>(pool, scale, k, v, blocks, offsets, N, P, H, bt, hd, strides, s);
+  else if (dtype == 1)
+    e = launch_q8<__nv_bfloat16>(pool, scale, k, v, blocks, offsets, N, P, H, bt, hd,
+                                 strides, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

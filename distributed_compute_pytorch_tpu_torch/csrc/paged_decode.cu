@@ -25,6 +25,13 @@
 //   the scheduler; it reads finite garbage and produces finite garbage.
 //   Table entries outside [0, P) are clamped, as the reference's gather
 //   clamps, so a bad table can never read outside the pool.
+//
+// The int8 form (`paged_decode_q8`): serving's kv_dtype="int8" pool, int8
+//   K/V [2, P, Hk, bt, hd] beside f32 scales [2, P, Hk, bt, 1]. The JAX
+//   package reads it in XLA (gather_kv_blocks of both leaves, then
+//   ops/attention.py::cached_attention_q8); here the same kernel reads the
+//   int8 rows and their scales through the table (decode_common.cuh), with
+//   about half the bytes of the bf16 pool per key.
 
 #include "decode_common.cuh"
 
@@ -37,21 +44,23 @@ using decode::NWARPS;
 // a key's row through the row's block table; entries outside [0, P) clamp
 struct PagedKeys {
   const int* trow;
-  int P, Hk, hk, bt, hd;
+  int P, Hk, hk, bt;
   __device__ __forceinline__ long long row(int key) const {
     const int blk = min(max(trow[key / bt], 0), P - 1);
-    return (((long long)blk * Hk + hk) * bt + key % bt) * hd;
+    return ((long long)blk * Hk + hk) * bt + key % bt;
   }
   static constexpr bool kMasked = false;
   __device__ __forceinline__ bool valid(int) const { return true; }
 };
 
-// GT: 1 for plain multi-head attention, else the largest group the block
-// can hold (the first G of GT heads are live)
-template <typename T, int DV, int GT>
+// T: query/output type; C: pool element type (T, or int8_t with the f32
+// scale planes kscale/vscale). GT: 1 for plain multi-head attention, else
+// the largest group the block can hold (the first G of GT heads are live)
+template <typename T, typename C, int DV, int GT>
 __global__ void __launch_bounds__(NWARPS * 32)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                    const T* __restrict__ vpool, T* __restrict__ out,
+paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ kpool,
+                    const C* __restrict__ vpool, const float* __restrict__ kscale,
+                    const float* __restrict__ vscale, T* __restrict__ out,
                     const int* __restrict__ tables, const int* __restrict__ pos,
                     int G, int Hk, int P, int bt, int hd, int nb,
                     long long q_sb, long long q_sh, long long o_sb,
@@ -59,40 +68,50 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   const int b = blockIdx.x, hk = blockIdx.y;
   const int p = pos[b];
   const int n_keys = p < 0 ? 0 : min(p, nb * bt - 1) + 1;
-  const PagedKeys keys{tables + (long long)b * nb, P, Hk, hk, bt, hd};
-  decode::attend<T, DV, GT>(q, kpool, vpool, out, keys, n_keys, b, hk,
-                            GT == 1 ? 1 : G, hd, q_sb, q_sh, o_sb, o_sh, scale);
+  const PagedKeys keys{tables + (long long)b * nb, P, Hk, hk, bt};
+  decode::attend<T, C, DV, GT>(q, kpool, vpool, kscale, vscale, out, keys, n_keys, b,
+                               hk, GT == 1 ? 1 : G, hd, q_sb, q_sh, o_sb, o_sh, scale);
 }
 
-template <typename T, int GT>
-void launch_g(const dim3& grid, cudaStream_t stream, const T* q, const T* kpool,
-              const T* vpool, T* out, const int* tables, const int* pos, int G,
-              int Hk, int P, int bt, int hd, int nb, const long long* st,
-              float scale) {
+template <typename T, typename C, int GT>
+void launch_g(const dim3& grid, cudaStream_t stream, const T* q, const C* kpool,
+              const C* vpool, const float* ks, const float* vs, T* out,
+              const int* tables, const int* pos, int G, int Hk, int P, int bt, int hd,
+              int nb, const long long* st, float scale) {
   const dim3 block(NWARPS * 32);
   switch ((hd + 31) / 32) {
-    case 1: paged_decode_kernel<T, 1, GT><<<grid, block, 0, stream>>>(q, kpool, vpool, out, tables, pos, G, Hk, P, bt, hd, nb, st[0], st[1], st[2], st[3], scale); break;
-    case 2: paged_decode_kernel<T, 2, GT><<<grid, block, 0, stream>>>(q, kpool, vpool, out, tables, pos, G, Hk, P, bt, hd, nb, st[0], st[1], st[2], st[3], scale); break;
-    case 3: paged_decode_kernel<T, 3, GT><<<grid, block, 0, stream>>>(q, kpool, vpool, out, tables, pos, G, Hk, P, bt, hd, nb, st[0], st[1], st[2], st[3], scale); break;
-    default: paged_decode_kernel<T, 4, GT><<<grid, block, 0, stream>>>(q, kpool, vpool, out, tables, pos, G, Hk, P, bt, hd, nb, st[0], st[1], st[2], st[3], scale); break;
+    case 1: paged_decode_kernel<T, C, 1, GT><<<grid, block, 0, stream>>>(q, kpool, vpool, ks, vs, out, tables, pos, G, Hk, P, bt, hd, nb, st[0], st[1], st[2], st[3], scale); break;
+    case 2: paged_decode_kernel<T, C, 2, GT><<<grid, block, 0, stream>>>(q, kpool, vpool, ks, vs, out, tables, pos, G, Hk, P, bt, hd, nb, st[0], st[1], st[2], st[3], scale); break;
+    case 3: paged_decode_kernel<T, C, 3, GT><<<grid, block, 0, stream>>>(q, kpool, vpool, ks, vs, out, tables, pos, G, Hk, P, bt, hd, nb, st[0], st[1], st[2], st[3], scale); break;
+    default: paged_decode_kernel<T, C, 4, GT><<<grid, block, 0, stream>>>(q, kpool, vpool, ks, vs, out, tables, pos, G, Hk, P, bt, hd, nb, st[0], st[1], st[2], st[3], scale); break;
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* pool, void* out, const int* tables,
-                   const int* pos, int B, int Hq, int G, int P, int bt, int hd,
-                   int nb, const long long* st, float scale, cudaStream_t stream) {
+// pool_scale: null for a float pool (C = T), else the f32 [2, P, Hk, bt, 1]
+// scales of an int8 pool (C = int8_t)
+template <typename T, typename C>
+cudaError_t launch(const void* q, const void* pool, const float* pool_scale, void* out,
+                   const int* tables, const int* pos, int B, int Hq, int G, int P,
+                   int bt, int hd, int nb, const long long* st, float scale,
+                   cudaStream_t stream) {
   const int Hk = Hq / G;
-  const T* kpool = static_cast<const T*>(pool);
-  const T* vpool = kpool + (long long)P * Hk * bt * hd;
+  const long long plane = (long long)P * Hk * bt;  // rows in one K/V plane
+  const C* kpool = static_cast<const C*>(pool);
+  const C* vpool = kpool + plane * hd;
+  const float* vscale = pool_scale == nullptr ? nullptr : pool_scale + plane;
   const dim3 grid(B, Hk);
   const T* qq = static_cast<const T*>(q);
   T* oo = static_cast<T*>(out);
   if (G == 1)
-    launch_g<T, 1>(grid, stream, qq, kpool, vpool, oo, tables, pos, G, Hk, P, bt, hd, nb, st, scale);
+    launch_g<T, C, 1>(grid, stream, qq, kpool, vpool, pool_scale, vscale, oo, tables, pos, G, Hk, P, bt, hd, nb, st, scale);
   else
-    launch_g<T, GMAX>(grid, stream, qq, kpool, vpool, oo, tables, pos, G, Hk, P, bt, hd, nb, st, scale);
+    launch_g<T, C, GMAX>(grid, stream, qq, kpool, vpool, pool_scale, vscale, oo, tables, pos, G, Hk, P, bt, hd, nb, st, scale);
   return cudaGetLastError();
+}
+
+bool bad_shape(int B, int Hq, int G, int P, int bt, int hd, int nb) {
+  return B < 1 || Hq < 1 || G < 1 || G > GMAX || Hq % G || Hq / G > 65535 ||
+         P < 1 || bt < 1 || nb < 1 || hd < 8 || hd > DMAX || hd % 8;
 }
 
 }  // namespace
@@ -109,15 +128,33 @@ int paged_decode(const void* q, const void* pool, void* out, const int* tables,
                  const int* pos, int dtype, int B, int Hq, int G, int P, int bt,
                  int hd, int nb, const long long* strides, float scale,
                  void* stream) {
-  if (B < 1 || Hq < 1 || G < 1 || G > GMAX || Hq % G || Hq / G > 65535 ||
-      P < 1 || bt < 1 || nb < 1 || hd < 8 || hd > DMAX || hd % 8)
+  if (bad_shape(B, Hq, G, P, bt, hd, nb)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == 0)
+    e = launch<float, float>(q, pool, nullptr, out, tables, pos, B, Hq, G, P, bt, hd, nb, strides, scale, s);
+  else if (dtype == 1)
+    e = launch<__nv_bfloat16, __nv_bfloat16>(q, pool, nullptr, out, tables, pos, B, Hq, G, P, bt, hd, nb, strides, scale, s);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
+}
+
+// The int8 form: pool int8 [2, P, Hq / G, bt, hd] contiguous, 16-byte
+// aligned; pool_scale f32 [2, P, Hq / G, bt, 1] contiguous. q and out as
+// above, dtype 0 f32 or 1 bf16 (the query's).
+int paged_decode_q8(const void* q, const void* pool, const float* pool_scale, void* out,
+                    const int* tables, const int* pos, int dtype, int B, int Hq, int G,
+                    int P, int bt, int hd, int nb, const long long* strides, float scale,
+                    void* stream) {
+  if (bad_shape(B, Hq, G, P, bt, hd, nb) || pool_scale == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = launch<float>(q, pool, out, tables, pos, B, Hq, G, P, bt, hd, nb, strides, scale, s);
+    e = launch<float, int8_t>(q, pool, pool_scale, out, tables, pos, B, Hq, G, P, bt, hd, nb, strides, scale, s);
   else if (dtype == 1)
-    e = launch<__nv_bfloat16>(q, pool, out, tables, pos, B, Hq, G, P, bt, hd, nb, strides, scale, s);
+    e = launch<__nv_bfloat16, int8_t>(q, pool, pool_scale, out, tables, pos, B, Hq, G, P, bt, hd, nb, strides, scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

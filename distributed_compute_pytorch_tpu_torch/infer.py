@@ -26,15 +26,25 @@ on the model's device, which cannot draw ``jax.random``'s bits, so sampled
 streams are held to invariants (the same generator seed gives the same
 tokens; no draw lands on a filtered logit) while greedy decoding and the
 top-k / nucleus masking (:func:`_filter_logits`) are held to the reference
-exactly; the TPU's slot-window alignment of ``t_max`` does not carry over
-(it changes nothing a caller sees). Sharded generation (``mesh``) and the
-int8 KV cache (``kv_quant``) raise ``NotImplementedError``.
+exactly; the TPU's slot-window alignment of ``t_max`` (8 slots, 32 for
+int8) does not carry over (it changes nothing a caller sees). Sharded
+generation (``mesh``) raises ``NotImplementedError``.
+
+``kv_quant=True`` keeps the cache in int8 with one f32 scale per (row,
+head, slot) (``{"kv": int8, "scale": f32 [2, B, Hk, t_max, 1]}``, about
+half the bytes): the prefill quantizes the prompt's K/V once
+(``utils/quantize.py::quantize_kv``), each tick's write quantizes as it
+lands (the int8 ``kv_insert``) and the read takes the int8 rows and their
+scales (the int8 ``dense_decode``). The prefill's own attention stays
+float, so the first token is the float cache's.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from distributed_compute_pytorch_tpu_torch.utils.quantize import quantize_kv
 
 
 def prefill(model, prompt, t_max: int, prompt_mask=None,
@@ -48,11 +58,8 @@ def prefill(model, prompt, t_max: int, prompt_mask=None,
 
     Returns ``(last_logits [B, vocab], caches)``: one ``{"kv": [2, B, Hk,
     t_max, hd]}`` per layer, the prompt's K/V at slots ``0..T0-1``, zeros
-    after."""
-    if kv_quant:
-        raise NotImplementedError(
-            "kv_quant (the int8 KV cache) is not ported yet (ROADMAP.md "
-            "queue 4.2)")
+    after. ``kv_quant`` stores the int8 form instead, ``{"kv": int8,
+    "scale": f32 [2, B, Hk, t_max, 1]}`` (reference ``:152-163``)."""
     B, T0 = prompt.shape
     if T0 > t_max:
         raise ValueError(f"prompt length {T0} exceeds t_max={t_max}")
@@ -68,6 +75,13 @@ def prefill(model, prompt, t_max: int, prompt_mask=None,
         sink: list = []
         x = block(x, kv_mask=prompt_mask, kv_sink=sink)
         (k, v), = sink
+        if kv_quant:
+            kv = x.new_zeros(2, B, hk, t_max, hd, dtype=torch.int8)
+            sc = x.new_zeros(2, B, hk, t_max, 1, dtype=torch.float32)
+            for i, a in enumerate((k, v)):
+                kv[i, :, :, :T0], sc[i, :, :, :T0] = quantize_kv(a)
+            caches.append({"kv": kv, "scale": sc})
+            continue
         kv = x.new_zeros(2, B, hk, t_max, hd)
         kv[0, :, :, :T0] = k
         kv[1, :, :, :T0] = v
@@ -139,16 +153,13 @@ def make_generate_fn(model, max_new_tokens: int, *, t_max: int | None = None,
     ``eos_id``: rows that emit this token keep emitting it for the rest of
     the fixed-shape output (callers trim at the first eos). ``generator``:
     a ``torch.Generator`` on the model's device (default: seed 0), used
-    only when ``temperature > 0``."""
+    only when ``temperature > 0``. ``kv_quant``: the int8 KV cache (see
+    :func:`prefill`)."""
     if max_new_tokens < 0:
         raise ValueError(f"max_new_tokens must be >= 0, got {max_new_tokens}")
     if mesh is not None:
         raise NotImplementedError("sharded generation (mesh=) is not ported "
-                                  "yet (ROADMAP.md queue 4.3)")
-    if kv_quant:
-        raise NotImplementedError(
-            "kv_quant (the int8 KV cache) is not ported yet (ROADMAP.md "
-            "queue 4.2)")
+                                  "yet (ROADMAP.md queue 1.7.3)")
     vocab = model.config.vocab_size
     if top_k is not None and not 1 <= top_k <= vocab:
         raise ValueError(f"top_k must be in [1, vocab={vocab}], got {top_k}")
@@ -193,7 +204,8 @@ def make_generate_fn(model, max_new_tokens: int, *, t_max: int | None = None,
     def _decode(prompt, tm, generator, prompt_mask):
         B, T0 = prompt.shape
         dev = prompt.device
-        last_logits, caches = prefill(model, prompt, tm, prompt_mask)
+        last_logits, caches = prefill(model, prompt, tm, prompt_mask,
+                                      kv_quant=kv_quant)
         slot_mask = pad_count = None
         if prompt_mask is not None:
             pad_count = T0 - prompt_mask.to(torch.int64).sum(1)
@@ -234,8 +246,9 @@ def generate(model, prompt, max_new_tokens: int, *, t_max: int | None = None,
     (token ids) -> ``[B, T0 + max_new_tokens]`` int64 tokens on the model's
     device. ``prompt_mask`` (``[B, T0]``, 1 = real) enables LEFT-padded
     variable-length prompt batches; ``eos_id`` stops rows at that token
-    (they pad the fixed-shape tail with it). See :func:`make_generate_fn`.
-    Each call fills fresh caches."""
+    (they pad the fixed-shape tail with it); ``kv_quant`` keeps the KV
+    cache in int8. See :func:`make_generate_fn`. Each call fills fresh
+    caches."""
     return make_generate_fn(model, max_new_tokens, t_max=t_max,
                             temperature=temperature, eos_id=eos_id,
                             top_k=top_k, top_p=top_p, mesh=mesh,

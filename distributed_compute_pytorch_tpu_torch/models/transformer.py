@@ -51,9 +51,12 @@ def attention_decode_tick(block, x, cache, pos, *, num_heads: int,
     """The attention half of one decode tick (reference ``:142-163``):
     ln1 -> fused QKV -> the cache write + attention
     (``ops/attention.py::cache_write_and_attend``, in place on the cache)
-    -> attn_out residual. ``pos``: a scalar (lockstep) or int32 ``[B]``
-    per-row slots; ``slot_mask``: optional ``[B, T]`` slot validity of a
-    dense cache. Returns ``(x + attn_residual, cache)``."""
+    -> attn_out residual. ``cache``: ``{"kv"}`` (dense) or ``{"kv",
+    "table"}`` (paged), with a ``"scale"`` leaf beside an int8 ``"kv"``;
+    every leaf passes through to the write and the read as it is. ``pos``:
+    a scalar (lockstep) or int32 ``[B]`` per-row slots; ``slot_mask``:
+    optional ``[B, T]`` slot validity of a dense cache. Returns ``(x +
+    attn_residual, cache)``."""
     q, k, v = _qkv_heads(block, block.ln1(x), num_heads)
     o, cache = A.cache_write_and_attend(q, k, v, cache, pos,
                                         slot_mask=slot_mask)
@@ -106,9 +109,10 @@ class TransformerBlock(nn.Module):
     def decode_step(self, x, cache, pos, slot_mask=None):
         """One decode tick (reference ``:273-292``): ``x [B, 1, d]`` at
         slot ``pos`` (a scalar, or per-row ``[B]``); writes this step's K/V
-        into ``cache["kv"]`` (the paged pool or the dense pair cache) in
-        place and attends slots ``0..pos`` minus those ``slot_mask``
-        (optional ``[B, T]``, dense cache only) refuses."""
+        into ``cache["kv"]`` (the paged pool or the dense pair cache; int8
+        with its ``cache["scale"]``) in place and attends slots ``0..pos``
+        minus those ``slot_mask`` (optional ``[B, T]``, dense cache only)
+        refuses."""
         if not self.causal:
             raise ValueError("decode needs a causal block")
         x, cache = attention_decode_tick(self, x, cache, pos,

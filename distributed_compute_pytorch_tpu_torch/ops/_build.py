@@ -116,14 +116,14 @@ _ARG = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
         "f": ctypes.c_float, "s": ctypes.POINTER(ctypes.c_longlong)}
 
 
-def bind(name: str, spec: str):
-    """The C entry ``name`` of kernel ``name``, its ``argtypes`` declared
-    from one letter per argument: ``p`` a pointer (or the stream, both
-    ``c_void_p``), ``i`` a ``c_int``, ``l`` a ``c_longlong``, ``f`` a
-    ``c_float``, ``s`` a ``long long`` strides array. Returns ``(lib,
-    fn)``."""
+def bind(name: str, spec: str, entry: str | None = None):
+    """The C entry ``entry`` (default ``name``) of kernel ``name``, its
+    ``argtypes`` declared from one letter per argument: ``p`` a pointer (or
+    the stream, both ``c_void_p``), ``i`` a ``c_int``, ``l`` a
+    ``c_longlong``, ``f`` a ``c_float``, ``s`` a ``long long`` strides
+    array. Returns ``(lib, fn)``."""
     lib = load(name)
-    fn = getattr(lib, name)
+    fn = getattr(lib, entry or name)
     if fn.argtypes is None:
         fn.argtypes = [_ARG[c] for c in spec]
         fn.restype = ctypes.c_int

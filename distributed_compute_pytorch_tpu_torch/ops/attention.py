@@ -1,16 +1,19 @@
 """Attention ops — port of ``distributed_compute_pytorch_tpu/ops/attention.py``.
 
 The dense math here (``dot_product_attention``, ``cached_attention``,
-``gather_kv_blocks``) is the REFERENCE the kernels are held to: it is the
-plain version the CPU path runs and ``chip_smoke.py`` compares against.
+``cached_attention_q8``, ``gather_kv_blocks``) is the REFERENCE the
+kernels are held to: it is the plain version the CPU path runs and
+``chip_smoke.py`` compares against.
 On CUDA tensors the serving and generation paths go through the
 hand-written kernels:
 
 - :func:`attention` -> ``ops/flash_attention.py`` (admission prefill);
 - :func:`cache_write_and_attend` -> ``ops/cache_update.py`` (the K/V slot
   write, in place: into the paged pool, or into generation's dense pair
-  cache) and ``ops/decode_attention.py`` (the paged read through the block
-  table, with no gathered copy of the cache, or the dense read).
+  cache; for an int8 cache the write quantizes) and
+  ``ops/decode_attention.py`` (the paged read through the block table,
+  with no gathered copy of the cache, or the dense read; each also reads
+  the int8 cache with its per-row scales).
 
 Layouts follow the JAX package: ``[batch, heads, seq, head_dim]``.
 """
@@ -111,6 +114,39 @@ def cached_attention(q, k_cache, v_cache, pos, *, scale: float | None = None,
     return out.reshape(B, H, q_len, hd) if grouped else out
 
 
+def cached_attention_q8(q, cache, pos, *, scale: float | None = None,
+                        slot_mask=None):
+    """:func:`cached_attention` over an int8 K/V cache (reference
+    ``:219-280``): ``cache`` is ``{"k", "v": int8 [B, Hk, T, hd],
+    "k_scale", "v_scale": f32 [B, Hk, T, 1]}``, per-row symmetric scales
+    (``utils/quantize.py::quantize_kv``). The scales commute out of both
+    contractions: ``score_t = (q . k_t) * scale * k_scale_t`` in f32, and
+    ``out = sum_t (p_t * v_scale_t) * v_t``, where ``p * v_scale`` is cast
+    to ``q.dtype`` before the value product, as the reference does. Masked
+    slots take the finite ``-1e30`` fill. Returns ``[B, H, 1, hd]`` in
+    ``q.dtype``."""
+    B, H, q_len, hd = q.shape
+    k_q, v_q = cache["k"], cache["v"]
+    hk, t_max = k_q.shape[1], k_q.shape[2]
+    grouped = H != hk
+    if grouped:
+        if q_len != 1:
+            raise ValueError("GQA cached attention takes one query position")
+        q = q.reshape(B, hk, H // hk, hd)
+    sc = hd ** -0.5 if scale is None else scale
+    scores = torch.matmul(q.float(), k_q.float().transpose(-1, -2)) * sc
+    scores = scores * cache["k_scale"][:, :, None, :, 0]
+    pos = _pos_vector(pos, B, q.device)
+    slots = torch.arange(t_max, device=q.device)
+    valid = slots[None, None, None, :] <= pos[:, None, None, None]
+    if slot_mask is not None:
+        valid = valid & (slot_mask != 0)[:, None, None, :]
+    probs = torch.softmax(scores.masked_fill(~valid, NEG_FILL), dim=-1)
+    pv = (probs * cache["v_scale"][:, :, None, :, 0]).to(q.dtype)
+    out = torch.matmul(pv.float(), v_q.float()).to(q.dtype)
+    return out.reshape(B, H, q_len, hd) if grouped else out
+
+
 def gather_kv_blocks(pool_leaf, table):
     """The logical per-row view of a paged pool leaf (reference
     ``:283-310``): ``pool_leaf [s, P, hk, bt, hd]`` through ``table
@@ -124,9 +160,9 @@ def gather_kv_blocks(pool_leaf, table):
 
 def cache_write_and_attend(q, k, v, cache, pos, *, slot_mask=None):
     """One decode tick's cache write + attention (reference ``:425-466``),
-    for both float cache formats; the write is IN PLACE, where the JAX
-    package donates the buffer. ``q, k, v``: ``[B, H(k), 1, hd]``. Returns
-    ``(o [B, H, 1, hd], cache)``.
+    for both cache formats, float or int8; the write is IN PLACE, where the
+    JAX package donates the buffer. ``q, k, v``: ``[B, H(k), 1, hd]``.
+    Returns ``(o [B, H, 1, hd], cache)``.
 
     - The dense pair cache ``{"kv": [2, B, Hk, T, hd]}`` (generation): a
       scalar ``pos`` (a Python int or a 0-dim int32 tensor: the lockstep
@@ -134,42 +170,44 @@ def cache_write_and_attend(q, k, v, cache, pos, *, slot_mask=None):
       ``pos`` each row at its own (``kv_insert_rows``); then row ``b``
       attends slots ``0..pos[b]`` that ``slot_mask`` (optional ``[B, T]``)
       keeps (``decode_attention``).
-    - The PAGED float pool (serving, reference ``:313-353``): ``{"kv": [2,
-      P, hk, bt, hd], "table": int32 [B, nb]}``. Row ``b`` writes its K/V
-      at the physical (block, offset) its table maps logical slot
-      ``pos[b]`` to, then attends its logical slots ``0..pos[b]`` through
-      the table. The horizon is the table's, ``nb * bt``; the slot lookup
-      clamps to the last table entry, which only parked rows (all-trash
-      tables) reach. No ``slot_mask``: serving lays prompts out from slot
-      0.
+    - The PAGED pool (serving, reference ``:313-353``): ``{"kv": [2, P,
+      hk, bt, hd], "table": int32 [B, nb]}``. Row ``b`` writes its K/V at
+      the physical (block, offset) its table maps logical slot ``pos[b]``
+      to, then attends its logical slots ``0..pos[b]`` through the table.
+      The horizon is the table's, ``nb * bt``; the slot lookup clamps to
+      the last table entry, which only parked rows (all-trash tables)
+      reach. No ``slot_mask``: serving lays prompts out from slot 0.
 
-    The int8 forms (a ``"scale"`` leaf) raise: they wait for the int8 KV
-    slice (``ROADMAP.md`` queue 3.6)."""
+    Either format takes the int8 form: ``"kv"`` int8 beside a ``"scale"``
+    leaf, f32 ``[..., 1]`` (one scale per cached row). The write quantizes
+    the float K/V per row (``utils/quantize.py::quantize_kv``, fused into
+    the write kernels) and the read is :func:`cached_attention_q8`'s (the
+    decode kernels' int8 form)."""
     from distributed_compute_pytorch_tpu_torch.ops import cache_update as CU
     from distributed_compute_pytorch_tpu_torch.ops import (
         decode_attention as DA)
-    if "scale" in cache:
-        raise NotImplementedError(
-            "the int8 KV cache form (the 'scale' leaf) waits for the int8 "
-            "KV slice (ROADMAP.md queue 3.6)")
-    if set(cache) == {"kv"}:
+    sc = cache.get("scale")
+    leaves = set(cache) - {"scale"}
+    if leaves == {"kv"}:
         kv = cache["kv"]
         if isinstance(pos, torch.Tensor) and pos.ndim:
-            CU.kv_insert_rows(kv, k, v, pos)
+            CU.kv_insert_rows(kv, k, v, pos, scale=sc)
         else:
-            CU.kv_insert(kv, k, v, pos)
-        return DA.decode_attention(q, kv, pos, slot_mask=slot_mask), cache
-    if set(cache) != {"kv", "table"} or slot_mask is not None:
+            CU.kv_insert(kv, k, v, pos, scale=sc)
+        return DA.decode_attention(q, kv, pos, slot_mask=slot_mask,
+                                   kv_scale=sc), cache
+    if leaves != {"kv", "table"} or slot_mask is not None:
         raise NotImplementedError(
             f"cache_write_and_attend takes the dense pair cache {{'kv'}} or "
-            f"the paged float pool {{'kv', 'table'}} without a slot_mask; "
-            f"got keys {sorted(cache)}, slot_mask "
-            f"{'set' if slot_mask is not None else 'None'}")
+            f"the paged pool {{'kv', 'table'}} (each with an optional int8 "
+            f"'scale' leaf) without a slot_mask; got keys {sorted(cache)}, "
+            f"slot_mask {'set' if slot_mask is not None else 'None'}")
     pool, table = cache["kv"], cache["table"]
     bt, nb = pool.shape[3], table.shape[1]
     pos = _pos_vector(pos, q.shape[0], q.device)
     slot = torch.clamp(pos // bt, max=nb - 1).long()
     blk = table.gather(1, slot[:, None])[:, 0].contiguous()
     off = (pos % bt).contiguous()
-    CU.kv_pool_insert(pool, k[:, :, 0], v[:, :, 0], blk, off)
-    return DA.paged_decode_attention(q, pool, table, pos), cache
+    CU.kv_pool_insert(pool, k[:, :, 0], v[:, :, 0], blk, off, scale=sc)
+    return DA.paged_decode_attention(q, pool, table, pos,
+                                     kv_scale=sc), cache

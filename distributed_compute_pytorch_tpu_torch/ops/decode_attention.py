@@ -18,8 +18,17 @@ on a TPU v5e, ``decode_attention.py:29-40``) while XLA attended the cache
 reads: no gathered copy is built, and each row reads only its slots
 ``0..pos``. The two share their device code (``csrc/decode_common.cuh``).
 
+Both reads take the int8 cache form too (``kv_scale=``: the f32 ``[...,
+1]`` plane of per-row scales beside an int8 cache): the JAX package reads
+that form in XLA (``ops/attention.py::cached_attention_q8``, after a
+gather for the paged pool); the port's kernels read it themselves, int8
+rows and scales, with about half the bytes of a bf16 cache. The plain
+versions are ``gather_kv_blocks`` (paged) followed by
+``cached_attention_q8``.
+
 ``launches`` counts ``paged_decode``'s kernel launches and
-``dense_launches`` ``dense_decode``'s (plain calls never count).
+``dense_launches`` ``dense_decode``'s; the int8 forms count apart, in
+``q8_launches`` and ``dense_q8_launches`` (plain calls never count).
 """
 
 from __future__ import annotations
@@ -28,7 +37,9 @@ import torch
 
 from distributed_compute_pytorch_tpu_torch.ops import _build
 from distributed_compute_pytorch_tpu_torch.ops.attention import (
-    cached_attention, gather_kv_blocks)
+    cached_attention, cached_attention_q8, gather_kv_blocks)
+from distributed_compute_pytorch_tpu_torch.utils.quantize import (
+    check_scale_plane)
 
 NAME = "paged_decode"
 REPLACES = "distributed_compute_pytorch_tpu/ops/pallas/decode_attention.py:176"
@@ -38,18 +49,40 @@ DENSE_NAME = "dense_decode"
 DENSE_REPLACES = \
     "distributed_compute_pytorch_tpu/ops/pallas/decode_attention.py:58"
 dense_launches = 0
+q8_launches = dense_q8_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def paged_decode_plain(q, pool, table, pos, *, scale: float | None = None):
+def _q8_view(cache, kv_scale):
+    """The ``cached_attention_q8`` cache of a pair ``[2, B, Hk, T, hd]``
+    and its scale plane ``[2, B, Hk, T, 1]``."""
+    return {"k": cache[0], "v": cache[1], "k_scale": kv_scale[0],
+            "v_scale": kv_scale[1]}
+
+
+def paged_decode_plain(q, pool, table, pos, *, scale: float | None = None,
+                       kv_scale=None):
     """The kernel's plain PyTorch version: gather each row's logical view
-    through its table, then dense masked decode attention."""
+    through its table, then dense masked decode attention
+    (``cached_attention``, or ``cached_attention_q8`` over the int8 pool
+    and its gathered ``kv_scale``)."""
     kv = gather_kv_blocks(pool, table)
-    return cached_attention(q, kv[0], kv[1], pos, scale=scale)
+    if kv_scale is None:
+        return cached_attention(q, kv[0], kv[1], pos, scale=scale)
+    return cached_attention_q8(
+        q, _q8_view(kv, gather_kv_blocks(kv_scale, table)), pos, scale=scale)
 
 
-def _check(q, pool, table, pos):
+def _check_kv_scale(q, cache, kv_scale):
+    """An int8 cache needs its ``kv_scale`` plane and a float query; a
+    float cache takes no ``kv_scale``."""
+    check_scale_plane(cache, kv_scale, "kv_scale")
+    if not q.is_floating_point():
+        raise ValueError(f"the query must be float, got {q.dtype}")
+
+
+def _check(q, pool, table, pos, kv_scale):
     if q.ndim != 4 or q.shape[2] != 1:
         raise ValueError(f"q must be [B, H, 1, hd], got {tuple(q.shape)}")
     if pool.ndim != 5 or pool.shape[0] != 2:
@@ -62,74 +95,106 @@ def _check(q, pool, table, pos):
                          f"{tuple(pool.shape)}")
     if table.ndim != 2 or table.shape[0] != B or tuple(pos.shape) != (B,):
         raise ValueError("table must be [B, nb] and pos [B]")
+    _check_kv_scale(q, pool, kv_scale)
 
 
-def paged_decode_attention(q, pool, table, pos, *, scale: float | None = None):
+def paged_decode_attention(q, pool, table, pos, *, scale: float | None = None,
+                           kv_scale=None):
     """``q [B, H, 1, hd]`` attends pool ``[2, P, Hk, bt, hd]`` through
     ``table`` int32 ``[B, nb]`` over logical slots ``0..min(pos[b], nb *
-    bt - 1)``; ``pos`` is an int32 ``[B]`` tensor (>= 0). Returns ``[B, H,
-    1, hd]``. CUDA tensors launch ``paged_decode``; CPU tensors run the
-    plain version."""
-    _check(q, pool, table, pos)
+    bt - 1)``; ``pos`` is an int32 ``[B]`` tensor (>= 0). An int8 pool
+    takes its ``kv_scale [2, P, Hk, bt, 1]``. Returns ``[B, H, 1, hd]``.
+    CUDA tensors launch ``paged_decode`` (``paged_decode_q8``); CPU tensors
+    run the plain version."""
+    _check(q, pool, table, pos, kv_scale)
     if q.device.type == "cpu":
-        return paged_decode_plain(q, pool, table, pos, scale=scale)
-    return paged_decode_cuda(q, pool, table, pos, scale=scale)
+        return paged_decode_plain(q, pool, table, pos, scale=scale,
+                                  kv_scale=kv_scale)
+    return paged_decode_cuda(q, pool, table, pos, scale=scale,
+                             kv_scale=kv_scale)
 
 
-def paged_decode_cuda(q, pool, table, pos, *, scale: float | None = None):
-    """Launch the CUDA kernel: one block per (row, kv head), serving the
-    query heads that share that kv head. Raises on anything it does not
-    take: non-CUDA or mixed devices, dtypes other than the pool's
-    (f32/bf16), a non-contiguous or unaligned pool, a head dim not a
-    multiple of 8 or above 128 or without unit stride, more than 8 query
-    heads per kv head, a non-int32 table or pos."""
-    global launches
-    _check(q, pool, table, pos)
+def _check_cuda_read(name, q, cache, kv_scale, others):
+    """The CUDA reads' shared checks: one CUDA device; an f32/bf16 query
+    with a unit head-dim stride, of the cache's dtype or over an int8
+    cache; a contiguous, 16-byte aligned cache (and scale plane); a head
+    dim a multiple of 8 up to 128; at most 8 query heads per kv head.
+    Returns the kernel's dtype code of the query."""
     dev = q.device
-    if dev.type != "cuda" or any(x.device != dev for x in (pool, table, pos)):
-        raise ValueError("paged_decode needs CUDA tensors on one device")
-    if pool.dtype not in _DTYPES or q.dtype != pool.dtype:
-        raise ValueError(f"paged_decode takes an f32/bf16 pool and a query "
-                         f"of its dtype, got {pool.dtype}, {q.dtype}")
-    B, H, _, hd = q.shape
-    _, P, hk, bt, _ = pool.shape
+    tensors = (cache, *others) + (() if kv_scale is None else (kv_scale,))
+    if dev.type != "cuda" or any(x.device != dev for x in tensors):
+        raise ValueError(f"{name} needs CUDA tensors on one device")
+    if q.dtype not in _DTYPES or (cache.dtype != torch.int8
+                                  and cache.dtype != q.dtype):
+        raise ValueError(f"{name} takes an f32/bf16 query over a cache of "
+                         f"its dtype or an int8 cache, got {q.dtype}, "
+                         f"{cache.dtype}")
+    H, hd, hk = q.shape[1], q.shape[3], cache.shape[2]
     if hd % 8 or hd > 128 or q.stride(-1) != 1:
-        raise ValueError(f"paged_decode needs head_dim % 8 == 0, <= 128 and "
-                         f"unit stride (got {hd})")
+        raise ValueError(f"{name} needs head_dim % 8 == 0, <= 128 and unit "
+                         f"stride (got {hd})")
     if H // hk > 8:
-        raise ValueError(f"paged_decode takes at most 8 query heads per kv "
-                         f"head (got {H // hk})")
-    if not pool.is_contiguous() or pool.data_ptr() % 16:
-        raise ValueError("paged_decode needs a contiguous, 16-byte aligned "
-                         "pool")
+        raise ValueError(f"{name} takes at most 8 query heads per kv head "
+                         f"(got {H // hk})")
+    if not cache.is_contiguous() or cache.data_ptr() % 16 or (
+            kv_scale is not None and not kv_scale.is_contiguous()):
+        raise ValueError(f"{name} needs a contiguous, 16-byte aligned cache "
+                         f"and a contiguous scale plane")
+    return _DTYPES[q.dtype]
+
+
+def paged_decode_cuda(q, pool, table, pos, *, scale: float | None = None,
+                      kv_scale=None):
+    """Launch the CUDA kernel (the int8 form with ``kv_scale``): one block
+    per (row, kv head), serving the query heads that share that kv head.
+    Raises on anything it does not take: non-CUDA or mixed devices, a query
+    other than f32/bf16 of the pool's dtype (or over an int8 pool), a
+    missing or misshapen scale plane, a non-contiguous or unaligned pool, a
+    head dim not a multiple of 8 or above 128 or without unit stride, more
+    than 8 query heads per kv head, a non-int32 table or pos."""
+    global launches, q8_launches
+    _check(q, pool, table, pos, kv_scale)
+    dt = _check_cuda_read(NAME, q, pool, kv_scale, (table, pos))
     for x in (table, pos):
         if x.dtype != torch.int32 or not x.is_contiguous():
             raise ValueError("table/pos must be contiguous int32")
+    B, H, _, hd = q.shape
+    _, P, hk, bt, _ = pool.shape
     scale = hd ** -0.5 if scale is None else float(scale)
-    out = torch.empty(B, 1, H, hd, dtype=q.dtype, device=dev).transpose(1, 2)
-    lib, fn = _build.bind(NAME, "pppppiiiiiiiisfp")
-    rc = fn(q.data_ptr(), pool.data_ptr(), out.data_ptr(), table.data_ptr(),
-            pos.data_ptr(), _DTYPES[pool.dtype], B, H, H // hk, P, bt, hd,
-            table.shape[1],
+    out = torch.empty(B, 1, H, hd, dtype=q.dtype, device=q.device
+                      ).transpose(1, 2)
+    args = (out.data_ptr(), table.data_ptr(), pos.data_ptr(), dt, B, H,
+            H // hk, P, bt, hd, table.shape[1],
             _build.strides_arg(q.stride(0), q.stride(1), out.stride(0),
                                out.stride(1)),
-            scale, _build.stream_ptr(dev))
-    _build.check(lib, NAME, rc)
-    launches += 1
+            scale, _build.stream_ptr(q.device))
+    if kv_scale is None:
+        lib, fn = _build.bind(NAME, "pppppiiiiiiiisfp")
+        _build.check(lib, NAME, fn(q.data_ptr(), pool.data_ptr(), *args))
+        launches += 1
+    else:
+        lib, fn = _build.bind(NAME, "ppppppiiiiiiiisfp", "paged_decode_q8")
+        _build.check(lib, NAME, fn(q.data_ptr(), pool.data_ptr(),
+                                   kv_scale.data_ptr(), *args))
+        q8_launches += 1
     return out
 
 
 # ---- the dense read (csrc/dense_decode.cu) ---------------------------------
 
 def dense_decode_plain(q, cache, pos, *, slot_mask=None,
-                       scale: float | None = None):
+                       scale: float | None = None, kv_scale=None):
     """The kernel's plain PyTorch version: ``cached_attention`` over the
-    pair cache's two planes with the slot mask."""
-    return cached_attention(q, cache[0], cache[1], pos, scale=scale,
-                            slot_mask=slot_mask)
+    pair cache's two planes with the slot mask (``cached_attention_q8``
+    over an int8 cache and its ``kv_scale``)."""
+    if kv_scale is None:
+        return cached_attention(q, cache[0], cache[1], pos, scale=scale,
+                                slot_mask=slot_mask)
+    return cached_attention_q8(q, _q8_view(cache, kv_scale), pos, scale=scale,
+                               slot_mask=slot_mask)
 
 
-def _check_dense(q, cache, pos, slot_mask):
+def _check_dense(q, cache, pos, slot_mask, kv_scale):
     if q.ndim != 4 or q.shape[2] != 1:
         raise ValueError(f"q must be [B, H, 1, hd], got {tuple(q.shape)}")
     if cache.ndim != 5 or cache.shape[0] != 2:
@@ -146,60 +211,45 @@ def _check_dense(q, cache, pos, slot_mask):
     if slot_mask is not None and tuple(slot_mask.shape) != (B, T):
         raise ValueError(f"slot_mask must be [B, T] = {(B, T)}, got "
                          f"{tuple(slot_mask.shape)}")
+    _check_kv_scale(q, cache, kv_scale)
 
 
 def decode_attention(q, cache, pos, *, slot_mask=None,
-                     scale: float | None = None):
+                     scale: float | None = None, kv_scale=None):
     """``q [B, H, 1, hd]`` attends the dense pair cache ``[2, B, Hk, T,
     hd]`` over slots ``0..min(pos[b], T - 1)`` that ``slot_mask`` (optional
     ``[B, T]``, nonzero = attend) keeps; ``pos`` is a scalar (a Python int
     or a 0-dim int32 tensor: every row at one slot) or an int32 ``[B]``
-    tensor. Returns ``[B, H, 1, hd]``. CUDA tensors launch
-    ``dense_decode``; CPU tensors run the plain version."""
-    _check_dense(q, cache, pos, slot_mask)
+    tensor. An int8 cache takes its ``kv_scale [2, B, Hk, T, 1]``. Returns
+    ``[B, H, 1, hd]``. CUDA tensors launch ``dense_decode``
+    (``dense_decode_q8``); CPU tensors run the plain version."""
+    _check_dense(q, cache, pos, slot_mask, kv_scale)
     if q.device.type == "cpu":
         return dense_decode_plain(q, cache, pos, slot_mask=slot_mask,
-                                  scale=scale)
-    return dense_decode_cuda(q, cache, pos, slot_mask=slot_mask, scale=scale)
+                                  scale=scale, kv_scale=kv_scale)
+    return dense_decode_cuda(q, cache, pos, slot_mask=slot_mask, scale=scale,
+                             kv_scale=kv_scale)
 
 
 def dense_decode_cuda(q, cache, pos, *, slot_mask=None,
-                      scale: float | None = None):
-    """Launch the CUDA kernel: one block per (row, kv head), serving the
-    query heads that share that kv head. Raises on anything it does not
-    take: non-CUDA or mixed devices, dtypes other than the cache's
-    (f32/bf16; the int8 form waits for the int8 KV slice), a non-contiguous
-    or unaligned cache, a head dim not a multiple of 8 or above 128 or
-    without unit stride, more than 8 query heads per kv head, a ``pos``
-    that is not int32 or has a stride other than 0 or 1, a ``slot_mask``
-    that is not bool/uint8 or lacks unit stride along ``T``. ``q`` may be
-    any other strided view and ``pos`` a stride-0 view: nothing is
-    copied."""
-    global dense_launches
-    _check_dense(q, cache, pos, slot_mask)
-    dev = q.device
-    others = (cache,) if slot_mask is None else (cache, slot_mask)
-    if dev.type != "cuda" or any(x.device != dev for x in others):
-        raise ValueError("dense_decode needs CUDA tensors on one device")
-    if cache.dtype == torch.int8:
-        raise NotImplementedError(
-            "the int8 KV cache form waits for the int8 KV slice "
-            "(ROADMAP.md queue 3.6)")
-    if cache.dtype not in _DTYPES or q.dtype != cache.dtype:
-        raise ValueError(f"dense_decode takes an f32/bf16 cache and a query "
-                         f"of its dtype, got {cache.dtype}, {q.dtype}")
+                      scale: float | None = None, kv_scale=None):
+    """Launch the CUDA kernel (the int8 form with ``kv_scale``): one block
+    per (row, kv head), serving the query heads that share that kv head.
+    Raises on anything it does not take: non-CUDA or mixed devices, a query
+    other than f32/bf16 of the cache's dtype (or over an int8 cache), a
+    missing or misshapen scale plane, a non-contiguous or unaligned cache,
+    a head dim not a multiple of 8 or above 128 or without unit stride,
+    more than 8 query heads per kv head, a ``pos`` that is not int32 or
+    has a stride other than 0 or 1, a ``slot_mask`` that is not bool/uint8
+    or lacks unit stride along ``T``. ``q`` may be any other strided view
+    and ``pos`` a stride-0 view: nothing is copied."""
+    global dense_launches, dense_q8_launches
+    _check_dense(q, cache, pos, slot_mask, kv_scale)
+    others = () if slot_mask is None else (slot_mask,)
+    dt = _check_cuda_read(DENSE_NAME, q, cache, kv_scale, others)
     B, H, _, hd = q.shape
     _, _, hk, T, _ = cache.shape
-    if hd % 8 or hd > 128 or q.stride(-1) != 1:
-        raise ValueError(f"dense_decode needs head_dim % 8 == 0, <= 128 and "
-                         f"unit stride (got {hd})")
-    if H // hk > 8:
-        raise ValueError(f"dense_decode takes at most 8 query heads per kv "
-                         f"head (got {H // hk})")
-    if not cache.is_contiguous() or cache.data_ptr() % 16:
-        raise ValueError("dense_decode needs a contiguous, 16-byte aligned "
-                         "cache")
-    pos, pos_stride = _build.pos_arg(pos, dev)
+    pos, pos_stride = _build.pos_arg(pos, q.device)
     mask_ptr, mask_sb = None, 0
     if slot_mask is not None:
         if slot_mask.dtype not in (torch.bool, torch.uint8) \
@@ -208,13 +258,22 @@ def dense_decode_cuda(q, cache, pos, *, slot_mask=None,
                              "stride along T")
         mask_ptr, mask_sb = slot_mask.data_ptr(), slot_mask.stride(0)
     scale = hd ** -0.5 if scale is None else float(scale)
-    out = torch.empty(B, 1, H, hd, dtype=q.dtype, device=dev).transpose(1, 2)
-    lib, fn = _build.bind(DENSE_NAME, "pppppiiiiiiisfp")
-    rc = fn(q.data_ptr(), cache.data_ptr(), out.data_ptr(), pos.data_ptr(),
-            mask_ptr, _DTYPES[cache.dtype], B, H, H // hk, T, hd, pos_stride,
+    out = torch.empty(B, 1, H, hd, dtype=q.dtype, device=q.device
+                      ).transpose(1, 2)
+    args = (out.data_ptr(), pos.data_ptr(), mask_ptr, dt, B, H, H // hk, T,
+            hd, pos_stride,
             _build.strides_arg(q.stride(0), q.stride(1), out.stride(0),
                                out.stride(1), mask_sb),
-            scale, _build.stream_ptr(dev))
-    _build.check(lib, DENSE_NAME, rc)
-    dense_launches += 1
+            scale, _build.stream_ptr(q.device))
+    if kv_scale is None:
+        lib, fn = _build.bind(DENSE_NAME, "pppppiiiiiiisfp")
+        _build.check(lib, DENSE_NAME,
+                     fn(q.data_ptr(), cache.data_ptr(), *args))
+        dense_launches += 1
+    else:
+        lib, fn = _build.bind(DENSE_NAME, "ppppppiiiiiiisfp",
+                              "dense_decode_q8")
+        _build.check(lib, DENSE_NAME, fn(q.data_ptr(), cache.data_ptr(),
+                                         kv_scale.data_ptr(), *args))
+        dense_q8_launches += 1
     return out

@@ -6,7 +6,11 @@ ticks while finished rows take the next queued request:
 
 - **Paged block-pool KV cache.** Each layer's cache is a pool of
   fixed-size blocks ``{"kv": [2, pool_blocks, hk, kv_block_tokens, hd]}``
-  in the model's float dtype, and each row maps its LOGICAL slots
+  in the model's float dtype (``kv_dtype="bf16"``), or int8 beside a
+  ``"scale"`` leaf ``[2, pool_blocks, hk, kv_block_tokens, 1]`` of f32
+  per-row scales (``kv_dtype="int8"``: about half the bytes, so about
+  twice the context in the same memory; every write quantizes the float
+  K/V as it lands), and each row maps its LOGICAL slots
   ``[0, t_max)`` onto physical blocks through a per-row block table
   (host-side, refcounted: ``kv_pool.BlockPool``). Decode writes resolve
   ``pos -> (table[pos // bt], pos % bt)`` and attention reads through the
@@ -29,7 +33,11 @@ ticks while finished rows take the next queued request:
   N's tokens are fetched: each segment's tokens are copied to pinned host
   memory behind a CUDA event right after its launches, and the harvest
   waits on that event alone, so the card runs segment N+1 while the host
-  harvests N and admits. Sound because rows are independent and budget
+  harvests N and admits. No dispatch waits for the card: every
+  host-to-device copy (admission arrays, block tables, positions) is
+  staged through pinned memory and issued ``non_blocking``, and the
+  harvest's wait (``_Fetch.result``) is the loop's one host sync. Sound
+  because rows are independent and budget
   completion is host-known; an eos'd row burns at most the one segment
   in flight, whose late writes land in blocks the next admission
   overwrites or in slots past any live position.
@@ -41,8 +49,9 @@ then :class:`HorizonError` is raised carrying the completed outputs.
 
 This slice is greedy only (a request with ``temperature > 0`` raises) and
 leaves out the reference's radix prefix cache, width buckets, chunked
-prefill, speculation, the int8 pool, tiers, handoff, the journal,
-deadlines, cancel, shed, drain, reconstruction and telemetry.
+prefill, speculation, tiers, handoff, the journal, deadlines, cancel,
+shed, drain, reconstruction and telemetry (the int8 pool's ``kvq``
+counters among them).
 """
 
 from __future__ import annotations
@@ -59,8 +68,10 @@ from distributed_compute_pytorch_tpu_torch.ops.cache_update import (
     kv_pool_insert)
 
 # the reference's default block size for float pools (its Pallas slot
-# window); the CUDA kernels take any block size
+# window); the CUDA kernels take any block size, int8 pools too (the
+# reference's 32-slot int8 alignment is a TPU tiling rule)
 DEFAULT_BLOCK_TOKENS = 8
+KV_DTYPES = ("bf16", "int8")
 
 
 @dataclass
@@ -120,7 +131,15 @@ class _Fetch:
 
     def result(self) -> np.ndarray:
         if self._event is not None:
-            self._event.synchronize()
+            # the harvest's wait for its own segment, the serve loop's one
+            # intended host sync: allowed even under
+            # torch.cuda.set_sync_debug_mode("error"), and only here
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                self._event.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
         return self._host.numpy()
 
 
@@ -143,6 +162,8 @@ class ContinuousBatcher:
       eos_id: optional stop token (rows stop early and free their slot).
       admit_policy: ``"fifo"`` (the only policy ported).
       kv_block_tokens: logical slots per pool block (default 8).
+      kv_dtype: ``"bf16"`` (the pool in the model's compute dtype, whatever
+        it is) or ``"int8"`` (int8 K/V with per-row f32 scales).
       pool_blocks: physical blocks per layer pool (default and minimum
         ``slots * (t_max // bt) + 1``: every row's worst case plus the
         trash block).
@@ -153,8 +174,12 @@ class ContinuousBatcher:
                  prompt_buf: int, segment: int = 16,
                  eos_id: int | None = None, admit_policy: str = "fifo",
                  kv_block_tokens: int | None = None,
-                 pool_blocks: int | None = None, device=None):
+                 pool_blocks: int | None = None, kv_dtype: str = "bf16",
+                 device=None):
         self.device = resolve_device(device)
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(
+                f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
         if prompt_buf > t_max:
             raise ValueError(f"prompt_buf {prompt_buf} > t_max {t_max}")
         if admit_policy != "fifo":
@@ -187,10 +212,15 @@ class ContinuousBatcher:
                 f"{min_blocks}: a full pool could deadlock admission")
         hk, hd = model.kv_cache_spec()
         # per-layer block pools [2(k/v), P, hk, bt, hd] in the model's
-        # float dtype, written in place by the kv_pool_insert kernel
+        # float dtype, or int8 beside f32 scales [2, P, hk, bt, 1]; written
+        # in place by the kv_pool_insert kernel (its int8 form quantizes)
+        shape = (2, pool_blocks, hk, self.bt)
         self._caches = [
-            {"kv": torch.zeros(2, pool_blocks, hk, self.bt, hd,
-                               dtype=model.dtype, device=self.device)}
+            {"kv": torch.zeros(*shape, hd, device=self.device,
+                               dtype=torch.int8 if kv_dtype == "int8"
+                               else model.dtype),
+             **({"scale": torch.zeros(*shape, 1, device=self.device)}
+                if kv_dtype == "int8" else {})}
             for _ in model.blocks]
         self._cur_tok = torch.zeros(slots, dtype=torch.long,
                                     device=self.device)
@@ -209,6 +239,16 @@ class ContinuousBatcher:
         self.last_ttft_s: list = []  # per request: serve start -> 1st token
 
     # ---- device work -----------------------------------------------------
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the batcher's device without waiting for the
+        card: on CUDA staged through a fresh pinned buffer and copied
+        ``non_blocking`` (PyTorch's caching host allocator keeps the buffer
+        until the copy has run, so no later call can overwrite it)."""
+        t = torch.from_numpy(a)
+        if self.device.type == "cpu":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _prefill_wave(self, entries):
         """ONE multi-row prefill of ``entries`` ``(row, tokens)``: every
@@ -230,19 +270,20 @@ class ContinuousBatcher:
                 logical = np.arange(n)
                 blk[j, :n] = self._tables[b][logical // bt]
                 off[j, :n] = logical % bt
-            self._admit(*(torch.from_numpy(a).to(self.device)
+            self._admit(*(self._to_device(a)
                           for a in (prompt, pmask, blk, off)))
-        rows = torch.tensor([b for b, _ in entries], device=self.device)
-        self._cur_tok[rows] = torch.tensor(
-            [tokens[-1] for _, tokens in entries], device=self.device)
-        self._n_logical[rows] = torch.tensor(heads, device=self.device)
+        rows = self._to_device(np.array([b for b, _ in entries], np.int64))
+        self._cur_tok[rows] = self._to_device(
+            np.array([tokens[-1] for _, tokens in entries], np.int64))
+        self._n_logical[rows] = self._to_device(np.array(heads, np.int64))
         for (b, _), n in zip(entries, heads):
             self._row_pos[b] = n - 1
 
     def _admit(self, prompt, pmask, blk, off):
         """The admission forward (reference ``_admit_impl``, prefix cache
         off): every block's ``forward`` over the wave with the pad mask,
-        each layer's captured K/V written to the pool."""
+        each layer's captured K/V written to the pool (an int8 pool's
+        write quantizes it, as the reference's admission scatter does)."""
         model = self.model
         K, W = prompt.shape
         x = model.embed(prompt, torch.arange(W, device=self.device))
@@ -255,7 +296,7 @@ class ContinuousBatcher:
             kv_pool_insert(cache["kv"],
                            k.transpose(1, 2).reshape(K * W, hk, hd),
                            v.transpose(1, 2).reshape(K * W, hk, hd),
-                           blk, off)
+                           blk, off, scale=cache.get("scale"))
 
     def _segment(self, tables, positions0) -> torch.Tensor:
         """``S`` greedy decode ticks for every row at its OWN position
@@ -264,17 +305,15 @@ class ContinuousBatcher:
         on the device (reference ``_segment_impl``; its ``lax.scan`` is a
         loop here)."""
         model = self.model
-        tables = torch.from_numpy(tables).to(self.device)
-        positions0 = torch.tensor(positions0, dtype=torch.int32,
-                                  device=self.device)
+        tables = self._to_device(tables)
+        positions0 = self._to_device(np.array(positions0, np.int32))
         tok, n_log = self._cur_tok, self._n_logical
         out = []
         for i in range(self.S):
             pos = positions0 + (1 + i)
             x = model.embed(tok[:, None], n_log[:, None])
             for block, cache in zip(model.blocks, self._caches):
-                x, _ = block.decode_step(
-                    x, {"kv": cache["kv"], "table": tables}, pos)
+                x, _ = block.decode_step(x, {**cache, "table": tables}, pos)
             tok = torch.argmax(model.readout(x)[:, -1], dim=-1)
             n_log = n_log + 1
             out.append(tok)

@@ -453,14 +453,26 @@ def test_dense_decode_matches_plain(dev, dtype, H, hk, hd, lockstep):
 
 
 def test_dense_kernels_refuse_int8_and_bad_positions(dev):
+    """The int8 forms take an int8 cache only with its scale plane, float
+    updates of one dtype and a float query (the int8 kernels themselves
+    are held to their plain versions below); bad positions are refused as
+    before."""
     from distributed_compute_pytorch_tpu_torch.ops import cache_update as C
     from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
     c8 = torch.zeros(2, 2, 2, 8, 16, dtype=torch.int8, device=dev)
+    s8 = torch.zeros(2, 2, 2, 8, 1, device=dev)
     u8 = torch.zeros(2, 2, 1, 16, dtype=torch.int8, device=dev)
-    with pytest.raises(NotImplementedError, match="int8"):
-        C.kv_insert_cuda(c8, u8, u8, 0)
-    with pytest.raises(NotImplementedError, match="int8"):
-        D.dense_decode_cuda(u8, c8, 0)
+    uf = torch.zeros(2, 2, 1, 16, device=dev)
+    with pytest.raises(ValueError, match="scale"):
+        C.kv_insert_cuda(c8, uf, uf, 0)
+    with pytest.raises(ValueError, match="float K/V"):
+        C.kv_insert_cuda(c8, u8, u8, 0, scale=s8)
+    with pytest.raises(ValueError, match="one dtype"):
+        C.kv_insert_cuda(c8, uf, uf.bfloat16(), 0, scale=s8)
+    with pytest.raises(ValueError, match="kv_scale"):
+        D.dense_decode_cuda(uf, c8, 0)
+    with pytest.raises(ValueError, match="query must be float"):
+        D.dense_decode_cuda(u8, c8, 0, kv_scale=s8)
     c = torch.zeros(2, 2, 2, 8, 16, device=dev)
     u = torch.zeros(2, 2, 1, 16, device=dev)
     with pytest.raises(ValueError, match="int32"):
@@ -510,3 +522,198 @@ def test_tiny_generate_on_card_teacher_forced(dev):
             logits = gpu(seq[None, :-1])[0, n - 1:].float()
             chosen = logits.gather(1, seq[n:, None])[:, 0]
             assert (logits.max(dim=1).values - chosen).max() <= 1e-4
+
+
+# ---- slice 6: the int8 KV cache (the quantizing writes, the int8 reads) --
+
+def _q8_cache(gen, *shape, dev):
+    """An int8 cache and its f32 scale plane: ``quantize_kv`` of normal
+    floats, as the writes leave them."""
+    from distributed_compute_pytorch_tpu_torch.utils.quantize import (
+        quantize_kv)
+    kv, scale = quantize_kv(torch.randn(*shape, generator=gen))
+    return kv.to(dev), scale.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 40, 128])
+def test_int8_pool_insert_matches_plain(dev, dtype, hd):
+    """The quantizing pool write: float rows (strided views of a fused
+    QKV), dropped rows, both leaves exact against quantize-then-write."""
+    from distributed_compute_pytorch_tpu_torch.ops import cache_update as C
+    gen = torch.Generator().manual_seed(20)
+    P, H, bt, n = 11, 3, 16, 9
+    pool, scale = _q8_cache(gen, 2, P, H, bt, hd, dev=dev)
+    kv = _randn(gen, n, 2 * H * hd, dtype=dtype, dev=dev) * 3
+    k = kv[:, :H * hd].reshape(n, H, hd)
+    v = kv[:, H * hd:].reshape(n, H, hd)
+    blocks = torch.randperm(P - 1, generator=gen)[:n].to(torch.int32) + 1
+    blocks[[2, 5]] = P                            # dropped
+    offsets = torch.randint(0, bt, (n,), generator=gen, dtype=torch.int32)
+    offsets[7] = bt                               # dropped
+    blocks, offsets = blocks.to(dev), offsets.to(dev)
+    want = (pool.clone(), scale.clone())
+    C.kv_pool_insert_plain(want[0], k, v, blocks, offsets, want[1])
+    before = C.q8_launches
+    C.kv_pool_insert_cuda(pool, k, v, blocks, offsets, scale=scale)
+    torch.cuda.synchronize()
+    assert C.q8_launches == before + 1
+    assert torch.equal(pool, want[0]) and torch.equal(scale, want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_dense_insert_kernels_match_plain(dev, dtype):
+    """``cache_insert``, ``kv_insert`` and ``kv_insert_rows`` in their int8
+    forms (first, last, interior and out-of-range slots), the updates
+    strided split-head views: both leaves exact, each int8 counter moved
+    once and the float ones not at all."""
+    from distributed_compute_pytorch_tpu_torch.ops import attention as A
+    from distributed_compute_pytorch_tpu_torch.ops import cache_update as C
+    gen = torch.Generator().manual_seed(21)
+    B, hk, T, hd = 3, 4, 37, 64
+    qkv = _randn(gen, B, 1, 3 * hk * hd, dtype=dtype, dev=dev)
+    _, k, v = (A.split_heads(x, hk) for x in qkv.split(hk * hd, dim=-1))
+    cache, scale = _q8_cache(gen, 2, B, hk, T, hd, dev=dev)
+    slots = torch.arange(T, dtype=torch.int32, device=dev)
+    rows = torch.tensor([0, T - 1, T], dtype=torch.int32, device=dev)
+    cases = [
+        ("kv_insert", lambda c, s: C.kv_insert_cuda(c, k, v, slots[17],
+                                                    scale=s),
+         lambda c, s: C.kv_insert_plain(c, k, v, slots[17], s)),
+        ("kv_insert_rows", lambda c, s: C.kv_insert_rows_cuda(
+            c, k, v, rows, scale=s),
+         lambda c, s: C.kv_insert_plain(c, k, v, rows, s)),
+        ("cache_insert", lambda c, s: C.cache_insert_cuda(
+            c[1], v, slots[0], scale=s[1]),
+         lambda c, s: C.cache_insert_plain(c[1], v, slots[0], s[1])),
+    ]
+    floats = (C.kv_insert_launches, C.kv_insert_rows_launches,
+              C.cache_insert_launches)
+    for counter, kernel, plain in cases:
+        before = getattr(C, f"{counter}_q8_launches")
+        got, want = (cache.clone(), scale.clone()), (cache.clone(),
+                                                     scale.clone())
+        kernel(*got)
+        plain(*want)
+        torch.cuda.synchronize()
+        assert getattr(C, f"{counter}_q8_launches") == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert not torch.equal(got[0], cache), counter
+    assert floats == (C.kv_insert_launches, C.kv_insert_rows_launches,
+                      C.cache_insert_launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,hk,hd,bt", [(4, 4, 64, 16), (6, 2, 32, 8),
+                                        (2, 2, 128, 4), (8, 1, 64, 16),
+                                        (4, 2, 40, 8)])
+def test_int8_paged_decode_matches_plain(dev, dtype, H, hk, hd, bt):
+    """The int8 paged read (hd 40 takes the 8-byte loads) with a parked
+    row and a position past the table's horizon."""
+    from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
+    gen = torch.Generator().manual_seed(22)
+    B, P, nb = 5, 40, 7
+    q = _randn(gen, B, H, 1, hd, dtype=dtype, dev=dev)
+    pool, scale = _q8_cache(gen, 2, P, hk, bt, hd, dev=dev)
+    table = torch.stack([torch.randperm(P - 1, generator=gen)[:nb] + 1
+                         for _ in range(B)]).to(torch.int32)
+    table[3] = 0                                  # parked: all trash
+    pos = torch.tensor([0, 5 * bt + 3, nb * bt + 9, 2, 33 % (nb * bt)],
+                       dtype=torch.int32)
+    table, pos = table.to(dev), pos.to(dev)
+    before = D.q8_launches
+    got = D.paged_decode_cuda(q, pool, table, pos, kv_scale=scale)
+    torch.cuda.synchronize()
+    assert D.q8_launches == before + 1
+    want = D.paged_decode_plain(q, pool, table, pos, kv_scale=scale)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,hk,hd", [(4, 4, 64), (8, 2, 32), (2, 2, 128),
+                                     (8, 1, 64), (4, 4, 24)])
+@pytest.mark.parametrize("lockstep", [True, False])
+def test_int8_dense_decode_matches_plain(dev, dtype, H, hk, hd, lockstep):
+    """The int8 dense read with and without a left-pad slot mask whose runs
+    cover whole 32-key chunks, MHA and GQA, a stride-0 lockstep position
+    and per-row positions (one past the cache: clamped)."""
+    from distributed_compute_pytorch_tpu_torch.ops import attention as A
+    from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
+    gen = torch.Generator().manual_seed(23)
+    B, T = 4, 150
+    qx = _randn(gen, B, 1, 3 * H * hd, dtype=dtype, dev=dev)
+    q = A.split_heads(qx[..., :H * hd], H)                # strided view
+    cache, scale = _q8_cache(gen, 2, B, hk, T, hd, dev=dev)
+    mask = torch.ones(B, T, dtype=torch.bool)
+    mask[1, :70] = False
+    mask[2, :3] = False
+    mask = mask.to(dev)
+    if lockstep:
+        pos = torch.arange(100, 102, dtype=torch.int32, device=dev)[0]
+    else:
+        pos = torch.tensor([0, 96, T, 41], dtype=torch.int32, device=dev)
+    for slot_mask in (None, mask):
+        before = D.dense_q8_launches
+        got = D.dense_decode_cuda(q, cache, pos, slot_mask=slot_mask,
+                                  kv_scale=scale)
+        torch.cuda.synchronize()
+        assert D.dense_q8_launches == before + 1
+        want = D.dense_decode_plain(q, cache, pos, slot_mask=slot_mask,
+                                    kv_scale=scale)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_tiny_int8_serve_and_generate_on_card_match_cpu(dev):
+    """GPT-2-tiny in f32 with the int8 KV cache: served and generated
+    greedy tokens on the card equal the CPU's, through the int8 kernels
+    (their counters moved; the float forms' did not), and the serve call
+    runs under ``set_sync_debug_mode("error")``: no copy in it waits for
+    the card."""
+    from distributed_compute_pytorch_tpu_torch.infer import generate
+    from distributed_compute_pytorch_tpu_torch.models.gpt2 import (
+        GPT2, GPT2Config)
+    from distributed_compute_pytorch_tpu_torch.ops import cache_update as C
+    from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
+    from distributed_compute_pytorch_tpu_torch.serve import (
+        ContinuousBatcher, Request)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPT2Config(vocab_size=256, max_seq_len=128, num_layers=2,
+                     num_heads=4, d_model=64, d_ff=128)
+    cpu = GPT2(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = GPT2(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(4)
+    reqs = [([int(x) for x in rng.integers(0, 256, rng.integers(1, 11))],
+             int(rng.integers(3, 10))) for _ in range(7)]
+    outs = []
+    for model, device in ((cpu, "cpu"), (gpu, dev)):
+        cb = ContinuousBatcher(model, slots=2, t_max=128, prompt_buf=10,
+                               segment=3, kv_dtype="int8", device=device)
+        counts = (C.q8_launches, D.q8_launches, C.launches, D.launches)
+        if device == "cpu":
+            outs.append(cb.serve([Request(list(t), n) for t, n in reqs]))
+        else:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                outs.append(cb.serve([Request(list(t), n) for t, n in reqs]))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        assert cb.last_block_leaks == 0
+    assert outs[0] == outs[1]
+    moved = (C.q8_launches - counts[0], D.q8_launches - counts[1],
+             C.launches - counts[2], D.launches - counts[3])
+    assert moved[0] > 0 and moved[1] > 0 and moved[2:] == (0, 0), moved
+    prompt = rng.integers(0, 256, (3, 12))
+    mask = np.ones((3, 12), np.int64)
+    mask[1, :5] = 0
+    want = generate(cpu, prompt, 9, prompt_mask=mask, kv_quant=True)
+    before = (C.kv_insert_q8_launches, D.dense_q8_launches)
+    got = generate(gpu, prompt, 9, prompt_mask=mask, kv_quant=True).cpu()
+    assert (C.kv_insert_q8_launches - before[0],
+            D.dense_q8_launches - before[1]) == (2 * 8, 2 * 8)
+    assert torch.equal(got, want)

@@ -212,11 +212,17 @@ def test_validation_errors_match_jax(models, new, fn_kw, call_kw, match):
 
 
 def test_unported_modes_raise(models):
-    _, _, tm = models
+    """Sharded generation is still refused; the int8 KV cache
+    (``kv_quant``) is ported and gives the JAX ``kv_quant`` tokens (held
+    further in ``tests/test_torch_kv_quant.py``)."""
+    jm, params, tm = models
     with pytest.raises(NotImplementedError, match="sharded"):
         infer.generate(tm, _prompt(), N, mesh=object())
-    with pytest.raises(NotImplementedError, match="int8"):
-        infer.generate(tm, _prompt(), N, kv_quant=True)
+    want = jax_infer.generate(jm, params, jnp.asarray(_prompt()), N,
+                              kv_quant=True)
+    np.testing.assert_array_equal(
+        infer.generate(tm, _prompt(), N, kv_quant=True).numpy(),
+        np.asarray(want))
     assert torch.equal(infer.generate(tm, _prompt(), 0),
                        torch.from_numpy(_prompt()).long())
 

@@ -31,6 +31,7 @@ from distributed_compute_pytorch_tpu_torch.ops import attention as A
 from distributed_compute_pytorch_tpu_torch.ops import cache_update as CU
 from distributed_compute_pytorch_tpu_torch.ops.decode_attention import (
     decode_attention, dense_decode_plain)
+from distributed_compute_pytorch_tpu_torch.utils.quantize import quantize_kv
 
 TOL = 1e-5   # f32, both sides: only the summation order differs
 B, HK, T, HD = 2, 3, 128, 64
@@ -121,10 +122,27 @@ def test_dense_insert_drops_out_of_range_slot():
 
 
 def test_dense_insert_refuses_int8_and_wrong_shapes():
+    """The int8 cache is written only with its scale plane and from float
+    updates (quantized as they land: ``tests/test_torch_kv_quant.py`` holds
+    that write to the Pallas one); int8 updates, a missing or misshapen
+    scale plane and a scale beside a float cache are refused, as are
+    misshapen updates and positions."""
     cache = torch.zeros(2, B, HK, T, HD, dtype=torch.int8)
+    scale = torch.zeros(2, B, HK, T, 1)
     upd = torch.zeros(B, HK, 1, HD, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="int8"):
-        CU.kv_insert(cache, upd, upd, 0)
+    with pytest.raises(ValueError, match="float K/V"):
+        CU.kv_insert(cache, upd, upd, 0, scale=scale)
+    k = torch.randn(B, HK, 1, HD)
+    with pytest.raises(ValueError, match="needs its scale plane"):
+        CU.kv_insert(cache, k, k, 0)
+    with pytest.raises(ValueError, match="scale must be f32"):
+        CU.kv_insert(cache, k, k, 0, scale=scale[..., :3, :])
+    with pytest.raises(ValueError, match="goes with an int8 cache"):
+        CU.kv_insert(cache.float(), k, k, 0, scale=scale)
+    CU.kv_insert(cache, k, k, 5, scale=scale)
+    q, s = quantize_kv(k[:, :, 0])
+    assert torch.equal(cache[1, :, :, 5], q) and torch.equal(
+        scale[0, :, :, 5], s)
     f = torch.zeros(2, B, HK, T, HD)
     with pytest.raises(ValueError, match=r"\[B, Hk, 1, hd\]"):
         CU.kv_insert(f, f[0, :, :, :2], f[0, :, :, :2], 0)
@@ -195,8 +213,23 @@ def test_dense_cache_write_and_attend_matches_jax_tick(pos):
 
 
 def test_cache_write_and_attend_refuses_int8_form():
-    q = torch.zeros(1, 2, 1, 8)
+    """The int8 form is a cache format of its own now (the whole tick is
+    held to the JAX one in ``tests/test_torch_kv_quant.py``): an int8
+    ``"kv"`` without its ``"scale"`` leaf is still refused, and so is a
+    paged pool with a ``slot_mask``; with the leaf, the tick writes the
+    quantized row and reads it back."""
+    q = torch.randn(1, 2, 1, 8)
     cache = {"kv": torch.zeros(2, 1, 2, 4, 8, dtype=torch.int8),
              "scale": torch.zeros(2, 1, 2, 4, 1)}
-    with pytest.raises(NotImplementedError, match="int8"):
-        A.cache_write_and_attend(q, q, q, cache, 0)
+    with pytest.raises(ValueError, match="scale"):
+        A.cache_write_and_attend(q, q, q, {"kv": cache["kv"]}, 0)
+    with pytest.raises(NotImplementedError, match="slot_mask"):
+        A.cache_write_and_attend(
+            q, q, q, {**cache, "table": torch.zeros(1, 1, dtype=torch.int32)},
+            0, slot_mask=torch.ones(1, 4))
+    o, out = A.cache_write_and_attend(q, q, q, cache, 0)
+    kq, ks = quantize_kv(q[:, :, 0])
+    assert out is cache and torch.equal(cache["kv"][0, :, :, 0], kq)
+    # one attended slot: the output is that slot's dequantized V row
+    torch.testing.assert_close(o[:, :, 0], kq.float() * ks, atol=1e-6,
+                               rtol=0)
