@@ -22,8 +22,13 @@ imports nothing of JAX. Phases, one JSON line each:
    computing the same function. The int8 forms of the four slot writes
    (quantizing as they write, exact against ``quantize_kv`` then the
    indexed writes) and of the two decode reads (to TOL, and row by row to
-   ``ROW_TOL`` in bf16) at the same shapes. The flash forward is also
-   timed at the
+   ``ROW_TOL`` in bf16) at the same shapes. Each of the four decode reads
+   also reports its grid (splits S, split length, tile, stages, shared
+   bytes, blocks), its share of the bound, the same bits on two launches
+   (gated) and its fixed cost (the same read with every live length at 1
+   or 0); then one long-context line, the paged read float and int8 at 2
+   rows x 12 heads over 4,096 live keys each, gated on correctness only.
+   The flash forward is also timed at the
    training shape; the flash kernels, forward and backward, must take the
    tensor-core kernels in bf16 and the CUDA-core ones in f32, give the
    same bits on two launches, hold each bf16 row within ``ROW_TOL`` (a
@@ -402,6 +407,19 @@ def check_insert(torch, CU, dtype, dt):
     return out
 
 
+def decode_extras(torch, name, launch, b_ms, ms, grid, launch_min):
+    """What every decode check adds: the grid (``split_plan``), the share
+    of the bound, two launches' bits compared (gated) and the time of
+    ``launch_min``, the same read with every live length at 1 or 0: the
+    read's fixed cost."""
+    a, b = launch(), launch()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(a, b))
+    require(same, f"{name}: two launches differ")
+    return {"grid": grid, "bound_share": b_ms / ms, "same_bits": same,
+            "one_key_ms": time_ms(torch, [launch_min])}
+
+
 def check_decode(torch, np, DA, dtype, dt):
     """16 rows x 12 heads x hd 64 over bt 16, nb 64 tables into a
     [2, 1025, 12, 16, 64] pool: ragged positions, one full-horizon row,
@@ -432,11 +450,11 @@ def check_decode(torch, np, DA, dtype, dt):
     nbytes = (esz * (2 * B * H * hd + 2 * keys * H * hd)
               + 4 * live_blocks + 4 * B)
     b_ms, b_by = bound(nbytes, 4.0 * hd * keys * H, dt)
+    ms = time_ms(torch, [
+        (lambda q=q, p=p: DA.paged_decode_cuda(q, p, table, pos_t))
+        for q, p in copies])
     return {
-        "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
-        "ms": time_ms(torch, [
-            (lambda q=q, p=p: DA.paged_decode_cuda(q, p, table, pos_t))
-            for q, p in copies]),
+        "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by, "ms": ms,
         "plain_ms": time_ms(torch, [
             (lambda q=q, p=p: DA.paged_decode_plain(q, p, table, pos_t))
             for q, p in copies]),
@@ -444,6 +462,12 @@ def check_decode(torch, np, DA, dtype, dt):
         "library": "none: no single PyTorch call reads through a block table",
         "shape": (f"q [{B}, {H}, 1, {hd}], pool [2, {P}, {H}, {bt}, {hd}], "
                   f"tables [{B}, {nb}], {keys} live keys"),
+        **decode_extras(
+            torch, f"decode {dt}",
+            lambda: DA.paged_decode_cuda(q, pool, table, pos_t), b_ms, ms,
+            DA.split_plan(q, pool, table=table),
+            lambda: DA.paged_decode_cuda(q, pool, table,
+                                         torch.zeros_like(pos_t))),
     }
 
 
@@ -799,6 +823,11 @@ def check_dense_decode(torch, np, DA, A, dtype, dt, lens):
         out["plain_ms"] = time_ms(torch, [
             (lambda q=q, c=c: DA.dense_decode_plain(q, c, p, slot_mask=mask))
             for q, c in copies])
+        out.update(decode_extras(
+            torch, f"dense_decode {dt}",
+            lambda: DA.dense_decode_cuda(q, cache, p, slot_mask=mask),
+            out["bound_ms"], out["ms"], DA.split_plan(q, cache),
+            lambda: DA.dense_decode_cuda(q, cache, slots[0], slot_mask=mask)))
         valid = ((slots <= pos) & mask)[:, None, None, :]
         out["library_ms"] = time_ms(torch, [
             (lambda q=q, c=c: F.scaled_dot_product_attention(
@@ -929,13 +958,13 @@ def check_decode_q8(torch, np, DA, dtype, dt):
     nbytes = (esz * 2 * B * H * hd + 2 * keys * H * (hd + 4)
               + 4 * live_blocks + 4 * B)
     b_ms, b_by = bound(nbytes, 4.0 * hd * keys * H, dt)
+    ms = time_ms(torch, [
+        (lambda q=q, p=p, s=s: DA.paged_decode_cuda(q, p, table, pos_t,
+                                                    kv_scale=s))
+        for q, p, s in copies])
     return {
         "max_abs_err": err, "row_err": r_err, "bound_ms": b_ms,
-        "bound_by": b_by,
-        "ms": time_ms(torch, [
-            (lambda q=q, p=p, s=s: DA.paged_decode_cuda(q, p, table, pos_t,
-                                                        kv_scale=s))
-            for q, p, s in copies]),
+        "bound_by": b_by, "ms": ms,
         "plain_ms": time_ms(torch, [
             (lambda q=q, p=p, s=s: DA.paged_decode_plain(q, p, table, pos_t,
                                                          kv_scale=s))
@@ -945,6 +974,14 @@ def check_decode_q8(torch, np, DA, dtype, dt):
         "shape": (f"q [{B}, {H}, 1, {hd}], int8 pool [2, {P}, {H}, {bt}, "
                   f"{hd}] + f32 scales, tables [{B}, {nb}], {keys} live "
                   f"keys"),
+        **decode_extras(
+            torch, f"decode_q8 {dt}",
+            lambda: DA.paged_decode_cuda(q, pool, table, pos_t,
+                                         kv_scale=scale), b_ms, ms,
+            DA.split_plan(q, pool, table=table, kv_scale=scale),
+            lambda: DA.paged_decode_cuda(q, pool, table,
+                                         torch.zeros_like(pos_t),
+                                         kv_scale=scale)),
     }
 
 
@@ -1066,12 +1103,75 @@ def check_dense_decode_q8(torch, np, DA, A, dtype, dt, lens):
         out["plain_ms"] = time_ms(torch, [
             (lambda q=q, c=c, s=s: DA.dense_decode_plain(
                 q, c, p, slot_mask=mask, kv_scale=s)) for q, c, s in copies])
+        out.update(decode_extras(
+            torch, f"dense_decode_q8 {dt}",
+            lambda: DA.dense_decode_cuda(q, cache, p, slot_mask=mask,
+                                         kv_scale=scale),
+            out["bound_ms"], out["ms"],
+            DA.split_plan(q, cache, kv_scale=scale),
+            lambda: DA.dense_decode_cuda(q, cache, slots[0], slot_mask=mask,
+                                         kv_scale=scale)))
         out["library_ms"], out["library"] = None, Q8_LIBRARY
         out["shape"] = (f"q [{B}, {H}, 1, {hd}] view, int8 cache [2, {B}, "
                         f"{H}, {T}, {hd}] + f32 scales, lockstep pos {pos}, "
                         f"left-pad slot mask: {keys} of {B * (pos + 1)} "
                         f"slots live; also Hk {H // 4}, per-row pos, no mask")
     out["max_abs_err"], out["row_err"] = err, r_err
+    return out
+
+
+def check_decode_long(torch, DA, dtype, dt):
+    """The paged read, float and int8, at one long context: 2 rows x 12
+    heads x hd 64 over 4096 live keys each (bt 16, nb 256), where one block
+    per (row, kv head) made 24 blocks. Gated on correctness only: TOL (and
+    ROW_TOL for the bf16 int8 form) and two launches' bits; timed and
+    reported."""
+    gen = torch.Generator().manual_seed(36)
+    B, H, hd, bt, nb = 2, 12, 64, 16, 256
+    P = B * nb + 1
+    table = (torch.randperm(P - 1, generator=gen)[:B * nb] + 1).reshape(
+        B, nb).to("cuda", torch.int32)
+    pos = torch.full((B,), nb * bt - 1, dtype=torch.int32, device="cuda")
+    keys = B * nb * bt
+    esz = torch.tensor([], dtype=dtype).element_size()
+    out = {}
+    for name, pools in (
+            ("paged_decode", [(torch.randn(2, P, H, bt, hd, generator=gen).to(
+                "cuda", dtype), None) for _ in range(3)]),
+            ("paged_decode_q8", q8_cache(torch, gen, 2, P, H, bt, hd,
+                                         copies=3))):
+        qs = [torch.randn(B, H, 1, hd, generator=gen).to("cuda", dtype)
+              for _ in pools]
+        q, (pool, scale) = qs[0], pools[0]
+        got = DA.paged_decode_cuda(q, pool, table, pos, kv_scale=scale)
+        want = DA.paged_decode_plain(q, pool, table, pos, kv_scale=scale)
+        torch.cuda.synchronize()
+        err, r_err = (got.float() - want.float()).abs().max().item(), \
+            row_err(got, want)
+        require(bool(torch.isfinite(got).all()) and err <= TOL[dt] and (
+            dt != "bf16" or scale is None or r_err <= ROW_TOL),
+            f"{name} long {dt}: max err {err}, row error {r_err}")
+        kind = "" if scale is None else "int8 "
+        row = hd * esz if scale is None else hd + 4
+        nbytes = esz * 2 * B * H * hd + 2 * keys * H * row + 4 * B * nb + 4 * B
+        b_ms, b_by = bound(nbytes, 4.0 * hd * keys * H, dt)
+        ms = time_ms(torch, [
+            (lambda q=q, p=p: DA.paged_decode_cuda(q, p[0], table, pos,
+                                                   kv_scale=p[1]))
+            for q, p in zip(qs, pools)])
+        out[name] = {
+            "max_abs_err": err, "tol": TOL[dt], "bound_ms": b_ms,
+            "bound_by": b_by, "ms": ms,
+            **decode_extras(
+                torch, f"{name} long {dt}",
+                lambda q=q, pool=pool, scale=scale: DA.paged_decode_cuda(
+                    q, pool, table, pos, kv_scale=scale), b_ms, ms,
+                DA.split_plan(q, pool, table=table, kv_scale=scale),
+                lambda q=q, pool=pool, scale=scale: DA.paged_decode_cuda(
+                    q, pool, table, torch.zeros_like(pos), kv_scale=scale)),
+            "shape": (f"q [{B}, {H}, 1, {hd}], {kind}pool [2, {P}, {H}, "
+                      f"{bt}, {hd}], tables [{B}, {nb}], {keys} live keys"),
+        }
     return out
 
 
@@ -1347,7 +1447,7 @@ EXACT = ("kv_pool_insert", "cache_insert", "kv_insert", "kv_insert_rows",
 KERNEL_EXTRAS = ("tflops", "bound_share", "path", "train_ms",
                  "train_bound_ms", "train_library_ms", "train_tflops",
                  "train_bound_share", "row_err", "fault_row_err",
-                 "lse_max_abs_err")
+                 "lse_max_abs_err", "grid", "same_bits", "long")
 SOURCES = {"cache_insert": "kv_insert", "kv_insert_rows": "kv_insert",
            "kv_pool_insert_q8": "kv_pool_insert",
            "paged_decode_q8": "paged_decode", "cache_insert_q8": "kv_insert",
@@ -1940,7 +2040,8 @@ def main() -> int:
                 "device_count": torch.cuda.device_count()})
         built = _build.build_all()
         ptxas = {name: [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]
+                        if "registers" in ln or "spill" in ln
+                        or "entry function" in ln]
                  for name, log in built["ptxas"].items()}
         record({"phase": "build", "seconds": built["seconds"],
                 "built": built["built"], "ptxas": ptxas})
@@ -1968,6 +2069,10 @@ def main() -> int:
             for name, res in results[dt].items():
                 record({"phase": "kernel", "name": name, "dtype": dt,
                         "tol": 0.0 if name in EXACT else TOL[dt], **res})
+            long_ctx = check_decode_long(torch, DA, dtype, dt)
+            record({"phase": "decode_long", "dtype": dt, **long_ctx})
+            for name, res in long_ctx.items():
+                results[dt][name]["long"] = res
             torch.cuda.empty_cache()
         adamw = check_adamw(torch, FAW, GPT2, GPT2Config)
         record({"phase": "kernel", "name": "fused_adamw", "dtype": "f32",

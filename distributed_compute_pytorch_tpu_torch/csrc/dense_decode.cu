@@ -11,20 +11,29 @@
 //   `ops/attention.py::cached_attention(..., slot_mask=...)` computes, the
 //   read every generation tick makes.
 //
-// What bounds it on this card: HBM bytes. Each (row, kv head) needs the
-//   K and V rows of its unmasked slots 0..pos, 2 * hd elements each, read
-//   once (a masked slot's K row is not read, its V row is), and does ~4 G
-//   FLOPs per element, far below the card's ~295 FLOP/byte balance point.
+// What bounds it on this card: HBM bytes in principle, latency in
+//   practice. Each (row, kv head) needs the K and V rows of its slots 0..pos
+//   once, 2 * hd elements each (and two f32 scales a slot in the int8 form),
+//   and does ~4 G FLOPs per element, far below the card's ~295 FLOP/byte
+//   balance point; at generation shapes the bytes are few, so the read is
+//   fast only with many in flight and a short chain of round trips a block.
 //
-// Design: grid (row, kv head); the block serves the G <= 8 query heads that
-//   share the kv head, so each K and V row is read once for all of them: the
-//   split-key online softmax of decode_common.cuh, where lane j of a chunk
-//   reads contiguous slot j. The length comes from `pos` on the device
-//   (pos[b * pos_stride]: stride 0 for the lockstep tick's one position,
-//   1 for per-row positions), so the host never syncs. A pad run that
-//   covers whole 32-key chunks adds exactly 0, as the reference's -1e30
-//   fill does. The TPU kernel's packed-lane (hd == 64 pairs into 128 lanes)
-//   layout and its fold matrix stay behind.
+// Design: the split-key read of decode_common.cuh. The grid is (split, kv
+//   head, row), S = T over the split length (256 keys), at most 16
+//   (dense_decode_plan reports the plan); each block takes its share
+//   of the row's slots 0..pos, reads their mask bytes first, copies the
+//   contiguous K and V rows of the tiles with a valid slot into shared
+//   memory with cp.async (K, then V, in two commit groups), and the last
+//   split to finish merges the partials in split order through the caller's
+//   workspace. A tile whose slots are all masked (a left-pad run) loads no K
+//   or V and adds exactly 0, as the reference's -1e30 fill does; a masked
+//   slot inside a live tile is loaded and weighted by 0. The block serves
+//   the G <= 8 query heads that share the kv head, so each K and V row is
+//   read once for all of them. The length comes from `pos` on the device
+//   (pos[b * pos_stride]: stride 0 for the lockstep tick's one position, 1
+//   for per-row positions), so the host never syncs. The TPU kernel's
+//   packed-lane (hd == 64 pairs into 128 lanes) layout and its fold matrix
+//   stay behind.
 //
 // The int8 form (`dense_decode_q8`): generation's kv_quant cache, int8 K/V
 //   [2, B, Hk, T, hd] beside f32 scales [2, B, Hk, T, 1]. The JAX package
@@ -38,7 +47,10 @@ namespace {
 
 using decode::DMAX;
 using decode::GMAX;
-using decode::NWARPS;
+using decode::NTHREADS;
+
+// a split's share of the slots is a multiple of this
+constexpr int GRAN = 16;
 
 // contiguous slots of one (row, kv head); mask: that row of the slot mask
 // (nonzero = attend) or null
@@ -46,24 +58,26 @@ struct DenseKeys {
   long long base;
   const uint8_t* mask;
   __device__ __forceinline__ long long row(int key) const { return base + key; }
-  static constexpr bool kMasked = true;
   __device__ __forceinline__ bool valid(int key) const {
     return mask == nullptr || mask[key] != 0;
   }
 };
 
 // T: query/output type; C: cache element type (T, or int8_t with the f32
-// scale planes kscale/vscale)
-template <typename T, typename C, int DV, int GT>
-__global__ void __launch_bounds__(NWARPS * 32)
+// scale planes kscale/vscale). KL: lanes a key takes. Grid (split, kv
+// head, row).
+template <typename T, typename C, int GT, int KL>
+__global__ void __launch_bounds__(NTHREADS)
 dense_decode_kernel(const T* __restrict__ q, const C* __restrict__ cache,
                     const float* __restrict__ kscale, T* __restrict__ out,
+                    float* __restrict__ ws, int* __restrict__ tickets,
                     const int* __restrict__ pos,
                     const uint8_t* __restrict__ slot_mask, int G, int B, int Hk,
                     int T_, int hd, int pos_stride, long long q_sb,
                     long long q_sh, long long o_sb, long long o_sh,
-                    long long m_sb, float scale) {
-  const int b = blockIdx.x, hk = blockIdx.y;
+                    long long m_sb, float scale,
+                    const decode::Plan plan) {
+  const int hk = blockIdx.y, b = blockIdx.z;
   const int p = pos[(long long)b * pos_stride];
   const int n_keys = p < 0 ? 0 : min(p, T_ - 1) + 1;
   const DenseKeys keys{((long long)b * Hk + hk) * T_,
@@ -71,46 +85,49 @@ dense_decode_kernel(const T* __restrict__ q, const C* __restrict__ cache,
   const long long plane = (long long)B * Hk * T_;  // rows in one K/V plane
   const C* vplane = cache + plane * hd;
   const float* vscale = kscale == nullptr ? nullptr : kscale + plane;
-  decode::attend<T, C, DV, GT>(q, cache, vplane, kscale, vscale, out, keys, n_keys, b,
-                               hk, GT == 1 ? 1 : G, hd, q_sb, q_sh, o_sb, o_sh, scale);
+  decode::attend<T, C, GT, KL>(q, cache, vplane, kscale, vscale, out, ws, tickets, keys,
+                               plan, n_keys, b, hk, Hk, GT == 1 ? 1 : G, hd, q_sb, q_sh,
+                               o_sb, o_sh, scale);
 }
 
 template <typename T, typename C, int GT>
-void launch_g(const dim3& grid, cudaStream_t stream, const T* q, const C* cache,
-              const float* ks, T* out, const int* pos, const uint8_t* mask, int G,
-              int B, int Hk, int T_, int hd, int pos_stride, const long long* st,
-              float scale) {
-  const dim3 block(NWARPS * 32);
-  switch ((hd + 31) / 32) {
-    case 1: dense_decode_kernel<T, C, 1, GT><<<grid, block, 0, stream>>>(q, cache, ks, out, pos, mask, G, B, Hk, T_, hd, pos_stride, st[0], st[1], st[2], st[3], st[4], scale); break;
-    case 2: dense_decode_kernel<T, C, 2, GT><<<grid, block, 0, stream>>>(q, cache, ks, out, pos, mask, G, B, Hk, T_, hd, pos_stride, st[0], st[1], st[2], st[3], st[4], scale); break;
-    case 3: dense_decode_kernel<T, C, 3, GT><<<grid, block, 0, stream>>>(q, cache, ks, out, pos, mask, G, B, Hk, T_, hd, pos_stride, st[0], st[1], st[2], st[3], st[4], scale); break;
-    default: dense_decode_kernel<T, C, 4, GT><<<grid, block, 0, stream>>>(q, cache, ks, out, pos, mask, G, B, Hk, T_, hd, pos_stride, st[0], st[1], st[2], st[3], st[4], scale); break;
+cudaError_t launch_g(cudaStream_t stream, const T* q, const C* cache, const float* ks,
+                     T* out, float* ws, int* tickets, const int* pos, const uint8_t* mask, int G, int B, int Hk,
+                     int T_, int hd, int pos_stride, const long long* st, float scale) {
+#define DECODE_LAUNCH(KL)                                                                  \
+  decode::launch_split(dense_decode_kernel<T, C, GT, KL>, T_, GRAN, hd, sizeof(C),      \
+                       std::is_same<C, int8_t>::value, GT, Hk, B, stream, q, cache, ks,    \
+                       out, ws, tickets, pos, mask, G, B, Hk, T_, hd, pos_stride, st[0],   \
+                       st[1], st[2], st[3], st[4], scale)
+  switch (decode::lanes_per_key(hd)) {
+    case 4: return DECODE_LAUNCH(4);
+    case 8: return DECODE_LAUNCH(8);
+    default: return DECODE_LAUNCH(16);
   }
+#undef DECODE_LAUNCH
 }
 
 // cache_scale: null for a float cache (C = T), else the f32 [2, B, Hk, T, 1]
 // scales of an int8 cache (C = int8_t)
 template <typename T, typename C>
 cudaError_t launch(const void* q, const void* cache, const float* cache_scale,
-                   void* out, const int* pos, const uint8_t* mask, int B, int Hq,
+                   void* out, float* ws, int* tickets, const int* pos, const uint8_t* mask, int B, int Hq,
                    int G, int T_, int hd, int pos_stride, const long long* st,
                    float scale, cudaStream_t stream) {
   const int Hk = Hq / G;
-  const dim3 grid(B, Hk);
   const T* qq = static_cast<const T*>(q);
   const C* cc = static_cast<const C*>(cache);
   T* oo = static_cast<T*>(out);
   if (G == 1)
-    launch_g<T, C, 1>(grid, stream, qq, cc, cache_scale, oo, pos, mask, G, B, Hk, T_, hd, pos_stride, st, scale);
-  else
-    launch_g<T, C, GMAX>(grid, stream, qq, cc, cache_scale, oo, pos, mask, G, B, Hk, T_, hd, pos_stride, st, scale);
-  return cudaGetLastError();
+    return launch_g<T, C, 1>(stream, qq, cc, cache_scale, oo, ws, tickets, pos, mask, G, B, Hk, T_, hd, pos_stride, st, scale);
+  return launch_g<T, C, GMAX>(stream, qq, cc, cache_scale, oo, ws, tickets, pos, mask, G, B, Hk, T_, hd, pos_stride, st, scale);
 }
 
 bool bad_shape(int B, int Hq, int G, int T, int hd, int pos_stride) {
-  return B < 1 || Hq < 1 || G < 1 || G > GMAX || Hq % G || Hq / G > 65535 || T < 1 ||
-         hd < 8 || hd > DMAX || hd % 8 || pos_stride < 0 || pos_stride > 1;
+  // grid y and z hold the kv heads and rows; row indices are 32-bit
+  return B < 1 || B > 65535 || Hq < 1 || G < 1 || G > GMAX || Hq % G ||
+         Hq / G > 65535 || T < 1 || hd < 8 || hd > DMAX || hd % 8 || pos_stride < 0 ||
+         pos_stride > 1 || (long long)B * (Hq / G) * T > 0xffffffffLL;
 }
 
 }  // namespace
@@ -123,18 +140,21 @@ extern "C" {
 // pos: int32, row b reads pos[b * pos_stride] (pos_stride 0 or 1).
 // slot_mask: null, or uint8 [B, T] with row stride (m b) and unit stride on
 // T. strides = (q b, q h, o b, o h, m b). hd % 8 == 0, hd <= 128. dtype:
-// 0 f32, 1 bf16. Returns the cudaError_t of the launch.
-int dense_decode(const void* q, const void* cache, void* out, const int* pos,
-                 const uint8_t* slot_mask, int dtype, int B, int Hq, int G,
+// 0 f32, 1 bf16. ws, tickets: the merge's scratch, private to the stream
+// (see decode_common.cuh). Returns the cudaError_t of the
+// launch.
+int dense_decode(const void* q, const void* cache, void* out, float* ws, int* tickets,
+                 const int* pos, const uint8_t* slot_mask, int dtype, int B, int Hq, int G,
                  int T, int hd, int pos_stride, const long long* strides,
                  float scale, void* stream) {
-  if (bad_shape(B, Hq, G, T, hd, pos_stride)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, Hq, G, T, hd, pos_stride) || ws == nullptr || tickets == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = launch<float, float>(q, cache, nullptr, out, pos, slot_mask, B, Hq, G, T, hd, pos_stride, strides, scale, s);
+    e = launch<float, float>(q, cache, nullptr, out, ws, tickets, pos, slot_mask, B, Hq, G, T, hd, pos_stride, strides, scale, s);
   else if (dtype == 1)
-    e = launch<__nv_bfloat16, __nv_bfloat16>(q, cache, nullptr, out, pos, slot_mask, B, Hq, G, T, hd, pos_stride, strides, scale, s);
+    e = launch<__nv_bfloat16, __nv_bfloat16>(q, cache, nullptr, out, ws, tickets, pos, slot_mask, B, Hq, G, T, hd, pos_stride, strides, scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);
@@ -144,20 +164,30 @@ int dense_decode(const void* q, const void* cache, void* out, const int* pos,
 // aligned; cache_scale f32 [2, B, Hq / G, T, 1] contiguous. The rest as
 // above, dtype 0 f32 or 1 bf16 (the query's).
 int dense_decode_q8(const void* q, const void* cache, const float* cache_scale, void* out,
-                    const int* pos, const uint8_t* slot_mask, int dtype, int B, int Hq,
+                    float* ws, int* tickets, const int* pos, const uint8_t* slot_mask, int dtype, int B, int Hq,
                     int G, int T, int hd, int pos_stride, const long long* strides,
                     float scale, void* stream) {
-  if (bad_shape(B, Hq, G, T, hd, pos_stride) || cache_scale == nullptr)
+  if (bad_shape(B, Hq, G, T, hd, pos_stride) || cache_scale == nullptr || ws == nullptr ||
+      tickets == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = launch<float, int8_t>(q, cache, cache_scale, out, pos, slot_mask, B, Hq, G, T, hd, pos_stride, strides, scale, s);
+    e = launch<float, int8_t>(q, cache, cache_scale, out, ws, tickets, pos, slot_mask, B, Hq, G, T, hd, pos_stride, strides, scale, s);
   else if (dtype == 1)
-    e = launch<__nv_bfloat16, int8_t>(q, cache, cache_scale, out, pos, slot_mask, B, Hq, G, T, hd, pos_stride, strides, scale, s);
+    e = launch<__nv_bfloat16, int8_t>(q, cache, cache_scale, out, ws, tickets, pos, slot_mask, B, Hq, G, T, hd, pos_stride, strides, scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);
+}
+
+// The plan a launch takes at these shapes (it depends on nothing else):
+// out[0..4] = splits S a (row, kv head), split length, tile keys, tiles in
+// flight, shared bytes. dtype as above; q8: the int8 form.
+void dense_decode_plan(int T, int hd, int dtype, int q8, int G, int* out) {
+  decode::report_plan(
+      decode::make_plan(T, GRAN, hd, q8 ? 1 : dtype == 0 ? 4 : 2, q8 != 0, G == 1 ? 1 : GMAX),
+      out);
 }
 
 const char* dense_decode_error_string(int e) {

@@ -9,17 +9,26 @@
 //   `cached_attention`, which first builds a gathered copy of every row's
 //   cache; here no copy is built and only the live blocks are read.
 //
-// What bounds it on this card: HBM bytes. Each (row, kv head) reads
-//   2 * live_keys * hd elements of K and V once and does ~4 G FLOPs per
-//   element, far below the card's ~295 FLOP/byte balance point.
+// What bounds it on this card: HBM bytes in principle, latency in
+//   practice. Each (row, kv head) reads 2 * live_keys * hd elements of K and
+//   V once (and two f32 scales a key in the int8 form) and does ~4 G FLOPs
+//   per element, far below the card's ~295 FLOP/byte balance point; at
+//   serving shapes the bytes are few, so the read is fast only with many of
+//   them in flight and a short chain of round trips a block.
 //
-// Design: grid (row, kv head); the block serves the G query heads that share
-//   the kv head, so each K and V row is read once for all of them: the
-//   split-key online softmax of decode_common.cuh, where lane j of a chunk
-//   looks key j's physical block up in the table. The live length is
-//   read from `pos` on the device, so the host never syncs and a short row
-//   costs only its own blocks. The TPU kernel's packed-lane (hd == 64 pairs
-//   into 128 lanes) layout stays behind.
+// Design: the split-key read of decode_common.cuh. The grid is (split, kv
+//   head, row), S = nb * bt over the split length (256 keys), at most 16
+//   (paged_decode_plan reports the plan); each block takes whole
+//   table blocks of the row's live keys (its share rounded up to bt), looks
+//   their physical blocks up in the table in one round trip, copies the
+//   rows into shared memory with cp.async (K, then V, in two commit groups),
+//   and the last split to finish merges the partials in split order through
+//   the caller's workspace. Each block serves the G query heads that share
+//   its kv head, so each K and V row is read once for all of them. The live
+//   length is read from `pos` on the device, so the host never syncs and a
+//   short row costs only its own blocks (the splits past its end load
+//   nothing). The TPU kernel's packed-lane (hd == 64 pairs into 128 lanes)
+//   layout stays behind.
 //
 // A parked row's table is all trash block, and its output is discarded by
 //   the scheduler; it reads finite garbage and produces finite garbage.
@@ -39,7 +48,8 @@ namespace {
 
 using decode::DMAX;
 using decode::GMAX;
-using decode::NWARPS;
+using decode::NTHREADS;
+
 
 // a key's row through the row's block table; entries outside [0, P) clamp
 struct PagedKeys {
@@ -49,49 +59,55 @@ struct PagedKeys {
     const int blk = min(max(trow[key / bt], 0), P - 1);
     return ((long long)blk * Hk + hk) * bt + key % bt;
   }
-  static constexpr bool kMasked = false;
   __device__ __forceinline__ bool valid(int) const { return true; }
 };
 
 // T: query/output type; C: pool element type (T, or int8_t with the f32
 // scale planes kscale/vscale). GT: 1 for plain multi-head attention, else
-// the largest group the block can hold (the first G of GT heads are live)
-template <typename T, typename C, int DV, int GT>
-__global__ void __launch_bounds__(NWARPS * 32)
+// the largest group the block can hold (the first G of GT heads are live).
+// KL: lanes a key takes. Grid (split, kv head, row).
+template <typename T, typename C, int GT, int KL>
+__global__ void __launch_bounds__(NTHREADS)
 paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ kpool,
                     const C* __restrict__ vpool, const float* __restrict__ kscale,
                     const float* __restrict__ vscale, T* __restrict__ out,
+                    float* __restrict__ ws, int* __restrict__ tickets,
                     const int* __restrict__ tables, const int* __restrict__ pos,
-                    int G, int Hk, int P, int bt, int hd, int nb,
-                    long long q_sb, long long q_sh, long long o_sb,
-                    long long o_sh, float scale) {
-  const int b = blockIdx.x, hk = blockIdx.y;
+                    int G, int Hk, int P, int bt, int hd, int nb, long long q_sb,
+                    long long q_sh, long long o_sb, long long o_sh, float scale,
+                    const decode::Plan plan) {
+  const int hk = blockIdx.y, b = blockIdx.z;
   const int p = pos[b];
   const int n_keys = p < 0 ? 0 : min(p, nb * bt - 1) + 1;
   const PagedKeys keys{tables + (long long)b * nb, P, Hk, hk, bt};
-  decode::attend<T, C, DV, GT>(q, kpool, vpool, kscale, vscale, out, keys, n_keys, b,
-                               hk, GT == 1 ? 1 : G, hd, q_sb, q_sh, o_sb, o_sh, scale);
+  decode::attend<T, C, GT, KL>(q, kpool, vpool, kscale, vscale, out, ws, tickets, keys, plan,
+                               n_keys, b, hk, Hk, GT == 1 ? 1 : G, hd, q_sb, q_sh, o_sb,
+                               o_sh, scale);
 }
 
 template <typename T, typename C, int GT>
-void launch_g(const dim3& grid, cudaStream_t stream, const T* q, const C* kpool,
-              const C* vpool, const float* ks, const float* vs, T* out,
-              const int* tables, const int* pos, int G, int Hk, int P, int bt, int hd,
-              int nb, const long long* st, float scale) {
-  const dim3 block(NWARPS * 32);
-  switch ((hd + 31) / 32) {
-    case 1: paged_decode_kernel<T, C, 1, GT><<<grid, block, 0, stream>>>(q, kpool, vpool, ks, vs, out, tables, pos, G, Hk, P, bt, hd, nb, st[0], st[1], st[2], st[3], scale); break;
-    case 2: paged_decode_kernel<T, C, 2, GT><<<grid, block, 0, stream>>>(q, kpool, vpool, ks, vs, out, tables, pos, G, Hk, P, bt, hd, nb, st[0], st[1], st[2], st[3], scale); break;
-    case 3: paged_decode_kernel<T, C, 3, GT><<<grid, block, 0, stream>>>(q, kpool, vpool, ks, vs, out, tables, pos, G, Hk, P, bt, hd, nb, st[0], st[1], st[2], st[3], scale); break;
-    default: paged_decode_kernel<T, C, 4, GT><<<grid, block, 0, stream>>>(q, kpool, vpool, ks, vs, out, tables, pos, G, Hk, P, bt, hd, nb, st[0], st[1], st[2], st[3], scale); break;
+cudaError_t launch_g(int B, cudaStream_t stream, const T* q, const C* kpool,
+                     const C* vpool, const float* ks, const float* vs, T* out, float* ws,
+                     int* tickets, const int* tables, const int* pos, int G, int Hk, int P, int bt,
+                     int hd, int nb, const long long* st, float scale) {
+#define DECODE_LAUNCH(KL)                                                                 \
+  decode::launch_split(paged_decode_kernel<T, C, GT, KL>, (long long)nb * bt, bt, hd,   \
+                       sizeof(C), std::is_same<C, int8_t>::value, GT, Hk, B, stream,  \
+                       q, kpool, vpool, ks, vs, out, ws, tickets, tables, pos, G, Hk, P,  \
+                       bt, hd, nb, st[0], st[1], st[2], st[3], scale)
+  switch (decode::lanes_per_key(hd)) {
+    case 4: return DECODE_LAUNCH(4);
+    case 8: return DECODE_LAUNCH(8);
+    default: return DECODE_LAUNCH(16);
   }
+#undef DECODE_LAUNCH
 }
 
 // pool_scale: null for a float pool (C = T), else the f32 [2, P, Hk, bt, 1]
 // scales of an int8 pool (C = int8_t)
 template <typename T, typename C>
 cudaError_t launch(const void* q, const void* pool, const float* pool_scale, void* out,
-                   const int* tables, const int* pos, int B, int Hq, int G, int P,
+                   float* ws, int* tickets, const int* tables, const int* pos, int B, int Hq, int G, int P,
                    int bt, int hd, int nb, const long long* st, float scale,
                    cudaStream_t stream) {
   const int Hk = Hq / G;
@@ -99,19 +115,18 @@ cudaError_t launch(const void* q, const void* pool, const float* pool_scale, voi
   const C* kpool = static_cast<const C*>(pool);
   const C* vpool = kpool + plane * hd;
   const float* vscale = pool_scale == nullptr ? nullptr : pool_scale + plane;
-  const dim3 grid(B, Hk);
   const T* qq = static_cast<const T*>(q);
   T* oo = static_cast<T*>(out);
   if (G == 1)
-    launch_g<T, C, 1>(grid, stream, qq, kpool, vpool, pool_scale, vscale, oo, tables, pos, G, Hk, P, bt, hd, nb, st, scale);
-  else
-    launch_g<T, C, GMAX>(grid, stream, qq, kpool, vpool, pool_scale, vscale, oo, tables, pos, G, Hk, P, bt, hd, nb, st, scale);
-  return cudaGetLastError();
+    return launch_g<T, C, 1>(B, stream, qq, kpool, vpool, pool_scale, vscale, oo, ws, tickets, tables, pos, G, Hk, P, bt, hd, nb, st, scale);
+  return launch_g<T, C, GMAX>(B, stream, qq, kpool, vpool, pool_scale, vscale, oo, ws, tickets, tables, pos, G, Hk, P, bt, hd, nb, st, scale);
 }
 
 bool bad_shape(int B, int Hq, int G, int P, int bt, int hd, int nb) {
-  return B < 1 || Hq < 1 || G < 1 || G > GMAX || Hq % G || Hq / G > 65535 ||
-         P < 1 || bt < 1 || nb < 1 || hd < 8 || hd > DMAX || hd % 8;
+  // grid y and z hold the kv heads and rows; row indices are 32-bit
+  return B < 1 || B > 65535 || Hq < 1 || G < 1 || G > GMAX || Hq % G ||
+         Hq / G > 65535 || P < 1 || bt < 1 || nb < 1 || hd < 8 || hd > DMAX || hd % 8 ||
+         (long long)P * (Hq / G) * bt > 0xffffffffLL;
 }
 
 }  // namespace
@@ -123,18 +138,20 @@ extern "C" {
 // pool: [2, P, Hq / G, bt, hd] contiguous, 16-byte aligned. out: [B, Hq, hd]
 // with strides (o b, o h); strides = (q b, q h, o b, o h). tables: int32
 // [B, nb] contiguous. pos: int32 [B]. hd % 8 == 0, hd <= 128. dtype: 0 f32,
-// 1 bf16. Returns the cudaError_t of the launch.
-int paged_decode(const void* q, const void* pool, void* out, const int* tables,
-                 const int* pos, int dtype, int B, int Hq, int G, int P, int bt,
-                 int hd, int nb, const long long* strides, float scale,
+// 1 bf16. ws, tickets: the merge's scratch, private to the stream (see
+// decode_common.cuh). Returns the cudaError_t of the launch.
+int paged_decode(const void* q, const void* pool, void* out, float* ws, int* tickets,
+                 const int* tables, const int* pos, int dtype, int B, int Hq, int G, int P,
+                 int bt, int hd, int nb, const long long* strides, float scale,
                  void* stream) {
-  if (bad_shape(B, Hq, G, P, bt, hd, nb)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, Hq, G, P, bt, hd, nb) || ws == nullptr || tickets == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = launch<float, float>(q, pool, nullptr, out, tables, pos, B, Hq, G, P, bt, hd, nb, strides, scale, s);
+    e = launch<float, float>(q, pool, nullptr, out, ws, tickets, tables, pos, B, Hq, G, P, bt, hd, nb, strides, scale, s);
   else if (dtype == 1)
-    e = launch<__nv_bfloat16, __nv_bfloat16>(q, pool, nullptr, out, tables, pos, B, Hq, G, P, bt, hd, nb, strides, scale, s);
+    e = launch<__nv_bfloat16, __nv_bfloat16>(q, pool, nullptr, out, ws, tickets, tables, pos, B, Hq, G, P, bt, hd, nb, strides, scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);
@@ -144,20 +161,31 @@ int paged_decode(const void* q, const void* pool, void* out, const int* tables,
 // aligned; pool_scale f32 [2, P, Hq / G, bt, 1] contiguous. q and out as
 // above, dtype 0 f32 or 1 bf16 (the query's).
 int paged_decode_q8(const void* q, const void* pool, const float* pool_scale, void* out,
-                    const int* tables, const int* pos, int dtype, int B, int Hq, int G,
+                    float* ws, int* tickets, const int* tables, const int* pos, int dtype,
+                    int B, int Hq, int G,
                     int P, int bt, int hd, int nb, const long long* strides, float scale,
                     void* stream) {
-  if (bad_shape(B, Hq, G, P, bt, hd, nb) || pool_scale == nullptr)
+  if (bad_shape(B, Hq, G, P, bt, hd, nb) || pool_scale == nullptr || ws == nullptr ||
+      tickets == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = launch<float, int8_t>(q, pool, pool_scale, out, tables, pos, B, Hq, G, P, bt, hd, nb, strides, scale, s);
+    e = launch<float, int8_t>(q, pool, pool_scale, out, ws, tickets, tables, pos, B, Hq, G, P, bt, hd, nb, strides, scale, s);
   else if (dtype == 1)
-    e = launch<__nv_bfloat16, int8_t>(q, pool, pool_scale, out, tables, pos, B, Hq, G, P, bt, hd, nb, strides, scale, s);
+    e = launch<__nv_bfloat16, int8_t>(q, pool, pool_scale, out, ws, tickets, tables, pos, B, Hq, G, P, bt, hd, nb, strides, scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);
+}
+
+// The plan a launch takes at these shapes (it depends on nothing else):
+// out[0..4] = splits S a (row, kv head), split length, tile keys, tiles in
+// flight, shared bytes. dtype as above; q8: the int8 form.
+void paged_decode_plan(int nb, int bt, int hd, int dtype, int q8, int G, int* out) {
+  decode::report_plan(decode::make_plan((long long)nb * bt, bt, hd, q8 ? 1 : dtype == 0 ? 4 : 2,
+                                        q8 != 0, G == 1 ? 1 : GMAX),
+                      out);
 }
 
 const char* paged_decode_error_string(int e) {

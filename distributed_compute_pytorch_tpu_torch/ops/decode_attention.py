@@ -26,6 +26,13 @@ rows and scales, with about half the bytes of a bf16 cache. The plain
 versions are ``gather_kv_blocks`` (paged) followed by
 ``cached_attention_q8``.
 
+Each read is one launch: the keys of a (row, kv head) are split over up
+to ``SMAX`` blocks, and the last of them to finish merges their partial
+softmax sums in split order before the launch ends
+(``csrc/decode_common.cuh``), through a scratch workspace and tickets
+kept for each (device, stream). ``split_plan`` reports the grid a read
+takes at given shapes, which depends on the shapes alone.
+
 ``launches`` counts ``paged_decode``'s kernel launches and
 ``dense_launches`` ``dense_decode``'s; the int8 forms count apart, in
 ``q8_launches`` and ``dense_q8_launches`` (plain calls never count).
@@ -52,6 +59,58 @@ dense_launches = 0
 q8_launches = dense_q8_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the most blocks the kernels split a (row, kv head) over (SMAX in
+# csrc/decode_common.cuh), which sizes the merge's workspace; and the split
+# length, a row's capacity over which is its split count (SPLIT_KEYS there)
+SMAX, SPLIT_KEYS = 16, 256
+
+
+# the merge's scratch for each (device, stream): the splits' f32 partials
+# and an int32 ticket a (row, kv head), which every launch leaves at zero
+# (csrc/decode_common.cuh); reads on two streams never share them. An entry
+# lives as long as the process: PyTorch never destroys the streams it hands
+# out (``torch.cuda.Stream`` takes one of a fixed pool a device), so the
+# entries are a few a device (one more for each ``ExternalStream`` a caller
+# brings), each sized to the largest read on its stream (at serving's
+# shapes, under 1 MB).
+_scratch: dict = {}
+
+
+def _merge_scratch(device, pairs: int, G: int, hd: int):
+    """``(ws, tickets)`` for ``pairs`` (row, kv head) pairs of ``G`` query
+    heads of ``hd`` on the current stream of ``device``, grown as needed."""
+    key = (device.index, _build.stream_ptr(device))
+    ws, tickets = _scratch.get(key, (None, None))
+    n = pairs * SMAX * G * (hd + 2)
+    if ws is None or ws.numel() < n:
+        ws = torch.empty(n, dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < pairs:
+        tickets = torch.zeros(pairs, dtype=torch.int32, device=device)
+    _scratch[key] = ws, tickets
+    return ws, tickets
+
+
+def split_plan(q, cache, *, table=None, kv_scale=None) -> dict:
+    """The grid the CUDA read of ``q`` over ``cache`` takes: the paged
+    read's with a block ``table`` (``cache`` the pool), else the dense
+    read's; the int8 form with ``kv_scale``. ``{"S": splits a (row, kv
+    head), "L": split length, "tile": keys a tile, "stages": tiles in
+    flight, "smem": shared bytes a block, "blocks": the grid's}``. A
+    function of the shapes only (it builds the kernel if needed)."""
+    import ctypes
+    B, H, _, hd = q.shape
+    hk = cache.shape[2]
+    args = (hd, _DTYPES[q.dtype], int(kv_scale is not None), H // hk)
+    vals = (ctypes.c_int * 5)()
+    if table is None:
+        _, fn = _build.bind(DENSE_NAME, "iiiiip", "dense_decode_plan")
+        fn(cache.shape[3], *args, vals)
+    else:
+        _, fn = _build.bind(NAME, "iiiiiip", "paged_decode_plan")
+        fn(table.shape[1], cache.shape[3], *args, vals)
+    plan = dict(zip(("S", "L", "tile", "stages", "smem"), vals))
+    return {**plan, "blocks": plan["S"] * hk * B}
 
 
 def _q8_view(cache, kv_scale):
@@ -118,7 +177,8 @@ def _check_cuda_read(name, q, cache, kv_scale, others):
     """The CUDA reads' shared checks: one CUDA device; an f32/bf16 query
     with a unit head-dim stride, of the cache's dtype or over an int8
     cache; a contiguous, 16-byte aligned cache (and scale plane); a head
-    dim a multiple of 8 up to 128; at most 8 query heads per kv head.
+    dim a multiple of 8 up to 128; at most 8 query heads per kv head and
+    65535 rows.
     Returns the kernel's dtype code of the query."""
     dev = q.device
     tensors = (cache, *others) + (() if kv_scale is None else (kv_scale,))
@@ -136,6 +196,9 @@ def _check_cuda_read(name, q, cache, kv_scale, others):
     if H // hk > 8:
         raise ValueError(f"{name} takes at most 8 query heads per kv head "
                          f"(got {H // hk})")
+    if q.shape[0] > 65535:
+        raise ValueError(f"{name} takes at most 65535 rows (a grid "
+                         f"dimension), got {q.shape[0]}")
     if not cache.is_contiguous() or cache.data_ptr() % 16 or (
             kv_scale is not None and not kv_scale.is_contiguous()):
         raise ValueError(f"{name} needs a contiguous, 16-byte aligned cache "
@@ -145,8 +208,9 @@ def _check_cuda_read(name, q, cache, kv_scale, others):
 
 def paged_decode_cuda(q, pool, table, pos, *, scale: float | None = None,
                       kv_scale=None):
-    """Launch the CUDA kernel (the int8 form with ``kv_scale``): one block
-    per (row, kv head), serving the query heads that share that kv head.
+    """Launch the CUDA kernel (the int8 form with ``kv_scale``): one
+    launch, ``min(SMAX, ceil(nb * bt / split length))`` blocks per (row,
+    kv head), each serving the query heads that share that kv head.
     Raises on anything it does not take: non-CUDA or mixed devices, a query
     other than f32/bf16 of the pool's dtype (or over an int8 pool), a
     missing or misshapen scale plane, a non-contiguous or unaligned pool, a
@@ -163,17 +227,20 @@ def paged_decode_cuda(q, pool, table, pos, *, scale: float | None = None,
     scale = hd ** -0.5 if scale is None else float(scale)
     out = torch.empty(B, 1, H, hd, dtype=q.dtype, device=q.device
                       ).transpose(1, 2)
-    args = (out.data_ptr(), table.data_ptr(), pos.data_ptr(), dt, B, H,
+    ws, tickets = _merge_scratch(q.device, B * hk, H // hk, hd)
+    args = (out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+            table.data_ptr(), pos.data_ptr(), dt, B, H,
             H // hk, P, bt, hd, table.shape[1],
             _build.strides_arg(q.stride(0), q.stride(1), out.stride(0),
                                out.stride(1)),
             scale, _build.stream_ptr(q.device))
     if kv_scale is None:
-        lib, fn = _build.bind(NAME, "pppppiiiiiiiisfp")
+        lib, fn = _build.bind(NAME, "pppppppiiiiiiiisfp")
         _build.check(lib, NAME, fn(q.data_ptr(), pool.data_ptr(), *args))
         launches += 1
     else:
-        lib, fn = _build.bind(NAME, "ppppppiiiiiiiisfp", "paged_decode_q8")
+        lib, fn = _build.bind(NAME, "ppppppppiiiiiiiisfp",
+                              "paged_decode_q8")
         _build.check(lib, NAME, fn(q.data_ptr(), pool.data_ptr(),
                                    kv_scale.data_ptr(), *args))
         q8_launches += 1
@@ -233,8 +300,9 @@ def decode_attention(q, cache, pos, *, slot_mask=None,
 
 def dense_decode_cuda(q, cache, pos, *, slot_mask=None,
                       scale: float | None = None, kv_scale=None):
-    """Launch the CUDA kernel (the int8 form with ``kv_scale``): one block
-    per (row, kv head), serving the query heads that share that kv head.
+    """Launch the CUDA kernel (the int8 form with ``kv_scale``): one
+    launch, ``min(SMAX, ceil(T / split length))`` blocks per (row, kv
+    head), each serving the query heads that share that kv head.
     Raises on anything it does not take: non-CUDA or mixed devices, a query
     other than f32/bf16 of the cache's dtype (or over an int8 cache), a
     missing or misshapen scale plane, a non-contiguous or unaligned cache,
@@ -260,18 +328,20 @@ def dense_decode_cuda(q, cache, pos, *, slot_mask=None,
     scale = hd ** -0.5 if scale is None else float(scale)
     out = torch.empty(B, 1, H, hd, dtype=q.dtype, device=q.device
                       ).transpose(1, 2)
-    args = (out.data_ptr(), pos.data_ptr(), mask_ptr, dt, B, H, H // hk, T,
+    ws, tickets = _merge_scratch(q.device, B * hk, H // hk, hd)
+    args = (out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+            pos.data_ptr(), mask_ptr, dt, B, H, H // hk, T,
             hd, pos_stride,
             _build.strides_arg(q.stride(0), q.stride(1), out.stride(0),
                                out.stride(1), mask_sb),
             scale, _build.stream_ptr(q.device))
     if kv_scale is None:
-        lib, fn = _build.bind(DENSE_NAME, "pppppiiiiiiisfp")
+        lib, fn = _build.bind(DENSE_NAME, "pppppppiiiiiiisfp")
         _build.check(lib, DENSE_NAME,
                      fn(q.data_ptr(), cache.data_ptr(), *args))
         dense_launches += 1
     else:
-        lib, fn = _build.bind(DENSE_NAME, "ppppppiiiiiiisfp",
+        lib, fn = _build.bind(DENSE_NAME, "ppppppppiiiiiiisfp",
                               "dense_decode_q8")
         _build.check(lib, DENSE_NAME, fn(q.data_ptr(), cache.data_ptr(),
                                          kv_scale.data_ptr(), *args))

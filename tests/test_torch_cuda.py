@@ -717,3 +717,198 @@ def test_tiny_int8_serve_and_generate_on_card_match_cpu(dev):
     assert (C.kv_insert_q8_launches - before[0],
             D.dense_q8_launches - before[1]) == (2 * 8, 2 * 8)
     assert torch.equal(got, want)
+
+
+# ---- the split-key decode reads: the edges of a split ----------------------
+
+def _decode_cache(gen, q8, dtype, dev, *shape):
+    """A float cache of ``dtype``, or an int8 one and its scale plane."""
+    if q8:
+        return _q8_cache(gen, *shape, dev=dev)
+    return _randn(gen, *shape, dtype=dtype, dev=dev), None
+
+
+def _two_launches_match_plain(launch, plain, counter, dtype, zero_rows=()):
+    """Two launches give the same bits and move ``counter()`` by 2; the
+    output is finite and within TOL of the plain version (bf16 also row by
+    row within ROW_TOL), except rows ``zero_rows``, which must be 0."""
+    before = counter()
+    got, again = launch(), launch()
+    torch.cuda.synchronize()
+    assert counter() == before + 2
+    assert torch.equal(got, again)
+    assert torch.isfinite(got).all()
+    want = plain().float()
+    keep = [b for b in range(got.shape[0]) if b not in zero_rows]
+    for b in zero_rows:
+        assert not got[b].any(), b
+    got, want = got[keep].float(), want[keep]
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+    if dtype == torch.bfloat16:
+        assert _row_err(got, want) <= ROW_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,hk", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("q8", [False, True])
+def test_paged_decode_split_edges(dev, dtype, H, hk, q8):
+    """A capacity of 4 splits (nb * bt = 4 L): live lengths 1, L - 1, L,
+    L + 1, 2 L + 5 and the full capacity in one batch, a parked all-trash
+    row and a position past the horizon; then a batch where every row but
+    one is a few keys long, so most splits are empty."""
+    from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
+    gen = torch.Generator().manual_seed(40)
+    L, hd, bt = D.SPLIT_KEYS, 64, 16
+    nb = 4 * L // bt
+    cap, B = nb * bt, 8
+    P = B * nb + 1
+    q = _randn(gen, B, H, 1, hd, dtype=dtype, dev=dev)
+    pool, scale = _decode_cache(gen, q8, dtype, dev, 2, P, hk, bt, hd)
+    table = (torch.randperm(P - 1, generator=gen)[:B * nb] + 1).reshape(
+        B, nb).to(torch.int32)
+    plan = D.split_plan(q, pool, table=table.to(dev), kv_scale=scale)
+    assert (plan["S"], plan["L"]) == (4, L)
+    table[5] = 0                                   # parked: all trash
+    counter = (lambda: D.q8_launches) if q8 else (lambda: D.launches)
+    for lengths in ([1, L - 1, L, L + 1, cap, 40, cap + 40, 2 * L + 5],
+                    [1, 2, 3, 1, cap, 2, 1, 3]):
+        pos = torch.tensor(lengths, dtype=torch.int32) - 1
+        tab, pos = table.to(dev), pos.to(dev)
+        _two_launches_match_plain(
+            lambda: D.paged_decode_cuda(q, pool, tab, pos, kv_scale=scale),
+            lambda: D.paged_decode_plain(q, pool, tab, pos, kv_scale=scale),
+            counter, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,hk", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("q8", [False, True])
+def test_dense_decode_split_edges(dev, dtype, H, hk, q8):
+    """A cache of 4 splits (T = 4 L), a strided query: live lengths 1,
+    L - 1, L, L + 1 and T; with and without a slot mask that covers two
+    whole splits of one row and every slot of another (that row writes
+    zeros); then a stride-0 lockstep position that leaves the two-split
+    row ten valid slots past its masked ones, in the last split."""
+    from distributed_compute_pytorch_tpu_torch.ops import attention as A
+    from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
+    gen = torch.Generator().manual_seed(41)
+    L, hd = D.SPLIT_KEYS, 64
+    T, B = 4 * L, 7
+    qx = _randn(gen, B, 1, 3 * H * hd, dtype=dtype, dev=dev)
+    q = A.split_heads(qx[..., :H * hd], H)                # strided view
+    cache, scale = _decode_cache(gen, q8, dtype, dev, 2, B, hk, T, hd)
+    plan = D.split_plan(q, cache, kv_scale=scale)
+    assert (plan["S"], plan["L"]) == (4, L)
+    mask = torch.ones(B, T, dtype=torch.bool)
+    mask[5, :2 * L] = False                        # two whole splits
+    mask[6] = False                                # no valid slot: zeros
+    mask = mask.to(dev)
+    per_row = torch.tensor([1, L - 1, L, L + 1, T, T, T], dtype=torch.int32,
+                           device=dev) - 1
+    lockstep = torch.arange(T, dtype=torch.int32, device=dev)[2 * L + 9]
+    counter = (lambda: D.dense_q8_launches) if q8 else (
+        lambda: D.dense_launches)
+    for pos in (per_row, lockstep):
+        for m in (None, mask):
+            _two_launches_match_plain(
+                lambda: D.dense_decode_cuda(q, cache, pos, slot_mask=m,
+                                            kv_scale=scale),
+                lambda: D.dense_decode_plain(q, cache, pos, slot_mask=m,
+                                             kv_scale=scale),
+                counter, dtype, zero_rows=() if m is None else (6,))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q8", [False, True])
+def test_decode_reads_past_one_window(dev, dtype, q8):
+    """A capacity over SMAX splits of 1,024 keys (the lookup window): each
+    split walks two windows and, within them, the ring of tiles. The paged
+    read over 1,100 blocks of 16 and the dense read over 17,408 slots (a
+    slot mask with a masked run inside), GQA and MHA; full and short rows."""
+    from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
+    gen = torch.Generator().manual_seed(42)
+    hd, bt, nb, B = 64, 16, 1100, 2
+    P = B * nb + 1
+    for H, hk in ((4, 2), (2, 2)):
+        q = _randn(gen, B, H, 1, hd, dtype=dtype, dev=dev)
+        pool, scale = _decode_cache(gen, q8, dtype, dev, 2, P, hk, bt, hd)
+        table = (torch.randperm(P - 1, generator=gen)[:B * nb] + 1).reshape(
+            B, nb).to(dev, torch.int32)
+        pos = torch.tensor([nb * bt - 1, 1500], dtype=torch.int32, device=dev)
+        plan = D.split_plan(q, pool, table=table, kv_scale=scale)
+        assert plan["S"] * 1024 < nb * bt and plan["stages"] > 1
+        counter = (lambda: D.q8_launches) if q8 else (lambda: D.launches)
+        _two_launches_match_plain(
+            lambda: D.paged_decode_cuda(q, pool, table, pos, kv_scale=scale),
+            lambda: D.paged_decode_plain(q, pool, table, pos, kv_scale=scale),
+            counter, dtype)
+    T = 17408
+    cache, scale = _decode_cache(gen, q8, dtype, dev, 2, B, 2, T, hd)
+    q = _randn(gen, B, 4, 1, hd, dtype=dtype, dev=dev)
+    mask = torch.ones(B, T, dtype=torch.bool, device=dev)
+    mask[0, 3000:9000] = False
+    pos = torch.tensor([T - 1, 2000], dtype=torch.int32, device=dev)
+    assert D.split_plan(q, cache, kv_scale=scale)["S"] * 1024 < T
+    counter = (lambda: D.dense_q8_launches) if q8 else (
+        lambda: D.dense_launches)
+    for m in (None, mask):
+        _two_launches_match_plain(
+            lambda: D.dense_decode_cuda(q, cache, pos, slot_mask=m,
+                                        kv_scale=scale),
+            lambda: D.dense_decode_plain(q, cache, pos, slot_mask=m,
+                                         kv_scale=scale),
+            counter, dtype)
+
+
+@pytest.mark.parametrize("q8", [False, True])
+def test_decode_reads_on_two_streams_at_once(dev, q8):
+    """The paged and the dense read, each launched again and again on two
+    streams with nothing between them, every launch of several splits a
+    (row, kv head): each stream keeps its own merge scratch, so every
+    output has the bits of one launch on the default stream (and that one
+    is within TOL of the plain version)."""
+    from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
+    dtype = torch.bfloat16
+    gen = torch.Generator().manual_seed(43)
+    hd, bt, nb, B, H, T = 64, 16, 64, 8, 4, 1024
+    P = B * nb + 1
+    q = _randn(gen, B, H, 1, hd, dtype=dtype, dev=dev)
+    pool, pscale = _decode_cache(gen, q8, dtype, dev, 2, P, H, bt, hd)
+    table = (torch.randperm(P - 1, generator=gen)[:B * nb] + 1).reshape(
+        B, nb).to(dev, torch.int32)
+    pos = torch.randint(0, nb * bt, (B,), generator=gen,
+                        dtype=torch.int32).to(dev)
+    cache, dscale = _decode_cache(gen, q8, dtype, dev, 2, B, H, T, hd)
+    assert D.split_plan(q, pool, table=table, kv_scale=pscale)["S"] > 1
+    assert D.split_plan(q, cache, kv_scale=dscale)["S"] > 1
+
+    def paged():
+        return D.paged_decode_cuda(q, pool, table, pos, kv_scale=pscale)
+
+    def dense():
+        return D.dense_decode_cuda(q, cache, pos, kv_scale=dscale)
+
+    want = {"paged": paged(), "dense": dense()}
+    torch.testing.assert_close(
+        want["paged"].float(),
+        D.paged_decode_plain(q, pool, table, pos, kv_scale=pscale).float(),
+        atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(
+        want["dense"].float(),
+        D.dense_decode_plain(q, cache, pos, kv_scale=dscale).float(),
+        atol=TOL[dtype], rtol=TOL[dtype])
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(50_000_000)   # the launches below queue up
+    got = []
+    for _ in range(20):
+        for s in streams:
+            with torch.cuda.stream(s):
+                got += [("paged", paged()), ("dense", dense())]
+    for s in streams:
+        torch.cuda.current_stream(dev).wait_stream(s)
+    torch.cuda.synchronize()
+    for name, out in got:
+        assert torch.equal(out, want[name]), name
