@@ -28,6 +28,16 @@ imports nothing of JAX. Phases, one JSON line each:
    (gated) and its fixed cost (the same read with every live length at 1
    or 0); then one long-context line, the paged read float and int8 at 2
    rows x 12 heads over 4,096 live keys each, gated on correctness only.
+   The four fused ticks (the slot write and the read in one launch:
+   ``paged_decode_write``, ``dense_decode_write`` and their ``_q8`` forms)
+   at the serving and generation shapes (a parked all-trash row past the
+   horizon among the paged rows): the cache exact and the live rows to
+   TOL (bf16: ROW_TOL) against the plain version, the cache and every
+   live row bit-identical to the unfused kernel pair (the standalone
+   write, then the read-only read) on the same inputs, the same bits on
+   two launches, all gated; each timed beside the two launches it
+   replaces, back to back, and the read-only read alone, with its grid
+   and fixed cost; the long-context line adds the fused paged tick.
    The flash forward is also timed at the
    training shape; the flash kernels, forward and backward, must take the
    tensor-core kernels in bf16 and the CUDA-core ones in f32, give the
@@ -38,19 +48,25 @@ imports nothing of JAX. Phases, one JSON line each:
    through ``ContinuousBatcher.serve`` — 32 staggered requests, 16 slots,
    in bf16 and then in f32. Each kernel's launch counter is zeroed just
    before the serve call and read just after; it must equal the count the
-   schedule implies. Every output is checked teacher-forced against one
-   full-sequence forward with plain dense attention;
+   schedule implies: ``flash_fwd`` and ``kv_pool_insert`` (the admission
+   scatter) 12 x waves, the fused ``paged_decode_write`` 12 x ticks, the
+   read-only ``paged_decode`` 0. Every output is checked teacher-forced
+   against one full-sequence forward with plain dense attention;
 5. serve_profile: the bf16 serve run once more under ``torch.profiler``,
-   its device time by kernel group and its device busy share;
+   its device time by kernel group, its device ops a tick and its device
+   busy share;
 6. generate: GPT-2-small at full width and depth (the serve phase's
    weights) through ``infer.generate`` — 16 left-padded prompts of 16-250
    tokens, 128 new tokens each, greedy — in bf16 and then in f32. The
-   counters are zeroed just before and read just after: ``kv_insert`` and
-   ``dense_decode`` 12 x 127, ``flash_fwd`` 12, every other kernel 0.
+   counters are zeroed just before and read just after: the fused
+   ``dense_decode_write`` 12 x 127, ``flash_fwd`` 12, every other kernel
+   0 (the standalone ``kv_insert`` and the read-only ``dense_decode``
+   included).
    Every token is checked teacher-forced as in serve. In f32, a sampled
    run repeated with the same generator seed must repeat its tokens, and
    ``temperature=1, top_k=1`` must give the greedy tokens;
-7. generate_profile: the bf16 generate once more under ``torch.profiler``;
+7. generate_profile: the bf16 generate once more under ``torch.profiler``
+   (device time by group, ops a tick, busy);
 8. the int8 KV cells, after the float ones:
    serve_int8: the serve phase's 32 requests in bf16 on the int8 KV pool
    (``kv_dtype="int8"``) beside the bf16 float pool, in turns (float,
@@ -59,15 +75,15 @@ imports nothing of JAX. Phases, one JSON line each:
    host-to-device copy may wait for the card (the harvest's own wait,
    ``serve._Fetch.result``, is the one allowed sync), and the float
    pool's tokens must equal the serve phase's. The first int8 run
-   is counted (int8 ``kv_pool_insert`` 12 x (waves + ticks), int8
-   ``paged_decode`` 12 x ticks, ``flash_fwd`` 12 x waves, every other
-   counter 0) and checked teacher-forced, the decoded rows against
-   quantized K/V; tokens/s of each run, device busy (one profiled run of
-   each pool), both pools' bytes and the share of positions where the
-   int8 pool served the float pool's token;
+   is counted (int8 ``kv_pool_insert`` 12 x waves, the int8 fused tick
+   ``paged_decode_write_q8`` 12 x ticks, ``flash_fwd`` 12 x waves, every
+   other counter 0) and checked teacher-forced, the decoded rows against
+   quantized K/V; tokens/s of each run, device busy and ops a tick (one
+   profiled run of each pool), both pools' bytes and the share of
+   positions where the int8 pool served the float pool's token;
    generate_int8: the generate phase's 16 prompts with ``kv_quant=True``
-   beside the float cache in turns: int8 ``kv_insert`` and
-   ``dense_decode`` 12 x 127, ``flash_fwd`` 12, every other counter 0;
+   beside the float cache in turns: ``dense_decode_write_q8`` 12 x 127,
+   ``flash_fwd`` 12, every other counter 0;
    teacher-forced, the rows past each prompt against quantized K/V;
    tokens/s and both caches' bytes;
 9. train: GPT-2-small at full width and depth (dropout 0.1), bf16 compute
@@ -1120,12 +1136,14 @@ def check_dense_decode_q8(torch, np, DA, A, dtype, dt, lens):
     return out
 
 
-def check_decode_long(torch, DA, dtype, dt):
-    """The paged read, float and int8, at one long context: 2 rows x 12
-    heads x hd 64 over 4096 live keys each (bt 16, nb 256), where one block
-    per (row, kv head) made 24 blocks. Gated on correctness only: TOL (and
-    ROW_TOL for the bf16 int8 form) and two launches' bits; timed and
-    reported."""
+def check_decode_long(torch, A, CU, DA, dtype, dt):
+    """The paged read, float and int8, and the fused serving tick
+    (``paged_decode_write``, float and int8) at one long context: 2 rows x
+    12 heads x hd 64 over 4096 live keys each (bt 16, nb 256), where one
+    block per (row, kv head) made 24 blocks. Gated on correctness only:
+    TOL (and ROW_TOL for the bf16 int8 forms) and two launches' bits (the
+    fused tick also the cache and the pair's bits, ``check_fused``); timed
+    and reported."""
     gen = torch.Generator().manual_seed(36)
     B, H, hd, bt, nb = 2, 12, 64, 16, 256
     P = B * nb + 1
@@ -1172,6 +1190,263 @@ def check_decode_long(torch, DA, dtype, dt):
             "shape": (f"q [{B}, {H}, 1, {hd}], {kind}pool [2, {P}, {H}, "
                       f"{bt}, {hd}], tables [{B}, {nb}], {keys} live keys"),
         }
+    for q8 in (False, True):
+        name = "paged_decode_write" + ("_q8" if q8 else "")
+        caches, rows, (fused, pair, read, plain) = paged_tick(
+            torch, A, CU, DA, gen, dtype, q8, P, H, bt, hd, table, pos)
+        res = check_fused(torch, f"{name} long", dt, fused, pair, plain,
+                          caches[0], [0, 1])
+        row = hd * esz if not q8 else hd + 4
+        nbytes = (esz * 2 * B * H * hd + 2 * keys * H * row + 4 * B * nb
+                  + 4 * B) + (2 * B * H * (hd * esz + row) + 4 * B)
+        b_ms, b_by = bound(nbytes, 4.0 * hd * keys * H, dt)
+        cyc = list(zip(caches, rows))
+        ms = time_ms(torch, [(lambda c=c, r=r: fused(c, r)) for c, r in cyc])
+        out[name] = {
+            **res, "tol": TOL[dt], "bound_ms": b_ms, "bound_by": b_by,
+            "ms": ms, "bound_share": b_ms / ms,
+            "pair_ms": time_ms(torch, [(lambda c=c, r=r: pair(c, r))
+                                       for c, r in cyc]),
+            "read_ms": time_ms(torch, [(lambda c=c, r=r: read(c, r))
+                                       for c, r in cyc]),
+            "one_key_ms": time_ms(torch, [
+                (lambda c=c, r=r: fused(c, r, torch.zeros_like(pos)))
+                for c, r in cyc]),
+            "grid": DA.split_plan(rows[0][0], caches[0][0], table=table,
+                                  kv_scale=caches[0][1]),
+            "shape": (f"q, k, v [{B}, {H}, 1, {hd}] fused-QKV views, "
+                      f"{'int8 ' if q8 else ''}pool [2, {P}, {H}, {bt}, "
+                      f"{hd}], tables [{B}, {nb}], {keys} live keys"),
+        }
+    return out
+
+
+# ---- phase 3, the fused ticks: the slot write and the read in one launch ----
+
+FUSED_LIBRARY = ("none: no single PyTorch call writes a slot and attends the "
+                 "cache in one call")
+
+
+def tick_rows(torch, A, gen, B, H, hd, dtype):
+    """q, k, v ``[B, H, 1, hd]`` as the model hands them to a decode tick:
+    split-head views of one fused QKV projection."""
+    qkv = torch.randn(B, 1, 3 * H * hd, generator=gen).to("cuda", dtype)
+    return tuple(A.split_heads(x, H) for x in qkv.split(H * hd, dim=-1))
+
+
+def fused_cache(torch, gen, dtype, q8, *shape, copies: int = 3):
+    """``copies`` caches ``(kv, scale or None)``: float of ``dtype``, or
+    int8 with its scales (``q8_cache``)."""
+    if q8:
+        return q8_cache(torch, gen, *shape, copies=copies)
+    return [(torch.randn(*shape, generator=gen).to("cuda", dtype), None)
+            for _ in range(copies)]
+
+
+def clone_cache(c):
+    return c[0].clone(), None if c[1] is None else c[1].clone()
+
+
+def check_fused(torch, name, dt, fused, pair, plain, cache, live):
+    """A fused tick against its plain version and against the unfused
+    kernel pair (the standalone write, then the read-only read), each on a
+    copy of ``cache``: the caches exact (float bytes; int8 bytes and
+    scales) and the pair's every live row bit-identical, gated; the live
+    rows within TOL of the plain version (bf16: ROW_TOL row by row); a
+    second fused launch on the same inputs the same bits."""
+    cf, cp, cq = clone_cache(cache), clone_cache(cache), clone_cache(cache)
+    got = fused(cf)
+    again = fused(cf)
+    want = pair(cp)
+    torch.cuda.synchronize()
+    ref = plain(cq)
+    torch.cuda.synchronize()
+    for other, what in ((cp, "the unfused kernel pair's"),
+                        (cq, "the plain write's")):
+        require(torch.equal(cf[0], other[0]) and (
+            cf[1] is None or torch.equal(cf[1], other[1])),
+            f"{name} {dt}: the cache differs from {what}")
+    require(not torch.equal(cf[0], cache[0]), f"{name} {dt}: nothing was "
+                                              f"written")
+    g, w, r = got[live], want[live], ref[live]
+    require(torch.equal(g, w), f"{name} {dt}: a live row differs from the "
+                               f"unfused kernel pair's bits")
+    require(torch.equal(g, again[live]), f"{name} {dt}: two launches differ")
+    require(bool(torch.isfinite(g).all()), f"{name} {dt}: non-finite")
+    err, r_err = (g.float() - r.float()).abs().max().item(), row_err(g, r)
+    require(err <= TOL[dt], f"{name} {dt}: max err {err} > {TOL[dt]}")
+    require(dt != "bf16" or r_err <= ROW_TOL,
+            f"{name} {dt}: row error {r_err} > {ROW_TOL}")
+    return {"max_abs_err": err, "row_err": r_err, "same_bits": True,
+            "pair_bit_identical": True, "cache_exact": True}
+
+
+def paged_tick(torch, A, CU, DA, gen, dtype, q8, P, H, bt, hd, table, pos):
+    """Three pools ``[2, P, H, bt, hd]`` (int8 with ``q8``) and three sets
+    of tick rows, and the serving tick's four forms on one of each (``c``
+    a pool and its scales, ``r`` rows): the fused launch (at ``p``, by
+    default ``pos``), the unfused kernel pair (the block ids and offsets
+    made once, outside the timing), the read-only read and the plain
+    version."""
+    B, nb = table.shape
+    caches = fused_cache(torch, gen, dtype, q8, 2, P, H, bt, hd)
+    rows = [tick_rows(torch, A, gen, B, H, hd, dtype) for _ in caches]
+    slot = torch.clamp(pos // bt, max=nb - 1).long()
+    blk = table.gather(1, slot[:, None])[:, 0].contiguous()
+    off = (pos % bt).contiguous()
+
+    def fused(c, r=rows[0], p=pos):
+        return DA.paged_write_decode_cuda(*r, c[0], table, p, kv_scale=c[1])
+
+    def pair(c, r=rows[0]):
+        CU.kv_pool_insert_cuda(c[0], r[1][:, :, 0], r[2][:, :, 0], blk, off,
+                               scale=c[1])
+        return DA.paged_decode_cuda(r[0], c[0], table, pos, kv_scale=c[1])
+
+    def read(c, r=rows[0]):
+        return DA.paged_decode_cuda(r[0], c[0], table, pos, kv_scale=c[1])
+
+    def plain(c, r=rows[0]):
+        return DA.paged_write_decode_plain(*r, c[0], table, pos,
+                                           kv_scale=c[1])
+    return caches, rows, (fused, pair, read, plain)
+
+
+def check_decode_write(torch, np, A, CU, DA, dtype, dt, q8):
+    """The serving tick fused, ``paged_decode_write`` (``_q8`` with
+    ``q8``), at ``check_decode``'s shapes (16 rows x 12 heads x hd 64 over
+    bt 16, nb 64 tables into a [2, 1025, 12, 16, 64] pool, ragged
+    positions, a full-horizon row) with row 9 parked on an all-trash table
+    past the horizon (its output left out), the rows split-head views of a
+    fused QKV: ``check_fused``; timed beside the two launches it replaces
+    (``kv_pool_insert`` and the read-only ``paged_decode``, back to back,
+    the block ids and offsets made outside the timing), the read-only
+    read alone, its bound and its plain version; its grid and its fixed
+    cost (every row at position 0: one key written and read)."""
+    gen = torch.Generator().manual_seed(60 + q8)
+    B, H, hd, bt, nb = 16, 12, 64, 16, 64
+    P = B * nb + 1
+    rng = np.random.default_rng(3)
+    table = (rng.permutation(P - 1)[:B * nb] + 1).reshape(B, nb)
+    pos = rng.integers(16, nb * bt, B)
+    pos[5] = nb * bt - 1
+    table[9], pos[9] = 0, nb * bt + 5                  # parked, past it
+    live = [b for b in range(B) if b != 9]
+    table = torch.from_numpy(table.astype(np.int32)).cuda()
+    pos_t = torch.from_numpy(pos.astype(np.int32)).cuda()
+    caches, rows, (fused, pair, read, plain) = paged_tick(
+        torch, A, CU, DA, gen, dtype, q8, P, H, bt, hd, table, pos_t)
+    name = "paged_decode_write" + ("_q8" if q8 else "")
+    out = check_fused(torch, name, dt, fused, pair, plain, caches[0], live)
+    keys = int((np.minimum(pos, nb * bt - 1) + 1).sum())
+    live_blocks = int((np.minimum(pos, nb * bt - 1) // bt + 1).sum())
+    esz = rows[0][0].element_size()
+    row = hd * esz if not q8 else hd + 4          # a cached row (and scale)
+    # the read's bytes (q read, o written, each live key's K and V rows
+    # read once, the table entries and positions), plus the write's: the
+    # float rows read once, the cache rows (and scales) written once, the
+    # table entry of each written slot
+    nbytes = (esz * 2 * B * H * hd + 2 * keys * H * row + 4 * live_blocks
+              + 4 * B) + (2 * B * H * (hd * esz + row) + 4 * B)
+    b_ms, b_by = bound(nbytes, 4.0 * hd * keys * H, dt)
+    cyc = list(zip(caches, rows))
+    ms = time_ms(torch, [(lambda c=c, r=r: fused(c, r)) for c, r in cyc])
+    out.update(
+        bound_ms=b_ms, bound_by=b_by, ms=ms, bound_share=b_ms / ms,
+        pair_ms=time_ms(torch, [(lambda c=c, r=r: pair(c, r))
+                                for c, r in cyc]),
+        read_ms=time_ms(torch, [(lambda c=c, r=r: read(c, r))
+                                for c, r in cyc]),
+        plain_ms=time_ms(torch, [(lambda c=c, r=r: plain(c, r))
+                                 for c, r in cyc]),
+        one_key_ms=time_ms(torch, [
+            (lambda c=c, r=r: fused(c, r, torch.zeros_like(pos_t)))
+            for c, r in cyc]),
+        grid=DA.split_plan(rows[0][0], caches[0][0], table=table,
+                           kv_scale=caches[0][1]),
+        library_ms=None, library=FUSED_LIBRARY,
+        fuses=CU.REPLACES,
+        shape=(f"q, k, v [{B}, {H}, 1, {hd}] fused-QKV views, "
+               f"{'int8 ' if q8 else ''}pool [2, {P}, {H}, {bt}, {hd}]"
+               f"{' + f32 scales' if q8 else ''}, tables [{B}, {nb}], "
+               f"{keys} live keys, row 9 parked past the horizon"))
+    return out
+
+
+def check_dense_decode_write(torch, np, A, CU, DA, dtype, dt, lens, q8):
+    """The generation tick fused, ``dense_decode_write`` (``_q8`` with
+    ``q8``), at ``check_dense_decode``'s shapes: q, k, v ``[16, 12, 1,
+    64]`` split-head views over the pair cache ``[2, 16, 12, T0 + 128,
+    64]`` with the left-pad slot mask, at the lockstep slot T0 + 64 and at
+    per-row slots: ``check_fused``; timed at the tick's own call
+    (lockstep, masked) beside the two launches it replaces (``kv_insert``
+    and the read-only ``dense_decode``), the read-only read alone, its
+    bound and its plain version; its grid and its fixed cost (slot 0)."""
+    gen = torch.Generator().manual_seed(62 + q8)
+    T0 = int(lens.max())
+    B, H, hd, T = GEN_ROWS, 12, 64, T0 + GEN_NEW
+    slots = torch.arange(T, dtype=torch.int32, device="cuda")
+    pos = T0 + GEN_NEW // 2
+    mask_np = np.arange(T)[None, :] >= (T0 - lens)[:, None]       # [B, T]
+    mask = torch.from_numpy(mask_np).cuda()
+    per_row = torch.randint(T0, T, (B,), generator=gen, dtype=torch.int32)
+    per_row[0] = T - 1
+    per_row = per_row.cuda()
+    caches = fused_cache(torch, gen, dtype, q8, 2, B, H, T, hd)
+    rows = [tick_rows(torch, A, gen, B, H, hd, dtype) for _ in caches]
+    name = "dense_decode_write" + ("_q8" if q8 else "")
+    out = {}
+    for p in (per_row, slots[pos]):
+        write = CU.kv_insert_rows_cuda if p.ndim else CU.kv_insert_cuda
+
+        def fused(c, r=rows[0], p=p):
+            return DA.dense_write_decode_cuda(*r, c[0], p, slot_mask=mask,
+                                              kv_scale=c[1])
+
+        def pair(c, r=rows[0], p=p, write=write):
+            write(c[0], r[1], r[2], p, scale=c[1])
+            return DA.dense_decode_cuda(r[0], c[0], p, slot_mask=mask,
+                                        kv_scale=c[1])
+
+        def read(c, r=rows[0], p=p):
+            return DA.dense_decode_cuda(r[0], c[0], p, slot_mask=mask,
+                                        kv_scale=c[1])
+
+        def plain(c, r=rows[0], p=p):
+            return DA.dense_write_decode_plain(*r, c[0], p, slot_mask=mask,
+                                               kv_scale=c[1])
+        res = check_fused(torch, name, dt, fused, pair, plain, caches[0],
+                          list(range(B)))
+        for k in ("max_abs_err", "row_err"):
+            out[k] = max(out.get(k, 0.0), res[k])
+        out.update({k: v for k, v in res.items() if k not in out})
+    # timed at the tick's own call: the lockstep slot, masked
+    keys = int(mask_np[:, :pos + 1].sum())
+    esz = rows[0][0].element_size()
+    row = hd * esz if not q8 else hd + 4
+    nbytes = (esz * 2 * B * H * hd + 2 * keys * H * row + B * T + 4) \
+        + 2 * B * H * (hd * esz + row)
+    b_ms, b_by = bound(nbytes, 4.0 * hd * keys * H, dt)
+    cyc = list(zip(caches, rows))
+    ms = time_ms(torch, [(lambda c=c, r=r: fused(c, r)) for c, r in cyc])
+    out.update(
+        bound_ms=b_ms, bound_by=b_by, ms=ms, bound_share=b_ms / ms,
+        pair_ms=time_ms(torch, [(lambda c=c, r=r: pair(c, r))
+                                for c, r in cyc]),
+        read_ms=time_ms(torch, [(lambda c=c, r=r: read(c, r))
+                                for c, r in cyc]),
+        plain_ms=time_ms(torch, [(lambda c=c, r=r: plain(c, r))
+                                 for c, r in cyc]),
+        one_key_ms=time_ms(torch, [
+            (lambda c=c, r=r: fused(c, r, slots[0])) for c, r in cyc]),
+        grid=DA.split_plan(rows[0][0], caches[0][0], kv_scale=caches[0][1]),
+        library_ms=None, library=FUSED_LIBRARY,
+        fuses=CU.KV_INSERT_REPLACES,
+        shape=(f"q, k, v [{B}, {H}, 1, {hd}] fused-QKV views, "
+               f"{'int8 ' if q8 else ''}cache [2, {B}, {H}, {T}, {hd}]"
+               f"{' + f32 scales' if q8 else ''}, lockstep pos {pos}, "
+               f"left-pad slot mask: {keys} of {B * (pos + 1)} slots live; "
+               f"also per-row pos"))
     return out
 
 
@@ -1240,6 +1515,11 @@ def served_gaps(torch, A, model, reqs, outs, q8: bool):
     return torch.cat(gaps)
 
 
+# the serving path's kernels: the admission prefill and scatter, the fused
+# tick
+SERVE_PATH = ("flash_fwd", "kv_pool_insert", "paged_decode_write")
+
+
 def serve_phase(torch, np, mods, model, dt):
     A, FA, CU, DA, serve = mods
     reqs = serve_requests(np, serve, model.config.vocab_size)
@@ -1248,18 +1528,21 @@ def serve_phase(torch, np, mods, model, dt):
     waves0, ticks0 = cb.stats["prefill_calls"], cb.ticks
     torch.cuda.synchronize()
     FA.launches = FA.tc_launches = CU.launches = DA.launches = 0
+    DA.write_launches = 0
     t0 = time.monotonic()
     outs = cb.serve(reqs)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {"flash_fwd": FA.launches, "kv_pool_insert": CU.launches,
+                "paged_decode_write": DA.write_launches,
                 "paged_decode": DA.launches}
     tc = FA.tc_launches
     waves, ticks = cb.stats["prefill_calls"] - waves0, cb.ticks - ticks0
-    want = {"flash_fwd": LAYERS * waves,
-            "kv_pool_insert": LAYERS * (waves + ticks),
-            "paged_decode": LAYERS * ticks}
-    require(all(n > 0 for n in launches.values()),
+    # the admission scatter writes the pool; each tick's write is fused
+    # into its read; the read-only read is off the path
+    want = {"flash_fwd": LAYERS * waves, "kv_pool_insert": LAYERS * waves,
+            "paged_decode_write": LAYERS * ticks, "paged_decode": 0}
+    require(all(launches[k] > 0 for k in SERVE_PATH),
             f"serve {dt}: a kernel of the path never launched: {launches}")
     require(launches == want, f"serve {dt}: launches {launches} != the "
                               f"schedule's {want}")
@@ -1320,10 +1603,12 @@ def q8_counts(FA, CU, DA) -> dict:
     return {**gen_counts(FA, CU, DA),
             "kv_pool_insert_q8": CU.q8_launches,
             "paged_decode_q8": DA.q8_launches,
+            "paged_decode_write_q8": DA.write_q8_launches,
             "kv_insert_q8": CU.kv_insert_q8_launches,
             "kv_insert_rows_q8": CU.kv_insert_rows_q8_launches,
             "cache_insert_q8": CU.cache_insert_q8_launches,
-            "dense_decode_q8": DA.dense_q8_launches}
+            "dense_decode_q8": DA.dense_q8_launches,
+            "dense_decode_write_q8": DA.dense_write_q8_launches}
 
 
 def zero_q8_counts(FA, CU, DA) -> None:
@@ -1331,6 +1616,7 @@ def zero_q8_counts(FA, CU, DA) -> None:
     CU.q8_launches = DA.q8_launches = DA.dense_q8_launches = 0
     CU.kv_insert_q8_launches = CU.kv_insert_rows_q8_launches = 0
     CU.cache_insert_q8_launches = 0
+    DA.write_q8_launches = DA.dense_write_q8_launches = 0
 
 
 def pool_bytes(cb) -> int:
@@ -1391,8 +1677,8 @@ def serve_int8_phase(torch, np, mods, model, float_outs):
         waves, ticks = cb.stats["prefill_calls"] - waves0, cb.ticks - ticks0
         want = {k: 0 for k in launches}
         want.update(flash_fwd=LAYERS * waves,
-                    kv_pool_insert_q8=LAYERS * (waves + ticks),
-                    paged_decode_q8=LAYERS * ticks)
+                    kv_pool_insert_q8=LAYERS * waves,
+                    paged_decode_write_q8=LAYERS * ticks)
         require(launches == want, f"serve_int8: launches {launches} != the "
                                   f"schedule's {want}")
         gaps = served_gaps(torch, A, model, reqs, outs, q8=True)
@@ -1413,6 +1699,7 @@ def serve_int8_phase(torch, np, mods, model, float_outs):
     new_tokens = sum(r.max_new for r in reqs)
     device_ms = {}
     for kv, cb in cbs.items():
+        ticks0 = cb.ticks
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1420,6 +1707,8 @@ def serve_int8_phase(torch, np, mods, model, float_outs):
             torch.cuda.synchronize()
         total_us, groups, _ = device_time(torch, prof)
         device_ms[kv] = total_us / 1e3 if total_us else None
+        rec[f"{kv}_device_ops_per_tick"] = (
+            sum(n for n, _ in groups.values()) / (cb.ticks - ticks0))
         rec[f"{kv}_groups_ms"] = {
             g: {"launches": n, "ms": us / 1e3}
             for g, (n, us) in sorted(groups.items(), key=lambda kv_: -kv_[1][1])}
@@ -1447,18 +1736,25 @@ EXACT = ("kv_pool_insert", "cache_insert", "kv_insert", "kv_insert_rows",
 KERNEL_EXTRAS = ("tflops", "bound_share", "path", "train_ms",
                  "train_bound_ms", "train_library_ms", "train_tflops",
                  "train_bound_share", "row_err", "fault_row_err",
-                 "lse_max_abs_err", "grid", "same_bits", "long")
+                 "lse_max_abs_err", "grid", "same_bits", "one_key_ms",
+                 "pair_ms", "read_ms", "pair_bit_identical", "fuses", "long")
 SOURCES = {"cache_insert": "kv_insert", "kv_insert_rows": "kv_insert",
            "kv_pool_insert_q8": "kv_pool_insert",
            "paged_decode_q8": "paged_decode", "cache_insert_q8": "kv_insert",
            "kv_insert_q8": "kv_insert", "kv_insert_rows_q8": "kv_insert",
-           "dense_decode_q8": "dense_decode"}
+           "dense_decode_q8": "dense_decode",
+           "paged_decode_write": "paged_decode",
+           "paged_decode_write_q8": "paged_decode",
+           "dense_decode_write": "dense_decode",
+           "dense_decode_write_q8": "dense_decode"}
 # profiler groups: the int8 reads share their float forms' kernel templates
-# (``paged_decode_kernel<T, signed char, ...>``), the int8 writes have
-# kernels of their own
+# (``paged_decode_kernel<T, signed char, ...>``), and so do the fused ticks
+# (``paged_decode_write_kernel<...>``); the int8 writes have kernels of
+# their own
 KERNEL_NAMES = ("flash_fwd", "kv_pool_insert", "paged_decode",
-                "flash_bwd_dq", "flash_bwd_dkv", "fused_adamw", "kv_insert",
-                "dense_decode", "kv_pool_insert_q8", "kv_insert_q8")
+                "paged_decode_write", "flash_bwd_dq", "flash_bwd_dkv",
+                "fused_adamw", "kv_insert", "dense_decode",
+                "dense_decode_write", "kv_pool_insert_q8", "kv_insert_q8")
 
 
 def _kernel_group(name: str) -> str:
@@ -1514,12 +1810,15 @@ def profile_phase(torch, np, serve, model, dt, wall_s):
         torch.cuda.synchronize()
         wall_prof = time.monotonic() - t0
     total_us, groups, top = device_time(torch, prof)
+    ticks = cb.ticks - ticks0
+    ops = sum(n for n, _ in groups.values())
     return {
         "phase": "serve_profile", "dtype": dt, "requests": len(reqs),
-        "ticks": cb.ticks - ticks0, "wall_s_profiled": wall_prof,
+        "ticks": ticks, "wall_s_profiled": wall_prof,
         "wall_s_unprofiled": wall_s,
         "device_ms": total_us / 1e3 if total_us else None,
         "device_busy_share": (total_us / 1e6 / wall_s) if total_us else None,
+        "device_ops": ops, "device_ops_per_tick": ops / ticks,
         "groups_ms": {g: {"launches": n, "ms": us / 1e3}
                       for g, (n, us) in sorted(groups.items(),
                                                key=lambda kv: -kv[1][1])},
@@ -1531,16 +1830,20 @@ def profile_phase(torch, np, serve, model, dt, wall_s):
 # ---- phases 6-7: generate ----------------------------------------------------
 
 def gen_counts(FA, CU, DA) -> dict:
-    return {"flash_fwd": FA.launches, "kv_insert": CU.kv_insert_launches,
+    return {"flash_fwd": FA.launches,
+            "dense_decode_write": DA.dense_write_launches,
+            "kv_insert": CU.kv_insert_launches,
             "dense_decode": DA.dense_launches,
             "kv_insert_rows": CU.kv_insert_rows_launches,
             "cache_insert": CU.cache_insert_launches,
-            "paged_decode": DA.launches, "kv_pool_insert": CU.launches}
+            "paged_decode": DA.launches,
+            "paged_decode_write": DA.write_launches,
+            "kv_pool_insert": CU.launches}
 
 
 def zero_gen_counts(FA, CU, DA) -> None:
     FA.launches = FA.tc_launches = CU.launches = DA.launches = 0
-    DA.dense_launches = 0
+    DA.dense_launches = DA.write_launches = DA.dense_write_launches = 0
     CU.kv_insert_launches = CU.kv_insert_rows_launches = 0
     CU.cache_insert_launches = 0
 
@@ -1594,9 +1897,8 @@ def generate_phase(torch, np, infer, mods, model, dt):
     wall = time.perf_counter() - t0
     launches = gen_counts(FA, CU, DA)
     ticks = GEN_NEW - 1
-    want = {"flash_fwd": LAYERS, "kv_insert": LAYERS * ticks,
-            "dense_decode": LAYERS * ticks, "kv_insert_rows": 0,
-            "cache_insert": 0, "paged_decode": 0, "kv_pool_insert": 0}
+    want = {k: 0 for k in launches}
+    want.update(flash_fwd=LAYERS, dense_decode_write=LAYERS * ticks)
     require(launches == want, f"generate {dt}: launches {launches} != the "
                               f"schedule's {want}")
     tc = FA.tc_launches
@@ -1699,8 +2001,7 @@ def generate_int8_phase(torch, np, infer, mods, model, float_out):
             continue
         launches = q8_counts(FA, CU, DA)
         want = {k: 0 for k in launches}
-        want.update(flash_fwd=LAYERS, kv_insert_q8=LAYERS * ticks,
-                    dense_decode_q8=LAYERS * ticks)
+        want.update(flash_fwd=LAYERS, dense_decode_write_q8=LAYERS * ticks)
         require(launches == want, f"generate_int8: launches {launches} != "
                                   f"the schedule's {want}")
         if run == 2:
@@ -1746,12 +2047,14 @@ def generate_profile_phase(torch, infer, model, batch, wall_s):
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
     total_us, groups, top = device_time(torch, prof)
+    ops = sum(n for n, _ in groups.values())
     return {
         "phase": "generate_profile", "dtype": "bf16",
         "ticks": GEN_NEW - 1, "wall_s_profiled": wall_prof,
         "wall_s_unprofiled": wall_s,
         "device_ms": total_us / 1e3 if total_us else None,
         "device_busy_share": (total_us / 1e6 / wall_s) if total_us else None,
+        "device_ops": ops, "device_ops_per_tick": ops / (GEN_NEW - 1),
         "groups_ms": {g: {"launches": n, "ms": us / 1e3}
                       for g, (n, us) in sorted(groups.items(),
                                                key=lambda kv: -kv[1][1])},
@@ -2066,10 +2369,17 @@ def main() -> int:
                 torch, CU, A, dtype, dt, int(gen_lens.max())))
             results[dt]["dense_decode_q8"] = check_dense_decode_q8(
                 torch, np, DA, A, dtype, dt, gen_lens)
+            for q8 in (False, True):
+                sfx = "_q8" if q8 else ""
+                results[dt]["paged_decode_write" + sfx] = check_decode_write(
+                    torch, np, A, CU, DA, dtype, dt, q8)
+                results[dt]["dense_decode_write" + sfx] = \
+                    check_dense_decode_write(torch, np, A, CU, DA, dtype, dt,
+                                             gen_lens, q8)
             for name, res in results[dt].items():
                 record({"phase": "kernel", "name": name, "dtype": dt,
                         "tol": 0.0 if name in EXACT else TOL[dt], **res})
-            long_ctx = check_decode_long(torch, DA, dtype, dt)
+            long_ctx = check_decode_long(torch, A, CU, DA, dtype, dt)
             record({"phase": "decode_long", "dtype": dt, **long_ctx})
             for name, res in long_ctx.items():
                 results[dt][name]["long"] = res
@@ -2135,19 +2445,24 @@ def main() -> int:
         torch.cuda.empty_cache()
         record(cli_phase(torch, interop, GPT2, GPT2Config))
 
+        # a fused tick replaces its read's Pallas call (and fuses its
+        # write's, ``fuses``)
         sources = {"flash_fwd": FA.REPLACES, "kv_pool_insert": CU.REPLACES,
                    "paged_decode": DA.REPLACES,
+                   "paged_decode_write": DA.REPLACES,
                    "flash_bwd_dq": FA.DQ_REPLACES,
                    "flash_bwd_dkv": FA.DKV_REPLACES,
                    "cache_insert": CU.CACHE_INSERT_REPLACES,
                    "kv_insert": CU.KV_INSERT_REPLACES,
                    "kv_insert_rows": CU.KV_INSERT_ROWS_REPLACES,
-                   "dense_decode": DA.DENSE_REPLACES}
+                   "dense_decode": DA.DENSE_REPLACES,
+                   "dense_decode_write": DA.DENSE_REPLACES}
         # the int8 forms replace the same Pallas calls (the reads: the
         # port's read kernels; the JAX int8 read is XLA)
         sources.update({f"{name}_q8": sources[name] for name in (
             "kv_pool_insert", "paged_decode", "cache_insert", "kv_insert",
-            "kv_insert_rows", "dense_decode")})
+            "kv_insert_rows", "dense_decode", "paged_decode_write",
+            "dense_decode_write")})
         runs = (("serve bf16", serves["bf16"]["launches"]),
                 ("serve_int8 bf16", serve8["launches"]),
                 ("generate bf16", gens["bf16"]["launches"]),

@@ -10,6 +10,8 @@
 //   long long row(int key)  index of the key's row in one K/V plane (its
 //                           elements start at row * hd, its scale at row)
 //   bool valid(int key)     false for a masked slot: it adds exactly 0
+//   long long dest(int key) the row the fused write puts the key in, or -1
+//                           when the write is dropped (only with WR)
 //
 // What bounds it on this card: HBM bytes in principle, latency in practice.
 //   A read streams each live key's K and V rows once (2 * hd elements, plus
@@ -61,6 +63,32 @@
 //    distributed shared memory was the first design; on an H100 its many
 //    8-block clusters cost more to launch than the merge saved (PERF.md).
 //
+// 5. The fused write (WR, the `*_write` C entries): one decode tick's cache
+//    write and read in one launch. The tick's fresh K and V rows of a (row,
+//    kv head) (`Write`: strided [B, Hk, hd] views, the fused QKV's output)
+//    land in logical key `wkey` of that row, which the kernel derives from
+//    `pos` as the standalone write does. The block whose split holds
+//    `wkey` writes them, once for its G query heads: warp 0 the K row,
+//    warp 1 the V row, an int8 cache each row quantized (q8::
+//    quantize_values, bit for bit the standalone write's) with its scale.
+//    Their loads, and the table lookup of their row (`dest`), go out in
+//    the same round trip as the first window's lookups, and the stores
+//    before the barrier that ends it, so the write adds no dependent round
+//    trip. The barrier orders the stores before every later cp.async of
+//    the block: a non-bulk cp.async reads through the generic proxy, as
+//    an ordinary load does (a TMA, cp.async.bulk, reads through the async
+//    proxy and would need `fence.proxy.async` after the stores). So the
+//    read attends the row as the cache now holds it (the int8 bytes and
+//    scale, never the float row in registers), as the standalone write
+//    followed by the read-only read does, with the same bits: the plan,
+//    the splits and the summation order are the read-only read's. No other
+//    block of the launch reads that row: a live row's table maps no other
+//    row's written block. Only the paged pool's shared trash block breaks
+//    that: parked rows (all-trash tables) may write a trash slot while
+//    another parked row's block reads it. That race is benign: the
+//    scheduler discards parked rows' outputs, and the trash block is
+//    never attended by a live row.
+//
 // No tensor cores: one query token per head gives an mma tile 1 live row in
 // 16 (GPT-2 is MHA, G = 1; 8 in 16 at the largest GQA group), and the read
 // needs ~4 FLOPs per cached element, some 25 M FMAs at the serving shape,
@@ -88,6 +116,8 @@
 
 #include <mutex>
 #include <type_traits>
+
+#include "quantize_common.cuh"
 
 namespace decode {
 
@@ -272,14 +302,30 @@ __device__ __forceinline__ void load8(const int8_t* p, float (&x)[8]) {
   }
 }
 
+// The fused write's operands (WR): the tick's K and V rows, T elements of
+// unit stride on hd at element strides (row, head) k_sb, k_sh, v_sb, v_sh,
+// and the cache planes they go into (the scale planes of an int8 cache,
+// else null).
+template <typename T, typename C>
+struct Write {
+  const T* k;
+  const T* v;
+  C* kplane;
+  C* vplane;
+  float* kscale;
+  float* vscale;
+  long long k_sb, k_sh, v_sb, v_sh;
+};
+
 // T: query and output type. C: cache element type, T or int8_t; for int8
 // kscale and vscale are the planes of per-row f32 scales (else null).
 // GT: 1 for plain multi-head attention, else GMAX (the first ng of GT heads
-// are live). KL: lanes a key takes (lanes_per_key(hd)). P: the host's plan
-// (make_plan). Call from every thread of an NTHREADS block of a grid whose
-// x is the (row, kv head)'s P.S splits, with P.bytes of dynamic shared
-// memory.
-template <typename T, typename C, int GT, int KL, typename Keys>
+// are live). KL: lanes a key takes (lanes_per_key(hd)). WR: the fused
+// write (design 5) of `wr`'s rows of (b, hk) into logical key `wkey` (-1:
+// no write; both ignored without WR). P: the host's plan (make_plan). Call
+// from every thread of an NTHREADS block of a grid whose x is the (row, kv
+// head)'s P.S splits, with P.bytes of dynamic shared memory.
+template <typename T, typename C, int GT, int KL, bool WR, typename Keys>
 __device__ __forceinline__ void attend(const T* __restrict__ q, const C* __restrict__ kplane,
                                        const C* __restrict__ vplane,
                                        const float* __restrict__ kscale,
@@ -288,7 +334,7 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const C* __restr
                                        const Keys& keys, const Plan& P, int n_keys, int b,
                                        int hk, int Hk, int ng, int hd, long long q_sb,
                                        long long q_sh, long long o_sb, long long o_sh,
-                                       float scale) {
+                                       float scale, const Write<T, C> wr, int wkey) {
   constexpr bool kQ8 = std::is_same<C, int8_t>::value;
   constexpr int GPW = 32 / KL;                  // key groups a warp
   constexpr int NG = NWARPS * GPW;              // key groups a block
@@ -330,12 +376,47 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const C* __restr
     // the window's rows and mask bytes, in one round trip
     for (int i = threadIdx.x; i < nt; i += NTHREADS) live_s[i] = 0;
     __syncthreads();
+    // the fused write (design 5): this split holds the fresh key; warp 0
+    // loads its K row, warp 1 its V row (lane j: elements j, j + 32, ...),
+    // and the row they go to, beside the lookups below
+    T fx[DMAX / 32];
+    long long frow = -1;
+    const bool wwarp = WR && w0 == lo && wkey >= lo && wkey < hi && warp < 2;
+    if constexpr (WR) {
+      if (wwarp) {
+        const T* src = warp == 0 ? wr.k + b * wr.k_sb + hk * wr.k_sh
+                                 : wr.v + b * wr.v_sb + hk * wr.v_sh;
+#pragma unroll
+        for (int i = 0; i < DMAX / 32; ++i) {
+          const int c = lane + 32 * i;
+          if (c < hd) fx[i] = src[c];
+        }
+        frow = keys.dest(wkey);
+      }
+    }
     for (int k = threadIdx.x; k < wn; k += NTHREADS) {
       rows_s[k] = static_cast<uint32_t>(keys.row(w0 + k));
       const bool v = keys.valid(w0 + k);
       vm_s[k] = v;
       if (v) live_s[k / tile] = 1;
     }
+    if constexpr (WR) {
+      if (wwarp && frow >= 0) {   // frow is the same in the whole warp
+        C* dst = (warp == 0 ? wr.kplane : wr.vplane) + frow * hd;
+        if constexpr (kQ8) {
+          float x[DMAX / 32];
+#pragma unroll
+          for (int i = 0; i < DMAX / 32; ++i) x[i] = lane + 32 * i < hd ? to_f(fx[i]) : 0.f;
+          q8::quantize_values(x, hd, lane, dst, (warp == 0 ? wr.kscale : wr.vscale) + frow);
+        } else {
+#pragma unroll
+          for (int i = 0; i < DMAX / 32; ++i) {
+            if (lane + 32 * i < hd) dst[lane + 32 * i] = fx[i];
+          }
+        }
+      }
+    }
+    // the lookups, and the fresh rows' stores, before any copy is issued
     __syncthreads();
 
     // tile t's K and V copies into stage t % nst, as two commit groups

@@ -40,6 +40,17 @@
 //   reads it in XLA (ops/attention.py::cached_attention_q8); here the same
 //   kernel reads the int8 rows and their scales (decode_common.cuh), with
 //   about half the bytes of the bf16 cache per key.
+//
+// The fused tick (`dense_decode_write`, `dense_decode_write_q8`): the
+//   generation tick's slot write (kv_insert.cu, `_pair_kernel` /
+//   `_pair_rows_kernel` of the Pallas writes, quantizing for the int8
+//   cache) and this read in one launch, the reference's dense
+//   `cache_write_and_attend` (ops/attention.py:425-466): row b's fresh K/V
+//   rows go to slot pos[b * pos_stride] whatever the slot mask says (the
+//   mask governs only what is attended), dropped when the slot lies
+//   outside [0, T) (as kv_insert drops it; the JAX fallback clamps), and
+//   the read then attends them (decode_common.cuh, design 5). The block
+//   that writes is the one whose split holds that slot.
 
 #include "decode_common.cuh"
 
@@ -61,6 +72,7 @@ struct DenseKeys {
   __device__ __forceinline__ bool valid(int key) const {
     return mask == nullptr || mask[key] != 0;
   }
+  __device__ __forceinline__ long long dest(int key) const { return base + key; }
 };
 
 // T: query/output type; C: cache element type (T, or int8_t with the f32
@@ -85,20 +97,56 @@ dense_decode_kernel(const T* __restrict__ q, const C* __restrict__ cache,
   const long long plane = (long long)B * Hk * T_;  // rows in one K/V plane
   const C* vplane = cache + plane * hd;
   const float* vscale = kscale == nullptr ? nullptr : kscale + plane;
-  decode::attend<T, C, GT, KL>(q, cache, vplane, kscale, vscale, out, ws, tickets, keys,
-                               plan, n_keys, b, hk, Hk, GT == 1 ? 1 : G, hd, q_sb, q_sh,
-                               o_sb, o_sh, scale);
+  decode::attend<T, C, GT, KL, false>(q, cache, vplane, kscale, vscale, out, ws, tickets, keys,
+                                      plan, n_keys, b, hk, Hk, GT == 1 ? 1 : G, hd, q_sb,
+                                      q_sh, o_sb, o_sh, scale, decode::Write<T, C>{}, -1);
 }
 
-template <typename T, typename C, int GT>
+// The fused tick: the same read, after row b's fresh K/V rows (wr) are
+// written at slot p when it lies in [0, T). The cache pointers are not
+// __restrict__: wr writes through them too.
+template <typename T, typename C, int GT, int KL>
+__global__ void __launch_bounds__(NTHREADS)
+dense_decode_write_kernel(const T* __restrict__ q, const C* cache, const float* kscale,
+                          T* __restrict__ out, float* __restrict__ ws,
+                          int* __restrict__ tickets, const int* __restrict__ pos,
+                          const uint8_t* __restrict__ slot_mask, int G, int B, int Hk,
+                          int T_, int hd, int pos_stride, long long q_sb,
+                          long long q_sh, long long o_sb, long long o_sh,
+                          long long m_sb, float scale, const decode::Write<T, C> wr,
+                          const decode::Plan plan) {
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int p = pos[(long long)b * pos_stride];
+  const int n_keys = p < 0 ? 0 : min(p, T_ - 1) + 1;
+  const DenseKeys keys{((long long)b * Hk + hk) * T_,
+                       slot_mask == nullptr ? nullptr : slot_mask + b * m_sb};
+  const long long plane = (long long)B * Hk * T_;  // rows in one K/V plane
+  const C* vplane = cache + plane * hd;
+  const float* vscale = kscale == nullptr ? nullptr : kscale + plane;
+  decode::attend<T, C, GT, KL, true>(q, cache, vplane, kscale, vscale, out, ws, tickets, keys,
+                                     plan, n_keys, b, hk, Hk, GT == 1 ? 1 : G, hd, q_sb,
+                                     q_sh, o_sb, o_sh, scale, wr, p >= 0 && p < T_ ? p : -1);
+}
+
+// the read-only kernel (no write operands) or the fused one (a Write)
+template <typename T, typename C, int GT, int KL, bool WR>
+constexpr auto kernel_of() {
+  if constexpr (WR)
+    return dense_decode_write_kernel<T, C, GT, KL>;
+  else
+    return dense_decode_kernel<T, C, GT, KL>;
+}
+
+// W: nothing for the read-only kernel, the decode::Write for the fused one
+template <typename T, typename C, int GT, typename... W>
 cudaError_t launch_g(cudaStream_t stream, const T* q, const C* cache, const float* ks,
                      T* out, float* ws, int* tickets, const int* pos, const uint8_t* mask, int G, int B, int Hk,
-                     int T_, int hd, int pos_stride, const long long* st, float scale) {
+                     int T_, int hd, int pos_stride, const long long* st, float scale, W... wr) {
 #define DECODE_LAUNCH(KL)                                                                  \
-  decode::launch_split(dense_decode_kernel<T, C, GT, KL>, T_, GRAN, hd, sizeof(C),      \
-                       std::is_same<C, int8_t>::value, GT, Hk, B, stream, q, cache, ks,    \
-                       out, ws, tickets, pos, mask, G, B, Hk, T_, hd, pos_stride, st[0],   \
-                       st[1], st[2], st[3], st[4], scale)
+  decode::launch_split(kernel_of<T, C, GT, KL, sizeof...(W) != 0>(), T_, GRAN, hd,        \
+                       sizeof(C), std::is_same<C, int8_t>::value, GT, Hk, B, stream, q,    \
+                       cache, ks, out, ws, tickets, pos, mask, G, B, Hk, T_, hd,           \
+                       pos_stride, st[0], st[1], st[2], st[3], st[4], scale, wr...)
   switch (decode::lanes_per_key(hd)) {
     case 4: return DECODE_LAUNCH(4);
     case 8: return DECODE_LAUNCH(8);
@@ -108,19 +156,52 @@ cudaError_t launch_g(cudaStream_t stream, const T* q, const C* cache, const floa
 }
 
 // cache_scale: null for a float cache (C = T), else the f32 [2, B, Hk, T, 1]
-// scales of an int8 cache (C = int8_t)
+// scales of an int8 cache (C = int8_t). k, v: null for the read-only
+// kernel, else the fused tick's K/V rows, element strides st[5..8].
 template <typename T, typename C>
-cudaError_t launch(const void* q, const void* cache, const float* cache_scale,
-                   void* out, float* ws, int* tickets, const int* pos, const uint8_t* mask, int B, int Hq,
-                   int G, int T_, int hd, int pos_stride, const long long* st,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* cache,
+                   float* cache_scale, void* out, float* ws, int* tickets, const int* pos,
+                   const uint8_t* mask, int B, int Hq, int G, int T_, int hd, int pos_stride,
+                   const long long* st, float scale, cudaStream_t stream) {
   const int Hk = Hq / G;
   const T* qq = static_cast<const T*>(q);
-  const C* cc = static_cast<const C*>(cache);
+  C* cc = static_cast<C*>(cache);
   T* oo = static_cast<T*>(out);
+  if (k == nullptr) {
+    if (G == 1)
+      return launch_g<T, C, 1>(stream, qq, cc, cache_scale, oo, ws, tickets, pos, mask, G, B, Hk, T_, hd, pos_stride, st, scale);
+    return launch_g<T, C, GMAX>(stream, qq, cc, cache_scale, oo, ws, tickets, pos, mask, G, B, Hk, T_, hd, pos_stride, st, scale);
+  }
+  const long long plane = (long long)B * Hk * T_;  // rows in one K/V plane
+  const decode::Write<T, C> wr{static_cast<const T*>(k), static_cast<const T*>(v), cc,
+                               cc + plane * hd, cache_scale,
+                               cache_scale == nullptr ? nullptr : cache_scale + plane,
+                               st[5], st[6], st[7], st[8]};
   if (G == 1)
-    return launch_g<T, C, 1>(stream, qq, cc, cache_scale, oo, ws, tickets, pos, mask, G, B, Hk, T_, hd, pos_stride, st, scale);
-  return launch_g<T, C, GMAX>(stream, qq, cc, cache_scale, oo, ws, tickets, pos, mask, G, B, Hk, T_, hd, pos_stride, st, scale);
+    return launch_g<T, C, 1>(stream, qq, cc, cache_scale, oo, ws, tickets, pos, mask, G, B, Hk, T_, hd, pos_stride, st, scale, wr);
+  return launch_g<T, C, GMAX>(stream, qq, cc, cache_scale, oo, ws, tickets, pos, mask, G, B, Hk, T_, hd, pos_stride, st, scale, wr);
+}
+
+// one entry's launch: dtype 0 f32, 1 bf16 (the query's); an int8 cache
+// with cache_scale; a fused tick with k and v
+int dispatch(const void* q, const void* k, const void* v, void* cache, float* cache_scale,
+             void* out, float* ws, int* tickets, const int* pos, const uint8_t* mask,
+             int dtype, int B, int Hq, int G, int T, int hd, int pos_stride,
+             const long long* st, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool q8 = cache_scale != nullptr;
+  cudaError_t e;
+  if (dtype == 0 && !q8)
+    e = launch<float, float>(q, k, v, cache, cache_scale, out, ws, tickets, pos, mask, B, Hq, G, T, hd, pos_stride, st, scale, s);
+  else if (dtype == 1 && !q8)
+    e = launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, cache, cache_scale, out, ws, tickets, pos, mask, B, Hq, G, T, hd, pos_stride, st, scale, s);
+  else if (dtype == 0)
+    e = launch<float, int8_t>(q, k, v, cache, cache_scale, out, ws, tickets, pos, mask, B, Hq, G, T, hd, pos_stride, st, scale, s);
+  else if (dtype == 1)
+    e = launch<__nv_bfloat16, int8_t>(q, k, v, cache, cache_scale, out, ws, tickets, pos, mask, B, Hq, G, T, hd, pos_stride, st, scale, s);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
 }
 
 bool bad_shape(int B, int Hq, int G, int T, int hd, int pos_stride) {
@@ -149,15 +230,8 @@ int dense_decode(const void* q, const void* cache, void* out, float* ws, int* ti
                  float scale, void* stream) {
   if (bad_shape(B, Hq, G, T, hd, pos_stride) || ws == nullptr || tickets == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0)
-    e = launch<float, float>(q, cache, nullptr, out, ws, tickets, pos, slot_mask, B, Hq, G, T, hd, pos_stride, strides, scale, s);
-  else if (dtype == 1)
-    e = launch<__nv_bfloat16, __nv_bfloat16>(q, cache, nullptr, out, ws, tickets, pos, slot_mask, B, Hq, G, T, hd, pos_stride, strides, scale, s);
-  else
-    e = cudaErrorInvalidValue;
-  return static_cast<int>(e);
+  return dispatch(q, nullptr, nullptr, const_cast<void*>(cache), nullptr, out, ws, tickets,
+                  pos, slot_mask, dtype, B, Hq, G, T, hd, pos_stride, strides, scale, stream);
 }
 
 // The int8 form: cache int8 [2, B, Hq / G, T, hd] contiguous, 16-byte
@@ -170,15 +244,41 @@ int dense_decode_q8(const void* q, const void* cache, const float* cache_scale, 
   if (bad_shape(B, Hq, G, T, hd, pos_stride) || cache_scale == nullptr || ws == nullptr ||
       tickets == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0)
-    e = launch<float, int8_t>(q, cache, cache_scale, out, ws, tickets, pos, slot_mask, B, Hq, G, T, hd, pos_stride, strides, scale, s);
-  else if (dtype == 1)
-    e = launch<__nv_bfloat16, int8_t>(q, cache, cache_scale, out, ws, tickets, pos, slot_mask, B, Hq, G, T, hd, pos_stride, strides, scale, s);
-  else
-    e = cudaErrorInvalidValue;
-  return static_cast<int>(e);
+  return dispatch(q, nullptr, nullptr, const_cast<void*>(cache),
+                  const_cast<float*>(cache_scale), out, ws, tickets, pos, slot_mask, dtype, B,
+                  Hq, G, T, hd, pos_stride, strides, scale, stream);
+}
+
+// The fused tick: row b's K and V rows ([B, Hq / G, hd], the query's
+// dtype, element strides (k b, k h, v b, v h) and unit stride on hd) are
+// written into the cache at slot pos[b * pos_stride] (dropped outside
+// [0, T); written whatever slot_mask says), then attended as dense_decode
+// attends: one launch. cache as above (written in place); strides = (q b,
+// q h, o b, o h, m b, k b, k h, v b, v h).
+int dense_decode_write(const void* q, const void* k, const void* v, void* cache, void* out,
+                       float* ws, int* tickets, const int* pos, const uint8_t* slot_mask,
+                       int dtype, int B, int Hq, int G, int T, int hd, int pos_stride,
+                       const long long* strides, float scale, void* stream) {
+  if (bad_shape(B, Hq, G, T, hd, pos_stride) || ws == nullptr || tickets == nullptr ||
+      k == nullptr || v == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(q, k, v, cache, nullptr, out, ws, tickets, pos, slot_mask, dtype, B, Hq, G,
+                  T, hd, pos_stride, strides, scale, stream);
+}
+
+// The fused tick on the int8 cache: the float K/V rows quantized per row
+// (bit for bit kv_insert_q8's) into cache and cache_scale, then read as
+// dense_decode_q8 reads.
+int dense_decode_write_q8(const void* q, const void* k, const void* v, void* cache,
+                          float* cache_scale, void* out, float* ws, int* tickets,
+                          const int* pos, const uint8_t* slot_mask, int dtype, int B, int Hq,
+                          int G, int T, int hd, int pos_stride, const long long* strides,
+                          float scale, void* stream) {
+  if (bad_shape(B, Hq, G, T, hd, pos_stride) || cache_scale == nullptr || ws == nullptr ||
+      tickets == nullptr || k == nullptr || v == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(q, k, v, cache, cache_scale, out, ws, tickets, pos, slot_mask, dtype, B, Hq,
+                  G, T, hd, pos_stride, strides, scale, stream);
 }
 
 // The plan a launch takes at these shapes (it depends on nothing else):

@@ -10,7 +10,10 @@
 //   [s, B, Hk, 1, w] update goes into the contiguous [s, B, Hk, T, w] cache
 //   at slot pos[b * pos_stride], in place. A slot outside [0, T) drops the
 //   row, as kv_pool_insert drops one (the JAX fallback,
-//   dynamic_update_slice, clamps it instead).
+//   dynamic_update_slice, clamps it instead). Generation's tick no longer
+//   launches it: its write is fused into its read (dense_decode.cu,
+//   `dense_decode_write`), which is held bit for bit to this kernel
+//   followed by the read-only read.
 //
 // What bounds it on this card: pure data movement, s * B * Hk * w elements
 //   read and written once each — HBM bytes (3.35 TB/s), and at generation

@@ -8,7 +8,10 @@
 //   contract of the XLA fallback `_pool_scatter`, so one kernel serves both
 //   the decode tick (B rows, one token each) and the admission scatter (a
 //   wave's K * window tokens flattened into rows, pad tokens aimed at block
-//   id P and dropped).
+//   id P and dropped). On the serving path it is the admission scatter:
+//   the tick's write is fused into its read (paged_decode.cu,
+//   `paged_decode_write`), which is held bit for bit to this kernel
+//   followed by the read-only read.
 //
 // What bounds it on this card: pure data movement, 2 * N * H * hd elements
 //   read and written once each — HBM bytes (3.35 TB/s), and at decode sizes

@@ -41,6 +41,19 @@
 //   ops/attention.py::cached_attention_q8); here the same kernel reads the
 //   int8 rows and their scales through the table (decode_common.cuh), with
 //   about half the bytes of the bf16 pool per key.
+//
+// The fused tick (`paged_decode_write`, `paged_decode_write_q8`): the
+//   serving tick's slot write (kv_pool_insert.cu, `_pool_rows_kernel` of
+//   the Pallas write, quantizing for the int8 pool) and this read in one
+//   launch, the reference's `_paged_write_and_attend`
+//   (ops/attention.py:313-353): row b's fresh K/V rows go to slot s =
+//   min(pos[b] / bt, nb - 1) of its table, block table[b, s], offset
+//   pos[b] % bt, dropped when that block lies outside [0, P) (as
+//   kv_pool_insert drops it; the read still clamps table entries), and the
+//   read then attends them (decode_common.cuh, design 5). The block that
+//   writes is the one whose split holds logical key s * bt + pos[b] % bt:
+//   pos[b] for a live row, always below the read's live length. The
+//   host's (block, offset) arithmetic and the separate write launch go.
 
 #include "decode_common.cuh"
 
@@ -52,6 +65,7 @@ using decode::NTHREADS;
 
 
 // a key's row through the row's block table; entries outside [0, P) clamp
+// for the read, and drop the fused write
 struct PagedKeys {
   const int* trow;
   int P, Hk, hk, bt;
@@ -60,7 +74,16 @@ struct PagedKeys {
     return ((long long)blk * Hk + hk) * bt + key % bt;
   }
   __device__ __forceinline__ bool valid(int) const { return true; }
+  __device__ __forceinline__ long long dest(int key) const {
+    const int blk = trow[key / bt];
+    return blk < 0 || blk >= P ? -1 : ((long long)blk * Hk + hk) * bt + key % bt;
+  }
 };
+
+// the live keys of a row at position p: 0..min(p, nb * bt - 1)
+__device__ __forceinline__ int live_keys(int p, int nb, int bt) {
+  return p < 0 ? 0 : min(p, nb * bt - 1) + 1;
+}
 
 // T: query/output type; C: pool element type (T, or int8_t with the f32
 // scale planes kscale/vscale). GT: 1 for plain multi-head attention, else
@@ -78,23 +101,55 @@ paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ kpool,
                     const decode::Plan plan) {
   const int hk = blockIdx.y, b = blockIdx.z;
   const int p = pos[b];
-  const int n_keys = p < 0 ? 0 : min(p, nb * bt - 1) + 1;
   const PagedKeys keys{tables + (long long)b * nb, P, Hk, hk, bt};
-  decode::attend<T, C, GT, KL>(q, kpool, vpool, kscale, vscale, out, ws, tickets, keys, plan,
-                               n_keys, b, hk, Hk, GT == 1 ? 1 : G, hd, q_sb, q_sh, o_sb,
-                               o_sh, scale);
+  decode::attend<T, C, GT, KL, false>(q, kpool, vpool, kscale, vscale, out, ws, tickets, keys,
+                                      plan, live_keys(p, nb, bt), b, hk, Hk,
+                                      GT == 1 ? 1 : G, hd, q_sb, q_sh, o_sb, o_sh, scale,
+                                      decode::Write<T, C>{}, -1);
 }
 
-template <typename T, typename C, int GT>
+// The fused tick: the same read, after row b's fresh K/V rows (wr) are
+// written at logical key s * bt + p % bt, s = min(p / bt, nb - 1). The
+// pool pointers are not __restrict__: wr writes through them too.
+template <typename T, typename C, int GT, int KL>
+__global__ void __launch_bounds__(NTHREADS)
+paged_decode_write_kernel(const T* __restrict__ q, const C* kpool, const C* vpool,
+                          const float* kscale, const float* vscale, T* __restrict__ out,
+                          float* __restrict__ ws, int* __restrict__ tickets,
+                          const int* __restrict__ tables, const int* __restrict__ pos,
+                          int G, int Hk, int P, int bt, int hd, int nb, long long q_sb,
+                          long long q_sh, long long o_sb, long long o_sh, float scale,
+                          const decode::Write<T, C> wr, const decode::Plan plan) {
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int p = pos[b];
+  const PagedKeys keys{tables + (long long)b * nb, P, Hk, hk, bt};
+  const int wkey = p < 0 ? -1 : min(p / bt, nb - 1) * bt + p % bt;
+  decode::attend<T, C, GT, KL, true>(q, kpool, vpool, kscale, vscale, out, ws, tickets, keys,
+                                     plan, live_keys(p, nb, bt), b, hk, Hk,
+                                     GT == 1 ? 1 : G, hd, q_sb, q_sh, o_sb, o_sh, scale, wr,
+                                     wkey);
+}
+
+// the read-only kernel (no write operands) or the fused one (a Write)
+template <typename T, typename C, int GT, int KL, bool WR>
+constexpr auto kernel_of() {
+  if constexpr (WR)
+    return paged_decode_write_kernel<T, C, GT, KL>;
+  else
+    return paged_decode_kernel<T, C, GT, KL>;
+}
+
+// W: nothing for the read-only kernel, the decode::Write for the fused one
+template <typename T, typename C, int GT, typename... W>
 cudaError_t launch_g(int B, cudaStream_t stream, const T* q, const C* kpool,
                      const C* vpool, const float* ks, const float* vs, T* out, float* ws,
                      int* tickets, const int* tables, const int* pos, int G, int Hk, int P, int bt,
-                     int hd, int nb, const long long* st, float scale) {
+                     int hd, int nb, const long long* st, float scale, W... wr) {
 #define DECODE_LAUNCH(KL)                                                                 \
-  decode::launch_split(paged_decode_kernel<T, C, GT, KL>, (long long)nb * bt, bt, hd,   \
-                       sizeof(C), std::is_same<C, int8_t>::value, GT, Hk, B, stream,  \
-                       q, kpool, vpool, ks, vs, out, ws, tickets, tables, pos, G, Hk, P,  \
-                       bt, hd, nb, st[0], st[1], st[2], st[3], scale)
+  decode::launch_split(kernel_of<T, C, GT, KL, sizeof...(W) != 0>(), (long long)nb * bt, \
+                       bt, hd, sizeof(C), std::is_same<C, int8_t>::value, GT, Hk, B,      \
+                       stream, q, kpool, vpool, ks, vs, out, ws, tickets, tables, pos, G,  \
+                       Hk, P, bt, hd, nb, st[0], st[1], st[2], st[3], scale, wr...)
   switch (decode::lanes_per_key(hd)) {
     case 4: return DECODE_LAUNCH(4);
     case 8: return DECODE_LAUNCH(8);
@@ -104,22 +159,52 @@ cudaError_t launch_g(int B, cudaStream_t stream, const T* q, const C* kpool,
 }
 
 // pool_scale: null for a float pool (C = T), else the f32 [2, P, Hk, bt, 1]
-// scales of an int8 pool (C = int8_t)
+// scales of an int8 pool (C = int8_t). k, v: null for the read-only
+// kernel, else the fused tick's K/V rows, element strides st[4..7].
 template <typename T, typename C>
-cudaError_t launch(const void* q, const void* pool, const float* pool_scale, void* out,
-                   float* ws, int* tickets, const int* tables, const int* pos, int B, int Hq, int G, int P,
-                   int bt, int hd, int nb, const long long* st, float scale,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* pool, float* pool_scale,
+                   void* out, float* ws, int* tickets, const int* tables, const int* pos, int B,
+                   int Hq, int G, int P, int bt, int hd, int nb, const long long* st,
+                   float scale, cudaStream_t stream) {
   const int Hk = Hq / G;
   const long long plane = (long long)P * Hk * bt;  // rows in one K/V plane
-  const C* kpool = static_cast<const C*>(pool);
-  const C* vpool = kpool + plane * hd;
-  const float* vscale = pool_scale == nullptr ? nullptr : pool_scale + plane;
+  C* kpool = static_cast<C*>(pool);
+  C* vpool = kpool + plane * hd;
+  float* vscale = pool_scale == nullptr ? nullptr : pool_scale + plane;
   const T* qq = static_cast<const T*>(q);
   T* oo = static_cast<T*>(out);
+  if (k == nullptr) {
+    if (G == 1)
+      return launch_g<T, C, 1>(B, stream, qq, kpool, vpool, pool_scale, vscale, oo, ws, tickets, tables, pos, G, Hk, P, bt, hd, nb, st, scale);
+    return launch_g<T, C, GMAX>(B, stream, qq, kpool, vpool, pool_scale, vscale, oo, ws, tickets, tables, pos, G, Hk, P, bt, hd, nb, st, scale);
+  }
+  const decode::Write<T, C> wr{static_cast<const T*>(k), static_cast<const T*>(v), kpool, vpool,
+                               pool_scale, vscale, st[4], st[5], st[6], st[7]};
   if (G == 1)
-    return launch_g<T, C, 1>(B, stream, qq, kpool, vpool, pool_scale, vscale, oo, ws, tickets, tables, pos, G, Hk, P, bt, hd, nb, st, scale);
-  return launch_g<T, C, GMAX>(B, stream, qq, kpool, vpool, pool_scale, vscale, oo, ws, tickets, tables, pos, G, Hk, P, bt, hd, nb, st, scale);
+    return launch_g<T, C, 1>(B, stream, qq, kpool, vpool, pool_scale, vscale, oo, ws, tickets, tables, pos, G, Hk, P, bt, hd, nb, st, scale, wr);
+  return launch_g<T, C, GMAX>(B, stream, qq, kpool, vpool, pool_scale, vscale, oo, ws, tickets, tables, pos, G, Hk, P, bt, hd, nb, st, scale, wr);
+}
+
+// one entry's launch: dtype 0 f32, 1 bf16 (the query's); an int8 pool with
+// pool_scale; a fused tick with k and v
+int dispatch(const void* q, const void* k, const void* v, void* pool, float* pool_scale,
+             void* out, float* ws, int* tickets, const int* tables, const int* pos, int dtype,
+             int B, int Hq, int G, int P, int bt, int hd, int nb, const long long* st,
+             float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool q8 = pool_scale != nullptr;
+  cudaError_t e;
+  if (dtype == 0 && !q8)
+    e = launch<float, float>(q, k, v, pool, pool_scale, out, ws, tickets, tables, pos, B, Hq, G, P, bt, hd, nb, st, scale, s);
+  else if (dtype == 1 && !q8)
+    e = launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, pool, pool_scale, out, ws, tickets, tables, pos, B, Hq, G, P, bt, hd, nb, st, scale, s);
+  else if (dtype == 0)
+    e = launch<float, int8_t>(q, k, v, pool, pool_scale, out, ws, tickets, tables, pos, B, Hq, G, P, bt, hd, nb, st, scale, s);
+  else if (dtype == 1)
+    e = launch<__nv_bfloat16, int8_t>(q, k, v, pool, pool_scale, out, ws, tickets, tables, pos, B, Hq, G, P, bt, hd, nb, st, scale, s);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
 }
 
 bool bad_shape(int B, int Hq, int G, int P, int bt, int hd, int nb) {
@@ -146,15 +231,8 @@ int paged_decode(const void* q, const void* pool, void* out, float* ws, int* tic
                  void* stream) {
   if (bad_shape(B, Hq, G, P, bt, hd, nb) || ws == nullptr || tickets == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0)
-    e = launch<float, float>(q, pool, nullptr, out, ws, tickets, tables, pos, B, Hq, G, P, bt, hd, nb, strides, scale, s);
-  else if (dtype == 1)
-    e = launch<__nv_bfloat16, __nv_bfloat16>(q, pool, nullptr, out, ws, tickets, tables, pos, B, Hq, G, P, bt, hd, nb, strides, scale, s);
-  else
-    e = cudaErrorInvalidValue;
-  return static_cast<int>(e);
+  return dispatch(q, nullptr, nullptr, const_cast<void*>(pool), nullptr, out, ws, tickets,
+                  tables, pos, dtype, B, Hq, G, P, bt, hd, nb, strides, scale, stream);
 }
 
 // The int8 form: pool int8 [2, P, Hq / G, bt, hd] contiguous, 16-byte
@@ -168,15 +246,41 @@ int paged_decode_q8(const void* q, const void* pool, const float* pool_scale, vo
   if (bad_shape(B, Hq, G, P, bt, hd, nb) || pool_scale == nullptr || ws == nullptr ||
       tickets == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0)
-    e = launch<float, int8_t>(q, pool, pool_scale, out, ws, tickets, tables, pos, B, Hq, G, P, bt, hd, nb, strides, scale, s);
-  else if (dtype == 1)
-    e = launch<__nv_bfloat16, int8_t>(q, pool, pool_scale, out, ws, tickets, tables, pos, B, Hq, G, P, bt, hd, nb, strides, scale, s);
-  else
-    e = cudaErrorInvalidValue;
-  return static_cast<int>(e);
+  return dispatch(q, nullptr, nullptr, const_cast<void*>(pool),
+                  const_cast<float*>(pool_scale), out, ws, tickets, tables, pos, dtype, B, Hq,
+                  G, P, bt, hd, nb, strides, scale, stream);
+}
+
+// The fused tick: row b's K and V rows ([B, Hq / G, hd], the query's
+// dtype, element strides (k b, k h, v b, v h) and unit stride on hd) are
+// written into the pool at slot min(pos[b] / bt, nb - 1) of its table,
+// offset pos[b] % bt (dropped when that table entry lies outside [0, P)),
+// then attended as paged_decode attends: one launch. pool as above (written
+// in place); strides = (q b, q h, o b, o h, k b, k h, v b, v h).
+int paged_decode_write(const void* q, const void* k, const void* v, void* pool, void* out,
+                       float* ws, int* tickets, const int* tables, const int* pos, int dtype,
+                       int B, int Hq, int G, int P, int bt, int hd, int nb,
+                       const long long* strides, float scale, void* stream) {
+  if (bad_shape(B, Hq, G, P, bt, hd, nb) || ws == nullptr || tickets == nullptr ||
+      k == nullptr || v == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(q, k, v, pool, nullptr, out, ws, tickets, tables, pos, dtype, B, Hq, G, P,
+                  bt, hd, nb, strides, scale, stream);
+}
+
+// The fused tick on the int8 pool: the float K/V rows quantized per row
+// (bit for bit kv_pool_insert_q8's) into pool and pool_scale, then read as
+// paged_decode_q8 reads.
+int paged_decode_write_q8(const void* q, const void* k, const void* v, void* pool,
+                          float* pool_scale, void* out, float* ws, int* tickets,
+                          const int* tables, const int* pos, int dtype, int B, int Hq, int G,
+                          int P, int bt, int hd, int nb, const long long* strides,
+                          float scale, void* stream) {
+  if (bad_shape(B, Hq, G, P, bt, hd, nb) || pool_scale == nullptr || ws == nullptr ||
+      tickets == nullptr || k == nullptr || v == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(q, k, v, pool, pool_scale, out, ws, tickets, tables, pos, dtype, B, Hq, G,
+                  P, bt, hd, nb, strides, scale, stream);
 }
 
 // The plan a launch takes at these shapes (it depends on nothing else):

@@ -9,9 +9,9 @@
 - **Decode** is a Python loop over ``max_new_tokens - 1`` ticks (the
   reference's ``lax.scan``). Each tick embeds one token per row, runs every
   block's ``decode_step`` — the lockstep K/V write at the one slot ``pos``
-  (``kv_insert``) and the dense read of slots ``0..pos``
-  (``dense_decode``), both in place on the cache — and samples the next
-  token. The loop never waits for the device: ``pos`` is a 0-dim view of
+  and the dense read of slots ``0..pos``, in place on the cache and one
+  launch on the card (the fused ``dense_decode_write``) — and samples the
+  next token. The loop never waits for the device: ``pos`` is a 0-dim view of
   one device ``arange`` made before the loop, the eos flags stay on the
   device, and nothing is copied to the host until the tokens return.
 
@@ -34,8 +34,8 @@ generation (``mesh``) raises ``NotImplementedError``.
 head, slot) (``{"kv": int8, "scale": f32 [2, B, Hk, t_max, 1]}``, about
 half the bytes): the prefill quantizes the prompt's K/V once
 (``utils/quantize.py::quantize_kv``), each tick's write quantizes as it
-lands (the int8 ``kv_insert``) and the read takes the int8 rows and their
-scales (the int8 ``dense_decode``). The prefill's own attention stays
+lands and the read takes the int8 rows and their scales (one launch, the
+fused ``dense_decode_write_q8``). The prefill's own attention stays
 float, so the first token is the float cache's.
 """
 

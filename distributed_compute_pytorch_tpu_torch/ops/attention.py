@@ -8,12 +8,12 @@ On CUDA tensors the serving and generation paths go through the
 hand-written kernels:
 
 - :func:`attention` -> ``ops/flash_attention.py`` (admission prefill);
-- :func:`cache_write_and_attend` -> ``ops/cache_update.py`` (the K/V slot
-  write, in place: into the paged pool, or into generation's dense pair
-  cache; for an int8 cache the write quantizes) and
-  ``ops/decode_attention.py`` (the paged read through the block table,
-  with no gathered copy of the cache, or the dense read; each also reads
-  the int8 cache with its per-row scales).
+- :func:`cache_write_and_attend` -> ``ops/decode_attention.py``'s fused
+  ticks, one launch a layer: the K/V slot write, in place (into the paged
+  pool, or into generation's dense pair cache; for an int8 cache the write
+  quantizes), and the read that follows it (the paged read through the
+  block table, with no gathered copy of the cache, or the dense read; each
+  also reads the int8 cache with its per-row scales).
 
 Layouts follow the JAX package: ``[batch, heads, seq, head_dim]``.
 """
@@ -166,10 +166,10 @@ def cache_write_and_attend(q, k, v, cache, pos, *, slot_mask=None):
 
     - The dense pair cache ``{"kv": [2, B, Hk, T, hd]}`` (generation): a
       scalar ``pos`` (a Python int or a 0-dim int32 tensor: the lockstep
-      tick) writes every row's K/V at that slot (``kv_insert``), a ``[B]``
-      ``pos`` each row at its own (``kv_insert_rows``); then row ``b``
-      attends slots ``0..pos[b]`` that ``slot_mask`` (optional ``[B, T]``)
-      keeps (``decode_attention``).
+      tick) writes every row's K/V at that slot, a ``[B]`` ``pos`` each
+      row at its own (as ``kv_insert`` / ``kv_insert_rows`` write); then
+      row ``b`` attends slots ``0..pos[b]`` that ``slot_mask`` (optional
+      ``[B, T]``) keeps (as ``decode_attention`` reads).
     - The PAGED pool (serving, reference ``:313-353``): ``{"kv": [2, P,
       hk, bt, hd], "table": int32 [B, nb]}``. Row ``b`` writes its K/V at
       the physical (block, offset) its table maps logical slot ``pos[b]``
@@ -181,33 +181,26 @@ def cache_write_and_attend(q, k, v, cache, pos, *, slot_mask=None):
     Either format takes the int8 form: ``"kv"`` int8 beside a ``"scale"``
     leaf, f32 ``[..., 1]`` (one scale per cached row). The write quantizes
     the float K/V per row (``utils/quantize.py::quantize_kv``, fused into
-    the write kernels) and the read is :func:`cached_attention_q8`'s (the
-    decode kernels' int8 form)."""
-    from distributed_compute_pytorch_tpu_torch.ops import cache_update as CU
+    the kernels) and the read is :func:`cached_attention_q8`'s (the decode
+    kernels' int8 form), over the quantized row.
+
+    On CUDA tensors each format's write and read are one launch
+    (``decode_attention.dense_write_decode`` and ``paged_write_decode``);
+    CPU tensors run their plain versions, the write then the read."""
     from distributed_compute_pytorch_tpu_torch.ops import (
         decode_attention as DA)
     sc = cache.get("scale")
     leaves = set(cache) - {"scale"}
     if leaves == {"kv"}:
-        kv = cache["kv"]
-        if isinstance(pos, torch.Tensor) and pos.ndim:
-            CU.kv_insert_rows(kv, k, v, pos, scale=sc)
-        else:
-            CU.kv_insert(kv, k, v, pos, scale=sc)
-        return DA.decode_attention(q, kv, pos, slot_mask=slot_mask,
-                                   kv_scale=sc), cache
+        return DA.dense_write_decode(q, k, v, cache["kv"], pos,
+                                     slot_mask=slot_mask,
+                                     kv_scale=sc), cache
     if leaves != {"kv", "table"} or slot_mask is not None:
         raise NotImplementedError(
             f"cache_write_and_attend takes the dense pair cache {{'kv'}} or "
             f"the paged pool {{'kv', 'table'}} (each with an optional int8 "
             f"'scale' leaf) without a slot_mask; got keys {sorted(cache)}, "
             f"slot_mask {'set' if slot_mask is not None else 'None'}")
-    pool, table = cache["kv"], cache["table"]
-    bt, nb = pool.shape[3], table.shape[1]
     pos = _pos_vector(pos, q.shape[0], q.device)
-    slot = torch.clamp(pos // bt, max=nb - 1).long()
-    blk = table.gather(1, slot[:, None])[:, 0].contiguous()
-    off = (pos % bt).contiguous()
-    CU.kv_pool_insert(pool, k[:, :, 0], v[:, :, 0], blk, off, scale=sc)
-    return DA.paged_decode_attention(q, pool, table, pos,
-                                     kv_scale=sc), cache
+    return DA.paged_write_decode(q, k, v, cache["kv"], cache["table"], pos,
+                                 kv_scale=sc), cache

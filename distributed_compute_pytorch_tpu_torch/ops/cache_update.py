@@ -26,6 +26,14 @@ quantize_kv``, fused into the kernels: ``kv_pool_insert_q8`` and
 ``kv_insert_q8``), so a decode tick's quantization needs no launch of its
 own; the plain versions quantize, then write both leaves.
 
+A decode tick's write is not launched from here on the card: the tick
+writes and reads in one launch (``ops/decode_attention.py``,
+``paged_write_decode`` and ``dense_write_decode``, whose plain versions
+call the plain writes below). ``kv_pool_insert`` stays the admission
+scatter's write; the dense writes stay kernels of the port, and the
+standalone tick write with them is what the fused ticks are held to on the
+card (bit for bit, ``chip_smoke.py``).
+
 Every write is IN PLACE (the JAX package donates the buffer and returns a
 new one). Each entry point counts its own kernel launches (plain calls
 never count): ``launches`` the pool write's, ``cache_insert_launches``,

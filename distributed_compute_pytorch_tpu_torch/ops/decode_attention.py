@@ -33,9 +33,24 @@ softmax sums in split order before the launch ends
 kept for each (device, stream). ``split_plan`` reports the grid a read
 takes at given shapes, which depends on the shapes alone.
 
+A decode tick writes its fresh K/V row and then reads, and the two are
+one launch: ``paged_write_decode`` (``paged_decode_write``, the serving
+tick: ``kv_pool_insert`` at the (block, offset) the row's table maps
+``pos`` to, then the paged read) and ``dense_write_decode``
+(``dense_decode_write``, the generation tick: ``kv_insert`` /
+``kv_insert_rows`` at slot ``pos``, then the dense read), each in its
+int8 form too (the write quantizes; the read attends the quantized row).
+The block whose split holds the written key writes it before it stages
+its keys, so the read sees the cache as the unfused write would leave it
+and gives the read-only kernel's bits. Their plain versions are the plain
+write followed by the plain read.
+
 ``launches`` counts ``paged_decode``'s kernel launches and
 ``dense_launches`` ``dense_decode``'s; the int8 forms count apart, in
-``q8_launches`` and ``dense_q8_launches`` (plain calls never count).
+``q8_launches`` and ``dense_q8_launches``. The fused ticks count in
+``write_launches`` and ``dense_write_launches`` (int8:
+``write_q8_launches``, ``dense_write_q8_launches``). Plain calls never
+count.
 """
 
 from __future__ import annotations
@@ -45,6 +60,8 @@ import torch
 from distributed_compute_pytorch_tpu_torch.ops import _build
 from distributed_compute_pytorch_tpu_torch.ops.attention import (
     cached_attention, cached_attention_q8, gather_kv_blocks)
+from distributed_compute_pytorch_tpu_torch.ops.cache_update import (
+    kv_insert_plain, kv_pool_insert_plain)
 from distributed_compute_pytorch_tpu_torch.utils.quantize import (
     check_scale_plane)
 
@@ -57,6 +74,10 @@ DENSE_REPLACES = \
     "distributed_compute_pytorch_tpu/ops/pallas/decode_attention.py:58"
 dense_launches = 0
 q8_launches = dense_q8_launches = 0
+# the fused ticks (write, then read, in one launch): the C entries
+# paged_decode_write(_q8) and dense_decode_write(_q8) of the same sources
+write_launches = write_q8_launches = 0
+dense_write_launches = dense_write_q8_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -346,4 +367,176 @@ def dense_decode_cuda(q, cache, pos, *, slot_mask=None,
         _build.check(lib, DENSE_NAME, fn(q.data_ptr(), cache.data_ptr(),
                                          kv_scale.data_ptr(), *args))
         dense_q8_launches += 1
+    return out
+
+
+# ---- the fused ticks: the slot write and the read in one launch ------------
+
+def _check_fresh(q, k, v, hk):
+    """The tick's fresh rows: ``k``, ``v`` ``[B, Hk, 1, hd]``, as ``q``."""
+    B, _, _, hd = q.shape
+    for name, x in (("k", k), ("v", v)):
+        if tuple(x.shape) != (B, hk, 1, hd):
+            raise ValueError(f"{name} must be [B, Hk, 1, hd] = "
+                             f"{(B, hk, 1, hd)}, got {tuple(x.shape)}")
+
+
+def _check_cuda_fresh(name, q, k, v):
+    """The fused kernels take the fresh rows in the query's dtype (f32 or
+    bf16; an int8 cache quantizes them) with unit head-dim stride, any
+    other strides (the fused QKV's split-head views): nothing is
+    copied."""
+    if any(x.dtype != q.dtype or x.stride(-1) != 1 for x in (k, v)):
+        raise ValueError(f"{name} takes k and v of the query's dtype "
+                         f"({q.dtype}) with unit head-dim stride, got "
+                         f"{k.dtype}, {v.dtype}")
+
+
+def paged_write_decode_plain(q, k, v, pool, table, pos, *, kv_scale=None):
+    """The fused kernel's plain version: the serving tick's write
+    (``kv_pool_insert_plain`` of row ``b``'s ``k``/``v`` at block
+    ``table[b, min(pos[b] // bt, nb - 1)]``, offset ``pos[b] % bt``, in
+    place; quantized for an int8 pool), then ``paged_decode_plain``."""
+    bt, nb = pool.shape[3], table.shape[1]
+    slot = torch.clamp(pos // bt, max=nb - 1).long()
+    blk = table.gather(1, slot[:, None])[:, 0].contiguous()
+    off = (pos % bt).contiguous()
+    kv_pool_insert_plain(pool, k[:, :, 0], v[:, :, 0], blk, off, kv_scale)
+    return paged_decode_plain(q, pool, table, pos, kv_scale=kv_scale)
+
+
+def paged_write_decode(q, k, v, pool, table, pos, *, kv_scale=None):
+    """One serving decode tick of a layer: row ``b``'s ``k``/``v`` ``[B,
+    Hk, 1, hd]`` go into pool ``[2, P, Hk, bt, hd]`` (in place) at the
+    (block, offset) its ``table`` maps logical slot ``pos[b]`` to (the slot
+    clamped to the table's last entry, which only parked all-trash rows
+    reach; a block id outside ``[0, P)`` drops the write), then ``q [B, H,
+    1, hd]`` attends as :func:`paged_decode_attention` does. ``pos``: int32
+    ``[B]`` (>= 0). An int8 pool takes its ``kv_scale`` and float rows,
+    quantized as they are written. CUDA tensors launch
+    ``paged_decode_write`` (``paged_decode_write_q8``), one launch; CPU
+    tensors run the plain version."""
+    _check(q, pool, table, pos, kv_scale)
+    _check_fresh(q, k, v, pool.shape[2])
+    if q.device.type == "cpu":
+        return paged_write_decode_plain(q, k, v, pool, table, pos,
+                                        kv_scale=kv_scale)
+    return paged_write_decode_cuda(q, k, v, pool, table, pos,
+                                   kv_scale=kv_scale)
+
+
+def paged_write_decode_cuda(q, k, v, pool, table, pos, *, kv_scale=None):
+    """Launch the fused CUDA kernel (the int8 form with ``kv_scale``):
+    the write and :func:`paged_decode_cuda`'s read in one launch, on its
+    grid. Raises on what that read refuses, and on ``k``/``v`` of another
+    shape or dtype than the query's or without unit head-dim stride."""
+    global write_launches, write_q8_launches
+    _check(q, pool, table, pos, kv_scale)
+    _check_fresh(q, k, v, pool.shape[2])
+    dt = _check_cuda_read(NAME, q, pool, kv_scale, (table, pos, k, v))
+    _check_cuda_fresh(NAME, q, k, v)
+    for x in (table, pos):
+        if x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError("table/pos must be contiguous int32")
+    B, H, _, hd = q.shape
+    _, P, hk, bt, _ = pool.shape
+    scale = hd ** -0.5
+    out = torch.empty(B, 1, H, hd, dtype=q.dtype, device=q.device
+                      ).transpose(1, 2)
+    ws, tickets = _merge_scratch(q.device, B * hk, H // hk, hd)
+    args = (out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+            table.data_ptr(), pos.data_ptr(), dt, B, H, H // hk, P, bt, hd,
+            table.shape[1],
+            _build.strides_arg(q.stride(0), q.stride(1), out.stride(0),
+                               out.stride(1), k.stride(0), k.stride(1),
+                               v.stride(0), v.stride(1)),
+            scale, _build.stream_ptr(q.device))
+    rows = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pool.data_ptr())
+    if kv_scale is None:
+        lib, fn = _build.bind(NAME, "pppppppppiiiiiiiisfp",
+                              "paged_decode_write")
+        _build.check(lib, NAME, fn(*rows, *args))
+        write_launches += 1
+    else:
+        lib, fn = _build.bind(NAME, "ppppppppppiiiiiiiisfp",
+                              "paged_decode_write_q8")
+        _build.check(lib, NAME, fn(*rows, kv_scale.data_ptr(), *args))
+        write_q8_launches += 1
+    return out
+
+
+def dense_write_decode_plain(q, k, v, cache, pos, *, slot_mask=None,
+                             kv_scale=None):
+    """The fused kernel's plain version: the generation tick's write
+    (``kv_insert_plain`` of ``k``/``v`` at slot ``pos``, in place;
+    quantized for an int8 cache), then ``dense_decode_plain``."""
+    kv_insert_plain(cache, k, v, pos, kv_scale)
+    return dense_decode_plain(q, cache, pos, slot_mask=slot_mask,
+                              kv_scale=kv_scale)
+
+
+def dense_write_decode(q, k, v, cache, pos, *, slot_mask=None,
+                       kv_scale=None):
+    """One generation decode tick of a layer: ``k``/``v`` ``[B, Hk, 1,
+    hd]`` go into the pair cache ``[2, B, Hk, T, hd]`` (in place) at slot
+    ``pos`` (a scalar: every row at one slot; or an int32 ``[B]``: each at
+    its own), whatever ``slot_mask`` says (a slot outside ``[0, T)`` drops
+    the row), then ``q [B, H, 1, hd]`` attends as
+    :func:`decode_attention` does. An int8 cache takes its ``kv_scale``
+    and float rows, quantized as they are written. CUDA tensors launch
+    ``dense_decode_write`` (``dense_decode_write_q8``), one launch; CPU
+    tensors run the plain version."""
+    _check_dense(q, cache, pos, slot_mask, kv_scale)
+    _check_fresh(q, k, v, cache.shape[2])
+    if q.device.type == "cpu":
+        return dense_write_decode_plain(q, k, v, cache, pos,
+                                        slot_mask=slot_mask,
+                                        kv_scale=kv_scale)
+    return dense_write_decode_cuda(q, k, v, cache, pos, slot_mask=slot_mask,
+                                   kv_scale=kv_scale)
+
+
+def dense_write_decode_cuda(q, k, v, cache, pos, *, slot_mask=None,
+                            kv_scale=None):
+    """Launch the fused CUDA kernel (the int8 form with ``kv_scale``): the
+    write and :func:`dense_decode_cuda`'s read in one launch, on its grid.
+    Raises on what that read refuses, and on ``k``/``v`` of another shape
+    or dtype than the query's or without unit head-dim stride."""
+    global dense_write_launches, dense_write_q8_launches
+    _check_dense(q, cache, pos, slot_mask, kv_scale)
+    _check_fresh(q, k, v, cache.shape[2])
+    others = (k, v) + (() if slot_mask is None else (slot_mask,))
+    dt = _check_cuda_read(DENSE_NAME, q, cache, kv_scale, others)
+    _check_cuda_fresh(DENSE_NAME, q, k, v)
+    B, H, _, hd = q.shape
+    _, _, hk, T, _ = cache.shape
+    pos, pos_stride = _build.pos_arg(pos, q.device)
+    mask_ptr, mask_sb = None, 0
+    if slot_mask is not None:
+        if slot_mask.dtype not in (torch.bool, torch.uint8) \
+                or slot_mask.stride(1) != 1:
+            raise ValueError("slot_mask must be bool or uint8 with unit "
+                             "stride along T")
+        mask_ptr, mask_sb = slot_mask.data_ptr(), slot_mask.stride(0)
+    scale = hd ** -0.5
+    out = torch.empty(B, 1, H, hd, dtype=q.dtype, device=q.device
+                      ).transpose(1, 2)
+    ws, tickets = _merge_scratch(q.device, B * hk, H // hk, hd)
+    args = (out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+            pos.data_ptr(), mask_ptr, dt, B, H, H // hk, T, hd, pos_stride,
+            _build.strides_arg(q.stride(0), q.stride(1), out.stride(0),
+                               out.stride(1), mask_sb, k.stride(0),
+                               k.stride(1), v.stride(0), v.stride(1)),
+            scale, _build.stream_ptr(q.device))
+    rows = (q.data_ptr(), k.data_ptr(), v.data_ptr(), cache.data_ptr())
+    if kv_scale is None:
+        lib, fn = _build.bind(DENSE_NAME, "pppppppppiiiiiiisfp",
+                              "dense_decode_write")
+        _build.check(lib, DENSE_NAME, fn(*rows, *args))
+        dense_write_launches += 1
+    else:
+        lib, fn = _build.bind(DENSE_NAME, "ppppppppppiiiiiiisfp",
+                              "dense_decode_write_q8")
+        _build.check(lib, DENSE_NAME, fn(*rows, kv_scale.data_ptr(), *args))
+        dense_write_q8_launches += 1
     return out

@@ -14,8 +14,8 @@ ticks while finished rows take the next queued request:
   ``[0, t_max)`` onto physical blocks through a per-row block table
   (host-side, refcounted: ``kv_pool.BlockPool``). Decode writes resolve
   ``pos -> (table[pos // bt], pos % bt)`` and attention reads through the
-  table (``ops/attention.py::cache_write_and_attend``: the
-  ``kv_pool_insert`` and ``paged_decode`` CUDA kernels). The pool is
+  table (``ops/attention.py::cache_write_and_attend``: one launch of the
+  fused ``paged_decode_write`` CUDA kernel a layer). The pool is
   updated IN PLACE (the JAX package donates the buffers instead).
   Parked and free rows point at the reserved trash block, where their
   per-tick garbage writes never touch a live block.
@@ -213,7 +213,8 @@ class ContinuousBatcher:
         hk, hd = model.kv_cache_spec()
         # per-layer block pools [2(k/v), P, hk, bt, hd] in the model's
         # float dtype, or int8 beside f32 scales [2, P, hk, bt, 1]; written
-        # in place by the kv_pool_insert kernel (its int8 form quantizes)
+        # in place by the kv_pool_insert kernel (admission) and the fused
+        # decode tick (their int8 forms quantize)
         shape = (2, pool_blocks, hk, self.bt)
         self._caches = [
             {"kv": torch.zeros(*shape, hd, device=self.device,

@@ -176,8 +176,10 @@ def test_paged_decode_matches_plain(dev, dtype, H, hk, hd, bt):
 
 
 def test_tiny_serve_on_card_matches_cpu(dev):
-    """GPT-2-tiny served on the card (through all three kernels) gives the
-    CPU's greedy tokens in f32, and each kernel's counter moved."""
+    """GPT-2-tiny served on the card gives the CPU's greedy tokens in f32,
+    through the flash forward, the admission scatter (``kv_pool_insert``)
+    and the fused tick (``paged_decode_write``): each of their counters
+    moved, and the read-only ``paged_decode``'s did not."""
     from distributed_compute_pytorch_tpu_torch.models.gpt2 import (
         GPT2, GPT2Config)
     from distributed_compute_pytorch_tpu_torch.ops import (
@@ -197,14 +199,15 @@ def test_tiny_serve_on_card_matches_cpu(dev):
         cb = ContinuousBatcher(model, slots=2, t_max=128, prompt_buf=10,
                                segment=3, device=device)
         counts = (flash_attention.launches, cache_update.launches,
-                  decode_attention.launches)
+                  decode_attention.write_launches, decode_attention.launches)
         outs.append(cb.serve([Request(list(t), n) for t, n in reqs]))
         assert cb.last_block_leaks == 0
     assert outs[0] == outs[1]
     moved = (flash_attention.launches - counts[0],
              cache_update.launches - counts[1],
-             decode_attention.launches - counts[2])
+             decode_attention.write_launches - counts[2])
     assert all(m > 0 for m in moved), moved
+    assert decode_attention.launches == counts[3]
 
 
 # ---- slice 2: the flash backward, fused AdamW and a train step ----------
@@ -485,10 +488,11 @@ def test_dense_kernels_refuse_int8_and_bad_positions(dev):
 
 def test_tiny_generate_on_card_teacher_forced(dev):
     """GPT-2-tiny greedy generation of a left-padded batch on the card, in
-    f32, through ``flash_fwd``, ``kv_insert`` and ``dense_decode``: the
-    CPU's tokens, every token the teacher-forced row maximum of the
+    f32, through ``flash_fwd`` and the fused tick ``dense_decode_write``:
+    the CPU's tokens, every token the teacher-forced row maximum of the
     model's own full forward (within 1e-4: f32 summation order), and the
-    launch counts the schedule implies."""
+    launch counts the schedule implies (no standalone ``kv_insert`` or
+    read-only ``dense_decode``)."""
     from distributed_compute_pytorch_tpu_torch.infer import generate
     from distributed_compute_pytorch_tpu_torch.models.gpt2 import (
         GPT2, GPT2Config)
@@ -510,11 +514,12 @@ def test_tiny_generate_on_card_teacher_forced(dev):
         prompt[i, T0 - n:] = rng.integers(0, 256, n)
         mask[i, T0 - n:] = 1
     want = generate(cpu, prompt, N, prompt_mask=mask)
-    counts = (F.launches, C.kv_insert_launches, D.dense_launches)
+    counts = (F.launches, D.dense_write_launches, C.kv_insert_launches,
+              D.dense_launches)
     got = generate(gpu, prompt, N, prompt_mask=mask).cpu()
-    moved = (F.launches - counts[0], C.kv_insert_launches - counts[1],
-             D.dense_launches - counts[2])
-    assert moved == (2, 2 * (N - 1), 2 * (N - 1)), moved
+    moved = (F.launches - counts[0], D.dense_write_launches - counts[1],
+             C.kv_insert_launches - counts[2], D.dense_launches - counts[3])
+    assert moved == (2, 2 * (N - 1), 0, 0), moved
     assert torch.equal(got, want)
     with torch.no_grad():
         for i, n in enumerate(lens):
@@ -670,7 +675,9 @@ def test_int8_dense_decode_matches_plain(dev, dtype, H, hk, hd, lockstep):
 def test_tiny_int8_serve_and_generate_on_card_match_cpu(dev):
     """GPT-2-tiny in f32 with the int8 KV cache: served and generated
     greedy tokens on the card equal the CPU's, through the int8 kernels
-    (their counters moved; the float forms' did not), and the serve call
+    (the admission scatter's and the fused ticks' counters moved; the
+    float forms', the read-only reads' and the standalone tick writes'
+    did not), and the serve call
     runs under ``set_sync_debug_mode("error")``: no copy in it waits for
     the card."""
     from distributed_compute_pytorch_tpu_torch.infer import generate
@@ -693,7 +700,8 @@ def test_tiny_int8_serve_and_generate_on_card_match_cpu(dev):
     for model, device in ((cpu, "cpu"), (gpu, dev)):
         cb = ContinuousBatcher(model, slots=2, t_max=128, prompt_buf=10,
                                segment=3, kv_dtype="int8", device=device)
-        counts = (C.q8_launches, D.q8_launches, C.launches, D.launches)
+        counts = (C.q8_launches, D.write_q8_launches, C.launches,
+                  D.launches, D.write_launches, D.q8_launches)
         if device == "cpu":
             outs.append(cb.serve([Request(list(t), n) for t, n in reqs]))
         else:
@@ -705,17 +713,20 @@ def test_tiny_int8_serve_and_generate_on_card_match_cpu(dev):
                 torch.cuda.set_sync_debug_mode(0)
         assert cb.last_block_leaks == 0
     assert outs[0] == outs[1]
-    moved = (C.q8_launches - counts[0], D.q8_launches - counts[1],
-             C.launches - counts[2], D.launches - counts[3])
-    assert moved[0] > 0 and moved[1] > 0 and moved[2:] == (0, 0), moved
+    moved = (C.q8_launches - counts[0], D.write_q8_launches - counts[1],
+             C.launches - counts[2], D.launches - counts[3],
+             D.write_launches - counts[4], D.q8_launches - counts[5])
+    assert moved[0] > 0 and moved[1] > 0 and moved[2:] == (0,) * 4, moved
     prompt = rng.integers(0, 256, (3, 12))
     mask = np.ones((3, 12), np.int64)
     mask[1, :5] = 0
     want = generate(cpu, prompt, 9, prompt_mask=mask, kv_quant=True)
-    before = (C.kv_insert_q8_launches, D.dense_q8_launches)
+    before = (D.dense_write_q8_launches, C.kv_insert_q8_launches,
+              D.dense_q8_launches)
     got = generate(gpu, prompt, 9, prompt_mask=mask, kv_quant=True).cpu()
-    assert (C.kv_insert_q8_launches - before[0],
-            D.dense_q8_launches - before[1]) == (2 * 8, 2 * 8)
+    assert (D.dense_write_q8_launches - before[0],
+            C.kv_insert_q8_launches - before[1],
+            D.dense_q8_launches - before[2]) == (2 * 8, 0, 0)
     assert torch.equal(got, want)
 
 
@@ -912,3 +923,258 @@ def test_decode_reads_on_two_streams_at_once(dev, q8):
     torch.cuda.synchronize()
     for name, out in got:
         assert torch.equal(out, want[name]), name
+
+
+# ---- slice 8: the fused ticks (the slot write and the read in one launch) --
+
+def _fresh_rows(gen, B, H, hk, hd, dtype, dev):
+    """q, k, v ``[B, H(k), 1, hd]`` as the model hands them over:
+    split-head views of one fused QKV projection (strided)."""
+    from distributed_compute_pytorch_tpu_torch.ops import attention as A
+    qkv = _randn(gen, B, 1, (H + 2 * hk) * hd, dtype=dtype, dev=dev)
+    q, k, v = qkv.split([H * hd, hk * hd, hk * hd], dim=-1)
+    return A.split_heads(q, H), A.split_heads(k, hk), A.split_heads(v, hk)
+
+
+def _paged_pair(q, k, v, table, pos):
+    """The unfused serving tick on the card: ``kv_pool_insert`` at the
+    (block, offset) the table maps ``pos`` to, then ``paged_decode``."""
+    from distributed_compute_pytorch_tpu_torch.ops import cache_update as C
+    from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
+
+    def pair(pool, scale):
+        bt, nb = pool.shape[3], table.shape[1]
+        slot = torch.clamp(pos // bt, max=nb - 1).long()
+        blk = table.gather(1, slot[:, None])[:, 0].contiguous()
+        C.kv_pool_insert_cuda(pool, k[:, :, 0], v[:, :, 0], blk,
+                              (pos % bt).contiguous(), scale=scale)
+        return D.paged_decode_cuda(q, pool, table, pos, kv_scale=scale)
+    return pair
+
+
+def _dense_pair(q, k, v, pos, mask):
+    """The unfused generation tick on the card: ``kv_insert`` (a 0-dim
+    ``pos``) or ``kv_insert_rows`` at slot ``pos``, then
+    ``dense_decode``."""
+    from distributed_compute_pytorch_tpu_torch.ops import cache_update as C
+    from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
+
+    def pair(cache, scale):
+        write = C.kv_insert_rows_cuda if pos.ndim else C.kv_insert_cuda
+        write(cache, k, v, pos, scale=scale)
+        return D.dense_decode_cuda(q, cache, pos, slot_mask=mask,
+                                   kv_scale=scale)
+    return pair
+
+
+def _split_start(n, S, gran):
+    """The first keys of the S splits of a row of n live keys (the
+    kernels' even share, rounded up to gran keys)."""
+    per = -(-(-(-n // S)) // gran) * gran
+    return [min(s * per, n) for s in range(S)]
+
+
+def _fused_matches_pair(fused, pair, plain, cache, scale, live, counter,
+                        dtype):
+    """On four copies of one cache: the unfused kernel pair (the standalone
+    write, then the read-only read), two fused launches and the plain
+    version. The caches all bit-identical; every live row's output the
+    pair's bits on both fused launches, finite, and within TOL of the plain
+    version (bf16 also row by row within ROW_TOL); ``counter()`` moved by
+    2."""
+    copies = [(cache.clone(), None if scale is None else scale.clone())
+              for _ in range(4)]
+    before = counter()
+    want = pair(*copies[0])
+    got, again = fused(*copies[1]), fused(*copies[2])
+    torch.cuda.synchronize()
+    assert counter() == before + 2
+    plain_out = plain(*copies[3])
+    for c, s in copies[:1] + copies[2:]:
+        assert torch.equal(c, copies[1][0])
+        assert s is None or torch.equal(s, copies[1][1])
+    assert not torch.equal(copies[1][0], cache)        # it wrote
+    assert torch.equal(got[live], want[live])
+    assert torch.equal(got[live], again[live])
+    g, w = got[live].float(), plain_out[live].float()
+    assert torch.isfinite(g).all()
+    torch.testing.assert_close(g, w, atol=TOL[dtype], rtol=TOL[dtype])
+    if dtype == torch.bfloat16:
+        assert _row_err(g, w) <= ROW_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("H,hk,hd", [(4, 4, 64), (8, 1, 128), (6, 2, 40)])
+def test_paged_write_decode_matches_the_kernel_pair(dev, dtype, q8, H, hk,
+                                                    hd):
+    """``paged_decode_write`` against ``kv_pool_insert`` then
+    ``paged_decode`` at a capacity of 4 splits: rows writing the first key
+    of their second split, the first and the last key of the table, the
+    first slot of a block and one inside; a parked all-trash row past the
+    horizon (its output left out). MHA, G = 8 at hd 128, and hd 40 (int8
+    rows of 8-byte copies)."""
+    from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
+    gen = torch.Generator().manual_seed(50)
+    B, bt, nb = 6, 16, 64
+    cap, P = nb * bt, B * nb + 1
+    q, k, v = _fresh_rows(gen, B, H, hk, hd, dtype, dev)
+    pool, scale = _decode_cache(gen, q8, dtype, dev, 2, P, hk, bt, hd)
+    table = (torch.randperm(P - 1, generator=gen)[:B * nb] + 1).reshape(
+        B, nb).to(torch.int32)
+    table[4] = 0                                   # parked: all trash
+    pos = torch.tensor([16, 0, cap - 1, 17 * bt, cap + 7, 300],
+                       dtype=torch.int32)
+    table, pos = table.to(dev), pos.to(dev)
+    S = D.split_plan(q, pool, table=table, kv_scale=scale)["S"]
+    assert S == 4 and 16 in _split_start(17, S, bt)[1:]
+    counter = (lambda: D.write_q8_launches) if q8 else (
+        lambda: D.write_launches)
+    _fused_matches_pair(
+        lambda c, s: D.paged_write_decode_cuda(q, k, v, c, table, pos,
+                                               kv_scale=s),
+        _paged_pair(q, k, v, table, pos),
+        lambda c, s: D.paged_write_decode_plain(q, k, v, c, table, pos,
+                                                kv_scale=s),
+        pool, scale, [0, 1, 2, 3, 5], counter, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("H,hk,hd", [(4, 4, 64), (8, 1, 128), (6, 2, 40)])
+@pytest.mark.parametrize("lockstep", [True, False],
+                         ids=["lockstep", "per_row"])
+def test_dense_write_decode_matches_the_kernel_pair(dev, dtype, q8, H, hk,
+                                                    hd, lockstep):
+    """``dense_decode_write`` against ``kv_insert`` (or ``kv_insert_rows``)
+    then ``dense_decode`` over a cache of 4 splits: a lockstep slot that is
+    the first key of the second split, or per-row slots (that key, 0, the
+    last, and two inside); a slot mask that masks one row's written slot
+    (the write still lands) and a left-pad run of another."""
+    from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
+    gen = torch.Generator().manual_seed(51)
+    B, T = 5, 1024
+    q, k, v = _fresh_rows(gen, B, H, hk, hd, dtype, dev)
+    cache, scale = _decode_cache(gen, q8, dtype, dev, 2, B, hk, T, hd)
+    if lockstep:
+        pos = torch.arange(T, dtype=torch.int32, device=dev)[16]
+    else:
+        pos = torch.tensor([16, 0, T - 1, 511, 700], dtype=torch.int32,
+                           device=dev)
+    mask = torch.ones(B, T, dtype=torch.bool)
+    mask[3, 16 if lockstep else 511] = False       # the written slot
+    mask[4, :200] = False                          # a left-pad run
+    mask = mask.to(dev)
+    S = D.split_plan(q, cache, kv_scale=scale)["S"]
+    assert S == 4 and 16 in _split_start(17, S, 16)[1:]
+    counter = (lambda: D.dense_write_q8_launches) if q8 else (
+        lambda: D.dense_write_launches)
+    live = [0, 1, 2, 3] if lockstep else list(range(B))
+    _fused_matches_pair(
+        lambda c, s: D.dense_write_decode_cuda(q, k, v, c, pos,
+                                               slot_mask=mask, kv_scale=s),
+        _dense_pair(q, k, v, pos, mask),
+        lambda c, s: D.dense_write_decode_plain(q, k, v, c, pos,
+                                                slot_mask=mask, kv_scale=s),
+        cache, scale, live, counter, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q8", [False, True])
+def test_fused_ticks_past_one_window(dev, dtype, q8):
+    """A capacity of 17,600 keys (paged, 1,100 blocks of 16) and 17,408
+    slots (dense, a masked run inside): the full row's written key lies
+    past the first lookup window of its split, in a later ring tile, so
+    the write must land before a later window's copies too."""
+    from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
+    gen = torch.Generator().manual_seed(52)
+    B, H, hk, hd, bt, nb = 2, 4, 2, 64, 16, 1100
+    P = B * nb + 1
+    q, k, v = _fresh_rows(gen, B, H, hk, hd, dtype, dev)
+    pool, scale = _decode_cache(gen, q8, dtype, dev, 2, P, hk, bt, hd)
+    table = (torch.randperm(P - 1, generator=gen)[:B * nb] + 1).reshape(
+        B, nb).to(dev, torch.int32)
+    pos = torch.tensor([nb * bt - 1, 1500], dtype=torch.int32, device=dev)
+    plan = D.split_plan(q, pool, table=table, kv_scale=scale)
+    assert nb * bt - 1 - _split_start(nb * bt, plan["S"], bt)[-1] >= 1024
+    counter = (lambda: D.write_q8_launches) if q8 else (
+        lambda: D.write_launches)
+    _fused_matches_pair(
+        lambda c, s: D.paged_write_decode_cuda(q, k, v, c, table, pos,
+                                               kv_scale=s),
+        _paged_pair(q, k, v, table, pos),
+        lambda c, s: D.paged_write_decode_plain(q, k, v, c, table, pos,
+                                                kv_scale=s),
+        pool, scale, [0, 1], counter, dtype)
+    T = 17408
+    cache, scale = _decode_cache(gen, q8, dtype, dev, 2, B, hk, T, hd)
+    mask = torch.ones(B, T, dtype=torch.bool, device=dev)
+    mask[0, 3000:9000] = False
+    pos = torch.tensor([T - 1, 2000], dtype=torch.int32, device=dev)
+    plan = D.split_plan(q, cache, kv_scale=scale)
+    assert T - 1 - _split_start(T, plan["S"], 16)[-1] >= 1024
+    counter = (lambda: D.dense_write_q8_launches) if q8 else (
+        lambda: D.dense_write_launches)
+    _fused_matches_pair(
+        lambda c, s: D.dense_write_decode_cuda(q, k, v, c, pos,
+                                               slot_mask=mask, kv_scale=s),
+        _dense_pair(q, k, v, pos, mask),
+        lambda c, s: D.dense_write_decode_plain(q, k, v, c, pos,
+                                                slot_mask=mask, kv_scale=s),
+        cache, scale, [0, 1], counter, dtype)
+
+
+@pytest.mark.parametrize("q8", [False, True])
+def test_fused_ticks_on_two_streams_at_once(dev, q8):
+    """The fused paged and dense ticks, launched again and again on two
+    streams with nothing between them (each stream its own cache copies,
+    which every launch rewrites with the same row): each stream keeps its
+    own merge scratch, so every output has the bits of one launch on the
+    default stream."""
+    from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
+    dtype = torch.bfloat16
+    gen = torch.Generator().manual_seed(53)
+    hd, bt, nb, B, H, T = 64, 16, 64, 8, 4, 1024
+    P = B * nb + 1
+    q, k, v = _fresh_rows(gen, B, H, H, hd, dtype, dev)
+    pool, pscale = _decode_cache(gen, q8, dtype, dev, 2, P, H, bt, hd)
+    table = (torch.randperm(P - 1, generator=gen)[:B * nb] + 1).reshape(
+        B, nb).to(dev, torch.int32)
+    pos = torch.randint(0, nb * bt, (B,), generator=gen,
+                        dtype=torch.int32).to(dev)
+    cache, dscale = _decode_cache(gen, q8, dtype, dev, 2, B, H, T, hd)
+    assert D.split_plan(q, pool, table=table, kv_scale=pscale)["S"] > 1
+    assert D.split_plan(q, cache, kv_scale=dscale)["S"] > 1
+
+    def copies():
+        return ((pool.clone(), None if pscale is None else pscale.clone()),
+                (cache.clone(), None if dscale is None else dscale.clone()))
+
+    def paged(c):
+        return D.paged_write_decode_cuda(q, k, v, c[0], table, pos,
+                                         kv_scale=c[1])
+
+    def dense(c):
+        return D.dense_write_decode_cuda(q, k, v, c[0], pos, kv_scale=c[1])
+
+    first = copies()
+    want = {"paged": paged(first[0]), "dense": dense(first[1])}
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    own = [copies() for _ in streams]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(50_000_000)   # the launches below queue up
+    got = []
+    for _ in range(20):
+        for s, (pc, dc) in zip(streams, own):
+            with torch.cuda.stream(s):
+                got += [("paged", paged(pc)), ("dense", dense(dc))]
+    for s in streams:
+        torch.cuda.current_stream(dev).wait_stream(s)
+    torch.cuda.synchronize()
+    for name, out in got:
+        assert torch.equal(out, want[name]), name
+    for pc, dc in own:
+        assert torch.equal(pc[0], first[0][0]) and torch.equal(dc[0],
+                                                                first[1][0])
