@@ -46,46 +46,70 @@ imports nothing of JAX. Phases, one JSON line each:
    TFLOP/s and share of their bound;
 4. serve: GPT-2-small at full width (random weights from a fixed seed)
    through ``ContinuousBatcher.serve`` — 32 staggered requests, 16 slots,
-   in bf16 and then in f32. Each kernel's launch counter is zeroed just
-   before the serve call and read just after; it must equal the count the
-   schedule implies: ``flash_fwd`` and ``kv_pool_insert`` (the admission
-   scatter) 12 x waves, the fused ``paged_decode_write`` 12 x ticks, the
-   read-only ``paged_decode`` 0. Every output is checked teacher-forced
-   against one full-sequence forward with plain dense attention;
-5. serve_profile: the bf16 serve run once more under ``torch.profiler``,
-   its device time by kernel group, its device ops a tick and its device
-   busy share;
+   in bf16 and then in f32 — on a batcher whose segment is a CUDA graph
+   (captured in its warm-up, replayed once a segment) and on one kept
+   eager (the private ``_capture = False``), in turns (graph, eager,
+   eager, graph). Each kernel's launch counter is zeroed just before each
+   serve call and read just after; it must equal the count the schedule
+   implies, for both: ``flash_fwd`` and ``kv_pool_insert`` (the admission
+   scatter) 12 x waves, the fused ``paged_decode_write`` 12 x ticks (a
+   replay adds the launches its capture recorded: ``utils/graphs.py``),
+   the read-only ``paged_decode`` 0. The graph batcher captures once and
+   replays once a segment; every run's tokens must equal the first's, bit
+   for bit; those are checked teacher-forced against one full-sequence
+   forward with plain dense attention. Capture ms, tokens/s, ms a tick
+   and allocator calls of every run; the headline speed is the median of
+   the graph runs;
+5. serve_profile: the bf16 serve run once more under ``torch.profiler``
+   on each batcher: device time by kernel group, device ops a tick, the
+   host's CUDA calls a segment (``cudaLaunchKernel``, ``cudaGraphLaunch``:
+   one graph launch a segment, and at least 12 kernel launch calls fewer
+   a replayed tick than eager, gated), the device busy share, and the
+   launches measured: every counter zeroed just before the profiled run
+   must equal, just after, the port's kernel events the device ran
+   (graph replays' included) and the schedule (``counted_profile``);
 6. generate: GPT-2-small at full width and depth (the serve phase's
-   weights) through ``infer.generate`` — 16 left-padded prompts of 16-250
-   tokens, 128 new tokens each, greedy — in bf16 and then in f32. The
-   counters are zeroed just before and read just after: the fused
-   ``dense_decode_write`` 12 x 127, ``flash_fwd`` 12, every other kernel
-   0 (the standalone ``kv_insert`` and the read-only ``dense_decode``
-   included).
-   Every token is checked teacher-forced as in serve. In f32, a sampled
-   run repeated with the same generator seed must repeat its tokens, and
-   ``temperature=1, top_k=1`` must give the greedy tokens;
+   weights) through ``infer.make_generate_fn`` — 16 left-padded prompts of
+   16-250 tokens, 128 new tokens each, greedy — in bf16 and then in f32,
+   with the captured tick (the first tick eager, the capture's warm-up,
+   then 126 replays) and with the eager loop (``_eager=True``) in turns.
+   The counters are zeroed just before and read just after each run: the
+   fused ``dense_decode_write`` 12 x 127, ``flash_fwd`` 12, every other
+   kernel 0 (the standalone ``kv_insert`` and the read-only
+   ``dense_decode`` included). Every run's tokens must equal the first's;
+   those are checked teacher-forced as in serve. In f32, a sampled run
+   (eager: a sampled tick is not captured) repeated with the same
+   generator seed must repeat its tokens, and ``temperature=1, top_k=1``
+   must give the greedy tokens;
 7. generate_profile: the bf16 generate once more under ``torch.profiler``
-   (device time by group, ops a tick, busy);
+   with the captured tick and eagerly (device time by group, ops a tick,
+   host calls a tick: one graph launch a replayed tick, gated; busy; the
+   launches measured against the device's kernel events, as in 5);
 8. the int8 KV cells, after the float ones:
    serve_int8: the serve phase's 32 requests in bf16 on the int8 KV pool
-   (``kv_dtype="int8"``) beside the bf16 float pool, in turns (float,
-   int8, int8, float). The first run of each pool is one whole
-   ``serve`` call under ``torch.cuda.set_sync_debug_mode("error")``: no
-   host-to-device copy may wait for the card (the harvest's own wait,
-   ``serve._Fetch.result``, is the one allowed sync), and the float
-   pool's tokens must equal the serve phase's. The first int8 run
+   (``kv_dtype="int8"``), captured and eager, beside the bf16 float pool
+   captured, in turns (float; int8 graph, eager, eager, graph; float).
+   Every run, and each batcher's warm-up (where the graph batchers
+   capture), is one whole ``serve`` call under
+   ``torch.cuda.set_sync_debug_mode("error")``: no host-to-device copy,
+   capture or replay may wait for the card (the harvest's own wait,
+   ``serve._Fetch.result``, is the one allowed sync), and the float pool's
+   tokens must equal the serve phase's. The first int8 run of each mode
    is counted (int8 ``kv_pool_insert`` 12 x waves, the int8 fused tick
    ``paged_decode_write_q8`` 12 x ticks, ``flash_fwd`` 12 x waves, every
-   other counter 0) and checked teacher-forced, the decoded rows against
-   quantized K/V; tokens/s of each run, device busy and ops a tick (one
-   profiled run of each pool), both pools' bytes and the share of
-   positions where the int8 pool served the float pool's token;
-   generate_int8: the generate phase's 16 prompts with ``kv_quant=True``
-   beside the float cache in turns: ``dense_decode_write_q8`` 12 x 127,
-   ``flash_fwd`` 12, every other counter 0;
-   teacher-forced, the rows past each prompt against quantized K/V;
-   tokens/s and both caches' bytes;
+   other counter 0); every int8 run must serve the first int8 run's
+   tokens, which are checked teacher-forced, the decoded rows against
+   quantized K/V; tokens/s of each run, one profiled run of each batcher
+   (device busy, ops a tick, host calls a segment, launches measured as
+   in 5), both pools' bytes and
+   the share of positions where the int8 pool served the float pool's
+   token;
+   generate_int8: the generate phase's 16 prompts with ``kv_quant=True``,
+   captured and eager, beside the float cache in turns:
+   ``dense_decode_write_q8`` 12 x 127, ``flash_fwd`` 12, every other
+   counter 0; tokens equal across runs, teacher-forced, the rows past
+   each prompt against quantized K/V; tokens/s, a profiled run of each
+   mode (launches measured as in 5), and both caches' bytes;
 9. train: GPT-2-small at full width and depth (dropout 0.1), bf16 compute
    over f32 masters, ``adamw_fused``, 20 steps on one 8 x 1024 batch
    through ``train/step.py::make_step_fns``; the counters are zeroed just
@@ -100,10 +124,12 @@ imports nothing of JAX. Phases, one JSON line each:
    at GPT-2-small widths, then ``--resume --epochs 2``;
 12. train_profile: five train steps under ``torch.profiler``.
 
-Then the ``{"kernels": [...]}`` line (launches from the bf16 serve run for
-the serving kernels, from the bf16 generate run for the generation
-kernels, from serve_int8 and generate_int8 for the int8 forms, from the
-train phase for the training kernels), the
+Then the ``{"kernels": [...]}`` line (launches from the profiled captured
+bf16 serve run for the serving kernels, from the profiled captured bf16
+generate run for the generation kernels, from the profiled captured int8
+runs of serve_int8 and generate_int8 for the int8 forms, each measured
+against the device's kernel events; from the train phase for the
+training kernels), the
 raw ``nvidia-smi`` line, and last the ``{"ok": true, ...}`` line. Any
 failed check exits non-zero before the ``ok`` line. Roofline bounds use
 the H100 SXM data-sheet peaks: 3.35 TB/s HBM, 989 TFLOP/s bf16 (tensor
@@ -113,9 +139,11 @@ cores), 67 TFLOP/s f32 (no tensor cores).
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1488,10 +1516,15 @@ def serve_requests(np, serve, vocab: int):
                             rng.integers(32, 129, 32))]
 
 
-def batcher(serve, model, kv_dtype="bf16"):
-    return serve.ContinuousBatcher(model, slots=16, t_max=1024,
-                                   prompt_buf=256, segment=16,
-                                   kv_block_tokens=16, kv_dtype=kv_dtype)
+def batcher(serve, model, kv_dtype="bf16", mode="graph"):
+    """The smoke's batcher. ``mode="eager"`` keeps every segment eager on
+    the card (the private ``_capture`` switch): the reference the captured
+    segment is held to."""
+    cb = serve.ContinuousBatcher(model, slots=16, t_max=1024,
+                                 prompt_buf=256, segment=16,
+                                 kv_block_tokens=16, kv_dtype=kv_dtype)
+    cb._capture = mode == "graph"
+    return cb
 
 
 def served_gaps(torch, A, model, reqs, outs, q8: bool):
@@ -1518,72 +1551,162 @@ def served_gaps(torch, A, model, reqs, outs, q8: bool):
 # the serving path's kernels: the admission prefill and scatter, the fused
 # tick
 SERVE_PATH = ("flash_fwd", "kv_pool_insert", "paged_decode_write")
+# the captured decode programs against the eager loop on the same inputs,
+# in turns within one process
+TURNS = ("graph", "eager", "eager", "graph")
+
+
+def alloc_stats(torch) -> dict:
+    """PyTorch's caching allocators so far: ``cudaMalloc`` calls, pinned
+    host allocations and their ms (None where this torch does not count)."""
+    dev, host = torch.cuda.memory_stats(), torch.cuda.host_memory_stats()
+    us = host.get("host_alloc_time.total")
+    return {"cuda_mallocs": dev.get("num_device_alloc"),
+            "host_allocs": host.get("num_host_alloc"),
+            "host_alloc_ms": None if us is None else us / 1e3}
+
+
+def alloc_delta(torch, before: dict) -> dict:
+    """What the allocators did since ``before`` (:func:`alloc_stats`)."""
+    return {k: None if n is None or before[k] is None else n - before[k]
+            for k, n in alloc_stats(torch).items()}
+
+
+def check_replays(cb, what, mode, ticks0, replays0):
+    """A graph batcher replays once a segment of the run and captured only
+    in its warm-up; an eager one neither captures nor replays."""
+    segments = (cb.ticks - ticks0) // cb.S
+    replays = cb.stats["graph_replays"] - replays0
+    want = (1, segments) if mode == "graph" else (0, 0)
+    got = (cb.stats["graph_captures"], replays)
+    require(got == want, f"{what} {mode}: (captures, replays) {got}, want "
+                         f"{want}")
+    return replays
 
 
 def serve_phase(torch, np, mods, model, dt):
+    """The 32 requests through a captured-segment batcher and an eager one
+    in turns (``TURNS``), each after a warm-up (the graph batcher captures
+    there). Every run is counted (every kernel's launches as the schedule
+    implies, the same for both: counted at each launch in an eager run,
+    added by ``Program.replay`` in a captured one, whose counts
+    ``profile_phase`` measures against the device); the graph replays once
+    a segment; every run's tokens must equal the first's bit for bit; the
+    first run's tokens are checked teacher-forced. The headline speed is
+    the median of the graph runs; each run's allocator calls
+    (:func:`alloc_stats`) are recorded beside its wall."""
     A, FA, CU, DA, serve = mods
     reqs = serve_requests(np, serve, model.config.vocab_size)
-    cb = batcher(serve, model)
-    cb.serve(reqs[:2])     # warm-up: the library handles' first calls
-    waves0, ticks0 = cb.stats["prefill_calls"], cb.ticks
-    torch.cuda.synchronize()
-    FA.launches = FA.tc_launches = CU.launches = DA.launches = 0
-    DA.write_launches = 0
-    t0 = time.monotonic()
-    outs = cb.serve(reqs)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = {"flash_fwd": FA.launches, "kv_pool_insert": CU.launches,
-                "paged_decode_write": DA.write_launches,
-                "paged_decode": DA.launches}
-    tc = FA.tc_launches
-    waves, ticks = cb.stats["prefill_calls"] - waves0, cb.ticks - ticks0
-    # the admission scatter writes the pool; each tick's write is fused
-    # into its read; the read-only read is off the path
-    want = {"flash_fwd": LAYERS * waves, "kv_pool_insert": LAYERS * waves,
-            "paged_decode_write": LAYERS * ticks, "paged_decode": 0}
-    require(all(launches[k] > 0 for k in SERVE_PATH),
-            f"serve {dt}: a kernel of the path never launched: {launches}")
-    require(launches == want, f"serve {dt}: launches {launches} != the "
-                              f"schedule's {want}")
-    # bf16 on GPT-2's aligned fused-QKV views: every forward launch on the
-    # tensor cores; f32 none
-    want_tc = launches["flash_fwd"] if dt == "bf16" else 0
-    require(tc == want_tc, f"serve {dt}: flash_fwd tensor-core launches "
-                           f"{tc}, want {want_tc}")
+    cbs = {mode: batcher(serve, model, mode=mode) for mode in TURNS[:2]}
+    for cb in cbs.values():
+        cb.serve(reqs[:2])     # warm-up: the library handles' first calls
+    walls = {mode: [] for mode in cbs}
+    ttfts = {mode: [] for mode in cbs}
+    allocs = {mode: [] for mode in cbs}
+    counted, outs = {}, None
+    for run, mode in enumerate(TURNS):
+        cb = cbs[mode]
+        waves0, ticks0 = cb.stats["prefill_calls"], cb.ticks
+        replays0 = cb.stats["graph_replays"]
+        torch.cuda.synchronize()
+        FA.launches = FA.tc_launches = CU.launches = DA.launches = 0
+        DA.write_launches = 0
+        a0 = alloc_stats(torch)
+        t0 = time.monotonic()
+        got = cb.serve(reqs)
+        torch.cuda.synchronize()
+        walls[mode].append(time.monotonic() - t0)
+        allocs[mode].append(alloc_delta(torch, a0))
+        launches = {"flash_fwd": FA.launches, "kv_pool_insert": CU.launches,
+                    "paged_decode_write": DA.write_launches,
+                    "paged_decode": DA.launches}
+        tc = FA.tc_launches
+        waves, ticks = cb.stats["prefill_calls"] - waves0, cb.ticks - ticks0
+        # the admission scatter writes the pool; each tick's write is fused
+        # into its read; the read-only read is off the path
+        want = {"flash_fwd": LAYERS * waves, "kv_pool_insert": LAYERS * waves,
+                "paged_decode_write": LAYERS * ticks, "paged_decode": 0}
+        require(all(launches[k] > 0 for k in SERVE_PATH),
+                f"serve {dt} {mode}: a kernel of the path never launched: "
+                f"{launches}")
+        require(launches == want, f"serve {dt} {mode}: launches {launches} "
+                                  f"!= the schedule's {want}")
+        # bf16 on GPT-2's aligned fused-QKV views: every forward launch on
+        # the tensor cores; f32 none
+        want_tc = launches["flash_fwd"] if dt == "bf16" else 0
+        require(tc == want_tc, f"serve {dt}: flash_fwd tensor-core launches "
+                               f"{tc}, want {want_tc}")
+        replays = check_replays(cb, f"serve {dt}", mode, ticks0, replays0)
+        require(cb.last_block_leaks == 0 and cb.last_slot_leaks == 0,
+                f"serve {dt} {mode}: leaked blocks/slots")
+        ttft = sorted(t for t in cb.last_ttft_s if t is not None)
+        ttfts[mode].append(sum(ttft) / len(ttft))
+        ttft_stats = (sum(ttft) / len(ttft), ttft[len(ttft) // 2], ttft[-1])
+        counted.setdefault(mode, (launches, tc))
+        if outs is not None:
+            require(got == outs, f"serve {dt}: the {mode} run (turn {run}) "
+                                 f"served other tokens than the graph's "
+                                 f"first run")
+            if mode == "graph":
+                first["ttft"].append(ttft_stats)
+            continue
+        outs, first = got, {"ticks": ticks, "waves": waves,
+                            "ttft": [ttft_stats], "replays": replays}
     require(all(len(o) == r.max_new for o, r in zip(outs, reqs)),
             f"serve {dt}: a request returned fewer than max_new tokens")
-    require(cb.last_block_leaks == 0 and cb.last_slot_leaks == 0,
-            f"serve {dt}: leaked blocks/slots")
     gaps = served_gaps(torch, A, model, reqs, outs, q8=False)
     worst = gaps.max().item()
     require(worst <= MARGIN[dt], f"serve {dt}: a served token's logit is "
                                  f"{worst} below the teacher-forced max "
                                  f"(margin {MARGIN[dt]})")
-    ttft = sorted(t for t in cb.last_ttft_s if t is not None)
+    ticks = first["ticks"]
     new_tokens = sum(len(o) for o in outs)
+    wall = statistics.median(walls["graph"])
+    ttft = [statistics.median(col) for col in zip(*first["ttft"])]
+    launches, tc = counted["eager"]
     return {
         "phase": "serve", "dtype": dt, "model": "gpt2-small (12 x 768, "
         "vocab 50257), random weights seed 0", "requests": len(reqs),
         "slots": 16, "segment": 16, "kv_block_tokens": 16, "t_max": 1024,
-        "prompt_buf": 256, "wall_s": wall, "new_tokens": new_tokens,
-        "decode_tokens_per_s": new_tokens / wall,
-        "mean_ttft_s": sum(ttft) / len(ttft),
-        "median_ttft_s": ttft[len(ttft) // 2], "max_ttft_s": ttft[-1],
-        "wall_ms_per_tick": 1e3 * wall / ticks, "ticks": ticks,
-        "admission_waves": waves,
-        "launches": launches, "flash_fwd_tensor_core_launches": tc,
+        "prompt_buf": 256,
+        "headline": "wall_s, decode_tokens_per_s, wall_ms_per_tick and the "
+                    "ttft figures: the median of the graph runs",
+        "wall_s": wall, "new_tokens": new_tokens,
+        "decode_tokens_per_s": statistics.median(new_tokens / w
+                                                 for w in walls["graph"]),
+        "mean_ttft_s": ttft[0], "median_ttft_s": ttft[1],
+        "max_ttft_s": ttft[2],
+        "wall_ms_per_tick": statistics.median(1e3 * w / ticks
+                                              for w in walls["graph"]),
+        "ticks": ticks, "admission_waves": first["waves"],
+        "launches": launches,
+        "launches_from": "the first eager run (counted at each launch; the "
+                         "captured run's, measured against the device, are "
+                         "serve_profile's)",
+        "flash_fwd_tensor_core_launches": tc,
         "teacher_forced_worst_gap": worst,
         "teacher_forced_mean_gap": gaps.mean().item(),
         "margin": MARGIN[dt],
-    }, outs
+        "turns": list(TURNS), "graph_capture_ms":
+            cbs["graph"]._graph.capture_ms,
+        "segments_per_run": ticks // cbs["graph"].S,
+        "graph_replays_per_run": first["replays"],
+        "graph_eager_tokens_identical": True,
+        **{f"{mode}_decode_tokens_per_s": [new_tokens / w for w in ws]
+           for mode, ws in walls.items()},
+        **{f"{mode}_wall_ms_per_tick": [1e3 * w / ticks for w in ws]
+           for mode, ws in walls.items()},
+        **{f"{mode}_mean_ttft_s": ttfts[mode] for mode in ttfts},
+        **{f"{mode}_allocator_calls": allocs[mode] for mode in allocs},
+    }, outs, cbs, walls
 
 
-# the sync-debug window of the serve_int8 phase: every host sync in one
+# the sync-debug window of the serve_int8 phase: every host sync in a
 # whole serve call raises, except the one the serve loop makes on purpose
 SYNC_ALLOWED = ("serve._Fetch.result: the harvest's wait on its own "
                 "segment's event (sync debug mode set to 0 for that wait "
-                "alone)")
+                "alone); nothing else: the warm-up calls, whose second "
+                "dispatch captures the segment, run in the window too")
 
 
 def serve_under_sync_check(torch, cb, reqs):
@@ -1624,63 +1747,86 @@ def pool_bytes(cb) -> int:
                for t in c.values())
 
 
+# the int8 cells' runs: the int8 cache captured and eager in turns, between
+# two runs of the float cache captured
+RUNS8 = (("bf16", "graph"), ("int8", "graph"), ("int8", "eager"),
+         ("int8", "eager"), ("int8", "graph"), ("bf16", "graph"))
+
+
+def label(kv: str, mode: str) -> str:
+    return kv if mode == "graph" else f"{kv}_eager"
+
+
 def serve_int8_phase(torch, np, mods, model, float_outs):
     """The serve phase's 32 requests, bf16 compute, on the int8 pool
-    (``kv_dtype="int8"``) beside the bf16 float pool in turns (float, int8,
-    int8, float). The first run of each pool runs under the sync-debug
-    window (fault 3.1); the first int8 run is counted (every int8 kernel
-    launch as the schedule implies, no float-form launch) and each of its
-    tokens checked teacher-forced, decoded rows against quantized K/V. Then
-    one profiled run of each pool gives its device time, and each
+    (``kv_dtype="int8"``), captured and eager, beside the bf16 float pool
+    captured, in turns (``RUNS8``). Every run, and each batcher's warm-up
+    (where the graph batchers capture), runs under the sync-debug window
+    (fault 3.1). The first
+    int8 run of each mode is counted (every int8 kernel launch as the
+    schedule implies, no float-form launch) and the graph's tokens checked
+    teacher-forced, decoded rows against quantized K/V; every int8 run must
+    serve the graph's first int8 tokens, every float run the serve phase's.
+    Then one profiled run of each batcher gives its device time, ops a
+    tick, host calls and measured launches (``profiled_serve``), and each
     unprofiled run's busy share."""
-    from torch.profiler import ProfilerActivity, profile
     A, FA, CU, DA, serve = mods
     reqs = serve_requests(np, serve, model.config.vocab_size)
-    cbs = {kv: batcher(serve, model, kv) for kv in ("bf16", "int8")}
+    cbs = {label(kv, mode): batcher(serve, model, kv, mode)
+           for kv, mode in dict.fromkeys(RUNS8)}
     for cb in cbs.values():
-        cb.serve(reqs[:2])         # warm-up
-    walls = {"bf16": [], "int8": []}
+        serve_under_sync_check(torch, cb, reqs[:2])   # warm-up, capture
+    walls = {name: [] for name in cbs}
     rec = {"phase": "serve_int8", "dtype": "bf16", "requests": len(reqs),
            "model": "gpt2-small (12 x 768, vocab 50257), random weights "
                     "seed 0", "slots": 16, "segment": 16,
            "kv_block_tokens": 16, "t_max": 1024, "prompt_buf": 256,
-           "sync_debug": {"mode": "error", "window": "one whole "
-                          "ContinuousBatcher.serve call per pool",
+           "runs": [label(kv, mode) for kv, mode in RUNS8],
+           "sync_debug": {"mode": "error", "window": "every unprofiled "
+                          "ContinuousBatcher.serve call of the phase, the "
+                          "warm-ups and their captures included",
                           "allowed": SYNC_ALLOWED, "raised": False}}
-    for run, kv in enumerate(("bf16", "int8", "int8", "bf16")):
-        cb = cbs[kv]
-        checked = run < 2
+    int8_outs, counted, replays = None, set(), {}
+    for kv, mode in RUNS8:
+        name = label(kv, mode)
+        cb = cbs[name]
         waves0, ticks0 = cb.stats["prefill_calls"], cb.ticks
+        replays0 = cb.stats["graph_replays"]
         zero_q8_counts(FA, CU, DA)
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        outs = (serve_under_sync_check(torch, cb, reqs) if checked
-                else cb.serve(reqs))
+        outs = serve_under_sync_check(torch, cb, reqs)
         torch.cuda.synchronize()
-        walls[kv].append(time.monotonic() - t0)
+        walls[name].append(time.monotonic() - t0)
         launches = q8_counts(FA, CU, DA)
+        replays[name] = check_replays(cb, f"serve_int8 {kv}", mode, ticks0,
+                                      replays0)
         require(cb.last_block_leaks == 0 and cb.last_slot_leaks == 0,
-                f"serve_int8 {kv}: leaked blocks/slots")
+                f"serve_int8 {name}: leaked blocks/slots")
         require(all(len(o) == r.max_new for o, r in zip(outs, reqs)),
-                f"serve_int8 {kv}: a request returned fewer than max_new "
+                f"serve_int8 {name}: a request returned fewer than max_new "
                 f"tokens")
         if kv == "bf16":
             require(outs == float_outs, "serve_int8: the float pool's "
                                         "tokens changed under the sync "
                                         "check or between runs")
             continue
-        if run != 1:
-            require(outs == int8_outs, "serve_int8: two int8 runs served "
-                                       "different tokens")
+        if name not in counted:
+            counted.add(name)
+            waves = cb.stats["prefill_calls"] - waves0
+            ticks = cb.ticks - ticks0
+            want = {k: 0 for k in launches}
+            want.update(flash_fwd=LAYERS * waves,
+                        kv_pool_insert_q8=LAYERS * waves,
+                        paged_decode_write_q8=LAYERS * ticks)
+            require(launches == want, f"serve_int8 {mode}: launches "
+                                      f"{launches} != the schedule's {want}")
+        if int8_outs is not None:
+            require(outs == int8_outs, f"serve_int8: the {mode} int8 run "
+                                       f"served other tokens than the "
+                                       f"graph's first int8 run")
             continue
         int8_outs = outs
-        waves, ticks = cb.stats["prefill_calls"] - waves0, cb.ticks - ticks0
-        want = {k: 0 for k in launches}
-        want.update(flash_fwd=LAYERS * waves,
-                    kv_pool_insert_q8=LAYERS * waves,
-                    paged_decode_write_q8=LAYERS * ticks)
-        require(launches == want, f"serve_int8: launches {launches} != the "
-                                  f"schedule's {want}")
         gaps = served_gaps(torch, A, model, reqs, outs, q8=True)
         worst = gaps.max().item()
         require(worst <= MARGIN["bf16"],
@@ -1695,30 +1841,36 @@ def serve_int8_phase(torch, np, mods, model, float_outs):
             teacher_forced_mean_gap=gaps.mean().item(),
             margin=MARGIN["bf16"],
             positions_agreeing_with_float_pool=same / sum(map(len, outs)))
-    rec["sync_debug"]["checked_runs"] = ["bf16 run 1", "int8 run 1"]
+    rec["sync_debug"]["checked_runs"] = rec["runs"]
+    rec["int8_graph_eager_tokens_identical"] = True
+    rec["graph_capture_ms"] = {name: cb._graph.capture_ms
+                               for name, cb in cbs.items() if cb._graph}
+    rec["graph_replays_per_run"] = {name: n for name, n in replays.items()
+                                    if cbs[name]._graph}
     new_tokens = sum(r.max_new for r in reqs)
-    device_ms = {}
-    for kv, cb in cbs.items():
-        ticks0 = cb.ticks
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            cb.serve(reqs)
-            torch.cuda.synchronize()
-        total_us, groups, _ = device_time(torch, prof)
-        device_ms[kv] = total_us / 1e3 if total_us else None
-        rec[f"{kv}_device_ops_per_tick"] = (
-            sum(n for n, _ in groups.values()) / (cb.ticks - ticks0))
-        rec[f"{kv}_groups_ms"] = {
-            g: {"launches": n, "ms": us / 1e3}
-            for g, (n, us) in sorted(groups.items(), key=lambda kv_: -kv_[1][1])}
+    summaries = {}
+    for name, cb in cbs.items():
+        prof, wall_prof, counts, ticks = profiled_serve(
+            torch, (FA, CU, DA), cb, reqs, f"serve_int8 profile {name}",
+            q8=name.startswith("int8"), tc=True)
+        summaries[name] = profile_summary(torch, prof, wall_prof, counts,
+                                          ticks, ticks // cb.S, "segment",
+                                          walls[name])
+    for kv, eager in (("bf16", None), ("int8", summaries["int8_eager"])):
+        check_host_calls(f"serve_int8 {kv}", summaries[kv], eager,
+                         summaries[kv]["segments"], cbs[kv].S)
+    for name, summary in summaries.items():
+        ticks = summary["ticks"]
+        rec[f"{name}_profile"] = summary
+        rec[f"{name}_wall_s"] = walls[name]
+        rec[f"{name}_decode_tokens_per_s"] = [new_tokens / w
+                                              for w in walls[name]]
+        rec[f"{name}_wall_ms_per_tick"] = [1e3 * w / ticks
+                                           for w in walls[name]]
+        rec[f"{name}_device_ms"] = summary["device_ms"]
+        rec[f"{name}_device_busy_share"] = summary["device_busy_share"]
+        rec[f"{name}_device_ops_per_tick"] = summary["device_ops_per_tick"]
     for kv in ("bf16", "int8"):
-        rec[f"{kv}_wall_s"] = walls[kv]
-        rec[f"{kv}_decode_tokens_per_s"] = [new_tokens / w for w in walls[kv]]
-        rec[f"{kv}_device_ms"] = device_ms[kv]
-        rec[f"{kv}_device_busy_share"] = (
-            [device_ms[kv] / 1e3 / w for w in walls[kv]]
-            if device_ms[kv] else None)
         rec[f"{kv}_pool_bytes"] = pool_bytes(cbs[kv])
     rec["new_tokens"] = new_tokens
     rec["pool_bytes_ratio"] = rec["int8_pool_bytes"] / rec["bf16_pool_bytes"]
@@ -1771,10 +1923,14 @@ def _kernel_group(name: str) -> str:
 
 def device_time(torch, prof):
     """``(total_us, {group: [launches, us]}, top kernels)`` from a
-    profile's device-side events."""
+    profile's device-side events (not the device-timeline mirror of a
+    graph replay's span, which covers the replay's kernels)."""
+    from distributed_compute_pytorch_tpu_torch.utils.graphs import (
+        REPLAY_SPAN)
     kernels = {}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.key == REPLAY_SPAN):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -1791,40 +1947,230 @@ def device_time(torch, prof):
     return total_us, groups, top
 
 
-def profile_phase(torch, np, serve, model, dt, wall_s):
-    """The same serve run once more under ``torch.profiler``: device time
-    by kernel group and the top kernels. ``device_busy_share`` is the
-    kernels' summed device time over the UNPROFILED run's wall time
-    ``wall_s`` (one stream, so kernels do not overlap); the profiler slows
-    the host, not the kernels."""
+# the port's kernels as the profiler names them, e.g. ``(anonymous
+# namespace)::paged_decode_write_kernel<__nv_bfloat16, signed char, 1,
+# 8>(...)``: the name, the tensor-core suffix, the template arguments
+PORT_KERNEL = re.compile(r"\b(\w+?)(_tc)?_kernel(?:<([^>]*)>)?\(")
+PORT_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_adamw",
+                "kv_pool_insert", "kv_pool_insert_q8", "kv_insert",
+                "kv_insert_q8", "paged_decode", "paged_decode_write",
+                "dense_decode", "dense_decode_write")
+# one kernel serves the three dense writes of a form (``csrc/kv_insert.cu``)
+DENSE_WRITES = ("kv_insert", "kv_insert_rows", "cache_insert")
+
+
+def device_launches(torch, prof) -> dict:
+    """The port's kernel launches the device ran in a profile (every
+    kernel event, those of graph replays included), keyed as
+    :func:`path_counts` keys the counters: a decode read or fused tick
+    whose cache type (its second template argument) is int8 (``signed
+    char``) counts as its ``_q8`` form, a tensor-core flash forward also
+    as ``flash_fwd_tc``."""
+    got: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = PORT_KERNEL.search(e.key)
+        if not m or m.group(1) not in PORT_KERNELS:
+            continue
+        name, tc, args = m.groups()
+        if name.startswith(("paged_decode", "dense_decode")) and args and \
+                args.split(",")[1].strip() == "signed char":
+            name += "_q8"
+        names = (name, name + "_tc") if tc else (name,)
+        for n in names:
+            got[n] = got.get(n, 0) + e.count
+    return got
+
+
+def path_counts(FA, CU, DA) -> dict:
+    """Every serving and generation counter (``q8_counts``) and the
+    tensor-core forward's, as the device's kernel events can tell them
+    apart: the three dense writes of a form summed into ``kv_insert`` /
+    ``kv_insert_q8``."""
+    c = {**q8_counts(FA, CU, DA), "flash_fwd_tc": FA.tc_launches}
+    for sfx in ("", "_q8"):
+        c["kv_insert" + sfx] = sum(c.pop(k + sfx) for k in DENSE_WRITES)
+    return c
+
+
+def counted_profile(torch, counters, fn, what, schedule):
+    """``fn()`` under the profiler (:func:`profile_run`) with every launch
+    counter set to 0 just before and read just after; those counts must
+    equal the device's kernel events in the profile
+    (:func:`device_launches`) and the schedule (``schedule``: the nonzero
+    counts, every other one 0). This measures a captured run's launches:
+    its replays' counts are added by ``Program.replay``, its kernels'
+    events come from the device. ``counters``: ``(FA, CU, DA)``. Returns
+    ``(profile, wall_s, counts)``, ``counts`` every counter of
+    ``q8_counts`` with ``flash_fwd_tc``."""
+    FA, CU, DA = counters
+    zero_q8_counts(FA, CU, DA)
+    prof, wall = profile_run(torch, fn)
+    counts = {**q8_counts(FA, CU, DA), "flash_fwd_tc": FA.tc_launches}
+    counted = path_counts(FA, CU, DA)
+    want = {k: 0 for k in counted}
+    want.update(schedule)
+    device = {k: 0 for k in counted}
+    device.update(device_launches(torch, prof))
+    require(counted == want, f"{what}: launches {counted} != the schedule's "
+                             f"{want}")
+    require(device == counted, f"{what}: the device ran {device}, the "
+                               f"counters say {counted}")
+    return prof, wall, counts
+
+
+def profile_run(torch, fn):
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA activities), to a
+    synchronize: ``(profile, wall_s)``."""
     from torch.profiler import ProfilerActivity, profile
-    reqs = serve_requests(np, serve, model.config.vocab_size)
-    cb = batcher(serve, model)
-    cb.serve(reqs[:2])
-    ticks0 = cb.ticks
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        cb.serve(reqs)
+        fn()
         torch.cuda.synchronize()
-        wall_prof = time.monotonic() - t0
+        wall = time.monotonic() - t0
+    return prof, wall
+
+
+# the host's CUDA API calls (runtime `cuda*`, low-level `cu*`) among a
+# profile's CPU events
+HOST_CALL = re.compile(r"^cu(da)?[A-Z]\w*$")
+
+
+def host_calls(torch, prof) -> dict:
+    """The host's CUDA API calls in a profile, counted from its CPU events
+    (``cuda*``/``cu*``): ``calls`` by name; ``kernel_launches`` (every
+    ``*LaunchKernel*`` call) and ``graph_launches`` (``*GraphLaunch*``) in
+    all and inside the graph replays' spans (``utils/graphs.py``'s
+    ``REPLAY_SPAN``; the profiler mirrors each span on the device's
+    timeline, which is not counted), and the spans' count."""
+    from distributed_compute_pytorch_tpu_torch.utils.graphs import (
+        REPLAY_SPAN)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CPU]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == REPLAY_SPAN)
+    starts = [s for s, _ in spans]
+    calls, inside = {}, {}
+    for e in events:
+        if not HOST_CALL.match(e.name):
+            continue
+        calls[e.name] = calls.get(e.name, 0) + 1
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start <= spans[i][1]:
+            inside[e.name] = inside.get(e.name, 0) + 1
+
+    def count(d, kind):
+        return sum(n for k, n in d.items() if kind in k)
+    return {"calls": calls, "replays": len(spans),
+            "kernel_launches": count(calls, "LaunchKernel"),
+            "graph_launches": count(calls, "GraphLaunch"),
+            "kernel_launches_in_replays": count(inside, "LaunchKernel"),
+            "graph_launches_in_replays": count(inside, "GraphLaunch")}
+
+
+def profile_summary(torch, prof, wall_prof, launches, ticks, units, unit,
+                    walls):
+    """A profiled run's device time by kernel group, device ops a tick,
+    host calls a ``unit`` (segment or tick; ``units`` in the run), the
+    device busy share of each UNPROFILED run of the same work (``walls``:
+    the kernels' device time over its wall; one stream, so kernels do not
+    overlap; the profiler slows the host, not the kernels), and the run's
+    kernel launches as :func:`counted_profile` measured them
+    (``launches``)."""
     total_us, groups, top = device_time(torch, prof)
-    ticks = cb.ticks - ticks0
     ops = sum(n for n, _ in groups.values())
+    host = host_calls(torch, prof)
     return {
-        "phase": "serve_profile", "dtype": dt, "requests": len(reqs),
-        "ticks": ticks, "wall_s_profiled": wall_prof,
-        "wall_s_unprofiled": wall_s,
+        "ticks": ticks, f"{unit}s": units, "wall_s_profiled": wall_prof,
+        "launches": launches, "launches_measured": "counters zeroed just "
+        "before this profiled run, equal to its device kernel events and "
+        "the schedule (gated)",
+        "wall_s_unprofiled": walls,
         "device_ms": total_us / 1e3 if total_us else None,
-        "device_busy_share": (total_us / 1e6 / wall_s) if total_us else None,
+        "device_busy_share": ([total_us / 1e6 / w for w in walls]
+                              if total_us else None),
         "device_ops": ops, "device_ops_per_tick": ops / ticks,
+        f"kernel_launch_calls_per_{unit}": host["kernel_launches"] / units,
+        f"graph_launch_calls_per_{unit}": host["graph_launches"] / units,
+        "host_calls": host,
         "groups_ms": {g: {"launches": n, "ms": us / 1e3}
                       for g, (n, us) in sorted(groups.items(),
                                                key=lambda kv: -kv[1][1])},
         "top_kernels": [{"name": name[:100], "launches": n, "ms": us / 1e3}
                         for name, (n, us) in top],
     }
+
+
+def check_host_calls(what, graph, eager, replays, ticks_per_replay):
+    """The captured run's profile (``graph``): one ``cudaGraphLaunch`` a
+    replay, ``replays`` of them and as many replay spans; against the eager
+    run of the same work (``eager``, where there is one), which makes no
+    graph launch: at least ``LAYERS`` fewer kernel launch calls for each
+    replayed tick (no decode tick's kernels go out one by one)."""
+    g = graph["host_calls"]
+    require(g["graph_launches"] == g["replays"] == replays,
+            f"{what}: {g['graph_launches']} cudaGraphLaunch calls in "
+            f"{g['replays']} replay spans, want one for each of {replays} "
+            f"replays")
+    if eager is None:
+        return
+    e = eager["host_calls"]
+    require(e["graph_launches"] == 0 and e["replays"] == 0,
+            f"{what}: the eager run launched graphs: {e}")
+    saved = e["kernel_launches"] - g["kernel_launches"]
+    require(saved >= LAYERS * replays * ticks_per_replay,
+            f"{what}: the captured run made {g['kernel_launches']} kernel "
+            f"launch calls, the eager one {e['kernel_launches']}: fewer "
+            f"than {LAYERS} saved a replayed tick")
+
+
+def profiled_serve(torch, counters, cb, reqs, what, q8, tc):
+    """``cb.serve(reqs)`` under :func:`counted_profile`, held to a serve
+    run's schedule: ``flash_fwd`` and the admission scatter 12 a wave, the
+    fused tick 12 a tick, in the int8 forms for an int8 pool (``q8``),
+    every forward on the tensor cores where ``tc``. Returns
+    ``(profile, wall_s, counts, ticks)``."""
+    waves0, ticks0 = cb.stats["prefill_calls"], cb.ticks
+    sched = {}
+
+    def run():
+        cb.serve(reqs)
+        waves = cb.stats["prefill_calls"] - waves0
+        sfx = "_q8" if q8 else ""
+        sched.update({"flash_fwd": LAYERS * waves,
+                      "flash_fwd_tc": LAYERS * waves if tc else 0,
+                      "kv_pool_insert" + sfx: LAYERS * waves,
+                      "paged_decode_write" + sfx:
+                          LAYERS * (cb.ticks - ticks0)})
+    prof, wall, counts = counted_profile(torch, counters, run, what, sched)
+    return prof, wall, counts, cb.ticks - ticks0
+
+
+def profile_phase(torch, np, mods, cbs, dt, walls):
+    """The serve run once more under ``torch.profiler`` on the captured
+    batcher and on the eager one: device time by kernel group, device ops
+    a tick, the host's CUDA calls a segment (one ``cudaGraphLaunch`` a
+    segment on the graph, gated), each unprofiled run's busy share, and
+    each run's launches measured (:func:`counted_profile`: the counters
+    equal the device's kernel events and the schedule, gated)."""
+    _, FA, CU, DA, serve = mods
+    reqs = serve_requests(np, serve, cbs["graph"].model.config.vocab_size)
+    rec = {"phase": "serve_profile", "dtype": dt, "requests": len(reqs)}
+    summaries = {}
+    for mode, cb in cbs.items():
+        prof, wall_prof, counts, ticks = profiled_serve(
+            torch, (FA, CU, DA), cb, reqs, f"serve_profile {dt} {mode}",
+            q8=False, tc=dt == "bf16")
+        summaries[mode] = profile_summary(torch, prof, wall_prof, counts,
+                                          ticks, ticks // cb.S, "segment",
+                                          walls[mode])
+    segments = summaries["graph"]["segments"]
+    check_host_calls(f"serve_profile {dt}", summaries["graph"],
+                     summaries["eager"], segments, cbs["graph"].S)
+    return {**rec, **summaries["graph"], "eager": summaries["eager"]}
 
 
 # ---- phases 6-7: generate ----------------------------------------------------
@@ -1869,14 +2215,41 @@ def teacher_forced_gaps(torch, A, model, lens, prompt, out, q8=False):
     return torch.stack(gaps), torch.stack(margins)
 
 
+def gen_fns(infer, model, kv_quant=False):
+    """Generation of ``GEN_NEW`` tokens with the captured tick (``graph``)
+    and with every tick eager on the card (``eager``, the private
+    ``_eager`` switch: the reference the captured tick is held to)."""
+    return {mode: infer.make_generate_fn(model, GEN_NEW, kv_quant=kv_quant,
+                                         _eager=mode == "eager")
+            for mode in TURNS[:2]}
+
+
+def check_gen_stats(fn, what, mode):
+    """A captured call captures once and replays every tick but the first
+    (its eager warm-up); an eager call neither captures nor replays."""
+    ticks = GEN_NEW - 1
+    want = (1, ticks - 1) if mode == "graph" else (0, 0)
+    got = (fn.stats["graph_captures"], fn.stats["graph_replays"])
+    require(got == want, f"{what} {mode}: (captures, replays) {got}, want "
+                         f"{want}")
+    return fn.stats["capture_ms"]
+
+
 def generate_phase(torch, np, infer, mods, model, dt):
-    """``infer.generate`` of the 16-prompt left-padded batch, greedy, after
-    a 2-token warm-up; the first token's (prefill's) time taken alone."""
+    """The 16-prompt left-padded batch, greedy, with the captured tick and
+    with the eager loop in turns (``TURNS``), after a 2-token warm-up; the
+    first token's (prefill's) time taken alone. Every run is counted (the
+    same launches for both; a captured run's are measured against the
+    device by ``generate_profile_phase``), its tokens must equal the first
+    run's bit for bit, and the first run's are checked teacher-forced. The
+    headline speed is the median of the graph runs; each run's allocator
+    calls are recorded beside its wall."""
     A, FA, CU, DA = mods
     lens, prompt_np, mask_np = gen_batch(np, model.config.vocab_size)
     prompt = torch.from_numpy(prompt_np).cuda()
     mask = torch.from_numpy(mask_np).cuda()
     T0 = prompt.shape[1]
+    fns = gen_fns(infer, model)
     infer.generate(model, prompt, 2, prompt_mask=mask)
     prefill_ms = []
     for _ in range(2):
@@ -1889,23 +2262,40 @@ def generate_phase(torch, np, infer, mods, model, dt):
         prefill_ms.append(1e3 * (time.perf_counter() - t0))
         del caches, logits
     prefill_ms = min(prefill_ms)
-    torch.cuda.reset_peak_memory_stats()
-    zero_gen_counts(FA, CU, DA)
-    t0 = time.perf_counter()
-    out = infer.generate(model, prompt, GEN_NEW, prompt_mask=mask)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = gen_counts(FA, CU, DA)
     ticks = GEN_NEW - 1
-    want = {k: 0 for k in launches}
-    want.update(flash_fwd=LAYERS, dense_decode_write=LAYERS * ticks)
-    require(launches == want, f"generate {dt}: launches {launches} != the "
-                              f"schedule's {want}")
-    tc = FA.tc_launches
-    want_tc = LAYERS if dt == "bf16" else 0
-    require(tc == want_tc, f"generate {dt}: flash_fwd tensor-core launches "
-                           f"{tc}, want {want_tc}")
-    out = out.cpu()
+    walls = {mode: [] for mode in fns}
+    allocs = {mode: [] for mode in fns}
+    capture_ms, counted, out = [], {}, None
+    for run, mode in enumerate(TURNS):
+        torch.cuda.reset_peak_memory_stats()
+        zero_gen_counts(FA, CU, DA)
+        torch.cuda.synchronize()
+        a0 = alloc_stats(torch)
+        t0 = time.perf_counter()
+        got = fns[mode](prompt, prompt_mask=mask)
+        torch.cuda.synchronize()
+        walls[mode].append(time.perf_counter() - t0)
+        allocs[mode].append(alloc_delta(torch, a0))
+        launches = gen_counts(FA, CU, DA)
+        want = {k: 0 for k in launches}
+        want.update(flash_fwd=LAYERS, dense_decode_write=LAYERS * ticks)
+        require(launches == want, f"generate {dt} {mode}: launches "
+                                  f"{launches} != the schedule's {want}")
+        tc = FA.tc_launches
+        want_tc = LAYERS if dt == "bf16" else 0
+        require(tc == want_tc, f"generate {dt}: flash_fwd tensor-core "
+                               f"launches {tc}, want {want_tc}")
+        ms = check_gen_stats(fns[mode], f"generate {dt}", mode)
+        if ms is not None:
+            capture_ms.append(ms)
+        counted.setdefault(mode, (launches, tc))
+        got = got.cpu()
+        if out is not None:
+            require(torch.equal(got, out), f"generate {dt}: the {mode} run "
+                                           f"(turn {run}) gave other tokens "
+                                           f"than the graph's first run")
+            continue
+        out, peak = got, torch.cuda.max_memory_allocated()
     require(tuple(out.shape) == (GEN_ROWS, T0 + GEN_NEW)
             and torch.equal(out[:, :T0], prompt.cpu()),
             f"generate {dt}: output {tuple(out.shape)} does not extend the "
@@ -1916,20 +2306,40 @@ def generate_phase(torch, np, infer, mods, model, dt):
                                  f"is {worst} below the teacher-forced max "
                                  f"(margin {MARGIN[dt]})")
     new_tokens = GEN_ROWS * GEN_NEW
+    wall = statistics.median(walls["graph"])
+    launches, tc = counted["eager"]
     return {
         "phase": "generate", "dtype": dt, "model": "gpt2-small (12 x 768, "
         "vocab 50257), random weights seed 0", "rows": GEN_ROWS,
         "prompt_lengths": [int(n) for n in lens], "T0": T0,
         "t_max": T0 + GEN_NEW, "new_per_row": GEN_NEW, "greedy": True,
+        "headline": "wall_s, new_tokens_per_s and ms_per_tick: the median "
+                    "of the graph runs",
         "wall_s": wall, "new_tokens": new_tokens,
-        "new_tokens_per_s": new_tokens / wall,
+        "new_tokens_per_s": statistics.median(new_tokens / w
+                                              for w in walls["graph"]),
         "first_token_ms": prefill_ms,
-        "ms_per_tick": (1e3 * wall - prefill_ms) / ticks, "ticks": ticks,
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches, "flash_fwd_tensor_core_launches": tc,
+        "ms_per_tick": statistics.median((1e3 * w - prefill_ms) / ticks
+                                         for w in walls["graph"]),
+        "ticks": ticks,
+        "peak_memory_gb": peak / 1e9,
+        "launches": launches,
+        "launches_from": "the first eager run (counted at each launch; the "
+                         "captured run's, measured against the device, are "
+                         "generate_profile's)",
+        "flash_fwd_tensor_core_launches": tc,
         "teacher_forced_worst_gap": worst,
         "teacher_forced_mean_gap": gaps.mean().item(), "margin": MARGIN[dt],
-    }, (lens, prompt, mask, out)
+        "turns": list(TURNS), "graph_capture_ms": capture_ms,
+        "graph_replays_per_run": ticks - 1,
+        "graph_eager_tokens_identical": True,
+        **{f"{mode}_new_tokens_per_s": [new_tokens / w for w in ws]
+           for mode, ws in walls.items()},
+        **{f"{mode}_ms_per_tick": [(1e3 * w - prefill_ms) / ticks
+                                   for w in ws]
+           for mode, ws in walls.items()},
+        **{f"{mode}_allocator_calls": allocs[mode] for mode in allocs},
+    }, (lens, prompt, mask, out), fns, walls
 
 
 def sampled_phase(torch, np, infer, A, model, batch):
@@ -1962,6 +2372,8 @@ def sampled_phase(torch, np, infer, A, model, batch):
             differ.append(i)
     return {"phase": "generate_sampled", "dtype": "f32", "new_per_row": n,
             "settings": kw, "repeat_identical": True,
+            "sampled_ticks": "eager (a sampled tick draws from the "
+                             "caller's torch.Generator; not captured)",
             "top_k1_rows_equal_greedy": GEN_ROWS - len(differ),
             "top_k1_rows_differing_at_a_tie": differ,
             "sampled_tokens_differ_from_greedy": int(
@@ -1970,30 +2382,39 @@ def sampled_phase(torch, np, infer, A, model, batch):
 
 def generate_int8_phase(torch, np, infer, mods, model, float_out):
     """The generate phase's 16 left-padded prompts, bf16, with the int8 KV
-    cache (``kv_quant=True``) beside the float cache in turns (float,
-    int8, int8, float): the int8 runs' launch counts (``kv_insert`` and
-    ``dense_decode`` in their int8 forms 12 x 127 each, ``flash_fwd`` 12,
-    nothing else), every token checked teacher-forced with the rows past
-    the prompt reading quantized K/V, both caches' bytes."""
+    cache (``kv_quant=True``), captured and eager, beside the float cache
+    captured, in turns (``RUNS8``): every int8 run's launch counts
+    (``dense_decode_write_q8`` 12 x 127, ``flash_fwd`` 12, nothing else),
+    every int8 run's tokens equal to the captured first int8 run's and
+    those checked teacher-forced with the rows past the prompt reading
+    quantized K/V, every float run's the generate phase's; both caches'
+    bytes; one profiled run of the int8 cache captured and eager, its
+    launches measured (``profiled_generate``)."""
     A, FA, CU, DA = mods
     lens, prompt_np, mask_np = gen_batch(np, model.config.vocab_size)
     prompt = torch.from_numpy(prompt_np).cuda()
     mask = torch.from_numpy(mask_np).cuda()
     T0 = prompt.shape[1]
     infer.generate(model, prompt, 2, prompt_mask=mask, kv_quant=True)
-    walls = {"bf16": [], "int8": []}
+    fns = {label(kv, mode): fn for kv in ("bf16", "int8")
+           for mode, fn in gen_fns(infer, model, kv == "int8").items()}
+    walls = {label(kv, mode): [] for kv, mode in RUNS8}
     rec = {"phase": "generate_int8", "dtype": "bf16", "rows": GEN_ROWS,
            "T0": T0, "t_max": T0 + GEN_NEW, "new_per_row": GEN_NEW,
-           "greedy": True}
+           "greedy": True, "runs": [label(kv, mode) for kv, mode in RUNS8]}
     ticks = GEN_NEW - 1
-    for run, kv in enumerate(("bf16", "int8", "int8", "bf16")):
+    capture_ms, int8_out = {}, None
+    for kv, mode in RUNS8:
+        name = label(kv, mode)
         zero_q8_counts(FA, CU, DA)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = infer.generate(model, prompt, GEN_NEW, prompt_mask=mask,
-                             kv_quant=kv == "int8")
+        out = fns[name](prompt, prompt_mask=mask)
         torch.cuda.synchronize()
-        walls[kv].append(time.perf_counter() - t0)
+        walls[name].append(time.perf_counter() - t0)
+        ms = check_gen_stats(fns[name], f"generate_int8 {kv}", mode)
+        if ms is not None:
+            capture_ms.setdefault(name, []).append(ms)
         out = out.cpu()
         if kv == "bf16":
             require(torch.equal(out, float_out), "generate_int8: the float "
@@ -2002,11 +2423,12 @@ def generate_int8_phase(torch, np, infer, mods, model, float_out):
         launches = q8_counts(FA, CU, DA)
         want = {k: 0 for k in launches}
         want.update(flash_fwd=LAYERS, dense_decode_write_q8=LAYERS * ticks)
-        require(launches == want, f"generate_int8: launches {launches} != "
-                                  f"the schedule's {want}")
-        if run == 2:
-            require(torch.equal(out, int8_out), "generate_int8: two int8 "
-                                                "runs gave different tokens")
+        require(launches == want, f"generate_int8 {mode}: launches "
+                                  f"{launches} != the schedule's {want}")
+        if int8_out is not None:
+            require(torch.equal(out, int8_out), f"generate_int8: the {mode} "
+                                                f"int8 run gave other tokens "
+                                                f"than the graph's first")
             continue
         int8_out = out
         gaps, _ = teacher_forced_gaps(torch, A, model, lens, prompt_np, out,
@@ -2023,44 +2445,53 @@ def generate_int8_phase(torch, np, infer, mods, model, float_out):
                    positions_agreeing_with_float_cache=(
                        (out[:, T0:] == float_out[:, T0:]).float().mean()
                        .item()))
+    summaries = {name: profile_summary(torch, *profiled_generate(
+        torch, (FA, CU, DA), lambda: fns[name](prompt, prompt_mask=mask),
+        f"generate_int8 profile {name}", q8=True), ticks, ticks, "tick",
+        walls[name]) for name in ("int8", "int8_eager")}
+    check_host_calls("generate_int8", summaries["int8"],
+                     summaries["int8_eager"], ticks - 1, 1)
     hk, hd = model.kv_cache_spec()
     slots = 2 * GEN_ROWS * hk * (T0 + GEN_NEW) * LAYERS
     rec.update(
-        {f"{kv}_wall_s": walls[kv] for kv in walls},
-        **{f"{kv}_new_tokens_per_s": [GEN_ROWS * GEN_NEW / w
-                                      for w in walls[kv]] for kv in walls},
+        {f"{name}_wall_s": walls[name] for name in walls},
+        **{f"{name}_new_tokens_per_s": [GEN_ROWS * GEN_NEW / w
+                                        for w in walls[name]]
+           for name in walls},
+        **{f"{name}_profile": s for name, s in summaries.items()},
+        int8_graph_eager_tokens_identical=True, graph_capture_ms=capture_ms,
+        graph_replays_per_run=ticks - 1,
         bf16_cache_bytes=slots * hd * 2, int8_cache_bytes=slots * (hd + 4))
     return rec
 
 
-def generate_profile_phase(torch, infer, model, batch, wall_s):
-    """The bf16 generate once more under ``torch.profiler``: device time by
-    kernel group, and ``device_busy_share``, the kernels' device time over
-    the UNPROFILED run's wall time ``wall_s``."""
-    from torch.profiler import ProfilerActivity, profile
+def profiled_generate(torch, counters, fn, what, q8):
+    """``fn()``, a bf16 generate call, under :func:`counted_profile`, held
+    to its schedule: the prefill's 12 tensor-core ``flash_fwd`` launches
+    and the fused tick (its int8 form where ``q8``) 12 a tick."""
+    sfx = "_q8" if q8 else ""
+    return counted_profile(torch, counters, fn, what, {
+        "flash_fwd": LAYERS, "flash_fwd_tc": LAYERS,
+        "dense_decode_write" + sfx: LAYERS * (GEN_NEW - 1)})
+
+
+def generate_profile_phase(torch, counters, fns, batch, walls):
+    """The bf16 generate once more under ``torch.profiler`` with the
+    captured tick and with the eager loop: device time by kernel group,
+    device ops a tick, the host's CUDA calls a tick (one
+    ``cudaGraphLaunch`` a replayed tick, gated), each unprofiled run's
+    busy share, and each run's launches measured
+    (:func:`profiled_generate`)."""
     _, prompt, mask, _ = batch
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        infer.generate(model, prompt, GEN_NEW, prompt_mask=mask)
-        torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t0
-    total_us, groups, top = device_time(torch, prof)
-    ops = sum(n for n, _ in groups.values())
-    return {
-        "phase": "generate_profile", "dtype": "bf16",
-        "ticks": GEN_NEW - 1, "wall_s_profiled": wall_prof,
-        "wall_s_unprofiled": wall_s,
-        "device_ms": total_us / 1e3 if total_us else None,
-        "device_busy_share": (total_us / 1e6 / wall_s) if total_us else None,
-        "device_ops": ops, "device_ops_per_tick": ops / (GEN_NEW - 1),
-        "groups_ms": {g: {"launches": n, "ms": us / 1e3}
-                      for g, (n, us) in sorted(groups.items(),
-                                               key=lambda kv: -kv[1][1])},
-        "top_kernels": [{"name": name[:100], "launches": n, "ms": us / 1e3}
-                        for name, (n, us) in top],
-    }
+    ticks = GEN_NEW - 1
+    summaries = {mode: profile_summary(torch, *profiled_generate(
+        torch, counters, lambda: fn(prompt, prompt_mask=mask),
+        f"generate_profile {mode}", q8=False), ticks, ticks, "tick",
+        walls[mode]) for mode, fn in fns.items()}
+    check_host_calls("generate_profile", summaries["graph"],
+                     summaries["eager"], ticks - 1, 1)
+    return {"phase": "generate_profile", "dtype": "bf16",
+            **summaries["graph"], "eager": summaries["eager"]}
 
 
 # ---- phases 8-11: train -------------------------------------------------------
@@ -2396,29 +2827,31 @@ def main() -> int:
         for dtype, dt in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             model = GPT2(GPT2Config.small(), dtype=dtype)
             model.load_state_dict(base.state_dict())
-            serves[dt], outs = serve_phase(torch, np, mods, model, dt)
+            serves[dt], outs, cbs, walls = serve_phase(torch, np, mods,
+                                                       model, dt)
             record(serves[dt])
             if dt == "bf16":
-                record(profile_phase(torch, np, serve, model, dt,
-                                     serves[dt]["wall_s"]))
+                serve_prof = profile_phase(torch, np, mods, cbs, dt, walls)
+                record(serve_prof)
                 float_served = outs
-            del model, outs
+            del model, outs, cbs
             torch.cuda.empty_cache()
 
         gens = {}
         for dtype, dt in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             model = GPT2(GPT2Config.small(), dtype=dtype)
             model.load_state_dict(base.state_dict())
-            gens[dt], batch = generate_phase(torch, np, infer,
-                                             (A, FA, CU, DA), model, dt)
+            gens[dt], batch, fns, walls = generate_phase(
+                torch, np, infer, (A, FA, CU, DA), model, dt)
             record(gens[dt])
             if dt == "bf16":
-                record(generate_profile_phase(torch, infer, model, batch,
-                                              gens[dt]["wall_s"]))
+                gen_prof = generate_profile_phase(torch, (FA, CU, DA), fns,
+                                                  batch, walls)
+                record(gen_prof)
                 float_generated = batch[3]
             else:
                 record(sampled_phase(torch, np, infer, A, model, batch))
-            del model, batch
+            del model, batch, fns
         torch.cuda.empty_cache()
 
         # the int8 KV cells after the float ones, so that those run as
@@ -2463,26 +2896,35 @@ def main() -> int:
             "kv_pool_insert", "paged_decode", "cache_insert", "kv_insert",
             "kv_insert_rows", "dense_decode", "paged_decode_write",
             "dense_decode_write")})
-        runs = (("serve bf16", serves["bf16"]["launches"]),
-                ("serve_int8 bf16", serve8["launches"]),
-                ("generate bf16", gens["bf16"]["launches"]),
-                ("generate_int8 bf16", gen8["launches"]),
+        # each kernel's launches on the main path: the captured runs'
+        # counts measured under the profiler (``counted_profile``: the
+        # counters zeroed just before, equal to the device's kernel events
+        # after), the eager train run's counted at its launches; a kernel
+        # no run launches reports 0
+        runs = (("serve bf16 captured, profiled", serve_prof["launches"]),
+                ("serve_int8 int8 captured, profiled",
+                 serve8["int8_profile"]["launches"]),
+                ("generate bf16 captured, profiled", gen_prof["launches"]),
+                ("generate_int8 int8 captured, profiled",
+                 gen8["int8_profile"]["launches"]),
                 ("train", train["launches"]))
         kernels = []
         for name, replaces in sources.items():
             r, r32 = results["bf16"][name], results["f32"][name]
             run, launches = next(((run, n[name]) for run, n in runs
-                                  if name in n), ("generate_int8 bf16", 0))
+                                  if n.get(name)), ("none", 0))
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": f"distributed_compute_pytorch_tpu_torch/csrc/"
                           f"{SOURCES.get(name, name)}.cu",
                 "replaces": replaces, "launches": launches,
                 "launches_from": run,
-                "serve_launches": serves["bf16"]["launches"].get(name),
-                "generate_launches": gens["bf16"]["launches"].get(name),
-                "serve_int8_launches": serve8["launches"].get(name),
-                "generate_int8_launches": gen8["launches"].get(name),
+                "serve_launches": serve_prof["launches"].get(name),
+                "generate_launches": gen_prof["launches"].get(name),
+                "serve_int8_launches":
+                    serve8["int8_profile"]["launches"].get(name),
+                "generate_int8_launches":
+                    gen8["int8_profile"]["launches"].get(name),
                 "train_launches": train["launches"].get(name),
                 "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
                 "tol": 0.0 if name in EXACT else TOL["bf16"],

@@ -6,14 +6,21 @@
   ``flash_fwd`` kernel on the card, with the prompt mask), capturing each
   layer's K/V into a fresh dense KV-pair cache ``{"kv": [2, B, Hk, t_max,
   hd]}`` in the model's dtype.
-- **Decode** is a Python loop over ``max_new_tokens - 1`` ticks (the
-  reference's ``lax.scan``). Each tick embeds one token per row, runs every
-  block's ``decode_step`` — the lockstep K/V write at the one slot ``pos``
-  and the dense read of slots ``0..pos``, in place on the cache and one
-  launch on the card (the fused ``dense_decode_write``) — and samples the
-  next token. The loop never waits for the device: ``pos`` is a 0-dim view of
-  one device ``arange`` made before the loop, the eos flags stay on the
-  device, and nothing is copied to the host until the tokens return.
+- **Decode** is ``max_new_tokens - 1`` ticks (the reference's
+  ``lax.scan``). Each tick embeds one token per row, runs every block's
+  ``decode_step`` — the lockstep K/V write at the one slot ``pos`` and the
+  dense read of slots ``0..pos``, in place on the cache and one launch on
+  the card (the fused ``dense_decode_write``) — samples the next token,
+  writes it into its column of the output and advances ``pos``. A tick
+  reads and writes static device buffers made before the first tick: the
+  caches, a 0-dim int32 ``pos``, the current token, the eos flags and the
+  ``[B, max_new_tokens]`` output. On CUDA a greedy call runs its first tick
+  eagerly (the capture's warm-up: kernels loaded, the decode reads' merge
+  scratch sized), captures the tick as a CUDA graph (``utils/graphs.py``)
+  and replays it for every other tick: one ``cudaGraphLaunch`` a tick. A
+  sampled tick draws from the caller's ``torch.Generator`` and stays eager.
+  On the CPU every tick runs eagerly. Nothing waits for the device until
+  the tokens return.
 
 Left-padded prompt batches (``prompt_mask``, 1 = real token) decode each
 row as it would alone: pad slots are masked out of the prefill
@@ -44,6 +51,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from distributed_compute_pytorch_tpu_torch.ops.decode_attention import (
+    merge_scratch)
+from distributed_compute_pytorch_tpu_torch.utils.graphs import capture
 from distributed_compute_pytorch_tpu_torch.utils.quantize import quantize_kv
 
 
@@ -144,7 +154,8 @@ def _check_prompt_mask(m: np.ndarray, shape) -> None:
 def make_generate_fn(model, max_new_tokens: int, *, t_max: int | None = None,
                      temperature: float = 0.0, eos_id: int | None = None,
                      top_k: int | None = None, top_p: float | None = None,
-                     mesh=None, kv_quant: bool = False):
+                     mesh=None, kv_quant: bool = False,
+                     _eager: bool = False):
     """Build ``generate(prompt [B, T0], generator=None, prompt_mask=None)
     -> tokens [B, T0 + max_new_tokens]`` for ``model`` (reference
     ``:260-459``), with the reference's checks and messages.
@@ -154,7 +165,12 @@ def make_generate_fn(model, max_new_tokens: int, *, t_max: int | None = None,
     the fixed-shape output (callers trim at the first eos). ``generator``:
     a ``torch.Generator`` on the model's device (default: seed 0), used
     only when ``temperature > 0``. ``kv_quant``: the int8 KV cache (see
-    :func:`prefill`)."""
+    :func:`prefill`). ``_eager``: decode every tick eagerly on the card too
+    (the reference the card's checks hold the captured tick to).
+
+    The returned function keeps its last call's graph in ``stats``:
+    ``{"graph_captures", "graph_replays", "capture_ms"}`` (0, 0, ``None``
+    for an eager call; ``stats`` is set by the first call)."""
     if max_new_tokens < 0:
         raise ValueError(f"max_new_tokens must be >= 0, got {max_new_tokens}")
     if mesh is not None:
@@ -194,6 +210,8 @@ def make_generate_fn(model, max_new_tokens: int, *, t_max: int | None = None,
             _check_prompt_mask(np.asarray(torch.as_tensor(prompt_mask).cpu()),
                                prompt.shape)
             prompt_mask = torch.as_tensor(prompt_mask, device=dev)
+        generate.stats = {"graph_captures": 0, "graph_replays": 0,
+                          "capture_ms": None}
         if max_new_tokens == 0:
             return prompt
         if generator is None and temperature > 0.0:
@@ -212,28 +230,52 @@ def make_generate_fn(model, max_new_tokens: int, *, t_max: int | None = None,
             slot_mask = torch.cat(
                 [prompt_mask != 0,
                  torch.ones(B, tm - T0, dtype=torch.bool, device=dev)], dim=1)
+        # the tick's static buffers: the current token, the eos flags, the
+        # output columns, and the slot the tick writes (T0 + i at tick i),
+        # which the tick itself advances
         tok = _sample(last_logits, temperature, generator, top_k, top_p)
         done = None if eos_id is None else tok == eos_id
-        out = [tok]
-        # tick i writes slot T0 + i: one device arange, a 0-dim view a tick
-        slots = torch.arange(T0, T0 + max_new_tokens - 1, dtype=torch.int32,
-                             device=dev)
-        for i in range(max_new_tokens - 1):
-            pos = slots[i]
+        out = torch.empty(B, max_new_tokens, dtype=torch.long, device=dev)
+        out[:, 0] = tok
+        pos = torch.full((), T0, dtype=torch.int32, device=dev)
+        scratch: dict = {}
+
+        def tick():
             # each row's LOGICAL position: left pads shift it down
             positions = (pos.reshape(1, 1) if pad_count is None
                          else (pos - pad_count)[:, None])
             x = model.embed(tok[:, None], positions)
-            for block, cache in zip(model.blocks, caches):
-                x, _ = block.decode_step(x, cache, pos, slot_mask=slot_mask)
-            tok = _sample(model.readout(x)[:, -1], temperature, generator,
+            with merge_scratch(scratch):
+                for block, cache in zip(model.blocks, caches):
+                    x, _ = block.decode_step(x, cache, pos,
+                                             slot_mask=slot_mask)
+            nxt = _sample(model.readout(x)[:, -1], temperature, generator,
                           top_k, top_p)
             if done is not None:
                 # finished rows keep emitting eos (callers trim at eos)
-                tok = torch.where(done, eos_id, tok)
-                done = done | (tok == eos_id)
-            out.append(tok)
-        return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+                nxt = torch.where(done, eos_id, nxt)
+                done.logical_or_(nxt == eos_id)
+            tok.copy_(nxt)
+            out.index_copy_(1, (pos - (T0 - 1)).long().reshape(1),
+                            nxt[:, None])
+            pos.add_(1)
+
+        ticks = max_new_tokens - 1
+        graphed = (dev.type == "cuda" and not _eager and temperature == 0.0
+                   and ticks > 1)
+        program = None
+        for _ in range(ticks):
+            if program is not None:
+                program.replay()
+                continue
+            tick()
+            if graphed:
+                program = capture(tick)
+        if program is not None:
+            generate.stats = {"graph_captures": 1,
+                              "graph_replays": program.replays,
+                              "capture_ms": program.capture_ms}
+        return torch.cat([prompt, out], dim=1)
 
     return generate
 

@@ -89,10 +89,18 @@ def build_all() -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name`` (building every kernel first
-    if any library is missing)."""
+    if any library is missing). Raises if the first load would happen
+    inside a CUDA graph capture: a capture must find its kernels loaded."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            import torch
+            if (torch.cuda.is_available()
+                    and torch.cuda.is_current_stream_capturing()):
+                raise RuntimeError(
+                    f"CUDA kernel {name} first used inside a CUDA graph "
+                    f"capture: run the program once eagerly before "
+                    f"capturing it")
             if not _lib_path(name).exists():
                 build_all()
             lib = ctypes.CDLL(str(_lib_path(name)))

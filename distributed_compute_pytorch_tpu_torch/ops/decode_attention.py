@@ -30,7 +30,9 @@ Each read is one launch: the keys of a (row, kv head) are split over up
 to ``SMAX`` blocks, and the last of them to finish merges their partial
 softmax sums in split order before the launch ends
 (``csrc/decode_common.cuh``), through a scratch workspace and tickets
-kept for each (device, stream). ``split_plan`` reports the grid a read
+kept for each (device, stream), or in a store the caller keeps
+(:func:`merge_scratch`: a CUDA graph's reads). ``split_plan`` reports the
+grid a read
 takes at given shapes, which depends on the shapes alone.
 
 A decode tick writes its fresh K/V row and then reads, and the two are
@@ -54,6 +56,9 @@ count.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -96,19 +101,55 @@ SMAX, SPLIT_KEYS = 16, 256
 # brings), each sized to the largest read on its stream (at serving's
 # shapes, under 1 MB).
 _scratch: dict = {}
+# the store a ``merge_scratch`` block routes this thread's reads to
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def merge_scratch(store: dict):
+    """Inside the block, every decode read on this thread takes its merge
+    scratch from ``store`` (a dict the caller keeps: one entry a device)
+    instead of the per-stream scratch. A CUDA graph records the scratch's
+    addresses, so the graph's owner runs its reads once eagerly under its
+    store before the capture (the scratch is sized then: growing it, or
+    taking the per-stream scratch, inside a capture raises), and keeps the
+    store as long as the graph. Two graphs that may replay on two streams
+    at once need a store each."""
+    prev = getattr(_local, "store", None)
+    _local.store = store
+    try:
+        yield store
+    finally:
+        _local.store = prev
 
 
 def _merge_scratch(device, pairs: int, G: int, hd: int):
     """``(ws, tickets)`` for ``pairs`` (row, kv head) pairs of ``G`` query
-    heads of ``hd`` on the current stream of ``device``, grown as needed."""
-    key = (device.index, _build.stream_ptr(device))
-    ws, tickets = _scratch.get(key, (None, None))
+    heads of ``hd`` on the current stream of ``device`` (or from the
+    :func:`merge_scratch` store in force), grown as needed."""
+    store = getattr(_local, "store", None)
+    capturing = torch.cuda.is_current_stream_capturing()
+    if store is None:
+        if capturing:
+            raise RuntimeError("a decode read inside a CUDA graph capture "
+                               "needs a scratch of its own: capture it "
+                               "under decode_attention.merge_scratch")
+        store, key = _scratch, (device.index, _build.stream_ptr(device))
+    else:
+        key = device.index
+    ws, tickets = store.get(key, (None, None))
     n = pairs * SMAX * G * (hd + 2)
-    if ws is None or ws.numel() < n:
+    grow_ws = ws is None or ws.numel() < n
+    grow_tickets = tickets is None or tickets.numel() < pairs
+    if capturing and (grow_ws or grow_tickets):
+        raise RuntimeError("a decode read's merge scratch must be sized "
+                           "before a CUDA graph capture: run the program "
+                           "once eagerly under the same merge_scratch store")
+    if grow_ws:
         ws = torch.empty(n, dtype=torch.float32, device=device)
-    if tickets is None or tickets.numel() < pairs:
+    if grow_tickets:
         tickets = torch.zeros(pairs, dtype=torch.int32, device=device)
-    _scratch[key] = ws, tickets
+    store[key] = ws, tickets
     return ws, tickets
 
 

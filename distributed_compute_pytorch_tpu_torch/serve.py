@@ -41,6 +41,18 @@ ticks while finished rows take the next queued request:
   completion is host-known; an eos'd row burns at most the one segment
   in flight, whose late writes land in blocks the next admission
   overwrites or in slots past any live position.
+- **The segment as one CUDA graph** (the reference jits ``_segment_impl``,
+  a ``lax.scan`` of ticks). A segment reads and writes static device
+  buffers made once per batcher: the block tables, each row's last written
+  slot, the carried current token and logical position (rewritten in
+  place by each segment and by admission) and the segment's tokens. On
+  CUDA the batcher's first segment runs eagerly (the capture's warm-up:
+  kernels loaded, the decode reads' merge scratch sized), the second
+  dispatch captures the segment (``utils/graphs.py``) and replays it, and
+  every later dispatch, in this ``serve`` call or a later one, fills the
+  table and position buffers by non-blocking copies and replays: one
+  ``cudaGraphLaunch`` a segment. The admission wave stays eager (its width
+  varies). On the CPU every segment runs eagerly over the same buffers.
 
 Admission is strict FIFO: a free row always takes the queue head. A
 request whose segment-rounded budget can never fit a row would block the
@@ -66,6 +78,9 @@ from distributed_compute_pytorch_tpu_torch.device import resolve_device
 from distributed_compute_pytorch_tpu_torch.kv_pool import BlockPool
 from distributed_compute_pytorch_tpu_torch.ops.cache_update import (
     kv_pool_insert)
+from distributed_compute_pytorch_tpu_torch.ops.decode_attention import (
+    merge_scratch)
+from distributed_compute_pytorch_tpu_torch.utils.graphs import capture
 
 # the reference's default block size for float pools (its Pallas slot
 # window); the CUDA kernels take any block size, int8 pools too (the
@@ -127,7 +142,8 @@ class _Fetch:
             self._event = torch.cuda.Event()
             self._event.record()
         else:
-            self._host, self._event = toks, None
+            # the CPU runs the copy now; the next segment reuses ``toks``
+            self._host, self._event = toks.clone(), None
 
     def result(self) -> np.ndarray:
         if self._event is not None:
@@ -223,10 +239,25 @@ class ContinuousBatcher:
              **({"scale": torch.zeros(*shape, 1, device=self.device)}
                 if kv_dtype == "int8" else {})}
             for _ in model.blocks]
-        self._cur_tok = torch.zeros(slots, dtype=torch.long,
-                                    device=self.device)
-        self._n_logical = torch.zeros(slots, dtype=torch.long,
-                                      device=self.device)
+        # the segment's static buffers, at the addresses a captured segment
+        # reads and writes on every replay: the block tables and each row's
+        # last written slot (filled before each dispatch), the carried
+        # current token and logical position (rewritten in place by each
+        # segment and by admission), the segment's tokens
+        dev = self.device
+        self._tables_dev = torch.zeros(slots, self.nb, dtype=torch.int32,
+                                       device=dev)
+        self._pos0 = torch.zeros(slots, dtype=torch.int32, device=dev)
+        self._cur_tok = torch.zeros(slots, dtype=torch.long, device=dev)
+        self._n_logical = torch.zeros(slots, dtype=torch.long, device=dev)
+        self._toks = torch.zeros(slots, segment, dtype=torch.long, device=dev)
+        # on CUDA the segment is captured at the second dispatch (False: the
+        # eager loop on the card, the reference the card's checks hold the
+        # graph to); the captured segment (``graphs.Program``); the merge
+        # scratch of its decode reads
+        self._capture = dev.type == "cuda"
+        self._graph = None
+        self._scratch: dict = {}
         self._pool = BlockPool(pool_blocks)
         self._tables = np.full((slots, self.nb), BlockPool.TRASH, np.int32)
         # per-row slot of the last written token (host-tracked: admission
@@ -234,7 +265,9 @@ class ContinuousBatcher:
         # every row by S; parked rows sit at 0 writing into trash)
         self._row_pos = [0] * slots
         self.ticks = 0
-        self.stats = {"prefill_calls": 0, "fetches_overlapped": 0}
+        self.stats = {"prefill_calls": 0, "fetches_overlapped": 0,
+                      "eager_segments": 0, "graph_captures": 0,
+                      "graph_replays": 0}
         self.last_slot_leaks = 0   # rows still owned at serve() exit
         self.last_block_leaks = 0  # pool refs unaccounted at serve() exit
         self.last_ttft_s: list = []  # per request: serve start -> 1st token
@@ -250,6 +283,16 @@ class ContinuousBatcher:
         if self.device.type == "cpu":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _fill(self, dst: torch.Tensor, a: np.ndarray) -> None:
+        """Copy a host array into the device buffer ``dst`` in place
+        without waiting for the card (on CUDA through a fresh pinned buffer,
+        ``non_blocking``, as :meth:`_to_device`), ordered on the stream
+        before the dispatch that reads it."""
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        dst.copy_(t, non_blocking=True)
 
     def _prefill_wave(self, entries):
         """ONE multi-row prefill of ``entries`` ``(row, tokens)``: every
@@ -300,26 +343,46 @@ class ContinuousBatcher:
                            blk, off, scale=cache.get("scale"))
 
     def _segment(self, tables, positions0) -> torch.Tensor:
-        """``S`` greedy decode ticks for every row at its OWN position
-        (``positions0 [B]`` = each row's last written slot; tick ``i``
-        writes slot ``positions0 + 1 + i``). Returns the ``[B, S]`` tokens
-        on the device (reference ``_segment_impl``; its ``lax.scan`` is a
-        loop here)."""
+        """Dispatch ``S`` greedy decode ticks for every row at its OWN
+        position (``positions0 [B]`` = each row's last written slot; tick
+        ``i`` writes slot ``positions0 + 1 + i``). Returns the static ``[B,
+        S]`` token buffer, which the next dispatch overwrites (reference
+        ``_segment_impl``). On CUDA the batcher's first segment runs
+        eagerly, the second is captured as a CUDA graph, and it and every
+        later one replay it; a failed capture or replay raises."""
+        self._fill(self._tables_dev, tables)
+        self._fill(self._pos0, np.asarray(positions0, np.int32))
+        if self._graph is None:
+            if not (self._capture and self.stats["eager_segments"]):
+                self._decode_segment()
+                self.stats["eager_segments"] += 1
+                return self._toks
+            self._graph = capture(self._decode_segment)
+            self.stats["graph_captures"] += 1
+        self._graph.replay()
+        self.stats["graph_replays"] += 1
+        return self._toks
+
+    def _decode_segment(self) -> None:
+        """The segment's work over the static buffers (the captured
+        program): ``S`` ticks, then the carried token and logical position
+        and the ``[B, S]`` tokens written in place."""
         model = self.model
-        tables = self._to_device(tables)
-        positions0 = self._to_device(np.array(positions0, np.int32))
         tok, n_log = self._cur_tok, self._n_logical
         out = []
-        for i in range(self.S):
-            pos = positions0 + (1 + i)
-            x = model.embed(tok[:, None], n_log[:, None])
-            for block, cache in zip(model.blocks, self._caches):
-                x, _ = block.decode_step(x, {**cache, "table": tables}, pos)
-            tok = torch.argmax(model.readout(x)[:, -1], dim=-1)
-            n_log = n_log + 1
-            out.append(tok)
-        self._cur_tok, self._n_logical = tok, n_log
-        return torch.stack(out, dim=1)
+        with merge_scratch(self._scratch):
+            for i in range(self.S):
+                pos = self._pos0 + (1 + i)
+                x = model.embed(tok[:, None], n_log[:, None])
+                for block, cache in zip(model.blocks, self._caches):
+                    x, _ = block.decode_step(
+                        x, {**cache, "table": self._tables_dev}, pos)
+                tok = torch.argmax(model.readout(x)[:, -1], dim=-1)
+                n_log = n_log + 1
+                out.append(tok)
+        self._cur_tok.copy_(tok)
+        self._n_logical.copy_(n_log)
+        torch.stack(out, dim=1, out=self._toks)
 
     # ---- host scheduler --------------------------------------------------
 
@@ -440,6 +503,10 @@ class ContinuousBatcher:
                 if b not in active:
                     tables_now[b, :] = BlockPool.TRASH
                     self._row_pos[b] = 0
+            # the fetch's copy of the static token buffer is queued on the
+            # stream right after this segment and before the next
+            # dispatch's fills and replay, which overwrite the buffer: the
+            # stream's order keeps segment N's tokens until they are copied
             fetch = _Fetch(self._segment(tables_now, self._row_pos))
             for b in range(self.B):
                 self._row_pos[b] += self.S

@@ -1178,3 +1178,121 @@ def test_fused_ticks_on_two_streams_at_once(dev, q8):
     for pc, dc in own:
         assert torch.equal(pc[0], first[0][0]) and torch.equal(dc[0],
                                                                 first[1][0])
+
+
+# ---- the captured decode programs (CUDA graphs) ----------------------------
+
+def _tiny_on_card(dev, dtype):
+    """GPT-2-tiny (positions lifted to 128) from seed 0, on the card in
+    ``dtype``."""
+    from distributed_compute_pytorch_tpu_torch.models.gpt2 import (
+        GPT2, GPT2Config)
+    cfg = GPT2Config(vocab_size=256, max_seq_len=128, num_layers=2,
+                     num_heads=4, d_model=64, d_ff=128)
+    cpu = GPT2(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = GPT2(cfg, device=dev, dtype=dtype)
+    gpu.load_state_dict(cpu.state_dict())
+    return gpu
+
+
+def _moved(before):
+    from distributed_compute_pytorch_tpu_torch.utils.graphs import (
+        launch_counts)
+    now = launch_counts()
+    return {(mod.__name__, name): now[(mod, name)] - n
+            for (mod, name), n in before.items() if now[(mod, name)] != n}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_captured_segment_matches_eager(dev, dtype, kv_dtype):
+    """Two serve calls on a batcher whose segment is captured and on one
+    kept eager (``_capture = False``): bit-identical tokens in each call;
+    the graph batcher runs its first segment eagerly, captures once and
+    replays every later segment, the second call too, without a new
+    capture; each call moves every launch counter as the eager one does (a
+    replay counts its launches: the fused tick 2 layers x ticks); both
+    calls, the capture included, run under
+    ``set_sync_debug_mode("error")``."""
+    from distributed_compute_pytorch_tpu_torch.serve import (
+        ContinuousBatcher, Request)
+    from distributed_compute_pytorch_tpu_torch.utils.graphs import (
+        launch_counts)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = _tiny_on_card(dev, dtype)
+    rng = np.random.default_rng(6)
+    calls = [[([int(x) for x in rng.integers(0, 256, rng.integers(1, 11))],
+               int(rng.integers(3, 10))) for _ in range(7)]
+             for _ in range(2)]
+    fused = ("distributed_compute_pytorch_tpu_torch.ops.decode_attention",
+             "write_q8_launches" if kv_dtype == "int8" else "write_launches")
+    runs = {}
+    for capture in (True, False):
+        cb = ContinuousBatcher(gpu, slots=2, t_max=128, prompt_buf=10,
+                               segment=3, kv_dtype=kv_dtype, device=dev)
+        cb._capture = capture
+        runs[capture] = []
+        for reqs in calls:
+            before, ticks0 = launch_counts(), cb.ticks
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                outs = cb.serve([Request(list(t), n) for t, n in reqs])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            moved = _moved(before)
+            assert moved[fused] == 2 * (cb.ticks - ticks0)
+            runs[capture].append((outs, moved))
+            assert cb.last_block_leaks == 0
+        segments = cb.ticks // 3
+        want = (1, 1, segments - 1) if capture else (segments, 0, 0)
+        assert (cb.stats["eager_segments"], cb.stats["graph_captures"],
+                cb.stats["graph_replays"]) == want
+    assert runs[True] == runs[False]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_captured_tick_matches_eager(dev, dtype, kv_quant):
+    """Greedy generation of a left-padded batch with the captured tick and
+    with the eager loop (``_eager=True``): bit-identical tokens, with and
+    without an eos, float and int8 caches; the captured call runs its first
+    tick eagerly, captures once and replays the other ticks, and moves
+    every launch counter as the eager one does (the fused tick 2 layers x
+    (N - 1))."""
+    from distributed_compute_pytorch_tpu_torch.infer import make_generate_fn
+    from distributed_compute_pytorch_tpu_torch.utils.graphs import (
+        launch_counts)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = _tiny_on_card(dev, dtype)
+    rng = np.random.default_rng(12)
+    lens, N = [9, 3, 40], 12
+    T0 = max(lens)
+    prompt = np.zeros((3, T0), np.int64)
+    mask = np.zeros((3, T0), np.int64)
+    for i, n in enumerate(lens):
+        prompt[i, T0 - n:] = rng.integers(0, 256, n)
+        mask[i, T0 - n:] = 1
+    fused = ("distributed_compute_pytorch_tpu_torch.ops.decode_attention",
+             "dense_write_q8_launches" if kv_quant
+             else "dense_write_launches")
+    eos_id = None
+    for _ in range(2):
+        out = {}
+        for eager in (True, False):
+            fn = make_generate_fn(gpu, N, eos_id=eos_id, kv_quant=kv_quant,
+                                  _eager=eager)
+            before = launch_counts()
+            out[eager] = fn(prompt, prompt_mask=mask).cpu()
+            moved = _moved(before)
+            assert moved[fused] == 2 * (N - 1)
+            out[eager] = (out[eager], moved)
+            want = (0, 0) if eager else (1, N - 2)
+            assert (fn.stats["graph_captures"],
+                    fn.stats["graph_replays"]) == want
+            assert (fn.stats["capture_ms"] is None) == eager
+        assert torch.equal(out[True][0], out[False][0])
+        assert out[True][1] == out[False][1]
+        eos_id = int(out[True][0][0, T0 + 1])   # row 0 emits it early
+    assert (out[True][0][0, T0 + 1:] == eos_id).all()
