@@ -112,24 +112,47 @@ imports nothing of JAX. Phases, one JSON line each:
    mode (launches measured as in 5), and both caches' bytes;
 9. train: GPT-2-small at full width and depth (dropout 0.1), bf16 compute
    over f32 masters, ``adamw_fused``, 20 steps on one 8 x 1024 batch
-   through ``train/step.py::make_step_fns``; the counters are zeroed just
-   before and read just after, and must equal 20 x (12, 12, 12, 1), with
-   every flash launch on the tensor-core kernels; the loss must fall
-   by at least 1 nat and stay finite;
-10. train_parity: f32, dropout 0, two layers at full width: the gradients
+   through ``train/step.py::make_step_fns``, the captured step (its first
+   update eager, the second captured, then replays) and the eager
+   reference (``_eager=True``) in turns (graph, eager, eager, graph), each
+   run from the same weights: every run's losses and final parameters,
+   moments and count must be bit-identical to the first's; in each run
+   the counters are zeroed just before and read just after, and must
+   equal 20 x (12, 12, 12, 1), with every flash launch on the tensor-core
+   kernels; every captured update from the second on (the capture and
+   each replay, with the batch copies before and the metric copies
+   after) runs under ``set_sync_debug_mode("error")``; the loss must fall
+   by at least 1 nat and stay finite. Step ms (headline: the captured
+   runs' median), tokens/s, capture ms, the graph pool's bytes and the
+   peak memory allocated and reserved of every run;
+10. train_profile: five more updates of each mode's last run under
+   ``torch.profiler``, the counters zeroed just before: they must equal
+   the port's kernel events the device ran and 5 x (12, 12, 12, 1); host
+   calls a step (captured: one ``cudaGraphLaunch`` a step, and inside a
+   replay no kernel launch call but the two ``fill_`` launches of the
+   dropout generator's prologue, gated), device time by group, ops a step
+   and the busy share of each unprofiled run;
+11. train_skip: ``nonfinite_policy="skip"`` on the captured step,
+   GPT-2-small as in 9, ``adamw_fused`` then ``adamw``: a replay with one
+   ``wte`` element of the masters set to inf reports ``skipped`` 1 and
+   leaves parameters, moments and count bit-identical; restored, the next
+   replays train;
+12. train_parity: f32, dropout 0, two layers at full width: the gradients
    of one step through the kernels against autograd of the dense math,
    and five steps' losses against the same steps with
-   ``fused_adamw_plain`` (f32: the backward's CUDA-core kernels);
-11. train_cli: the port's trainer CLI for one epoch of ``synthetic-lm``
-   at GPT-2-small widths, then ``--resume --epochs 2``;
-12. train_profile: five train steps under ``torch.profiler``.
+   ``fused_adamw_plain`` (f32: the backward's CUDA-core kernels); then
+   20 captured updates against 20 eager ones, bit-identical losses,
+   parameters, moments and count;
+13. train_cli: the port's trainer CLI for one epoch of ``synthetic-lm``
+   at GPT-2-small widths (the captured step), then ``--resume --epochs
+   2``.
 
 Then the ``{"kernels": [...]}`` line (launches from the profiled captured
 bf16 serve run for the serving kernels, from the profiled captured bf16
 generate run for the generation kernels, from the profiled captured int8
 runs of serve_int8 and generate_int8 for the int8 forms, each measured
-against the device's kernel events; from the train phase for the
-training kernels), the
+against the device's kernel events; from train_profile's captured run
+for the training kernels, measured the same way), the
 raw ``nvidia-smi`` line, and last the ``{"ok": true, ...}`` line. Any
 failed check exits non-zero before the ``ok`` line. Roofline bounds use
 the H100 SXM data-sheet peaks: 3.35 TB/s HBM, 989 TFLOP/s bf16 (tensor
@@ -141,6 +164,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import json
+import math
 import os
 import re
 import statistics
@@ -685,7 +709,9 @@ def check_flash_bwd(torch, np, FA, dtype, dt):
 def check_adamw(torch, FAW, GPT2, GPT2Config):
     """Every leaf of GPT-2-small (148 leaves, 124,439,808 f32 parameters)
     laid out by ``FusedAdamW.init`` as flat buffers; three steps of the
-    kernel against ``fused_adamw_plain`` on the same buffers."""
+    kernel against ``fused_adamw_plain`` on the same buffers, the step
+    scalars computed from the device count (which the kernel advances);
+    timed with the scalars of the count then reached."""
     model = GPT2(GPT2Config.small()).init(torch.Generator().manual_seed(5))
     params = dict(model.named_parameters())
     tx = FAW.fused_adamw(1e-3, weight_decay=0.01)
@@ -695,12 +721,16 @@ def check_adamw(torch, FAW, GPT2, GPT2Config):
     gen = torch.Generator(device="cuda").manual_seed(5)
     want = [state.params.clone(), state.mu.clone(), state.nu.clone()]
     grads = {k: p.grad for k, p in params.items()}
+    ok = torch.ones((), dtype=torch.bool, device="cuda")
     for _ in range(3):
         state.grads.copy_(torch.randn(n, generator=gen, device="cuda"))
         sc = tx.scalars(state.count)
-        want = list(FAW.fused_adamw_plain(state.grads, *want, **sc))
-        tx.fused_apply(grads, state, params)
+        want = list(FAW.fused_adamw_plain(state.grads, *want, sc, ok,
+                                          **tx.hyper))
+        tx.fused_apply(grads, state, params, ok)
     torch.cuda.synchronize()
+    require(int(state.count) == 3, f"adamw: device count {int(state.count)}"
+                                   f" after 3 updates")
     err = 0.0
     for name, got, w in zip(("p", "mu", "nu"),
                             (state.params, state.mu, state.nu), want):
@@ -710,9 +740,11 @@ def check_adamw(torch, FAW, GPT2, GPT2Config):
         err = max(err, (got - w).abs().max().item())
     sc = tx.scalars(state.count)
     ms = time_ms(torch, [lambda: FAW.fused_adamw_update(
-        state.grads, state.params, state.mu, state.nu, **sc)], iters=20)
+        state.grads, state.params, state.mu, state.nu, sc, state.count, ok,
+        **tx.hyper)], iters=20)
     plain_ms = time_ms(torch, [lambda: FAW.fused_adamw_plain(
-        state.grads, state.params, state.mu, state.nu, **sc)], iters=10)
+        state.grads, state.params, state.mu, state.nu, sc, ok,
+        **tx.hyper)], iters=10)
     leaves = [p.detach().clone().requires_grad_() for p in params.values()]
     for leaf, p in zip(leaves, params.values()):
         leaf.grad = p.grad.clone()
@@ -2045,7 +2077,8 @@ def host_calls(torch, prof) -> dict:
     ``*LaunchKernel*`` call) and ``graph_launches`` (``*GraphLaunch*``) in
     all and inside the graph replays' spans (``utils/graphs.py``'s
     ``REPLAY_SPAN``; the profiler mirrors each span on the device's
-    timeline, which is not counted), and the spans' count."""
+    timeline, which is not counted), the spans' count, and the PyTorch
+    ops (``aten::*``) inside the spans by name."""
     from distributed_compute_pytorch_tpu_torch.utils.graphs import (
         REPLAY_SPAN)
     events = [e for e in prof.events()
@@ -2053,13 +2086,19 @@ def host_calls(torch, prof) -> dict:
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
                    if e.name == REPLAY_SPAN)
     starts = [s for s, _ in spans]
-    calls, inside = {}, {}
+    calls, inside, ops_inside = {}, {}, {}
     for e in events:
-        if not HOST_CALL.match(e.name):
+        api = HOST_CALL.match(e.name)
+        if not api and not e.name.startswith("aten::"):
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        within = i >= 0 and e.time_range.start <= spans[i][1]
+        if not api:
+            if within:
+                ops_inside[e.name] = ops_inside.get(e.name, 0) + 1
             continue
         calls[e.name] = calls.get(e.name, 0) + 1
-        i = bisect.bisect_right(starts, e.time_range.start) - 1
-        if i >= 0 and e.time_range.start <= spans[i][1]:
+        if within:
             inside[e.name] = inside.get(e.name, 0) + 1
 
     def count(d, kind):
@@ -2068,7 +2107,8 @@ def host_calls(torch, prof) -> dict:
             "kernel_launches": count(calls, "LaunchKernel"),
             "graph_launches": count(calls, "GraphLaunch"),
             "kernel_launches_in_replays": count(inside, "LaunchKernel"),
-            "graph_launches_in_replays": count(inside, "GraphLaunch")}
+            "graph_launches_in_replays": count(inside, "GraphLaunch"),
+            "ops_in_replays": ops_inside}
 
 
 def profile_summary(torch, prof, wall_prof, launches, ticks, units, unit,
@@ -2494,9 +2534,26 @@ def generate_profile_phase(torch, counters, fns, batch, walls):
             **summaries["graph"], "eager": summaries["eager"]}
 
 
-# ---- phases 8-11: train -------------------------------------------------------
+# ---- phases 9-13: train ----------------------------------------------------
 
-TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_adamw")
+# a GPT-2-small train step's kernel launches: each flash kernel once a
+# layer, fused AdamW once
+TRAIN_PER_STEP = {"flash_fwd": LAYERS, "flash_bwd_dq": LAYERS,
+                  "flash_bwd_dkv": LAYERS, "fused_adamw": 1}
+# the train cell's profiled runs: this many more updates of each mode's
+# last run (replays, in the captured one)
+TRAIN_PROFILE_STEPS = 5
+# the kernels PyTorch launches inside a replay for the dropout generator
+# registered with the graph: one fill_ of its seed and one of its offset
+# into the graph's device state (``CUDAGraph.replay``'s prologue)
+RNG_PROLOGUE_FILLS = 2
+# a run's first updates, left out of its median step time: the eager
+# warm-up and the capture (captured step), the same count eagerly
+TRAIN_SKIP_MEDIAN = 3
+# the most device memory the captured step may reserve above its run's
+# start, as a multiple of the eager step's (its activations once: the
+# graph's pool, the warm-up's cached blocks released before the capture)
+RESERVED_RATIO = 1.1
 
 
 def train_counts(FA, FAW) -> dict:
@@ -2514,84 +2571,308 @@ def tc_counts(FA) -> dict:
             "flash_bwd_dkv": FA.dkv_tc_launches}
 
 
-def train_setup(torch, np, tm, cfg, *, compute_dtype, lr=TRAIN_LR,
-                steps=TRAIN_STEPS, state_dict=None):
-    """A GPT-2 on the card (f32 masters; random weights from seed 0 or
-    ``state_dict``), ``adamw_fused`` with warmup-cosine from 0, the step
-    functions, a fresh state and the one 8 x 1024 batch (numpy seed 0)."""
+def train_setup(torch, np, tm, cfg, state_dict, *, compute_dtype, mode,
+                optimizer="adamw_fused", **step_kw):
+    """A GPT-2 on the card (f32 masters loaded from ``state_dict``), an
+    ``optimizer`` with warmup-cosine from 0 over ``TRAIN_STEPS`` updates
+    (peak ``TRAIN_LR``), the step functions (``mode``
+    "graph": ``make_step_fns``'s captured step, the card's default;
+    "eager": the private eager reference; ``step_kw``: more options), a
+    fresh state and the one 8 x 1024 batch (numpy seed 0)."""
     GPT2, build_optimizer, make_step_fns = tm
     model = GPT2(cfg)
-    if state_dict is None:
-        model.init(torch.Generator().manual_seed(0))
-    else:
-        model.load_state_dict(state_dict)
-    tx = build_optimizer("adamw_fused", lr, steps_per_epoch=steps,
-                         total_steps=steps, warmup_steps=TRAIN_WARMUP)
-    init_fn, train_step, _ = make_step_fns(model, tx,
-                                           compute_dtype=compute_dtype)
+    model.load_state_dict(state_dict)
+    tx = build_optimizer(optimizer, TRAIN_LR, steps_per_epoch=TRAIN_STEPS,
+                         total_steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP)
+    init_fn, train_step, _ = make_step_fns(
+        model, tx, compute_dtype=compute_dtype, _eager=mode == "eager",
+        **step_kw)
     tokens = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_T))
-    return model, tx, train_step, init_fn(None), torch.from_numpy(
-        tokens).cuda()
+    return [model, tx, train_step, init_fn(None),
+            torch.from_numpy(tokens).cuda()]
 
 
-def train_phase(torch, np, tm, FA, FAW, GPT2Config):
-    model, tx, train_step, state, x = train_setup(
-        torch, np, tm, GPT2Config.small(), compute_dtype="bfloat16")
+def state_bits(state) -> list:
+    """Copies of every parameter, both moments and the count."""
+    opt = state.opt_state
+    return ([p.detach().clone() for p in state.params.values()]
+            + [t.clone() for kind in opt.moments().values()
+               for t in kind.values()] + [opt.count.clone()])
+
+
+def same_bits(torch, a: list, b: list) -> bool:
+    """Every tensor of ``a`` bit for bit its partner in ``b``."""
+    def raw(t):
+        return t.reshape(-1).contiguous().view(torch.uint8)
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype and raw(x).equal(raw(y))
+        for x, y in zip(a, b))
+
+
+def train_run(torch, FA, FAW, setup, mode, what, steps=TRAIN_STEPS):
+    """``steps`` updates of a fresh ``setup``, each to a synchronize (host
+    clock), the counters zeroed just before and read just after. In the
+    captured mode every update from the second on (the capture and each
+    replay, the batch copies before them and the metric copies after)
+    runs under ``torch.cuda.set_sync_debug_mode("error")``; the graph
+    pool is the device memory reserved across the capture. Memory: the
+    peaks allocated and reserved in the run, what was allocated and
+    reserved at its start (its own model and optimizer state, and what
+    the smoke holds: the weights, the first run's ``state_bits``, a kept
+    run) and each peak above its start.
+    Returns the run's record (losses as floats) and ``state_bits``."""
+    _, _, train_step, state, x = setup
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    start_reserved = torch.cuda.memory_reserved()
     zero_train_counts(FA, FAW)
-    losses, step_ms = [], []
-    for _ in range(TRAIN_STEPS):
+    losses, step_ms, pool = [], [], None
+    for i in range(steps):
+        checked = mode == "graph" and i >= 1
+        reserved = torch.cuda.memory_reserved()
         t0 = time.perf_counter()
-        state, metrics = train_step(state, x, x)
+        if checked:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, metrics = train_step(state, x, x)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         losses.append(metrics["loss"])
+        if mode == "graph" and i == 1:
+            pool = (torch.cuda.memory_reserved() - reserved) / 1e9
     launches, tc = train_counts(FA, FAW), tc_counts(FA)
+    require(len({id(v) for v in losses}) == steps,
+            f"{what}: a step's loss is not a tensor of its own")
     losses = [float(v) for v in losses]
-    per_step = {"flash_fwd": LAYERS, "flash_bwd_dq": LAYERS,
-                "flash_bwd_dkv": LAYERS, "fused_adamw": 1}
-    want = {k: TRAIN_STEPS * n for k, n in per_step.items()}
-    require(launches == want, f"train: launches {launches} != {want}")
-    # bf16 on GPT-2's aligned fused-QKV views: every flash launch on the
-    # tensor cores
-    want_tc = {k: TRAIN_STEPS * LAYERS for k in tc}
-    require(tc == want_tc, f"train: tensor-core launches {tc} != {want_tc}")
-    require(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
-    require(losses[-1] <= losses[0] - 1.0,
-            f"train: loss {losses[0]} -> {losses[-1]}, not 1 nat lower")
-    median = sorted(step_ms[3:])[len(step_ms[3:]) // 2]
+    want = {k: steps * n for k, n in TRAIN_PER_STEP.items()}
+    require(launches == want, f"{what}: launches {launches} != {want}")
+    require(all(math.isfinite(v) for v in losses),
+            f"{what}: non-finite loss {losses}")
+    tail = sorted(step_ms[TRAIN_SKIP_MEDIAN:])
+    rec = {"mode": mode, "losses": losses, "step_ms": step_ms,
+           "median_step_ms": tail[len(tail) // 2],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "allocated_at_start_gb": start / 1e9,
+           "peak_above_start_gb":
+               (torch.cuda.max_memory_allocated() - start) / 1e9,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           "reserved_at_start_gb": start_reserved / 1e9,
+           "peak_reserved_above_start_gb":
+               (torch.cuda.max_memory_reserved() - start_reserved) / 1e9,
+           "launches": launches, "tensor_core_launches": tc}
+    if mode == "graph":
+        stats = train_step.stats
+        want_stats = (1, 1, steps - 1)
+        got = (stats["eager_steps"], stats["graph_captures"],
+               stats["graph_replays"])
+        require(got == want_stats, f"{what}: (eager, captures, replays) "
+                                   f"{got}, want {want_stats}")
+        rec.update(capture_ms=stats["capture_ms"][0], graph_pool_gb=pool,
+                   sync_debug_error_steps=steps - 1)
+    return rec, state_bits(state)
+
+
+def train_profile(torch, FA, FAW, setup, mode, what, tc: bool,
+                  steps=TRAIN_PROFILE_STEPS):
+    """``steps`` more updates of ``setup`` under the profiler, every
+    counter zeroed just before: the counters must equal ``steps`` x
+    :data:`TRAIN_PER_STEP` (and, ``tc``, every flash launch on the tensor
+    cores) and the port's kernel events the device ran. Host calls: in the
+    captured mode one ``cudaGraphLaunch`` a step, each inside a replay
+    span, and no kernel launch call inside one; the eager mode makes no
+    graph launch. Returns ``(prof, wall_s, launches, host)``."""
+    _, _, train_step, state, x = setup
+
+    def run():
+        nonlocal state
+        for _ in range(steps):
+            state, _ = train_step(state, x, x)
+    zero_train_counts(FA, FAW)
+    prof, wall = profile_run(torch, run)
+    counted = train_counts(FA, FAW)
+    counted.update({f"{k}_tc": n for k, n in tc_counts(FA).items()})
+    want = {k: steps * n for k, n in TRAIN_PER_STEP.items()}
+    want.update({f"{k}_tc": steps * LAYERS if tc else 0
+                 for k in tc_counts(FA)})
+    require(counted == want, f"{what}: launches {counted} != {want}")
+    ran = device_launches(torch, prof)
+    device = {k: ran.get(k, 0) for k in set(ran) | set(counted)}
+    counted_all = {k: counted.get(k, 0) for k in device}
+    require(device == counted_all, f"{what}: the device ran {device}, the "
+                                   f"counters say {counted_all}")
+    host = host_calls(torch, prof)
+    if mode == "graph":
+        require(host["graph_launches"] == host["replays"] == steps
+                and host["graph_launches_in_replays"] == steps,
+                f"{what}: {host['graph_launches']} cudaGraphLaunch calls "
+                f"in {host['replays']} replay spans, want one for each of "
+                f"{steps} steps")
+        # inside a replay only the prologue PyTorch runs for a registered
+        # generator that the graph draws from (two fill_ kernels: its
+        # seed and offset, copied into the graph's device state); none
+        # of the step's own kernels
+        fills = host["ops_in_replays"].get("aten::fill_", 0)
+        require(host["kernel_launches_in_replays"] == fills
+                == RNG_PROLOGUE_FILLS * steps,
+                f"{what}: {host['kernel_launches_in_replays']} kernel "
+                f"launch calls inside the replays, {fills} aten::fill_, "
+                f"want the generator prologue's {RNG_PROLOGUE_FILLS} a "
+                f"replay and nothing else: {host['ops_in_replays']}")
+    else:
+        require(host["graph_launches"] == 0 and host["replays"] == 0,
+                f"{what}: the eager run launched graphs: {host}")
+    return prof, wall, counted, host
+
+
+def train_profile_summary(torch, prof, wall, launches, host, steps,
+                          median_ms: list) -> dict:
+    """A profiled train run: device time a step by kernel group, device
+    ops and host API calls a step, and the device busy share of each
+    unprofiled run of the mode (the kernels' device time a step over that
+    run's median step time; one stream, so kernels do not overlap)."""
+    total_us, groups, top = device_time(torch, prof)
+    per_step_ms = total_us / 1e3 / steps
+    return {
+        "steps": steps, "wall_s_profiled": wall,
+        "launches": launches, "launches_measured": "counters zeroed just "
+        "before this profiled run, equal to its device kernel events and "
+        "the schedule (gated)",
+        "device_ms_per_step": per_step_ms,
+        "device_busy_share": [per_step_ms / m for m in median_ms],
+        "device_ops_per_step": sum(n for n, _ in groups.values()) / steps,
+        "kernel_launch_calls_per_step": host["kernel_launches"] / steps,
+        "graph_launch_calls_per_step": host["graph_launches"] / steps,
+        "host_calls": host,
+        "groups_ms_per_step": {
+            g: {"launches_per_step": n / steps, "ms": us / 1e3 / steps}
+            for g, (n, us) in sorted(groups.items(),
+                                     key=lambda kv: -kv[1][1])},
+        "top_kernels": [{"name": name[:100], "launches": n,
+                         "ms_per_step": us / 1e3 / steps}
+                        for name, (n, us) in top],
+    }
+
+
+def pooled_median(runs: list) -> float:
+    tail = sorted(ms for r in runs for ms in r["step_ms"][TRAIN_SKIP_MEDIAN:])
+    return tail[len(tail) // 2]
+
+
+def train_phase(torch, np, tm, FA, FAW, GPT2Config):
+    """GPT-2-small, bf16 over f32 masters, dropout 0.1, ``adamw_fused``:
+    the captured step and the eager reference in turns (``TURNS``), each
+    run 20 updates of a fresh model from the same weights; every run's
+    losses and final parameters, moments and count bit-identical to the
+    first's (gated). Then the last run of each mode once more under the
+    profiler (:func:`train_profile`). Returns the train record, the
+    profile record and the weights."""
+    cfg = GPT2Config.small()
+    base = tm[0](cfg).init(torch.Generator().manual_seed(0)).state_dict()
+    runs, kept, first = [], {}, None
+    for turn, mode in enumerate(TURNS):
+        setup = train_setup(torch, np, tm, cfg, base, mode=mode,
+                            compute_dtype="bfloat16")
+        what = f"train {mode} run {turn + 1}"
+        rec, bits = train_run(torch, FA, FAW, setup, mode, what)
+        want_tc = dict.fromkeys(rec["tensor_core_launches"],
+                                TRAIN_STEPS * LAYERS)
+        require(rec["tensor_core_launches"] == want_tc,
+                f"{what}: tensor-core launches "
+                f"{rec['tensor_core_launches']} != {want_tc}")
+        losses = rec["losses"]
+        require(losses[-1] <= losses[0] - 1.0,
+                f"{what}: loss {losses[0]} -> {losses[-1]}, not 1 nat lower")
+        if first is None:
+            first = (losses, bits)
+        else:
+            require(losses == first[0], f"{what}: losses {losses} differ "
+                                        f"from run 1's {first[0]}")
+            require(same_bits(torch, bits, first[1]),
+                    f"{what}: parameters, moments or count after "
+                    f"{TRAIN_STEPS} steps differ from run 1's")
+        del bits
+        runs.append(rec)
+        if turn >= 2:
+            kept[mode] = setup     # the last run of each mode, profiled
+        del setup
+        torch.cuda.empty_cache()
+    del first
+    graphs_, eagers = ([r for r in runs if r["mode"] == m]
+                       for m in ("graph", "eager"))
+    reserved = {m: max(r["peak_reserved_above_start_gb"] for r in rs)
+                for m, rs in (("graph", graphs_), ("eager", eagers))}
+    require(reserved["graph"] <= RESERVED_RATIO * reserved["eager"],
+            f"train: the captured step reserved {reserved['graph']} GB "
+            f"above its start, the eager one {reserved['eager']} GB (more "
+            f"than {RESERVED_RATIO}x: the warm-up's cached activations "
+            f"kept beside the graph's pool?)")
+    profiles = {}
+    for mode in ("graph", "eager"):
+        prof, wall, launches, host = train_profile(
+            torch, FA, FAW, kept[mode], mode, f"train_profile {mode}",
+            tc=True)
+        profiles[mode] = train_profile_summary(
+            torch, prof, wall, launches, host, TRAIN_PROFILE_STEPS,
+            [r["median_step_ms"] for r in runs if r["mode"] == mode])
+    del kept
+    torch.cuda.empty_cache()
+    tokens = TRAIN_BATCH * TRAIN_T
+    medians = {"graph": pooled_median(graphs_),
+               "eager": pooled_median(eagers)}
     rec = {"phase": "train", "model": "gpt2-small (12 x 768, vocab 50257, "
            "T 1024, dropout 0.1), random weights seed 0",
            "batch": [TRAIN_BATCH, TRAIN_T], "compute_dtype": "bf16",
            "masters": "f32", "optimizer": "adamw_fused", "lr": TRAIN_LR,
            "warmup_steps": TRAIN_WARMUP, "schedule": "warmup-cosine from 0 "
            f"over {TRAIN_STEPS} updates", "steps": TRAIN_STEPS,
-           "losses": losses, "loss_drop": losses[0] - losses[-1],
-           "step_ms": step_ms, "median_step_ms_after_3": median,
-           "tokens_per_s": TRAIN_BATCH * TRAIN_T / (median / 1e3),
-           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "launches": launches, "launches_per_step": per_step,
-           "tensor_core_launches": tc}
-    return rec, (model, tx, train_step, state, x)
+           "turns": list(TURNS),
+           "bit_identical": "losses, parameters, moments and count after "
+           f"{TRAIN_STEPS} steps, every run against the first (gated)",
+           "median_step_ms": medians["graph"],
+           "median_step_ms_eager": medians["eager"],
+           "median_of": f"the mode's runs' step times after the first "
+                        f"{TRAIN_SKIP_MEDIAN}",
+           "tokens_per_s": tokens / (medians["graph"] / 1e3),
+           "tokens_per_s_eager": tokens / (medians["eager"] / 1e3),
+           "losses": runs[0]["losses"],
+           "loss_drop": runs[0]["losses"][0] - runs[0]["losses"][-1],
+           "peak_reserved_above_start_gb": reserved,
+           "launches": runs[0]["launches"],
+           "launches_per_step": TRAIN_PER_STEP,
+           "tensor_core_launches": runs[0]["tensor_core_launches"],
+           "runs": [{k: v for k, v in r.items() if k != "losses"}
+                    for r in runs]}
+    prof_rec = {"phase": "train_profile", "steps": TRAIN_PROFILE_STEPS,
+                **{mode: p for mode, p in profiles.items()}}
+    return rec, prof_rec, base
 
 
 def parity_phase(torch, np, tm, A, FA, FAW, GPT2Config):
-    """One step's gradients and five steps' losses of the kernel path
-    (``make_step_fns`` + ``adamw_fused``) against the plain path: the
+    """f32, dropout 0, two layers at full width. One step's gradients and
+    five steps' losses of the kernel path (the captured step: the first
+    update eager, then a capture and replays) against the plain path: the
     model's own layers with dense attention under autograd, and
-    ``fused_adamw_plain`` per leaf with the same step scalars."""
+    ``fused_adamw_plain`` per leaf with the same step scalars. Then the
+    captured run goes on to 20 updates, and an eager run of 20 from the
+    same weights must give bit-identical losses, parameters, moments and
+    count."""
     import dataclasses
     cfg = dataclasses.replace(GPT2Config.small(), num_layers=PARITY_LAYERS,
                               dropout_rate=0.0)
-    model, tx, train_step, state, x = train_setup(
-        torch, np, tm, cfg, compute_dtype=None, steps=PARITY_STEPS)
+    sd = tm[0](cfg).init(torch.Generator().manual_seed(0)).state_dict()
+    setup = train_setup(torch, np, tm, cfg, sd, mode="graph",
+                        compute_dtype=None)
+    _, tx, train_step, state, x = setup
     ref = tm[0](cfg)
-    ref.load_state_dict(model.state_dict())
+    ref.load_state_dict(sd)
     ref_params = dict(ref.named_parameters())
     mu = {n: torch.zeros_like(p) for n, p in ref_params.items()}
     nu = {n: torch.zeros_like(p) for n, p in ref_params.items()}
+    always = torch.ones((), dtype=torch.bool, device=x.device)
     zero_train_counts(FA, FAW)
     losses_k, losses_p, grad_errs = [], [], {}
     for step in range(PARITY_STEPS):
@@ -2607,10 +2888,12 @@ def parity_phase(torch, np, tm, A, FA, FAW, GPT2Config):
                 w = ref_params[n].grad
                 grad_errs[n] = ((p.grad - w).abs().max()
                                 / w.abs().max()).item()
-        sc = tx.scalars(step)
+        sc = tx.scalars(torch.tensor(step, dtype=torch.int32,
+                                     device=x.device))
         with torch.no_grad():
             for n, p in ref_params.items():
-                new = FAW.fused_adamw_plain(p.grad, p, mu[n], nu[n], **sc)
+                new = FAW.fused_adamw_plain(p.grad, p, mu[n], nu[n], sc,
+                                            always, **tx.hyper)
                 for dst, src in zip((p, mu[n], nu[n]), new):
                     dst.copy_(src)
     launches, tc = train_counts(FA, FAW), tc_counts(FA)
@@ -2625,13 +2908,101 @@ def parity_phase(torch, np, tm, A, FA, FAW, GPT2Config):
                                   f"plain {losses_p}")
     require(all(n > 0 for n in launches.values()),
             f"train_parity: a kernel never launched: {launches}")
+    del ref, ref_params, mu, nu
+    # the rest of 20 updates captured, then 20 eager from the same weights
+    graph_losses = losses_k + [float(train_step(state, x, x)[1]["loss"])
+                               for _ in range(TRAIN_STEPS - PARITY_STEPS)]
+    stats = dict(train_step.stats)
+    graph_bits = state_bits(state)
+    del setup, state, train_step
+    torch.cuda.empty_cache()
+    eager = train_setup(torch, np, tm, cfg, sd, mode="eager",
+                        compute_dtype=None)
+    eager_losses = [float(eager[2](eager[3], x, x)[1]["loss"])
+                    for _ in range(TRAIN_STEPS)]
+    require(eager_losses == graph_losses,
+            f"train_parity: captured losses {graph_losses} != eager "
+            f"{eager_losses}")
+    require(same_bits(torch, state_bits(eager[3]), graph_bits),
+            f"train_parity: parameters, moments or count after "
+            f"{TRAIN_STEPS} steps differ, captured against eager")
+    require((stats["eager_steps"], stats["graph_captures"],
+             stats["graph_replays"]) == (1, 1, TRAIN_STEPS - 1),
+            f"train_parity: captured step stats {stats}")
     return {"phase": "train_parity", "dtype": "f32", "layers": PARITY_LAYERS,
             "batch": [TRAIN_BATCH, TRAIN_T], "steps": PARITY_STEPS,
             "losses": losses_k, "plain_losses": losses_p,
             "loss_rel_err": loss_err, "loss_tol": LOSS_TOL,
             "worst_grad_leaf": worst, "worst_grad_rel_err": grad_errs[worst],
             "grad_tol": GRAD_TOL, "leaves": len(grad_errs),
-            "launches": launches, "tensor_core_launches": tc}
+            "launches": launches, "tensor_core_launches": tc,
+            "captured_vs_eager_steps": TRAIN_STEPS,
+            "captured_vs_eager": "losses, parameters, moments and count "
+                                 "bit-identical (gated)",
+            "captured_losses": graph_losses, "capture_ms":
+                stats["capture_ms"][0]}
+
+
+# the poisoned element of the train_skip phase: one entry of wte
+SKIP_AT = (0, 0)
+
+
+def train_skip_phase(torch, np, tm, GPT2Config, base):
+    """``nonfinite_policy="skip"`` on the captured step, GPT-2-small as the
+    train cell, for ``adamw_fused`` and ``adamw``: three clean updates (the
+    warm-up, the capture, a replay), then one ``wte`` element of the
+    master parameters set to inf in place and a replay: ``skipped`` 1, a
+    non-finite ``grad_sumsq``, and parameters, moments and count
+    bit-identical to before it; the element restored, two more replays
+    train (``skipped`` 0, finite losses, the count advanced by 2)."""
+    cfg = GPT2Config.small()
+    rec = {"phase": "train_skip", "model": "gpt2-small as the train cell",
+           "poisoned": f"wte.weight{list(SKIP_AT)} = inf"}
+    for optimizer in ("adamw_fused", "adamw"):
+        what = f"train_skip {optimizer}"
+        setup = train_setup(torch, np, tm, cfg, base, mode="graph",
+                            optimizer=optimizer, compute_dtype="bfloat16",
+                            nonfinite_policy="skip", sentinel=True)
+        _, _, train_step, state, x = setup
+        seen = []
+        for _ in range(3):
+            state, m = train_step(state, x, x)
+            seen.append({k: float(v) for k, v in m.items()})
+        wte = state.params["wte.weight"].detach()
+        clean = wte[SKIP_AT].clone()
+        wte[SKIP_AT] = float("inf")
+        before = state_bits(state)
+        count0 = int(state.opt_state.count)
+        replays = train_step.stats["graph_replays"]
+        state, m = train_step(state, x, x)
+        skipped = {k: float(v) for k, v in m.items()}
+        require(skipped["skipped"] == 1.0
+                and not math.isfinite(skipped["grad_sumsq"]),
+                f"{what}: the poisoned replay reported {skipped}")
+        require(train_step.stats["graph_replays"] == replays + 1,
+                f"{what}: the poisoned update was not a replay")
+        require(same_bits(torch, state_bits(state), before),
+                f"{what}: the skipped update changed parameters, moments "
+                f"or count")
+        del before
+        wte[SKIP_AT] = clean
+        for _ in range(2):
+            state, m = train_step(state, x, x)
+            seen.append({k: float(v) for k, v in m.items()})
+        require(all(s["skipped"] == 0.0 and math.isfinite(s["loss"])
+                    and math.isfinite(s["grad_sumsq"]) for s in seen),
+                f"{what}: a clean update reported {seen}")
+        require(int(state.opt_state.count) == count0 + 2,
+                f"{what}: count {int(state.opt_state.count)} after two "
+                f"clean replays from {count0}")
+        rec[optimizer] = {"clean": seen, "poisoned": skipped,
+                          "count_before": count0,
+                          "count_after": int(state.opt_state.count),
+                          "stats": {k: v for k, v in
+                                    train_step.stats.items()}}
+        del setup, state, train_step
+        torch.cuda.empty_cache()
+    return rec
 
 
 CLI_LINES = {
@@ -2688,37 +3059,6 @@ def cli_phase(torch, interop, GPT2, GPT2Config):
                 "train_cli: reloaded checkpoint holds non-finite params")
         rec["checkpoint_mb"] = os.path.getsize(ckpt) / 1e6
     return rec
-
-
-def train_profile_phase(torch, train_step, state, x, step_ms, steps=5):
-    """``steps`` more train steps under ``torch.profiler``: device time per
-    step by kernel group; ``device_busy_share`` is the kernels' device
-    time per step over the unprofiled median step time ``step_ms``."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            state, _ = train_step(state, x, x)
-        torch.cuda.synchronize()
-    total_us, groups, top = device_time(torch, prof)
-    per_step_ms = total_us / 1e3 / steps
-    bwd_ms = sum(groups.get(k, [0, 0.0])[1]
-                 for k in ("flash_bwd_dq", "flash_bwd_dkv")) / 1e3 / steps
-    return {
-        "phase": "train_profile", "steps": steps,
-        "device_ms_per_step": per_step_ms,
-        "flash_bwd_ms_per_step": bwd_ms,
-        "median_step_ms_unprofiled": step_ms,
-        "device_busy_share": per_step_ms / step_ms if total_us else None,
-        "groups_ms_per_step": {
-            g: {"launches_per_step": n / steps, "ms": us / 1e3 / steps}
-            for g, (n, us) in sorted(groups.items(),
-                                     key=lambda kv: -kv[1][1])},
-        "top_kernels": [{"name": name[:100], "launches": n,
-                         "ms_per_step": us / 1e3 / steps}
-                        for name, (n, us) in top],
-    }
 
 
 def main() -> int:
@@ -2867,12 +3207,12 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         tm = (GPT2, build_optimizer, make_step_fns)
-        train, (model, _, train_step, state, x) = train_phase(
-            torch, np, tm, FA, FAW, GPT2Config)
+        train, train_prof, weights = train_phase(torch, np, tm, FA, FAW,
+                                                 GPT2Config)
         record(train)
-        record(train_profile_phase(torch, train_step, state, x,
-                                   train["median_step_ms_after_3"]))
-        del model, state, x, train_step
+        record(train_prof)
+        record(train_skip_phase(torch, np, tm, GPT2Config, weights))
+        del weights
         torch.cuda.empty_cache()
         record(parity_phase(torch, np, tm, A, FA, FAW, GPT2Config))
         torch.cuda.empty_cache()
@@ -2899,15 +3239,17 @@ def main() -> int:
         # each kernel's launches on the main path: the captured runs'
         # counts measured under the profiler (``counted_profile``: the
         # counters zeroed just before, equal to the device's kernel events
-        # after), the eager train run's counted at its launches; a kernel
-        # no run launches reports 0
+        # after); the train kernels' from train_profile's captured run,
+        # measured the same way (``train_profile``); a kernel no run
+        # launches reports 0
+        train_launches = train_prof["graph"]["launches"]
         runs = (("serve bf16 captured, profiled", serve_prof["launches"]),
                 ("serve_int8 int8 captured, profiled",
                  serve8["int8_profile"]["launches"]),
                 ("generate bf16 captured, profiled", gen_prof["launches"]),
                 ("generate_int8 int8 captured, profiled",
                  gen8["int8_profile"]["launches"]),
-                ("train", train["launches"]))
+                ("train captured, profiled", train_launches))
         kernels = []
         for name, replaces in sources.items():
             r, r32 = results["bf16"][name], results["f32"][name]
@@ -2925,7 +3267,7 @@ def main() -> int:
                     serve8["int8_profile"]["launches"].get(name),
                 "generate_int8_launches":
                     gen8["int8_profile"]["launches"].get(name),
-                "train_launches": train["launches"].get(name),
+                "train_launches": train_launches.get(name),
                 "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
                 "tol": 0.0 if name in EXACT else TOL["bf16"],
                 "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -2946,10 +3288,10 @@ def main() -> int:
             "source": "distributed_compute_pytorch_tpu_torch/csrc/"
                       "fused_adamw.cu",
             "replaces": FAW.REPLACES,
-            "launches": train["launches"]["fused_adamw"],
-            "launches_from": "train", "serve_launches": None,
-            "generate_launches": None,
-            "train_launches": train["launches"]["fused_adamw"],
+            "launches": train_launches["fused_adamw"],
+            "launches_from": "train captured, profiled",
+            "serve_launches": None, "generate_launches": None,
+            "train_launches": train_launches["fused_adamw"],
             "max_abs_err": adamw["max_abs_err"],
             "max_err": adamw["max_abs_err"], "tol": ADAMW_TOL,
             "ms": adamw["ms"], "kernel_ms": adamw["ms"],

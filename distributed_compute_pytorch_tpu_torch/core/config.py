@@ -103,8 +103,5 @@ class Config:
             flag = next((a for a in rest if a.startswith("-")), rest[0])
             raise SystemExit(f"dcp-train (port): {flag.split('=')[0]} is "
                              f"not supported by the port yet")
-        if ns.nonfinite_policy != "raise":
-            raise SystemExit("dcp-train (port): --nonfinite_policy skip is "
-                             "not ported yet (only raise)")
         return cls(**{f.name: getattr(ns, f.name)
                       for f in dataclasses.fields(cls)})

@@ -7,8 +7,19 @@
 //     mu = b1 mu + (1 - b1) g
 //     nu = b2 nu + (1 - b2) g^2
 //     p -= lr (mu c1 / (sqrt(nu c2) + eps) + wd p)
-//   with the per-step scalars lr, wd, c1 = 1/(1 - b1^t), c2 = 1/(1 - b2^t)
-//   computed on the host from the host-side step count (no device sync).
+//   with the per-step scalars [lr, wd, c1, c2] (c1 = 1/(1 - b1^t),
+//   c2 = 1/(1 - b2^t)) read from a device f32 array, as the Pallas kernel
+//   reads its [1, 4] scalar block `sc_ref`: the optimizer computes them on
+//   the device from its int32 count (`ops/fused_adamw.py::scalars`, the
+//   reference's `_scalars`), so a captured CUDA graph replays each step
+//   with that step's values.
+//
+// The non-finite guard (the reference's `_guarded`, train/step.py): a
+//   device flag `ok` (one byte, 0 or 1). When it is 0 the kernel writes
+//   nothing, so p, mu and nu stay bit-untouched, as the reference's
+//   `where` against the incoming state keeps them; either way the device
+//   step count advances by `ok`, so a skipped update does not move the
+//   schedule or the bias corrections.
 //
 // What bounds it on this card: bytes. 28 bytes per parameter (four f32
 //   reads, three f32 writes) against about 15 FLOPs, far below the ~20
@@ -29,6 +40,10 @@
 
 namespace {
 
+struct Coef {
+  float b1, omb1, b2, omb2, eps;
+};
+
 struct Hyper {
   float lr, wd, c1, c2, b1, omb1, b2, omb2, eps;
 };
@@ -44,7 +59,14 @@ __device__ __forceinline__ void adamw(float g, float& p, float& mu, float& nu,
 __global__ void __launch_bounds__(256)
 fused_adamw_kernel(const float* __restrict__ g, float* __restrict__ p,
                    float* __restrict__ mu, float* __restrict__ nu,
-                   long long n, Hyper h) {
+                   long long n, const float* __restrict__ sc, int* count,
+                   const unsigned char* __restrict__ ok, Coef c) {
+  // every thread reads the flag and the four scalars (one cached line);
+  // one thread advances the count, which nothing else in the launch reads
+  const int apply = ok[0] != 0;
+  if (blockIdx.x == 0 && threadIdx.x == 0) *count += apply;
+  if (!apply) return;
+  const Hyper h{sc[0], sc[1], sc[2], sc[3], c.b1, c.omb1, c.b2, c.omb2, c.eps};
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long n4 = n / 4;
@@ -77,25 +99,28 @@ fused_adamw_kernel(const float* __restrict__ g, float* __restrict__ p,
 extern "C" {
 
 // g, p, mu, nu: f32 [n] contiguous, 16-byte aligned; p, mu, nu updated in
-// place. omb1 = 1 - b1 and omb2 = 1 - b2 are rounded on the host, as the
-// reference's Python-float arithmetic rounds them. Returns the cudaError_t
-// of the launch.
+// place. sc: device f32 [4] = [lr, wd, c1, c2]. count: a device int32
+// advanced by ok. ok: a device byte, 0 (skip the update) or 1. omb1 = 1 - b1 and omb2 = 1 - b2 are
+// rounded on the host, as the reference's Python-float arithmetic rounds
+// them. Returns the cudaError_t of the launch.
 int fused_adamw(const float* g, float* p, float* mu, float* nu, long long n,
-                float lr, float wd, float c1, float c2, float b1, float omb1,
-                float b2, float omb2, float eps, void* stream) {
-  if (n < 1 || (reinterpret_cast<unsigned long long>(g) |
-                reinterpret_cast<unsigned long long>(p) |
-                reinterpret_cast<unsigned long long>(mu) |
-                reinterpret_cast<unsigned long long>(nu)) % 16 != 0)
+                const float* sc, int* count, const unsigned char* ok,
+                float b1, float omb1, float b2, float omb2, float eps,
+                void* stream) {
+  if (n < 1 || sc == nullptr || count == nullptr || ok == nullptr ||
+      (reinterpret_cast<unsigned long long>(g) |
+       reinterpret_cast<unsigned long long>(p) |
+       reinterpret_cast<unsigned long long>(mu) |
+       reinterpret_cast<unsigned long long>(nu)) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int device = 0, sms = 132;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   const long long want = (n / 4 + 255) / 256;
   const int blocks = static_cast<int>(want < 8LL * sms ? (want > 0 ? want : 1) : 8LL * sms);
-  const Hyper h{lr, wd, c1, c2, b1, omb1, b2, omb2, eps};
+  const Coef c{b1, omb1, b2, omb2, eps};
   fused_adamw_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      g, p, mu, nu, n, h);
+      g, p, mu, nu, n, sc, count, ok, c);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,12 +12,15 @@ read a checkpoint the port trained. The rest is the port's own:
 - ``.step`` (int64): updates taken;
 - ``.seed`` (int64): the dropout seed (``train/step.py``);
 - ``.opt_state::count`` (int64) and ``.opt_state::{mu,nu}::<param name>``
-  (f32): the optimizer's moments by the port's parameter names, the same
-  for ``adamw`` and ``adamw_fused``.
+  (f32): the optimizer's update count (a device ``int32`` in the live
+  state) and moments by the port's parameter names, the same for
+  ``adamw`` and ``adamw_fused``.
 
 Every leaf read is verified against its CRC-32
 (``interop.read_checkpoint``), and all of them before any is copied into
-the live state. ``keep_last=N`` rotates older files to
+the live state. A restore copies into the live state's tensors, the
+count included, and never replaces one: a captured train step holds
+them by address (``train/step.py``). ``keep_last=N`` rotates older files to
 ``{path}.prev-K``; :func:`restore_with_fallback` walks them newest first.
 """
 
@@ -69,7 +72,7 @@ def state_leaves(state) -> dict[str, np.ndarray]:
     """The checkpoint's leaves of a ``train/step.py::TrainState``."""
     flat = {".step": np.asarray(state.step, np.int64),
             ".seed": np.asarray(state.seed, np.int64),
-            f"{_OPT}{_SEP}count": np.asarray(state.opt_state.count,
+            f"{_OPT}{_SEP}count": np.asarray(int(state.opt_state.count),
                                              np.int64)}
     _flatten_tree(gpt2_params_to_jax(state.params), _PARAMS, flat)
     for kind, leaves in state.opt_state.moments().items():
@@ -125,9 +128,9 @@ def load_into(state, flat: dict) -> None:
     with torch.no_grad():
         for dst, src, _ in pairs:
             dst.copy_(src)
+        state.opt_state.count.fill_(int(flat[f"{_OPT}{_SEP}count"]))
     state.step = int(flat[".step"])
     state.seed = int(flat[".seed"])
-    state.opt_state.count = int(flat[f"{_OPT}{_SEP}count"])
 
 
 def restore_with_fallback(path: str, state) -> dict:

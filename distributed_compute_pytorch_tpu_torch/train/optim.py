@@ -11,6 +11,17 @@ rate is a schedule indexed by the update count *before* the increment,
 as optax's ``scale_by_learning_rate`` indexes it, so the warmup-cosine
 schedule gives lr 0 to the first update.
 
+The count is a device ``int32``, as optax keeps it: the schedule and the
+bias corrections are evaluated from it on the device in f32, as optax
+evaluates them inside the jitted step, so a step reads nothing back and
+passes nothing by value that changes from step to step (a captured CUDA
+graph replays each step with its own lr). Both ``apply`` and
+``fused_apply`` take a device bool flag ``ok``, the non-finite guard of
+``train/step.py`` (optional for ``apply``, whose unguarded update runs in
+place): where it is false, params and moments keep their bits and the
+count does not advance (the reference's ``where`` against the incoming
+state).
+
 The Adadelta/StepLR reference stack and SGD wait for the ConvNet slice.
 """
 
@@ -22,24 +33,39 @@ from typing import Callable
 
 import torch
 
-from distributed_compute_pytorch_tpu_torch.ops.fused_adamw import fused_adamw
+from distributed_compute_pytorch_tpu_torch.ops.fused_adamw import (
+    device_count, fused_adamw)
 
 
-def warmup_cosine_decay(lr: float, warmup_steps: int,
-                        decay_steps: int) -> Callable[[int], float]:
+def warmup_cosine_decay(lr: float, warmup_steps: int, decay_steps: int):
     """``optax.warmup_cosine_decay_schedule(init_value=0.0, peak_value=lr,
     warmup_steps, decay_steps)`` (end value 0): linear from 0 to ``lr``
     over ``warmup_steps`` updates, then a cosine to 0 over the remaining
-    ``decay_steps - warmup_steps``."""
+    ``decay_steps - warmup_steps``. The schedule takes a host int (a
+    Python float back) or an ``int32`` count tensor: then it is evaluated
+    on the count's device in f32 with ``torch.where`` / ``torch.cos``, as
+    optax's ``join_schedules`` of a linear and a cosine schedule is inside
+    the jitted step, and gives an f32 scalar tensor. The warm-up's
+    ``-lr * frac + lr`` is taken as ``lr * (1 - frac)``, the one rounding
+    that XLA's fused multiply-add makes of it."""
     if decay_steps - warmup_steps <= 0:
         raise ValueError(f"decay_steps ({decay_steps}) must exceed "
                          f"warmup_steps ({warmup_steps})")
+    span = decay_steps - warmup_steps
 
-    def schedule(count: int) -> float:
+    def on_device(count: torch.Tensor) -> torch.Tensor:
+        frac = 1.0 - count.clamp(0, warmup_steps).float() / warmup_steps
+        warm = lr * (1.0 - frac)
+        c = (count - warmup_steps).clamp(max=span).float()
+        cosine = lr * (0.5 * (1.0 + torch.cos(math.pi * c / span)))
+        return torch.where(count < warmup_steps, warm, cosine)
+
+    def schedule(count):
+        if isinstance(count, torch.Tensor):
+            return on_device(count)
         if count < warmup_steps:
             frac = 1.0 - min(max(count, 0), warmup_steps) / warmup_steps
             return -lr * frac + lr
-        span = decay_steps - warmup_steps
         c = min(count - warmup_steps, span)
         return lr * 0.5 * (1.0 + math.cos(math.pi * c / span))
     return schedule
@@ -59,9 +85,9 @@ def decay_mask(params: dict) -> dict:
 
 @dataclass
 class AdamWState:
-    """``optax.adamw``'s state: the update ``count`` (a host int) and the
-    f32 first and second moments by leaf name."""
-    count: int
+    """``optax.adamw``'s state: the update ``count`` (a device ``int32``
+    scalar) and the f32 first and second moments by leaf name."""
+    count: torch.Tensor
     mu: dict
     nu: dict
 
@@ -84,35 +110,52 @@ class AdamW:
                                                         clip_norm)
 
     def init(self, params: dict) -> AdamWState:
+        dev = next(iter(params.values())).device
         return AdamWState(
-            count=0, mu={n: torch.zeros_like(p, dtype=torch.float32)
-                         for n, p in params.items()},
+            count=device_count(dev),
+            mu={n: torch.zeros_like(p, dtype=torch.float32)
+                for n, p in params.items()},
             nu={n: torch.zeros_like(p, dtype=torch.float32)
                 for n, p in params.items()})
 
     @torch.no_grad()
-    def apply(self, grads: dict, state: AdamWState, params: dict) -> None:
+    def apply(self, grads: dict, state: AdamWState, params: dict,
+              ok: torch.Tensor | None = None) -> None:
+        """One update, in place. With a device bool ``ok`` it applies
+        where ``ok`` holds: a select against the old moments and params
+        written straight back, not a host branch, and the count advances
+        by ``ok``. ``None``: no guard, the in-place update alone."""
         gs = {n: grads[n].float() for n in params}
         if self.clip_norm > 0:
             norm = torch.sqrt(sum(g.square().sum() for g in gs.values()))
             keep = norm < self.clip_norm
             gs = {n: torch.where(keep, g, g / norm * self.clip_norm)
                   for n, g in gs.items()}
-        t = state.count + 1
-        bc1, bc2 = 1.0 - self.b1 ** t, 1.0 - self.b2 ** t
+        dev = state.count.device
+        t = state.count.float() + 1.0
+        bc1 = 1.0 - torch.full((), self.b1, device=dev) ** t
+        bc2 = 1.0 - torch.full((), self.b2, device=dev) ** t
         lr = (self.learning_rate(state.count)
               if callable(self.learning_rate) else self.learning_rate)
         decays = (self.mask(params) if self.mask is not None
                   else dict.fromkeys(params, True))
         for n, p in params.items():
             g, mu, nu = gs[n], state.mu[n], state.nu[n]
-            mu.mul_(self.b1).add_((1.0 - self.b1) * g)
-            nu.mul_(self.b2).add_((1.0 - self.b2) * g.square())
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            if ok is None:
+                new_mu = mu.mul_(self.b1).add_((1.0 - self.b1) * g)
+                new_nu = nu.mul_(self.b2).add_((1.0 - self.b2) * g.square())
+            else:
+                new_mu = self.b1 * mu + (1.0 - self.b1) * g
+                new_nu = self.b2 * nu + (1.0 - self.b2) * g.square()
+            u = (new_mu / bc1) / (torch.sqrt(new_nu / bc2) + self.eps)
             if self.weight_decay and decays[n]:
                 u = u + self.weight_decay * p
-            p.sub_(lr * u)
-        state.count += 1
+            if ok is None:
+                p.sub_(lr * u)
+                continue
+            for dst, new in ((p, p - lr * u), (mu, new_mu), (nu, new_nu)):
+                torch.where(ok, new, dst, out=dst)
+        state.count.add_(1 if ok is None else ok.to(state.count.dtype))
 
 
 def build_optimizer(name: str, lr: float, gamma: float = 0.7,

@@ -4,15 +4,20 @@ for one device.
 Epoch loop -> train steps -> eval -> epoch timing -> checkpoint, with the
 reference's observable contract: its flags (``core/config.py``), its line
 formats (``utils/logging.py``), its dataset-derived model sizing, its
-epoch-keyed data order, the loss read only at the log cadence (a
-non-finite loss there aborts: ``nonfinite_policy=raise``), per-epoch and
-``--checkpoint_every`` saves in the v1 format the JAX package reads, and a
-``--resume`` that lands on the exact next batch (falling back past a
-corrupted newest file with ``--keep_last``).
+epoch-keyed data order, the loss read only at the log cadence,
+divergence containment (``--nonfinite_policy``: ``raise`` aborts on a
+non-finite loss at that read; ``skip`` queues each step's ``skipped``
+device scalar and drains the queue at that read, :meth:`_poll_nonfinite`),
+per-epoch and ``--checkpoint_every`` saves in the v1 format the JAX
+package reads, and a ``--resume`` that lands on the exact next batch
+(falling back past a corrupted newest file with ``--keep_last``). On the
+card the step is the captured one (``train/step.py``).
 
 Not in this slice: meshes and strategies, heartbeats, preemption and
-supervision, tracing, the flight recorder, the divergence sentinel and
-sharded checkpoints.
+supervision, tracing, the flight recorder (the reference's
+``flight.record`` / ``dump_on_fault`` calls around a skip or an abort
+wait for the telemetry slice), the divergence sentinel and sharded
+checkpoints.
 """
 
 from __future__ import annotations
@@ -33,6 +38,12 @@ from distributed_compute_pytorch_tpu_torch.train.optim import build_optimizer
 from distributed_compute_pytorch_tpu_torch.train.step import make_step_fns
 from distributed_compute_pytorch_tpu_torch.utils.logging import (
     MetricLogger, log0)
+
+# nonfinite_policy=skip: abort after this many CONSECUTIVE skipped
+# updates (reference NONFINITE_SKIP_LIMIT) — scattered skips are
+# survivable (params stay untouched), an unbroken run means the run has
+# diverged
+NONFINITE_SKIP_LIMIT = 10
 
 
 class Trainer:
@@ -72,6 +83,11 @@ class Trainer:
             nonfinite_policy=config.nonfinite_policy)
         self.state = self.init_fn(config.seed)
         self.logger = MetricLogger()
+        # nonfinite_policy=skip: the per-step skip flags (device scalars)
+        # queued unread until the log cadence, and the running counts
+        self._skip_hist: list = []
+        self._skips_total = 0
+        self._skips_consec = 0
         self.start_epoch = 0
         self.start_step = 0
         if config.resume and os.path.isfile(config.ckpt_path):
@@ -124,24 +140,57 @@ class Trainer:
         for b, (x, y) in enumerate(self.train_feed.epoch(epoch, skip=skip),
                                    start=skip):
             self.state, metrics = self.train_step(self.state, x, y)
+            if "skipped" in metrics:
+                self._skip_hist.append(metrics["skipped"])
             if b % cfg.log_every == 0:
                 loss = float(metrics["loss"])   # the log-cadence read
-                self._check_finite(loss, epoch, b)
+                self._poll_nonfinite(loss, epoch, b)
                 self.logger.train_line(epoch, b, steps, loss)
             if (cfg.checkpoint_every and (b + 1) % cfg.checkpoint_every == 0
                     and b + 1 < steps):
                 self._save_ckpt(epoch, extra={"step_in_epoch": b + 1})
         if metrics is not None:
-            self._check_finite(float(metrics["loss"]), epoch, steps - 1)
+            # drain the skip flags queued since the last log line, so an
+            # epoch cannot end with unexamined non-finite skips
+            self._poll_nonfinite(float(metrics["loss"]), epoch, steps - 1)
         self._sync()
         secs = time.perf_counter() - t0
         return (steps - skip) * cfg.batch_size * self.accum / secs
 
-    @staticmethod
-    def _check_finite(loss: float, epoch: int, b: int) -> None:
-        if not math.isfinite(loss):
-            raise RuntimeError(f"non-finite loss {loss} at epoch {epoch} "
-                               f"step {b} (nonfinite_policy=raise)")
+    def _poll_nonfinite(self, loss: float, epoch: int, b: int) -> None:
+        """Log-cadence divergence containment (reference
+        ``_poll_nonfinite``). ``skip``: drain the queued per-step skip
+        flags (settled long ago: reading them stalls nothing), log the
+        running count, and give up after :data:`NONFINITE_SKIP_LIMIT`
+        CONSECUTIVE skips; params are bit-untouched throughout, so the
+        delayed detection is harmless. ``raise``: a non-finite loss
+        aborts (the params are already poisoned)."""
+        if self.config.nonfinite_policy == "skip":
+            new_skips = 0
+            for s in self._skip_hist:
+                if float(s) > 0.0:
+                    self._skips_total += 1
+                    self._skips_consec += 1
+                    new_skips += 1
+                else:
+                    self._skips_consec = 0
+            self._skip_hist.clear()
+            if new_skips:
+                log0(f"nonfinite_policy=skip: skipped {new_skips} "
+                     f"non-finite update(s) near epoch {epoch} step {b} "
+                     f"(total {self._skips_total}, consecutive "
+                     f"{self._skips_consec})")
+            if self._skips_consec >= NONFINITE_SKIP_LIMIT:
+                raise RuntimeError(
+                    f"{self._skips_consec} consecutive non-finite updates "
+                    f"skipped (epoch {epoch} step {b}): the run has "
+                    f"diverged — params are still the last finite state; "
+                    f"lower the lr or clip gradients")
+        elif not math.isfinite(loss):
+            raise RuntimeError(
+                f"non-finite loss {loss} at epoch {epoch} step {b} "
+                f"(nonfinite_policy=raise); use --nonfinite_policy skip to "
+                f"drop bad updates instead of aborting")
 
     def evaluate(self, epoch: int) -> dict:
         """Full eval pass: sums accumulate on the device, one read at the

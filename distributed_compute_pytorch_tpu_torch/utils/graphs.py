@@ -1,10 +1,12 @@
-"""CUDA graphs of the decode programs.
+"""CUDA graphs of the decode programs and the train step.
 
 The JAX package compiles a serve segment (``serve.py:832``, a ``lax.scan``
-of ticks) and generation's decode (``infer.py:391``, one ``lax.scan``)
-into one program each. The port captures the same work once as a CUDA
-graph (``torch.cuda.CUDAGraph``) and replays it, so a segment or a tick
-costs the host one ``cudaGraphLaunch`` instead of one launch per op.
+of ticks), generation's decode (``infer.py:391``, one ``lax.scan``) and
+the train step (``train/step.py:629``, ``jax.jit``) into one program
+each. The port captures the same work once as a CUDA graph
+(``torch.cuda.CUDAGraph``) and replays it, so a segment, a tick or an
+update costs the host one ``cudaGraphLaunch`` instead of one launch per
+op.
 
 A capture records the addresses and by-value arguments of every launch,
 so what a captured program reads and writes must sit in buffers that
@@ -13,7 +15,7 @@ outlive it (the callers' static buffers, the decode reads' merge scratch:
 been built and launched once before the capture (``ops/_build.py`` and the
 merge scratch refuse to start inside one).
 
-Two more things a capture does not carry over on its own:
+Three more things a capture does not carry over on its own:
 
 - **Launch counters.** The kernel wrappers count their launches in
   module-level integers (:data:`COUNTED`), which the capture bumps once
@@ -28,6 +30,13 @@ Two more things a capture does not carry over on its own:
   records on a side stream with ``capture_begin`` / ``capture_end`` alone:
   no sync (a capture and a replay pass
   ``torch.cuda.set_sync_debug_mode("error")``), no emptied cache.
+- **Random numbers.** A capture records a generator's draws at offsets
+  from a seed and offset that the graph reads from device memory. The
+  generators a program draws from are registered with the graph
+  (:func:`capture`'s ``generators``); before each replay PyTorch copies
+  each one's current seed and offset into the graph and advances its
+  offset by what the graph draws, so a generator re-seeded before a
+  replay draws what an eager run from that seed draws.
 
 Nothing falls back: a capture or a replay that fails raises.
 """
@@ -98,10 +107,12 @@ def record(graph, recording, fn) -> Program:
 
 
 @contextlib.contextmanager
-def _recording(graph):
+def _recording(graph, generators=()):
     """Capture the block's CUDA work into ``graph`` on a side stream (a
     capture may not run on the default stream) and into the graph's
-    private memory pool."""
+    private memory pool, with ``generators`` registered with the graph."""
+    for gen in generators:
+        graph.register_generator_state(gen)
     with torch.cuda.stream(torch.cuda.Stream()):
         graph.capture_begin()
         try:
@@ -110,12 +121,13 @@ def _recording(graph):
             graph.capture_end()
 
 
-def capture(fn) -> Program:
+def capture(fn, generators=()) -> Program:
     """``fn``'s CUDA work captured into a new ``torch.cuda.CUDAGraph``
-    (:func:`_recording`), with :func:`record`'s launch counts and the
-    capture's host time in ``capture_ms``."""
+    (:func:`_recording`; ``generators``: the CUDA generators it draws
+    from), with :func:`record`'s launch counts and the capture's
+    host time in ``capture_ms``."""
     graph = torch.cuda.CUDAGraph()
     t0 = time.perf_counter()
-    program = record(graph, _recording(graph), fn)
+    program = record(graph, _recording(graph, generators), fn)
     program.capture_ms = 1e3 * (time.perf_counter() - t0)
     return program

@@ -312,20 +312,28 @@ def test_attention_grads_on_card_match_plain_autograd(dev, dtype, causal,
 
 @pytest.mark.parametrize("n", [1, 7, 4096, 1_000_003])
 def test_fused_adamw_kernel_matches_plain(dev, n):
+    """Four steps from the device count, the third with the flag ``ok``
+    false: the kernel leaves p, mu and nu bit-untouched and the count
+    where it was, and every step matches the plain version's."""
     from distributed_compute_pytorch_tpu_torch.ops import fused_adamw as FA
     gen = torch.Generator().manual_seed(7)
     p, mu = (torch.randn(n, generator=gen).to(dev) for _ in range(2))
     nu = torch.rand(n, generator=gen).to(dev)
     want = [p.clone(), mu.clone(), nu.clone()]
     tx = FA.fused_adamw(lambda c: 1e-3 * (c + 1), weight_decay=0.1)
+    count = FA.device_count(dev)
     before = FA.launches
-    for count in range(3):
+    for step in range(4):
         g = torch.randn(n, generator=gen).to(dev)
+        ok = torch.tensor(step != 2, device=dev)
         sc = tx.scalars(count)
-        want = list(FA.fused_adamw_plain(g, *want, **sc))
-        FA.fused_adamw_update(g, p, mu, nu, **sc)
+        want = list(FA.fused_adamw_plain(g, *want, sc, ok, **tx.hyper))
+        kept = [x.clone() for x in (p, mu, nu)]
+        FA.fused_adamw_update(g, p, mu, nu, sc, count, ok, **tx.hyper)
+        if step == 2:
+            assert all(torch.equal(a, b) for a, b in zip((p, mu, nu), kept))
     torch.cuda.synchronize()
-    assert FA.launches == before + 3
+    assert FA.launches == before + 4 and int(count) == 3
     for got, w in zip((p, mu, nu), want):
         torch.testing.assert_close(got, w, atol=1e-6, rtol=1e-6)
 
@@ -1296,3 +1304,118 @@ def test_captured_tick_matches_eager(dev, dtype, kv_quant):
         assert out[True][1] == out[False][1]
         eos_id = int(out[True][0][0, T0 + 1])   # row 0 emits it early
     assert (out[True][0][0, T0 + 1:] == eos_id).all()
+
+
+# ---- the captured train step (a CUDA graph) ---------------------------------
+
+def _tiny_train(dev, optimizer, **kw):
+    """GPT-2-tiny (dropout 0.1, T 32) from seed 0 on the card, f32, its
+    step functions (``kw``: ``make_step_fns`` options), a fresh state and
+    one batch of 8."""
+    from distributed_compute_pytorch_tpu_torch.models.gpt2 import (
+        GPT2, GPT2Config)
+    from distributed_compute_pytorch_tpu_torch.train.optim import (
+        build_optimizer)
+    from distributed_compute_pytorch_tpu_torch.train.step import make_step_fns
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPT2Config(vocab_size=256, max_seq_len=32, num_layers=2,
+                     num_heads=4, d_model=64, d_ff=128, dropout_rate=0.1)
+    model = GPT2(cfg, device=dev)
+    tx = build_optimizer(optimizer, 1e-2, steps_per_epoch=8, total_steps=8,
+                         warmup_steps=2)
+    init_fn, train_step, _ = make_step_fns(model, tx, **kw)
+    state = init_fn(0)
+    x = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 256, (8, 32))).to(dev)
+    return train_step, state, x
+
+
+def _train_bits(state):
+    opt = state.opt_state
+    return ([p.detach().clone() for p in state.params.values()]
+            + [t.clone() for v in opt.moments().values() for t in v.values()]
+            + [opt.count.clone()])
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "adamw_fused"])
+def test_captured_train_step_matches_eager(dev, optimizer):
+    """Six updates with dropout 0.1, captured and eager (``_eager=True``):
+    bit-identical losses, parameters, moments and count; the captured
+    step ran its first update eagerly, captured once and replayed five
+    times, and moved every launch counter as the eager one did (the
+    flash kernels 2 layers a step, fused AdamW 1 a step)."""
+    from distributed_compute_pytorch_tpu_torch.utils.graphs import (
+        launch_counts)
+    runs = {}
+    for eager in (True, False):
+        train_step, state, x = _tiny_train(dev, optimizer, _eager=eager)
+        before = launch_counts()
+        losses = [train_step(state, x, x)[1]["loss"] for _ in range(6)]
+        torch.cuda.synchronize()
+        runs[eager] = (losses, _train_bits(state), _moved(before))
+        assert state.step == 6
+        if not eager:
+            assert (train_step.stats["eager_steps"],
+                    train_step.stats["graph_captures"],
+                    train_step.stats["graph_replays"]) == (1, 1, 5)
+    (l_e, b_e, m_e), (l_g, b_g, m_g) = runs[True], runs[False]
+    assert len(set(id(v) for v in l_g)) == 6      # fresh tensors a step
+    assert [v.item() for v in l_g] == [v.item() for v in l_e]
+    assert all(torch.equal(a, b) for a, b in zip(b_g, b_e))
+    assert m_g == m_e
+    fa = "distributed_compute_pytorch_tpu_torch.ops.flash_attention"
+    assert m_g[(fa, "launches")] == m_g[(fa, "dq_launches")] == 12
+    assert m_g.get(("distributed_compute_pytorch_tpu_torch.ops.fused_adamw",
+                    "launches"), 0) == (6 if optimizer == "adamw_fused"
+                                        else 0)
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "adamw_fused"])
+def test_captured_step_skips_a_poisoned_update(dev, optimizer):
+    """``nonfinite_policy="skip"`` on the captured step: a replay with one
+    ``wte`` element set to inf reports ``skipped`` 1 and a non-finite
+    ``grad_sumsq`` and leaves params, moments and count bit-identical;
+    the element restored, the next replays train (``skipped`` 0, the
+    count advancing)."""
+    train_step, state, x = _tiny_train(dev, optimizer,
+                                       nonfinite_policy="skip",
+                                       sentinel=True)
+    for _ in range(3):
+        _, m = train_step(state, x, x)
+        assert m["skipped"].item() == 0.0
+    wte = state.params["wte.weight"].detach()
+    clean = wte[3, 5].item()
+    wte[3, 5] = float("inf")
+    before = _train_bits(state)
+    _, m = train_step(state, x, x)
+    assert m["skipped"].item() == 1.0
+    assert not torch.isfinite(m["grad_sumsq"]).item()
+    assert all(torch.equal(a, b) for a, b in zip(_train_bits(state), before))
+    wte[3, 5] = clean
+    for k in range(2):
+        _, m = train_step(state, x, x)
+        assert m["skipped"].item() == 0.0
+        assert torch.isfinite(m["loss"]).item()
+    assert int(state.opt_state.count) == 5 and state.step == 6
+    assert train_step.stats["graph_replays"] == 5
+
+
+def test_train_capture_and_replays_pass_sync_debug_error(dev):
+    """After the eager warm-up, the capture and every replay, with the
+    batch copies before them and the metric copies after, run under
+    ``torch.cuda.set_sync_debug_mode("error")``: no step waits for the
+    card."""
+    train_step, state, x = _tiny_train(dev, "adamw_fused",
+                                       nonfinite_policy="skip",
+                                       sentinel=True)
+    train_step(state, x, x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            _, m = train_step(state, x, x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert train_step.stats["graph_captures"] == 1
+    assert train_step.stats["graph_replays"] == 4
+    assert m["skipped"].item() == 0.0

@@ -4,8 +4,8 @@
   CUDA kernel is held to on the card) against the JAX ``fused_adamw``'s
   ``fused_apply``, whose Pallas kernel runs in interpret mode here, over
   three steps of the warmup-cosine schedule (lr 0 at step 0). Tolerance
-  1e-6: the same f32 elementwise ops; the bias corrections are computed
-  in f64 on the port's host and in f32 on the JAX side.
+  1e-6: the same f32 elementwise ops, with the step's scalars computed
+  from the device count in f32 on both sides.
 - ``build_optimizer("adamw", weight_decay=0.01, clip_norm=1.0)`` against
   the JAX ``build_optimizer`` (``optax``) on GPT-2-tiny's params tree,
   decay mask included. Tolerance 1e-6.
@@ -84,7 +84,8 @@ def test_fused_adamw_matches_jax_fused_apply():
     for step, g in enumerate(grads):
         for n, a in _flat(g).items():
             tp[n].grad.copy_(torch.from_numpy(a))
-        tx.fused_apply({n: p.grad for n, p in tp.items()}, state, tp)
+        tx.fused_apply({n: p.grad for n, p in tp.items()}, state, tp,
+                       torch.tensor(True))
         if step == 0:      # lr 0 at count 0: moments move, params do not
             for n, p in tp.items():
                 assert torch.equal(p.detach(), before[n]), n
@@ -103,7 +104,7 @@ def test_fused_apply_refuses_grads_outside_its_buffer():
     assert tp["w"].grad.data_ptr() == state.grads.data_ptr()
     tp["w"].grad = torch.zeros(3, 2)          # replaced, as set_to_none does
     with pytest.raises(RuntimeError, match="flat buffer"):
-        tx.fused_apply({"w": tp["w"].grad}, state, tp)
+        tx.fused_apply({"w": tp["w"].grad}, state, tp, torch.tensor(True))
 
 
 def test_adamw_with_clip_and_masked_decay_matches_optax():

@@ -1,7 +1,7 @@
 """Package rules of the port: it imports no JAX (and nothing of the JAX
-package), neither do ``chip_smoke.py`` and the CUDA test file, and its
-entry points refuse to run without a card unless the caller asks for the
-CPU."""
+package), neither do ``chip_smoke.py``, ``train_probe.py`` and the CUDA
+test file, and its entry points refuse to run without a card unless the
+caller asks for the CPU."""
 
 import ast
 import subprocess
@@ -28,6 +28,7 @@ def _imported_roots(path: Path) -> set[str]:
 
 def _checked_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "train_probe.py",
                                          ROOT / "tests/test_torch_cuda.py"]
 
 
@@ -123,8 +124,9 @@ def test_training_kernel_launchers_refuse_cpu_tensors():
         fused_adamw_cuda)
     buf = torch.zeros(8)
     with pytest.raises(ValueError, match="CUDA"):
-        fused_adamw_cuda(buf, buf, buf, buf, lr=1e-3, wd=0.0, c1=1.0,
-                         c2=1.0, b1=0.9, b2=0.999, eps=1e-8)
+        fused_adamw_cuda(buf, buf, buf, buf, torch.zeros(4),
+                         torch.zeros((), dtype=torch.int32),
+                         torch.tensor(True), b1=0.9, b2=0.999, eps=1e-8)
     q, lse = torch.zeros(1, 2, 4, 8), torch.zeros(1, 2, 4)
     with pytest.raises(ValueError, match="CUDA"):
         _bwd_prepare("flash_bwd_dkv", q, q, q, q, lse, lse, True, None)

@@ -16,7 +16,8 @@ T 128).
   and validity mask included;
 - without ``--device cpu`` the CLI raises the device rule's
   ``RuntimeError``; a flag outside the ported subset exits with a
-  one-line error naming it.
+  one-line error naming it (``--nonfinite_policy skip`` is ported:
+  ``tests/test_torch_train_guard.py``).
 """
 
 import contextlib
@@ -164,10 +165,10 @@ def test_cli_needs_cuda_unless_cpu_is_asked(tmp_path):
 
 @pytest.mark.parametrize("flag,arg", [("--mesh", "data=2"),
                                       ("--gamma", "0.7"),
-                                      ("--nonfinite_policy", "skip")])
+                                      ("--divergence_check", None)])
 def test_unported_flag_exits_naming_it(flag, arg, capsys):
     with pytest.raises(SystemExit) as e:
-        cli.main(BASE + [flag, arg])
+        cli.main(BASE + [flag] + ([] if arg is None else [arg]))
     msg = str(e.value)
     assert flag in msg and "\n" not in msg
 
