@@ -146,6 +146,35 @@ imports nothing of JAX. Phases, one JSON line each:
 13. train_cli: the port's trainer CLI for one epoch of ``synthetic-lm``
    at GPT-2-small widths (the captured step), then ``--resume --epochs
    2``.
+14. convnet: the reference's own workload (BASELINE config 0): the MNIST
+   ConvNet at batch 128, f32, on mnist's synthetic stand-in (60,000 x 28
+   x 28 x 1; 469 steps an epoch) through ``make_step_fns`` with Adadelta
+   (lr 1e-3, StepLR gamma 0.7 every 200 steps, so the rate drops twice
+   inside the replays; the step runs cuDNN in f32 with its deterministic
+   algorithms, as every caller of the port's step does): one epoch
+   captured and eager in turns (``TURNS``) from the same weights, every
+   run's losses, parameters, Adadelta slots, count and BatchNorm running
+   stats bit-identical to the first's, every captured update after the
+   first under ``set_sync_debug_mode("error")``; samples/s and step ms of
+   each mode, a profiled run of each (one ``cudaGraphLaunch`` a replayed
+   step and only the dropout generator's prologue inside, gated; busy
+   share; no port kernel on this path, gated), the test accuracy; then
+   one epoch at lr 1.0 that must reach a test accuracy of 0.9;
+15. convnet_ddp: the same captured step under a one-process ``nccl`` group
+   (its gradient all-reduce and the sync-BN all-reduces in the graph):
+   bit-identical to the convnet phase's captured run, the warm-up and the
+   capture each issuing the three all-reduces (c10d's host ops, gated),
+   one ``cudaGraphLaunch`` a replay; the collectives' device time a step
+   (the three alone, captured and replayed under the profiler: at world
+   1 NCCL's in-place all-reduce runs no device work);
+16. convnet_cli: the trainer CLI on the ConvNet, mnist and Adadelta for
+   one epoch, then ``--resume --epochs 2``, then one epoch as a one-rank
+   ``nccl`` world (``--coordinator``/``--num_processes``/``--process_id``).
+
+When a profiled run's counters and the device's kernel events disagree
+(``counted_profile``), the profile's port kernel events (name, start,
+stream, graph ids), the schedule and its waves are written to
+``chiprun_out/kernel_events_*.json`` before the smoke fails.
 
 Then the ``{"kernels": [...]}`` line (launches from the profiled captured
 bf16 serve run for the serving kernels, from the profiled captured bf16
@@ -1953,13 +1982,13 @@ def _kernel_group(name: str) -> str:
     return "other PyTorch kernels"
 
 
-def device_time(torch, prof):
-    """``(total_us, {group: [launches, us]}, top kernels)`` from a
-    profile's device-side events (not the device-timeline mirror of a
-    graph replay's span, which covers the replay's kernels)."""
+def device_events(torch, prof) -> dict:
+    """``{name: [events, device_us]}`` of a profile's device events (not
+    the device-timeline mirror of a graph replay's span, which covers the
+    replay's kernels)."""
     from distributed_compute_pytorch_tpu_torch.utils.graphs import (
         REPLAY_SPAN)
-    kernels = {}
+    out = {}
     for e in prof.key_averages():
         if (e.device_type != torch.autograd.DeviceType.CUDA
                 or e.key == REPLAY_SPAN):
@@ -1967,8 +1996,15 @@ def device_time(torch, prof):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        n, t = kernels.get(e.key, (0, 0.0))
-        kernels[e.key] = (n + e.count, t + us)
+        n, t = out.get(e.key, (0, 0.0))
+        out[e.key] = [n + e.count, t + us]
+    return out
+
+
+def device_time(torch, prof):
+    """``(total_us, {group: [launches, us]}, top kernels)`` from a
+    profile's device events (:func:`device_events`)."""
+    kernels = device_events(torch, prof)
     total_us = sum(t for _, t in kernels.values())
     groups: dict = {}
     for name, (n, us) in kernels.items():
@@ -2026,14 +2062,18 @@ def path_counts(FA, CU, DA) -> dict:
     return c
 
 
-def counted_profile(torch, counters, fn, what, schedule):
+def counted_profile(torch, counters, fn, what, schedule, waves=None):
     """``fn()`` under the profiler (:func:`profile_run`) with every launch
     counter set to 0 just before and read just after; those counts must
     equal the device's kernel events in the profile
     (:func:`device_launches`) and the schedule (``schedule``: the nonzero
     counts, every other one 0). This measures a captured run's launches:
     its replays' counts are added by ``Program.replay``, its kernels'
-    events come from the device. ``counters``: ``(FA, CU, DA)``. Returns
+    events come from the device. ``counters``: ``(FA, CU, DA)``;
+    ``waves``: the run's schedule units (admission waves, ticks), which
+    ``fn`` may fill in, kept for :func:`dump_kernel_events`. When the
+    device's events and the counters disagree, the profile's port kernel
+    events go to ``chiprun_out/`` before the check fails. Returns
     ``(profile, wall_s, counts)``, ``counts`` every counter of
     ``q8_counts`` with ``flash_fwd_tc``."""
     FA, CU, DA = counters
@@ -2047,9 +2087,44 @@ def counted_profile(torch, counters, fn, what, schedule):
     device.update(device_launches(torch, prof))
     require(counted == want, f"{what}: launches {counted} != the schedule's "
                              f"{want}")
-    require(device == counted, f"{what}: the device ran {device}, the "
-                               f"counters say {counted}")
+    if device != counted:
+        path = dump_kernel_events(prof, what, {
+            "schedule": schedule, "waves": waves, "counted": counted,
+            "device": device})
+        require(False, f"{what}: the device ran {device}, the counters say "
+                       f"{counted} (kernel events written to {path})")
     return prof, wall, counts
+
+
+def dump_kernel_events(prof, what, context: dict) -> str:
+    """Write the profile's port kernel events (name, start, duration,
+    stream, and the graph ids the trace gives a replayed kernel) and
+    ``context`` (the schedule, its waves, the counters and the device's
+    counts) to ``chiprun_out/`` as JSON; returns the path."""
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    slug = re.sub(r"\W+", "_", what).strip("_")
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f).get("traceEvents", [])
+    kernels = []
+    for e in events:
+        m = PORT_KERNEL.search(e.get("name", "") + "(")
+        if e.get("cat") != "kernel" or not m or m.group(1) not in \
+                PORT_KERNELS:
+            continue
+        args = e.get("args", {})
+        kernels.append({
+            "name": e["name"][:160], "ts_us": e.get("ts"),
+            "dur_us": e.get("dur"), "stream": args.get("stream"),
+            "correlation": args.get("correlation"),
+            **{k: v for k, v in args.items() if "graph" in k.lower()}})
+    path = out / f"kernel_events_{slug}.json"
+    with open(path, "w") as f:
+        json.dump({"what": what, **context, "kernel_events": kernels}, f)
+    return str(path)
 
 
 def profile_run(torch, fn):
@@ -2174,18 +2249,20 @@ def profiled_serve(torch, counters, cb, reqs, what, q8, tc):
     every forward on the tensor cores where ``tc``. Returns
     ``(profile, wall_s, counts, ticks)``."""
     waves0, ticks0 = cb.stats["prefill_calls"], cb.ticks
-    sched = {}
+    sched, units = {}, {}
 
     def run():
         cb.serve(reqs)
         waves = cb.stats["prefill_calls"] - waves0
+        units.update(admission_waves=waves, ticks=cb.ticks - ticks0)
         sfx = "_q8" if q8 else ""
         sched.update({"flash_fwd": LAYERS * waves,
                       "flash_fwd_tc": LAYERS * waves if tc else 0,
                       "kv_pool_insert" + sfx: LAYERS * waves,
                       "paged_decode_write" + sfx:
                           LAYERS * (cb.ticks - ticks0)})
-    prof, wall, counts = counted_profile(torch, counters, run, what, sched)
+    prof, wall, counts = counted_profile(torch, counters, run, what, sched,
+                                         waves=units)
     return prof, wall, counts, cb.ticks - ticks0
 
 
@@ -2512,7 +2589,8 @@ def profiled_generate(torch, counters, fn, what, q8):
     sfx = "_q8" if q8 else ""
     return counted_profile(torch, counters, fn, what, {
         "flash_fwd": LAYERS, "flash_fwd_tc": LAYERS,
-        "dense_decode_write" + sfx: LAYERS * (GEN_NEW - 1)})
+        "dense_decode_write" + sfx: LAYERS * (GEN_NEW - 1)},
+        waves={"prefill_calls": 1, "ticks": GEN_NEW - 1})
 
 
 def generate_profile_phase(torch, counters, fns, batch, walls):
@@ -3061,6 +3139,413 @@ def cli_phase(torch, interop, GPT2, GPT2Config):
     return rec
 
 
+# the reference's workload (BASELINE config 0): the MNIST ConvNet at
+# batch 128 (469 steps an epoch over 60,000 images), f32, Adadelta at the
+# reference's lr 1e-3 with StepLR gamma 0.7. The phase builds the schedule
+# at 200 steps an epoch, so the rate drops twice inside the captured run's
+# replays (steps 200 and 400).
+CONVNET_BATCH, CONVNET_LR, CONVNET_GAMMA, CONVNET_SPE = 128, 1e-3, 0.7, 200
+CONVNET_STEPS = 469
+# the learning check: torch's own Adadelta default, one epoch
+CONVNET_LEARN_LR, CONVNET_MIN_ACCURACY = 1.0, 0.9
+# steps of each profiled run, and a run's first steps left out of its
+# rate (the eager warm-up and the capture, and one more)
+CONVNET_PROFILE_STEPS, CONVNET_SKIP = 20, 3
+# the data-parallel step's collectives a step: the gradient all-reduce and
+# the BatchNorm statistics' all-reduce, forward and backward
+CONVNET_COLLECTIVES = 3
+# c10d's host op of an NCCL all-reduce
+NCCL_OP = "nccl:all_reduce"
+
+
+def convnet_data():
+    """The mnist train and test splits (the synthetic stand-in: the repo
+    holds no idx files), and feeders of the reference's batch."""
+    from distributed_compute_pytorch_tpu_torch.data.datasets import (
+        load_dataset)
+    from distributed_compute_pytorch_tpu_torch.data.loader import (
+        DeviceFeeder)
+    train, test = (load_dataset("mnist", split) for split in ("train",
+                                                              "test"))
+    feed = DeviceFeeder(train, CONVNET_BATCH, "cuda", shuffle=True, seed=0)
+    test_feed = DeviceFeeder(test, CONVNET_BATCH, "cuda", shuffle=False)
+    require(feed.steps_per_epoch == CONVNET_STEPS,
+            f"convnet: {feed.steps_per_epoch} steps an epoch, want "
+            f"{CONVNET_STEPS}")
+    return train, test, feed, test_feed
+
+
+def convnet_setup(cm, weights, mode, lr=CONVNET_LR):
+    """A ConvNet on the card loaded with ``weights``, Adadelta + StepLR,
+    and ``(train_step, eval_step, state)`` (``mode`` "graph": the
+    captured step; "eager": the private eager reference)."""
+    ConvNet, build_optimizer, make_step_fns = cm
+    model = ConvNet()
+    model.load_state_dict(weights)
+    tx = build_optimizer("adadelta", lr, gamma=CONVNET_GAMMA,
+                         steps_per_epoch=CONVNET_SPE)
+    init_fn, train_step, eval_step = make_step_fns(
+        model, tx, _eager=mode == "eager")
+    return [train_step, eval_step, init_fn(None)]
+
+
+def convnet_bits(state) -> list:
+    """``state_bits`` and the BatchNorm running stats."""
+    return state_bits(state) + [t.clone() for t in
+                                state.model_state.values()]
+
+
+def convnet_run(torch, feed, setup, mode, what) -> tuple[dict, list]:
+    """One epoch of ``feed`` through ``setup``'s step, the state updated
+    in place. In the captured mode every update from the second on (the
+    capture and each replay) runs under ``set_sync_debug_mode("error")``.
+    Rates by the host clock from a synchronize after the first
+    ``CONVNET_SKIP`` steps to one after the last. Returns the record and
+    the losses."""
+    train_step, _, state = setup
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t_steady = t0
+    for i, (x, y) in enumerate(feed.epoch(0)):
+        if i == CONVNET_SKIP:
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter()
+        if mode == "graph" and i >= 1:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, metrics = train_step(state, x, y)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    setup[2] = state
+    losses = [float(v) for v in losses]
+    require(len(losses) == CONVNET_STEPS
+            and all(math.isfinite(v) for v in losses),
+            f"{what}: {len(losses)} steps, losses {losses[:3]}...")
+    steady = CONVNET_STEPS - CONVNET_SKIP
+    rec = {"mode": mode, "epoch_s": t1 - t0,
+           "step_ms": 1e3 * (t1 - t_steady) / steady,
+           "samples_per_s": steady * CONVNET_BATCH / (t1 - t_steady)}
+    if mode == "graph":
+        stats = train_step.stats
+        got = (stats["eager_steps"], stats["graph_captures"],
+               stats["graph_replays"])
+        want = (1, 1, CONVNET_STEPS - 1)
+        require(got == want, f"{what}: (eager, captures, replays) {got}, "
+                             f"want {want}")
+        rec.update(capture_ms=stats["capture_ms"][0],
+                   sync_debug_error_steps=CONVNET_STEPS - 1)
+    return rec, losses
+
+
+def convnet_eval(torch, test_feed, setup) -> dict:
+    """The test split through ``eval_step``: the sums and the accuracy."""
+    _, eval_step, state = setup
+    total = None
+    for x, y, valid in test_feed.epoch(0, with_valid=True):
+        total = eval_step(state, x, y, total, valid)
+    count = int(total["count"])
+    return {"loss": float(total["loss_sum"]) / count,
+            "correct": int(total["correct"]), "count": count,
+            "accuracy": int(total["correct"]) / count}
+
+
+def convnet_profile(torch, setup, batch, mode, what,
+                    steps=CONVNET_PROFILE_STEPS):
+    """``steps`` more updates of ``setup`` on one device batch under the
+    profiler. Host calls: captured, one ``cudaGraphLaunch`` a step, each
+    in a replay span, and inside a replay no kernel launch call but the
+    dropout generator's two ``fill_`` prologue launches (gated); eager,
+    no graph launch. No kernel of the port's runs on this path (gated).
+    Returns ``(prof, wall_s, host)``."""
+    train_step, _, state = setup
+    x, y = batch
+
+    def run():
+        nonlocal state
+        for _ in range(steps):
+            state, _ = train_step(state, x, y)
+    prof, wall = profile_run(torch, run)
+    setup[2] = state
+    ported = device_launches(torch, prof)
+    require(not ported, f"{what}: port kernels ran on the ConvNet path: "
+                        f"{ported}")
+    host = host_calls(torch, prof)
+    if mode == "graph":
+        fills = host["ops_in_replays"].get("aten::fill_", 0)
+        require(host["graph_launches"] == host["replays"] == steps
+                and host["graph_launches_in_replays"] == steps
+                and host["kernel_launches_in_replays"] == fills
+                == RNG_PROLOGUE_FILLS * steps,
+                f"{what}: want one cudaGraphLaunch a replayed step and only "
+                f"the generator prologue's {RNG_PROLOGUE_FILLS} fill_ "
+                f"launches inside: {host}")
+    else:
+        require(host["graph_launches"] == 0 and host["replays"] == 0,
+                f"{what}: the eager run launched graphs: {host}")
+    return prof, wall, host
+
+
+def convnet_summary(torch, prof, wall, host, step_ms: list,
+                    steps=CONVNET_PROFILE_STEPS) -> dict:
+    """A profiled ConvNet run: device time and ops a step, host calls a
+    step, the busy share of each unprofiled run of the mode (device time
+    a step over its step time), the top kernels."""
+    total_us, groups, top = device_time(torch, prof)
+    per_step = total_us / 1e3 / steps
+    return {"steps": steps, "wall_s_profiled": wall,
+            "device_ms_per_step": per_step,
+            "device_busy_share": [per_step / ms for ms in step_ms],
+            "device_ops_per_step": sum(n for n, _ in groups.values()) / steps,
+            "kernel_launch_calls_per_step": host["kernel_launches"] / steps,
+            "graph_launch_calls_per_step": host["graph_launches"] / steps,
+            "top_kernels": [{"name": name[:100], "launches": n,
+                             "ms_per_step": us / 1e3 / steps}
+                            for name, (n, us) in top]}
+
+
+def convnet_phase(torch, cm, data, smi):
+    """The reference's workload on the card: the ConvNet through
+    ``make_step_fns`` with Adadelta, one epoch of 469 steps, the captured
+    step and the eager one in turns (``TURNS``), each from the same
+    weights; every run's losses, parameters, Adadelta slots, count and
+    BatchNorm running stats bit-identical to the first's (gated); a
+    profiled run of each mode; the test accuracy; then one epoch at lr
+    1.0, which must reach ``CONVNET_MIN_ACCURACY``. Returns the record,
+    the first captured run's losses and bits, the weights and the
+    captured mode's profile."""
+    _, _, feed, test_feed = data
+    weights = cm[0](device="cpu").init(
+        torch.Generator().manual_seed(0)).state_dict()
+    runs, first, kept = [], None, {}
+    for turn, mode in enumerate(TURNS):
+        setup = convnet_setup(cm, weights, mode)
+        what = f"convnet {mode} run {turn + 1}"
+        rec, losses = convnet_run(torch, feed, setup, mode, what)
+        bits = convnet_bits(setup[2])
+        if first is None:
+            first = (losses, bits)
+            rec["eval"] = convnet_eval(torch, test_feed, setup)
+        else:
+            require(losses == first[0], f"{what}: losses differ from run "
+                                        f"1's")
+            require(same_bits(torch, bits, first[1]),
+                    f"{what}: parameters, slots, count or BatchNorm stats "
+                    f"differ from run 1's")
+        runs.append(rec)
+        if turn >= 2:
+            kept[mode] = setup
+    batch = next(iter(feed.epoch(1)))
+    profiles, graph_prof = {}, None
+    for mode in ("graph", "eager"):
+        prof, wall, host = convnet_profile(torch, kept[mode], batch, mode,
+                                           f"convnet profile {mode}")
+        profiles[mode] = convnet_summary(
+            torch, prof, wall, host,
+            [r["step_ms"] for r in runs if r["mode"] == mode])
+        if mode == "graph":
+            graph_prof = device_events(torch, prof)
+    del kept
+    learn = convnet_setup(cm, weights, "graph", lr=CONVNET_LEARN_LR)
+    learn_rec, learn_losses = convnet_run(torch, feed, learn, "graph",
+                                          "convnet lr 1.0")
+    learn_rec["eval"] = convnet_eval(torch, test_feed, learn)
+    require(learn_rec["eval"]["accuracy"] >= CONVNET_MIN_ACCURACY,
+            f"convnet lr 1.0: test accuracy {learn_rec['eval']['accuracy']}"
+            f" after one epoch, want >= {CONVNET_MIN_ACCURACY}")
+    del learn
+    torch.cuda.empty_cache()
+
+    def median(mode, key):
+        return statistics.median(r[key] for r in runs if r["mode"] == mode)
+    rec = {"phase": "convnet", "card": smi,
+           "model": "the reference MNIST ConvNet (conv 32, conv 64, fc 9216"
+                    " x 128, BatchNorm1d, fc 128 x 10), random weights seed 0",
+           "data": "mnist: the synthetic stand-in, 60,000 x 28 x 28 x 1 "
+                   "train, 10,000 test, 10 classes",
+           "batch": CONVNET_BATCH, "steps": CONVNET_STEPS, "dtype": "f32",
+           "optimizer": f"adadelta lr {CONVNET_LR}, StepLR gamma "
+                        f"{CONVNET_GAMMA} every {CONVNET_SPE} steps",
+           "cudnn_deterministic": True, "turns": list(TURNS),
+           "bit_identical": "losses, parameters, Adadelta slots, count and "
+                            "BatchNorm running stats after the epoch, every "
+                            "run against the first (gated)",
+           "samples_per_s": median("graph", "samples_per_s"),
+           "samples_per_s_eager": median("eager", "samples_per_s"),
+           "step_ms": median("graph", "step_ms"),
+           "step_ms_eager": median("eager", "step_ms"),
+           "rate_of": f"the mode's runs' median, steps {CONVNET_SKIP + 1}-"
+                      f"{CONVNET_STEPS} by the host clock",
+           "loss_first_last": [first[0][0], first[0][-1]],
+           "test": runs[0]["eval"],
+           "learn": {"lr": CONVNET_LEARN_LR, "samples_per_s":
+                     learn_rec["samples_per_s"], "eval": learn_rec["eval"],
+                     "loss_first_last": [learn_losses[0], learn_losses[-1]]},
+           "profile": profiles, "runs": runs}
+    return rec, first, weights, graph_prof, batch
+
+
+def convnet_ddp_phase(torch, cm, mesh, data, weights, first, base_prof,
+                      batch, smi):
+    """The convnet phase's captured step under a one-process ``nccl``
+    group: bit-identical to that phase's captured run (a SUM over one
+    rank, divided by 1, keeps the bits; gated); the eager warm-up and the
+    capture each issue ``CONVNET_COLLECTIVES`` all-reduces (c10d's host
+    ops, gated), so the graph holds them; a profiled run of replays, one
+    ``cudaGraphLaunch`` each (gated), beside the ungrouped replays. The
+    collectives' device time a step: the three all-reduces alone, at the
+    step's sizes and in place as the step issues them, captured and
+    replayed under the profiler."""
+    import socket
+    import torch.distributed as dist
+    from distributed_compute_pytorch_tpu_torch.utils import graphs
+    _, _, feed, _ = data
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mesh.initialize_distributed(f"127.0.0.1:{port}", 1, 0, "cuda")
+    n = CONVNET_PROFILE_STEPS
+    try:
+        require(mesh.distributed() and dist.get_backend() == "nccl"
+                and mesh.process_count() == 1,
+                "convnet_ddp: no one-rank nccl group")
+        setup = convnet_setup(cm, weights, "graph")
+        rec, losses = convnet_run(torch, feed, setup, "graph",
+                                  "convnet_ddp captured")
+        require(losses == first[0], "convnet_ddp: losses differ from the "
+                                    "ungrouped captured run's")
+        require(same_bits(torch, convnet_bits(setup[2]), first[1]),
+                "convnet_ddp: parameters, slots, count or BatchNorm stats "
+                "differ from the ungrouped captured run's")
+        flat_numel = setup[2].flat_grads.numel()
+        prof, wall, host = convnet_profile(torch, setup, batch, "graph",
+                                           "convnet_ddp profile")
+        summary = convnet_summary(torch, prof, wall, host, [rec["step_ms"]])
+        events = device_events(torch, prof)
+        extra = {}
+        for k in set(events) | set(base_prof):
+            (a, ta), (b, tb) = (d.get(k, (0, 0.0)) for d in (events,
+                                                             base_prof))
+            if a != b:
+                extra[k] = [(a - b) / n, (ta - tb) / 1e3 / n]
+        del setup
+        # the collectives the warm-up and the capture issue
+        fresh = convnet_setup(cm, weights, "graph")
+        x, y = batch
+
+        def two():
+            for _ in range(2):
+                fresh[2], _ = fresh[0](fresh[2], x, y)
+        cap_prof, _ = profile_run(torch, two)
+        ops = sum(e.count for e in cap_prof.key_averages()
+                  if e.key == NCCL_OP)
+        require(ops == 2 * CONVNET_COLLECTIVES and
+                fresh[0].stats["graph_captures"] == 1,
+                f"convnet_ddp: {ops} {NCCL_OP} ops in the warm-up and the "
+                f"capture, want {2 * CONVNET_COLLECTIVES}")
+        del fresh
+        # the three collectives alone: the flat gradients (and the loss
+        # slot) in f32, BatchNorm's 2 x 128 sums and count in f64, twice
+        bufs = [torch.zeros(flat_numel, device="cuda")] + [
+            torch.zeros(257, dtype=torch.float64, device="cuda")
+            for _ in range(2)]
+
+        def collectives():
+            for b in bufs:
+                dist.all_reduce(b)
+        collectives()
+        program = graphs.capture(collectives)
+
+        def replays():
+            for _ in range(n):
+                program.replay()
+        coll_prof, _ = profile_run(torch, replays)
+        coll_events = device_events(torch, coll_prof)
+        coll_ms = sum(t for _, t in coll_events.values()) / 1e3 / n
+        del program, bufs
+    finally:
+        mesh.shutdown_distributed()
+    torch.cuda.empty_cache()
+    return {"phase": "convnet_ddp", "card": smi, "backend": "nccl",
+            "world": 1, "bit_identical_to_ungrouped_captured_run": True,
+            "collectives_a_step": CONVNET_COLLECTIVES,
+            "nccl_ops_in_warmup_and_capture": ops,
+            "collectives_device_ms_per_step": coll_ms,
+            "collectives_device_events_per_step": {
+                k: v[0] / n for k, v in coll_events.items()},
+            "collectives_measured": "the step's three all-reduces alone, "
+                                    "in place at its sizes, captured and "
+                                    "replayed under the profiler",
+            "device_events_changed_per_step_vs_ungrouped": extra,
+            "samples_per_s": rec["samples_per_s"], "step_ms": rec["step_ms"],
+            "capture_ms": rec["capture_ms"], "profile": summary}
+
+
+def convnet_cli_phase(torch, interop, ConvNet, smi):
+    """The trainer CLI on the reference's workload: one epoch of the
+    ConvNet on mnist (the synthetic stand-in) with Adadelta, then
+    ``--resume --epochs 2``, then one epoch as a one-rank world (``nccl``)
+    through ``--coordinator``/``--num_processes``/``--process_id``; the
+    reference-format lines of each, and the checkpoint loads into a
+    ConvNet through the JAX-layout reader."""
+    import socket
+    rec = {"phase": "convnet_cli", "card": smi}
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, ckpt_dp = (os.path.join(tmp, n) for n in ("c.npz", "d.npz"))
+        cmd = [sys.executable, "-m",
+               "distributed_compute_pytorch_tpu_torch.cli",
+               "--model", "convnet", "--dataset", "mnist",
+               "--optimizer", "adadelta", "--data_dir", tmp]
+        plans = (("first", ["--epochs", "1", "--ckpt_path", ckpt], [0]),
+                 ("resumed", ["--resume", "--epochs", "2", "--ckpt_path",
+                              ckpt], [1]),
+                 ("one_rank_world", ["--epochs", "1", "--ckpt_path", ckpt_dp,
+                                     "--coordinator", f"127.0.0.1:{port}",
+                                     "--num_processes", "1",
+                                     "--process_id", "0"], [0]))
+        for run, extra, want_epochs in plans:
+            t0 = time.monotonic()
+            res = subprocess.run(cmd + extra, cwd=ROOT, capture_output=True,
+                                 text=True, timeout=600)
+            rec[f"{run}_s"] = time.monotonic() - t0
+            out = res.stdout
+            require(res.returncode == 0, f"convnet_cli {run}: rc "
+                    f"{res.returncode}\n{out[-2000:]}\n{res.stderr[-4000:]}")
+            for kind, pat in CLI_LINES.items():
+                require(pat.search(out) is not None,
+                        f"convnet_cli {run}: no {kind} line in\n{out[-2000:]}")
+            epochs = sorted({int(e) for e in CLI_LINES["train"].findall(out)})
+            require(epochs == want_epochs, f"convnet_cli {run}: epochs "
+                                           f"{epochs}, want {want_epochs}")
+            require("model: convnet" in out and "optimizer: adadelta" in out,
+                    f"convnet_cli {run}: not the convnet run:\n{out[:1000]}")
+            if run == "resumed":
+                require(re.search(r"resumed from .* at epoch 1\b", out)
+                        is not None, f"convnet_cli: resume did not start at "
+                                     f"epoch 1:\n{out[:2000]}")
+            if run == "one_rank_world":
+                require("world: 1 (nccl)" in out, f"convnet_cli: no nccl "
+                        f"group in\n{out[:1000]}")
+            rec[f"{run}_tail"] = out.strip().splitlines()[-4:]
+        for path in (ckpt, ckpt_dp):
+            flat = interop.read_checkpoint(path)[0]
+            model = ConvNet()
+            model.load_state_dict(interop.convnet_params_from_jax(
+                interop.unflatten(flat, ".params"),
+                interop.unflatten(flat, ".model_state")))
+            require(all(bool(torch.isfinite(t).all())
+                        for t in model.state_dict().values()),
+                    f"convnet_cli: {path} holds non-finite values")
+        rec["checkpoint_mb"] = os.path.getsize(ckpt) / 1e6
+    return rec
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default=None,
@@ -3079,6 +3564,9 @@ def main() -> int:
     try:
         from distributed_compute_pytorch_tpu_torch import (
             infer, interop, serve)
+        from distributed_compute_pytorch_tpu_torch.core import mesh
+        from distributed_compute_pytorch_tpu_torch.models.convnet import (
+            ConvNet)
         from distributed_compute_pytorch_tpu_torch.models.gpt2 import (
             GPT2, GPT2Config)
         from distributed_compute_pytorch_tpu_torch.ops import _build
@@ -3095,10 +3583,9 @@ def main() -> int:
               f"not import: {e}", file=sys.stderr)
         return 2
 
-    # f32 matmuls in full f32 (the defaults, stated): the f32 kernels and
+    # f32 matmuls in full f32 (the default, stated): the f32 kernels and
     # the teacher-forced check are held to f32 tolerances
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     records = []
 
     def record(obj):
@@ -3217,6 +3704,18 @@ def main() -> int:
         record(parity_phase(torch, np, tm, A, FA, FAW, GPT2Config))
         torch.cuda.empty_cache()
         record(cli_phase(torch, interop, GPT2, GPT2Config))
+
+        # the reference's workload (the port's step runs cuDNN in f32
+        # with its deterministic algorithms: ``step.cudnn_f32``)
+        cm = (ConvNet, build_optimizer, make_step_fns)
+        data = convnet_data()
+        conv, first, weights, conv_prof, batch = convnet_phase(
+            torch, cm, data, smi)
+        record(conv)
+        record(convnet_ddp_phase(torch, cm, mesh, data, weights, first,
+                                 conv_prof, batch, smi))
+        del data, first, weights, conv_prof, batch
+        record(convnet_cli_phase(torch, interop, ConvNet, smi))
 
         # a fused tick replaces its read's Pallas call (and fuses its
         # write's, ``fuses``)

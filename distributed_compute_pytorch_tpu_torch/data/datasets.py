@@ -1,18 +1,27 @@
-"""Dataset readers — the synthetic part of
+"""Dataset readers — the MNIST and synthetic parts of
 ``distributed_compute_pytorch_tpu/data/datasets.py``, copied (jax-free;
 the port imports nothing of the JAX package) so one seed gives the port
 and the reference the same arrays.
 
-Only the deterministic synthetic datasets are ported: nothing here reads
-or downloads real data. MNIST, CIFAR-10, text corpora and sharded
-datasets come with later slices.
+MNIST is read from its idx files under ``data_dir`` when they are there
+(the reference's normalisation, in numpy); otherwise a deterministic
+synthetic stand-in of the same shapes is used, with the reference's
+warning. Nothing is downloaded (``--download`` stays refused).
+CIFAR-10, text corpora and sharded datasets come with later slices.
+Images are NHWC, as in the reference.
 """
 
 from __future__ import annotations
 
+import gzip
+import os
+import struct
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
+
+MNIST_MEAN, MNIST_STD = 0.1307, 0.3081
 
 
 @dataclass(frozen=True)
@@ -72,17 +81,81 @@ def synthetic_lm(n: int, seq_len: int, vocab: int, seed: int = 0,
     return ArrayDataset(toks, toks, name=name)
 
 
-def load_dataset(name: str, split: str = "train", **kw) -> ArrayDataset:
-    """The synthetic entries of the reference registry (``:399-445``),
-    with its sizes: ``synthetic-images`` 4096 x 28 x 28 x 1, 10 classes;
+def _warn_synthetic(name: str, data_dir: str) -> None:
+    """A run that claims '<name>' metrics must not silently train on
+    blobs (reference ``:26-34``)."""
+    warnings.warn(
+        f"{name}: real data not found under {data_dir!r}; substituting a "
+        f"DETERMINISTIC SYNTHETIC dataset. Reported metrics are NOT {name} "
+        f"metrics. Place the raw files under {data_dir!r}.",
+        stacklevel=3)
+
+
+def _read_idx(path: str) -> np.ndarray:
+    """Decode one idx-ubyte file, optionally gzipped (reference
+    ``:73-84``)."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        data = f.read()
+    zeros, dtype_code, ndim = struct.unpack(">HBB", data[:4])
+    if zeros != 0:
+        raise ValueError(f"{path}: bad idx magic")
+    dtypes = {0x08: np.uint8, 0x09: np.int8, 0x0B: np.int16,
+              0x0C: np.int32, 0x0D: np.float32, 0x0E: np.float64}
+    shape = struct.unpack(f">{ndim}I", data[4:4 + 4 * ndim])
+    return np.frombuffer(data, dtypes[dtype_code],
+                         offset=4 + 4 * ndim).reshape(shape)
+
+
+def _find_idx(data_dir: str, stem: str) -> str | None:
+    """An idx file under ``data_dir`` in the common layouts (flat,
+    ``MNIST/raw/``, ``raw/``, gzipped), reference ``:192-206``."""
+    for c in (stem, stem + ".gz", os.path.join("MNIST", "raw", stem),
+              os.path.join("MNIST", "raw", stem + ".gz"),
+              os.path.join("raw", stem), os.path.join("raw", stem + ".gz")):
+        p = os.path.join(data_dir, c)
+        if os.path.exists(p):
+            return p
+    return None
+
+
+def load_mnist(data_dir: str = "./data", split: str = "train"
+               ) -> ArrayDataset:
+    """MNIST with the reference's normalisation (reference ``:208-242``):
+    images ``[N, 28, 28, 1]`` f32 as ``(x/255 - 0.1307) / 0.3081``, labels
+    ``[N]`` int32. Without the idx files: :func:`synthetic_images` at
+    60,000 (train, seed 0) or 10,000 (test, seed 1) images of the same
+    shape, with a warning."""
+    prefix = "train" if split == "train" else "t10k"
+    img_path = _find_idx(data_dir, f"{prefix}-images-idx3-ubyte")
+    lbl_path = _find_idx(data_dir, f"{prefix}-labels-idx1-ubyte")
+    if img_path and lbl_path:
+        raw = _read_idx(img_path)
+        images = (raw.astype(np.float32) / 255.0 - MNIST_MEAN) / MNIST_STD
+        labels = _read_idx(lbl_path).astype(np.int32)
+        return ArrayDataset(images[..., None], labels, name=f"mnist-{split}")
+    _warn_synthetic("mnist", data_dir)
+    n = 60_000 if split == "train" else 10_000
+    return synthetic_images(n, (28, 28, 1), 10,
+                            seed=0 if split == "train" else 1,
+                            name=f"mnist-{split}-synthetic")
+
+
+def load_dataset(name: str, split: str = "train", data_dir: str = "./data",
+                 **kw) -> ArrayDataset:
+    """The MNIST and synthetic entries of the reference registry
+    (``:399-445``), with its sizes: ``mnist`` (:func:`load_mnist`, from
+    ``data_dir``); ``synthetic-images`` 4096 x 28 x 28 x 1, 10 classes;
     ``synthetic-lm`` 2048 x 128 tokens, vocab 256; the test split is seed
     1, the train split seed 0."""
     seed = 0 if split == "train" else 1
+    if name == "mnist":
+        return load_mnist(data_dir, split)
     if name == "synthetic-images":
         return synthetic_images(kw.pop("n", 4096), kw.pop("shape", (28, 28, 1)),
                                 kw.pop("num_classes", 10), seed=seed)
     if name == "synthetic-lm":
         return synthetic_lm(kw.pop("n", 2048), kw.pop("seq_len", 128),
                             kw.pop("vocab", 256), seed=seed)
-    raise ValueError(f"dataset {name!r} is not ported yet (synthetic-lm, "
-                     f"synthetic-images)")
+    raise ValueError(f"dataset {name!r} is not ported yet (mnist, "
+                     f"synthetic-images, synthetic-lm)")

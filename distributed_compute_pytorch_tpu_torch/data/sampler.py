@@ -5,8 +5,8 @@ identical batch orders from one seed.
 
 The semantics are those of ``torch.utils.data.DistributedSampler``: a
 seeded global permutation, padded by wraparound to full batches; the
-permutation is keyed by ``(seed, epoch)``. One process feeds one device
-here, so the global batch order is the whole story.
+permutation is keyed by ``(seed, epoch)``. Every rank walks the same
+global order and takes its rows of each batch (``data/loader.py``).
 """
 
 from __future__ import annotations

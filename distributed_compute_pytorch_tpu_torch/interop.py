@@ -7,6 +7,16 @@
   ``blocks.{i}.*``; LayerNorm ``scale`` becomes ``weight``.
 - :func:`gpt2_params_to_jax`: the inverse, for writing checkpoints in the
   JAX layout (``train/checkpoint.py``) and for the parity tests.
+- :func:`convnet_params_from_jax` / :func:`convnet_params_to_jax`: the
+  JAX ConvNet's ``(params, state)`` <-> this package's ``ConvNet`` state
+  dict, which is the reference trainer's ``mnist.pt`` schema: conv
+  kernels HWIO <-> OIHW, dense ``[in, out]`` <-> ``[out, in]``, BatchNorm
+  ``scale`` <-> ``weight`` and the running stats ``mean``/``var`` <->
+  ``running_mean``/``running_var``, and fc1's input features permuted
+  between the JAX NHWC ``(h, w, c)`` flatten and the NCHW ``(c, h, w)``
+  one (without it the logits come out wrong with no error).
+  :func:`load_reference_state_dict` loads a reference ``mnist.pt`` (plain
+  or ``module.`` keys, :func:`strip_ddp_prefix`) into a ``ConvNet``.
 - :func:`read_checkpoint`: a numpy + zlib reader for the v1 ``.npz``
   checkpoint the JAX trainer and the port's ``train/checkpoint.py`` write:
   leaves flattened with ``"::"``-joined keys, the params under
@@ -115,6 +125,132 @@ def load_gpt2_params(model, tree):
                 f"configuration changed since the save")
     model.load_state_dict(sd)
     return model
+
+
+def strip_ddp_prefix(state_dict) -> dict:
+    """Drop the ``module.`` prefix of a DDP-wrapped save (reference
+    ``interop.py:51-54``)."""
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in state_dict.items()}
+
+
+def _fc1_grid(features: int, image_size) -> tuple[int, int]:
+    """fc1's ``(h, w)`` feature grid (64 channels each): from
+    ``image_size`` (two valid 3x3 convs, then a 2x2 pool), or square."""
+    if image_size is not None:
+        h, w = image_size
+        return (h - 4) // 2, (w - 4) // 2
+    side = int(round((features // 64) ** 0.5))
+    if side * side * 64 != features:
+        raise ValueError(f"fc1 has {features} input features, not a square "
+                         f"grid of 64 channels: pass image_size")
+    return side, side
+
+
+def convnet_params_from_jax(params, state, image_size=None
+                            ) -> dict[str, torch.Tensor]:
+    """The JAX ConvNet's ``(params, state)`` (numpy leaves) -> a
+    ``ConvNet`` state dict of f32 CPU tensors (reference
+    ``convnet_to_torch_state_dict``, ``:119-158``, without the
+    ``num_batches_tracked`` counter the port does not keep)."""
+    def conv(tree):                         # HWIO -> OIHW
+        return _t(np.asarray(tree["kernel"]).transpose(3, 2, 0, 1))
+
+    fc1 = np.asarray(params["fc1"]["kernel"], np.float32).T   # [128, hwc]
+    fh, fw = _fc1_grid(fc1.shape[1], image_size)
+    fc1 = (fc1.reshape(-1, fh, fw, 64).transpose(0, 3, 1, 2)
+           .reshape(fc1.shape[0], -1))                         # [128, chw]
+    bn = state["batchnorm"]
+    return {"conv1.weight": conv(params["conv1"]),
+            "conv1.bias": _t(params["conv1"]["bias"]),
+            "conv2.weight": conv(params["conv2"]),
+            "conv2.bias": _t(params["conv2"]["bias"]),
+            "fc1.weight": _t(fc1), "fc1.bias": _t(params["fc1"]["bias"]),
+            "batchnorm.weight": _t(params["batchnorm"]["scale"]),
+            "batchnorm.bias": _t(params["batchnorm"]["bias"]),
+            "batchnorm.running_mean": _t(bn["mean"]),
+            "batchnorm.running_var": _t(bn["var"]),
+            "fc2.weight": _t(np.asarray(params["fc2"]["kernel"]).T),
+            "fc2.bias": _t(params["fc2"]["bias"])}
+
+
+def convnet_params_to_jax(state_dict, image_size=None) -> tuple[dict, dict]:
+    """A ``ConvNet`` state dict (or a reference ``mnist.pt``'s, any
+    device, plain or ``module.`` keys) -> the JAX ConvNet's ``(params,
+    state)`` of f32 numpy arrays (reference
+    ``convnet_from_torch_state_dict``, ``:57-108``)."""
+    sd = {k: np.array(_np(v)) for k, v in strip_ddp_prefix(state_dict).items()
+          if not k.endswith("num_batches_tracked")}   # copies, not views
+
+    def conv(name):                         # OIHW -> HWIO
+        return {"kernel": np.ascontiguousarray(
+                    sd[f"{name}.weight"].transpose(2, 3, 1, 0)),
+                "bias": sd[f"{name}.bias"]}
+
+    fc1 = sd["fc1.weight"]                                     # [128, chw]
+    fh, fw = _fc1_grid(fc1.shape[1], image_size)
+    fc1 = (fc1.reshape(-1, 64, fh, fw).transpose(0, 2, 3, 1)
+           .reshape(fc1.shape[0], -1))                         # [128, hwc]
+    params = {"conv1": conv("conv1"), "conv2": conv("conv2"),
+              "fc1": {"kernel": np.ascontiguousarray(fc1.T),
+                      "bias": sd["fc1.bias"]},
+              "batchnorm": {"scale": sd["batchnorm.weight"],
+                            "bias": sd["batchnorm.bias"]},
+              "fc2": {"kernel": np.ascontiguousarray(sd["fc2.weight"].T),
+                      "bias": sd["fc2.bias"]}}
+    state = {"batchnorm": {"mean": sd["batchnorm.running_mean"],
+                           "var": sd["batchnorm.running_var"]}}
+    return params, state
+
+
+def is_convnet(names) -> bool:
+    """Whether a state dict's (or a JAX params tree's) keys are the
+    ConvNet's."""
+    return "conv1.weight" in names or "conv1" in names
+
+
+def params_to_jax(state_dict, image_size=None) -> tuple[dict, dict]:
+    """A port model's parameters and buffers -> the JAX package's
+    ``(params, model_state)`` trees: the ConvNet's, or GPT-2's (no model
+    state)."""
+    if is_convnet(state_dict):
+        return convnet_params_to_jax(state_dict, image_size)
+    return gpt2_params_to_jax(state_dict), {}
+
+
+def params_from_jax(params, model_state, image_size=None
+                    ) -> dict[str, torch.Tensor]:
+    """The inverse of :func:`params_to_jax`: one state dict, parameters
+    and buffers."""
+    if is_convnet(params):
+        return convnet_params_from_jax(params, model_state, image_size)
+    return gpt2_params_from_jax(params)
+
+
+def load_reference_state_dict(model, state_dict):
+    """Load a reference ``mnist.pt`` state dict (plain or ``module.``
+    keys; tensors or arrays) into a ``ConvNet``, copying in place (the
+    reference's ``num_batches_tracked`` is not kept). Raises
+    ``KeyError`` naming the keys that do not match."""
+    sd = {k: v.detach().cpu() if isinstance(v, torch.Tensor)
+          else torch.from_numpy(np.asarray(v))
+          for k, v in strip_ddp_prefix(state_dict).items()
+          if not k.endswith("num_batches_tracked")}
+    own = model.state_dict()
+    if set(sd) != set(own):
+        raise KeyError(f"state dict does not match the ConvNet: missing "
+                       f"{sorted(set(own) - set(sd))}, unexpected "
+                       f"{sorted(set(sd) - set(own))}")
+    model.load_state_dict(sd)
+    return model
+
+
+def load_reference_checkpoint(model, path: str):
+    """Load the reference trainer's ``mnist.pt`` (``torch.save`` of its
+    model's state dict) from ``path`` into a ``ConvNet`` (the JAX
+    trainer's ``--import_torch``)."""
+    return load_reference_state_dict(
+        model, torch.load(path, map_location="cpu", weights_only=True))
 
 
 def read_checkpoint(path: str) -> tuple[dict[str, np.ndarray], dict]:

@@ -1,5 +1,5 @@
 """Layers — port of ``distributed_compute_pytorch_tpu/models/layers.py``
-(the parts the GPT-2 serving and training paths use).
+(the parts the GPT-2 and ConvNet paths use).
 
 Each layer is an ``nn.Module`` whose parameters are allocated on the
 module's device (zeros until :meth:`init` or a weight load fills them).
@@ -11,7 +11,13 @@ N(0, std) embeddings, unit LayerNorm) — not its values: ``jax.random`` and
 convert weights (``interop.py``) instead.
 
 Parameter layouts are PyTorch's: a Dense weight is ``[out, in]`` where the
-JAX kernel is ``[in, out]``.
+JAX kernel is ``[in, out]``, a Conv2d weight OIHW where the JAX kernel is
+HWIO, and images are NCHW where the JAX package's are NHWC.
+
+Data parallelism (``core/mesh.py``): under a process group, dropout draws
+the mask of the global batch and keeps this rank's rows, and BatchNorm's
+training statistics are those of the global batch (sync-BN), so N ranks
+compute what one process computes on the whole batch.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from distributed_compute_pytorch_tpu_torch.core import mesh
 
 
 def _fill(param: nn.Parameter, sample: torch.Tensor) -> None:
@@ -105,15 +113,139 @@ class Embedding(nn.Module):
         return torch.matmul(x, self.weight.to(x.dtype).t())
 
 
-def dropout(x, rate: float, generator, train: bool):
-    """``nn.Dropout`` (reference ``:143-158``): the identity when not
+class Conv2d(nn.Module):
+    """2-D convolution ``nn.Conv2d`` (reference ``:79-119``) on NCHW maps
+    with an OIHW weight, VALID padding (torch's ``padding=0``), computed
+    in the activation dtype; init U(+-1/sqrt(fan_in)) for weight and
+    bias, torch's defaults."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int, stride: int = 1, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.stride = stride
+        self.fan_in = in_channels * kernel_size * kernel_size
+        self.weight = nn.Parameter(torch.zeros(
+            out_channels, in_channels, kernel_size, kernel_size,
+            device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(out_channels, device=device,
+                                             dtype=dtype))
+
+    def init(self, generator: torch.Generator):
+        bound = 1.0 / math.sqrt(self.fan_in)
+        for p in (self.weight, self.bias):
+            _fill(p, torch.empty(p.shape).uniform_(-bound, bound,
+                                                   generator=generator))
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                        stride=self.stride)
+
+
+def max_pool2d(x, window: int = 2, stride: int | None = None,
+               padding: int = 0):
+    """``F.max_pool2d`` (reference ``:121-131``) on NCHW maps; ``padding``
+    pads with -inf, as the reference's ``reduce_window`` does."""
+    return F.max_pool2d(x, window, stride or window, padding)
+
+
+class BatchNorm(nn.Module):
+    """``nn.BatchNorm1d`` (reference ``:162-234``) over every axis but the
+    last: momentum 0.1, eps 1e-5, f32 running stats (the buffers
+    ``running_mean`` and ``running_var``, torch's names).
+
+    ``forward(x, train)`` returns ``(y, new_stats)``: in training the
+    statistics of the batch, with the new running stats in ``new_stats``
+    (the running variance unbiased by ``n / (n - 1)``), and the layer's
+    buffers untouched — the train step writes them (``train/step.py``);
+    in eval the running stats, and ``new_stats`` is ``None``.
+
+    The batch statistics come from the f64 sums of ``x`` and ``x**2`` and
+    the row count, all-reduced over the process group when there is one
+    (``mesh.all_reduce_sum``, which carries the gradient back to every
+    rank's rows): sync-BN over the global batch, as the reference's SPMD
+    program computes it, so ``n`` is the global row count."""
+
+    def __init__(self, num_features: int, *, momentum: float = 0.1,
+                 eps: float = 1e-5, device=None, dtype=torch.float32):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(num_features, device=device,
+                                              dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device,
+                                             dtype=dtype))
+        self.register_buffer("running_mean", torch.zeros(
+            num_features, device=device, dtype=torch.float32))
+        self.register_buffer("running_var", torch.ones(
+            num_features, device=device, dtype=torch.float32))
+
+    def init(self, generator: torch.Generator):
+        del generator
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x, train: bool = False):
+        new_stats = None
+        if train:
+            # f64 sums: E[x^2] - E[x]^2 in f32 would cancel away a
+            # feature whose mean is large against its spread
+            xf = x.reshape(-1, x.shape[-1]).double()
+            count = torch.full((1,), xf.shape[0], dtype=torch.float64,
+                               device=x.device)
+            sums = torch.cat([xf.sum(0), xf.square().sum(0), count])
+            if mesh.distributed():
+                sums = mesh.all_reduce_sum(sums)
+            f = x.shape[-1]
+            n = sums[-1]
+            mean = sums[:f] / n
+            var = (sums[f:2 * f] / n - mean.square()).clamp(min=0.0)
+            unbiased = (var * (n / (n - 1.0).clamp(min=1.0))).float()
+            mean, var = mean.float(), var.float()
+            m = self.momentum
+            new_stats = {
+                "running_mean": (1 - m) * self.running_mean
+                                + m * mean.detach(),
+                "running_var": (1 - m) * self.running_var
+                               + m * unbiased.detach()}
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var.to(x.dtype) + self.eps)
+        y = (x - mean.to(x.dtype)) * inv
+        return (y * self.weight.to(x.dtype) + self.bias.to(x.dtype),
+                new_stats)
+
+
+def dropout(x, rate: float, generator, train: bool,
+            broadcast_dims: tuple[int, ...] = ()):
+    """``nn.Dropout`` (reference ``:143-159``): the identity when not
     training or ``rate == 0``; otherwise inverted scaling with a keep mask
-    drawn from ``generator``, a ``torch.Generator`` on ``x``'s device."""
+    drawn from ``generator``, a ``torch.Generator`` on ``x``'s device.
+    ``broadcast_dims`` are axes the mask is shared across (``(2, 3)`` of
+    an NCHW map: ``nn.Dropout2d``'s whole channels, a ``[B, C, 1, 1]``
+    mask). Under a process group the mask is drawn for the global batch
+    (this rank's rows are ``rank * B`` on) and this rank's rows are kept,
+    so the ranks together draw what one process draws for the whole
+    batch. Each rank thus draws ``world`` times its own mask: nothing for
+    the ConvNet's ``[B, 64]`` and ``[B, 128]``, which is why the trainer
+    runs no other model over more than one rank."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    rank, world = mesh.process_index(), mesh.process_count()
+    shape = [1 if d in broadcast_dims else s for d, s in enumerate(x.shape)]
+    rows = shape[0]
+    shape[0] *= world
+    u = torch.rand(shape, generator=generator, device=x.device)
+    mask = u[rank * rows:(rank + 1) * rows] < keep
     return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+def log_softmax(x, dim: int = -1):
+    """``F.log_softmax`` (reference ``:334``)."""
+    return torch.log_softmax(x, dim=dim)
 
 
 def nll_loss(log_probs, targets, reduction: str = "mean"):

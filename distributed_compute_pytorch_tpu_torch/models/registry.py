@@ -1,6 +1,6 @@
 """Model registry — port of
-``distributed_compute_pytorch_tpu/models/registry.py``. GPT-2 only for
-now; the rest of the zoo follows in later slices."""
+``distributed_compute_pytorch_tpu/models/registry.py``: the ConvNet and
+GPT-2; the rest of the zoo follows in later slices."""
 
 from __future__ import annotations
 
@@ -11,9 +11,17 @@ import torch
 
 def build_model(name: str, *, preset: str | None = None, device=None,
                 dtype=torch.float32, **overrides):
-    """Build ``name`` at ``preset`` (``None``/``"small"`` or ``"tiny"``)
-    with config ``overrides`` (``vocab_size``, ``max_seq_len``, ...) on
-    ``device`` (CUDA unless ``"cpu"``)."""
+    """Build ``name`` on ``device`` (CUDA unless ``"cpu"``). ``convnet``
+    takes ``num_classes``, ``in_channels`` and ``image_size`` (the
+    trainer sizes them from the dataset); ``gpt2`` a ``preset``
+    (``None``/``"small"`` or ``"tiny"``) and config ``overrides``
+    (``vocab_size``, ``max_seq_len``, ...)."""
+    if name == "convnet":
+        from distributed_compute_pytorch_tpu_torch.models.convnet import (
+            ConvNet)
+        if preset is not None:
+            raise ValueError("the convnet has no presets")
+        return ConvNet(**overrides, device=device, dtype=dtype)
     if name != "gpt2":
         raise ValueError(f"unknown or not yet ported model {name!r}")
     from distributed_compute_pytorch_tpu_torch.models.gpt2 import (

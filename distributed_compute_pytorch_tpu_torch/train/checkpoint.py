@@ -4,17 +4,21 @@
 A checkpoint is one ``.npz`` of path-flattened leaves (``"::"``-joined
 keys) plus a ``__manifest__`` JSON with the format (1), the epoch, an
 ``extra`` dict and a CRC-32 per leaf, written atomically. The params go
-under ``.params::`` in the JAX package's GPT-2 layout
-(``interop.gpt2_params_to_jax``), so the JAX ``checkpoint.restore_params``,
-the JAX ``dcp-serve``/``dcp-generate`` and the port's ``cli_serve`` all
-read a checkpoint the port trained. The rest is the port's own:
+under ``.params::`` and the model state (the ConvNet's BatchNorm running
+stats, ``.model_state::batchnorm::{mean,var}``) under ``.model_state::``
+in the JAX package's layout and names (``interop.params_to_jax``: GPT-2's
+or the ConvNet's), so the JAX ``checkpoint.restore_params``, the JAX
+``dcp-serve``/``dcp-generate``, the port's ``cli_serve`` and
+``interop.load_jax_checkpoint`` all read a checkpoint the port trained.
+The rest is the port's own:
 
 - ``.step`` (int64): updates taken;
 - ``.seed`` (int64): the dropout seed (``train/step.py``);
-- ``.opt_state::count`` (int64) and ``.opt_state::{mu,nu}::<param name>``
+- ``.opt_state::count`` (int64) and ``.opt_state::<kind>::<param name>``
   (f32): the optimizer's update count (a device ``int32`` in the live
-  state) and moments by the port's parameter names, the same for
-  ``adamw`` and ``adamw_fused``.
+  state) and slots by the port's parameter names: ``mu``/``nu`` for
+  ``adamw`` and ``adamw_fused``, ``e_g``/``e_x`` for ``adadelta``,
+  ``trace`` for ``sgd``.
 
 Every leaf read is verified against its CRC-32
 (``interop.read_checkpoint``), and all of them before any is copied into
@@ -34,13 +38,14 @@ import numpy as np
 import torch
 
 from distributed_compute_pytorch_tpu_torch.interop import (
-    CheckpointCorruptError, _crc, _np, gpt2_params_from_jax,
-    gpt2_params_to_jax, read_checkpoint, unflatten)
+    CheckpointCorruptError, _crc, _np, params_from_jax, params_to_jax,
+    read_checkpoint, unflatten)
 from distributed_compute_pytorch_tpu_torch.utils.fsio import atomic_write
 
 _FORMAT_VERSION = 1
 _SEP = "::"
 _PARAMS = ".params"
+_MODEL_STATE = ".model_state"
 _OPT = ".opt_state"
 
 
@@ -74,7 +79,10 @@ def state_leaves(state) -> dict[str, np.ndarray]:
             ".seed": np.asarray(state.seed, np.int64),
             f"{_OPT}{_SEP}count": np.asarray(int(state.opt_state.count),
                                              np.int64)}
-    _flatten_tree(gpt2_params_to_jax(state.params), _PARAMS, flat)
+    params, model_state = params_to_jax({**state.params,
+                                         **state.model_state})
+    _flatten_tree(params, _PARAMS, flat)
+    _flatten_tree(model_state, _MODEL_STATE, flat)
     for kind, leaves in state.opt_state.moments().items():
         for name, t in leaves.items():
             flat[f"{_OPT}{_SEP}{kind}{_SEP}{name}"] = _np(t)
@@ -104,10 +112,12 @@ def load_into(state, flat: dict) -> None:
     storage, so an ``adamw_fused`` flat buffer stays whole). Raises
     ``KeyError``/``ValueError`` naming the first missing or mis-shaped
     leaf — the model or optimizer changed since the save."""
-    params = gpt2_params_from_jax(unflatten(flat, _PARAMS))
-    if set(params) != set(state.params):
+    live = {**state.params, **state.model_state}
+    params = params_from_jax(unflatten(flat, _PARAMS),
+                             unflatten(flat, _MODEL_STATE))
+    if set(params) != set(live):
         raise KeyError(f"checkpoint params do not match the model: missing "
-                       f"{sorted(set(state.params) - set(params))[:4]}")
+                       f"{sorted(set(live) - set(params))[:4]}")
     moments = state.opt_state.moments()
     wanted = {f"{_OPT}{_SEP}{kind}{_SEP}{name}": t
               for kind, leaves in moments.items()
@@ -115,8 +125,7 @@ def load_into(state, flat: dict) -> None:
     for key in (".step", ".seed", f"{_OPT}{_SEP}count", *wanted):
         if key not in flat:
             raise KeyError(f"checkpoint missing leaf {key!r}")
-    pairs = [(state.params[n], v, f"{_PARAMS}::{n}")
-             for n, v in params.items()]
+    pairs = [(live[n], v, f"{_PARAMS}::{n}") for n, v in params.items()]
     pairs += [(t, torch.from_numpy(flat[k]), k) for k, t in wanted.items()]
     for dst, src, key in pairs:
         if tuple(src.shape) != tuple(dst.shape):

@@ -1,5 +1,6 @@
 """Optimizers and LR schedules — port of
-``distributed_compute_pytorch_tpu/train/optim.py`` (the AdamW rungs).
+``distributed_compute_pytorch_tpu/train/optim.py``: the reference's
+Adadelta + StepLR stack, SGD with momentum, and the AdamW rungs.
 
 A transformation here is what an ``optax.GradientTransformation`` is in
 the reference, with PyTorch's in-place update: ``init(params)`` returns
@@ -22,7 +23,11 @@ place): where it is false, params and moments keep their bits and the
 count does not advance (the reference's ``where`` against the incoming
 state).
 
-The Adadelta/StepLR reference stack and SGD wait for the ConvNet slice.
+``adadelta`` is ``optax.chain(scale_by_adadelta(rho, eps),
+scale_by_schedule(-steplr))`` and ``sgd`` ``optax.chain(trace(0.9),
+scale_by_schedule(-steplr))``, with the StepLR rate ``lr * gamma **
+(count // steps_per_epoch)`` from the device count before the increment,
+so a captured step replays the right rate after an epoch boundary.
 """
 
 from __future__ import annotations
@@ -69,6 +74,112 @@ def warmup_cosine_decay(lr: float, warmup_steps: int, decay_steps: int):
         c = min(count - warmup_steps, span)
         return lr * 0.5 * (1.0 + math.cos(math.pi * c / span))
     return schedule
+
+
+def steplr(lr: float, gamma: float, steps_per_epoch: int):
+    """``StepLR(step_size=1, gamma)`` indexed by update count (reference
+    ``:25-36``): ``lr * gamma ** (count // steps_per_epoch)``. A host int
+    gives a Python float; an ``int32`` count tensor gives an f32 scalar
+    evaluated on its device, as the jitted step evaluates it."""
+    if steps_per_epoch < 1:
+        raise ValueError(f"steps_per_epoch must be >= 1, got "
+                         f"{steps_per_epoch}")
+
+    def schedule(count):
+        if isinstance(count, torch.Tensor):
+            epoch = torch.div(count, steps_per_epoch,
+                              rounding_mode="floor").float()
+            return lr * torch.full((), gamma, device=count.device) ** epoch
+        return lr * gamma ** (count // steps_per_epoch)
+    return schedule
+
+
+@dataclass
+class SlotState:
+    """The state of a per-leaf transformation: the update ``count`` (a
+    device ``int32`` scalar) and f32 slot tensors by kind and leaf name
+    (Adadelta's ``e_g``/``e_x``, SGD's ``trace``)."""
+    count: torch.Tensor
+    slots: dict
+
+    def moments(self) -> dict:
+        return self.slots
+
+
+class _Scheduled:
+    """A per-leaf update ``p <- p - lr(count) * u`` with slot state, in
+    place; subclasses give the slot kinds and :meth:`_step`, the new
+    slots and ``u`` from a gradient and the old slots."""
+
+    kinds: tuple = ()
+
+    def __init__(self, learning_rate):
+        self.learning_rate = learning_rate
+
+    def init(self, params: dict) -> SlotState:
+        dev = next(iter(params.values())).device
+        return SlotState(count=device_count(dev), slots={
+            k: {n: torch.zeros_like(p, dtype=torch.float32)
+                for n, p in params.items()} for k in self.kinds})
+
+    def _step(self, g, slots: tuple) -> tuple:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def apply(self, grads: dict, state: SlotState, params: dict,
+              ok: torch.Tensor | None = None) -> None:
+        """One update, in place; with a device bool ``ok``, where it
+        holds (a select against the old slots and params), and the count
+        advances by ``ok``."""
+        lr = self.learning_rate(state.count)
+        for n, p in params.items():
+            old = tuple(state.slots[k][n] for k in self.kinds)
+            *new, u = self._step(grads[n].float(), old)
+            dsts = (p, *old)
+            news = (p - lr * u, *new)
+            for dst, val in zip(dsts, news):
+                if ok is None:
+                    dst.copy_(val)
+                else:
+                    torch.where(ok, val, dst, out=dst)
+        state.count.add_(1 if ok is None else ok.to(state.count.dtype))
+
+
+class Adadelta(_Scheduled):
+    """``optax.scale_by_adadelta(rho, eps)`` (torch's recurrence) then
+    ``scale_by_schedule(-lr)``: ``e_g <- rho e_g + (1-rho) g^2``, ``u =
+    sqrt(e_x + eps) / sqrt(e_g + eps) * g``, ``e_x <- rho e_x + (1-rho)
+    u^2``, ``p <- p - lr u``."""
+
+    kinds = ("e_g", "e_x")
+
+    def __init__(self, learning_rate, rho: float = 0.9, eps: float = 1e-6):
+        super().__init__(learning_rate)
+        self.rho, self.eps = rho, eps
+
+    def _step(self, g, slots):
+        e_g, e_x = slots
+        rho, eps = self.rho, self.eps
+        new_e_g = (1 - rho) * g.square() + rho * e_g
+        u = torch.sqrt(e_x + eps) / torch.sqrt(new_e_g + eps) * g
+        new_e_x = (1 - rho) * u.square() + rho * e_x
+        return new_e_g, new_e_x, u
+
+
+class SGD(_Scheduled):
+    """``optax.trace(decay=momentum)`` (no dampening, no Nesterov) then
+    ``scale_by_schedule(-lr)``: ``t <- g + momentum t``, ``p <- p - lr
+    t``."""
+
+    kinds = ("trace",)
+
+    def __init__(self, learning_rate, momentum: float = 0.9):
+        super().__init__(learning_rate)
+        self.momentum = momentum
+
+    def _step(self, g, slots):
+        t = g + self.momentum * slots[0]
+        return t, t
 
 
 def decay_mask(params: dict) -> dict:
@@ -163,13 +274,15 @@ def build_optimizer(name: str, lr: float, gamma: float = 0.7,
                     warmup_steps: int = 0, clip_norm: float = 0.0,
                     grad_accum: int = 1, total_steps: int | None = None,
                     **kw):
-    """The AdamW rungs of the reference registry (``:78-180``), with its
-    schedule sizing (``decay_steps = max(total, warmup + 1)``, warmup at
-    least 1) and its refusal of ``adamw_fused`` with ``clip_norm``,
+    """The reference registry (``:78-180``): ``adadelta`` and ``sgd``
+    (``momentum``, default 0.9) with StepLR(``gamma``) over
+    ``steps_per_epoch``; the AdamW rungs with the reference's schedule
+    sizing (``decay_steps = max(total, warmup + 1)``, warmup at least 1)
+    and its refusal of ``adamw_fused`` with ``clip_norm``,
     ``weight_decay`` or the legacy ``grad_accum`` (step-level
-    accumulation, ``make_step_fns(accum_steps=N)``, composes with both).
-    ``gamma`` belongs to the Adadelta/SGD rungs, not ported yet."""
-    del gamma
+    accumulation, ``make_step_fns(accum_steps=N)``, composes with
+    every optimizer). ``clip_norm`` and ``weight_decay`` belong to
+    ``adamw`` here."""
     total = steps_per_epoch * 10 if total_steps is None else total_steps
     if name == "adamw_fused" and (clip_norm > 0 or grad_accum > 1
                                   or weight_decay > 0):
@@ -185,9 +298,17 @@ def build_optimizer(name: str, lr: float, gamma: float = 0.7,
                          "legacy optax.MultiSteps path, is not ported: use "
                          "step-level accumulation (make_step_fns "
                          "accum_steps)")
+    if name in ("adadelta", "sgd"):
+        if clip_norm > 0 or weight_decay > 0:
+            raise ValueError(f"{name}: --clip_norm and --weight_decay are "
+                             f"ported for adamw only")
+        sched = steplr(lr, gamma, steps_per_epoch)
+        if name == "adadelta":
+            return Adadelta(sched, **kw)
+        return SGD(sched, momentum=kw.pop("momentum", 0.9), **kw)
     if name not in ("adamw", "adamw_fused"):
-        raise ValueError(f"optimizer {name!r} is not ported yet (adamw, "
-                         f"adamw_fused)")
+        raise ValueError(f"optimizer {name!r} is not ported yet (adadelta, "
+                         f"sgd, adamw, adamw_fused)")
     eff_warmup = max(warmup_steps, 1)
     sched = warmup_cosine_decay(lr, eff_warmup, max(total, eff_warmup + 1))
     if name == "adamw_fused":

@@ -1,10 +1,30 @@
 """The train and eval steps — port of
-``distributed_compute_pytorch_tpu/train/step.py`` for one device.
+``distributed_compute_pytorch_tpu/train/step.py`` for one device a
+process, and data parallelism over a process group.
 
 ``make_step_fns(model, tx, ...) -> (init_fn, train_step, eval_step)`` keeps
 the reference's signature minus the mesh, the parallel strategy and the
 multi-device knobs. The step updates the state in place where the
 reference donates it.
+
+- Model state (the reference's ``model_state``: BatchNorm running stats).
+  A model whose forward returns ``(out, new_stats)`` (the ConvNet) keeps
+  its buffers in ``TrainState.model_state``; the step writes the new
+  stats into them in place, where the update is applied (under ``skip``
+  a skipped update leaves them bit-untouched, a select as the
+  reference's ``_guarded``), and eval reads them.
+- Data parallelism (``core/mesh.py``): when this process is in a process
+  group the step is the reference's one SPMD program split over the
+  ranks, each on its rows of the global batch. Every ``.grad`` is a view
+  of one flat f32 buffer, summed over the ranks by one all-reduce a step
+  and divided by the world size, before the guard and the optimizer.
+  The step's own buffer has one more slot, which carries the loss, so
+  the reported loss is the global mean; ``adamw_fused``'s buffer is the
+  kernel's, and its loss takes a second, one-element all-reduce.
+  BatchNorm and dropout take the global batch's statistics and mask
+  (``models/layers.py``). No ``DistributedDataParallel``: its hooks are
+  built for eager steps, and it would overwrite every rank's BatchNorm
+  stats with rank 0's.
 
 - Mixed precision as the reference's ``_cast_params``: the f32 master
   parameters are cast to ``compute_dtype`` inside the loss closure
@@ -31,6 +51,14 @@ reference donates it.
   ``metrics["grad_sumsq"]``, the f32 sum of squares of every gradient (one
   reduction over the flat gradient buffer under ``adamw_fused``).
 - Every metric is a device scalar, read only at the caller's log cadence.
+- Precision: the train and eval steps run cuDNN in full f32 with its
+  deterministic algorithms (:func:`cudnn_f32`), set for the step's
+  forward and backward and restored after: PyTorch's default lets
+  cuDNN's convolutions run in TF32, and its default weight-gradient
+  algorithm accumulates with atomics, whose last bits vary run to run.
+  So every caller (the trainer, the CLI, a benchmark) runs the ConvNet
+  at the precision the f32 compute dtype states, and a run repeats bit
+  for bit.
 
 **The captured step.** The reference's step is one compiled program
 (``jax.jit``); on a CUDA model the port's is one CUDA graph. A batch
@@ -55,12 +83,15 @@ always runs it.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import contextlib
+from dataclasses import dataclass, field
 from typing import Any
 
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
+from distributed_compute_pytorch_tpu_torch.core import mesh
 from distributed_compute_pytorch_tpu_torch.utils import graphs
 
 _DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
@@ -71,12 +102,17 @@ POLICIES = ("raise", "skip")
 class TrainState:
     """Everything that evolves during training: the update count ``step``
     (which also indexes the dropout stream), the master ``params`` (the
-    model's own parameters, ``{name: tensor}``), the optimizer state and
-    the dropout ``seed``."""
+    model's own parameters, ``{name: tensor}``), the optimizer state, the
+    dropout ``seed``, the ``model_state`` (the model's own buffers, e.g.
+    BatchNorm running stats; empty for GPT-2) and, under data
+    parallelism, ``flat_grads``: the f32 buffer every ``.grad`` is a
+    view of."""
     step: int
     params: dict
     opt_state: Any
     seed: int
+    model_state: dict = field(default_factory=dict)
+    flat_grads: torch.Tensor | None = None
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -94,6 +130,42 @@ def grad_sumsq(grads, flat=None) -> torch.Tensor:
     return torch.stack([torch.dot(g.reshape(-1).float(),
                                   g.reshape(-1).float())
                         for g in grads]).sum()
+
+
+@contextlib.contextmanager
+def cudnn_f32():
+    """cuDNN in full f32 (no TF32) with its deterministic algorithms for
+    the block, the flags restored after. Autograd's device threads read
+    the same process-wide flags, so a ``backward()`` inside the block
+    runs under them too."""
+    c = torch.backends.cudnn
+    before = (c.allow_tf32, c.deterministic)
+    c.allow_tf32, c.deterministic = False, True
+    try:
+        yield
+    finally:
+        c.allow_tf32, c.deterministic = before
+
+
+def _split(out):
+    """A forward's ``(out, new_stats)``, or ``(out, {})`` for a model
+    without state."""
+    return out if isinstance(out, tuple) else (out, {})
+
+
+def flat_grad_buffer(params: dict, extra: int = 0) -> torch.Tensor:
+    """One zeroed f32 buffer of every parameter's size plus ``extra``
+    slots, with each parameter's ``.grad`` set to its view (autograd then
+    accumulates into it in place: zero it in place, never set a grad to
+    ``None``)."""
+    ps = list(params.values())
+    flat = torch.zeros(sum(p.numel() for p in ps) + extra,
+                       dtype=torch.float32, device=ps[0].device)
+    off = 0
+    for p in ps:
+        p.grad = flat[off:off + p.numel()].view(p.shape)
+        off += p.numel()
+    return flat
 
 
 def make_step_fns(model, tx, *, compute_dtype=None, accum_steps: int = 1,
@@ -117,6 +189,8 @@ def make_step_fns(model, tx, *, compute_dtype=None, accum_steps: int = 1,
         raise ValueError("only f32 gradient accumulation is ported")
     skip_guard = nonfinite_policy == "skip"
     fused = hasattr(tx, "fused_apply")
+    data_parallel = mesh.distributed()
+    world = mesh.dp_world_size()
     device = next(model.parameters()).device
     gen = torch.Generator(device=device)
     # the fused kernel's flag where the step has no guard
@@ -134,38 +208,70 @@ def make_step_fns(model, tx, *, compute_dtype=None, accum_steps: int = 1,
         if seed is not None:
             model.init(torch.Generator().manual_seed(seed))
         params = dict(model.named_parameters())
-        return TrainState(step=0, params=params,
-                          opt_state=tx.init(params),
-                          seed=0 if seed is None else seed)
+        state = TrainState(step=0, params=params,
+                           opt_state=tx.init(params),
+                           seed=0 if seed is None else seed,
+                           model_state=dict(model.named_buffers()))
+        if data_parallel:
+            # one flat gradient buffer for the step's one all-reduce:
+            # the fused optimizer's, else the step's own with a loss slot
+            state.flat_grads = (state.opt_state.grads if fused
+                                else flat_grad_buffer(params, extra=1))
+        return state
 
-    def _loss(state, x, y):
-        logits = functional_call(model, _cast(state.params), (x,),
-                                 {"train": True, "generator": gen})
-        return model.loss_fn(logits, y)
+    def _loss(state, stats, x, y):
+        """The microbatch's loss and new model state, the forward reading
+        the model state ``stats``."""
+        out, new_stats = _split(functional_call(
+            model, {**_cast(state.params), **stats}, (x,),
+            {"train": True, "generator": gen}))
+        return model.loss_fn(out, y), {**stats, **new_stats}
 
+    def _all_reduce(state, loss):
+        """The gradients (and ``loss``) summed over the ranks by one
+        all-reduce of the flat buffer, then divided by the world size:
+        the global batch's mean. Returns the global mean loss."""
+        flat = state.flat_grads
+        if fused:
+            dist.all_reduce(flat)
+            loss = mesh.all_reduce_sum(loss)
+        else:
+            flat[-1].copy_(loss)
+            dist.all_reduce(flat)
+            loss = flat[-1].clone()
+        flat.div_(world)
+        return loss / world
+
+    @cudnn_f32()
     def _update(state: TrainState, x, y) -> dict:
         """One update's device work, from zeroing the gradients to the
         optimizer: what a capture records. Returns the metrics."""
         if fused:
             state.opt_state.grads.zero_()   # in place: every .grad a view
+        elif state.flat_grads is not None:
+            state.flat_grads.zero_()
         else:
             for p in state.params.values():
                 if p.grad is not None:
                     p.grad.zero_()
+        stats = state.model_state
         if accum_steps == 1:
-            loss = _loss(state, x, y)
+            loss, stats = _loss(state, stats, x, y)
             loss.backward()
             loss = loss.detach().float()
         else:
             losses = []
             for xm, ym in zip(x.chunk(accum_steps), y.chunk(accum_steps)):
-                lm = _loss(state, xm, ym)
+                lm, stats = _loss(state, stats, xm, ym)
                 lm.backward()
                 losses.append(lm.detach().float())
             with torch.no_grad():
                 for p in state.params.values():
                     p.grad.div_(accum_steps)
             loss = torch.stack(losses).mean()
+        if data_parallel:
+            with torch.no_grad():
+                loss = _all_reduce(state, loss)
         grads = {n: p.grad for n, p in state.params.items()}
         metrics = {"loss": loss}
         ok = None
@@ -182,6 +288,12 @@ def make_step_fns(model, tx, *, compute_dtype=None, accum_steps: int = 1,
                            always if ok is None else ok)
         else:
             tx.apply(grads, state.opt_state, state.params, ok)
+        with torch.no_grad():
+            for name, buf in state.model_state.items():
+                if ok is None:
+                    buf.copy_(stats[name])
+                else:
+                    torch.where(ok, stats[name], buf, out=buf)
         return metrics
 
     def _check_batch(x):
@@ -207,12 +319,17 @@ def make_step_fns(model, tx, *, compute_dtype=None, accum_steps: int = 1,
         train_step = CapturedStep(eager_step, _update, gen, _check_batch)
 
     @torch.no_grad()
+    @cudnn_f32()
     def eval_step(state: TrainState, x, y, acc=None, valid=None):
         """Eval-batch sums (reference ``eval_step``): ``loss_sum``,
         ``correct`` and ``count`` as device scalars, added to ``acc`` when
-        given; ``valid`` (float ``[B]``) weights out padded rows."""
-        logits = functional_call(model, _cast(state.params), (x,))
-        metrics = model.eval_metrics(logits, y, valid=valid)
+        given; ``valid`` (float ``[B]``) weights out padded rows. The
+        forward reads the state's model state in eval mode. Under data
+        parallelism the sums are this rank's: the caller all-reduces them
+        once a pass."""
+        out, _ = _split(functional_call(
+            model, {**_cast(state.params), **state.model_state}, (x,)))
+        metrics = model.eval_metrics(out, y, valid=valid)
         if acc is not None:
             metrics = {k: metrics[k] + acc[k] for k in metrics}
         return metrics

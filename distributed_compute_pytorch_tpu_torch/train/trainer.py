@@ -1,5 +1,5 @@
-"""The trainer loop — port of ``distributed_compute_pytorch_tpu/train/trainer.py``
-for one device.
+"""The trainer loop — port of ``distributed_compute_pytorch_tpu/train/trainer.py``,
+one device a process, data-parallel over a process group.
 
 Epoch loop -> train steps -> eval -> epoch timing -> checkpoint, with the
 reference's observable contract: its flags (``core/config.py``), its line
@@ -10,10 +10,22 @@ non-finite loss at that read; ``skip`` queues each step's ``skipped``
 device scalar and drains the queue at that read, :meth:`_poll_nonfinite`),
 per-epoch and ``--checkpoint_every`` saves in the v1 format the JAX
 package reads, and a ``--resume`` that lands on the exact next batch
-(falling back past a corrupted newest file with ``--keep_last``). On the
-card the step is the captured one (``train/step.py``).
+(falling back past a corrupted newest file with ``--keep_last``), and
+``--import_torch`` of a reference ``mnist.pt``. On the card the step is
+the captured one (``train/step.py``).
 
-Not in this slice: meshes and strategies, heartbeats, preemption and
+Data parallelism: with ``--coordinator``/``--num_processes``/
+``--process_id`` (or torchrun's environment) the trainer joins the
+process group first (``core/mesh.py``); each rank feeds its rows of every
+global batch (``--batch_size`` is the global batch), the step sums the
+gradients over the ranks, the logged train loss is the global mean (the
+reference logs a world-size-scaled sum, SURVEY §A.4), the eval sums are
+all-reduced once at the end of the pass, and rank 0 alone logs and
+writes the checkpoint (§A.6). Only the ConvNet trains over more than one
+rank: every rank draws the global batch's dropout masks, which costs the
+ConvNet nothing and GPT-2 world times its activation-sized draws.
+
+Not in this slice: meshes and sharded strategies, heartbeats, preemption and
 supervision, tracing, the flight recorder (the reference's
 ``flight.record`` / ``dump_on_fault`` calls around a skip or an abort
 wait for the telemetry slice), the divergence sentinel and sharded
@@ -27,7 +39,10 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 
+from distributed_compute_pytorch_tpu_torch import interop
+from distributed_compute_pytorch_tpu_torch.core import mesh
 from distributed_compute_pytorch_tpu_torch.core.config import Config
 from distributed_compute_pytorch_tpu_torch.data.datasets import load_dataset
 from distributed_compute_pytorch_tpu_torch.data.loader import DeviceFeeder
@@ -53,27 +68,42 @@ class Trainer:
     def __init__(self, config: Config, model=None, train_data=None,
                  eval_data=None):
         self.config = config
+        cpu = config.device_name == "cpu"
+        mesh.initialize_distributed(config.coordinator, config.num_processes,
+                                    config.process_id,
+                                    "cpu" if cpu else "cuda")
         self.device = resolve_device(config.device_name)
+        rank, world = mesh.process_index(), mesh.process_count()
+        if world > 1 and config.model != "convnet":
+            # every rank draws the global batch's dropout masks: the
+            # ConvNet's [B, 64] and [B, 128] cost nothing, GPT-2's [B, T,
+            # 768] a site would cost each rank world times the draw
+            raise NotImplementedError(
+                f"data parallelism is ported for the ConvNet; {config.model}"
+                f" over {world} ranks would draw every rank the whole "
+                f"global batch's dropout masks (unmeasured)")
         self.train_data = (train_data if train_data is not None
-                           else load_dataset(config.dataset, "train"))
+                           else self._load("train"))
         self.eval_data = eval_data if eval_data is not None else (
-            self.train_data if config.eval_on_train
-            else load_dataset(config.dataset, "test"))
+            self.train_data if config.eval_on_train else self._load("test"))
         # step-level accumulation: the feeder delivers the effective batch
         # (micro x accum), steps count updates (reference :98-115)
         self.accum = max(1, int(config.grad_accum))
         self.train_feed = DeviceFeeder(self.train_data,
                                        config.batch_size * self.accum,
                                        self.device, shuffle=True,
-                                       seed=config.seed)
+                                       seed=config.seed, rank=rank,
+                                       world=world)
         self.eval_feed = DeviceFeeder(self.eval_data, config.batch_size,
                                       self.device, shuffle=False,
-                                      seed=config.seed)
+                                      seed=config.seed, rank=rank,
+                                      world=world)
         self.model = model if model is not None else build_model(
             config.model, device=self.device, **self._model_kwargs())
         steps = self.train_feed.steps_per_epoch
         self.tx = build_optimizer(
-            config.optimizer, config.lr, steps_per_epoch=steps,
+            config.optimizer, config.lr, gamma=config.gamma,
+            steps_per_epoch=steps,
             total_steps=steps * config.epochs,
             weight_decay=config.weight_decay, clip_norm=config.clip_norm,
             warmup_steps=config.warmup_steps)
@@ -90,7 +120,8 @@ class Trainer:
         self._skips_consec = 0
         self.start_epoch = 0
         self.start_step = 0
-        if config.resume and os.path.isfile(config.ckpt_path):
+        resumed = config.resume and os.path.isfile(config.ckpt_path)
+        if resumed:
             manifest = checkpoint.restore_with_fallback(config.ckpt_path,
                                                         self.state)
             epoch = int(manifest["epoch"])
@@ -106,15 +137,37 @@ class Trainer:
                 self.start_epoch = epoch + 1
                 log0(f"resumed from {config.ckpt_path} at epoch "
                      f"{self.start_epoch}")
-        log0(f"device: {self.device} | model: {config.model} | dataset: "
-             f"{self.train_data.name} | optimizer: {config.optimizer} | "
-             f"compute_dtype: {config.compute_dtype}")
+        if config.import_torch and resumed:
+            log0(f"resume checkpoint found; skipping --import_torch "
+                 f"{config.import_torch}")
+        elif config.import_torch:
+            # the reference user's migration path: start from mnist.pt
+            if config.model != "convnet":
+                raise ValueError("--import_torch supports the reference "
+                                 "ConvNet checkpoint schema (model=convnet)")
+            interop.load_reference_checkpoint(self.model, config.import_torch)
+            log0(f"imported torch checkpoint {config.import_torch}")
+        group = f" ({dist.get_backend()})" if mesh.distributed() else ""
+        log0(f"device: {self.device} | world: {world}{group} | model: "
+             f"{config.model} | dataset: {self.train_data.name} | "
+             f"optimizer: {config.optimizer} | compute_dtype: "
+             f"{config.compute_dtype}")
+
+    def _load(self, split: str):
+        cfg = self.config
+        return load_dataset(cfg.dataset, split, data_dir=cfg.data_dir)
 
     def _model_kwargs(self) -> dict:
-        """Dataset-derived model sizing (reference ``_model_kwargs``):
-        synthetic and tiny runs take the vocab and the window from the
-        data."""
+        """Dataset-derived model sizing (reference ``_model_kwargs``,
+        ``:356-372``): the ConvNet's classes, channels and image size;
+        synthetic and tiny GPT-2 runs take the vocab and the window from
+        the data."""
         cfg = self.config
+        inputs = self.train_data.inputs
+        if cfg.model == "convnet":
+            return {"num_classes": self.train_data.num_classes,
+                    "in_channels": int(inputs.shape[-1]),
+                    "image_size": tuple(int(d) for d in inputs.shape[1:3])}
         kw: dict = {"preset": cfg.model_preset}
         if cfg.model_preset == "tiny" or cfg.dataset.startswith("synthetic"):
             kw["vocab_size"] = max(self.train_data.num_classes, 4)
@@ -124,6 +177,8 @@ class Trainer:
         return kw
 
     def _save_ckpt(self, epoch: int, extra: dict | None = None) -> None:
+        if not mesh.is_coordinator():
+            return
         checkpoint.save(self.config.ckpt_path, self.state, epoch=epoch,
                         extra=extra, keep_last=self.config.keep_last)
 
@@ -193,17 +248,24 @@ class Trainer:
                 f"drop bad updates instead of aborting")
 
     def evaluate(self, epoch: int) -> dict:
-        """Full eval pass: sums accumulate on the device, one read at the
-        end; padded rows weigh nothing."""
+        """Full eval pass: sums accumulate on the device, all-reduced over
+        the ranks once at the end (the reference's SUM), one read;
+        padded rows weigh nothing."""
         total = None
         for x, y, valid in self.eval_feed.epoch(0, with_valid=True):
             total = self.eval_step(self.state, x, y, total, valid)
-        loss_sum = float(total["loss_sum"]) if total else 0.0
-        correct = int(total["correct"]) if total else 0
-        count = int(total["count"]) if total else 0
+        sums = torch.zeros(3, dtype=torch.float64, device=self.device)
+        if total:
+            sums = torch.stack([total[k].double() for k in
+                                ("loss_sum", "correct", "count")])
+        if mesh.distributed():
+            dist.all_reduce(sums)
+        loss_sum, correct, count = sums.tolist()
+        correct, count = int(correct), int(count)
         loss = loss_sum / max(count, 1)
         self.logger.eval_line(epoch, loss, correct, count)
-        return {"loss": loss, "accuracy": correct / max(count, 1)}
+        return {"loss": loss, "accuracy": correct / max(count, 1),
+                "loss_sum": loss_sum, "correct": correct, "count": count}
 
     def fit(self) -> dict:
         """The epoch loop: train -> eval -> timing line -> checkpoint."""

@@ -1,17 +1,20 @@
 """Structured logging — port of
-``distributed_compute_pytorch_tpu/utils/logging.py`` for one process: the
-reference-format stdout lines (the JSONL sink and the metrics registry
-wait for the telemetry slice)."""
+``distributed_compute_pytorch_tpu/utils/logging.py``: the reference-format
+stdout lines, printed by rank 0 alone (the JSONL sink and the metrics
+registry wait for the telemetry slice)."""
 
 from __future__ import annotations
 
 import sys
 
+from distributed_compute_pytorch_tpu_torch.core import mesh
+
 
 def log0(*args, **kw) -> None:
-    """``print`` and flush (one process: it is the coordinator)."""
-    print(*args, **kw)
-    sys.stdout.flush()
+    """``print`` and flush on rank 0 (the coordinator) only."""
+    if mesh.is_coordinator():
+        print(*args, **kw)
+        sys.stdout.flush()
 
 
 class MetricLogger:

@@ -1419,3 +1419,97 @@ def test_train_capture_and_replays_pass_sync_debug_error(dev):
     assert train_step.stats["graph_captures"] == 1
     assert train_step.stats["graph_replays"] == 4
     assert m["skipped"].item() == 0.0
+
+
+def _convnet_train(dev, optimizer, **kw):
+    """The ConvNet (random weights, seed 0) with ``optimizer`` and StepLR
+    over 2 steps an epoch, its step functions, a fresh state and a batch
+    of 16 (numpy seed 8)."""
+    from distributed_compute_pytorch_tpu_torch.models.convnet import ConvNet
+    from distributed_compute_pytorch_tpu_torch.train.optim import (
+        build_optimizer)
+    from distributed_compute_pytorch_tpu_torch.train.step import (
+        make_step_fns)
+    model = ConvNet(device=dev).init(torch.Generator().manual_seed(0))
+    lr = 1.0 if optimizer == "adadelta" else 0.05
+    tx = build_optimizer(optimizer, lr, gamma=0.7, steps_per_epoch=2)
+    init_fn, train_step, _ = make_step_fns(model, tx, **kw)
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(0, 1, (16, 28, 28, 1)).astype(
+        np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 10, 16)).to(dev)
+    return train_step, init_fn(0), x, y
+
+
+def _convnet_bits(state):
+    return _train_bits(state) + [t.clone()
+                                 for t in state.model_state.values()]
+
+
+@pytest.mark.parametrize("optimizer", ["adadelta", "sgd"])
+def test_captured_convnet_step_matches_eager(dev, optimizer):
+    """Six ConvNet updates (dropout on, StepLR dropping every 2 steps),
+    captured and eager: bit-identical losses, parameters, slots, count
+    and BatchNorm running stats; the captured step ran its first update
+    eagerly, captured once and replayed five times."""
+    runs = {}
+    for eager in (True, False):
+        train_step, state, x, y = _convnet_train(dev, optimizer,
+                                                 _eager=eager)
+        losses = [train_step(state, x, y)[1]["loss"] for _ in range(6)]
+        torch.cuda.synchronize()
+        runs[eager] = ([v.item() for v in losses], _convnet_bits(state))
+        if not eager:
+            assert (train_step.stats["eager_steps"],
+                    train_step.stats["graph_captures"],
+                    train_step.stats["graph_replays"]) == (1, 1, 5)
+    assert runs[True][0] == runs[False][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[True][1],
+                                                 runs[False][1]))
+    assert not torch.equal(runs[False][1][-1], torch.ones_like(
+        runs[False][1][-1]))
+
+
+def test_captured_convnet_step_skips_a_poisoned_update(dev):
+    """``nonfinite_policy="skip"``: a replay on a batch holding a NaN
+    reports ``skipped`` 1 and leaves parameters, slots, count and the
+    BatchNorm running stats bit-identical; the next replay trains."""
+    train_step, state, x, y = _convnet_train(dev, "adadelta",
+                                             nonfinite_policy="skip")
+    for _ in range(3):
+        assert train_step(state, x, y)[1]["skipped"].item() == 0.0
+    before = _convnet_bits(state)
+    bad = x.clone()
+    bad[2, 4, 4, 0] = float("nan")
+    assert train_step(state, bad, y)[1]["skipped"].item() == 1.0
+    assert all(torch.equal(a, b) for a, b in zip(_convnet_bits(state),
+                                                 before))
+    assert train_step(state, x, y)[1]["skipped"].item() == 0.0
+    assert int(state.opt_state.count) == 4
+    assert train_step.stats["graph_replays"] == 4
+
+
+def test_captured_convnet_step_in_a_one_rank_nccl_group(dev):
+    """The captured step under a one-process ``nccl`` group (its gradient
+    all-reduce and sync-BN all-reduces inside the graph) gives the
+    ungrouped captured step's bits: a SUM over one rank, divided by 1."""
+    import socket
+
+    from distributed_compute_pytorch_tpu_torch.core import mesh
+    train_step, state, x, y = _convnet_train(dev, "adadelta")
+    want = [train_step(state, x, y)[1]["loss"].item() for _ in range(4)]
+    want_bits = _convnet_bits(state)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert mesh.initialize_distributed(f"127.0.0.1:{port}", 1, 0, "cuda")
+    try:
+        train_step, state, x, y = _convnet_train(dev, "adadelta")
+        assert state.flat_grads is not None
+        got = [train_step(state, x, y)[1]["loss"].item() for _ in range(4)]
+        assert train_step.stats["graph_replays"] == 3
+        assert got == want
+        assert all(torch.equal(a, b) for a, b in zip(_convnet_bits(state),
+                                                     want_bits))
+    finally:
+        mesh.shutdown_distributed()

@@ -1,7 +1,7 @@
 """Package rules of the port: it imports no JAX (and nothing of the JAX
-package), neither do ``chip_smoke.py``, ``train_probe.py`` and the CUDA
-test file, and its entry points refuse to run without a card unless the
-caller asks for the CPU."""
+package), neither do ``chip_smoke.py``, ``train_probe.py``,
+``ddp_probe.py`` and the CUDA test file, and its entry points refuse to
+run without a card unless the caller asks for the CPU."""
 
 import ast
 import subprocess
@@ -29,6 +29,7 @@ def _imported_roots(path: Path) -> set[str]:
 def _checked_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "train_probe.py",
+                                         ROOT / "ddp_probe.py",
                                          ROOT / "tests/test_torch_cuda.py"]
 
 

@@ -234,7 +234,8 @@ def _poisoning_trainer(tmp_path, poisoned, policy="skip"):
     """A GPT-2-tiny ``synthetic-lm`` trainer (16 steps an epoch) whose
     step ``b`` runs with ``wte[POISON] = inf`` when ``poisoned(b)``: the
     real guard skips it; the element is restored after the step."""
-    cfg = Config(device="cpu", model_preset="tiny", batch_size=128,
+    cfg = Config(device="cpu", model="gpt2", model_preset="tiny",
+                 dataset="synthetic-lm", optimizer="adamw", batch_size=128,
                  epochs=1, log_every=4, nonfinite_policy=policy,
                  ckpt_path=str(tmp_path / "ck.npz"))
     tr = Trainer(cfg)
@@ -299,7 +300,8 @@ def test_trainer_goes_on_through_scattered_skips(tmp_path):
 
 
 def test_cli_takes_nonfinite_policy_skip(tmp_path, capsys):
-    assert cli.main(["--device", "cpu", "--model_preset", "tiny",
+    assert cli.main(["--device", "cpu", "--model", "gpt2",
+                     "--model_preset", "tiny", "--dataset", "synthetic-lm",
                      "--optimizer", "adamw_fused", "--batch_size", "256",
                      "--epochs", "1", "--log_every", "4",
                      "--nonfinite_policy", "skip",

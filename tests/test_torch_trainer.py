@@ -164,7 +164,7 @@ def test_cli_needs_cuda_unless_cpu_is_asked(tmp_path):
 
 
 @pytest.mark.parametrize("flag,arg", [("--mesh", "data=2"),
-                                      ("--gamma", "0.7"),
+                                      ("--download", None),
                                       ("--divergence_check", None)])
 def test_unported_flag_exits_naming_it(flag, arg, capsys):
     with pytest.raises(SystemExit) as e:
