@@ -169,7 +169,20 @@ imports nothing of JAX. Phases, one JSON line each:
    1 NCCL's in-place all-reduce runs no device work);
 16. convnet_cli: the trainer CLI on the ConvNet, mnist and Adadelta for
    one epoch, then ``--resume --epochs 2``, then one epoch as a one-rank
-   ``nccl`` world (``--coordinator``/``--num_processes``/``--process_id``).
+   ``nccl`` world (``--coordinator``/``--num_processes``/``--process_id``);
+17. train_ddp (run right after train_profile, while the train phase's
+   first run is kept): the train cell's captured step (GPT-2-small, bf16,
+   dropout 0.1, 20 updates) under a one-process ``nccl`` group in the two
+   sharded layouts: ZeRO-1 forced on (``shard_update=True``: the flat
+   gradient reduce-scattered into the rank's shard, ``fused_adamw`` on
+   the shard, the shard all-gathered back in place) against the train
+   phase's first captured run, and FSDP (each block and the embeddings a
+   unit, gathered in bf16 and its gradient reduce-scattered by the
+   autograd Function, ``adamw``) against an ungrouped captured ``adamw``
+   run: losses, parameters, moments and count bit-identical (gated; a sum
+   over one rank, divided by 1); a profiled run of replays, one
+   ``cudaGraphLaunch`` each and the port's kernels as counted (gated);
+   each layout's per-card bytes of masters, moments and gradients.
 
 When a profiled run's counters and the device's kernel events disagree
 (``counted_profile``), the profile's port kernel events (name, start,
@@ -745,10 +758,11 @@ def check_adamw(torch, FAW, GPT2, GPT2Config):
     params = dict(model.named_parameters())
     tx = FAW.fused_adamw(1e-3, weight_decay=0.01)
     state = tx.init(params)
+    mu, nu = state.slots["mu"], state.slots["nu"]
     n = state.params.numel()
     require(len(params) == 148, f"adamw: {len(params)} leaves, want 148")
     gen = torch.Generator(device="cuda").manual_seed(5)
-    want = [state.params.clone(), state.mu.clone(), state.nu.clone()]
+    want = [state.params.clone(), mu.clone(), nu.clone()]
     grads = {k: p.grad for k, p in params.items()}
     ok = torch.ones((), dtype=torch.bool, device="cuda")
     for _ in range(3):
@@ -762,17 +776,17 @@ def check_adamw(torch, FAW, GPT2, GPT2Config):
                                    f" after 3 updates")
     err = 0.0
     for name, got, w in zip(("p", "mu", "nu"),
-                            (state.params, state.mu, state.nu), want):
+                            (state.params, mu, nu), want):
         e = ((got - w).abs().max() / w.abs().max()).item()
         require(e <= ADAMW_TOL, f"adamw {name}: relative error {e} > "
                                 f"{ADAMW_TOL}")
         err = max(err, (got - w).abs().max().item())
     sc = tx.scalars(state.count)
     ms = time_ms(torch, [lambda: FAW.fused_adamw_update(
-        state.grads, state.params, state.mu, state.nu, sc, state.count, ok,
+        state.grads, state.params, mu, nu, sc, state.count, ok,
         **tx.hyper)], iters=20)
     plain_ms = time_ms(torch, [lambda: FAW.fused_adamw_plain(
-        state.grads, state.params, state.mu, state.nu, sc, ok,
+        state.grads, state.params, mu, nu, sc, ok,
         **tx.hyper)], iters=10)
     leaves = [p.detach().clone().requires_grad_() for p in params.values()]
     for leaf, p in zip(leaves, params.values()):
@@ -2672,11 +2686,13 @@ def train_setup(torch, np, tm, cfg, state_dict, *, compute_dtype, mode,
 
 
 def state_bits(state) -> list:
-    """Copies of every parameter, both moments and the count."""
+    """Copies of every master parameter, both moments and the count, by
+    leaf name (gathered where the state is sharded)."""
     opt = state.opt_state
-    return ([p.detach().clone() for p in state.params.values()]
-            + [t.clone() for kind in opt.moments().values()
-               for t in kind.values()] + [opt.count.clone()])
+    params, moments = opt.param_leaves(), opt.moments()
+    return ([params[n].detach().clone() for n in sorted(params)]
+            + [moments[k][n].clone() for k in sorted(moments)
+               for n in sorted(moments[k])] + [opt.count.clone()])
 
 
 def same_bits(torch, a: list, b: list) -> bool:
@@ -2688,7 +2704,8 @@ def same_bits(torch, a: list, b: list) -> bool:
         for x, y in zip(a, b))
 
 
-def train_run(torch, FA, FAW, setup, mode, what, steps=TRAIN_STEPS):
+def train_run(torch, FA, FAW, setup, mode, what, steps=TRAIN_STEPS,
+              per_step=TRAIN_PER_STEP):
     """``steps`` updates of a fresh ``setup``, each to a synchronize (host
     clock), the counters zeroed just before and read just after. In the
     captured mode every update from the second on (the capture and each
@@ -2726,7 +2743,7 @@ def train_run(torch, FA, FAW, setup, mode, what, steps=TRAIN_STEPS):
     require(len({id(v) for v in losses}) == steps,
             f"{what}: a step's loss is not a tensor of its own")
     losses = [float(v) for v in losses]
-    want = {k: steps * n for k, n in TRAIN_PER_STEP.items()}
+    want = {k: steps * n for k, n in per_step.items()}
     require(launches == want, f"{what}: launches {launches} != {want}")
     require(all(math.isfinite(v) for v in losses),
             f"{what}: non-finite loss {losses}")
@@ -2755,10 +2772,10 @@ def train_run(torch, FA, FAW, setup, mode, what, steps=TRAIN_STEPS):
 
 
 def train_profile(torch, FA, FAW, setup, mode, what, tc: bool,
-                  steps=TRAIN_PROFILE_STEPS):
+                  steps=TRAIN_PROFILE_STEPS, per_step=TRAIN_PER_STEP):
     """``steps`` more updates of ``setup`` under the profiler, every
     counter zeroed just before: the counters must equal ``steps`` x
-    :data:`TRAIN_PER_STEP` (and, ``tc``, every flash launch on the tensor
+    ``per_step`` (and, ``tc``, every flash launch on the tensor
     cores) and the port's kernel events the device ran. Host calls: in the
     captured mode one ``cudaGraphLaunch`` a step, each inside a replay
     span, and no kernel launch call inside one; the eager mode makes no
@@ -2773,7 +2790,7 @@ def train_profile(torch, FA, FAW, setup, mode, what, tc: bool,
     prof, wall = profile_run(torch, run)
     counted = train_counts(FA, FAW)
     counted.update({f"{k}_tc": n for k, n in tc_counts(FA).items()})
-    want = {k: steps * n for k, n in TRAIN_PER_STEP.items()}
+    want = {k: steps * n for k, n in per_step.items()}
     want.update({f"{k}_tc": steps * LAYERS if tc else 0
                  for k in tc_counts(FA)})
     require(counted == want, f"{what}: launches {counted} != {want}")
@@ -2878,7 +2895,6 @@ def train_phase(torch, np, tm, FA, FAW, GPT2Config):
             kept[mode] = setup     # the last run of each mode, profiled
         del setup
         torch.cuda.empty_cache()
-    del first
     graphs_, eagers = ([r for r in runs if r["mode"] == m]
                        for m in ("graph", "eager"))
     reserved = {m: max(r["peak_reserved_above_start_gb"] for r in rs)
@@ -2926,7 +2942,92 @@ def train_phase(torch, np, tm, FA, FAW, GPT2Config):
                     for r in runs]}
     prof_rec = {"phase": "train_profile", "steps": TRAIN_PROFILE_STEPS,
                 **{mode: p for mode, p in profiles.items()}}
-    return rec, prof_rec, base
+    return rec, prof_rec, base, first
+
+
+# the train cell under adamw: no fused kernel
+ADAMW_PER_STEP = {**TRAIN_PER_STEP, "fused_adamw": 0}
+
+
+def train_ddp_phase(torch, np, tm, mesh, FSDP, FA, FAW, GPT2Config, base,
+                    first, smi):
+    """The train cell's captured step under a one-process ``nccl`` group,
+    ZeRO-1 (``adamw_fused``) and FSDP (``adamw``), each bit for bit its
+    ungrouped captured run (module docstring, phase 17)."""
+    import socket
+    cfg = GPT2Config.small()
+    # FSDP's reference: the ungrouped captured step with adamw
+    setup = train_setup(torch, np, tm, cfg, base, mode="graph",
+                        optimizer="adamw", compute_dtype="bfloat16")
+    ref, ref_bits = train_run(torch, FA, FAW, setup, "graph",
+                              "train_ddp ungrouped adamw",
+                              per_step=ADAMW_PER_STEP)
+    del setup
+    torch.cuda.empty_cache()
+    wants = {"zero1": ("adamw_fused", {"shard_update": True},
+                       TRAIN_PER_STEP, first),
+             "fsdp": ("adamw", {"strategy": FSDP()}, ADAMW_PER_STEP,
+                      (ref["losses"], ref_bits))}
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mesh.initialize_distributed(f"127.0.0.1:{port}", 1, 0, "cuda")
+    layouts = {}
+    try:
+        require(mesh.distributed() and mesh.process_count() == 1,
+                "train_ddp: no one-rank nccl group")
+        for layout, (optimizer, kw, per_step, want) in wants.items():
+            what = f"train_ddp {layout}"
+            setup = train_setup(torch, np, tm, cfg, base, mode="graph",
+                                optimizer=optimizer,
+                                compute_dtype="bfloat16", **kw)
+            opt = setup[3].opt_state
+            require(opt.layout.mode == layout,
+                    f"{what}: the state's layout is {opt.layout.mode}")
+            rec, bits = train_run(torch, FA, FAW, setup, "graph", what,
+                                  per_step=per_step)
+            require(rec["losses"] == want[0],
+                    f"{what}: losses {rec['losses']} differ from the "
+                    f"ungrouped captured run's {want[0]}")
+            require(same_bits(torch, bits, want[1]),
+                    f"{what}: parameters, moments or count after "
+                    f"{TRAIN_STEPS} steps differ from the ungrouped "
+                    f"captured run's")
+            del bits
+            prof, wall, launches, host = train_profile(
+                torch, FA, FAW, setup, "graph", f"{what} profile", tc=True,
+                per_step=per_step)
+            summary = train_profile_summary(
+                torch, prof, wall, launches, host, TRAIN_PROFILE_STEPS,
+                [rec["median_step_ms"]])
+            nccl = {k: v for k, v in device_events(torch, prof).items()
+                    if "nccl" in k.lower()}
+            layouts[layout] = {
+                "optimizer": optimizer, "options": {
+                    k: type(v).__name__ if k == "strategy" else v
+                    for k, v in kw.items()},
+                "units": len(opt.layout.units),
+                "bytes_per_card": opt.nbytes(),
+                "median_step_ms": rec["median_step_ms"],
+                "capture_ms": rec["capture_ms"],
+                "peak_reserved_gb": rec["peak_reserved_gb"],
+                "launches": rec["launches"],
+                "nccl_device_events_per_step": {
+                    k: [n / TRAIN_PROFILE_STEPS,
+                        us / 1e3 / TRAIN_PROFILE_STEPS]
+                    for k, (n, us) in nccl.items()},
+                "profile": summary}
+            del setup, opt, prof
+            torch.cuda.empty_cache()
+    finally:
+        mesh.shutdown_distributed()
+    return {"phase": "train_ddp", "card": smi, "backend": "nccl",
+            "world": 1, "model": "gpt2-small as the train cell (bf16, "
+            "dropout 0.1)", "steps": TRAIN_STEPS,
+            "bit_identical": "losses, parameters, moments and count after "
+            f"{TRAIN_STEPS} steps against the ungrouped captured run "
+            "(gated)", "ungrouped_adamw_median_step_ms":
+            ref["median_step_ms"], "layouts": layouts}
 
 
 def parity_phase(torch, np, tm, A, FA, FAW, GPT2Config):
@@ -3574,6 +3675,7 @@ def main() -> int:
         from distributed_compute_pytorch_tpu_torch.ops import (
             cache_update as CU, decode_attention as DA, flash_attention as FA,
             fused_adamw as FAW)
+        from distributed_compute_pytorch_tpu_torch.parallel.api import FSDP
         from distributed_compute_pytorch_tpu_torch.train.optim import (
             build_optimizer)
         from distributed_compute_pytorch_tpu_torch.train.step import (
@@ -3694,10 +3796,14 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         tm = (GPT2, build_optimizer, make_step_fns)
-        train, train_prof, weights = train_phase(torch, np, tm, FA, FAW,
-                                                 GPT2Config)
+        train, train_prof, weights, first = train_phase(torch, np, tm, FA,
+                                                        FAW, GPT2Config)
         record(train)
         record(train_prof)
+        record(train_ddp_phase(torch, np, tm, mesh, FSDP, FA, FAW,
+                               GPT2Config, weights, first, smi))
+        del first
+        torch.cuda.empty_cache()
         record(train_skip_phase(torch, np, tm, GPT2Config, weights))
         del weights
         torch.cuda.empty_cache()

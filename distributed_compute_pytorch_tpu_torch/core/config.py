@@ -20,6 +20,22 @@ import argparse
 import dataclasses
 from dataclasses import dataclass
 
+# reference flags of the sharded trainer the port refuses, by their
+# ROADMAP queue item
+QUEUED = {
+    "--quant_collectives": "ROADMAP queue 1, item 2 (quantized "
+                           "collectives, parallel/collectives.py:159)",
+    "--accum_bucket_mb": "ROADMAP queue 1, item 2 (bucketed accumulation, "
+                         "bucketize/bucketed_update)",
+    "--ckpt_sharded": "ROADMAP queue 1, item 2 (the v2 sharded "
+                      "checkpoint, train/checkpoint.py:207 save_sharded)",
+}
+
+
+def queued(flag: str) -> str:
+    """The one-line refusal of a queued reference flag."""
+    return f"{flag} is not ported yet: {QUEUED[flag]}"
+
 
 @dataclass
 class Config:
@@ -60,6 +76,8 @@ class Config:
     coordinator: str | None = None  # host:port of rank 0's rendezvous
     num_processes: int | None = None
     process_id: int | None = None
+    mesh: str = "data=-1"
+    shard_update: str = "auto"
 
     @property
     def device_name(self) -> str | None:
@@ -115,6 +133,15 @@ class Config:
                             "and --process_id)")
         p.add_argument("--num_processes", type=int, default=None)
         p.add_argument("--process_id", type=int, default=None)
+        p.add_argument("--mesh", type=str, default=cls.mesh,
+                       help="axes over the ranks: data=N, fsdp=N or "
+                            "data=D,fsdp=F (one -1 fills the world)")
+        p.add_argument("--shard_update", type=str, default=cls.shard_update,
+                       choices=("auto", "on", "off"),
+                       help="ZeRO-1 update sharding: reduce-scatter the "
+                            "gradients, update this rank's shard, "
+                            "all-gather the params; auto = on under "
+                            "DataParallel at a data-parallel size above 1")
         return p
 
     @classmethod
@@ -122,7 +149,10 @@ class Config:
         ns, rest = cls.parser().parse_known_args(argv)
         if rest:
             flag = next((a for a in rest if a.startswith("-")), rest[0])
-            raise SystemExit(f"dcp-train (port): {flag.split('=')[0]} is "
-                             f"not supported by the port yet")
+            flag = flag.split("=")[0]
+            if flag in QUEUED:
+                raise SystemExit(f"dcp-train (port): {queued(flag)}")
+            raise SystemExit(f"dcp-train (port): {flag} is not supported "
+                             f"by the port yet")
         return cls(**{f.name: getattr(ns, f.name)
                       for f in dataclasses.fields(cls)})

@@ -1,5 +1,5 @@
-"""Process group — the process-group half of
-``distributed_compute_pytorch_tpu/core/mesh.py``, over ``torch.distributed``.
+"""Process group and mesh — ``distributed_compute_pytorch_tpu/core/mesh.py``
+over ``torch.distributed``.
 
 The reference's data parallelism is one SPMD program over the global
 batch. The port runs one process a rank (one GPU each on CUDA) and keeps
@@ -12,15 +12,33 @@ batch.
 
 :func:`initialize_distributed` is the reference's rendezvous
 (``:50-73``): ``nccl`` for CUDA and ``gloo`` for the CPU, never one for the
-other. Mesh axes, ``DeviceMesh`` and ``--mesh`` are not ported.
+other.
+
+The mesh (``--mesh``, reference ``MeshSpec`` and ``make_mesh``) names axes
+over the processes, one card a rank: ``data`` (batch sharding) and
+``fsdp`` (batch sharding with the parameters sharded over it,
+``parallel/api.py::FSDP``). :func:`make_mesh` lays the ranks out row-major
+over the axes, as the reference reshapes its devices, through
+``torch.distributed.device_mesh.init_device_mesh``, so each axis has a
+process group of its own; rank ``r`` holds rows ``r * B`` on of every
+global batch, the reference's batch sharding over ``("data", "fsdp")``.
+The ``tensor``, ``seq``, ``pipe`` and ``expert`` axes are not ported: a
+size above 1 raises, naming :data:`AXES_QUEUE`.
 """
 
 from __future__ import annotations
 
+import math
 import os
+from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
+
+# axes the global batch is sharded over (reference :44)
+BATCH_AXES = ("data", "fsdp")
+ALL_AXES = ("data", "fsdp", "tensor", "seq", "pipe", "expert")
+AXES_QUEUE = "ROADMAP queue 1, item 2 (the tensor, pipe, seq and expert axes)"
 
 
 def distributed() -> bool:
@@ -95,10 +113,14 @@ def is_coordinator() -> bool:
     return process_index() == 0
 
 
-def dp_world_size() -> int:
-    """Data-parallel ranks (the reference's ``world_size``): one a
-    process."""
-    return process_count()
+def dp_world_size(mesh: "Mesh | None" = None) -> int:
+    """Data-parallel ranks (the reference's ``world_size``): the product
+    of ``mesh``'s batch axes, which cover every process
+    (:func:`make_mesh` refuses the model axes and undersubscription);
+    without a mesh, one a process."""
+    if mesh is None:
+        return process_count()
+    return math.prod(mesh.size(a) for a in BATCH_AXES)
 
 
 def local_batch_size(global_batch: int, world: int | None = None) -> int:
@@ -132,3 +154,119 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     """``x`` summed over the process group, differentiably (a new
     tensor; ``x`` is left as it is)."""
     return _AllReduceSum.apply(x)
+
+
+@dataclass(frozen=True)
+class MeshSpec:
+    """An ordered mapping of axis name -> size; at most one size may be -1
+    (inferred from the world) — the reference's ``MeshSpec``
+    (``:92-145``)."""
+
+    axes: tuple[tuple[str, int], ...]
+
+    @classmethod
+    def parse(cls, spec: "str | dict[str, int]") -> "MeshSpec":
+        if isinstance(spec, str):
+            d: dict[str, int] = {}
+            for part in spec.split(","):
+                part = part.strip()
+                if not part:
+                    continue
+                name, _, size = part.partition("=")
+                d[name.strip()] = int(size) if size else -1
+            spec = d or {"data": -1}
+        for name in spec:
+            if name not in ALL_AXES:
+                raise ValueError(
+                    f"unknown mesh axis {name!r}; known axes: {ALL_AXES}")
+        return cls(axes=tuple(spec.items()))
+
+    def resolve(self, n_ranks: int) -> "MeshSpec":
+        """Fill in a single -1 so the axis sizes multiply to ``n_ranks``."""
+        sizes = dict(self.axes)
+        unknown = [k for k, v in sizes.items() if v == -1]
+        if len(unknown) > 1:
+            raise ValueError(f"at most one -1 axis allowed, got {unknown}")
+        known = math.prod(v for v in sizes.values() if v != -1)
+        if unknown:
+            if n_ranks % known:
+                raise ValueError(
+                    f"{n_ranks} ranks not divisible by fixed axes {sizes}")
+            sizes[unknown[0]] = n_ranks // known
+        elif known > n_ranks:
+            raise ValueError(
+                f"mesh {sizes} wants {known} ranks, the world has "
+                f"{n_ranks}")
+        return MeshSpec(axes=tuple(sizes.items()))
+
+    @property
+    def names(self) -> tuple[str, ...]:
+        return tuple(k for k, _ in self.axes)
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(v for _, v in self.axes)
+
+    def size(self, name: str) -> int:
+        return dict(self.axes).get(name, 1)
+
+
+class Mesh:
+    """The named axes over the ranks of the process group (or one process
+    without a group, every axis of size 1): ``size(axis)``, ``shape``
+    and ``group(*axes)``, the process group of the ranks that differ
+    only along ``axes``."""
+
+    def __init__(self, spec: MeshSpec, device_mesh=None):
+        self.spec, self.device_mesh = spec, device_mesh
+
+    def size(self, name: str) -> int:
+        return self.spec.size(name)
+
+    @property
+    def shape(self) -> dict:
+        return dict(self.spec.axes)
+
+    def group(self, *axes: str):
+        """The process group of ``axes``: one axis's own group, the whole
+        world where ``axes`` cover every axis of size above 1, ``None``
+        without a process group."""
+        if self.device_mesh is None:
+            return None
+        big = {a for a, n in self.spec.axes if n > 1}
+        if big <= set(axes):
+            return dist.group.WORLD
+        (axis,) = axes
+        return self.device_mesh.get_group(axis)
+
+
+def make_mesh(spec: "str | dict[str, int] | MeshSpec" = "data=-1") -> Mesh:
+    """The mesh over this process's world (reference ``make_mesh``,
+    ``:147-185``): ``spec`` resolved against the ranks, each axis a
+    process group (``init_device_mesh`` with ``mesh_dim_names``). Raises
+    for a ``tensor``/``pipe``/``seq``/``expert`` axis above 1 and for a
+    mesh smaller than a multi-process world (the reference's
+    undersubscription is single-process only, and here one process is one
+    rank). Without a process group the mesh is the single process: every
+    size must be 1."""
+    if not isinstance(spec, MeshSpec):
+        spec = MeshSpec.parse(spec)
+    world = process_count()
+    model_axes = {a: n for a, n in spec.axes
+                  if a not in BATCH_AXES and n != 1}
+    if model_axes:
+        raise NotImplementedError(
+            f"mesh axes {model_axes} are not ported yet: {AXES_QUEUE}")
+    spec = spec.resolve(world)
+    total = math.prod(spec.shape)
+    if total < world:
+        raise ValueError(
+            f"mesh spec {dict(spec.axes)} uses {total} of {world} ranks; "
+            f"undersubscription is single-process only — relaunch with "
+            f"fewer processes")
+    if not distributed():
+        return Mesh(spec)
+    from torch.distributed.device_mesh import init_device_mesh
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return Mesh(spec, init_device_mesh(device_type, spec.shape,
+                                       mesh_dim_names=spec.names))

@@ -229,8 +229,9 @@ def dropout(x, rate: float, generator, train: bool,
     (this rank's rows are ``rank * B`` on) and this rank's rows are kept,
     so the ranks together draw what one process draws for the whole
     batch. Each rank thus draws ``world`` times its own mask: nothing for
-    the ConvNet's ``[B, 64]`` and ``[B, 128]``, which is why the trainer
-    runs no other model over more than one rank."""
+    the ConvNet's ``[B, 64]`` and ``[B, 128]``; for GPT-2, ``world``
+    times its ``[B, T, 768]`` at every site (``ddp_probe.py --model gpt2``
+    measures what that costs a step)."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate

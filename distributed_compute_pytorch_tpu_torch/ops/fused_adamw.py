@@ -8,9 +8,11 @@ reference's ``FusedAdamWState`` (``count``, ``mu``, ``nu``) and whose
 ``fused_apply(grads, state, params, ok)`` updates the params in place
 where the device flag ``ok`` holds. Where the reference launches the
 kernel once per leaf (148 launches for GPT-2-small), ``init`` lays params,
-grads, ``mu`` and ``nu`` out as one flat f32 buffer each, with every
-parameter and its ``.grad`` a view into them, so one launch updates every
-leaf. Autograd accumulates
+grads, ``mu`` and ``nu`` out as one flat f32 buffer each
+(``train/flat.py``, the layout of every optimizer of the port), with
+every parameter and its ``.grad`` a view into them, so one launch updates
+every leaf; under ZeRO-1 one launch updates this rank's shard, and the
+moments exist at the shard's size only. Autograd accumulates
 into an existing ``.grad`` in place but replaces one that is ``None``: so
 the grads are zeroed in place, never set to ``None``, and ``fused_apply``
 raises when a parameter or its gradient no longer lies in its buffer.
@@ -32,13 +34,13 @@ arithmetic on tensors. ``launches`` counts kernel launches.
 
 from __future__ import annotations
 
-import math
-from dataclasses import dataclass
 from typing import Callable
 
 import torch
 
 from distributed_compute_pytorch_tpu_torch.ops import _build
+from distributed_compute_pytorch_tpu_torch.train.flat import (
+    FlatOptimizer, FlatState, device_count)
 
 NAME = "fused_adamw"
 REPLACES = "distributed_compute_pytorch_tpu/ops/pallas/fused_adamw.py:59"
@@ -131,40 +133,19 @@ def device_scalars(learning_rate, weight_decay: float, b1: float, b2: float,
                         1.0 / (1.0 - const(b2) ** t)])
 
 
-def device_count(device) -> torch.Tensor:
-    """A fresh update count: a device ``int32`` zero (reference
-    ``FusedAdamWState.count``)."""
-    return torch.zeros((), dtype=torch.int32, device=device)
+class FusedAdamW(FlatOptimizer):
+    """The transformation (reference ``fused_adamw``) over the flat layout
+    every optimizer of the port keeps (``train/flat.py``): ``init(params,
+    layout)`` builds the flat buffers, re-pointing each tensor of
+    ``params`` (a ``{name: tensor}`` dict, f32, one device) and its
+    ``.grad`` at its slice; :meth:`update` is one kernel launch over the
+    update's buffers: the whole model, or under ZeRO-1 this rank's shard
+    (16-byte aligned: the layout pads every unit to ``world x 4``
+    elements, and the kernel raises on an unaligned view);
+    ``fused_apply(grads, state, params, ok)`` checks that every tensor
+    still lies in the buffers, then updates."""
 
-
-@dataclass
-class FusedAdamWState:
-    """``count`` (a device ``int32`` scalar, advanced by the kernel) and
-    the flat f32 buffers; ``layout`` maps each leaf name to its
-    ``(offset, shape)`` in them."""
-    count: torch.Tensor
-    mu: torch.Tensor
-    nu: torch.Tensor
-    params: torch.Tensor
-    grads: torch.Tensor
-    layout: dict
-
-    def view(self, flat, name):
-        off, shape = self.layout[name]
-        return flat[off:off + math.prod(shape)].view(shape)
-
-    def moments(self) -> dict:
-        """``{"mu": {name: view}, "nu": {...}}`` (checkpointing)."""
-        return {k: {n: self.view(getattr(self, k), n) for n in self.layout}
-                for k in ("mu", "nu")}
-
-
-class FusedAdamW:
-    """The transformation (reference ``fused_adamw``): ``init(params)``
-    builds the flat buffers, re-pointing each tensor of ``params`` (a
-    ``{name: tensor}`` dict, f32, one device) and its ``.grad`` at its
-    slice; ``fused_apply(grads, state, params, ok)`` checks that every
-    tensor still lies there, then runs one update over all leaves."""
+    kinds = ("mu", "nu")
 
     def __init__(self, learning_rate: float | Callable[[torch.Tensor],
                                                        torch.Tensor],
@@ -185,56 +166,29 @@ class FusedAdamW:
         return device_scalars(self.learning_rate, self.weight_decay,
                               self.b1, self.b2, count)
 
-    def init(self, params: dict) -> FusedAdamWState:
-        ps = list(params.values())
-        if not ps:
-            raise ValueError("fused_adamw: no parameters")
-        dev = ps[0].device
-        if any(p.dtype != torch.float32 or p.device != dev for p in ps):
-            raise ValueError("fused_adamw keeps f32 master parameters on "
-                             "one device")
-        layout, off = {}, 0
-        for name, p in params.items():
-            layout[name] = (off, tuple(p.shape))
-            off += p.numel()
-        flat_p = torch.empty(off, dtype=torch.float32, device=dev)
-        flat_g = torch.zeros(off, dtype=torch.float32, device=dev)
-        state = FusedAdamWState(
-            count=device_count(dev), mu=torch.zeros_like(flat_p),
-            nu=torch.zeros_like(flat_p), params=flat_p, grads=flat_g,
-            layout=layout)
-        with torch.no_grad():
-            for name, p in params.items():
-                view = state.view(flat_p, name)
-                view.copy_(p)
-                p.data = view
-                p.grad = state.view(flat_g, name)
-        return state
+    def update(self, state: FlatState, ok: torch.Tensor | None = None,
+               gn2: torch.Tensor | None = None) -> None:
+        """One kernel launch (on CUDA) over ``state.upd_p`` from
+        ``state.upd_g``, where the device bool scalar ``ok`` holds; the
+        count advances by ``ok``."""
+        del gn2
+        if ok is None:
+            raise ValueError("fused_adamw takes a device bool flag ok")
+        fused_adamw_update(state.upd_g, state.upd_p, state.slots["mu"],
+                           state.slots["nu"], self.scalars(state.count),
+                           state.count, ok, **self.hyper)
 
-    def _check(self, grads, state, params):
-        if set(params) != set(state.layout) or set(grads) != set(params):
-            raise ValueError("fused_apply: params/grads do not match the "
-                             "leaves init laid out")
-        for name in state.layout:
-            for flat, x, what in ((state.params, params[name], "parameter"),
-                                  (state.grads, grads[name], "gradient")):
-                view = state.view(flat, name)
-                if (x is None or x.data_ptr() != view.data_ptr()
-                        or x.shape != view.shape):
-                    raise RuntimeError(
-                        f"fused_apply: the {what} of {name!r} no longer "
-                        f"lies in the optimizer's flat buffer (zero grads "
-                        f"in place, never set them to None)")
-
-    def fused_apply(self, grads: dict, state: FusedAdamWState,
+    def fused_apply(self, grads: dict, state: FlatState,
                     params: dict, ok: torch.Tensor) -> None:
         """One update of every leaf, in place (one kernel launch on CUDA),
         where the device bool scalar ``ok`` holds; the count advances by
         ``ok``."""
-        self._check(grads, state, params)
-        fused_adamw_update(state.grads, state.params, state.mu, state.nu,
-                           self.scalars(state.count), state.count, ok,
-                           **self.hyper)
+        if set(params) != set(state.layout.names) or set(grads) != set(
+                params):
+            raise ValueError("fused_apply: params/grads do not match the "
+                             "leaves init laid out")
+        self.check(state, grads)
+        self.update(state, ok)
 
 
 def fused_adamw(learning_rate, b1: float = 0.9, b2: float = 0.999,

@@ -1,5 +1,5 @@
 """Checkpoints — port of ``distributed_compute_pytorch_tpu/train/checkpoint.py``
-(the v1 single-file format, for one device).
+(the v1 single-file format).
 
 A checkpoint is one ``.npz`` of path-flattened leaves (``"::"``-joined
 keys) plus a ``__manifest__`` JSON with the format (1), the epoch, an
@@ -26,6 +26,15 @@ the live state. A restore copies into the live state's tensors, the
 count included, and never replaces one: a captured train step holds
 them by address (``train/step.py``). ``keep_last=N`` rotates older files to
 ``{path}.prev-K``; :func:`restore_with_fallback` walks them newest first.
+
+A sharded state (ZeRO-1's moments, FSDP's masters and moments) is saved in
+LOGICAL form, as the reference saves its v1 file (``:7-15``): every rank
+takes part in gathering the leaves (:func:`state_leaves` is a collective
+then) and rank 0 alone writes (``save(..., write=...)``). A restore reads
+the logical leaves and hands each rank its shard, so a run resumes in any
+layout from a checkpoint of any other. The reference's v2 sharded format
+(``--ckpt_sharded``, ``save_sharded``) is not ported: :func:`save_sharded`
+raises naming its queue item.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import sys
 import numpy as np
 import torch
 
+from distributed_compute_pytorch_tpu_torch.core.config import queued
 from distributed_compute_pytorch_tpu_torch.interop import (
     CheckpointCorruptError, _crc, _np, params_from_jax, params_to_jax,
     read_checkpoint, unflatten)
@@ -74,26 +84,32 @@ def _flatten_tree(tree: dict, prefix: str, out: dict) -> None:
 
 
 def state_leaves(state) -> dict[str, np.ndarray]:
-    """The checkpoint's leaves of a ``train/step.py::TrainState``."""
+    """The checkpoint's leaves of a ``train/step.py::TrainState``, in
+    logical form: gathered over the ranks where the state is sharded, so
+    every rank of the group calls it together."""
+    opt = state.opt_state
     flat = {".step": np.asarray(state.step, np.int64),
             ".seed": np.asarray(state.seed, np.int64),
-            f"{_OPT}{_SEP}count": np.asarray(int(state.opt_state.count),
-                                             np.int64)}
-    params, model_state = params_to_jax({**state.params,
+            f"{_OPT}{_SEP}count": np.asarray(int(opt.count), np.int64)}
+    params, model_state = params_to_jax({**opt.param_leaves(),
                                          **state.model_state})
     _flatten_tree(params, _PARAMS, flat)
     _flatten_tree(model_state, _MODEL_STATE, flat)
-    for kind, leaves in state.opt_state.moments().items():
+    for kind, leaves in opt.moments().items():
         for name, t in leaves.items():
             flat[f"{_OPT}{_SEP}{kind}{_SEP}{name}"] = _np(t)
     return flat
 
 
 def save(path: str, state, *, epoch: int = 0, extra: dict | None = None,
-         keep_last: int = 1) -> None:
+         keep_last: int = 1, write: bool = True) -> None:
     """Write ``state`` to ``path`` atomically, keeping ``keep_last``
-    checkpoints (rotated ``.prev-K`` files)."""
+    checkpoints (rotated ``.prev-K`` files). Every rank of a sharded
+    state calls it (the leaves are gathered); only ranks with ``write``
+    write."""
     flat = state_leaves(state)
+    if not write:
+        return
     manifest = {"format": _FORMAT_VERSION, "epoch": epoch,
                 "extra": extra or {},
                 "checksums": {k: _crc(v) for k, v in flat.items()}}
@@ -102,42 +118,54 @@ def save(path: str, state, *, epoch: int = 0, extra: dict | None = None,
         f, __manifest__=json.dumps(manifest), **flat))
 
 
+def save_sharded(*args, **kwargs):
+    """The reference's v2 sharded checkpoint (``:207``): not ported."""
+    raise NotImplementedError(queued("--ckpt_sharded"))
+
+
 def load_manifest(path: str) -> dict:
     with np.load(path, allow_pickle=False) as z:
         return json.loads(str(z["__manifest__"]))
 
 
 def load_into(state, flat: dict) -> None:
-    """Copy verified leaves into ``state`` in place (the params keep their
-    storage, so an ``adamw_fused`` flat buffer stays whole). Raises
-    ``KeyError``/``ValueError`` naming the first missing or mis-shaped
-    leaf — the model or optimizer changed since the save."""
-    live = {**state.params, **state.model_state}
-    params = params_from_jax(unflatten(flat, _PARAMS),
+    """Copy verified logical leaves into ``state`` in place (the flat
+    buffers keep their storage; each rank keeps its shard of a sharded
+    state). Raises ``KeyError``/``ValueError`` naming the first missing or
+    mis-shaped leaf — the model or optimizer changed since the save."""
+    opt = state.opt_state
+    shapes = {n: shape for n, (_, shape) in opt.layout.offsets.items()}
+    leaves = params_from_jax(unflatten(flat, _PARAMS),
                              unflatten(flat, _MODEL_STATE))
-    if set(params) != set(live):
+    want = set(shapes) | set(state.model_state)
+    if set(leaves) != want:
         raise KeyError(f"checkpoint params do not match the model: missing "
-                       f"{sorted(set(live) - set(params))[:4]}")
-    moments = state.opt_state.moments()
-    wanted = {f"{_OPT}{_SEP}{kind}{_SEP}{name}": t
-              for kind, leaves in moments.items()
-              for name, t in leaves.items()}
-    for key in (".step", ".seed", f"{_OPT}{_SEP}count", *wanted):
+                       f"{sorted(want - set(leaves))[:4]}")
+    moments = {kind: {name: f"{_OPT}{_SEP}{kind}{_SEP}{name}"
+                      for name in shapes} for kind in opt.slots}
+    for key in (".step", ".seed", f"{_OPT}{_SEP}count",
+                *(k for d in moments.values() for k in d.values())):
         if key not in flat:
             raise KeyError(f"checkpoint missing leaf {key!r}")
-    pairs = [(live[n], v, f"{_PARAMS}::{n}") for n, v in params.items()]
-    pairs += [(t, torch.from_numpy(flat[k]), k) for k, t in wanted.items()]
-    for dst, src, key in pairs:
-        if tuple(src.shape) != tuple(dst.shape):
+    checks = [(v, shapes[n] if n in shapes
+               else tuple(state.model_state[n].shape), f"{_PARAMS}::{n}")
+              for n, v in leaves.items()]
+    checks += [(flat[k], shapes[n], k) for d in moments.values()
+               for n, k in d.items()]
+    for src, shape, key in checks:
+        if tuple(src.shape) != tuple(shape):
             raise ValueError(
                 f"checkpoint leaf {key!r} was saved with shape "
-                f"{tuple(src.shape)} but the state wants "
-                f"{tuple(dst.shape)} — model configuration changed since "
-                f"the save")
+                f"{tuple(src.shape)} but the state wants {tuple(shape)} — "
+                f"model configuration changed since the save")
+    opt.load(params={n: leaves[n] for n in shapes},
+             moments={kind: {n: torch.from_numpy(flat[k])
+                             for n, k in d.items()}
+                      for kind, d in moments.items()})
     with torch.no_grad():
-        for dst, src, _ in pairs:
-            dst.copy_(src)
-        state.opt_state.count.fill_(int(flat[f"{_OPT}{_SEP}count"]))
+        for n, buf in state.model_state.items():
+            buf.copy_(leaves[n])
+        opt.count.fill_(int(flat[f"{_OPT}{_SEP}count"]))
     state.step = int(flat[".step"])
     state.seed = int(flat[".seed"])
 

@@ -3,11 +3,14 @@
 Adadelta + StepLR stack, SGD with momentum, and the AdamW rungs.
 
 A transformation here is what an ``optax.GradientTransformation`` is in
-the reference, with PyTorch's in-place update: ``init(params)`` returns
-the optimizer state for a ``{name: tensor}`` dict of f32 master
-parameters, and ``apply(grads, state, params)`` (plain AdamW) or
-``fused_apply(grads, state, params)`` (the fused kernel,
-``ops/fused_adamw.py``) updates params and state in place. The learning
+the reference, with PyTorch's in-place update over one flat layout
+(``train/flat.py``, the same for every optimizer): ``init(params,
+layout)`` lays a ``{name: tensor}`` dict of f32 master parameters, their
+gradients and the optimizer's slots out as flat f32 buffers, whole or
+sharded over ranks (ZeRO-1, FSDP), and ``update(state, ok)`` updates the
+flat masters in place (``apply(grads, state, params)`` from a dict of
+gradients; ``fused_apply`` for the fused kernel, ``ops/fused_adamw.py``).
+The learning
 rate is a schedule indexed by the update count *before* the increment,
 as optax's ``scale_by_learning_rate`` indexes it, so the warmup-cosine
 schedule gives lr 0 to the first update.
@@ -16,12 +19,11 @@ The count is a device ``int32``, as optax keeps it: the schedule and the
 bias corrections are evaluated from it on the device in f32, as optax
 evaluates them inside the jitted step, so a step reads nothing back and
 passes nothing by value that changes from step to step (a captured CUDA
-graph replays each step with its own lr). Both ``apply`` and
-``fused_apply`` take a device bool flag ``ok``, the non-finite guard of
-``train/step.py`` (optional for ``apply``, whose unguarded update runs in
-place): where it is false, params and moments keep their bits and the
-count does not advance (the reference's ``where`` against the incoming
-state).
+graph replays each step with its own lr). Every update takes a device
+bool flag ``ok``, the non-finite guard of ``train/step.py`` (optional
+except for the fused kernel; the unguarded update runs in place): where
+it is false, params and moments keep their bits and the count does not
+advance (the reference's ``where`` against the incoming state).
 
 ``adadelta`` is ``optax.chain(scale_by_adadelta(rho, eps),
 scale_by_schedule(-steplr))`` and ``sgd`` ``optax.chain(trace(0.9),
@@ -33,13 +35,13 @@ so a captured step replays the right rate after an epoch boundary.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
 from typing import Callable
 
 import torch
 
-from distributed_compute_pytorch_tpu_torch.ops.fused_adamw import (
-    device_count, fused_adamw)
+from distributed_compute_pytorch_tpu_torch.ops.fused_adamw import fused_adamw
+from distributed_compute_pytorch_tpu_torch.train.flat import (
+    FlatOptimizer, FlatState)
 
 
 def warmup_cosine_decay(lr: float, warmup_steps: int, decay_steps: int):
@@ -94,54 +96,31 @@ def steplr(lr: float, gamma: float, steps_per_epoch: int):
     return schedule
 
 
-@dataclass
-class SlotState:
-    """The state of a per-leaf transformation: the update ``count`` (a
-    device ``int32`` scalar) and f32 slot tensors by kind and leaf name
-    (Adadelta's ``e_g``/``e_x``, SGD's ``trace``)."""
-    count: torch.Tensor
-    slots: dict
-
-    def moments(self) -> dict:
-        return self.slots
-
-
-class _Scheduled:
-    """A per-leaf update ``p <- p - lr(count) * u`` with slot state, in
-    place; subclasses give the slot kinds and :meth:`_step`, the new
-    slots and ``u`` from a gradient and the old slots."""
-
-    kinds: tuple = ()
+class _Scheduled(FlatOptimizer):
+    """An elementwise update ``p <- p - lr(count) * u`` with slot state, in
+    place over the flat buffers (``train/flat.py``); subclasses give the
+    slot kinds and :meth:`_step`, the new slots and ``u`` from a gradient
+    and the old slots."""
 
     def __init__(self, learning_rate):
         self.learning_rate = learning_rate
-
-    def init(self, params: dict) -> SlotState:
-        dev = next(iter(params.values())).device
-        return SlotState(count=device_count(dev), slots={
-            k: {n: torch.zeros_like(p, dtype=torch.float32)
-                for n, p in params.items()} for k in self.kinds})
 
     def _step(self, g, slots: tuple) -> tuple:
         raise NotImplementedError
 
     @torch.no_grad()
-    def apply(self, grads: dict, state: SlotState, params: dict,
-              ok: torch.Tensor | None = None) -> None:
-        """One update, in place; with a device bool ``ok``, where it
-        holds (a select against the old slots and params), and the count
-        advances by ``ok``."""
+    def update(self, state: FlatState, ok: torch.Tensor | None = None,
+               gn2: torch.Tensor | None = None) -> None:
+        del gn2
         lr = self.learning_rate(state.count)
-        for n, p in params.items():
-            old = tuple(state.slots[k][n] for k in self.kinds)
-            *new, u = self._step(grads[n].float(), old)
-            dsts = (p, *old)
-            news = (p - lr * u, *new)
-            for dst, val in zip(dsts, news):
-                if ok is None:
-                    dst.copy_(val)
-                else:
-                    torch.where(ok, val, dst, out=dst)
+        p = state.upd_p
+        old = tuple(state.slots[k] for k in self.kinds)
+        *new, u = self._step(state.upd_g, old)
+        for dst, val in zip((p, *old), (p - lr * u, *new)):
+            if ok is None:
+                dst.copy_(val)
+            else:
+                torch.where(ok, val, dst, out=dst)
         state.count.add_(1 if ok is None else ok.to(state.count.dtype))
 
 
@@ -194,22 +173,15 @@ def decay_mask(params: dict) -> dict:
     return {name: decays(name) for name in params}
 
 
-@dataclass
-class AdamWState:
-    """``optax.adamw``'s state: the update ``count`` (a device ``int32``
-    scalar) and the f32 first and second moments by leaf name."""
-    count: torch.Tensor
-    mu: dict
-    nu: dict
-
-    def moments(self) -> dict:
-        return {"mu": self.mu, "nu": self.nu}
-
-
-class AdamW:
+class AdamW(FlatOptimizer):
     """``optax.chain(clip_by_global_norm(clip_norm), adamw(schedule,
-    weight_decay=..., mask=...))`` in plain PyTorch, in place; the global
-    norm is compared on the device, so no step reads a value back."""
+    weight_decay=..., mask=...))`` in plain PyTorch over the flat buffers
+    (``train/flat.py``), in place; the decay mask is one 0/1 per element
+    (``FlatState.decay``), and the global norm is compared on the device,
+    so no step reads a value back. With a clip the update is not
+    elementwise: a shard cannot run it alone."""
+
+    kinds = ("mu", "nu")
 
     def __init__(self, learning_rate, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 0.0,
@@ -219,51 +191,46 @@ class AdamW:
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay, self.mask, self.clip_norm = (weight_decay, mask,
                                                         clip_norm)
+        self.elementwise = clip_norm <= 0
 
-    def init(self, params: dict) -> AdamWState:
-        dev = next(iter(params.values())).device
-        return AdamWState(
-            count=device_count(dev),
-            mu={n: torch.zeros_like(p, dtype=torch.float32)
-                for n, p in params.items()},
-            nu={n: torch.zeros_like(p, dtype=torch.float32)
-                for n, p in params.items()})
+    def decay_leaves(self, params: dict) -> dict | None:
+        if not self.weight_decay or self.mask is None:
+            return None
+        return self.mask(params)
 
     @torch.no_grad()
-    def apply(self, grads: dict, state: AdamWState, params: dict,
-              ok: torch.Tensor | None = None) -> None:
+    def update(self, state: FlatState, ok: torch.Tensor | None = None,
+               gn2: torch.Tensor | None = None) -> None:
         """One update, in place. With a device bool ``ok`` it applies
         where ``ok`` holds: a select against the old moments and params
         written straight back, not a host branch, and the count advances
-        by ``ok``. ``None``: no guard, the in-place update alone."""
-        gs = {n: grads[n].float() for n in params}
+        by ``ok``. ``None``: no guard, the in-place update alone. The clip
+        reads ``gn2`` (the step's global sum of squares) where given."""
+        g, p = state.upd_g, state.upd_p
+        mu, nu = state.slots["mu"], state.slots["nu"]
         if self.clip_norm > 0:
-            norm = torch.sqrt(sum(g.square().sum() for g in gs.values()))
-            keep = norm < self.clip_norm
-            gs = {n: torch.where(keep, g, g / norm * self.clip_norm)
-                  for n, g in gs.items()}
+            norm = torch.sqrt(torch.dot(g, g) if gn2 is None else gn2)
+            g = torch.where(norm < self.clip_norm, g,
+                            g / norm * self.clip_norm)
         dev = state.count.device
         t = state.count.float() + 1.0
         bc1 = 1.0 - torch.full((), self.b1, device=dev) ** t
         bc2 = 1.0 - torch.full((), self.b2, device=dev) ** t
         lr = (self.learning_rate(state.count)
               if callable(self.learning_rate) else self.learning_rate)
-        decays = (self.mask(params) if self.mask is not None
-                  else dict.fromkeys(params, True))
-        for n, p in params.items():
-            g, mu, nu = gs[n], state.mu[n], state.nu[n]
-            if ok is None:
-                new_mu = mu.mul_(self.b1).add_((1.0 - self.b1) * g)
-                new_nu = nu.mul_(self.b2).add_((1.0 - self.b2) * g.square())
-            else:
-                new_mu = self.b1 * mu + (1.0 - self.b1) * g
-                new_nu = self.b2 * nu + (1.0 - self.b2) * g.square()
-            u = (new_mu / bc1) / (torch.sqrt(new_nu / bc2) + self.eps)
-            if self.weight_decay and decays[n]:
-                u = u + self.weight_decay * p
-            if ok is None:
-                p.sub_(lr * u)
-                continue
+        if ok is None:
+            new_mu = mu.mul_(self.b1).add_((1.0 - self.b1) * g)
+            new_nu = nu.mul_(self.b2).add_((1.0 - self.b2) * g.square())
+        else:
+            new_mu = self.b1 * mu + (1.0 - self.b1) * g
+            new_nu = self.b2 * nu + (1.0 - self.b2) * g.square()
+        u = (new_mu / bc1) / (torch.sqrt(new_nu / bc2) + self.eps)
+        if self.weight_decay:
+            wd = self.weight_decay * p
+            u = u + (wd if state.decay is None else wd * state.decay)
+        if ok is None:
+            p.sub_(lr * u)
+        else:
             for dst, new in ((p, p - lr * u), (mu, new_mu), (nu, new_nu)):
                 torch.where(ok, new, dst, out=dst)
         state.count.add_(1 if ok is None else ok.to(state.count.dtype))

@@ -1,11 +1,11 @@
 """The train and eval steps — port of
-``distributed_compute_pytorch_tpu/train/step.py`` for one device a
-process, and data parallelism over a process group.
+``distributed_compute_pytorch_tpu/train/step.py``: one device a process,
+data-parallel and sharded over a process group.
 
-``make_step_fns(model, tx, ...) -> (init_fn, train_step, eval_step)`` keeps
-the reference's signature minus the mesh, the parallel strategy and the
-multi-device knobs. The step updates the state in place where the
-reference donates it.
+``make_step_fns(model, tx, mesh, strategy=..., shard_update=..., ...) ->
+(init_fn, train_step, eval_step)`` keeps the reference's signature minus
+the knobs of the unported axes, quantized collectives and bucketing. The
+step updates the state in place where the reference donates it.
 
 - Model state (the reference's ``model_state``: BatchNorm running stats).
   A model whose forward returns ``(out, new_stats)`` (the ConvNet) keeps
@@ -13,18 +13,41 @@ reference donates it.
   stats into them in place, where the update is applied (under ``skip``
   a skipped update leaves them bit-untouched, a select as the
   reference's ``_guarded``), and eval reads them.
-- Data parallelism (``core/mesh.py``): when this process is in a process
-  group the step is the reference's one SPMD program split over the
-  ranks, each on its rows of the global batch. Every ``.grad`` is a view
-  of one flat f32 buffer, summed over the ranks by one all-reduce a step
-  and divided by the world size, before the guard and the optimizer.
-  The step's own buffer has one more slot, which carries the loss, so
-  the reported loss is the global mean; ``adamw_fused``'s buffer is the
-  kernel's, and its loss takes a second, one-element all-reduce.
-  BatchNorm and dropout take the global batch's statistics and mask
-  (``models/layers.py``). No ``DistributedDataParallel``: its hooks are
-  built for eager steps, and it would overwrite every rank's BatchNorm
-  stats with rank 0's.
+- The optimizer's flat layout (``train/flat.py``): every master
+  parameter, gradient and optimizer slot is a view of one flat f32
+  buffer per unit, zeroed in place before each update.
+- Data parallelism and sharding over the mesh (``core/mesh.py``,
+  ``parallel/api.py``): in a process group the step is the reference's
+  one SPMD program split over the ranks, each on its rows of the global
+  batch; between the backward and the optimizer the gradients become the
+  global batch's mean, in one of three ways:
+
+  - replicated (DataParallel, ``shard_update`` off, a clip, or one rank
+    under ``auto``): one all-reduce of the flat gradient buffer, whose
+    extra slot carries the loss, then the whole update on every rank;
+  - ZeRO-1 (DataParallel at a data-parallel size above 1 under ``auto``,
+    or ``shard_update=True``; reference ``_zero1_update``): one
+    reduce-scatter of the flat gradient into this rank's shard, the
+    update of that shard (``adamw_fused``: one kernel launch on it; the
+    moments exist at its size only), and one all-gather of the shard
+    back into the flat masters, in place; the loss takes its own
+    one-element all-reduce;
+  - FSDP (``strategy=FSDP()``): only this rank's shard of each unit's
+    masters and slots exists. :class:`_GatherUnit` gathers a unit in the
+    compute dtype for the forward and reduce-scatters its f32 gradient
+    in the backward; under ``data=D,fsdp=F`` the shard's gradient is then
+    all-reduced over ``data``. Autograd saves the gathered weights for
+    the backward, so they live for the whole step and nothing is gathered
+    twice; the masters, moments and gradient shards are ``1/F`` a card.
+
+  The skip guard's and the sentinel's ``grad_sumsq`` is the global sum:
+  this rank's update gradients, all-reduced over the ranks that hold
+  distinct shards. BatchNorm and dropout take the global batch's
+  statistics and mask (``models/layers.py``). No
+  ``DistributedDataParallel`` or FSDP wrapper: their hooks are built for
+  eager steps. Every collective is issued by the eager warm-up before
+  the capture, so every group's communicator exists when the graph
+  records it.
 
 - Mixed precision as the reference's ``_cast_params``: the f32 master
   parameters are cast to ``compute_dtype`` inside the loss closure
@@ -34,8 +57,11 @@ reference donates it.
   f32; the reference does not.)
 - ``accum_steps``: step-level accumulation (reference
   ``_accum_auto_step``): the batch splits into equal microbatches whose
-  gradients sum in the f32 ``.grad`` of the masters, then divide by
-  ``accum_steps``; the loss is the mean of the microbatch losses.
+  gradients sum in the flat f32 gradient buffer, then divide by
+  ``accum_steps``; the loss is the mean of the microbatch losses. The
+  replicated and ZeRO-1 updates reduce once, at the boundary (the
+  reference's manual path); under FSDP each microbatch's backward
+  reduce-scatters into the shard's gradient, which accumulates.
 - Dropout draws from one persistent ``torch.Generator`` on the model's
   device, re-seeded before every update from ``(state.seed, state.step)``
   (:func:`step_seed`), so a run is repeatable step for step and a resumed
@@ -48,8 +74,8 @@ reference donates it.
   keep their bits and the device count does not advance, with no host
   branch; ``state.step`` still advances (the dropout stream moves on) and
   ``metrics["skipped"]`` is ``1.0``. ``sentinel=True`` reports
-  ``metrics["grad_sumsq"]``, the f32 sum of squares of every gradient (one
-  reduction over the flat gradient buffer under ``adamw_fused``).
+  ``metrics["grad_sumsq"]``, the f32 sum of squares of every gradient
+  (one reduction over the flat gradient buffer).
 - Every metric is a device scalar, read only at the caller's log cadence.
 - Precision: the train and eval steps run cuDNN in full f32 with its
   deterministic algorithms (:func:`cudnn_f32`), set for the step's
@@ -84,6 +110,7 @@ always runs it.
 from __future__ import annotations
 
 import contextlib
+import math
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -91,7 +118,11 @@ import torch
 import torch.distributed as dist
 from torch.func import functional_call
 
-from distributed_compute_pytorch_tpu_torch.core import mesh
+from distributed_compute_pytorch_tpu_torch.core import mesh as mesh_lib
+from distributed_compute_pytorch_tpu_torch.parallel import collectives as coll
+from distributed_compute_pytorch_tpu_torch.parallel.api import (
+    FSDP, DataParallel, fsdp_units)
+from distributed_compute_pytorch_tpu_torch.train.flat import FlatLayout
 from distributed_compute_pytorch_tpu_torch.utils import graphs
 
 _DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
@@ -102,11 +133,12 @@ POLICIES = ("raise", "skip")
 class TrainState:
     """Everything that evolves during training: the update count ``step``
     (which also indexes the dropout stream), the master ``params`` (the
-    model's own parameters, ``{name: tensor}``), the optimizer state, the
-    dropout ``seed``, the ``model_state`` (the model's own buffers, e.g.
-    BatchNorm running stats; empty for GPT-2) and, under data
-    parallelism, ``flat_grads``: the f32 buffer every ``.grad`` is a
-    view of."""
+    model's own parameters, ``{name: tensor}``; under FSDP this rank's
+    unit shards, ``{unit: tensor}``: ``opt_state.param_leaves()`` gathers
+    the logical ones), the optimizer state, the dropout ``seed``, the
+    ``model_state`` (the model's own buffers, e.g. BatchNorm running
+    stats; empty for GPT-2) and, in a process group, ``flat_grads``: the
+    f32 buffer every ``.grad`` is a view of."""
     step: int
     params: dict
     opt_state: Any
@@ -119,17 +151,6 @@ def step_seed(seed: int, step: int) -> int:
     """The dropout generator's seed for update ``step``: a pure function
     of ``(seed, step)``."""
     return ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)
-
-
-def grad_sumsq(grads, flat=None) -> torch.Tensor:
-    """The f32 sum of squares of every gradient (reference
-    ``_grad_sumsq``): one reduction over ``flat`` (the optimizer's flat
-    gradient buffer) where given, else one a leaf, summed."""
-    if flat is not None:
-        return torch.dot(flat, flat)
-    return torch.stack([torch.dot(g.reshape(-1).float(),
-                                  g.reshape(-1).float())
-                        for g in grads]).sum()
 
 
 @contextlib.contextmanager
@@ -153,27 +174,60 @@ def _split(out):
     return out if isinstance(out, tuple) else (out, {})
 
 
-def flat_grad_buffer(params: dict, extra: int = 0) -> torch.Tensor:
-    """One zeroed f32 buffer of every parameter's size plus ``extra``
-    slots, with each parameter's ``.grad`` set to its view (autograd then
-    accumulates into it in place: zero it in place, never set a grad to
-    ``None``)."""
-    ps = list(params.values())
-    flat = torch.zeros(sum(p.numel() for p in ps) + extra,
-                       dtype=torch.float32, device=ps[0].device)
-    off = 0
-    for p in ps:
-        p.grad = flat[off:off + p.numel()].view(p.shape)
-        off += p.numel()
-    return flat
+class _GatherUnit(torch.autograd.Function):
+    """One FSDP unit's compute weights: forward casts this rank's f32
+    shard to the compute dtype and all-gathers the whole unit over the
+    ``fsdp`` group; backward converts the unit's gradient to f32 and
+    reduce-scatters it into the shard's gradient, divided by the group's
+    size (the mean over its ranks' rows)."""
+
+    @staticmethod
+    def forward(ctx, shard, unit, layout, dtype):
+        ctx.unit, ctx.layout = unit, layout
+        src = shard if dtype is None else shard.to(dtype)
+        full = torch.empty(unit.padded, dtype=src.dtype, device=src.device)
+        coll.all_gather(full, src, layout.group)
+        return full
+
+    @staticmethod
+    def backward(ctx, grad):
+        unit, layout = ctx.unit, ctx.layout
+        out = torch.empty(unit.shard, dtype=torch.float32,
+                          device=grad.device)
+        coll.reduce_scatter(out, grad.float().contiguous(), layout.group)
+        return out.div_(layout.world), None, None, None
 
 
-def make_step_fns(model, tx, *, compute_dtype=None, accum_steps: int = 1,
-                  accum_dtype=None, nonfinite_policy: str = "raise",
-                  sentinel: bool = False, _eager: bool = False):
+def gather_units(opt_state, dtype=None) -> dict:
+    """``{name: tensor}`` of every parameter in ``dtype`` (``None``: f32)
+    from an FSDP state's unit shards: one :class:`_GatherUnit` a unit,
+    split into views (whose backward is one concatenation a unit)."""
+    layout, out = opt_state.layout, {}
+    for u in layout.units:
+        full = _GatherUnit.apply(opt_state.leaves[u.name], u, layout, dtype)
+        sizes = [math.prod(shape) for _, shape, _ in u.leaves]
+        pieces = full.split_with_sizes(sizes + [u.padded - sum(sizes)])
+        for (name, shape, _), piece in zip(u.leaves, pieces):
+            out[name] = piece.view(shape)
+    return out
+
+
+def make_step_fns(model, tx, mesh=None, *, strategy=None,
+                  shard_update: bool | None = None, compute_dtype=None,
+                  accum_steps: int = 1, accum_dtype=None,
+                  nonfinite_policy: str = "raise", sentinel: bool = False,
+                  _eager: bool = False):
     """Build ``(init_fn, train_step, eval_step)`` for ``model`` (on its own
     device) and the optimizer transformation ``tx``
-    (``train/optim.py::build_optimizer``). On a CUDA model ``train_step``
+    (``train/optim.py::build_optimizer``) over ``mesh``
+    (``core/mesh.py::make_mesh``; default ``data=-1`` over this process's
+    world) with ``strategy`` (``parallel/api.py``; default DataParallel).
+    ``shard_update`` (the reference's tri-state): ``None`` shards the
+    update ZeRO-1 style under DataParallel at a data-parallel size above
+    1 when ``tx`` is elementwise; ``True`` forces it (a non-elementwise
+    chain or FSDP raises; in a process group of one rank it runs the
+    sharded dataflow over that rank, where the reference turns it off);
+    ``False`` keeps the replicated update. On a CUDA model ``train_step``
     is the captured step (module docstring); ``_eager`` keeps it eager."""
     if nonfinite_policy not in POLICIES:
         raise ValueError(f"nonfinite_policy must be 'raise' or 'skip', got "
@@ -189,71 +243,140 @@ def make_step_fns(model, tx, *, compute_dtype=None, accum_steps: int = 1,
         raise ValueError("only f32 gradient accumulation is ported")
     skip_guard = nonfinite_policy == "skip"
     fused = hasattr(tx, "fused_apply")
-    data_parallel = mesh.distributed()
-    world = mesh.dp_world_size()
+    mesh = mesh if mesh is not None else mesh_lib.make_mesh("data=-1")
+    strategy = strategy if strategy is not None else DataParallel()
+    grouped = mesh_lib.distributed()
+    fsdp = isinstance(strategy, FSDP)
+    elementwise = getattr(tx, "elementwise", True)
+    if fsdp and fused:
+        raise ValueError(
+            "fused optimizers (adamw_fused) support replicated parameters "
+            "(DataParallel) only; use --optimizer adamw with sharded "
+            "parameter layouts")
+    if shard_update is None:
+        zero1 = not fsdp and coll.dp_size(mesh) > 1 and elementwise
+    else:
+        zero1 = bool(shard_update)
+        if zero1 and not elementwise:
+            raise ValueError(
+                "shard_update cannot run a non-elementwise optimizer chain "
+                "(global-norm clip) on shards; drop --clip_norm or "
+                "--shard_update")
+        if zero1 and fsdp:
+            raise ValueError(
+                "shard_update applies to the DataParallel strategy only "
+                "(FSDP already shards the optimizer state with the "
+                "params)")
+        zero1 = zero1 and grouped
+    if fsdp and not grouped:
+        raise ValueError("FSDP shards over a process group: join one "
+                         "first (core/mesh.py::initialize_distributed)")
+    world = mesh_lib.dp_world_size(mesh)
+    dp_group = mesh.group(*mesh_lib.BATCH_AXES)
+    fsdp_group = mesh.group(strategy.axis) if fsdp else None
+    data_group = (mesh.group("data") if fsdp and mesh.size("data") > 1
+                  else None)
+    clip = getattr(tx, "clip_norm", 0.0) > 0
     device = next(model.parameters()).device
     gen = torch.Generator(device=device)
     # the fused kernel's flag where the step has no guard
     always = torch.ones((), dtype=torch.bool, device=device)
+
+    def _layout(params):
+        if fsdp:
+            return FlatLayout.of(
+                params, fsdp_units(model), mode="fsdp",
+                world=dist.get_world_size(fsdp_group),
+                rank=dist.get_rank(fsdp_group), group=fsdp_group)
+        if zero1:
+            return FlatLayout.of(params, mode="zero1",
+                                 world=dist.get_world_size(dp_group),
+                                 rank=dist.get_rank(dp_group),
+                                 group=dp_group)
+        # a replicated world's gradient buffer carries the loss
+        return FlatLayout.of(params, extra=1 if grouped else 0)
 
     def _cast(params):
         if dtype is None:
             return params
         return {n: p.to(dtype) for n, p in params.items()}
 
+    def _compute_params(state):
+        """The forward's parameters in the compute dtype: the masters
+        cast, or FSDP's units gathered."""
+        if fsdp:
+            return gather_units(state.opt_state, dtype)
+        return _cast(state.params)
+
     def init_fn(seed: int | None) -> TrainState:
         """A fresh state: the model's weights drawn from ``seed`` (``None``
         keeps the weights it has, e.g. loaded ones), the optimizer state
-        from ``tx.init``; dropout seeded from ``seed`` (0 for ``None``)."""
+        from ``tx.init`` in the strategy's flat layout; dropout seeded
+        from ``seed`` (0 for ``None``). Under FSDP the model's own
+        parameters are freed: call it once a model."""
         if seed is not None:
             model.init(torch.Generator().manual_seed(seed))
         params = dict(model.named_parameters())
-        state = TrainState(step=0, params=params,
-                           opt_state=tx.init(params),
-                           seed=0 if seed is None else seed,
-                           model_state=dict(model.named_buffers()))
-        if data_parallel:
-            # one flat gradient buffer for the step's one all-reduce:
-            # the fused optimizer's, else the step's own with a loss slot
-            state.flat_grads = (state.opt_state.grads if fused
-                                else flat_grad_buffer(params, extra=1))
-        return state
+        opt_state = tx.init(params, _layout(params))
+        return TrainState(step=0, params=opt_state.leaves,
+                          opt_state=opt_state,
+                          seed=0 if seed is None else seed,
+                          model_state=dict(model.named_buffers()),
+                          flat_grads=opt_state.grads if grouped else None)
 
     def _loss(state, stats, x, y):
         """The microbatch's loss and new model state, the forward reading
         the model state ``stats``."""
         out, new_stats = _split(functional_call(
-            model, {**_cast(state.params), **stats}, (x,),
+            model, {**_compute_params(state), **stats}, (x,),
             {"train": True, "generator": gen}))
         return model.loss_fn(out, y), {**stats, **new_stats}
 
-    def _all_reduce(state, loss):
-        """The gradients (and ``loss``) summed over the ranks by one
-        all-reduce of the flat buffer, then divided by the world size:
-        the global batch's mean. Returns the global mean loss."""
-        flat = state.flat_grads
-        if fused:
-            dist.all_reduce(flat)
-            loss = mesh.all_reduce_sum(loss)
-        else:
-            flat[-1].copy_(loss)
-            dist.all_reduce(flat)
-            loss = flat[-1].clone()
+    def _mean_over_ranks(loss):
+        buf = loss.reshape(1).clone()
+        dist.all_reduce(buf, group=dp_group)
+        return buf[0] / world
+
+    def _reduce(opt, loss):
+        """The gradients summed over the ranks and divided by the world
+        size (the global batch's mean), where the strategy puts them: the
+        whole flat buffer (replicated, one all-reduce that also carries
+        the loss), this rank's shard (ZeRO-1, one reduce-scatter), or the
+        FSDP shard, already reduce-scattered by the backward, all-reduced
+        over ``data``. Returns the global mean loss."""
+        if fsdp:
+            if data_group is not None:
+                dist.all_reduce(opt.grads, group=data_group)
+                opt.grads.div_(mesh.size("data"))
+            return _mean_over_ranks(loss)
+        if zero1:
+            coll.reduce_scatter(opt.shard_grads, opt.grads, dp_group)
+            opt.shard_grads.div_(world)
+            return _mean_over_ranks(loss)
+        flat = opt.grads
+        flat[-1].copy_(loss)
+        dist.all_reduce(flat, group=dp_group)
+        loss = flat[-1].clone()
         flat.div_(world)
         return loss / world
+
+    def _sumsq(opt):
+        """The global gradient sum of squares: this rank's update
+        gradients, summed over the ranks that hold distinct shards."""
+        gn2 = torch.dot(opt.upd_g, opt.upd_g)
+        if zero1 or fsdp:
+            gn2 = gn2.reshape(1)
+            dist.all_reduce(gn2, group=dp_group if zero1 else fsdp_group)
+            gn2 = gn2[0]
+        return gn2
 
     @cudnn_f32()
     def _update(state: TrainState, x, y) -> dict:
         """One update's device work, from zeroing the gradients to the
         optimizer: what a capture records. Returns the metrics."""
-        if fused:
-            state.opt_state.grads.zero_()   # in place: every .grad a view
-        elif state.flat_grads is not None:
-            state.flat_grads.zero_()
-        else:
-            for p in state.params.values():
-                if p.grad is not None:
-                    p.grad.zero_()
+        opt = state.opt_state
+        tx.check(opt)
+        opt.grads.zero_()           # in place: every .grad a view
         stats = state.model_state
         if accum_steps == 1:
             loss, stats = _loss(state, stats, x, y)
@@ -266,29 +389,23 @@ def make_step_fns(model, tx, *, compute_dtype=None, accum_steps: int = 1,
                 lm.backward()
                 losses.append(lm.detach().float())
             with torch.no_grad():
-                for p in state.params.values():
-                    p.grad.div_(accum_steps)
+                opt.grads.div_(accum_steps)
             loss = torch.stack(losses).mean()
-        if data_parallel:
-            with torch.no_grad():
-                loss = _all_reduce(state, loss)
-        grads = {n: p.grad for n, p in state.params.items()}
-        metrics = {"loss": loss}
-        ok = None
-        if skip_guard or sentinel:
-            gn2 = grad_sumsq(grads.values(), state.opt_state.grads
-                             if fused else None)
-            if sentinel:
-                metrics["grad_sumsq"] = gn2
-        if skip_guard:
-            ok = torch.isfinite(loss) & torch.isfinite(gn2)
-            metrics["skipped"] = (~ok).float()
-        if fused:
-            tx.fused_apply(grads, state.opt_state, state.params,
-                           always if ok is None else ok)
-        else:
-            tx.apply(grads, state.opt_state, state.params, ok)
         with torch.no_grad():
+            if grouped:
+                loss = _reduce(opt, loss)
+            metrics = {"loss": loss}
+            ok = gn2 = None
+            if skip_guard or sentinel or clip:
+                gn2 = _sumsq(opt)
+                if sentinel:
+                    metrics["grad_sumsq"] = gn2
+            if skip_guard:
+                ok = torch.isfinite(loss) & torch.isfinite(gn2)
+                metrics["skipped"] = (~ok).float()
+            tx.update(opt, always if fused and ok is None else ok, gn2)
+            if zero1:
+                coll.all_gather(opt.params, opt.upd_p, dp_group)
             for name, buf in state.model_state.items():
                 if ok is None:
                     buf.copy_(stats[name])
@@ -324,11 +441,12 @@ def make_step_fns(model, tx, *, compute_dtype=None, accum_steps: int = 1,
         """Eval-batch sums (reference ``eval_step``): ``loss_sum``,
         ``correct`` and ``count`` as device scalars, added to ``acc`` when
         given; ``valid`` (float ``[B]``) weights out padded rows. The
-        forward reads the state's model state in eval mode. Under data
+        forward reads the state's model state in eval mode (under FSDP
+        every rank gathers the units, so every rank calls it). Under data
         parallelism the sums are this rank's: the caller all-reduces them
         once a pass."""
         out, _ = _split(functional_call(
-            model, {**_cast(state.params), **state.model_state}, (x,)))
+            model, {**_compute_params(state), **state.model_state}, (x,)))
         metrics = model.eval_metrics(out, y, valid=valid)
         if acc is not None:
             metrics = {k: metrics[k] + acc[k] for k in metrics}

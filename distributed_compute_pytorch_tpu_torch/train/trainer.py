@@ -16,20 +16,24 @@ the captured one (``train/step.py``).
 
 Data parallelism: with ``--coordinator``/``--num_processes``/
 ``--process_id`` (or torchrun's environment) the trainer joins the
-process group first (``core/mesh.py``); each rank feeds its rows of every
-global batch (``--batch_size`` is the global batch), the step sums the
-gradients over the ranks, the logged train loss is the global mean (the
-reference logs a world-size-scaled sum, SURVEY §A.4), the eval sums are
-all-reduced once at the end of the pass, and rank 0 alone logs and
-writes the checkpoint (§A.6). Only the ConvNet trains over more than one
-rank: every rank draws the global batch's dropout masks, which costs the
-ConvNet nothing and GPT-2 world times its activation-sized draws.
+process group first and lays its ranks out over ``--mesh``
+(``core/mesh.py``; ``data=-1`` by default); each rank feeds its rows of
+every global batch (``--batch_size`` is the global batch), the logged
+train loss is the global mean (the reference logs a world-size-scaled
+sum, SURVEY §A.4), the eval sums are all-reduced once at the end of the
+pass, and rank 0 alone logs (§A.6). The mesh picks the strategy
+(``parallel/api.py::pick_strategy``: FSDP where ``fsdp`` is above 1) and
+``--shard_update`` the ZeRO-1 update (:meth:`Trainer._resolve_shard_update`,
+the reference's rules). Every rank takes part in a checkpoint's gather
+and rank 0 writes it, in logical form. Every rank draws the global
+batch's dropout masks (``models/layers.py``), so N ranks train as one
+process.
 
-Not in this slice: meshes and sharded strategies, heartbeats, preemption and
-supervision, tracing, the flight recorder (the reference's
+Not in this slice: the tensor, pipe, seq and expert axes, quantized
+collectives, bucketed accumulation, sharded checkpoints, heartbeats,
+preemption and supervision, tracing, the flight recorder (the reference's
 ``flight.record`` / ``dump_on_fault`` calls around a skip or an abort
-wait for the telemetry slice), the divergence sentinel and sharded
-checkpoints.
+wait for the telemetry slice) and the divergence sentinel.
 """
 
 from __future__ import annotations
@@ -48,6 +52,9 @@ from distributed_compute_pytorch_tpu_torch.data.datasets import load_dataset
 from distributed_compute_pytorch_tpu_torch.data.loader import DeviceFeeder
 from distributed_compute_pytorch_tpu_torch.device import resolve_device
 from distributed_compute_pytorch_tpu_torch.models.registry import build_model
+from distributed_compute_pytorch_tpu_torch.parallel.api import (
+    DataParallel, pick_strategy)
+from distributed_compute_pytorch_tpu_torch.parallel.collectives import dp_size
 from distributed_compute_pytorch_tpu_torch.train import checkpoint
 from distributed_compute_pytorch_tpu_torch.train.optim import build_optimizer
 from distributed_compute_pytorch_tpu_torch.train.step import make_step_fns
@@ -74,14 +81,12 @@ class Trainer:
                                     "cpu" if cpu else "cuda")
         self.device = resolve_device(config.device_name)
         rank, world = mesh.process_index(), mesh.process_count()
-        if world > 1 and config.model != "convnet":
-            # every rank draws the global batch's dropout masks: the
-            # ConvNet's [B, 64] and [B, 128] cost nothing, GPT-2's [B, T,
-            # 768] a site would cost each rank world times the draw
-            raise NotImplementedError(
-                f"data parallelism is ported for the ConvNet; {config.model}"
-                f" over {world} ranks would draw every rank the whole "
-                f"global batch's dropout masks (unmeasured)")
+        try:
+            self.mesh = mesh.make_mesh(config.mesh)
+        except ValueError as e:   # a spec the world cannot hold: the flag
+            raise SystemExit(f"dcp-train (port): --mesh {config.mesh}: "
+                             f"{e}") from None
+        self.strategy = pick_strategy(self.mesh)
         self.train_data = (train_data if train_data is not None
                            else self._load("train"))
         self.eval_data = eval_data if eval_data is not None else (
@@ -108,7 +113,9 @@ class Trainer:
             weight_decay=config.weight_decay, clip_norm=config.clip_norm,
             warmup_steps=config.warmup_steps)
         self.init_fn, self.train_step, self.eval_step = make_step_fns(
-            self.model, self.tx, compute_dtype=config.compute_dtype,
+            self.model, self.tx, self.mesh, strategy=self.strategy,
+            shard_update=self._resolve_shard_update(),
+            compute_dtype=config.compute_dtype,
             accum_steps=self.accum,
             nonfinite_policy=config.nonfinite_policy)
         self.state = self.init_fn(config.seed)
@@ -147,11 +154,41 @@ class Trainer:
                                  "ConvNet checkpoint schema (model=convnet)")
             interop.load_reference_checkpoint(self.model, config.import_torch)
             log0(f"imported torch checkpoint {config.import_torch}")
-        group = f" ({dist.get_backend()})" if mesh.distributed() else ""
+        group = (f" ({dist.get_backend()}) | mesh: {self.mesh.shape} | "
+                 f"strategy: {type(self.strategy).__name__}"
+                 if mesh.distributed() else "")
         log0(f"device: {self.device} | world: {world}{group} | model: "
              f"{config.model} | dataset: {self.train_data.name} | "
              f"optimizer: {config.optimizer} | compute_dtype: "
              f"{config.compute_dtype}")
+
+    def _resolve_shard_update(self) -> bool | None:
+        """``--shard_update`` as ``make_step_fns``'s tri-state (reference
+        ``_resolve_shard_update``, ``:302-338``): ``off`` keeps the
+        replicated update; a clip (not elementwise over shards) refuses
+        ``on`` and turns ``auto`` off with a note; ``on`` needs
+        DataParallel (FSDP shards the optimizer state already)."""
+        cfg = self.config
+        mode = cfg.shard_update
+        if mode == "off":
+            return False
+        if cfg.clip_norm > 0:
+            if mode == "on":
+                raise ValueError(
+                    "--shard_update on is incompatible with --clip_norm: "
+                    "the global-gradient-norm clip is not elementwise over "
+                    "shards")
+            if (isinstance(self.strategy, DataParallel)
+                    and dp_size(self.mesh) > 1):
+                log0("NOTE: --clip_norm > 0 disables ZeRO-1 update "
+                     "sharding (global-norm clip is not shard-local); "
+                     "running the replicated update")
+            return False
+        if mode == "on" and not isinstance(self.strategy, DataParallel):
+            raise ValueError(
+                "--shard_update on requires the DataParallel strategy "
+                "(FSDP already shards the optimizer state)")
+        return True if mode == "on" else None
 
     def _load(self, split: str):
         cfg = self.config
@@ -177,10 +214,10 @@ class Trainer:
         return kw
 
     def _save_ckpt(self, epoch: int, extra: dict | None = None) -> None:
-        if not mesh.is_coordinator():
-            return
+        # every rank gathers a sharded state's leaves; rank 0 writes
         checkpoint.save(self.config.ckpt_path, self.state, epoch=epoch,
-                        extra=extra, keep_last=self.config.keep_last)
+                        extra=extra, keep_last=self.config.keep_last,
+                        write=mesh.is_coordinator())
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -1513,3 +1513,71 @@ def test_captured_convnet_step_in_a_one_rank_nccl_group(dev):
                                                      want_bits))
     finally:
         mesh.shutdown_distributed()
+
+
+# ---- the sharded train step (ZeRO-1, FSDP) ---------------------------------
+
+def test_fused_adamw_refuses_an_unaligned_shard_view(dev):
+    """A ZeRO-1 shard is a view of the flat buffers; the kernel's
+    ``float4`` loads need it 16-byte aligned. A view four elements in
+    runs; one element in raises, with nothing launched."""
+    from distributed_compute_pytorch_tpu_torch.ops import fused_adamw as FA
+    n = 1024
+    bufs = [torch.zeros(n + 4, device=dev) for _ in range(4)]
+    tx = FA.fused_adamw(1e-3)
+    count = FA.device_count(dev)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    before = FA.launches
+    FA.fused_adamw_update(*(b[4:] for b in bufs), tx.scalars(count), count,
+                          ok, **tx.hyper)
+    with pytest.raises(ValueError, match="16-byte"):
+        FA.fused_adamw_update(*(b[1:n + 1] for b in bufs),
+                              tx.scalars(count), count, ok, **tx.hyper)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 1 and int(count) == 1
+
+
+def _logical_bits(state):
+    """Every master, both moments and the count, by leaf name (gathered
+    where sharded)."""
+    opt = state.opt_state
+    params, moments = opt.param_leaves(), opt.moments()
+    return ([params[n].detach().clone() for n in sorted(params)]
+            + [moments[k][n].clone() for k in sorted(moments)
+               for n in sorted(moments[k])] + [opt.count.clone()])
+
+
+@pytest.mark.parametrize("layout", ["replicated", "zero1", "fsdp"])
+def test_one_rank_gpt2_captured_step_matches_ungrouped(dev, layout):
+    """GPT-2-tiny's captured step under a one-process ``nccl`` group: the
+    replicated update (``auto`` at world 1), the ZeRO-1 dataflow forced on
+    (``shard_update=True``: the flat gradient reduce-scattered, the fused
+    kernel on the shard, the shard all-gathered in place) and FSDP (each
+    unit gathered and its gradient reduce-scattered by the autograd
+    Function, ``adamw``) all give the ungrouped captured step's losses
+    and bits: sums over one rank, divided by 1."""
+    import socket
+
+    from distributed_compute_pytorch_tpu_torch.core import mesh
+    from distributed_compute_pytorch_tpu_torch.parallel.api import FSDP
+    optimizer = "adamw" if layout == "fsdp" else "adamw_fused"
+    kw = {"zero1": {"shard_update": True},
+          "fsdp": {"strategy": FSDP()}}.get(layout, {})
+    train_step, state, x = _tiny_train(dev, optimizer)
+    want = [train_step(state, x, x)[1]["loss"].item() for _ in range(4)]
+    want_bits = _logical_bits(state)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert mesh.initialize_distributed(f"127.0.0.1:{port}", 1, 0, "cuda")
+    try:
+        train_step, state, x = _tiny_train(dev, optimizer, **kw)
+        assert state.opt_state.layout.mode == layout
+        got = [train_step(state, x, x)[1]["loss"].item() for _ in range(4)]
+        assert train_step.stats["graph_replays"] == 3
+        assert got == want
+        assert all(torch.equal(a, b) for a, b in zip(_logical_bits(state),
+                                                     want_bits))
+        del train_step, state
+    finally:
+        mesh.shutdown_distributed()
