@@ -184,6 +184,39 @@ imports nothing of JAX. Phases, one JSON line each:
    ``cudaGraphLaunch`` each and the port's kernels as counted (gated);
    each layout's per-card bytes of masters, moments and gradients.
 
+18. bert: BASELINE config 3 at full width, BERT-base (12 post-LN layers,
+   768 wide, 12 heads, vocab 30522, 512 positions, ``pad_token_id`` 0,
+   dropout 0.1), bf16 over f32 masters, ``adamw_fused``, on one batch of
+   16 sequences of 128-512 real tokens padded to 512: the phase-9 gates
+   (captured and eager in turns, 20 updates each, bit-identical; the
+   counters 20 x (12, 12, 12, 1), every flash launch on the tensor
+   cores, now non-causal under the pad mask; ``set_sync_debug_mode(
+   "error")`` on every captured update from the second), the loss
+   falling, then the phase-10 profile (counters against the device's
+   kernel events; one ``cudaGraphLaunch`` a replay, only the generator
+   prologue's ``fill_`` launches beside it) and the readout's GEMMs;
+19. resnet18: BASELINE config 1 on one card: ResNet-18 (CIFAR stem), f32,
+   batch 128, ``--augment flip-crop``, SGD + StepLR, one epoch of
+   CIFAR-10's synthetic stand-in (390 steps), captured and eager in turns
+   (every run's losses, parameters, slots, count and BatchNorm stats
+   bit-identical to the first's), a profiled run of each mode (one graph
+   launch a replay, no port kernel), the test accuracy, then the captured
+   epoch under a one-rank ``nccl`` group, bit for bit the ungrouped one;
+20. resnet50: BASELINE config 2 on one card: ResNet-50 (ImageNet stem),
+   one batch of 64 224 x 224 x 3 images of 1000 classes, bf16 over f32
+   masters: 20 captured against 20 eager updates, bit-identical; samples/s,
+   peak memory, and a profiled run of each mode with the share of device
+   time in f64 kernels (BatchNorm's sums);
+21. bert_cli, resnet_cli: the trainer CLI for one epoch and then
+   ``--resume --epochs 2``: ``--model bert --model_preset tiny
+   --dataset synthetic-lm``, and ``--model resnet18 --dataset cifar10
+   --augment flip-crop`` at batch 1024. The kernels phase (3) also holds
+   the three flash kernels at BERT's shape (``check_flash_bert``:
+   ``[16, 12, 512, 64]`` non-causal under the bert phase's pad mask,
+   bf16 and f32) and times ``fused_adamw`` on a ZeRO-1 rank's shard at
+   world 4 beside ``torch.optim.AdamW(fused=True)`` on one tensor of that
+   size.
+
 When a profiled run's counters and the device's kernel events disagree
 (``counted_profile``), the profile's port kernel events (name, start,
 stream, graph ids), the schedule and its waves are written to
@@ -194,7 +227,8 @@ bf16 serve run for the serving kernels, from the profiled captured bf16
 generate run for the generation kernels, from the profiled captured int8
 runs of serve_int8 and generate_int8 for the int8 forms, each measured
 against the device's kernel events; from train_profile's captured run
-for the training kernels, measured the same way), the
+for the training kernels, measured the same way; the BERT-shape entries
+``*_bert`` from the bert phase's profiled captured run), the
 raw ``nvidia-smi`` line, and last the ``{"ok": true, ...}`` line. Any
 failed check exits non-zero before the ``ok`` line. Roofline bounds use
 the H100 SXM data-sheet peaks: 3.35 TB/s HBM, 989 TFLOP/s bf16 (tensor
@@ -205,6 +239,8 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import dataclasses
+import functools
 import json
 import math
 import os
@@ -794,10 +830,32 @@ def check_adamw(torch, FAW, GPT2, GPT2Config):
     opt = torch.optim.AdamW(leaves, lr=1e-3, weight_decay=0.01, fused=True)
     lib_ms = time_ms(torch, [opt.step], iters=20)
     b_ms, b_by = bound(28.0 * n, 15.0 * n, "f32")
+    # a ZeRO-1 rank's shard at world 4 (the flat buffer is padded to a
+    # multiple of 4 x 4 elements, which 124,439,808 is): the kernel on
+    # views of the buffers' first quarter beside one library call on one
+    # tensor of that size
+    ns = n // 4
+    shard = [t[:ns] for t in (state.grads, state.params, mu, nu)]
+    shard_ms = time_ms(torch, [lambda: FAW.fused_adamw_update(
+        *shard, sc, state.count, ok, **tx.hyper)], iters=20)
+    leaf = state.params[:ns].detach().clone().requires_grad_()
+    leaf.grad = state.grads[:ns].clone()
+    shard_opt = torch.optim.AdamW([leaf], lr=1e-3, weight_decay=0.01,
+                                  fused=True)
+    shard_lib_ms = time_ms(torch, [shard_opt.step], iters=20)
+    shard_plain_ms = time_ms(torch, [lambda: FAW.fused_adamw_plain(
+        *shard, sc, ok, **tx.hyper)], iters=10)
+    del leaf, shard_opt
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "library": "torch.optim.AdamW(fused=True).step() over the 148 "
                        "leaves",
+            "shard_elements": ns, "shard_ms": shard_ms,
+            "shard_bound_ms": bound(28.0 * ns, 15.0 * ns, "f32")[0],
+            "shard_library_ms": shard_lib_ms,
+            "shard_plain_ms": shard_plain_ms,
+            "shard_library": "torch.optim.AdamW(fused=True).step() over "
+                             "one tensor of the shard's size",
             "params": n, "leaves": len(params),
             "shape": f"flat f32 [{n}] (GPT-2-small, 148 leaves), 3 steps"}
 
@@ -1964,7 +2022,8 @@ KERNEL_EXTRAS = ("tflops", "bound_share", "path", "train_ms",
                  "train_bound_ms", "train_library_ms", "train_tflops",
                  "train_bound_share", "row_err", "fault_row_err",
                  "lse_max_abs_err", "grid", "same_bits", "one_key_ms",
-                 "pair_ms", "read_ms", "pair_bit_identical", "fuses", "long")
+                 "pair_ms", "read_ms", "pair_bit_identical", "fuses", "long",
+                 "pad_pair_share", "rel_err")
 SOURCES = {"cache_insert": "kv_insert", "kv_insert_rows": "kv_insert",
            "kv_pool_insert_q8": "kv_pool_insert",
            "paged_decode_q8": "paged_decode", "cache_insert_q8": "kv_insert",
@@ -1973,7 +2032,9 @@ SOURCES = {"cache_insert": "kv_insert", "kv_insert_rows": "kv_insert",
            "paged_decode_write": "paged_decode",
            "paged_decode_write_q8": "paged_decode",
            "dense_decode_write": "dense_decode",
-           "dense_decode_write_q8": "dense_decode"}
+           "dense_decode_write_q8": "dense_decode",
+           "flash_fwd_bert": "flash_fwd", "flash_bwd_dq_bert": "flash_bwd_dq",
+           "flash_bwd_dkv_bert": "flash_bwd_dkv"}
 # profiler groups: the int8 reads share their float forms' kernel templates
 # (``paged_decode_kernel<T, signed char, ...>``), and so do the fused ticks
 # (``paged_decode_write_kernel<...>``); the int8 writes have kernels of
@@ -2088,7 +2149,7 @@ def counted_profile(torch, counters, fn, what, schedule, waves=None):
     ``fn`` may fill in, kept for :func:`dump_kernel_events`. When the
     device's events and the counters disagree, the profile's port kernel
     events go to ``chiprun_out/`` before the check fails. Returns
-    ``(profile, wall_s, counts)``, ``counts`` every counter of
+    ``(ProfileWindow, wall_s, counts)``, ``counts`` every counter of
     ``q8_counts`` with ``flash_fwd_tc``."""
     FA, CU, DA = counters
     zero_q8_counts(FA, CU, DA)
@@ -2141,18 +2202,109 @@ def dump_kernel_events(prof, what, context: dict) -> str:
     return str(path)
 
 
+# The profiler (torch 2.11, CUDA 12.8, H100) can lose the kernel records of
+# the first launches of a session: every launch of a contiguous prefix,
+# the longer the more sessions the process has profiled, with or without a
+# pause before the first launch. The eager int8 generate lost its
+# prefill's first flash_fwd that way. So a session opens with
+# PRIMER_LAUNCHES launches of a one-element add, synchronized, the run it
+# measures goes inside a RUN_SPAN range, and every reading takes the run's
+# events alone (ProfileWindow), which must lose no record.
+PRIMER_LAUNCHES = 4096
+RUN_SPAN = "chip_smoke::profiled_run"
+# each host kernel launch call (``cudaLaunchKernel``, ``cuLaunchKernelEx``,
+# ...) gives one device record; a graph launch gives one a kernel in the
+# graph, and none for a graph without kernels (a one-rank group's captured
+# all-reduces), so graph launches are not held to a record
+KERNEL_CALL = "LaunchKernel"
+
+
+class ProfileWindow:
+    """A profile session's events of the profiled run alone: the host's
+    events from the start of ``RUN_SPAN`` on, and the device's events but
+    those of the primer's launches (matched by correlation id).
+    ``primer_lost`` is how many primer launches have no device record.
+    Raises :class:`SmokeFailure` if a kernel launch call of the run has no
+    device record, unless a stream capture took it (between
+    ``cudaStreamBeginCapture`` and ``cudaStreamEndCapture``: it runs only
+    in the graph's replays): the profile is then incomplete. (A graph
+    launch may rightly leave none: its graph may hold no kernel.)"""
+
+    def __init__(self, torch, prof):
+        cpu = torch.autograd.DeviceType.CPU
+        self.prof = prof
+        events = prof.events()
+        start = min(e.time_range.start for e in events
+                    if e.device_type == cpu and e.name == RUN_SPAN)
+
+        def launch(e):
+            return e.device_type == cpu and KERNEL_CALL in e.name
+        primer = {e.id for e in events
+                  if launch(e) and e.time_range.start < start}
+        # the span itself (and its mirror on the device's timeline) goes
+        self._events = [e for e in events if e.name != RUN_SPAN and (
+            e.time_range.start >= start if e.device_type == cpu
+            else e.id not in primer)]
+        recorded = {e.id for e in events if e.device_type != cpu}
+        self.primer_launches = len(primer)
+        self.primer_lost = len(primer - recorded)
+        captures, begun = [], None
+        for e in sorted((e for e in self._events if e.device_type == cpu
+                         and ("StreamBeginCapture" in e.name
+                              or "StreamEndCapture" in e.name)),
+                        key=lambda e: e.time_range.start):
+            if "Begin" in e.name:
+                begun = e.time_range.start
+            elif begun is not None:
+                captures.append((begun, e.time_range.end))
+                begun = None
+
+        def captured(e):
+            return any(a <= e.time_range.start <= b for a, b in captures)
+        lost = [e for e in self._events if launch(e)
+                and e.id not in recorded and not captured(e)]
+        if lost:
+            first = min(e.time_range.start for e in lost) - start
+            raise SmokeFailure(
+                f"the profiler lost the device records of {len(lost)} "
+                f"kernel launches of the profiled run "
+                f"({sorted({e.name for e in lost})}, the first "
+                f"{first:.0f} us into it; {len(primer)} primer "
+                f"launches before it, {self.primer_lost} of them lost): the "
+                f"profile is incomplete")
+
+    def events(self):
+        return self._events
+
+    def key_averages(self):
+        from torch.autograd.profiler_util import FunctionEventAvg
+        stats: dict = {}
+        for e in self._events:
+            stats.setdefault(e.key, FunctionEventAvg()).add(e)
+        return list(stats.values())
+
+    def export_chrome_trace(self, path):
+        self.prof.export_chrome_trace(path)
+
+
 def profile_run(torch, fn):
-    """``fn()`` under ``torch.profiler`` (CPU and CUDA activities), to a
-    synchronize: ``(profile, wall_s)``."""
-    from torch.profiler import ProfilerActivity, profile
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA activities), after
+    the session's primer (``PRIMER_LAUNCHES``), to a synchronize:
+    ``(ProfileWindow, wall_s)``."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    primer = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        fn()
+        for _ in range(PRIMER_LAUNCHES):
+            primer.add_(1)
         torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    return prof, wall
+        with record_function(RUN_SPAN):
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+    return ProfileWindow(torch, prof), wall
 
 
 # the host's CUDA API calls (runtime `cuda*`, low-level `cu*`) among a
@@ -2208,7 +2360,8 @@ def profile_summary(torch, prof, wall_prof, launches, ticks, units, unit,
     the kernels' device time over its wall; one stream, so kernels do not
     overlap; the profiler slows the host, not the kernels), and the run's
     kernel launches as :func:`counted_profile` measured them
-    (``launches``)."""
+    (``launches``), and how many of the session's primer launches lost
+    their device records (:class:`ProfileWindow`)."""
     total_us, groups, top = device_time(torch, prof)
     ops = sum(n for n, _ in groups.values())
     host = host_calls(torch, prof)
@@ -2218,6 +2371,8 @@ def profile_summary(torch, prof, wall_prof, launches, ticks, units, unit,
         "before this profiled run, equal to its device kernel events and "
         "the schedule (gated)",
         "wall_s_unprofiled": walls,
+        "profiler_primer": {"launches": prof.primer_launches,
+                            "records_lost": prof.primer_lost},
         "device_ms": total_us / 1e3 if total_us else None,
         "device_busy_share": ([total_us / 1e6 / w for w in walls]
                               if total_us else None),
@@ -3296,14 +3451,16 @@ def convnet_bits(state) -> list:
                                 state.model_state.values()]
 
 
-def convnet_run(torch, feed, setup, mode, what) -> tuple[dict, list]:
-    """One epoch of ``feed`` through ``setup``'s step, the state updated
+def convnet_run(torch, feed, setup, mode, what, steps=CONVNET_STEPS,
+                batch=CONVNET_BATCH) -> tuple[dict, list]:
+    """One epoch of ``feed`` (``steps`` batches of ``batch``) through
+    ``setup``'s step, the state updated
     in place. In the captured mode every update from the second on (the
     capture and each replay) runs under ``set_sync_debug_mode("error")``.
     Rates by the host clock from a synchronize after the first
     ``CONVNET_SKIP`` steps to one after the last. Returns the record and
     the losses."""
-    train_step, _, state = setup
+    train_step, state = setup[0], setup[2]
     losses = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3323,28 +3480,28 @@ def convnet_run(torch, feed, setup, mode, what) -> tuple[dict, list]:
     t1 = time.perf_counter()
     setup[2] = state
     losses = [float(v) for v in losses]
-    require(len(losses) == CONVNET_STEPS
+    require(len(losses) == steps
             and all(math.isfinite(v) for v in losses),
             f"{what}: {len(losses)} steps, losses {losses[:3]}...")
-    steady = CONVNET_STEPS - CONVNET_SKIP
+    steady = steps - CONVNET_SKIP
     rec = {"mode": mode, "epoch_s": t1 - t0,
            "step_ms": 1e3 * (t1 - t_steady) / steady,
-           "samples_per_s": steady * CONVNET_BATCH / (t1 - t_steady)}
+           "samples_per_s": steady * batch / (t1 - t_steady)}
     if mode == "graph":
         stats = train_step.stats
         got = (stats["eager_steps"], stats["graph_captures"],
                stats["graph_replays"])
-        want = (1, 1, CONVNET_STEPS - 1)
+        want = (1, 1, steps - 1)
         require(got == want, f"{what}: (eager, captures, replays) {got}, "
                              f"want {want}")
         rec.update(capture_ms=stats["capture_ms"][0],
-                   sync_debug_error_steps=CONVNET_STEPS - 1)
+                   sync_debug_error_steps=steps - 1)
     return rec, losses
 
 
 def convnet_eval(torch, test_feed, setup) -> dict:
     """The test split through ``eval_step``: the sums and the accuracy."""
-    _, eval_step, state = setup
+    eval_step, state = setup[1], setup[2]
     total = None
     for x, y, valid in test_feed.epoch(0, with_valid=True):
         total = eval_step(state, x, y, total, valid)
@@ -3355,14 +3512,15 @@ def convnet_eval(torch, test_feed, setup) -> dict:
 
 
 def convnet_profile(torch, setup, batch, mode, what,
-                    steps=CONVNET_PROFILE_STEPS):
+                    steps=CONVNET_PROFILE_STEPS, fills=RNG_PROLOGUE_FILLS):
     """``steps`` more updates of ``setup`` on one device batch under the
     profiler. Host calls: captured, one ``cudaGraphLaunch`` a step, each
     in a replay span, and inside a replay no kernel launch call but the
-    dropout generator's two ``fill_`` prologue launches (gated); eager,
-    no graph launch. No kernel of the port's runs on this path (gated).
-    Returns ``(prof, wall_s, host)``."""
-    train_step, _, state = setup
+    generator's ``fills`` prologue launches (gated: two where the step
+    draws random numbers, dropout or augmentation; none where it draws
+    nothing); eager, no graph launch. No kernel of the port's runs on
+    this path (gated). Returns ``(prof, wall_s, host)``."""
+    train_step, state = setup[0], setup[2]
     x, y = batch
 
     def run():
@@ -3376,14 +3534,14 @@ def convnet_profile(torch, setup, batch, mode, what,
                         f"{ported}")
     host = host_calls(torch, prof)
     if mode == "graph":
-        fills = host["ops_in_replays"].get("aten::fill_", 0)
+        filled = host["ops_in_replays"].get("aten::fill_", 0)
         require(host["graph_launches"] == host["replays"] == steps
                 and host["graph_launches_in_replays"] == steps
-                and host["kernel_launches_in_replays"] == fills
-                == RNG_PROLOGUE_FILLS * steps,
+                and host["kernel_launches_in_replays"] == filled
+                == fills * steps,
                 f"{what}: want one cudaGraphLaunch a replayed step and only "
-                f"the generator prologue's {RNG_PROLOGUE_FILLS} fill_ "
-                f"launches inside: {host}")
+                f"the generator prologue's {fills} fill_ launches inside: "
+                f"{host}")
     else:
         require(host["graph_launches"] == 0 and host["replays"] == 0,
                 f"{what}: the eager run launched graphs: {host}")
@@ -3647,6 +3805,608 @@ def convnet_cli_phase(torch, interop, ConvNet, smi):
     return rec
 
 
+# ---- slice 13: BASELINE rungs 1-3 (ResNet-18, ResNet-50, BERT-base) --------
+
+# BERT's batch: BERT_B sequences of BERT_MIN..BERT_T real tokens (numpy
+# seed BERT_SEED; the first at full length), padded with [PAD] = 0 to
+# BERT_T. Real tokens are uniform over the ids 1..vocab-1 (0 is [PAD]).
+BERT_B, BERT_T, BERT_MIN, BERT_SEED = 16, 512, 128, 13
+# the ResNet-18 cell (BASELINE config 1): CIFAR-10's synthetic stand-in
+# (50,000 x 32 x 32 x 3, 10,000 test), batch 128, 390 steps an epoch (the
+# last partial batch dropped), SGD lr 0.1, momentum 0.9, StepLR 0.7 a
+# epoch, ``flip-crop``, f32
+R18_BATCH, R18_LR, R18_STEPS = 128, 0.1, 390
+# the ResNet-50 cell (BASELINE config 2 on one card): one fixed batch of
+# R50_BATCH 224 x 224 x 3 images of 1000 classes (numpy seed 0), bf16
+# over f32 masters, SGD, R50_STEPS updates a run
+R50_BATCH, R50_STEPS, R50_LR = 64, 20, 0.1
+# the resnet18 phase's runs: an epoch captured, then one eager (each
+# epoch is 390 steps; the eager one is host-bound at about twice the
+# captured one's time)
+R18_TURNS = ("graph", "eager")
+# ResNet-18's collectives a step under a one-rank group (replicated
+# update): the gradient all-reduce and each of its 20 BatchNorms' sums,
+# forward and backward
+R18_BATCHNORMS = 20
+
+
+def bert_lengths(np):
+    rng = np.random.default_rng(BERT_SEED)
+    lengths = rng.integers(BERT_MIN, BERT_T + 1, BERT_B)
+    lengths[0] = BERT_T
+    return lengths
+
+
+def bert_tokens(np, vocab: int):
+    lengths = bert_lengths(np)
+    rng = np.random.default_rng(BERT_SEED + 1)
+    toks = rng.integers(1, vocab, (BERT_B, BERT_T))
+    toks[np.arange(BERT_T)[None] >= lengths[:, None]] = 0
+    return toks, lengths
+
+
+def check_flash_bert(torch, np, FA, dtype, dt):
+    """BERT-base's attention: q, k, v [16, 12, 512, 64], split-head views
+    of one fused QKV, non-causal under the ragged key mask of the bert
+    phase's batch (lengths 128-512); dO in the order ``merge_heads``'
+    backward hands over. The forward and both backward kernels against
+    their plain versions (f32: the forward's max error to TOL, the
+    backward's relative to max(1, max|plain|) to TOL; bf16 also row by
+    row to ROW_TOL), the same bits on a second launch, tensor cores in
+    bf16 only; each timed beside its bound (the pairs with a real key,
+    the bytes of real keys: what this batch needs), its plain version and
+    ``F.scaled_dot_product_attention`` with the same boolean mask (the
+    backward: autograd of it, forward and backward less forward). Returns
+    ``{"flash_fwd_bert": ..., "flash_bwd_dq_bert": ...,
+    "flash_bwd_dkv_bert": ...}``."""
+    import torch.nn.functional as F
+    b, h, t, d = BERT_B, 12, BERT_T, 64
+    gen = torch.Generator().manual_seed(BERT_SEED)
+    lengths = bert_lengths(np)
+    keep = torch.arange(t)[None] < torch.from_numpy(lengths)[:, None]
+    mask = keep.float().cuda()
+    kw = {"causal": False, "kv_mask": mask}
+    copies = []
+    for _ in range(2):      # two copies: a working set past the L2
+        qkv = torch.randn(b, t, 3 * h * d, generator=gen).to("cuda", dtype)
+        q, k, v = (x.reshape(b, t, h, d).transpose(1, 2)
+                   for x in qkv.split(h * d, dim=-1))
+        do = torch.randn(b, t, h, d, generator=gen).to(
+            "cuda", dtype).transpose(1, 2)
+        o, lse = FA.flash_fwd(q, k, v, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        copies.append((q, k, v, do, lse, delta))
+    q, k, v, do, lse, delta = copies[0]
+    c0 = (FA.tc_launches, FA.dq_tc_launches, FA.dkv_tc_launches)
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    tc = (FA.tc_launches - c0[0], FA.dq_tc_launches - c0[1],
+          FA.dkv_tc_launches - c0[2])
+    want_tc = (1, 1, 1) if dt == "bf16" else (0, 0, 0)
+    require(tc == want_tc, f"flash bert {dt}: tensor-core launches {tc}, "
+                           f"want {want_tc}")
+    again = (FA.flash_fwd(q, k, v, **kw)[0],
+             FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+             *FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    o_want, lse_want = FA.flash_fwd_plain(q, k, v, **kw)
+    g_want = FA.flash_bwd_plain(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    for name, g, g2 in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv), again):
+        require(torch.equal(g, g2), f"flash bert {dt}: two launches gave "
+                                    f"different {name}")
+        require(bool(torch.isfinite(g).all()),
+                f"flash bert {dt}: non-finite {name}")
+    del again
+    res = {"flash_fwd_bert": {}, "flash_bwd_dq_bert": {},
+           "flash_bwd_dkv_bert": {}}
+    err = (o.float() - o_want.float()).abs().max().item()
+    lse_err = (lse - lse_want).abs().max().item()
+    require(err <= TOL[dt], f"flash bert {dt}: o max err {err} > {TOL[dt]}")
+    require(lse_err <= LSE_TOL, f"flash bert {dt}: lse err {lse_err}")
+    res["flash_fwd_bert"].update(max_abs_err=err, lse_max_abs_err=lse_err)
+    errs = {}
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), g_want):
+        errs[name] = (rel_err(g, w), (g.float() - w.float()).abs().max()
+                      .item(), row_err(g, w))
+        require(errs[name][0] <= TOL[dt], f"flash bert {dt}: {name} error "
+                                          f"{errs[name][0]} > {TOL[dt]}")
+    if dt == "bf16":
+        r = row_err(o, o_want)
+        require(r <= ROW_TOL, f"flash bert: o row error {r} > {ROW_TOL}")
+        res["flash_fwd_bert"]["row_err"] = r
+        for name in errs:
+            require(errs[name][2] <= ROW_TOL, f"flash bert: {name} row "
+                    f"error {errs[name][2]} > {ROW_TOL}")
+    for kern, names in (("flash_bwd_dq_bert", ("dq",)),
+                        ("flash_bwd_dkv_bert", ("dk", "dv"))):
+        res[kern].update(
+            rel_err=max(errs[n][0] for n in names),
+            max_abs_err=max(errs[n][1] for n in names),
+            **({"row_err": max(errs[n][2] for n in names)}
+               if dt == "bf16" else {}))
+    del dq, dk, dv, g_want, o_want
+    # the work this batch needs: each query row against the real keys of
+    # its sequence; K and V read at those keys only
+    real = int(lengths.sum())
+    pairs = h * t * real
+    esz = q.element_size()
+    rows = 4 * b * h * t                               # one f32 per row
+    mask_bytes = 4 * b * t
+    kv_bytes = esz * 2 * h * d * real
+    qo = esz * b * h * t * d
+    fwd_bytes = 2 * qo + kv_bytes + mask_bytes + rows
+    dq_bytes = 3 * qo + kv_bytes + mask_bytes + 2 * rows    # q dO dq
+    dkv_bytes = 2 * qo + kv_bytes + 2 * esz * b * h * t * d \
+        + mask_bytes + 2 * rows                           # dk, dv whole
+    attn_mask = keep[:, None, None, :].cuda()
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qg, kg, vg,
+                                              attn_mask=attn_mask)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qg, kg, vg), do)
+    lib_fwd = time_ms(torch, [lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=attn_mask)])
+    lib_bwd = time_ms(torch, [sdpa_fwd_bwd]) - time_ms(torch, [sdpa])
+    plain_bwd = time_ms(torch, [(lambda c=c: FA.flash_bwd_plain(*c, **kw))
+                                for c in copies], iters=10)
+    shape = (f"q, k, v [{b}, {h}, {t}, {d}] non-causal, fused-QKV views, "
+             f"kv_mask of lengths {BERT_MIN}-{BERT_T} (bert phase's)")
+    pad_share = 1.0 - real / (b * t)
+    for kern, flops, nbytes, fn, plain_ms, lib_ms in (
+            ("flash_fwd_bert", 4 * d * pairs, fwd_bytes,
+             lambda c: FA.flash_fwd(*c[:3], **kw),
+             time_ms(torch, [lambda c=c: FA.flash_attention_plain(
+                 *c[:3], **kw) for c in copies], iters=10), lib_fwd),
+            ("flash_bwd_dq_bert", 3 * 2 * d * pairs, dq_bytes,
+             lambda c: FA.flash_bwd_dq(*c, **kw), plain_bwd, lib_bwd),
+            ("flash_bwd_dkv_bert", 4 * 2 * d * pairs, dkv_bytes,
+             lambda c: FA.flash_bwd_dkv(*c, **kw), plain_bwd, lib_bwd)):
+        r = res[kern]
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, dt)
+        r["gflop"] = flops / 1e9
+        r["ms"] = time_ms(torch, [(lambda c=c, fn=fn: fn(c))
+                                  for c in copies])
+        r.update(tflops=r["gflop"] / r["ms"],
+                 bound_share=r["bound_ms"] / r["ms"],
+                 path="tensor cores" if dt == "bf16" else "CUDA cores",
+                 plain_ms=plain_ms, library_ms=lib_ms, shape=shape,
+                 pad_pair_share=pad_share, bit_identical=True,
+                 tensor_core_launches=1 if dt == "bf16" else 0)
+        r["library"] = ("F.scaled_dot_product_attention, bool key mask"
+                        + ("" if kern == "flash_fwd_bert" else
+                           ": autograd, fwd+bwd minus fwd; dq, dk and dv "
+                           "together"))
+        if kern != "flash_fwd_bert":
+            r["plain"] = "flash_bwd_plain (dq, dk and dv together)"
+    return res
+
+
+def bert_setup(torch, np, tm, cfg, state_dict, *, mode):
+    """A BERT on the card (f32 masters from ``state_dict``), ``adamw_fused``
+    warmup-cosine from 0 over ``TRAIN_STEPS`` updates (peak
+    ``TRAIN_LR``), bf16 compute, the step functions (``mode`` "graph" or
+    "eager"), a fresh state and the one batch, as :func:`train_setup`
+    lays a setup out."""
+    BertMLM, build_optimizer, make_step_fns = tm
+    model = BertMLM(cfg)
+    model.load_state_dict(state_dict)
+    tx = build_optimizer("adamw_fused", TRAIN_LR, steps_per_epoch=TRAIN_STEPS,
+                         total_steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP)
+    init_fn, train_step, _ = make_step_fns(
+        model, tx, compute_dtype="bfloat16", _eager=mode == "eager")
+    tokens, _ = bert_tokens(np, cfg.vocab_size)
+    return [model, tx, train_step, init_fn(None),
+            torch.from_numpy(tokens).cuda()]
+
+
+def bert_phase(torch, np, tm, FA, FAW, BertConfig, smi):
+    """BASELINE config 3 at full width (BERT-base: 12 post-LN layers, 768
+    wide, 12 heads, vocab 30522, 512 positions, ``pad_token_id`` 0,
+    dropout 0.1), bf16 over f32 masters, ``adamw_fused``, on the one
+    16 x 512 batch of ragged sequences: the captured step and the eager
+    one in turns (``TURNS``), 20 updates each from the same weights, every
+    run's losses, parameters, moments and count bit-identical to the
+    first's; in each run the counters zeroed just before and read just
+    after equal 20 x (12, 12, 12, 1), every flash launch on the tensor
+    cores, every captured update from the second on under
+    ``set_sync_debug_mode("error")`` (:func:`train_run`); the loss falls
+    and stays finite; then five more updates of each mode's last run
+    under the profiler (:func:`train_profile`: the counters against the
+    device's kernel events, one ``cudaGraphLaunch`` a replay with only
+    the generator prologue's ``fill_`` launches beside it), device time by
+    group, and the readout's GEMM time."""
+    cfg = dataclasses.replace(BertConfig.base(), pad_token_id=0)
+    base = tm[0](cfg).init(torch.Generator().manual_seed(0)).state_dict()
+    runs, kept, first = [], {}, None
+    for turn, mode in enumerate(TURNS):
+        setup = bert_setup(torch, np, tm, cfg, base, mode=mode)
+        what = f"bert {mode} run {turn + 1}"
+        rec, bits = train_run(torch, FA, FAW, setup, mode, what)
+        want_tc = dict.fromkeys(rec["tensor_core_launches"],
+                                TRAIN_STEPS * LAYERS)
+        require(rec["tensor_core_launches"] == want_tc,
+                f"{what}: tensor-core launches "
+                f"{rec['tensor_core_launches']} != {want_tc}")
+        losses = rec["losses"]
+        require(losses[-1] < losses[0], f"{what}: loss {losses[0]} -> "
+                                        f"{losses[-1]} did not fall")
+        if first is None:
+            first = (losses, bits)
+        else:
+            require(losses == first[0], f"{what}: losses differ from run "
+                                        f"1's")
+            require(same_bits(torch, bits, first[1]),
+                    f"{what}: parameters, moments or count after "
+                    f"{TRAIN_STEPS} steps differ from run 1's")
+        del bits
+        runs.append(rec)
+        if turn >= 2:
+            kept[mode] = setup
+        del setup
+        torch.cuda.empty_cache()
+    profiles = {}
+    for mode in ("graph", "eager"):
+        prof, wall, launches, host = train_profile(
+            torch, FA, FAW, kept[mode], mode, f"bert_profile {mode}",
+            tc=True)
+        profiles[mode] = train_profile_summary(
+            torch, prof, wall, launches, host, TRAIN_PROFILE_STEPS,
+            [r["median_step_ms"] for r in runs if r["mode"] == mode])
+        if mode == "graph":
+            events = device_events(torch, prof)
+            # the tied readout [16 x 512, 768] x [768, 30522] and its two
+            # backward GEMMs: the cuBLAS kernels of the largest time
+            profiles[mode]["readout_gemm_candidates"] = sorted(
+                ({"name": k[:120], "launches_per_step":
+                  n / TRAIN_PROFILE_STEPS,
+                  "ms_per_step": us / 1e3 / TRAIN_PROFILE_STEPS}
+                 for k, (n, us) in events.items()
+                 if _kernel_group(k) == "matmul (cuBLAS)"),
+                key=lambda r: -r["ms_per_step"])[:6]
+    del kept, first
+    torch.cuda.empty_cache()
+    _, lengths = bert_tokens(np, cfg.vocab_size)
+    graphs_, eagers = ([r for r in runs if r["mode"] == m]
+                       for m in ("graph", "eager"))
+    medians = {"graph": pooled_median(graphs_),
+               "eager": pooled_median(eagers)}
+    real = int(lengths.sum())
+    return {"phase": "bert", "card": smi,
+            "model": "bert-base MLM (12 post-LN layers x 768, 12 heads, "
+                     "vocab 30522, 512 positions, pad_token_id 0, dropout "
+                     "0.1), random weights seed 0",
+            "batch": [BERT_B, BERT_T], "real_tokens": real,
+            "pad_share": 1.0 - real / (BERT_B * BERT_T),
+            "lengths": lengths.tolist(), "compute_dtype": "bf16",
+            "masters": "f32", "optimizer": "adamw_fused", "lr": TRAIN_LR,
+            "steps": TRAIN_STEPS, "turns": list(TURNS),
+            "bit_identical": "losses, parameters, moments and count, every "
+                             "run against the first (gated)",
+            "median_step_ms": medians["graph"],
+            "median_step_ms_eager": medians["eager"],
+            "sequences_per_s": BERT_B / (medians["graph"] / 1e3),
+            "real_tokens_per_s": real / (medians["graph"] / 1e3),
+            "losses": runs[0]["losses"],
+            "launches_per_step": TRAIN_PER_STEP,
+            "profile": profiles,
+            "runs": [{k: v for k, v in r.items() if k != "losses"}
+                     for r in runs]}
+
+
+def resnet_setup(rm, weights, mode, *, steps_per_epoch, lr, compute_dtype,
+                 augment):
+    """A ResNet on the card loaded with ``weights``, SGD (momentum 0.9)
+    with StepLR 0.7 every ``steps_per_epoch``, and ``[train_step,
+    eval_step, state]`` as :func:`convnet_setup` lays it out."""
+    build, build_optimizer, make_step_fns, build_augment = rm
+    model = build()
+    model.load_state_dict(weights)
+    tx = build_optimizer("sgd", lr, gamma=0.7,
+                         steps_per_epoch=steps_per_epoch)
+    init_fn, train_step, eval_step = make_step_fns(
+        model, tx, compute_dtype=compute_dtype,
+        augment=build_augment(augment), _eager=mode == "eager")
+    return [train_step, eval_step, init_fn(None), model]
+
+
+def batch_stat_accuracy(torch, test_feed, setup, batches: int = 8) -> float:
+    """The test split's accuracy over its first ``batches`` batches with
+    BatchNorm on each batch's own statistics (a train-mode forward, the
+    running stats left as they are): beside the eval accuracy, it shows
+    how far the running stats lag the weights."""
+    _, _, state, model = setup
+    hits = n = 0
+    with torch.no_grad():
+        for i, (x, y) in enumerate(test_feed.epoch(0)):
+            if i == batches:
+                break
+            stats = {k: v.clone() for k, v in state.model_state.items()}
+            out, _ = torch.func.functional_call(
+                model, {**state.params, **stats}, (x,), {"train": True})
+            hits += int((out.argmax(-1) == y).sum())
+            n += y.shape[0]
+    return hits / n
+
+
+def resnet18_phase(torch, rm, mesh, smi):
+    """BASELINE config 1 on one card: ResNet-18 (CIFAR stem), f32, batch
+    128, ``flip-crop``, SGD + StepLR, one epoch of CIFAR-10's synthetic
+    stand-in (390 steps), captured and eager in turns (``R18_TURNS``), every
+    run's losses, parameters, momentum slots, count and BatchNorm stats
+    bit-identical to the first's (gated); a profiled run of each mode
+    (one ``cudaGraphLaunch`` a replay and only the generator prologue
+    inside, no port kernel: :func:`convnet_profile`); the test accuracy;
+    then the captured epoch under a one-rank ``nccl`` group, bit for bit
+    the ungrouped one."""
+    import socket
+    from distributed_compute_pytorch_tpu_torch.data.datasets import (
+        load_dataset)
+    from distributed_compute_pytorch_tpu_torch.data.loader import (
+        DeviceFeeder)
+    train, test = (load_dataset("cifar10", s) for s in ("train", "test"))
+    feed = DeviceFeeder(train, R18_BATCH, "cuda", shuffle=True, seed=0,
+                        drop_last=True)
+    test_feed = DeviceFeeder(test, R18_BATCH, "cuda", shuffle=False)
+    steps = feed.steps_per_epoch
+    require(steps == R18_STEPS, f"resnet18: {steps} steps an epoch")
+    build = rm[0]
+    weights = build(device="cpu").init(
+        torch.Generator().manual_seed(0)).state_dict()
+    rm = (lambda: build(), *rm[1:])
+    kw = {"steps_per_epoch": steps, "lr": R18_LR, "compute_dtype": None,
+          "augment": "flip-crop"}
+    runs, first, kept = [], None, {}
+    for turn, mode in enumerate(R18_TURNS):
+        setup = resnet_setup(rm, weights, mode, **kw)
+        what = f"resnet18 {mode} run {turn + 1}"
+        rec, losses = convnet_run(torch, feed, setup, mode, what,
+                                  steps=steps, batch=R18_BATCH)
+        bits = convnet_bits(setup[2])
+        if first is None:
+            first = (losses, bits)
+            rec["eval"] = convnet_eval(torch, test_feed, setup)
+            rec["eval"]["batch_stat_accuracy"] = batch_stat_accuracy(
+                torch, test_feed, setup)
+        else:
+            require(losses == first[0], f"{what}: losses differ from run "
+                                        f"1's")
+            require(same_bits(torch, bits, first[1]),
+                    f"{what}: parameters, slots, count or BatchNorm stats "
+                    f"differ from run 1's")
+        runs.append(rec)
+        kept[mode] = setup
+    batch = next(iter(feed.epoch(1)))
+    profiles = {}
+    for mode in ("graph", "eager"):
+        prof, wall, host = convnet_profile(torch, kept[mode], batch, mode,
+                                           f"resnet18 profile {mode}")
+        profiles[mode] = convnet_summary(
+            torch, prof, wall, host,
+            [r["step_ms"] for r in runs if r["mode"] == mode])
+    del kept
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mesh.initialize_distributed(f"127.0.0.1:{port}", 1, 0, "cuda")
+    try:
+        require(mesh.distributed() and mesh.process_count() == 1,
+                "resnet18: no one-rank nccl group")
+        setup = resnet_setup(rm, weights, "graph", **kw)
+        grouped, losses = convnet_run(torch, feed, setup, "graph",
+                                      "resnet18 one-rank nccl",
+                                      steps=steps, batch=R18_BATCH)
+        require(losses == first[0], "resnet18 one-rank nccl: losses differ "
+                                    "from the ungrouped captured run's")
+        require(same_bits(torch, convnet_bits(setup[2]), first[1]),
+                "resnet18 one-rank nccl: the state differs from the "
+                "ungrouped captured run's")
+        del setup
+    finally:
+        mesh.shutdown_distributed()
+    torch.cuda.empty_cache()
+
+    def median(mode, key):
+        return statistics.median(r[key] for r in runs if r["mode"] == mode)
+    return {"phase": "resnet18", "card": smi,
+            "model": "resnet18, CIFAR stem, 11.17 M parameters, random "
+                     "weights seed 0",
+            "data": "cifar10: the synthetic stand-in, 50,000 x 32 x 32 x 3 "
+                    "train, 10,000 test, 10 classes",
+            "batch": R18_BATCH, "steps": steps, "dtype": "f32",
+            "augment": "flip-crop",
+            "optimizer": f"sgd lr {R18_LR} momentum 0.9, StepLR 0.7 a "
+                         f"epoch", "turns": list(R18_TURNS),
+            "bit_identical": "losses, parameters, slots, count and "
+                             "BatchNorm stats after the epoch, every run "
+                             "against the first, and the one-rank nccl "
+                             "run (gated)",
+            "samples_per_s": median("graph", "samples_per_s"),
+            "samples_per_s_eager": median("eager", "samples_per_s"),
+            "step_ms": median("graph", "step_ms"),
+            "step_ms_eager": median("eager", "step_ms"),
+            "one_rank_nccl": {k: grouped[k] for k in
+                              ("samples_per_s", "step_ms")},
+            "collectives_a_step": 1 + 2 * R18_BATCHNORMS,
+            "loss_first_last": [first[0][0], first[0][-1]],
+            "test": runs[0]["eval"], "profile": profiles, "runs": runs}
+
+
+def f64_share(torch, prof, steps: int) -> dict:
+    """The device ms a step of the profile's kernels that work in f64
+    (their names carry ``double``: BatchNorm's f64 sums and casts)."""
+    ev = device_events(torch, prof)
+    f64 = sum(us for k, (_, us) in ev.items() if "double" in k)
+    total = sum(us for _, us in ev.values())
+    return {"f64_ms_per_step": f64 / 1e3 / steps,
+            "device_ms_per_step": total / 1e3 / steps,
+            "f64_share": f64 / total if total else None}
+
+
+def resnet50_phase(torch, np, rm, smi):
+    """BASELINE config 2 on one card: ResNet-50 (ImageNet stem), one fixed
+    batch of 64 224 x 224 x 3 images of 1000 classes, bf16 over f32
+    masters, SGD, no augmentation: 20 captured updates against 20 eager
+    ones from the same weights, losses, parameters, slots, count and
+    BatchNorm stats bit-identical (gated); samples/s of each mode, the
+    peak memory reserved, and a profiled run of each (no port kernel; the
+    share of device time in f64 kernels, BatchNorm's sums)."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(R50_BATCH, 224, 224, 3)).astype(
+        np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 1000, R50_BATCH)).cuda()
+    build = rm[0]
+    weights = build(device="cpu").init(
+        torch.Generator().manual_seed(0)).state_dict()
+    rm = (lambda: build(), *rm[1:])
+    kw = {"steps_per_epoch": R50_STEPS, "lr": R50_LR,
+          "compute_dtype": "bfloat16", "augment": "none"}
+    out, first = {}, None
+    for mode in ("graph", "eager"):
+        setup = resnet_setup(rm, weights, mode, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        state = setup[2]
+        for i in range(R50_STEPS):
+            t0 = time.perf_counter()
+            if mode == "graph" and i >= 1:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, metrics = setup[0](state, x, y)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(metrics["loss"]))
+        setup[2] = state
+        require(all(math.isfinite(v) for v in losses),
+                f"resnet50 {mode}: non-finite loss {losses}")
+        bits = convnet_bits(state)
+        if first is None:
+            first = (losses, bits)
+        else:
+            require(losses == first[0], "resnet50: eager losses differ "
+                                        "from the captured run's")
+            require(same_bits(torch, bits, first[1]),
+                    "resnet50: the eager state differs from the captured "
+                    "run's")
+        del bits
+        tail = sorted(step_ms[TRAIN_SKIP_MEDIAN:])
+        ms = tail[len(tail) // 2]
+        # no augmentation and no dropout: the step draws nothing, and a
+        # replay runs no generator prologue
+        prof, wall, host = convnet_profile(torch, setup, (x, y), mode,
+                                           f"resnet50 profile {mode}",
+                                           steps=5, fills=0)
+        out[mode] = {"median_step_ms": ms,
+                     "samples_per_s": R50_BATCH / (ms / 1e3),
+                     "peak_reserved_gb":
+                         torch.cuda.max_memory_reserved() / 1e9,
+                     "peak_allocated_gb":
+                         torch.cuda.max_memory_allocated() / 1e9,
+                     "step_ms": step_ms,
+                     "profile": {**convnet_summary(torch, prof, wall, host,
+                                                   [ms], steps=5),
+                                 **f64_share(torch, prof, 5)}}
+        if mode == "graph":
+            out[mode]["capture_ms"] = setup[0].stats["capture_ms"][0]
+        del setup, state, prof
+        torch.cuda.empty_cache()
+    return {"phase": "resnet50", "card": smi,
+            "model": "resnet50, ImageNet stem, 25.56 M parameters, random "
+                     "weights seed 0",
+            "batch": [R50_BATCH, 224, 224, 3], "classes": 1000,
+            "compute_dtype": "bf16", "masters": "f32",
+            "optimizer": f"sgd lr {R50_LR} momentum 0.9",
+            "steps": R50_STEPS, "cudnn": "f32 flags and deterministic "
+            "algorithms (train/step.py::cudnn_f32)",
+            "bit_identical": "20 captured against 20 eager updates: "
+                             "losses, parameters, slots, count, BatchNorm "
+                             "stats (gated)",
+            "losses": first[0], "samples_per_s": out["graph"][
+                "samples_per_s"],
+            "samples_per_s_eager": out["eager"]["samples_per_s"],
+            "runs": out}
+
+
+def ladder_cli_phase(torch, interop, smi):
+    """The trainer CLI on the new rungs, each for one epoch then
+    ``--resume --epochs 2``: ``bert`` at the tiny preset on
+    ``synthetic-lm`` (``adamw``), and ``resnet18`` on ``cifar10`` (the
+    synthetic stand-in) with ``--augment flip-crop`` at batch 1024 (48
+    steps an epoch), the two models' runs side by side on the card; the
+    reference-format lines of each, and the checkpoint's params through
+    the JAX-layout reader."""
+    jobs = {"bert_cli": ["--model", "bert", "--model_preset", "tiny",
+                         "--dataset", "synthetic-lm", "--optimizer", "adamw",
+                         "--batch_size", "256"],
+            "resnet_cli": ["--model", "resnet18", "--dataset", "cifar10",
+                           "--augment", "flip-crop", "--optimizer", "sgd",
+                           "--lr", "0.1", "--batch_size", "1024"]}
+    recs = {name: {"phase": name, "card": smi} for name in jobs}
+    with tempfile.TemporaryDirectory() as tmp:
+        cmds = {name: [sys.executable, "-m",
+                       "distributed_compute_pytorch_tpu_torch.cli", *args,
+                       "--data_dir", tmp, "--ckpt_path",
+                       os.path.join(tmp, f"{name}.npz")]
+                for name, args in jobs.items()}
+        for run, extra, want_epochs in (
+                ("first", ["--epochs", "1"], [0]),
+                ("resumed", ["--resume", "--epochs", "2"], [1])):
+            t0 = time.monotonic()
+            procs = {name: subprocess.Popen(
+                cmd + extra, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+                for name, cmd in cmds.items()}
+            outs = {}
+            try:
+                for name, proc in procs.items():
+                    outs[name] = proc.communicate(timeout=600)
+            finally:
+                for proc in procs.values():
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+            for name, (out, err) in outs.items():
+                rec = recs[name]
+                rec[f"{run}_s"] = time.monotonic() - t0
+                rc = procs[name].returncode
+                require(rc == 0, f"{name} {run}: rc {rc}\n{out[-2000:]}\n"
+                                 f"{err[-4000:]}")
+                for kind, pat in CLI_LINES.items():
+                    require(pat.search(out) is not None,
+                            f"{name} {run}: no {kind} line in\n"
+                            f"{out[-2000:]}")
+                epochs = sorted({int(e) for e in
+                                 CLI_LINES["train"].findall(out)})
+                require(epochs == want_epochs, f"{name} {run}: epochs "
+                                               f"{epochs}")
+                model = jobs[name][1]
+                require(f"model: {model}" in out, f"{name} {run}: not the "
+                        f"{model} run:\n{out[:1000]}")
+                if run == "resumed":
+                    require(re.search(r"resumed from .* at epoch 1\b", out)
+                            is not None, f"{name}: resume did not start at "
+                                         f"epoch 1:\n{out[:2000]}")
+                rec[f"{run}_tail"] = out.strip().splitlines()[-4:]
+        for name, cmd in cmds.items():
+            ckpt = cmd[-1]
+            flat = interop.read_checkpoint(ckpt)[0]
+            sd = interop.params_from_jax(
+                interop.unflatten(flat, ".params"),
+                interop.unflatten(flat, ".model_state"))
+            require(all(bool(torch.isfinite(t).all()) for t in sd.values()),
+                    f"{name}: the checkpoint holds non-finite values")
+            recs[name]["checkpoint_mb"] = os.path.getsize(ckpt) / 1e6
+            recs[name]["checkpoint_leaves"] = len(sd)
+    return recs
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default=None,
@@ -3666,10 +4426,16 @@ def main() -> int:
         from distributed_compute_pytorch_tpu_torch import (
             infer, interop, serve)
         from distributed_compute_pytorch_tpu_torch.core import mesh
+        from distributed_compute_pytorch_tpu_torch.models.bert import (
+            BertConfig, BertMLM)
         from distributed_compute_pytorch_tpu_torch.models.convnet import (
             ConvNet)
         from distributed_compute_pytorch_tpu_torch.models.gpt2 import (
             GPT2, GPT2Config)
+        from distributed_compute_pytorch_tpu_torch.models.resnet import (
+            ResNet)
+        from distributed_compute_pytorch_tpu_torch.ops.augment import (
+            build_augment)
         from distributed_compute_pytorch_tpu_torch.ops import _build
         from distributed_compute_pytorch_tpu_torch.ops import attention as A
         from distributed_compute_pytorch_tpu_torch.ops import (
@@ -3689,8 +4455,11 @@ def main() -> int:
     # the teacher-forced check are held to f32 tolerances
     torch.backends.cuda.matmul.allow_tf32 = False
     records = []
+    t_start = time.monotonic()
 
     def record(obj):
+        if "phase" in obj:    # the seconds since the smoke began
+            obj["t_s"] = time.monotonic() - t_start
         records.append(obj)
         emit(obj)
 
@@ -3717,6 +4486,7 @@ def main() -> int:
                 "kv_pool_insert": check_insert(torch, CU, dtype, dt),
                 "paged_decode": check_decode(torch, np, DA, dtype, dt)}
             results[dt].update(check_flash_bwd(torch, np, FA, dtype, dt))
+            results[dt].update(check_flash_bert(torch, np, FA, dtype, dt))
             results[dt].update(check_dense_insert(torch, CU, A, dtype, dt,
                                                   int(gen_lens.max())))
             results[dt]["dense_decode"] = check_dense_decode(
@@ -3822,6 +4592,24 @@ def main() -> int:
                                  conv_prof, batch, smi))
         del data, first, weights, conv_prof, batch
         record(convnet_cli_phase(torch, interop, ConvNet, smi))
+        torch.cuda.empty_cache()
+
+        # BASELINE's rungs 1-3: BERT-base (the flash kernels non-causal
+        # under its pad mask), ResNet-18 and ResNet-50, their CLIs
+        bert = bert_phase(torch, np, (BertMLM, build_optimizer,
+                                      make_step_fns), FA, FAW, BertConfig,
+                          smi)
+        record(bert)
+        torch.cuda.empty_cache()
+        record(resnet18_phase(torch, (functools.partial(
+            ResNet.build, "resnet18"), build_optimizer, make_step_fns,
+            build_augment), mesh, smi))
+        record(resnet50_phase(torch, np, (functools.partial(
+            ResNet.build, "resnet50", num_classes=1000), build_optimizer,
+            make_step_fns, build_augment), smi))
+        torch.cuda.empty_cache()
+        for rec in ladder_cli_phase(torch, interop, smi).values():
+            record(rec)
 
         # a fused tick replaces its read's Pallas call (and fuses its
         # write's, ``fuses``)
@@ -3834,7 +4622,11 @@ def main() -> int:
                    "kv_insert": CU.KV_INSERT_REPLACES,
                    "kv_insert_rows": CU.KV_INSERT_ROWS_REPLACES,
                    "dense_decode": DA.DENSE_REPLACES,
-                   "dense_decode_write": DA.DENSE_REPLACES}
+                   "dense_decode_write": DA.DENSE_REPLACES,
+                   # BERT's shape: non-causal under its pad mask
+                   "flash_fwd_bert": FA.REPLACES,
+                   "flash_bwd_dq_bert": FA.DQ_REPLACES,
+                   "flash_bwd_dkv_bert": FA.DKV_REPLACES}
         # the int8 forms replace the same Pallas calls (the reads: the
         # port's read kernels; the JAX int8 read is XLA)
         sources.update({f"{name}_q8": sources[name] for name in (
@@ -3848,13 +4640,16 @@ def main() -> int:
         # measured the same way (``train_profile``); a kernel no run
         # launches reports 0
         train_launches = train_prof["graph"]["launches"]
+        bert_launches = bert["profile"]["graph"]["launches"]
         runs = (("serve bf16 captured, profiled", serve_prof["launches"]),
                 ("serve_int8 int8 captured, profiled",
                  serve8["int8_profile"]["launches"]),
                 ("generate bf16 captured, profiled", gen_prof["launches"]),
                 ("generate_int8 int8 captured, profiled",
                  gen8["int8_profile"]["launches"]),
-                ("train captured, profiled", train_launches))
+                ("train captured, profiled", train_launches),
+                ("bert captured, profiled",
+                 {f"{k}_bert": n for k, n in bert_launches.items()}))
         kernels = []
         for name, replaces in sources.items():
             r, r32 = results["bf16"][name], results["f32"][name]
@@ -3897,13 +4692,15 @@ def main() -> int:
             "launches_from": "train captured, profiled",
             "serve_launches": None, "generate_launches": None,
             "train_launches": train_launches["fused_adamw"],
+            "bert_launches": bert_launches["fused_adamw"],
             "max_abs_err": adamw["max_abs_err"],
             "max_err": adamw["max_abs_err"], "tol": ADAMW_TOL,
             "ms": adamw["ms"], "kernel_ms": adamw["ms"],
             "plain_ms": adamw["plain_ms"], "bound_ms": adamw["bound_ms"],
             "bound_by": adamw["bound_by"], "library_ms": adamw["library_ms"],
             "library": adamw["library"], "dtype": "f32",
-            "shape": adamw["shape"]})
+            "shape": adamw["shape"],
+            **{k: adamw[k] for k in adamw if k.startswith("shard")}})
         record({"kernels": kernels})
     except Exception as e:   # noqa: BLE001 — the smoke's one boundary:
         # report the failed phase and exit non-zero, no ok line

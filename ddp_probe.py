@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """The port's data parallelism across the cards of one host, held to one
 process on the whole batch, over ``nccl``: the MNIST ConvNet
-(``--model convnet``, the default) or GPT-2-small in three sharded
-layouts (``--model gpt2``, below), through the port's ``Trainer``.
+(``--model convnet``, the default), ResNet-18 on CIFAR-10 (``--model
+resnet18``, as the ConvNet below) or GPT-2-small in three sharded layouts
+(``--model gpt2``, below), through the port's ``Trainer``.
 
-    python3 ddp_probe.py [--model convnet|gpt2] [--out FILE]
+    python3 ddp_probe.py [--model convnet|resnet18|gpt2] [--out FILE]
 
 ``--model convnet`` trains the reference's workload twice from seed 0 on
 the same global batch of ``128 x WORLD``: first as WORLD processes of
@@ -37,20 +38,28 @@ A rank that skipped the gradient all-reduce, left the sum undivided by
 the world size, never exchanged BatchNorm's sums or drew only its own
 rows' dropout mask would fail the first two. Failing gates exit 1.
 
+``--model resnet18`` runs the same two runs and gates on BASELINE config
+1: ResNet-18 (CIFAR stem) on CIFAR-10's synthetic stand-in (50,000 x 32 x
+32 x 3; 98 updates of 512; the test split evaluated after), SGD at lr 0.1
+(momentum 0.9, StepLR 0.7), f32, ``--augment flip-crop`` (every rank
+draws the global batch's flips and offsets and keeps its rows, so the
+one process replays the ranks' update on their joined rows with their
+draws), sync-BN over its 20 BatchNorms' NCHW maps.
+
 Reports, for each run: samples/s a card and in all (host clock, from a
 synchronize after update ``SKIP`` to one before the profiled updates),
 ms a step, NCCL kernels a replay; from the last ``TIMED_STEPS`` updates,
 profiled in one session, the device ms a step of every kernel but
 NCCL's, NCCL's device ms a step (BASELINE's "DDP all-reduce step time":
-the median over the replays of their ``COLLECTIVES`` kernels' sum, as a
+the median over the replays of the sum of their NCCL kernels, as a
 kernel that waits for a late rank times the wait) and the busy share
 (the two over the step's ms); the test accuracy; the largest difference
 of
 the epoch's losses, weights and eval sums between the runs (reported,
 not gated). The trainer's default ``--shard_update auto`` shards the
 update at world 4 (ZeRO-1): a replay's NCCL kernels are the
-reduce-scatter, the all-gather, the loss's all-reduce and BatchNorm's
-two.
+reduce-scatter, the all-gather, the loss's all-reduce and each
+BatchNorm's two (``DP_MODELS``: 5 for the ConvNet, 43 for ResNet-18).
 
 ``--model gpt2`` runs the trainer (``Trainer.train_epoch``) on GPT-2-small
 (12 x 768, vocab 50257, T 1024; random tokens from numpy seed 0, random
@@ -107,12 +116,18 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-WORLD, BATCH_PER_CARD, LR = 4, 128, 1.0
+WORLD, BATCH_PER_CARD = 4, 128
 SKIP, COUNTED_STEPS, TIMED_STEPS = 3, 10, 20
-# a replay's NCCL kernels: the ZeRO-1 update's reduce-scatter and
-# all-gather, the loss's all-reduce and BatchNorm's sums, forward and
-# backward
-COLLECTIVES = 5
+# the data-parallel cells of ``worker``: the trainer's config, and a
+# replay's NCCL kernels: the ZeRO-1 update's reduce-scatter and
+# all-gather, the loss's all-reduce and each BatchNorm's sums, forward
+# and backward (the ConvNet has one BatchNorm, ResNet-18 20)
+DP_MODELS = {
+    "convnet": ({"model": "convnet", "dataset": "mnist",
+                 "optimizer": "adadelta", "lr": 1.0, "gamma": 0.7}, 3 + 2),
+    "resnet18": ({"model": "resnet18", "dataset": "cifar10",
+                  "optimizer": "sgd", "lr": 0.1, "gamma": 0.7,
+                  "augment": "flip-crop"}, 3 + 2 * 20)}
 TOL = 1e-5
 TIMEOUT = 900
 
@@ -145,7 +160,7 @@ def state_tensors(state) -> dict:
 
 
 def worker(out: str, rank: int, world: int, port: int, global_batch: int,
-           ranks_files: list[str]) -> None:
+           model: str, ranks_files: list[str]) -> None:
     """One rank: the trainer's epoch with its step wrapped to keep every
     loss, time the steady updates, profile the last ones and keep the
     update ``CHECK``; the one process (``ranks_files``: the ranks' outputs)
@@ -161,8 +176,7 @@ def worker(out: str, rank: int, world: int, port: int, global_batch: int,
 
     group = ({"coordinator": f"127.0.0.1:{port}", "num_processes": world,
               "process_id": rank} if world > 1 else {})
-    cfg = Config(device="cuda", model="convnet", dataset="mnist",
-                 optimizer="adadelta", lr=LR, gamma=0.7,
+    cfg = Config(device="cuda", **DP_MODELS[model][0],
                  batch_size=global_batch, epochs=1, log_every=10 ** 6,
                  data_dir=os.path.dirname(out), ckpt_path=f"{out}.ck.npz",
                  **group)
@@ -210,7 +224,7 @@ def worker(out: str, rank: int, world: int, port: int, global_batch: int,
     n = timed_end - SKIP
     timing = replay_record(torch, session)
     compute_ms = (timing["device_ms"] - timing["nccl_ms"]) / TIMED_STEPS
-    nccl_ms = nccl_per_step(torch, session)
+    nccl_ms = nccl_per_step(torch, session, DP_MODELS[model][1])
     nccl = float(np.median(nccl_ms)) if nccl_ms else None
     step_ms = 1e3 * secs / n
     rec = {"world": world, "batch_per_card": global_batch // world,
@@ -305,21 +319,21 @@ def replay_record(torch, prof) -> dict:
             "device_ms": device_us / 1e3, "nccl_ms": nccl_us / 1e3}
 
 
-def nccl_per_step(torch, prof) -> list[float]:
+def nccl_per_step(torch, prof, collectives: int) -> list[float]:
     """NCCL's device ms in each replay of a profile: its kernels in start
-    order, ``COLLECTIVES`` a replay, summed; empty where the profile holds
+    order, ``collectives`` a replay, summed; empty where the profile holds
     none, or a count that does not divide into its replays."""
     kernels = sorted((e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA
                       and "nccl" in e.name.lower()),
                      key=lambda e: e.time_range.start)
-    if len(kernels) != COLLECTIVES * TIMED_STEPS:
+    if len(kernels) != collectives * TIMED_STEPS:
         return []
-    return [sum(e.time_range.elapsed_us() for e in kernels[i:i + COLLECTIVES])
-            / 1e3 for i in range(0, len(kernels), COLLECTIVES)]
+    return [sum(e.time_range.elapsed_us() for e in kernels[i:i + collectives])
+            / 1e3 for i in range(0, len(kernels), collectives)]
 
 
-def launch(world: int, global_batch: int, tmp: str,
+def launch(world: int, global_batch: int, model: str, tmp: str,
            ranks_files: list[str]) -> list[str]:
     """Start every rank of a world on ``global_batch``, wait for each
     under the timeout; returns the files they wrote."""
@@ -327,7 +341,7 @@ def launch(world: int, global_batch: int, tmp: str,
     outs = [os.path.join(tmp, f"w{world}r{r}.npz") for r in range(world)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--worker", out, str(r),
-         str(world), str(port), str(global_batch), *ranks_files],
+         str(world), str(port), str(global_batch), model, *ranks_files],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r, out in enumerate(outs)]
     logs = []
@@ -808,18 +822,20 @@ def launch_gpt2(world: int, layout: str, device: str, tmp: str) -> list:
     return outs
 
 
-def convnet_main() -> dict:
-    """The ConvNet at world 4, then one process on the same batch."""
+def dp_main(model: str) -> dict:
+    """``model`` (``DP_MODELS``) at world 4, then one process on the same
+    batch."""
     global_batch = BATCH_PER_CARD * WORLD
     with tempfile.TemporaryDirectory() as tmp:
-        ranks_files = launch(WORLD, global_batch, tmp, [])
-        (one_file,) = launch(1, global_batch, tmp, ranks_files)
+        ranks_files = launch(WORLD, global_batch, model, tmp, [])
+        (one_file,) = launch(1, global_batch, model, tmp, ranks_files)
         ranks = [dict(np.load(f)) for f in ranks_files]
         one = dict(np.load(one_file))
     epoch_errs = compare(one, ranks)
     one_rec, ranks_rec = (json.loads(str(d["record"]))
                           for d in (one, ranks[0]))
-    return {"card": nvidia_smi(), "model": "convnet", "tol": TOL,
+    return {"card": nvidia_smi(), "model": model, "tol": TOL,
+            "nccl_kernels_per_replay": DP_MODELS[model][1],
             "check": one_rec.pop("check"),
             "epoch_max_abs_diff": epoch_errs, "one_process": one_rec,
             "ranks": ranks_rec}
@@ -827,7 +843,8 @@ def convnet_main() -> dict:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--model", default="convnet", choices=("convnet", "gpt2"))
+    p.add_argument("--model", default="convnet",
+                   choices=("convnet", "resnet18", "gpt2"))
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cpu: rehearse --model gpt2 over gloo, GPT-2-tiny")
     p.add_argument("--out", default=None)
@@ -836,8 +853,8 @@ def main(argv=None) -> int:
     p.add_argument("--gpt2-one", nargs=4, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.worker:
-        out, rank, world, port, batch, *ranks_files = args.worker
-        worker(out, int(rank), int(world), int(port), int(batch),
+        out, rank, world, port, batch, model, *ranks_files = args.worker
+        worker(out, int(rank), int(world), int(port), int(batch), model,
                ranks_files)
         return 0
     if args.gpt2_worker or args.gpt2_one:
@@ -861,7 +878,7 @@ def main(argv=None) -> int:
         if not torch.cuda.is_available() or torch.cuda.device_count() < WORLD:
             raise SystemExit(f"ddp_probe needs {WORLD} CUDA cards (found "
                              f"{torch.cuda.device_count()})")
-        rec = convnet_main()
+        rec = dp_main(args.model)
         card = rec["card"]
     print(card, flush=True)
     print(json.dumps(rec), flush=True)

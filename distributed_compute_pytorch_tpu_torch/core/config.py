@@ -5,7 +5,10 @@ takes, under the reference's flag names.
 The defaults are the reference's workload: the ``convnet`` on ``mnist``
 (its synthetic stand-in when the idx files are not under ``--data_dir``)
 with ``adadelta`` and StepLR ``--gamma 0.7``; ``--model gpt2 --dataset
-synthetic-lm --optimizer adamw`` selects the transformer rung.
+synthetic-lm --optimizer adamw`` selects the transformer rung, ``--model
+resnet18 --dataset cifar10 --augment flip-crop --optimizer sgd`` and
+``--model resnet50`` the ResNet rungs, ``--model bert --dataset
+synthetic-lm`` the MLM rung.
 ``--device`` (``cuda`` or ``cpu``) is new; ``--force-cpu`` keeps its
 reference meaning. ``--coordinator host:port --num_processes N
 --process_id R`` (or torchrun's environment) makes the run rank R of a
@@ -64,6 +67,7 @@ class Config:
     keep_last: int = 1
     checkpoint_every: int = 0
     nonfinite_policy: str = "raise"
+    augment: str = "none"           # none | flip | flip-crop (images)
 
     compute_dtype: str = "float32"
     weight_decay: float = 0.0
@@ -98,12 +102,14 @@ class Config:
                        choices=("cuda", "cpu"),
                        help="cuda (default; raises without a card) or cpu")
         p.add_argument("--model", type=str, default=cls.model,
-                       choices=("convnet", "gpt2"))
+                       choices=("convnet", "resnet18", "resnet50", "bert",
+                                "gpt2"))
         p.add_argument("--model_preset", type=str, default=None,
-                       choices=("tiny", "small"))
+                       choices=("tiny", "small", "base"))
         p.add_argument("--num_layers", type=int, default=None)
         p.add_argument("--dataset", type=str, default=cls.dataset,
-                       choices=("mnist", "synthetic-images", "synthetic-lm"))
+                       choices=("mnist", "cifar10", "synthetic-images",
+                                "synthetic-lm"))
         p.add_argument("--optimizer", type=str, default=cls.optimizer,
                        choices=("adadelta", "sgd", "adamw", "adamw_fused"))
         p.add_argument("--log_every", type=int, default=cls.log_every)
@@ -119,6 +125,10 @@ class Config:
         p.add_argument("--nonfinite_policy", type=str,
                        default=cls.nonfinite_policy,
                        choices=("raise", "skip"))
+        p.add_argument("--augment", type=str, default=cls.augment,
+                       choices=("none", "flip", "flip-crop"),
+                       help="device-side augmentation of image batches "
+                            "inside the train step")
         p.add_argument("--compute_dtype", type=str,
                        default=cls.compute_dtype,
                        choices=("float32", "bfloat16"))

@@ -1,20 +1,21 @@
-"""Dataset readers — the MNIST and synthetic parts of
+"""Dataset readers — the MNIST, CIFAR-10 and synthetic parts of
 ``distributed_compute_pytorch_tpu/data/datasets.py``, copied (jax-free;
 the port imports nothing of the JAX package) so one seed gives the port
 and the reference the same arrays.
 
-MNIST is read from its idx files under ``data_dir`` when they are there
-(the reference's normalisation, in numpy); otherwise a deterministic
-synthetic stand-in of the same shapes is used, with the reference's
-warning. Nothing is downloaded (``--download`` stays refused).
-CIFAR-10, text corpora and sharded datasets come with later slices.
-Images are NHWC, as in the reference.
+MNIST is read from its idx files and CIFAR-10 from its python-pickle
+batches under ``data_dir`` when they are there (the reference's
+normalisation, in numpy); otherwise a deterministic synthetic stand-in of
+the same shapes is used, with the reference's warning. Nothing is
+downloaded (``--download`` stays refused). Text corpora and sharded
+datasets come with later slices. Images are NHWC, as in the reference.
 """
 
 from __future__ import annotations
 
 import gzip
 import os
+import pickle
 import struct
 import warnings
 from dataclasses import dataclass
@@ -22,6 +23,8 @@ from dataclasses import dataclass
 import numpy as np
 
 MNIST_MEAN, MNIST_STD = 0.1307, 0.3081
+CIFAR_MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
+CIFAR_STD = np.array([0.2470, 0.2435, 0.2616], np.float32)
 
 
 @dataclass(frozen=True)
@@ -141,21 +144,59 @@ def load_mnist(data_dir: str = "./data", split: str = "train"
                             name=f"mnist-{split}-synthetic")
 
 
+def load_cifar10(data_dir: str = "./data", split: str = "train"
+                 ) -> ArrayDataset:
+    """CIFAR-10 from the python-pickle batches (reference ``:245-279``,
+    its numpy path): ``data_batch_1..5`` (train) or ``test_batch`` under
+    ``data_dir`` or ``data_dir/cifar-10-batches-py``, as images ``[N, 32,
+    32, 3]`` f32 ``(x/255 - CIFAR_MEAN) / CIFAR_STD`` and labels ``[N]``
+    int32. Without them: :func:`synthetic_images` at 50,000 (train, seed
+    2) or 10,000 (test, seed 3) images of the same shape, with a
+    warning."""
+    base = None
+    for cand in ("cifar-10-batches-py", "."):
+        p = os.path.join(data_dir, cand)
+        if os.path.exists(os.path.join(p, "data_batch_1")):
+            base = p
+            break
+    if base is not None:
+        files = ([f"data_batch_{i}" for i in range(1, 6)]
+                 if split == "train" else ["test_batch"])
+        xs, ys = [], []
+        for fn in files:
+            with open(os.path.join(base, fn), "rb") as f:
+                d = pickle.load(f, encoding="bytes")
+            xs.append(d[b"data"])
+            ys.extend(d[b"labels"])
+        x = np.concatenate(xs).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+        x = (x.astype(np.float32) / 255.0 - CIFAR_MEAN) / CIFAR_STD
+        return ArrayDataset(x, np.asarray(ys, np.int32),
+                            name=f"cifar10-{split}")
+    _warn_synthetic("cifar10", data_dir)
+    n = 50_000 if split == "train" else 10_000
+    return synthetic_images(n, (32, 32, 3), 10,
+                            seed=2 if split == "train" else 3,
+                            name=f"cifar10-{split}-synthetic")
+
+
 def load_dataset(name: str, split: str = "train", data_dir: str = "./data",
                  **kw) -> ArrayDataset:
-    """The MNIST and synthetic entries of the reference registry
-    (``:399-445``), with its sizes: ``mnist`` (:func:`load_mnist`, from
-    ``data_dir``); ``synthetic-images`` 4096 x 28 x 28 x 1, 10 classes;
-    ``synthetic-lm`` 2048 x 128 tokens, vocab 256; the test split is seed
-    1, the train split seed 0."""
+    """The MNIST, CIFAR-10 and synthetic entries of the reference registry
+    (``:399-445``), with its sizes: ``mnist`` (:func:`load_mnist`) and
+    ``cifar10`` (:func:`load_cifar10`), from ``data_dir``;
+    ``synthetic-images`` 4096 x 28 x 28 x 1, 10 classes; ``synthetic-lm``
+    2048 x 128 tokens, vocab 256; the test split is seed 1, the train
+    split seed 0."""
     seed = 0 if split == "train" else 1
     if name == "mnist":
         return load_mnist(data_dir, split)
+    if name == "cifar10":
+        return load_cifar10(data_dir, split)
     if name == "synthetic-images":
         return synthetic_images(kw.pop("n", 4096), kw.pop("shape", (28, 28, 1)),
                                 kw.pop("num_classes", 10), seed=seed)
     if name == "synthetic-lm":
         return synthetic_lm(kw.pop("n", 2048), kw.pop("seq_len", 128),
                             kw.pop("vocab", 256), seed=seed)
-    raise ValueError(f"dataset {name!r} is not ported yet (mnist, "
+    raise ValueError(f"dataset {name!r} is not ported yet (mnist, cifar10, "
                      f"synthetic-images, synthetic-lm)")

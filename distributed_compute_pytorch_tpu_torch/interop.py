@@ -17,6 +17,16 @@
   one (without it the logits come out wrong with no error).
   :func:`load_reference_state_dict` loads a reference ``mnist.pt`` (plain
   or ``module.`` keys, :func:`strip_ddp_prefix`) into a ``ConvNet``.
+- :func:`resnet_params_from_jax` / :func:`resnet_params_to_jax`: the JAX
+  ResNet's ``(params, state)`` <-> a ``ResNet`` state dict: conv kernels
+  HWIO <-> OIHW, the head ``[in, out]`` <-> ``[out, in]``, each
+  BatchNorm's ``scale``/``bias`` and ``mean``/``var`` <-> ``weight``/
+  ``bias`` and ``running_mean``/``running_var``, the JAX ``block{i}`` <->
+  the port's ``blocks.{i}``.
+- :func:`bert_params_from_jax` / :func:`bert_params_to_jax`: BERT's
+  params, its stacked blocks unstacked as GPT-2's are.
+- :func:`params_to_jax` / :func:`params_from_jax` pick the converter by
+  the keys (:func:`model_kind`); the checkpoints use them.
 - :func:`read_checkpoint`: a numpy + zlib reader for the v1 ``.npz``
   checkpoint the JAX trainer and the port's ``train/checkpoint.py`` write:
   leaves flattened with ``"::"``-joined keys, the params under
@@ -54,15 +64,9 @@ def _t(x) -> torch.Tensor:
     return torch.tensor(np.asarray(x, np.float32))   # a writable copy
 
 
-def gpt2_params_from_jax(tree) -> dict[str, torch.Tensor]:
-    """JAX GPT-2 params (``{"wte", "wpe", "blocks", "ln_f"}``, numpy
-    leaves, blocks stacked ``[L, ...]``) -> a ``GPT2`` state dict of f32
-    CPU tensors."""
-    sd = {"wte.weight": _t(tree["wte"]["embedding"]),
-          "wpe.weight": _t(tree["wpe"]["embedding"]),
-          "ln_f.weight": _t(tree["ln_f"]["scale"]),
-          "ln_f.bias": _t(tree["ln_f"]["bias"])}
-    blocks = tree["blocks"]
+def _blocks_from_jax(blocks, sd: dict) -> None:
+    """Stacked ``[L, ...]`` transformer block leaves -> ``blocks.{i}.*``
+    entries of ``sd`` (GPT-2's and BERT's blocks alike)."""
     n_layers = np.asarray(blocks["qkv"]["kernel"]).shape[0]
     for i in range(n_layers):
         pre = f"blocks.{i}."
@@ -73,6 +77,20 @@ def gpt2_params_from_jax(tree) -> dict[str, torch.Tensor]:
             sd[pre + name + ".weight"] = _t(
                 np.asarray(blocks[name]["kernel"])[i].T)
             sd[pre + name + ".bias"] = _t(np.asarray(blocks[name]["bias"])[i])
+
+
+def _norm_from_jax(tree) -> tuple[torch.Tensor, torch.Tensor]:
+    return _t(tree["scale"]), _t(tree["bias"])
+
+
+def gpt2_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """JAX GPT-2 params (``{"wte", "wpe", "blocks", "ln_f"}``, numpy
+    leaves, blocks stacked ``[L, ...]``) -> a ``GPT2`` state dict of f32
+    CPU tensors."""
+    sd = {"wte.weight": _t(tree["wte"]["embedding"]),
+          "wpe.weight": _t(tree["wpe"]["embedding"])}
+    sd["ln_f.weight"], sd["ln_f.bias"] = _norm_from_jax(tree["ln_f"])
+    _blocks_from_jax(tree["blocks"], sd)
     return sd
 
 
@@ -80,12 +98,9 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float32).numpy()
 
 
-def gpt2_params_to_jax(state_dict) -> dict:
-    """A ``GPT2`` state dict (any device/dtype) -> the JAX package's GPT-2
-    params tree of f32 numpy arrays: weights ``[out, in]`` back to kernels
-    ``[in, out]``, ``blocks.{i}.*`` re-stacked into ``[num_layers, ...]``
-    leaves, LayerNorm ``weight`` back to ``scale``."""
-    sd = {k: _np(v) for k, v in state_dict.items()}
+def _blocks_to_jax(sd: dict) -> dict:
+    """``blocks.{i}.*`` entries of ``sd`` (numpy) re-stacked into the
+    reference's ``[num_layers, ...]`` block leaves."""
     n_layers = 1 + max(int(k.split(".")[1]) for k in sd
                        if k.startswith("blocks."))
 
@@ -101,10 +116,121 @@ def gpt2_params_to_jax(state_dict) -> dict:
         blocks[name] = {"kernel": stack(name + ".weight",
                                         lambda a: np.ascontiguousarray(a.T)),
                         "bias": stack(name + ".bias")}
+    return blocks
+
+
+def _norm_to_jax(sd: dict, name: str) -> dict:
+    return {"scale": sd[f"{name}.weight"], "bias": sd[f"{name}.bias"]}
+
+
+def gpt2_params_to_jax(state_dict) -> dict:
+    """A ``GPT2`` state dict (any device/dtype) -> the JAX package's GPT-2
+    params tree of f32 numpy arrays: weights ``[out, in]`` back to kernels
+    ``[in, out]``, ``blocks.{i}.*`` re-stacked into ``[num_layers, ...]``
+    leaves, LayerNorm ``weight`` back to ``scale``."""
+    sd = {k: _np(v) for k, v in state_dict.items()}
     return {"wte": {"embedding": sd["wte.weight"]},
             "wpe": {"embedding": sd["wpe.weight"]},
-            "blocks": blocks,
-            "ln_f": {"scale": sd["ln_f.weight"], "bias": sd["ln_f.bias"]}}
+            "blocks": _blocks_to_jax(sd),
+            "ln_f": _norm_to_jax(sd, "ln_f")}
+
+
+def bert_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """JAX BERT params (``{"wte", "wpe", "emb_ln", "blocks", "mlm_dense",
+    "mlm_ln"}``, blocks stacked ``[L, ...]``) -> a ``BertMLM`` state dict
+    of f32 CPU tensors."""
+    sd = {"wte.weight": _t(tree["wte"]["embedding"]),
+          "wpe.weight": _t(tree["wpe"]["embedding"]),
+          "mlm_dense.weight": _t(np.asarray(tree["mlm_dense"]["kernel"]).T),
+          "mlm_dense.bias": _t(tree["mlm_dense"]["bias"])}
+    for name in ("emb_ln", "mlm_ln"):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = _norm_from_jax(tree[name])
+    _blocks_from_jax(tree["blocks"], sd)
+    return sd
+
+
+def bert_params_to_jax(state_dict) -> dict:
+    """The inverse of :func:`bert_params_from_jax`: f32 numpy leaves in the
+    JAX layout, blocks re-stacked."""
+    sd = {k: _np(v) for k, v in state_dict.items()}
+    return {"wte": {"embedding": sd["wte.weight"]},
+            "wpe": {"embedding": sd["wpe.weight"]},
+            "emb_ln": _norm_to_jax(sd, "emb_ln"),
+            "blocks": _blocks_to_jax(sd),
+            "mlm_dense": {"kernel": np.ascontiguousarray(
+                              sd["mlm_dense.weight"].T),
+                          "bias": sd["mlm_dense.bias"]},
+            "mlm_ln": _norm_to_jax(sd, "mlm_ln")}
+
+
+def _resnet_names(sd_or_tree) -> list[tuple[str, str]]:
+    """``(port prefix, JAX key path)`` of every convolution and BatchNorm
+    of a ResNet, from a port state dict's or a JAX params tree's keys:
+    ``stem``, ``blocks.{i}.conv{j}`` <-> ``block{i}/conv{j}`` and the
+    BatchNorms and projections alike."""
+    if "stem.weight" in sd_or_tree:
+        blocks = sorted({int(k.split(".")[1]) for k in sd_or_tree
+                         if k.startswith("blocks.")})
+        inner = {i: sorted({k.split(".")[2] for k in sd_or_tree
+                            if k.startswith(f"blocks.{i}.")})
+                 for i in blocks}
+    else:
+        blocks = sorted(int(k[len("block"):]) for k in sd_or_tree
+                        if k.startswith("block"))
+        inner = {i: sorted(sd_or_tree[f"block{i}"]) for i in blocks}
+    names = [("stem", "stem"), ("stem_bn", "stem_bn")]
+    for i in blocks:
+        names += [(f"blocks.{i}.{m}", f"block{i}/{m}") for m in inner[i]]
+    return names
+
+
+def _get(tree, path: str):
+    for part in path.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def resnet_params_from_jax(params, state) -> dict[str, torch.Tensor]:
+    """The JAX ResNet's ``(params, state)`` (numpy leaves) -> a ``ResNet``
+    state dict of f32 CPU tensors: conv kernels HWIO -> OIHW, the head's
+    ``[in, out]`` -> ``[out, in]``, BatchNorm ``scale``/``bias`` ->
+    ``weight``/``bias`` and its state ``mean``/``var`` ->
+    ``running_mean``/``running_var``."""
+    sd = {"head.weight": _t(np.asarray(params["head"]["kernel"]).T),
+          "head.bias": _t(params["head"]["bias"])}
+    for port, path in _resnet_names(params):
+        p = _get(params, path)
+        if "kernel" in p:
+            sd[f"{port}.weight"] = _t(np.asarray(p["kernel"]).transpose(
+                3, 2, 0, 1))
+            continue
+        sd[f"{port}.weight"], sd[f"{port}.bias"] = _norm_from_jax(p)
+        st = _get(state, path)
+        sd[f"{port}.running_mean"] = _t(st["mean"])
+        sd[f"{port}.running_var"] = _t(st["var"])
+    return sd
+
+
+def resnet_params_to_jax(state_dict) -> tuple[dict, dict]:
+    """A ``ResNet`` state dict (any device/dtype) -> the JAX ResNet's
+    ``(params, state)`` of f32 numpy arrays."""
+    sd = {k: np.array(_np(v)) for k, v in state_dict.items()}
+    params = {"head": {"kernel": np.ascontiguousarray(sd["head.weight"].T),
+                       "bias": sd["head.bias"]}}
+    state: dict = {}
+    for port, path in _resnet_names(sd):
+        *parents, leaf = path.split("/")
+        p, st = params, state
+        for part in parents:
+            p, st = p.setdefault(part, {}), st.setdefault(part, {})
+        if f"{port}.running_mean" not in sd:
+            p[leaf] = {"kernel": np.ascontiguousarray(
+                sd[f"{port}.weight"].transpose(2, 3, 1, 0))}
+            continue
+        p[leaf] = _norm_to_jax(sd, port)
+        st[leaf] = {"mean": sd[f"{port}.running_mean"],
+                    "var": sd[f"{port}.running_var"]}
+    return params, state
 
 
 def load_gpt2_params(model, tree):
@@ -209,12 +335,29 @@ def is_convnet(names) -> bool:
     return "conv1.weight" in names or "conv1" in names
 
 
+def model_kind(names) -> str:
+    """``convnet``, ``resnet``, ``bert`` or ``gpt2``: the model whose
+    parameters a state dict's (or a JAX params tree's) keys name."""
+    if is_convnet(names):
+        return "convnet"
+    if "stem.weight" in names or "stem" in names:
+        return "resnet"
+    if "mlm_ln.weight" in names or "mlm_ln" in names:
+        return "bert"
+    return "gpt2"
+
+
 def params_to_jax(state_dict, image_size=None) -> tuple[dict, dict]:
     """A port model's parameters and buffers -> the JAX package's
-    ``(params, model_state)`` trees: the ConvNet's, or GPT-2's (no model
-    state)."""
-    if is_convnet(state_dict):
+    ``(params, model_state)`` trees: the ConvNet's, a ResNet's, BERT's or
+    GPT-2's (BERT and GPT-2 have no model state)."""
+    kind = model_kind(state_dict)
+    if kind == "convnet":
         return convnet_params_to_jax(state_dict, image_size)
+    if kind == "resnet":
+        return resnet_params_to_jax(state_dict)
+    if kind == "bert":
+        return bert_params_to_jax(state_dict), {}
     return gpt2_params_to_jax(state_dict), {}
 
 
@@ -222,8 +365,13 @@ def params_from_jax(params, model_state, image_size=None
                     ) -> dict[str, torch.Tensor]:
     """The inverse of :func:`params_to_jax`: one state dict, parameters
     and buffers."""
-    if is_convnet(params):
+    kind = model_kind(params)
+    if kind == "convnet":
         return convnet_params_from_jax(params, model_state, image_size)
+    if kind == "resnet":
+        return resnet_params_from_jax(params, model_state)
+    if kind == "bert":
+        return bert_params_from_jax(params)
     return gpt2_params_from_jax(params)
 
 

@@ -1,5 +1,5 @@
 """Layers — port of ``distributed_compute_pytorch_tpu/models/layers.py``
-(the parts the GPT-2 and ConvNet paths use).
+(the parts the GPT-2, ConvNet, ResNet and BERT paths use).
 
 Each layer is an ``nn.Module`` whose parameters are allocated on the
 module's device (zeros until :meth:`init` or a weight load fills them).
@@ -115,31 +115,36 @@ class Embedding(nn.Module):
 
 class Conv2d(nn.Module):
     """2-D convolution ``nn.Conv2d`` (reference ``:79-119``) on NCHW maps
-    with an OIHW weight, VALID padding (torch's ``padding=0``), computed
-    in the activation dtype; init U(+-1/sqrt(fan_in)) for weight and
-    bias, torch's defaults."""
+    with an OIHW weight, computed in the activation dtype: ``padding``
+    pixels on each side of H and W (0 is the reference's VALID, the
+    ConvNet's; a ResNet's ``(k - 1) // 2`` pads symmetrically as its
+    explicit padding does), a bias unless ``use_bias=False``; init
+    U(+-1/sqrt(fan_in)) for weight and bias, torch's defaults."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int, stride: int = 1, *, device=None,
-                 dtype=torch.float32):
+                 kernel_size: int, stride: int = 1, *, padding: int = 0,
+                 use_bias: bool = True, device=None, dtype=torch.float32):
         super().__init__()
-        self.stride = stride
+        self.stride, self.padding = stride, padding
         self.fan_in = in_channels * kernel_size * kernel_size
         self.weight = nn.Parameter(torch.zeros(
             out_channels, in_channels, kernel_size, kernel_size,
             device=device, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(out_channels, device=device,
-                                             dtype=dtype))
+        self.bias = (nn.Parameter(torch.zeros(out_channels, device=device,
+                                              dtype=dtype))
+                     if use_bias else None)
 
     def init(self, generator: torch.Generator):
         bound = 1.0 / math.sqrt(self.fan_in)
         for p in (self.weight, self.bias):
-            _fill(p, torch.empty(p.shape).uniform_(-bound, bound,
-                                                   generator=generator))
+            if p is not None:
+                _fill(p, torch.empty(p.shape).uniform_(-bound, bound,
+                                                       generator=generator))
 
     def forward(self, x):
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                        stride=self.stride)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias,
+                        stride=self.stride, padding=self.padding)
 
 
 def max_pool2d(x, window: int = 2, stride: int | None = None,
@@ -150,9 +155,12 @@ def max_pool2d(x, window: int = 2, stride: int | None = None,
 
 
 class BatchNorm(nn.Module):
-    """``nn.BatchNorm1d`` (reference ``:162-234``) over every axis but the
-    last: momentum 0.1, eps 1e-5, f32 running stats (the buffers
-    ``running_mean`` and ``running_var``, torch's names).
+    """``nn.BatchNorm1d``/``nn.BatchNorm2d`` (reference ``:162-234``) over
+    every axis but ``channel_axis``: the last (the reference's own axis:
+    the ConvNet's ``[rows, features]``) or 1 (a ResNet's NCHW map, where
+    the reference's NHWC map has its channels last); momentum 0.1, eps
+    1e-5, f32 running stats (the buffers ``running_mean`` and
+    ``running_var``, torch's names).
 
     ``forward(x, train)`` returns ``(y, new_stats)``: in training the
     statistics of the batch, with the new running stats in ``new_stats``
@@ -164,12 +172,15 @@ class BatchNorm(nn.Module):
     the row count, all-reduced over the process group when there is one
     (``mesh.all_reduce_sum``, which carries the gradient back to every
     rank's rows): sync-BN over the global batch, as the reference's SPMD
-    program computes it, so ``n`` is the global row count."""
+    program computes it, so ``n`` is the global row count (pixels
+    included, for a map)."""
 
-    def __init__(self, num_features: int, *, momentum: float = 0.1,
-                 eps: float = 1e-5, device=None, dtype=torch.float32):
+    def __init__(self, num_features: int, *, channel_axis: int = -1,
+                 momentum: float = 0.1, eps: float = 1e-5, device=None,
+                 dtype=torch.float32):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.channel_axis = channel_axis
         self.weight = nn.Parameter(torch.ones(num_features, device=device,
                                               dtype=dtype))
         self.bias = nn.Parameter(torch.zeros(num_features, device=device,
@@ -188,17 +199,21 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x, train: bool = False):
+        ax = self.channel_axis % x.ndim
+        dims = tuple(d for d in range(x.ndim) if d != ax)
+        shape = [1] * x.ndim
+        shape[ax] = x.shape[ax]
         new_stats = None
         if train:
             # f64 sums: E[x^2] - E[x]^2 in f32 would cancel away a
             # feature whose mean is large against its spread
-            xf = x.reshape(-1, x.shape[-1]).double()
-            count = torch.full((1,), xf.shape[0], dtype=torch.float64,
-                               device=x.device)
-            sums = torch.cat([xf.sum(0), xf.square().sum(0), count])
+            xf = x.double()
+            count = torch.full((1,), x.numel() // x.shape[ax],
+                               dtype=torch.float64, device=x.device)
+            sums = torch.cat([xf.sum(dims), xf.square().sum(dims), count])
             if mesh.distributed():
                 sums = mesh.all_reduce_sum(sums)
-            f = x.shape[-1]
+            f = x.shape[ax]
             n = sums[-1]
             mean = sums[:f] / n
             var = (sums[f:2 * f] / n - mean.square()).clamp(min=0.0)
@@ -212,10 +227,10 @@ class BatchNorm(nn.Module):
                                + m * unbiased.detach()}
         else:
             mean, var = self.running_mean, self.running_var
-        inv = torch.rsqrt(var.to(x.dtype) + self.eps)
-        y = (x - mean.to(x.dtype)) * inv
-        return (y * self.weight.to(x.dtype) + self.bias.to(x.dtype),
-                new_stats)
+        inv = torch.rsqrt(var.to(x.dtype) + self.eps).view(shape)
+        y = (x - mean.to(x.dtype).view(shape)) * inv
+        return (y * self.weight.to(x.dtype).view(shape)
+                + self.bias.to(x.dtype).view(shape), new_stats)
 
 
 def dropout(x, rate: float, generator, train: bool,
@@ -265,15 +280,21 @@ def cross_entropy_with_logits(logits, targets, reduction: str = "mean"):
     return nll_loss(torch.log_softmax(logits, dim=-1), targets, reduction)
 
 
-def token_eval_metrics(per_tok_loss, correct, valid=None):
-    """Token-level eval sums (reference ``:355-379``, without the
-    per-token mask): ``per_tok_loss``/``correct`` ``[B, T']``; ``valid``
-    an optional float ``[B]`` sequence weight (0.0 for the feeder's
-    wraparound-padded rows). Returns ``loss_sum`` (f32), ``correct`` and
-    ``count`` (int32) device scalars."""
+def token_eval_metrics(per_tok_loss, correct, valid=None, token_mask=None):
+    """Token-level eval sums (reference ``:355-379``): ``per_tok_loss``/
+    ``correct`` ``[B, T']``; ``valid`` an optional float ``[B]`` sequence
+    weight (0.0 for the feeder's wraparound-padded rows); ``token_mask``
+    an optional ``[B, T]`` per-token weight (1 = a real token), cropped to
+    its last ``T'`` columns: a shifted causal loss's column j scores token
+    j + 1, an unshifted one (BERT's) uses it as it is. Returns
+    ``loss_sum`` (f32), ``correct`` and ``count`` (int32) device
+    scalars."""
     per_tok_loss = per_tok_loss.float()
     w = (torch.ones_like(per_tok_loss) if valid is None
          else valid.float()[:, None].expand_as(per_tok_loss))
+    if token_mask is not None:
+        shift = token_mask.shape[1] - per_tok_loss.shape[1]
+        w = w * token_mask[:, shift:].float()
     return {"loss_sum": (per_tok_loss * w).sum(),
             "correct": (correct.float() * w).sum().to(torch.int32),
             "count": w.sum().to(torch.int32)}

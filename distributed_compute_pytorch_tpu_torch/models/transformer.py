@@ -1,6 +1,6 @@
 """Transformer block — port of
-``distributed_compute_pytorch_tpu/models/transformer.py`` (the pre-LN
-causal block the GPT-2 serving path runs).
+``distributed_compute_pytorch_tpu/models/transformer.py``: the pre-LN
+causal block of GPT-2 and the post-LN bidirectional block of BERT.
 
 Fused QKV projection, multi-head attention through the dispatcher
 (``ops/attention.py::attention``: the flash kernels on CUDA, forward and
@@ -10,7 +10,8 @@ backward), tanh-GELU MLP. Two entry points, as in the reference:
 ``mlp_out``, as the reference places it; never on the attention
 probabilities) or the admission prefill, which captures each layer's K/V
 through ``kv_sink`` — and ``decode_step`` for one decode tick against the
-paged pool (serving) or the dense pair cache (generation).
+paged pool (serving) or the dense pair cache (generation); a
+non-causal or post-LN block has no decode.
 """
 
 from __future__ import annotations
@@ -64,14 +65,16 @@ def attention_decode_tick(block, x, cache, pos, *, num_heads: int,
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN transformer block with fused-QKV MHA and a tanh-GELU MLP."""
+    """Pre-LN (GPT-2) or post-LN (``pre_ln=False``, BERT) transformer
+    block with fused-QKV MHA and a tanh-GELU MLP."""
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int, *,
-                 dropout_rate: float = 0.0, causal: bool = True, device=None,
-                 dtype=None):
+                 dropout_rate: float = 0.0, causal: bool = True,
+                 pre_ln: bool = True, device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         self.d_model, self.num_heads, self.causal = d_model, num_heads, causal
+        self.pre_ln = pre_ln
         self.dropout_rate = dropout_rate
         self.ln1 = L.LayerNorm(d_model, **kw)
         self.qkv = L.Dense(d_model, 3 * d_model, **kw)
@@ -92,18 +95,21 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x, *, train: bool = False, generator=None,
                 kv_mask=None, kv_sink: list | None = None):
-        """The reference's ``apply`` (pre-LN branch, ``:251-264``) over a
-        whole ``[b, t, d]`` window. ``train`` with a ``generator`` (a
-        ``torch.Generator`` on ``x``'s device) applies dropout; without a
-        generator nothing is dropped, as the reference skips dropout
-        without an rng."""
+        """The reference's ``apply`` (``:251-271``) over a whole ``[b, t,
+        d]`` window: pre-LN ``x + attn(ln1(x))``, then ``+ mlp(ln2(x))``;
+        post-LN ``ln1(x + attn(x))``, then ``ln2(x + mlp(x))``. ``train``
+        with a ``generator`` (a ``torch.Generator`` on ``x``'s device)
+        applies dropout; without a generator nothing is dropped, as the
+        reference skips dropout without an rng. ``kv_mask``: optional
+        ``[b, t]`` key validity (nonzero = attend)."""
         train = train and generator is not None
-        x = x + attention_sublayer(self, self.ln1(x),
-                                   num_heads=self.num_heads,
-                                   causal=self.causal,
-                                   dropout_rate=self.dropout_rate,
-                                   generator=generator, train=train,
-                                   kv_mask=kv_mask, kv_sink=kv_sink)
+        kw = {"num_heads": self.num_heads, "causal": self.causal,
+              "dropout_rate": self.dropout_rate, "generator": generator,
+              "train": train, "kv_mask": kv_mask, "kv_sink": kv_sink}
+        if not self.pre_ln:
+            x = self.ln1(x + attention_sublayer(self, x, **kw))
+            return self.ln2(x + self._mlp(x, generator, train))
+        x = x + attention_sublayer(self, self.ln1(x), **kw)
         return x + self._mlp(self.ln2(x), generator, train)
 
     def decode_step(self, x, cache, pos, slot_mask=None):
@@ -113,8 +119,8 @@ class TransformerBlock(nn.Module):
         with its ``cache["scale"]``) in place and attends slots ``0..pos``
         minus those ``slot_mask`` (optional ``[B, T]``, dense cache only)
         refuses."""
-        if not self.causal:
-            raise ValueError("decode needs a causal block")
+        if not (self.causal and self.pre_ln):
+            raise ValueError("decode needs a causal pre-LN block")
         x, cache = attention_decode_tick(self, x, cache, pos,
                                          num_heads=self.num_heads,
                                          slot_mask=slot_mask)

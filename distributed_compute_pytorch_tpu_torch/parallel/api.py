@@ -49,9 +49,13 @@ def pick_strategy(mesh):
 def fsdp_units(model: nn.Module) -> list[tuple[str, list[str]]]:
     """The model's FSDP units, ``[(unit, [parameter names])]`` in
     ``named_parameters`` order within each: every block of a
-    ``blocks`` ``ModuleList`` (GPT-2's twelve) is a unit, and the other
-    parameters (the embeddings, positions and final LayerNorm) one more,
-    first; a model without blocks (the ConvNet) is one unit."""
+    ``blocks`` ``ModuleList`` is a unit, and the other parameters one
+    more, first. GPT-2's and BERT's twelve blocks (the rest: the
+    embeddings and the final or the MLM head's LayerNorms and dense
+    layer); a ResNet's residual blocks, 8 for ResNet-18 and 16 for
+    ResNet-50 (the rest: the stem, its BatchNorm and the head; the
+    BatchNorm running stats are buffers, never sharded). A model without
+    blocks (the ConvNet) is one unit."""
     names = [n for n, _ in model.named_parameters()]
     blocks = getattr(model, "blocks", None)
     if not isinstance(blocks, nn.ModuleList):

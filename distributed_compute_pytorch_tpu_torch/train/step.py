@@ -62,10 +62,22 @@ step updates the state in place where the reference donates it.
   replicated and ZeRO-1 updates reduce once, at the boundary (the
   reference's manual path); under FSDP each microbatch's backward
   reduce-scatters into the shard's gradient, which accumulates.
-- Dropout draws from one persistent ``torch.Generator`` on the model's
-  device, re-seeded before every update from ``(state.seed, state.step)``
-  (:func:`step_seed`), so a run is repeatable step for step and a resumed
-  run draws what the uninterrupted one would have drawn.
+- The loss: a model with a ``train_loss`` owns its objective (BERT's MLM
+  masking draws before its forward; reference ``:452-453``), called as
+  ``model.train_loss(x, y, generator=...) -> (loss, new_stats)``; any
+  other model's forward output goes to ``model.loss_fn(out, y)``.
+  Floating inputs are cast to ``compute_dtype`` first, in the train and
+  the eval step, as the reference's ``_cast`` does.
+- ``augment`` (``ops/augment.py::build_augment``): a ``(x, generator) ->
+  x`` transform of the cast train inputs, inside the step (and so inside
+  its CUDA graph), never in eval (reference ``:449-451``, ``:657-660``).
+- Every random draw of an update (the augment decisions, the MLM masks,
+  dropout) comes from one persistent ``torch.Generator`` on the model's
+  device, in that order, re-seeded before every update from
+  ``(state.seed, state.step)`` (:func:`step_seed`), so a run is
+  repeatable step for step and a resumed run draws what the
+  uninterrupted one would have drawn; under ``accum_steps`` each
+  microbatch draws its own from the stream in turn.
 - ``nonfinite_policy``: ``"raise"`` adds nothing to the step (the trainer
   aborts when its log-cadence loss read is not finite). ``"skip"`` puts
   the reference's guard (``_guarded``) into the step: ``ok = isfinite(loss)
@@ -116,6 +128,7 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
+from torch import nn
 from torch.func import functional_call
 
 from distributed_compute_pytorch_tpu_torch.core import mesh as mesh_lib
@@ -168,6 +181,18 @@ def cudnn_f32():
         c.allow_tf32, c.deterministic = before
 
 
+class _TrainLoss(nn.Module):
+    """``model.train_loss`` as a module's forward, so ``functional_call``
+    runs it over the step's parameters (keys under ``model.``)."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x, y, generator):
+        return self.model.train_loss(x, y, generator=generator)
+
+
 def _split(out):
     """A forward's ``(out, new_stats)``, or ``(out, {})`` for a model
     without state."""
@@ -216,7 +241,7 @@ def make_step_fns(model, tx, mesh=None, *, strategy=None,
                   shard_update: bool | None = None, compute_dtype=None,
                   accum_steps: int = 1, accum_dtype=None,
                   nonfinite_policy: str = "raise", sentinel: bool = False,
-                  _eager: bool = False):
+                  augment=None, _eager: bool = False):
     """Build ``(init_fn, train_step, eval_step)`` for ``model`` (on its own
     device) and the optimizer transformation ``tx``
     (``train/optim.py::build_optimizer``) over ``mesh``
@@ -301,6 +326,13 @@ def make_step_fns(model, tx, mesh=None, *, strategy=None,
             return params
         return {n: p.to(dtype) for n, p in params.items()}
 
+    def _cast_input(x):
+        if dtype is None or not x.is_floating_point():
+            return x
+        return x.to(dtype)
+
+    owner = _TrainLoss(model) if hasattr(model, "train_loss") else None
+
     def _compute_params(state):
         """The forward's parameters in the compute dtype: the masters
         cast, or FSDP's units gathered."""
@@ -326,10 +358,19 @@ def make_step_fns(model, tx, mesh=None, *, strategy=None,
 
     def _loss(state, stats, x, y):
         """The microbatch's loss and new model state, the forward reading
-        the model state ``stats``."""
+        the model state ``stats``: the inputs cast and augmented, then
+        the model's own ``train_loss`` or ``loss_fn`` of its forward."""
+        x = _cast_input(x)
+        if augment is not None:
+            x = augment(x, gen)
+        weights = {**_compute_params(state), **stats}
+        if owner is not None:
+            loss, new_stats = functional_call(
+                owner, {f"model.{k}": v for k, v in weights.items()},
+                (x, y, gen))
+            return loss, {**stats, **new_stats}
         out, new_stats = _split(functional_call(
-            model, {**_compute_params(state), **stats}, (x,),
-            {"train": True, "generator": gen}))
+            model, weights, (x,), {"train": True, "generator": gen}))
         return model.loss_fn(out, y), {**stats, **new_stats}
 
     def _mean_over_ranks(loss):
@@ -446,7 +487,8 @@ def make_step_fns(model, tx, mesh=None, *, strategy=None,
         parallelism the sums are this rank's: the caller all-reduces them
         once a pass."""
         out, _ = _split(functional_call(
-            model, {**_compute_params(state), **state.model_state}, (x,)))
+            model, {**_compute_params(state), **state.model_state},
+            (_cast_input(x),)))
         metrics = model.eval_metrics(out, y, valid=valid)
         if acc is not None:
             metrics = {k: metrics[k] + acc[k] for k in metrics}

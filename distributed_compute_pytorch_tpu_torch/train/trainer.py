@@ -52,6 +52,7 @@ from distributed_compute_pytorch_tpu_torch.data.datasets import load_dataset
 from distributed_compute_pytorch_tpu_torch.data.loader import DeviceFeeder
 from distributed_compute_pytorch_tpu_torch.device import resolve_device
 from distributed_compute_pytorch_tpu_torch.models.registry import build_model
+from distributed_compute_pytorch_tpu_torch.ops.augment import build_augment
 from distributed_compute_pytorch_tpu_torch.parallel.api import (
     DataParallel, pick_strategy)
 from distributed_compute_pytorch_tpu_torch.parallel.collectives import dp_size
@@ -112,12 +113,20 @@ class Trainer:
             total_steps=steps * config.epochs,
             weight_decay=config.weight_decay, clip_norm=config.clip_norm,
             warmup_steps=config.warmup_steps)
+        augment = None
+        if config.augment not in (None, "none"):
+            if self.train_data.inputs.ndim == 4:   # [B, H, W, C] images
+                augment = build_augment(config.augment)
+            else:
+                log0(f"WARNING: --augment {config.augment} needs image "
+                     f"(rank-4) inputs; {config.dataset!r} provides rank "
+                     f"{self.train_data.inputs.ndim} — ignored")
         self.init_fn, self.train_step, self.eval_step = make_step_fns(
             self.model, self.tx, self.mesh, strategy=self.strategy,
             shard_update=self._resolve_shard_update(),
             compute_dtype=config.compute_dtype,
             accum_steps=self.accum,
-            nonfinite_policy=config.nonfinite_policy)
+            nonfinite_policy=config.nonfinite_policy, augment=augment)
         self.state = self.init_fn(config.seed)
         self.logger = MetricLogger()
         # nonfinite_policy=skip: the per-step skip flags (device scalars)
@@ -196,19 +205,21 @@ class Trainer:
 
     def _model_kwargs(self) -> dict:
         """Dataset-derived model sizing (reference ``_model_kwargs``,
-        ``:356-372``): the ConvNet's classes, channels and image size;
-        synthetic and tiny GPT-2 runs take the vocab and the window from
-        the data."""
+        ``:356-372``): a ConvNet's or a ResNet's classes and channels (and
+        the ConvNet's image size) from the data; BERT and GPT-2 take the
+        vocab and the window from synthetic or tiny data."""
         cfg = self.config
         inputs = self.train_data.inputs
-        if cfg.model == "convnet":
-            return {"num_classes": self.train_data.num_classes,
-                    "in_channels": int(inputs.shape[-1]),
-                    "image_size": tuple(int(d) for d in inputs.shape[1:3])}
-        kw: dict = {"preset": cfg.model_preset}
+        if cfg.model in ("convnet", "resnet18", "resnet50"):
+            kw = {"num_classes": self.train_data.num_classes,
+                  "in_channels": int(inputs.shape[-1])}
+            if cfg.model == "convnet":
+                kw["image_size"] = tuple(int(d) for d in inputs.shape[1:3])
+            return kw
+        kw = {"preset": cfg.model_preset}
         if cfg.model_preset == "tiny" or cfg.dataset.startswith("synthetic"):
             kw["vocab_size"] = max(self.train_data.num_classes, 4)
-            kw["max_seq_len"] = int(self.train_data.inputs.shape[1])
+            kw["max_seq_len"] = int(inputs.shape[1])
         if cfg.num_layers is not None:
             kw["num_layers"] = cfg.num_layers
         return kw

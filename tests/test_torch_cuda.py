@@ -21,6 +21,8 @@ The bf16 flash kernels are also held row by row, relative to each row's
 own magnitude (``ROW_TOL``).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -1581,3 +1583,105 @@ def test_one_rank_gpt2_captured_step_matches_ungrouped(dev, layout):
         del train_step, state
     finally:
         mesh.shutdown_distributed()
+
+
+# ---- slice 13: BERT's non-causal masked attention, ResNet and BERT steps -
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,d", [(4, 2, 512, 64), (3, 2, 200, 64),
+                                     (2, 3, 77, 80)])
+def test_noncausal_masked_flash_kernels_match_plain(dev, dtype, b, h, t, d):
+    """BERT's attention: the three flash kernels non-causal under a
+    ragged key mask (every row keeps 1/4 to all of its keys), on
+    split-head views of one fused QKV, against their plain versions; the
+    pad keys' dk and dv are exactly zero; a second launch gives the same
+    bits."""
+    from distributed_compute_pytorch_tpu_torch.ops import attention as A
+    from distributed_compute_pytorch_tpu_torch.ops import flash_attention as F
+    gen = torch.Generator().manual_seed(13)
+    qkv = _randn(gen, b, t, 3 * h * d, dtype=dtype, dev=dev)
+    q, k, v = (A.split_heads(x, h) for x in qkv.split(h * d, dim=-1))
+    do = _randn(gen, b, t, h, d, dtype=dtype, dev=dev).transpose(1, 2)
+    lengths = torch.randint(t // 4, t + 1, (b,), generator=gen)
+    lengths[0] = t
+    mask = (torch.arange(t)[None] < lengths[:, None]).float().to(dev)
+    kw = {"causal": False, "kv_mask": mask}
+    o, lse = F.flash_fwd(q, k, v, **kw)
+    want, lse_want = F.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    got = (F.flash_bwd_dq(*args, **kw), *F.flash_bwd_dkv(*args, **kw))
+    again = (F.flash_fwd(q, k, v, **kw)[0], F.flash_bwd_dq(*args, **kw),
+             *F.flash_bwd_dkv(*args, **kw))
+    grads = F.flash_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _rel_err(o, want) <= TOL[dtype]
+    torch.testing.assert_close(lse, lse_want, atol=2e-5, rtol=2e-5)
+    for name, g, w in zip(("o", "dq", "dk", "dv"), (o, *got),
+                          (want, *grads)):
+        assert torch.isfinite(g).all(), name
+        assert _rel_err(g, w) <= TOL[dtype], name
+        if dtype == torch.bfloat16:
+            assert _row_err(g, w) <= ROW_TOL, name
+    for g, g2 in zip((o, *got), again):
+        assert torch.equal(g, g2)
+    pad = mask == 0
+    for g in got[1:]:
+        assert (g.transpose(1, 2)[pad] == 0).all()
+
+
+def _ladder_step(dev, name, _eager):
+    """A captured (or eager) step of a ResNet-18 at width 16 with
+    ``flip-crop`` on 32 x 32 images (SGD), or of BERT-tiny with a pad mask
+    and dropout 0.1 (``adamw_fused``, bf16)."""
+    import dataclasses
+
+    from distributed_compute_pytorch_tpu_torch.models.bert import (
+        BertConfig, BertMLM)
+    from distributed_compute_pytorch_tpu_torch.models.resnet import ResNet
+    from distributed_compute_pytorch_tpu_torch.ops.augment import (
+        build_augment)
+    from distributed_compute_pytorch_tpu_torch.train.optim import (
+        build_optimizer)
+    from distributed_compute_pytorch_tpu_torch.train.step import (
+        make_step_fns)
+    rng = np.random.default_rng(13)
+    if name == "resnet18":
+        model = ResNet.build("resnet18", width=16, device=dev)
+        init_fn, train_step, _ = make_step_fns(
+            model, build_optimizer("sgd", 0.05, gamma=0.7,
+                                   steps_per_epoch=2),
+            augment=build_augment("flip-crop"), _eager=_eager)
+        x = torch.from_numpy(rng.normal(size=(16, 32, 32, 3)).astype(
+            np.float32)).to(dev)
+        y = torch.from_numpy(rng.integers(0, 10, 16)).to(dev)
+        return train_step, init_fn(0), x, y
+    cfg = dataclasses.replace(BertConfig.tiny(), pad_token_id=0,
+                              dropout_rate=0.1)
+    model = BertMLM(cfg, device=dev)
+    init_fn, train_step, _ = make_step_fns(
+        model, build_optimizer("adamw_fused", 1e-3),
+        compute_dtype="bfloat16", _eager=_eager)
+    toks = rng.integers(2, cfg.vocab_size, (8, 64))
+    toks[np.arange(64)[None] >= rng.integers(16, 65, 8)[:, None]] = 0
+    x = torch.from_numpy(toks).to(dev)
+    return train_step, init_fn(0), x, x
+
+
+@pytest.mark.parametrize("name", ["resnet18", "bert"])
+def test_captured_ladder_step_matches_eager(dev, name):
+    """Six updates captured and eager: bit-identical losses, parameters,
+    slots, count and (ResNet) BatchNorm running stats, the augment and MLM
+    draws inside the graph from its registered generator."""
+    runs = {}
+    for eager in (True, False):
+        train_step, state, x, y = _ladder_step(dev, name, eager)
+        losses = [train_step(state, x, y)[1]["loss"] for _ in range(6)]
+        torch.cuda.synchronize()
+        runs[eager] = ([v.item() for v in losses], _convnet_bits(state))
+        if not eager:
+            assert train_step.stats["graph_replays"] == 4
+    assert runs[True][0] == runs[False][0]
+    assert all(math.isfinite(v) for v in runs[True][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[True][1],
+                                                 runs[False][1]))

@@ -83,6 +83,20 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
                               *flag]) == 0
 
 
+@pytest.mark.parametrize("name, kw", [("resnet18", {}), ("resnet50", {}),
+                                      ("bert", {"preset": "tiny"})])
+def test_ladder_models_need_cuda_unless_cpu_is_asked(name, kw):
+    """BASELINE's ResNet and BERT rungs follow the device rule: built
+    without a card and without ``device="cpu"``, they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from distributed_compute_pytorch_tpu_torch.models.registry import (
+        build_model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(name, **kw)
+    assert build_model(name, device="cpu", **kw).device.type == "cpu"
+
+
 def test_cuda_kernels_refuse_cpu_tensors():
     """The CUDA launchers never run a plain version: a CPU tensor raises
     (the dispatchers, not the launchers, pick the plain path)."""

@@ -6,6 +6,7 @@ card.
 
     python3 train_probe.py step [--root DIR] [--optimizer adamw]
     python3 train_probe.py fit [--root DIR] [--optimizer adamw_fused]
+    python3 train_probe.py cudnn
 
 ``step`` runs the train cell of ``chip_smoke.py`` (GPT-2-small, bf16
 compute over f32 masters, dropout 0.1, one 8 x 1024 batch of numpy seed
@@ -24,6 +25,18 @@ tokens, for which three updates of the step fit on the card, for each
 mode: a binary search whose every trial (``trial``) runs in a process of
 its own, so that a trial out of memory leaves nothing behind. A trial
 reports its peak memory allocated and reserved.
+
+``cudnn`` prices the port's cuDNN settings: the train and eval steps run
+cuDNN in f32 with its deterministic algorithms
+(``train/step.py::cudnn_f32``), which is what makes the captured step
+repeat the eager one bit for bit. It times the captured step of
+ResNet-50 (bf16 over f32 masters, one batch of 64 224 x 224 x 3 images,
+SGD) and of ResNet-18 (f32, one batch of 128 32 x 32 x 3 images, SGD),
+each ``--runs`` times in turns with those settings ("port") and with
+cuDNN left to PyTorch's defaults plus its autotuner ("default":
+``deterministic`` off, ``benchmark`` on, TF32 allowed), by replacing
+``cudnn_f32`` in this process only; a run's step time is its median
+after the first 3 of 20 updates. The port has no switch for this.
 
 ``--root`` imports the port from the checkout at DIR instead of this
 one. Kernels are built from that checkout's sources into its own
@@ -236,9 +249,77 @@ def fit_probe(args) -> dict:
     return rec
 
 
+def _cudnn_run(torch, root, name, dtype, batch, size, flags) -> float:
+    """One run of 20 captured updates of ``name`` under ``flags``
+    ("port" or "default"); its median step ms after the first 3."""
+    import contextlib
+    import numpy as np
+    sys.path.insert(0, os.path.abspath(root))
+    from distributed_compute_pytorch_tpu_torch.models.resnet import ResNet
+    from distributed_compute_pytorch_tpu_torch.train import step as step_mod
+    from distributed_compute_pytorch_tpu_torch.train.optim import (
+        build_optimizer)
+
+    @contextlib.contextmanager
+    def defaults():
+        c = torch.backends.cudnn
+        before = (c.allow_tf32, c.deterministic, c.benchmark)
+        c.allow_tf32, c.deterministic, c.benchmark = True, False, True
+        try:
+            yield
+        finally:
+            c.allow_tf32, c.deterministic, c.benchmark = before
+    port_flags = step_mod.cudnn_f32
+    if flags == "default":
+        step_mod.cudnn_f32 = defaults
+    try:
+        classes = 1000 if name == "resnet50" else 10
+        model = ResNet.build(name, num_classes=classes).init(
+            torch.Generator().manual_seed(0))
+        init_fn, train_step, _ = step_mod.make_step_fns(
+            model, build_optimizer("sgd", 0.1, steps_per_epoch=STEPS),
+            compute_dtype=dtype)
+        state = init_fn(None)
+    finally:
+        step_mod.cudnn_f32 = port_flags
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(batch, size, size, 3)).astype(
+        np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, classes, batch)).cuda()
+    times = []
+    for _ in range(STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = train_step(state, x, y)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return _median(times[SKIP:])
+
+
+def cudnn_probe(args) -> dict:
+    import torch
+    out = {}
+    for name, dtype, batch, size in (("resnet50", "bfloat16", 64, 224),
+                                     ("resnet18", "float32", 128, 32)):
+        runs = {"port": [], "default": []}
+        for _ in range(args.runs):
+            for flags in ("port", "default"):
+                runs[flags].append(_cudnn_run(torch, args.root, name,
+                                              dtype, batch, size, flags))
+                torch.cuda.empty_cache()
+        out[name] = {"compute_dtype": dtype, "batch": [batch, size, size, 3],
+                     "step_ms": runs,
+                     "samples_per_s": {k: [batch / (ms / 1e3) for ms in v]
+                                       for k, v in runs.items()}}
+    return {"probe": "cudnn", "flags": {
+        "port": "train/step.py::cudnn_f32: TF32 off, deterministic on",
+        "default": "TF32 allowed, deterministic off, benchmark on"},
+        **out}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("probe", choices=("step", "fit", "trial"))
+    ap.add_argument("probe", choices=("step", "fit", "trial", "cudnn"))
     ap.add_argument("--root", default=os.path.dirname(
         os.path.abspath(__file__)))
     ap.add_argument("--optimizer", default="adamw_fused",
@@ -258,7 +339,8 @@ def main() -> int:
     if args.probe == "trial":
         print(json.dumps(trial(args)), flush=True)
         return 0
-    rec = step_probe(args) if args.probe == "step" else fit_probe(args)
+    rec = {"step": step_probe, "fit": fit_probe,
+           "cudnn": cudnn_probe}[args.probe](args)
     rec["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
