@@ -216,6 +216,27 @@ imports nothing of JAX. Phases, one JSON line each:
    bf16 and f32) and times ``fused_adamw`` on a ZeRO-1 rank's shard at
    world 4 beside ``torch.optim.AdamW(fused=True)`` on one tensor of that
    size.
+22. the Llama cells, last: the default ``LlamaConfig`` (12 x 768, 12
+   query heads over 4 kv heads, d_ff 2048, vocab 32000, untied head;
+   random weights from seed 0). ``llama_serve`` (bf16 and f32),
+   ``llama_serve_int8``, ``llama_generate`` and ``llama_generate_int8``
+   (bf16) are phases 4, 6 and 8 on Llama, with their gates (``serve_phase``
+   and the rest take a ``phase`` name): the decode ticks at G = 3 query
+   heads a kv head, the admission's ``flash_fwd`` on K/V repeated to 12
+   heads, the pool and the caches a third of GPT-2's. ``llama_profile``
+   holds phases 5 and 7's gates on the captured programs alone, each on a
+   quarter of the work (8 of the 32 requests, float and int8 pools; 32 new
+   tokens a prompt, float and int8 caches): launches measured against
+   the device, one ``cudaGraphLaunch`` a replay, busy. ``llama_vs_gpt2``
+   sets the headline numbers beside GPT-2's from this call.
+   ``llama_train`` (phase 9's cell on Llama, captured and eager, in two
+   runs, not four, bit-identical, no generator
+   prologue in a replay: the step draws nothing) with the elementwise
+   pieces timed alone (``llama_pieces``), ``llama_readout`` (the readout
+   GEMMs alone at vocab 50257, 50304 and 32000) and ``llama_parity``
+   (phase 12 on two Llama layers). The kernels phase (3) adds the Llama
+   shapes: ``kv_pool_insert`` into a 4-head pool, the four fused ticks at
+   4 kv heads (``*_llama``) and ``fused_adamw`` over Llama's 111 leaves.
 
 When a profiled run's counters and the device's kernel events disagree
 (``counted_profile``), the profile's port kernel events (name, start,
@@ -228,7 +249,8 @@ generate run for the generation kernels, from the profiled captured int8
 runs of serve_int8 and generate_int8 for the int8 forms, each measured
 against the device's kernel events; from train_profile's captured run
 for the training kernels, measured the same way; the BERT-shape entries
-``*_bert`` from the bert phase's profiled captured run), the
+``*_bert`` from the bert phase's profiled captured run; the Llama-shape
+entries ``*_llama`` from the Llama cells' profiled captured runs), the
 raw ``nvidia-smi`` line, and last the ``{"ok": true, ...}`` line. Any
 failed check exits non-zero before the ``ok`` line. Roofline bounds use
 the H100 SXM data-sheet peaks: 3.35 TB/s HBM, 989 TFLOP/s bf16 (tensor
@@ -304,6 +326,9 @@ GEN_SAMPLED_NEW = 32
 # largest magnitude, and the losses, relative
 GRAD_TOL, LOSS_TOL = 1e-3, 1e-4
 ROOT = Path(__file__).resolve().parent
+GPT2_NAME = "gpt2-small (12 x 768, vocab 50257), random weights seed 0"
+LLAMA_NAME = ("llama (12 x 768, 12 query heads over 4 kv heads, d_ff 2048, "
+              "vocab 32000, untied head), random weights seed 0")
 # a spin kernel of this many clock cycles (about 50 ms on an H100) holds
 # the stream while the host enqueues the timed calls
 SPIN_CYCLES = 100_000_000
@@ -491,12 +516,13 @@ def check_flash(torch, np, FA, dtype, dt):
     return out
 
 
-def check_insert(torch, CU, dtype, dt):
-    """Pool [2, 1025, 12, 16, 64]: a decode tick's 16 rows (two parked
-    rows on the trash block) and one admission wave's flattened scatter
-    (16 rows x 256 window, pad tokens aimed out of range)."""
+def check_insert(torch, CU, dtype, dt, H=12):
+    """Pool [2, 1025, H, 16, 64] (``H`` kv heads: GPT-2's 12, Llama's 4):
+    a decode tick's 16 rows (two parked rows on the trash block) and one
+    admission wave's flattened scatter (16 rows x 256 window, pad tokens
+    aimed out of range)."""
     gen = torch.Generator().manual_seed(2)
-    P, H, bt, hd = 1025, 12, 16, 64
+    P, bt, hd = 1025, 16, 64
     copies = [torch.randn(2, P, H, bt, hd, generator=gen).to("cuda", dtype)
               for _ in range(3)]
     out = {}
@@ -784,19 +810,23 @@ def check_flash_bwd(torch, np, FA, dtype, dt):
     return res
 
 
-def check_adamw(torch, FAW, GPT2, GPT2Config):
-    """Every leaf of GPT-2-small (148 leaves, 124,439,808 f32 parameters)
-    laid out by ``FusedAdamW.init`` as flat buffers; three steps of the
-    kernel against ``fused_adamw_plain`` on the same buffers, the step
-    scalars computed from the device count (which the kernel advances);
-    timed with the scalars of the count then reached."""
-    model = GPT2(GPT2Config.small()).init(torch.Generator().manual_seed(5))
+def check_adamw(torch, FAW, model, n_leaves=148, shard=True,
+                what="GPT-2-small"):
+    """Every leaf of ``model`` (GPT-2-small: 148 leaves, 124,439,808 f32
+    parameters; Llama: 111 leaves, 124,668,672) laid out by
+    ``FusedAdamW.init`` as flat buffers; three steps of the kernel against
+    ``fused_adamw_plain`` on the same buffers, the step scalars computed
+    from the device count (which the kernel advances); timed with the
+    scalars of the count then reached; with ``shard``, also on a ZeRO-1
+    rank's shard at world 4."""
+    model = model.init(torch.Generator().manual_seed(5))
     params = dict(model.named_parameters())
     tx = FAW.fused_adamw(1e-3, weight_decay=0.01)
     state = tx.init(params)
     mu, nu = state.slots["mu"], state.slots["nu"]
     n = state.params.numel()
-    require(len(params) == 148, f"adamw: {len(params)} leaves, want 148")
+    require(len(params) == n_leaves, f"adamw: {len(params)} leaves, want "
+                                     f"{n_leaves}")
     gen = torch.Generator(device="cuda").manual_seed(5)
     want = [state.params.clone(), mu.clone(), nu.clone()]
     grads = {k: p.grad for k, p in params.items()}
@@ -830,6 +860,15 @@ def check_adamw(torch, FAW, GPT2, GPT2Config):
     opt = torch.optim.AdamW(leaves, lr=1e-3, weight_decay=0.01, fused=True)
     lib_ms = time_ms(torch, [opt.step], iters=20)
     b_ms, b_by = bound(28.0 * n, 15.0 * n, "f32")
+    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+           "library": f"torch.optim.AdamW(fused=True).step() over the "
+                      f"{len(params)} leaves",
+           "params": n, "leaves": len(params),
+           "shape": f"flat f32 [{n}] ({what}, {len(params)} leaves), 3 "
+                    f"steps"}
+    if not shard:
+        return out
     # a ZeRO-1 rank's shard at world 4 (the flat buffer is padded to a
     # multiple of 4 x 4 elements, which 124,439,808 is): the kernel on
     # views of the buffers' first quarter beside one library call on one
@@ -846,18 +885,12 @@ def check_adamw(torch, FAW, GPT2, GPT2Config):
     shard_plain_ms = time_ms(torch, [lambda: FAW.fused_adamw_plain(
         *shard, sc, ok, **tx.hyper)], iters=10)
     del leaf, shard_opt
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "library": "torch.optim.AdamW(fused=True).step() over the 148 "
-                       "leaves",
-            "shard_elements": ns, "shard_ms": shard_ms,
+    return {**out, "shard_elements": ns, "shard_ms": shard_ms,
             "shard_bound_ms": bound(28.0 * ns, 15.0 * ns, "f32")[0],
             "shard_library_ms": shard_lib_ms,
             "shard_plain_ms": shard_plain_ms,
             "shard_library": "torch.optim.AdamW(fused=True).step() over "
-                             "one tensor of the shard's size",
-            "params": n, "leaves": len(params),
-            "shape": f"flat f32 [{n}] (GPT-2-small, 148 leaves), 3 steps"}
+                             "one tensor of the shard's size"}
 
 
 def gen_batch(np, vocab: int):
@@ -1388,11 +1421,16 @@ FUSED_LIBRARY = ("none: no single PyTorch call writes a slot and attends the "
                  "cache in one call")
 
 
-def tick_rows(torch, A, gen, B, H, hd, dtype):
-    """q, k, v ``[B, H, 1, hd]`` as the model hands them to a decode tick:
-    split-head views of one fused QKV projection."""
-    qkv = torch.randn(B, 1, 3 * H * hd, generator=gen).to("cuda", dtype)
-    return tuple(A.split_heads(x, H) for x in qkv.split(H * hd, dim=-1))
+def tick_rows(torch, A, gen, B, H, hd, dtype, hk=None):
+    """q ``[B, H, 1, hd]`` and k, v ``[B, hk, 1, hd]`` (``hk`` default
+    ``H``) as a model hands them to a decode tick: split-head views of one
+    projection's output (GPT-2's fused QKV; Llama's three projections give
+    the same strides)."""
+    hk = H if hk is None else hk
+    qkv = torch.randn(B, 1, (H + 2 * hk) * hd, generator=gen).to("cuda",
+                                                                 dtype)
+    q, k, v = qkv.split([H * hd, hk * hd, hk * hd], dim=-1)
+    return A.split_heads(q, H), A.split_heads(k, hk), A.split_heads(v, hk)
 
 
 def fused_cache(torch, gen, dtype, q8, *shape, copies: int = 3):
@@ -1442,16 +1480,18 @@ def check_fused(torch, name, dt, fused, pair, plain, cache, live):
             "pair_bit_identical": True, "cache_exact": True}
 
 
-def paged_tick(torch, A, CU, DA, gen, dtype, q8, P, H, bt, hd, table, pos):
-    """Three pools ``[2, P, H, bt, hd]`` (int8 with ``q8``) and three sets
-    of tick rows, and the serving tick's four forms on one of each (``c``
-    a pool and its scales, ``r`` rows): the fused launch (at ``p``, by
-    default ``pos``), the unfused kernel pair (the block ids and offsets
-    made once, outside the timing), the read-only read and the plain
-    version."""
+def paged_tick(torch, A, CU, DA, gen, dtype, q8, P, H, bt, hd, table, pos,
+               hk=None):
+    """Three pools ``[2, P, hk, bt, hd]`` (int8 with ``q8``; ``hk`` default
+    ``H``) and three sets of tick rows (``H`` query heads), and the serving tick's four forms on
+    one of each (``c`` a pool and its scales, ``r`` rows): the fused launch
+    (at ``p``, by default ``pos``), the unfused kernel pair (the block ids
+    and offsets made once, outside the timing), the read-only read and the
+    plain version."""
     B, nb = table.shape
-    caches = fused_cache(torch, gen, dtype, q8, 2, P, H, bt, hd)
-    rows = [tick_rows(torch, A, gen, B, H, hd, dtype) for _ in caches]
+    hk = H if hk is None else hk
+    caches = fused_cache(torch, gen, dtype, q8, 2, P, hk, bt, hd)
+    rows = [tick_rows(torch, A, gen, B, H, hd, dtype, hk) for _ in caches]
     slot = torch.clamp(pos // bt, max=nb - 1).long()
     blk = table.gather(1, slot[:, None])[:, 0].contiguous()
     off = (pos % bt).contiguous()
@@ -1473,13 +1513,14 @@ def paged_tick(torch, A, CU, DA, gen, dtype, q8, P, H, bt, hd, table, pos):
     return caches, rows, (fused, pair, read, plain)
 
 
-def check_decode_write(torch, np, A, CU, DA, dtype, dt, q8):
+def check_decode_write(torch, np, A, CU, DA, dtype, dt, q8, hk=12):
     """The serving tick fused, ``paged_decode_write`` (``_q8`` with
     ``q8``), at ``check_decode``'s shapes (16 rows x 12 heads x hd 64 over
-    bt 16, nb 64 tables into a [2, 1025, 12, 16, 64] pool, ragged
-    positions, a full-horizon row) with row 9 parked on an all-trash table
-    past the horizon (its output left out), the rows split-head views of a
-    fused QKV: ``check_fused``; timed beside the two launches it replaces
+    bt 16, nb 64 tables into a [2, 1025, hk, 16, 64] pool, ragged
+    positions, a full-horizon row; ``hk`` 12 is GPT-2's, 4 Llama's: G = 3
+    query heads a kv head) with row 9 parked on an all-trash table past
+    the horizon (its output left out), the rows split-head views of one
+    projection: ``check_fused``; timed beside the two launches it replaces
     (``kv_pool_insert`` and the read-only ``paged_decode``, back to back,
     the block ids and offsets made outside the timing), the read-only
     read alone, its bound and its plain version; its grid and its fixed
@@ -1496,7 +1537,7 @@ def check_decode_write(torch, np, A, CU, DA, dtype, dt, q8):
     table = torch.from_numpy(table.astype(np.int32)).cuda()
     pos_t = torch.from_numpy(pos.astype(np.int32)).cuda()
     caches, rows, (fused, pair, read, plain) = paged_tick(
-        torch, A, CU, DA, gen, dtype, q8, P, H, bt, hd, table, pos_t)
+        torch, A, CU, DA, gen, dtype, q8, P, H, bt, hd, table, pos_t, hk)
     name = "paged_decode_write" + ("_q8" if q8 else "")
     out = check_fused(torch, name, dt, fused, pair, plain, caches[0], live)
     keys = int((np.minimum(pos, nb * bt - 1) + 1).sum())
@@ -1507,8 +1548,8 @@ def check_decode_write(torch, np, A, CU, DA, dtype, dt, q8):
     # read once, the table entries and positions), plus the write's: the
     # float rows read once, the cache rows (and scales) written once, the
     # table entry of each written slot
-    nbytes = (esz * 2 * B * H * hd + 2 * keys * H * row + 4 * live_blocks
-              + 4 * B) + (2 * B * H * (hd * esz + row) + 4 * B)
+    nbytes = (esz * 2 * B * H * hd + 2 * keys * hk * row + 4 * live_blocks
+              + 4 * B) + (2 * B * hk * (hd * esz + row) + 4 * B)
     b_ms, b_by = bound(nbytes, 4.0 * hd * keys * H, dt)
     cyc = list(zip(caches, rows))
     ms = time_ms(torch, [(lambda c=c, r=r: fused(c, r)) for c, r in cyc])
@@ -1527,22 +1568,25 @@ def check_decode_write(torch, np, A, CU, DA, dtype, dt, q8):
                            kv_scale=caches[0][1]),
         library_ms=None, library=FUSED_LIBRARY,
         fuses=CU.REPLACES,
-        shape=(f"q, k, v [{B}, {H}, 1, {hd}] fused-QKV views, "
-               f"{'int8 ' if q8 else ''}pool [2, {P}, {H}, {bt}, {hd}]"
+        shape=(f"q [{B}, {H}, 1, {hd}], k, v [{B}, {hk}, 1, {hd}] "
+               f"split-head views, {'int8 ' if q8 else ''}pool "
+               f"[2, {P}, {hk}, {bt}, {hd}]"
                f"{' + f32 scales' if q8 else ''}, tables [{B}, {nb}], "
                f"{keys} live keys, row 9 parked past the horizon"))
     return out
 
 
-def check_dense_decode_write(torch, np, A, CU, DA, dtype, dt, lens, q8):
+def check_dense_decode_write(torch, np, A, CU, DA, dtype, dt, lens, q8,
+                             hk=12):
     """The generation tick fused, ``dense_decode_write`` (``_q8`` with
-    ``q8``), at ``check_dense_decode``'s shapes: q, k, v ``[16, 12, 1,
-    64]`` split-head views over the pair cache ``[2, 16, 12, T0 + 128,
-    64]`` with the left-pad slot mask, at the lockstep slot T0 + 64 and at
-    per-row slots: ``check_fused``; timed at the tick's own call
-    (lockstep, masked) beside the two launches it replaces (``kv_insert``
-    and the read-only ``dense_decode``), the read-only read alone, its
-    bound and its plain version; its grid and its fixed cost (slot 0)."""
+    ``q8``), at ``check_dense_decode``'s shapes: q ``[16, 12, 1, 64]``, k,
+    v ``[16, hk, 1, 64]`` split-head views over the pair cache ``[2, 16,
+    hk, T0 + 128, 64]`` (``hk`` 12 GPT-2's, 4 Llama's) with the left-pad
+    slot mask, at the lockstep slot T0 + 64 and at per-row slots:
+    ``check_fused``; timed at the tick's own call (lockstep, masked)
+    beside the two launches it replaces (``kv_insert`` and the read-only
+    ``dense_decode``), the read-only read alone, its bound and its plain
+    version; its grid and its fixed cost (slot 0)."""
     gen = torch.Generator().manual_seed(62 + q8)
     T0 = int(lens.max())
     B, H, hd, T = GEN_ROWS, 12, 64, T0 + GEN_NEW
@@ -1553,8 +1597,8 @@ def check_dense_decode_write(torch, np, A, CU, DA, dtype, dt, lens, q8):
     per_row = torch.randint(T0, T, (B,), generator=gen, dtype=torch.int32)
     per_row[0] = T - 1
     per_row = per_row.cuda()
-    caches = fused_cache(torch, gen, dtype, q8, 2, B, H, T, hd)
-    rows = [tick_rows(torch, A, gen, B, H, hd, dtype) for _ in caches]
+    caches = fused_cache(torch, gen, dtype, q8, 2, B, hk, T, hd)
+    rows = [tick_rows(torch, A, gen, B, H, hd, dtype, hk) for _ in caches]
     name = "dense_decode_write" + ("_q8" if q8 else "")
     out = {}
     for p in (per_row, slots[pos]):
@@ -1585,8 +1629,8 @@ def check_dense_decode_write(torch, np, A, CU, DA, dtype, dt, lens, q8):
     keys = int(mask_np[:, :pos + 1].sum())
     esz = rows[0][0].element_size()
     row = hd * esz if not q8 else hd + 4
-    nbytes = (esz * 2 * B * H * hd + 2 * keys * H * row + B * T + 4) \
-        + 2 * B * H * (hd * esz + row)
+    nbytes = (esz * 2 * B * H * hd + 2 * keys * hk * row + B * T + 4) \
+        + 2 * B * hk * (hd * esz + row)
     b_ms, b_by = bound(nbytes, 4.0 * hd * keys * H, dt)
     cyc = list(zip(caches, rows))
     ms = time_ms(torch, [(lambda c=c, r=r: fused(c, r)) for c, r in cyc])
@@ -1603,8 +1647,9 @@ def check_dense_decode_write(torch, np, A, CU, DA, dtype, dt, lens, q8):
         grid=DA.split_plan(rows[0][0], caches[0][0], kv_scale=caches[0][1]),
         library_ms=None, library=FUSED_LIBRARY,
         fuses=CU.KV_INSERT_REPLACES,
-        shape=(f"q, k, v [{B}, {H}, 1, {hd}] fused-QKV views, "
-               f"{'int8 ' if q8 else ''}cache [2, {B}, {H}, {T}, {hd}]"
+        shape=(f"q [{B}, {H}, 1, {hd}], k, v [{B}, {hk}, 1, {hd}] "
+               f"split-head views, {'int8 ' if q8 else ''}cache "
+               f"[2, {B}, {hk}, {T}, {hd}]"
                f"{' + f32 scales' if q8 else ''}, lockstep pos {pos}, "
                f"left-pad slot mask: {keys} of {B * (pos + 1)} slots live; "
                f"also per-row pos"))
@@ -1615,7 +1660,9 @@ def check_dense_decode_write(torch, np, A, CU, DA, dtype, dt, lens, q8):
 
 def reference_logits(torch, A, model, tokens, q8_from=None):
     """One full-sequence forward with plain dense attention: the model's
-    own layers, no kernel. With ``q8_from``, the query rows from that
+    own layers (GPT-2's, or Llama's with its K/V repeated to the query
+    heads in the plain math), no kernel. With ``q8_from``, the query rows
+    from that
     position on (those an int8 cache served) attend every key's K and V
     quantized and dequantized in f32 (``quantize_kv``; the per-row scales
     commute out of the int8 reads exactly so), the rows before it the float
@@ -1623,10 +1670,19 @@ def reference_logits(torch, A, model, tokens, q8_from=None):
     from distributed_compute_pytorch_tpu_torch.utils.quantize import (
         quantize_kv)
     x = model.embed(tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
     for blk in model.blocks:
-        h = blk.ln1(x)
-        q, k, v = (A.split_heads(z, blk.num_heads)
-                   for z in blk.qkv(h).split(h.shape[-1], dim=-1))
+        llama = hasattr(blk, "attn_norm")
+        if llama:
+            # Llama: roped q and k at kv-head width, then each kv head
+            # repeated to its G query heads (head h reads kv head h // G)
+            q, k, v = blk.qkv(blk.attn_norm(x), positions)
+            G = q.shape[1] // k.shape[1]
+            k, v = (z.repeat_interleave(G, dim=1) for z in (k, v))
+        else:
+            h = blk.ln1(x)
+            q, k, v = (A.split_heads(z, blk.num_heads)
+                       for z in blk.qkv(h).split(h.shape[-1], dim=-1))
         o = A.dot_product_attention(q, k, v, causal=True)
         if q8_from is not None:
             (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
@@ -1634,6 +1690,9 @@ def reference_logits(torch, A, model, tokens, q8_from=None):
                                          vq.float() * vs, causal=True)
             o = torch.cat([o[:, :, :q8_from], o8[:, :, q8_from:].to(o.dtype)],
                           dim=2)
+        if llama:
+            x = blk.mlp(x + blk.o(A.merge_heads(o)))
+            continue
         x = x + blk.attn_out(A.merge_heads(o))
         x = x + blk._mlp(blk.ln2(x))
     return model.readout(x)
@@ -1717,7 +1776,8 @@ def check_replays(cb, what, mode, ticks0, replays0):
     return replays
 
 
-def serve_phase(torch, np, mods, model, dt):
+def serve_phase(torch, np, mods, model, dt, phase="serve",
+                model_name=None):
     """The 32 requests through a captured-segment batcher and an eager one
     in turns (``TURNS``), each after a warm-up (the graph batcher captures
     there). Every run is counted (every kernel's launches as the schedule
@@ -1727,7 +1787,8 @@ def serve_phase(torch, np, mods, model, dt):
     a segment; every run's tokens must equal the first's bit for bit; the
     first run's tokens are checked teacher-forced. The headline speed is
     the median of the graph runs; each run's allocator calls
-    (:func:`alloc_stats`) are recorded beside its wall."""
+    (:func:`alloc_stats`) are recorded beside its wall. ``phase`` and
+    ``model_name`` name the record (the Llama cell's)."""
     A, FA, CU, DA, serve = mods
     reqs = serve_requests(np, serve, model.config.vocab_size)
     cbs = {mode: batcher(serve, model, mode=mode) for mode in TURNS[:2]}
@@ -1760,24 +1821,24 @@ def serve_phase(torch, np, mods, model, dt):
         want = {"flash_fwd": LAYERS * waves, "kv_pool_insert": LAYERS * waves,
                 "paged_decode_write": LAYERS * ticks, "paged_decode": 0}
         require(all(launches[k] > 0 for k in SERVE_PATH),
-                f"serve {dt} {mode}: a kernel of the path never launched: "
+                f"{phase} {dt} {mode}: a kernel of the path never launched: "
                 f"{launches}")
-        require(launches == want, f"serve {dt} {mode}: launches {launches} "
+        require(launches == want, f"{phase} {dt} {mode}: launches {launches} "
                                   f"!= the schedule's {want}")
         # bf16 on GPT-2's aligned fused-QKV views: every forward launch on
         # the tensor cores; f32 none
         want_tc = launches["flash_fwd"] if dt == "bf16" else 0
-        require(tc == want_tc, f"serve {dt}: flash_fwd tensor-core launches "
+        require(tc == want_tc, f"{phase} {dt}: flash_fwd tensor-core launches "
                                f"{tc}, want {want_tc}")
-        replays = check_replays(cb, f"serve {dt}", mode, ticks0, replays0)
+        replays = check_replays(cb, f"{phase} {dt}", mode, ticks0, replays0)
         require(cb.last_block_leaks == 0 and cb.last_slot_leaks == 0,
-                f"serve {dt} {mode}: leaked blocks/slots")
+                f"{phase} {dt} {mode}: leaked blocks/slots")
         ttft = sorted(t for t in cb.last_ttft_s if t is not None)
         ttfts[mode].append(sum(ttft) / len(ttft))
         ttft_stats = (sum(ttft) / len(ttft), ttft[len(ttft) // 2], ttft[-1])
         counted.setdefault(mode, (launches, tc))
         if outs is not None:
-            require(got == outs, f"serve {dt}: the {mode} run (turn {run}) "
+            require(got == outs, f"{phase} {dt}: the {mode} run (turn {run}) "
                                  f"served other tokens than the graph's "
                                  f"first run")
             if mode == "graph":
@@ -1786,10 +1847,10 @@ def serve_phase(torch, np, mods, model, dt):
         outs, first = got, {"ticks": ticks, "waves": waves,
                             "ttft": [ttft_stats], "replays": replays}
     require(all(len(o) == r.max_new for o, r in zip(outs, reqs)),
-            f"serve {dt}: a request returned fewer than max_new tokens")
+            f"{phase} {dt}: a request returned fewer than max_new tokens")
     gaps = served_gaps(torch, A, model, reqs, outs, q8=False)
     worst = gaps.max().item()
-    require(worst <= MARGIN[dt], f"serve {dt}: a served token's logit is "
+    require(worst <= MARGIN[dt], f"{phase} {dt}: a served token's logit is "
                                  f"{worst} below the teacher-forced max "
                                  f"(margin {MARGIN[dt]})")
     ticks = first["ticks"]
@@ -1798,8 +1859,8 @@ def serve_phase(torch, np, mods, model, dt):
     ttft = [statistics.median(col) for col in zip(*first["ttft"])]
     launches, tc = counted["eager"]
     return {
-        "phase": "serve", "dtype": dt, "model": "gpt2-small (12 x 768, "
-        "vocab 50257), random weights seed 0", "requests": len(reqs),
+        "phase": phase, "dtype": dt, "model": model_name or GPT2_NAME,
+        "requests": len(reqs),
         "slots": 16, "segment": 16, "kv_block_tokens": 16, "t_max": 1024,
         "prompt_buf": 256,
         "headline": "wall_s, decode_tokens_per_s, wall_ms_per_tick and the "
@@ -1890,7 +1951,8 @@ def label(kv: str, mode: str) -> str:
     return kv if mode == "graph" else f"{kv}_eager"
 
 
-def serve_int8_phase(torch, np, mods, model, float_outs):
+def serve_int8_phase(torch, np, mods, model, float_outs, phase="serve_int8",
+                     model_name=None, profiles=True):
     """The serve phase's 32 requests, bf16 compute, on the int8 pool
     (``kv_dtype="int8"``), captured and eager, beside the bf16 float pool
     captured, in turns (``RUNS8``). Every run, and each batcher's warm-up
@@ -1900,9 +1962,9 @@ def serve_int8_phase(torch, np, mods, model, float_outs):
     schedule implies, no float-form launch) and the graph's tokens checked
     teacher-forced, decoded rows against quantized K/V; every int8 run must
     serve the graph's first int8 tokens, every float run the serve phase's.
-    Then one profiled run of each batcher gives its device time, ops a
-    tick, host calls and measured launches (``profiled_serve``), and each
-    unprofiled run's busy share."""
+    Then, with ``profiles``, one profiled run of each batcher gives its
+    device time, ops a tick, host calls and measured launches
+    (``profiled_serve``), and each unprofiled run's busy share."""
     A, FA, CU, DA, serve = mods
     reqs = serve_requests(np, serve, model.config.vocab_size)
     cbs = {label(kv, mode): batcher(serve, model, kv, mode)
@@ -1910,9 +1972,8 @@ def serve_int8_phase(torch, np, mods, model, float_outs):
     for cb in cbs.values():
         serve_under_sync_check(torch, cb, reqs[:2])   # warm-up, capture
     walls = {name: [] for name in cbs}
-    rec = {"phase": "serve_int8", "dtype": "bf16", "requests": len(reqs),
-           "model": "gpt2-small (12 x 768, vocab 50257), random weights "
-                    "seed 0", "slots": 16, "segment": 16,
+    rec = {"phase": phase, "dtype": "bf16", "requests": len(reqs),
+           "model": model_name or GPT2_NAME, "slots": 16, "segment": 16,
            "kv_block_tokens": 16, "t_max": 1024, "prompt_buf": 256,
            "runs": [label(kv, mode) for kv, mode in RUNS8],
            "sync_debug": {"mode": "error", "window": "every unprofiled "
@@ -1932,15 +1993,15 @@ def serve_int8_phase(torch, np, mods, model, float_outs):
         torch.cuda.synchronize()
         walls[name].append(time.monotonic() - t0)
         launches = q8_counts(FA, CU, DA)
-        replays[name] = check_replays(cb, f"serve_int8 {kv}", mode, ticks0,
+        replays[name] = check_replays(cb, f"{phase} {kv}", mode, ticks0,
                                       replays0)
         require(cb.last_block_leaks == 0 and cb.last_slot_leaks == 0,
-                f"serve_int8 {name}: leaked blocks/slots")
+                f"{phase} {name}: leaked blocks/slots")
         require(all(len(o) == r.max_new for o, r in zip(outs, reqs)),
-                f"serve_int8 {name}: a request returned fewer than max_new "
+                f"{phase} {name}: a request returned fewer than max_new "
                 f"tokens")
         if kv == "bf16":
-            require(outs == float_outs, "serve_int8: the float pool's "
+            require(outs == float_outs, f"{phase}: the float pool's "
                                         "tokens changed under the sync "
                                         "check or between runs")
             continue
@@ -1952,10 +2013,10 @@ def serve_int8_phase(torch, np, mods, model, float_outs):
             want.update(flash_fwd=LAYERS * waves,
                         kv_pool_insert_q8=LAYERS * waves,
                         paged_decode_write_q8=LAYERS * ticks)
-            require(launches == want, f"serve_int8 {mode}: launches "
+            require(launches == want, f"{phase} {mode}: launches "
                                       f"{launches} != the schedule's {want}")
         if int8_outs is not None:
-            require(outs == int8_outs, f"serve_int8: the {mode} int8 run "
+            require(outs == int8_outs, f"{phase}: the {mode} int8 run "
                                        f"served other tokens than the "
                                        f"graph's first int8 run")
             continue
@@ -1963,7 +2024,7 @@ def serve_int8_phase(torch, np, mods, model, float_outs):
         gaps = served_gaps(torch, A, model, reqs, outs, q8=True)
         worst = gaps.max().item()
         require(worst <= MARGIN["bf16"],
-                f"serve_int8: a served token's logit is {worst} below the "
+                f"{phase}: a served token's logit is {worst} below the "
                 f"teacher-forced max over quantized K/V (margin "
                 f"{MARGIN['bf16']})")
         same = sum(int(a == b) for o, f in zip(outs, float_outs)
@@ -1982,24 +2043,25 @@ def serve_int8_phase(torch, np, mods, model, float_outs):
                                     if cbs[name]._graph}
     new_tokens = sum(r.max_new for r in reqs)
     summaries = {}
-    for name, cb in cbs.items():
+    for name, cb in (cbs.items() if profiles else ()):
         prof, wall_prof, counts, ticks = profiled_serve(
-            torch, (FA, CU, DA), cb, reqs, f"serve_int8 profile {name}",
+            torch, (FA, CU, DA), cb, reqs, f"{phase} profile {name}",
             q8=name.startswith("int8"), tc=True)
         summaries[name] = profile_summary(torch, prof, wall_prof, counts,
                                           ticks, ticks // cb.S, "segment",
                                           walls[name])
-    for kv, eager in (("bf16", None), ("int8", summaries["int8_eager"])):
-        check_host_calls(f"serve_int8 {kv}", summaries[kv], eager,
-                         summaries[kv]["segments"], cbs[kv].S)
-    for name, summary in summaries.items():
-        ticks = summary["ticks"]
-        rec[f"{name}_profile"] = summary
+    for kv, eager in (("bf16", None), ("int8", summaries.get("int8_eager"))):
+        if summaries:
+            check_host_calls(f"{phase} {kv}", summaries[kv], eager,
+                             summaries[kv]["segments"], cbs[kv].S)
+    for name in cbs:
         rec[f"{name}_wall_s"] = walls[name]
         rec[f"{name}_decode_tokens_per_s"] = [new_tokens / w
                                               for w in walls[name]]
         rec[f"{name}_wall_ms_per_tick"] = [1e3 * w / ticks
                                            for w in walls[name]]
+    for name, summary in summaries.items():
+        rec[f"{name}_profile"] = summary
         rec[f"{name}_device_ms"] = summary["device_ms"]
         rec[f"{name}_device_busy_share"] = summary["device_busy_share"]
         rec[f"{name}_device_ops_per_tick"] = summary["device_ops_per_tick"]
@@ -2014,7 +2076,7 @@ def serve_int8_phase(torch, np, mods, model, float_outs):
 # file is named otherwise
 EXACT = ("kv_pool_insert", "cache_insert", "kv_insert", "kv_insert_rows",
          "kv_pool_insert_q8", "cache_insert_q8", "kv_insert_q8",
-         "kv_insert_rows_q8")
+         "kv_insert_rows_q8", "kv_pool_insert_llama")
 # per-kernel fields the kernels line carries where a check records them:
 # the flash kernels' rate, share of their bound, path and row errors; the
 # flash forward at the training shape and its lse
@@ -2034,7 +2096,12 @@ SOURCES = {"cache_insert": "kv_insert", "kv_insert_rows": "kv_insert",
            "dense_decode_write": "dense_decode",
            "dense_decode_write_q8": "dense_decode",
            "flash_fwd_bert": "flash_fwd", "flash_bwd_dq_bert": "flash_bwd_dq",
-           "flash_bwd_dkv_bert": "flash_bwd_dkv"}
+           "flash_bwd_dkv_bert": "flash_bwd_dkv",
+           "kv_pool_insert_llama": "kv_pool_insert",
+           "paged_decode_write_llama": "paged_decode",
+           "paged_decode_write_q8_llama": "paged_decode",
+           "dense_decode_write_llama": "dense_decode",
+           "dense_decode_write_q8_llama": "dense_decode"}
 # profiler groups: the int8 reads share their float forms' kernel templates
 # (``paged_decode_kernel<T, signed char, ...>``), and so do the fused ticks
 # (``paged_decode_write_kernel<...>``); the int8 writes have kernels of
@@ -2246,6 +2313,7 @@ class ProfileWindow:
             e.time_range.start >= start if e.device_type == cpu
             else e.id not in primer)]
         recorded = {e.id for e in events if e.device_type != cpu}
+        self._averages = None
         self.primer_launches = len(primer)
         self.primer_lost = len(primer - recorded)
         captures, begun = [], None
@@ -2277,11 +2345,14 @@ class ProfileWindow:
         return self._events
 
     def key_averages(self):
-        from torch.autograd.profiler_util import FunctionEventAvg
-        stats: dict = {}
-        for e in self._events:
-            stats.setdefault(e.key, FunctionEventAvg()).add(e)
-        return list(stats.values())
+        """The run's events averaged by key, computed once a profile."""
+        if self._averages is None:
+            from torch.autograd.profiler_util import FunctionEventAvg
+            stats: dict = {}
+            for e in self._events:
+                stats.setdefault(e.key, FunctionEventAvg()).add(e)
+            self._averages = list(stats.values())
+        return self._averages
 
     def export_chrome_trace(self, path):
         self.prof.export_chrome_trace(path)
@@ -2521,7 +2592,8 @@ def check_gen_stats(fn, what, mode):
     return fn.stats["capture_ms"]
 
 
-def generate_phase(torch, np, infer, mods, model, dt):
+def generate_phase(torch, np, infer, mods, model, dt, phase="generate",
+                   model_name=None):
     """The 16-prompt left-padded batch, greedy, with the captured tick and
     with the eager loop in turns (``TURNS``), after a 2-token warm-up; the
     first token's (prefill's) time taken alone. Every run is counted (the
@@ -2565,38 +2637,38 @@ def generate_phase(torch, np, infer, mods, model, dt):
         launches = gen_counts(FA, CU, DA)
         want = {k: 0 for k in launches}
         want.update(flash_fwd=LAYERS, dense_decode_write=LAYERS * ticks)
-        require(launches == want, f"generate {dt} {mode}: launches "
+        require(launches == want, f"{phase} {dt} {mode}: launches "
                                   f"{launches} != the schedule's {want}")
         tc = FA.tc_launches
         want_tc = LAYERS if dt == "bf16" else 0
-        require(tc == want_tc, f"generate {dt}: flash_fwd tensor-core "
+        require(tc == want_tc, f"{phase} {dt}: flash_fwd tensor-core "
                                f"launches {tc}, want {want_tc}")
-        ms = check_gen_stats(fns[mode], f"generate {dt}", mode)
+        ms = check_gen_stats(fns[mode], f"{phase} {dt}", mode)
         if ms is not None:
             capture_ms.append(ms)
         counted.setdefault(mode, (launches, tc))
         got = got.cpu()
         if out is not None:
-            require(torch.equal(got, out), f"generate {dt}: the {mode} run "
+            require(torch.equal(got, out), f"{phase} {dt}: the {mode} run "
                                            f"(turn {run}) gave other tokens "
                                            f"than the graph's first run")
             continue
         out, peak = got, torch.cuda.max_memory_allocated()
     require(tuple(out.shape) == (GEN_ROWS, T0 + GEN_NEW)
             and torch.equal(out[:, :T0], prompt.cpu()),
-            f"generate {dt}: output {tuple(out.shape)} does not extend the "
+            f"{phase} {dt}: output {tuple(out.shape)} does not extend the "
             f"prompt")
     gaps, _ = teacher_forced_gaps(torch, A, model, lens, prompt_np, out)
     worst = gaps.max().item()
-    require(worst <= MARGIN[dt], f"generate {dt}: a generated token's logit "
+    require(worst <= MARGIN[dt], f"{phase} {dt}: a generated token's logit "
                                  f"is {worst} below the teacher-forced max "
                                  f"(margin {MARGIN[dt]})")
     new_tokens = GEN_ROWS * GEN_NEW
     wall = statistics.median(walls["graph"])
     launches, tc = counted["eager"]
     return {
-        "phase": "generate", "dtype": dt, "model": "gpt2-small (12 x 768, "
-        "vocab 50257), random weights seed 0", "rows": GEN_ROWS,
+        "phase": phase, "dtype": dt, "model": model_name or GPT2_NAME,
+        "rows": GEN_ROWS,
         "prompt_lengths": [int(n) for n in lens], "T0": T0,
         "t_max": T0 + GEN_NEW, "new_per_row": GEN_NEW, "greedy": True,
         "headline": "wall_s, new_tokens_per_s and ms_per_tick: the median "
@@ -2666,7 +2738,9 @@ def sampled_phase(torch, np, infer, A, model, batch):
                 (a[:, T0:] != greedy[:, T0:T0 + n]).sum())}
 
 
-def generate_int8_phase(torch, np, infer, mods, model, float_out):
+def generate_int8_phase(torch, np, infer, mods, model, float_out,
+                        phase="generate_int8", model_name=None,
+                        profiles=True):
     """The generate phase's 16 left-padded prompts, bf16, with the int8 KV
     cache (``kv_quant=True``), captured and eager, beside the float cache
     captured, in turns (``RUNS8``): every int8 run's launch counts
@@ -2674,8 +2748,8 @@ def generate_int8_phase(torch, np, infer, mods, model, float_out):
     every int8 run's tokens equal to the captured first int8 run's and
     those checked teacher-forced with the rows past the prompt reading
     quantized K/V, every float run's the generate phase's; both caches'
-    bytes; one profiled run of the int8 cache captured and eager, its
-    launches measured (``profiled_generate``)."""
+    bytes; with ``profiles``, one profiled run of the int8 cache captured
+    and eager, its launches measured (``profiled_generate``)."""
     A, FA, CU, DA = mods
     lens, prompt_np, mask_np = gen_batch(np, model.config.vocab_size)
     prompt = torch.from_numpy(prompt_np).cuda()
@@ -2685,7 +2759,8 @@ def generate_int8_phase(torch, np, infer, mods, model, float_out):
     fns = {label(kv, mode): fn for kv in ("bf16", "int8")
            for mode, fn in gen_fns(infer, model, kv == "int8").items()}
     walls = {label(kv, mode): [] for kv, mode in RUNS8}
-    rec = {"phase": "generate_int8", "dtype": "bf16", "rows": GEN_ROWS,
+    rec = {"phase": phase, "dtype": "bf16",
+           "model": model_name or GPT2_NAME, "rows": GEN_ROWS,
            "T0": T0, "t_max": T0 + GEN_NEW, "new_per_row": GEN_NEW,
            "greedy": True, "runs": [label(kv, mode) for kv, mode in RUNS8]}
     ticks = GEN_NEW - 1
@@ -2698,21 +2773,21 @@ def generate_int8_phase(torch, np, infer, mods, model, float_out):
         out = fns[name](prompt, prompt_mask=mask)
         torch.cuda.synchronize()
         walls[name].append(time.perf_counter() - t0)
-        ms = check_gen_stats(fns[name], f"generate_int8 {kv}", mode)
+        ms = check_gen_stats(fns[name], f"{phase} {kv}", mode)
         if ms is not None:
             capture_ms.setdefault(name, []).append(ms)
         out = out.cpu()
         if kv == "bf16":
-            require(torch.equal(out, float_out), "generate_int8: the float "
+            require(torch.equal(out, float_out), f"{phase}: the float "
                                                  "cache's tokens changed")
             continue
         launches = q8_counts(FA, CU, DA)
         want = {k: 0 for k in launches}
         want.update(flash_fwd=LAYERS, dense_decode_write_q8=LAYERS * ticks)
-        require(launches == want, f"generate_int8 {mode}: launches "
+        require(launches == want, f"{phase} {mode}: launches "
                                   f"{launches} != the schedule's {want}")
         if int8_out is not None:
-            require(torch.equal(out, int8_out), f"generate_int8: the {mode} "
+            require(torch.equal(out, int8_out), f"{phase}: the {mode} "
                                                 f"int8 run gave other tokens "
                                                 f"than the graph's first")
             continue
@@ -2721,7 +2796,7 @@ def generate_int8_phase(torch, np, infer, mods, model, float_out):
                                       q8=True)
         worst = gaps.max().item()
         require(worst <= MARGIN["bf16"],
-                f"generate_int8: a generated token's logit is {worst} below "
+                f"{phase}: a generated token's logit is {worst} below "
                 f"the teacher-forced max over quantized K/V (margin "
                 f"{MARGIN['bf16']})")
         rec.update(launches={k: n for k, n in launches.items() if n},
@@ -2733,10 +2808,12 @@ def generate_int8_phase(torch, np, infer, mods, model, float_out):
                        .item()))
     summaries = {name: profile_summary(torch, *profiled_generate(
         torch, (FA, CU, DA), lambda: fns[name](prompt, prompt_mask=mask),
-        f"generate_int8 profile {name}", q8=True), ticks, ticks, "tick",
-        walls[name]) for name in ("int8", "int8_eager")}
-    check_host_calls("generate_int8", summaries["int8"],
-                     summaries["int8_eager"], ticks - 1, 1)
+        f"{phase} profile {name}", q8=True), ticks, ticks, "tick",
+        walls[name]) for name in (("int8", "int8_eager") if profiles
+                                  else ())}
+    if profiles:
+        check_host_calls(phase, summaries["int8"], summaries["int8_eager"],
+                         ticks - 1, 1)
     hk, hd = model.kv_cache_spec()
     slots = 2 * GEN_ROWS * hk * (T0 + GEN_NEW) * LAYERS
     rec.update(
@@ -2751,15 +2828,16 @@ def generate_int8_phase(torch, np, infer, mods, model, float_out):
     return rec
 
 
-def profiled_generate(torch, counters, fn, what, q8):
-    """``fn()``, a bf16 generate call, under :func:`counted_profile`, held
-    to its schedule: the prefill's 12 tensor-core ``flash_fwd`` launches
-    and the fused tick (its int8 form where ``q8``) 12 a tick."""
+def profiled_generate(torch, counters, fn, what, q8, new=GEN_NEW):
+    """``fn()``, a bf16 generate call of ``new`` tokens, under
+    :func:`counted_profile`, held to its schedule: the prefill's 12
+    tensor-core ``flash_fwd`` launches and the fused tick (its int8 form
+    where ``q8``) 12 a tick."""
     sfx = "_q8" if q8 else ""
     return counted_profile(torch, counters, fn, what, {
         "flash_fwd": LAYERS, "flash_fwd_tc": LAYERS,
-        "dense_decode_write" + sfx: LAYERS * (GEN_NEW - 1)},
-        waves={"prefill_calls": 1, "ticks": GEN_NEW - 1})
+        "dense_decode_write" + sfx: LAYERS * (new - 1)},
+        waves={"prefill_calls": 1, "ticks": new - 1})
 
 
 def generate_profile_phase(torch, counters, fns, batch, walls):
@@ -2927,14 +3005,16 @@ def train_run(torch, FA, FAW, setup, mode, what, steps=TRAIN_STEPS,
 
 
 def train_profile(torch, FA, FAW, setup, mode, what, tc: bool,
-                  steps=TRAIN_PROFILE_STEPS, per_step=TRAIN_PER_STEP):
+                  steps=TRAIN_PROFILE_STEPS, per_step=TRAIN_PER_STEP,
+                  fills=RNG_PROLOGUE_FILLS):
     """``steps`` more updates of ``setup`` under the profiler, every
     counter zeroed just before: the counters must equal ``steps`` x
     ``per_step`` (and, ``tc``, every flash launch on the tensor
     cores) and the port's kernel events the device ran. Host calls: in the
     captured mode one ``cudaGraphLaunch`` a step, each inside a replay
-    span, and no kernel launch call inside one; the eager mode makes no
-    graph launch. Returns ``(prof, wall_s, launches, host)``."""
+    span, and no kernel launch call inside one but the generator
+    prologue's ``fills`` (0 for a step that draws nothing); the eager mode
+    makes no graph launch. Returns ``(prof, wall_s, launches, host)``."""
     _, _, train_step, state, x = setup
 
     def run():
@@ -2965,13 +3045,13 @@ def train_profile(torch, FA, FAW, setup, mode, what, tc: bool,
         # generator that the graph draws from (two fill_ kernels: its
         # seed and offset, copied into the graph's device state); none
         # of the step's own kernels
-        fills = host["ops_in_replays"].get("aten::fill_", 0)
-        require(host["kernel_launches_in_replays"] == fills
-                == RNG_PROLOGUE_FILLS * steps,
+        filled = host["ops_in_replays"].get("aten::fill_", 0)
+        require(host["kernel_launches_in_replays"] == filled
+                == fills * steps,
                 f"{what}: {host['kernel_launches_in_replays']} kernel "
-                f"launch calls inside the replays, {fills} aten::fill_, "
-                f"want the generator prologue's {RNG_PROLOGUE_FILLS} a "
-                f"replay and nothing else: {host['ops_in_replays']}")
+                f"launch calls inside the replays, {filled} aten::fill_, "
+                f"want the generator prologue's {fills} a replay and "
+                f"nothing else: {host['ops_in_replays']}")
     else:
         require(host["graph_launches"] == 0 and host["replays"] == 0,
                 f"{what}: the eager run launched graphs: {host}")
@@ -3185,8 +3265,10 @@ def train_ddp_phase(torch, np, tm, mesh, FSDP, FA, FAW, GPT2Config, base,
             ref["median_step_ms"], "layouts": layouts}
 
 
-def parity_phase(torch, np, tm, A, FA, FAW, GPT2Config):
-    """f32, dropout 0, two layers at full width. One step's gradients and
+def parity_phase(torch, np, tm, A, FA, FAW, cfg, phase="train_parity"):
+    """f32, ``cfg``: two layers at full width (GPT-2's with dropout 0, or
+    Llama's: its dK/dV come back through the repeat of K/V to the query
+    heads). One step's gradients and
     five steps' losses of the kernel path (the captured step: the first
     update eager, then a capture and replays) against the plain path: the
     model's own layers with dense attention under autograd, and
@@ -3194,9 +3276,6 @@ def parity_phase(torch, np, tm, A, FA, FAW, GPT2Config):
     captured run goes on to 20 updates, and an eager run of 20 from the
     same weights must give bit-identical losses, parameters, moments and
     count."""
-    import dataclasses
-    cfg = dataclasses.replace(GPT2Config.small(), num_layers=PARITY_LAYERS,
-                              dropout_rate=0.0)
     sd = tm[0](cfg).init(torch.Generator().manual_seed(0)).state_dict()
     setup = train_setup(torch, np, tm, cfg, sd, mode="graph",
                         compute_dtype=None)
@@ -3231,17 +3310,17 @@ def parity_phase(torch, np, tm, A, FA, FAW, GPT2Config):
                 for dst, src in zip((p, mu[n], nu[n]), new):
                     dst.copy_(src)
     launches, tc = train_counts(FA, FAW), tc_counts(FA)
-    require(not any(tc.values()), f"train_parity: f32 took the tensor-core "
+    require(not any(tc.values()), f"{phase}: f32 took the tensor-core "
                                   f"flash kernels: {tc}")
     worst = max(grad_errs, key=grad_errs.get)
     require(grad_errs[worst] <= GRAD_TOL,
-            f"train_parity: gradient of {worst} off by "
+            f"{phase}: gradient of {worst} off by "
             f"{grad_errs[worst]} of its max (> {GRAD_TOL})")
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
-    require(loss_err <= LOSS_TOL, f"train_parity: losses {losses_k} vs "
+    require(loss_err <= LOSS_TOL, f"{phase}: losses {losses_k} vs "
                                   f"plain {losses_p}")
     require(all(n > 0 for n in launches.values()),
-            f"train_parity: a kernel never launched: {launches}")
+            f"{phase}: a kernel never launched: {launches}")
     del ref, ref_params, mu, nu
     # the rest of 20 updates captured, then 20 eager from the same weights
     graph_losses = losses_k + [float(train_step(state, x, x)[1]["loss"])
@@ -3255,15 +3334,15 @@ def parity_phase(torch, np, tm, A, FA, FAW, GPT2Config):
     eager_losses = [float(eager[2](eager[3], x, x)[1]["loss"])
                     for _ in range(TRAIN_STEPS)]
     require(eager_losses == graph_losses,
-            f"train_parity: captured losses {graph_losses} != eager "
+            f"{phase}: captured losses {graph_losses} != eager "
             f"{eager_losses}")
     require(same_bits(torch, state_bits(eager[3]), graph_bits),
-            f"train_parity: parameters, moments or count after "
+            f"{phase}: parameters, moments or count after "
             f"{TRAIN_STEPS} steps differ, captured against eager")
     require((stats["eager_steps"], stats["graph_captures"],
              stats["graph_replays"]) == (1, 1, TRAIN_STEPS - 1),
-            f"train_parity: captured step stats {stats}")
-    return {"phase": "train_parity", "dtype": "f32", "layers": PARITY_LAYERS,
+            f"{phase}: captured step stats {stats}")
+    return {"phase": phase, "dtype": "f32", "layers": PARITY_LAYERS,
             "batch": [TRAIN_BATCH, TRAIN_T], "steps": PARITY_STEPS,
             "losses": losses_k, "plain_losses": losses_p,
             "loss_rel_err": loss_err, "loss_tol": LOSS_TOL,
@@ -3276,6 +3355,342 @@ def parity_phase(torch, np, tm, A, FA, FAW, GPT2Config):
             "captured_losses": graph_losses, "capture_ms":
                 stats["capture_ms"][0]}
 
+
+# ---- Llama (slice 14) -------------------------------------------------------
+
+# Llama's kv heads: the decode kernels read G = 12 / 4 = 3 query heads a kv
+# head
+LLAMA_KV_HEADS = 4
+# the elementwise pieces of a Llama train step timed alone at the train
+# shape, forward and backward, and how many run a step: RMSNorm twice a
+# block and once before the head; RoPE on q and k, the SwiGLU product and
+# the repeat of K and V to the query heads once a block
+PIECES_PER_STEP = {"rmsnorm": 2 * LAYERS + 1, "rope": LAYERS,
+                   "swiglu": LAYERS, "repeat_kv": LAYERS}
+# the readout GEMMs timed alone, bf16, at the train cell's 8 x 1024 rows
+# and d 768: GPT-2's tied readout on its vocab, the same padded to a
+# multiple of 64 (ROADMAP 2.2 item 2's candidate), Llama's untied lm_head
+READOUT_VOCABS = (("gpt2_tied", 50257), ("gpt2_padded", 50304),
+                  ("llama_lm_head", 32000))
+
+
+def llama_train_phase(torch, np, tm, FA, FAW, LlamaConfig, smi):
+    """The Llama train cell: the default ``LlamaConfig`` (124.7 M
+    parameters) at full depth, bf16 over f32 masters, ``adamw_fused``, 20
+    updates of the train cell's 8 x 1024 batch, the captured step and the
+    eager one from the same weights: losses, parameters, moments and count
+    bit-identical (gated); every flash launch on the tensor cores, 12 /
+    12 / 12 / 1 a step (gated); the loss down by at least 1 nat (gated);
+    each captured update from the second under
+    ``set_sync_debug_mode("error")``. Then five more updates of each under
+    the profiler: one ``cudaGraphLaunch`` a replay and, the step drawing
+    nothing (no dropout), no kernel launch call inside one, not even a
+    generator prologue (gated); device time by kernel group, the top
+    kernels (the cuBLAS tiles of the ``lm_head`` GEMMs among them), busy.
+    Returns the record."""
+    cfg = LlamaConfig()
+    base = tm[0](cfg).init(torch.Generator().manual_seed(0)).state_dict()
+    runs, kept, first = {}, {}, None
+    for mode in TURNS[:2]:
+        setup = train_setup(torch, np, tm, cfg, base, mode=mode,
+                            compute_dtype="bfloat16")
+        what = f"llama_train {mode}"
+        rec, bits = train_run(torch, FA, FAW, setup, mode, what)
+        want_tc = dict.fromkeys(rec["tensor_core_launches"],
+                                TRAIN_STEPS * LAYERS)
+        require(rec["tensor_core_launches"] == want_tc,
+                f"{what}: tensor-core launches "
+                f"{rec['tensor_core_launches']} != {want_tc}")
+        losses = rec["losses"]
+        require(losses[-1] <= losses[0] - 1.0,
+                f"{what}: loss {losses[0]} -> {losses[-1]}, not 1 nat lower")
+        if first is None:
+            first = (losses, bits)
+        else:
+            require(losses == first[0], f"{what}: losses {losses} differ "
+                                        f"from the captured run's")
+            require(same_bits(torch, bits, first[1]),
+                    f"{what}: parameters, moments or count after "
+                    f"{TRAIN_STEPS} steps differ from the captured run's")
+        del bits
+        runs[mode], kept[mode] = rec, setup
+        del setup
+    profiles = {}
+    for mode in TURNS[:2]:
+        prof, wall, launches, host = train_profile(
+            torch, FA, FAW, kept[mode], mode, f"llama_train profile {mode}",
+            tc=True, fills=0)
+        profiles[mode] = train_profile_summary(
+            torch, prof, wall, launches, host, TRAIN_PROFILE_STEPS,
+            [runs[mode]["median_step_ms"]])
+    del kept, first
+    torch.cuda.empty_cache()
+    tokens = TRAIN_BATCH * TRAIN_T
+    ms = {m: runs[m]["median_step_ms"] for m in runs}
+    return {"phase": "llama_train", "card": smi, "model": LLAMA_NAME,
+            "params": sum(v.numel() for v in base.values()),
+            "batch": [TRAIN_BATCH, TRAIN_T], "compute_dtype": "bf16",
+            "masters": "f32", "optimizer": "adamw_fused", "lr": TRAIN_LR,
+            "warmup_steps": TRAIN_WARMUP, "steps": TRAIN_STEPS,
+            "turns": list(TURNS[:2]),
+            "bit_identical": "losses, parameters, moments and count after "
+            f"{TRAIN_STEPS} steps, captured against eager (gated)",
+            "generator_prologue_fills_per_replay": 0,
+            "median_step_ms": ms["graph"], "median_step_ms_eager":
+                ms["eager"],
+            "tokens_per_s": tokens / (ms["graph"] / 1e3),
+            "tokens_per_s_eager": tokens / (ms["eager"] / 1e3),
+            "losses": runs["graph"]["losses"],
+            "loss_drop": runs["graph"]["losses"][0]
+            - runs["graph"]["losses"][-1],
+            "launches_per_step": TRAIN_PER_STEP,
+            "runs": {m: {k: v for k, v in r.items() if k != "losses"}
+                     for m, r in runs.items()},
+            "profile": profiles}
+
+
+def llama_pieces(torch, A, L, rotary, LlamaConfig):
+    """Llama's elementwise pieces at the train cell's shape ([8, 1024] rows,
+    bf16), each alone, forward and backward (``torch.autograd.grad``, no
+    accumulation), timed on the card: ``rmsnorm`` (``models/layers.py``,
+    d 768), ``rope`` (q ``[8, 12, 1024, 64]`` and k ``[8, 4, 1024, 64]``
+    split-head views roped from one pair of tables), ``swiglu`` (``silu(gate) * up`` over d_ff 2048) and
+    ``repeat_kv`` (K and V from 4 heads to 12). ms a call and a step
+    (``PIECES_PER_STEP``)."""
+    cfg = LlamaConfig()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf16 = torch.bfloat16
+    rows, d, H, hk, hd = (TRAIN_BATCH, TRAIN_T), cfg.d_model, cfg.num_heads, \
+        cfg.num_kv_heads, cfg.head_dim
+
+    def rand(*shape, grad=True):
+        x = torch.randn(*shape, generator=gen, device="cuda").to(bf16)
+        return x.requires_grad_() if grad else x
+    x, g = rand(*rows, d), rand(*rows, d, grad=False)
+    norm = L.RMSNorm(d, device="cuda", dtype=bf16)
+    pos = torch.arange(TRAIN_T, device="cuda")
+    qp, kp = rand(*rows, H * hd), rand(*rows, hk * hd)
+    gq = rand(TRAIN_BATCH, H, TRAIN_T, hd, grad=False)
+    gk = gq[:, :hk].contiguous()
+    gate, up = rand(*rows, cfg.d_ff), rand(*rows, cfg.d_ff)
+    gm = rand(*rows, cfg.d_ff, grad=False)
+    kv = rand(TRAIN_BATCH, 2 * hk, TRAIN_T, hd)
+    grep = rand(TRAIN_BATCH, 2 * H, TRAIN_T, hd, grad=False)
+
+    def rmsnorm():
+        torch.autograd.grad(norm(x), (x, norm.weight), g)
+
+    def rope():
+        q, k = A.split_heads(qp, H), A.split_heads(kp, hk)
+        cos, sin = rotary.rope_cos_sin(pos, hd, cfg.rope_theta)
+        torch.autograd.grad((rotary.rotate(q, cos, sin),
+                             rotary.rotate(k, cos, sin)), (qp, kp), (gq, gk))
+
+    def swiglu():
+        torch.autograd.grad(torch.nn.functional.silu(gate) * up,
+                            (gate, up), gm)
+
+    def repeat_kv():
+        torch.autograd.grad(kv.repeat_interleave(H // hk, dim=1), kv, grep)
+    out = {}
+    for name, fn in (("rmsnorm", rmsnorm), ("rope", rope),
+                     ("swiglu", swiglu), ("repeat_kv", repeat_kv)):
+        ms = time_ms(torch, [fn], iters=20)
+        out[name] = {"ms_per_call": ms, "calls_per_step":
+                     PIECES_PER_STEP[name],
+                     "ms_per_step": ms * PIECES_PER_STEP[name]}
+    return out
+
+
+def readout_phase(torch, smi):
+    """The readout's three GEMMs alone, bf16, x ``[8192, 768]`` (the train
+    cell's rows): forward ``x W^T`` (``torch.matmul`` as GPT-2's tied
+    ``Embedding.attend``, ``F.linear`` as Llama's ``lm_head``), the input
+    gradient ``dY W`` and the weight gradient ``dY^T x``, at GPT-2's vocab
+    50257, the same padded to 50304, and Llama's 32000: ms of each beside
+    its bound (2 M N K operations at the bf16 peak) and the cuBLAS kernel
+    it ran (one profiled call each)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def rand(*shape, std=1.0):
+        return (std * torch.randn(*shape, generator=gen, device="cuda")).to(
+            torch.bfloat16)
+    rows, d = TRAIN_BATCH * TRAIN_T, 768
+    x = rand(rows, d)
+    out = {"card": smi, "phase": "llama_readout", "rows": rows, "d": d,
+           "dtype": "bf16"}
+    for name, vocab in READOUT_VOCABS:
+        w, dy = rand(vocab, d, std=0.02), rand(rows, vocab)
+        fwd = ((lambda: F.linear(x, w)) if name.startswith("llama")
+               else (lambda: torch.matmul(x, w.t())))
+        gemms = {"forward": fwd, "input_grad": lambda: torch.matmul(dy, w),
+                 "weight_grad": lambda: torch.matmul(dy.t(), x)}
+        b_ms = bound(0.0, 2.0 * rows * d * vocab, "bf16")[0]
+        rec = {"vocab": vocab, "bound_ms_each": b_ms}
+        for gname, fn in gemms.items():
+            prof, _ = profile_run(torch, fn)
+            kernels = device_events(torch, prof)
+            rec[gname] = {"ms": time_ms(torch, [fn], iters=20),
+                          "kernels": sorted(kernels)}
+        rec["ms_total"] = sum(rec[g]["ms"] for g in gemms)
+        out[name] = rec
+        del w, dy
+    torch.cuda.empty_cache()
+    return out
+
+
+# the Llama cells' profiled runs: the captured programs alone, on the first
+# LLAMA_PROFILE_REQUESTS of the serve phase's requests and on generations
+# of LLAMA_PROFILE_NEW tokens (the profiler's parse of a run costs minutes
+# at full length: Llama runs about twice GPT-2's device ops a tick)
+LLAMA_PROFILE_REQUESTS, LLAMA_PROFILE_NEW = 8, 32
+
+
+def llama_profile_serve(torch, np, serve, counters, model, kv_dtype, what):
+    """A captured batcher's serve run of ``LLAMA_PROFILE_REQUESTS`` requests
+    (float or int8 pool), after a warm-up that captures, once unprofiled
+    (its wall) and once under :func:`profiled_serve` (launches measured
+    against the device; one ``cudaGraphLaunch`` a segment, gated)."""
+    reqs = serve_requests(np, serve, model.config.vocab_size
+                          )[:LLAMA_PROFILE_REQUESTS]
+    cb = batcher(serve, model, kv_dtype, "graph")
+    cb.serve(reqs[:2])
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    cb.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    prof, wall_prof, counts, ticks = profiled_serve(
+        torch, counters, cb, reqs, what, q8=kv_dtype == "int8", tc=True)
+    summary = profile_summary(torch, prof, wall_prof, counts, ticks,
+                              ticks // cb.S, "segment", [wall])
+    check_host_calls(what, summary, None, summary["segments"], cb.S)
+    return {"requests": len(reqs), **summary}
+
+
+def llama_profile_generate(torch, np, infer, counters, model, kv_quant,
+                           what):
+    """A captured generate call of the generate phase's 16 prompts and
+    ``LLAMA_PROFILE_NEW`` new tokens (float or int8 cache), once
+    unprofiled (its wall) and once under :func:`profiled_generate`
+    (launches measured; one ``cudaGraphLaunch`` a replayed tick, gated)."""
+    _, prompt_np, mask_np = gen_batch(np, model.config.vocab_size)
+    prompt = torch.from_numpy(prompt_np).cuda()
+    mask = torch.from_numpy(mask_np).cuda()
+    fn = infer.make_generate_fn(model, LLAMA_PROFILE_NEW, kv_quant=kv_quant)
+    fn(prompt, prompt_mask=mask)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fn(prompt, prompt_mask=mask)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    ticks = LLAMA_PROFILE_NEW - 1
+    summary = profile_summary(torch, *profiled_generate(
+        torch, counters, lambda: fn(prompt, prompt_mask=mask), what,
+        q8=kv_quant, new=LLAMA_PROFILE_NEW), ticks, ticks, "tick", [wall])
+    check_host_calls(what, summary, None, ticks - 1, 1)
+    return {"new_per_row": LLAMA_PROFILE_NEW, **summary}
+
+
+def llama_phases(torch, np, infer, serve, mods, tm, L, rotary, LlamaConfig,
+                 smi, record, gpt2):
+    """Every Llama cell, random weights from seed 0 at the default
+    ``LlamaConfig``: ``llama_serve`` (the serve phase's 32 requests, bf16
+    and f32, captured and eager in turns, GPT-2's gates) and its int8 pool
+    (``llama_serve_int8``, the sync-debug window), ``llama_generate`` (16
+    left-padded prompts x 128, bf16) and ``llama_generate_int8``; then
+    ``llama_profile``: the captured programs of each under the profiler
+    (:func:`llama_profile_serve`, :func:`llama_profile_generate`); a
+    ``llama_vs_gpt2`` line beside GPT-2's cells (``gpt2``: their records);
+    ``llama_train`` with its pieces, the readout GEMMs and
+    ``llama_parity`` (f32, two layers). Each record goes to ``record``;
+    returns each profiled captured run's launches."""
+    A, FA, CU, DA, FAW = mods
+    counters = (FA, CU, DA)
+    base = tm[0](LlamaConfig()).init(
+        torch.Generator().manual_seed(0)).state_dict()
+
+    def model_of(dtype):
+        model = tm[0](LlamaConfig(), dtype=dtype)
+        model.load_state_dict(base)
+        return model
+    smods = (A, FA, CU, DA, serve)
+    serves = {}
+    for dtype, dt in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        model = model_of(dtype)
+        serves[dt], outs, cbs, _ = serve_phase(
+            torch, np, smods, model, dt, phase="llama_serve",
+            model_name=LLAMA_NAME)
+        record(serves[dt])
+        if dt == "bf16":
+            float_served = outs
+        del model, outs, cbs
+        torch.cuda.empty_cache()
+    model = model_of(torch.bfloat16)
+    serve8 = serve_int8_phase(torch, np, smods, model, float_served,
+                              phase="llama_serve_int8",
+                              model_name=LLAMA_NAME, profiles=False)
+    record(serve8)
+    del float_served
+    gen, batch, _, _ = generate_phase(
+        torch, np, infer, (A, FA, CU, DA), model, "bf16",
+        phase="llama_generate", model_name=LLAMA_NAME)
+    record(gen)
+    gen8 = generate_int8_phase(torch, np, infer, (A, FA, CU, DA), model,
+                               batch[3], phase="llama_generate_int8",
+                               model_name=LLAMA_NAME, profiles=False)
+    record(gen8)
+    del batch
+    profiles = {
+        "serve": llama_profile_serve(torch, np, serve, counters, model,
+                                     "bf16", "llama_profile serve"),
+        "serve_int8": llama_profile_serve(torch, np, serve, counters, model,
+                                          "int8", "llama_profile serve_int8"),
+        "generate": llama_profile_generate(torch, np, infer, counters, model,
+                                           False, "llama_profile generate"),
+        "generate_int8": llama_profile_generate(
+            torch, np, infer, counters, model, True,
+            "llama_profile generate_int8")}
+    record({"phase": "llama_profile", "dtype": "bf16", "card": smi,
+            "model": LLAMA_NAME, "captured_only": True, **profiles})
+    del model, base
+    torch.cuda.empty_cache()
+    train = llama_train_phase(torch, np, tm, FA, FAW, LlamaConfig, smi)
+    train["pieces"] = llama_pieces(torch, A, L, rotary, LlamaConfig)
+    record(train)
+    record(readout_phase(torch, smi))
+    record(parity_phase(torch, np, tm, A, FA, FAW, dataclasses.replace(
+        LlamaConfig(), num_layers=PARITY_LAYERS), phase="llama_parity"))
+    torch.cuda.empty_cache()
+    g_serve, g_gen, g_serve8, g_train = (gpt2[k] for k in (
+        "serve", "generate", "serve_int8", "train"))
+    cmp = {"phase": "llama_vs_gpt2", "card": smi, "dtype": "bf16",
+           "of": "llama / gpt2, the same call: serve and generate captured "
+                 "medians, train captured median step"}
+    for key, (a, b) in {
+            "serve_decode_tokens_per_s": (serves["bf16"], g_serve),
+            "serve_wall_ms_per_tick": (serves["bf16"], g_serve),
+            "serve_mean_ttft_s": (serves["bf16"], g_serve),
+            "generate_new_tokens_per_s": (gen, g_gen),
+            "generate_ms_per_tick": (gen, g_gen)}.items():
+        field = key.split("_", 1)[1]
+        cmp[key] = {"llama": a[field], "gpt2": b[field],
+                    "ratio": a[field] / b[field]}
+    for kv in ("bf16", "int8"):
+        key = f"{kv}_pool_bytes"
+        cmp[f"serve_{key}"] = {"llama": serve8[key], "gpt2": g_serve8[key],
+                               "ratio": serve8[key] / g_serve8[key]}
+    cmp["train_median_step_ms"] = {
+        "llama": train["median_step_ms"], "gpt2": g_train["median_step_ms"],
+        "ratio": train["median_step_ms"] / g_train["median_step_ms"]}
+    record(cmp)
+    return {"launches": {
+        "llama_serve bf16": profiles["serve"]["launches"],
+        "llama_serve_int8 int8": profiles["serve_int8"]["launches"],
+        "llama_generate bf16": profiles["generate"]["launches"],
+        "llama_generate_int8 int8": profiles["generate_int8"]["launches"],
+        "llama_train": train["profile"]["graph"]["launches"]}}
 
 # the poisoned element of the train_skip phase: one entry of wte
 SKIP_AT = (0, 0)
@@ -4432,6 +4847,9 @@ def main() -> int:
             ConvNet)
         from distributed_compute_pytorch_tpu_torch.models.gpt2 import (
             GPT2, GPT2Config)
+        from distributed_compute_pytorch_tpu_torch.models import layers as L
+        from distributed_compute_pytorch_tpu_torch.models.llama import (
+            LlamaConfig, LlamaLM)
         from distributed_compute_pytorch_tpu_torch.models.resnet import (
             ResNet)
         from distributed_compute_pytorch_tpu_torch.ops.augment import (
@@ -4440,7 +4858,7 @@ def main() -> int:
         from distributed_compute_pytorch_tpu_torch.ops import attention as A
         from distributed_compute_pytorch_tpu_torch.ops import (
             cache_update as CU, decode_attention as DA, flash_attention as FA,
-            fused_adamw as FAW)
+            fused_adamw as FAW, rotary)
         from distributed_compute_pytorch_tpu_torch.parallel.api import FSDP
         from distributed_compute_pytorch_tpu_torch.train.optim import (
             build_optimizer)
@@ -4506,6 +4924,17 @@ def main() -> int:
                 results[dt]["dense_decode_write" + sfx] = \
                     check_dense_decode_write(torch, np, A, CU, DA, dtype, dt,
                                              gen_lens, q8)
+            # Llama's shapes: 4 kv heads, G = 3 query heads on each
+            results[dt]["kv_pool_insert_llama"] = check_insert(
+                torch, CU, dtype, dt, H=LLAMA_KV_HEADS)
+            for q8 in (False, True):
+                sfx = ("_q8" if q8 else "") + "_llama"
+                results[dt]["paged_decode_write" + sfx] = check_decode_write(
+                    torch, np, A, CU, DA, dtype, dt, q8, hk=LLAMA_KV_HEADS)
+                results[dt]["dense_decode_write" + sfx] = \
+                    check_dense_decode_write(torch, np, A, CU, DA, dtype, dt,
+                                             gen_lens, q8,
+                                             hk=LLAMA_KV_HEADS)
             for name, res in results[dt].items():
                 record({"phase": "kernel", "name": name, "dtype": dt,
                         "tol": 0.0 if name in EXACT else TOL[dt], **res})
@@ -4514,9 +4943,14 @@ def main() -> int:
             for name, res in long_ctx.items():
                 results[dt][name]["long"] = res
             torch.cuda.empty_cache()
-        adamw = check_adamw(torch, FAW, GPT2, GPT2Config)
+        adamw = check_adamw(torch, FAW, GPT2(GPT2Config.small()))
         record({"phase": "kernel", "name": "fused_adamw", "dtype": "f32",
                 "tol": ADAMW_TOL, **adamw})
+        torch.cuda.empty_cache()
+        adamw_llama = check_adamw(torch, FAW, LlamaLM(LlamaConfig()),
+                                  n_leaves=111, shard=False, what="Llama")
+        record({"phase": "kernel", "name": "fused_adamw_llama",
+                "dtype": "f32", "tol": ADAMW_TOL, **adamw_llama})
         torch.cuda.empty_cache()
 
         base = GPT2(GPT2Config.small()).init(
@@ -4577,7 +5011,8 @@ def main() -> int:
         record(train_skip_phase(torch, np, tm, GPT2Config, weights))
         del weights
         torch.cuda.empty_cache()
-        record(parity_phase(torch, np, tm, A, FA, FAW, GPT2Config))
+        record(parity_phase(torch, np, tm, A, FA, FAW, dataclasses.replace(
+            GPT2Config.small(), num_layers=PARITY_LAYERS, dropout_rate=0.0)))
         torch.cuda.empty_cache()
         record(cli_phase(torch, interop, GPT2, GPT2Config))
 
@@ -4611,6 +5046,16 @@ def main() -> int:
         for rec in ladder_cli_phase(torch, interop, smi).values():
             record(rec)
 
+        # Llama (slice 14): RoPE, RMSNorm, SwiGLU and grouped-query
+        # attention: the decode kernels at G = 3, the flash kernels on K/V
+        # repeated to the query heads; served, generated and trained
+        llama = llama_phases(torch, np, infer, serve, (A, FA, CU, DA, FAW),
+                             (LlamaLM, build_optimizer, make_step_fns), L,
+                             rotary, LlamaConfig, smi, record,
+                             {"serve": serves["bf16"],
+                              "generate": gens["bf16"],
+                              "serve_int8": serve8, "train": train})
+
         # a fused tick replaces its read's Pallas call (and fuses its
         # write's, ``fuses``)
         sources = {"flash_fwd": FA.REPLACES, "kv_pool_insert": CU.REPLACES,
@@ -4633,6 +5078,10 @@ def main() -> int:
             "kv_pool_insert", "paged_decode", "cache_insert", "kv_insert",
             "kv_insert_rows", "dense_decode", "paged_decode_write",
             "dense_decode_write")})
+        # Llama's shapes (4 kv heads; G = 3 in the decode reads)
+        sources.update({f"{name}_llama": sources[name] for name in (
+            "kv_pool_insert", "paged_decode_write", "paged_decode_write_q8",
+            "dense_decode_write", "dense_decode_write_q8")})
         # each kernel's launches on the main path: the captured runs'
         # counts measured under the profiler (``counted_profile``: the
         # counters zeroed just before, equal to the device's kernel events
@@ -4649,7 +5098,10 @@ def main() -> int:
                  gen8["int8_profile"]["launches"]),
                 ("train captured, profiled", train_launches),
                 ("bert captured, profiled",
-                 {f"{k}_bert": n for k, n in bert_launches.items()}))
+                 {f"{k}_bert": n for k, n in bert_launches.items()}),
+                *((f"{run} captured, profiled",
+                   {f"{k}_llama": n for k, n in launches.items()})
+                  for run, launches in llama["launches"].items()))
         kernels = []
         for name, replaces in sources.items():
             r, r32 = results["bf16"][name], results["f32"][name]
@@ -4676,7 +5128,7 @@ def main() -> int:
                 "library": r.get("library", {
                     "flash_fwd": "F.scaled_dot_product_attention",
                     "kv_pool_insert": "pool[:, blocks, :, offsets, :] = upd",
-                }.get(name)),
+                }.get(name.removesuffix("_llama"))),
                 "dtype": "bf16", "shape": r["shape"],
                 **{k: r[k] for k in KERNEL_EXTRAS if k in r},
                 "f32": {k: r32[k] for k in ("max_abs_err", "ms", "plain_ms",
@@ -4701,6 +5153,22 @@ def main() -> int:
             "library": adamw["library"], "dtype": "f32",
             "shape": adamw["shape"],
             **{k: adamw[k] for k in adamw if k.startswith("shard")}})
+        kernels.append({
+            "name": "fused_adamw_llama", "route": "cuda",
+            "source": "distributed_compute_pytorch_tpu_torch/csrc/"
+                      "fused_adamw.cu",
+            "replaces": FAW.REPLACES,
+            "launches": llama["launches"]["llama_train"]["fused_adamw"],
+            "launches_from": "llama_train captured, profiled",
+            "max_abs_err": adamw_llama["max_abs_err"],
+            "max_err": adamw_llama["max_abs_err"], "tol": ADAMW_TOL,
+            "ms": adamw_llama["ms"], "kernel_ms": adamw_llama["ms"],
+            "plain_ms": adamw_llama["plain_ms"],
+            "bound_ms": adamw_llama["bound_ms"],
+            "bound_by": adamw_llama["bound_by"],
+            "library_ms": adamw_llama["library_ms"],
+            "library": adamw_llama["library"], "dtype": "f32",
+            "shape": adamw_llama["shape"]})
         record({"kernels": kernels})
     except Exception as e:   # noqa: BLE001 — the smoke's one boundary:
         # report the failed phase and exit non-zero, no ok line

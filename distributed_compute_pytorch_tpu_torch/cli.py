@@ -8,7 +8,8 @@ stand-in, with Adadelta and StepLR); ``--model gpt2 --dataset synthetic-lm
 --optimizer adamw_fused --compute_dtype bfloat16`` the transformer rung;
 ``--model resnet18 --dataset cifar10 --augment flip-crop --optimizer sgd``
 (CIFAR-10, or its synthetic stand-in), ``--model resnet50`` and ``--model
-bert --dataset synthetic-lm --optimizer adamw`` the other BASELINE rungs.
+bert --dataset synthetic-lm --optimizer adamw`` the other BASELINE rungs,
+``--model llama --dataset synthetic-lm --optimizer adamw`` Llama.
 A data-parallel world of N runs one process a rank, launched N times
 with ``--coordinator host:port --num_processes N --process_id R`` (or
 under ``torchrun --nproc_per_node N``), ``nccl`` on CUDA and ``gloo`` with

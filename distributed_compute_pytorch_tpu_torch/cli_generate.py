@@ -1,5 +1,6 @@
-"""``dcp-generate`` for the port — sample tokens from a GPT-2 (the subset of
-``distributed_compute_pytorch_tpu/cli_generate.py`` this slice ports).
+"""``dcp-generate`` for the port — sample tokens from a GPT-2 or a Llama
+(the subset of ``distributed_compute_pytorch_tpu/cli_generate.py`` the port
+takes).
 
 Weights come from a JAX v1 checkpoint (``--ckpt_path``, the file
 ``dcp-train`` and the port's trainer write) or are drawn at random from
@@ -18,8 +19,7 @@ Not ported yet, each refused with a one-line error naming the flag:
 ``--mesh`` (sharded generation), ``--quantize`` (int8 weights, which both
 of its values imply: ``int8-kv`` is int8 weights AND an int8 KV cache;
 the int8 KV cache alone is ``infer.generate(kv_quant=True)``),
-``--text_prompt`` / ``--tokenizer`` (text prompts) and ``--model
-llama|moe``.
+``--text_prompt`` / ``--tokenizer`` (text prompts) and ``--model moe``.
 """
 
 from __future__ import annotations
@@ -51,13 +51,13 @@ def load_model(model_name: str, preset, vocab_size, max_seq_len, *,
     ``init_seed``, and cast to ``dtype`` (``"f32"``/``"bf16"``). One
     implementation, so the two CLIs cannot drift."""
     from distributed_compute_pytorch_tpu_torch.interop import (
-        load_gpt2_params, load_jax_checkpoint)
+        load_jax_checkpoint, load_lm_params)
     from distributed_compute_pytorch_tpu_torch.models.registry import (
         build_model)
     model = build_model(model_name, preset=preset, vocab_size=vocab_size,
                         max_seq_len=max_seq_len, device=device)
     if ckpt_path is not None:
-        load_gpt2_params(model, load_jax_checkpoint(ckpt_path))
+        load_lm_params(model, load_jax_checkpoint(ckpt_path))
     else:
         model.init(torch.Generator().manual_seed(init_seed))
     return model.to(DTYPES[dtype])
@@ -113,9 +113,9 @@ def main(argv=None) -> int:
         if getattr(args, flag) is not None:
             raise SystemExit(f"--{flag} is not ported yet (ROADMAP.md: "
                              f"{item})")
-    if args.model != "gpt2":
-        raise SystemExit(f"--model {args.model} is not ported yet "
-                         f"(ROADMAP.md: Llama and MoE generation, queue 1.7.4)")
+    if args.model == "moe":
+        raise SystemExit("--model moe is not ported yet (ROADMAP.md: MoE "
+                         "generation, queue 1.7.4)")
 
     from distributed_compute_pytorch_tpu_torch.infer import generate
 

@@ -14,8 +14,9 @@ Prints one JSON line per request, in input order, as the JAX CLI does:
 ``{"id", "prompt", "new", "status": "ok", "cached_prefix": 0}`` (the port
 has no prefix cache yet, so ``cached_prefix`` is always 0).
 
-Runs on CUDA unless ``--device cpu``. ``--kv_dtype int8`` keeps the KV
-pool in int8 with per-row f32 scales (as the JAX CLI's flag). Example:
+``--model gpt2`` (the default) or ``llama``, at ``--model_preset``'s
+size (``moe`` exits naming its ROADMAP item). Runs on CUDA unless ``--device cpu``. ``--kv_dtype int8`` keeps the
+KV pool in int8 with per-row f32 scales (as the JAX CLI's flag). Example:
 
     python -m distributed_compute_pytorch_tpu_torch.cli_serve --init_seed 0 \\
         --model_preset small --requests prompts.txt --slots 16 --dtype bf16 \\
@@ -89,7 +90,8 @@ def main(argv=None) -> int:
     src.add_argument("--ckpt_path", help="JAX v1 checkpoint file")
     src.add_argument("--init_seed", type=int,
                      help="random weights from this torch.Generator seed")
-    p.add_argument("--model", default="gpt2", choices=("gpt2",))
+    p.add_argument("--model", default="gpt2",
+                   choices=("gpt2", "llama", "moe"))
     p.add_argument("--model_preset", default=None, choices=("tiny", "small"))
     p.add_argument("--max_seq_len", type=int, default=None)
     p.add_argument("--requests", required=True,
@@ -115,6 +117,9 @@ def main(argv=None) -> int:
     p.add_argument("--device", default=None,
                    help="'cuda' (default; raises without a card) or 'cpu'")
     args = p.parse_args(argv)
+    if args.model == "moe":
+        raise SystemExit("--model moe is not ported yet (ROADMAP.md: MoE "
+                         "serving, queue 3.9, with queue 1 item 8)")
     if args.max_new_tokens < 1:
         raise SystemExit("--max_new_tokens must be >= 1")
 

@@ -8,7 +8,8 @@ with ``adadelta`` and StepLR ``--gamma 0.7``; ``--model gpt2 --dataset
 synthetic-lm --optimizer adamw`` selects the transformer rung, ``--model
 resnet18 --dataset cifar10 --augment flip-crop --optimizer sgd`` and
 ``--model resnet50`` the ResNet rungs, ``--model bert --dataset
-synthetic-lm`` the MLM rung.
+synthetic-lm`` the MLM rung, ``--model llama --dataset synthetic-lm`` the
+Llama decoder.
 ``--device`` (``cuda`` or ``cpu``) is new; ``--force-cpu`` keeps its
 reference meaning. ``--coordinator host:port --num_processes N
 --process_id R`` (or torchrun's environment) makes the run rank R of a
@@ -103,7 +104,7 @@ class Config:
                        help="cuda (default; raises without a card) or cpu")
         p.add_argument("--model", type=str, default=cls.model,
                        choices=("convnet", "resnet18", "resnet50", "bert",
-                                "gpt2"))
+                                "gpt2", "llama", "moe"))
         p.add_argument("--model_preset", type=str, default=None,
                        choices=("tiny", "small", "base"))
         p.add_argument("--num_layers", type=int, default=None)
@@ -164,5 +165,8 @@ class Config:
                 raise SystemExit(f"dcp-train (port): {queued(flag)}")
             raise SystemExit(f"dcp-train (port): {flag} is not supported "
                              f"by the port yet")
+        if ns.model == "moe":
+            raise SystemExit("dcp-train (port): --model moe is not ported "
+                             "yet: ROADMAP queue 1, item 8 (models/moe.py)")
         return cls(**{f.name: getattr(ns, f.name)
                       for f in dataclasses.fields(cls)})

@@ -25,6 +25,13 @@
   the port's ``blocks.{i}``.
 - :func:`bert_params_from_jax` / :func:`bert_params_to_jax`: BERT's
   params, its stacked blocks unstacked as GPT-2's are.
+- :func:`llama_params_from_jax` / :func:`llama_params_to_jax`: Llama's
+  params, the stacked blocks unstacked, kernels ``[in, out]`` <-> weights
+  ``[out, in]``, RMSNorm ``scale`` <-> ``weight``.
+  :func:`llama_to_hf_state_dict` / :func:`llama_from_hf_state_dict`: the
+  port's Llama state dict <-> the HF ``LlamaForCausalLM`` schema (numpy
+  arrays), the reference's converters (``interop.py:161-256``) over the
+  port's names.
 - :func:`params_to_jax` / :func:`params_from_jax` pick the converter by
   the keys (:func:`model_kind`); the checkpoints use them.
 - :func:`read_checkpoint`: a numpy + zlib reader for the v1 ``.npz``
@@ -163,6 +170,110 @@ def bert_params_to_jax(state_dict) -> dict:
             "mlm_ln": _norm_to_jax(sd, "mlm_ln")}
 
 
+# Llama's block leaves: the dense kernels (transposed) and the RMSNorm
+# scales, by the JAX package's and the port's shared names
+_LLAMA_DENSE = ("q", "k", "v", "o", "gate", "up", "down")
+_LLAMA_NORMS = ("attn_norm", "mlp_norm")
+
+
+def llama_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """JAX Llama params (``{"wte", "blocks", "norm_f", "lm_head"}``, numpy
+    leaves, blocks stacked ``[L, ...]``) -> a ``LlamaLM`` state dict of f32
+    CPU tensors."""
+    sd = {"wte.weight": _t(tree["wte"]["embedding"]),
+          "norm_f.weight": _t(tree["norm_f"]["scale"]),
+          "lm_head.weight": _t(np.asarray(tree["lm_head"]["kernel"]).T)}
+    blocks = tree["blocks"]
+    for i in range(np.asarray(blocks["q"]["kernel"]).shape[0]):
+        for name in _LLAMA_NORMS:
+            sd[f"blocks.{i}.{name}.weight"] = _t(
+                np.asarray(blocks[name]["scale"])[i])
+        for name in _LLAMA_DENSE:
+            sd[f"blocks.{i}.{name}.weight"] = _t(
+                np.asarray(blocks[name]["kernel"])[i].T)
+    return sd
+
+
+def llama_params_to_jax(state_dict) -> dict:
+    """The inverse of :func:`llama_params_from_jax`: f32 numpy leaves in the
+    JAX layout, blocks re-stacked."""
+    sd = {k: _np(v) for k, v in state_dict.items()}
+    n_layers = 1 + max(int(k.split(".")[1]) for k in sd
+                       if k.startswith("blocks."))
+
+    def stack(name, fn=lambda a: a):
+        return np.stack([fn(sd[f"blocks.{i}.{name}.weight"])
+                         for i in range(n_layers)])
+    blocks = {name: {"scale": stack(name)} for name in _LLAMA_NORMS}
+    blocks.update({name: {"kernel": stack(
+        name, lambda a: np.ascontiguousarray(a.T))} for name in _LLAMA_DENSE})
+    return {"wte": {"embedding": sd["wte.weight"]}, "blocks": blocks,
+            "norm_f": {"scale": sd["norm_f.weight"]},
+            "lm_head": {"kernel": np.ascontiguousarray(
+                sd["lm_head.weight"].T)}}
+
+
+# the port's Llama block leaves <-> HF LlamaForCausalLM's (the reference's
+# ``_LLAMA_BLOCK_MAP``, ``interop.py:163-174``); both store [out, in]
+_LLAMA_HF = (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+             ("v", "self_attn.v_proj"), ("o", "self_attn.o_proj"),
+             ("gate", "mlp.gate_proj"), ("up", "mlp.up_proj"),
+             ("down", "mlp.down_proj"), ("attn_norm", "input_layernorm"),
+             ("mlp_norm", "post_attention_layernorm"))
+
+
+def llama_to_hf_state_dict(state_dict) -> dict[str, np.ndarray]:
+    """A ``LlamaLM`` state dict (any device/dtype) -> HF
+    ``LlamaForCausalLM`` state-dict arrays (f32 numpy; reference
+    ``llama_to_hf_state_dict``). Wrap them in ``torch.from_numpy`` and
+    ``load_state_dict(..., strict=False)``: HF registers rotary
+    ``inv_freq`` buffers that carry no learned state."""
+    sd = {k: _np(v) for k, v in state_dict.items()}
+    n_layers = 1 + max(int(k.split(".")[1]) for k in sd
+                       if k.startswith("blocks."))
+    out = {"model.embed_tokens.weight": sd["wte.weight"],
+           "model.norm.weight": sd["norm_f.weight"],
+           "lm_head.weight": sd["lm_head.weight"]}
+    for i in range(n_layers):
+        for ours, hf in _LLAMA_HF:
+            out[f"model.layers.{i}.{hf}.weight"] = \
+                sd[f"blocks.{i}.{ours}.weight"]
+    return out
+
+
+def llama_from_hf_state_dict(state_dict, config) -> dict[str, torch.Tensor]:
+    """HF ``LlamaForCausalLM`` state-dict values (torch tensors or numpy
+    arrays) -> a ``LlamaLM`` state dict of f32 CPU tensors for ``config``
+    (a ``models.llama.LlamaConfig`` of the checkpoint's geometry;
+    reference ``llama_from_hf_state_dict``). A checkpoint without
+    ``lm_head.weight`` (tied embeddings) gets the embedding as its head;
+    a missing key raises ``KeyError``, layers beyond
+    ``config.num_layers`` raise ``ValueError``."""
+    sd = {k: v.detach().to("cpu", torch.float32).numpy()
+          if isinstance(v, torch.Tensor) else np.asarray(v, np.float32)
+          for k, v in state_dict.items()}
+    missing = [k for k in ("model.embed_tokens.weight", "model.norm.weight")
+               if k not in sd]
+    if missing:
+        raise KeyError(f"state_dict missing Llama keys {missing}")
+    extra = f"model.layers.{config.num_layers}."
+    if any(k.startswith(extra) for k in sd):
+        raise ValueError(f"state_dict has layers beyond config.num_layers="
+                         f"{config.num_layers} (found {extra}* keys) — the "
+                         f"config does not match the checkpoint")
+    out = {"wte.weight": _t(sd["model.embed_tokens.weight"]),
+           "norm_f.weight": _t(sd["model.norm.weight"]),
+           "lm_head.weight": _t(sd.get("lm_head.weight",
+                                       sd["model.embed_tokens.weight"]))}
+    for i in range(config.num_layers):
+        for ours, hf in _LLAMA_HF:
+            key = f"model.layers.{i}.{hf}.weight"
+            if key not in sd:
+                raise KeyError(f"state_dict missing {key!r}")
+            out[f"blocks.{i}.{ours}.weight"] = _t(sd[key])
+    return out
+
+
 def _resnet_names(sd_or_tree) -> list[tuple[str, str]]:
     """``(port prefix, JAX key path)`` of every convolution and BatchNorm
     of a ResNet, from a port state dict's or a JAX params tree's keys:
@@ -234,10 +345,21 @@ def resnet_params_to_jax(state_dict) -> tuple[dict, dict]:
 
 
 def load_gpt2_params(model, tree):
-    """Copy converted JAX params into ``model`` (any device/dtype). Raises
-    ``ValueError`` naming the first leaf whose shape differs — the model
-    configuration does not match the one that was saved."""
-    sd = gpt2_params_from_jax(tree)
+    """Copy converted JAX GPT-2 params into ``model`` (any device/dtype)
+    (:func:`load_lm_params`'s checks)."""
+    return _load_checked(model, gpt2_params_from_jax(tree))
+
+
+def load_lm_params(model, tree):
+    """Copy a JAX causal LM's params, GPT-2's or Llama's (told apart by
+    their keys, :func:`model_kind`), into ``model`` (any device/dtype).
+    Raises ``ValueError`` when the keys do not match the model or naming
+    the first leaf whose shape differs — the model configuration does not
+    match the one that was saved."""
+    return _load_checked(model, params_from_jax(tree, {}))
+
+
+def _load_checked(model, sd):
     own = model.state_dict()
     if set(sd) != set(own):
         raise ValueError(f"JAX params do not match the model: missing "
@@ -336,21 +458,23 @@ def is_convnet(names) -> bool:
 
 
 def model_kind(names) -> str:
-    """``convnet``, ``resnet``, ``bert`` or ``gpt2``: the model whose
-    parameters a state dict's (or a JAX params tree's) keys name."""
+    """``convnet``, ``resnet``, ``bert``, ``llama`` or ``gpt2``: the model
+    whose parameters a state dict's (or a JAX params tree's) keys name."""
     if is_convnet(names):
         return "convnet"
     if "stem.weight" in names or "stem" in names:
         return "resnet"
     if "mlm_ln.weight" in names or "mlm_ln" in names:
         return "bert"
+    if "lm_head.weight" in names or "lm_head" in names:
+        return "llama"
     return "gpt2"
 
 
 def params_to_jax(state_dict, image_size=None) -> tuple[dict, dict]:
     """A port model's parameters and buffers -> the JAX package's
-    ``(params, model_state)`` trees: the ConvNet's, a ResNet's, BERT's or
-    GPT-2's (BERT and GPT-2 have no model state)."""
+    ``(params, model_state)`` trees: the ConvNet's, a ResNet's, BERT's,
+    Llama's or GPT-2's (the transformers have no model state)."""
     kind = model_kind(state_dict)
     if kind == "convnet":
         return convnet_params_to_jax(state_dict, image_size)
@@ -358,6 +482,8 @@ def params_to_jax(state_dict, image_size=None) -> tuple[dict, dict]:
         return resnet_params_to_jax(state_dict)
     if kind == "bert":
         return bert_params_to_jax(state_dict), {}
+    if kind == "llama":
+        return llama_params_to_jax(state_dict), {}
     return gpt2_params_to_jax(state_dict), {}
 
 
@@ -372,6 +498,8 @@ def params_from_jax(params, model_state, image_size=None
         return resnet_params_from_jax(params, model_state)
     if kind == "bert":
         return bert_params_from_jax(params)
+    if kind == "llama":
+        return llama_params_from_jax(params)
     return gpt2_params_from_jax(params)
 
 

@@ -1,14 +1,14 @@
 """Layers — port of ``distributed_compute_pytorch_tpu/models/layers.py``
-(the parts the GPT-2, ConvNet, ResNet and BERT paths use).
+(the parts the GPT-2, Llama, ConvNet, ResNet and BERT paths use).
 
 Each layer is an ``nn.Module`` whose parameters are allocated on the
 module's device (zeros until :meth:`init` or a weight load fills them).
 ``init(generator)`` draws from a CPU ``torch.Generator`` and copies to
 the device, so one seed gives the same weights on every device, with the
 JAX package's distributions (PyTorch's ``nn.Linear`` defaults for Dense,
-N(0, std) embeddings, unit LayerNorm) — not its values: ``jax.random`` and
-``torch.Generator`` draw different numbers from one seed, so parity tests
-convert weights (``interop.py``) instead.
+N(0, std) embeddings, unit LayerNorm and RMSNorm) — not its values:
+``jax.random`` and ``torch.Generator`` draw different numbers from one
+seed, so parity tests convert weights (``interop.py``) instead.
 
 Parameter layouts are PyTorch's: a Dense weight is ``[out, in]`` where the
 JAX kernel is ``[in, out]``, a Conv2d weight OIHW where the JAX kernel is
@@ -89,6 +89,31 @@ class LayerNorm(nn.Module):
         var = (x - mean).square().mean(-1, keepdim=True)
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight.to(x.dtype) + self.bias.to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """Root-mean-square norm over the last axis (reference ``:256-272``),
+    the Llama family's: no mean subtraction, no bias, eps 1e-6. The
+    statistics and the scale product are in f32 whatever the activation
+    dtype (bf16 squares underflow), then cast back. The reference names
+    the scale ``scale``; here it is ``weight`` (``interop.py`` maps it)."""
+
+    def __init__(self, num_features: int, *, eps: float = 1e-6, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features, device=device,
+                                              dtype=dtype))
+
+    def init(self, generator: torch.Generator):
+        del generator
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+
+    def forward(self, x):
+        x32 = x.to(torch.float32)
+        y = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + self.eps)
+        return (y * self.weight.to(torch.float32)).to(x.dtype)
 
 
 class Embedding(nn.Module):

@@ -1,7 +1,7 @@
 """Model registry — port of
 ``distributed_compute_pytorch_tpu/models/registry.py``: the ConvNet,
-ResNet-18/50, BERT and GPT-2; the rest of the zoo follows in later
-slices."""
+ResNet-18/50, BERT, GPT-2 and Llama; MoE follows in a later slice
+(ROADMAP queue 1, item 8)."""
 
 from __future__ import annotations
 
@@ -32,8 +32,9 @@ def build_model(name: str, *, preset: str | None = None, device=None,
     takes ``num_classes``, ``in_channels`` and ``image_size``;
     ``resnet18``/``resnet50`` ``num_classes``, ``in_channels``,
     ``small_input`` and ``width`` (the trainer sizes the classes and
-    channels from the dataset); ``gpt2`` and ``bert`` a ``preset`` and
-    config ``overrides`` (``vocab_size``, ``max_seq_len``, ...)."""
+    channels from the dataset); ``gpt2``, ``llama`` and ``bert`` a
+    ``preset`` and config ``overrides`` (``vocab_size``, ``max_seq_len``,
+    ...). ``moe`` raises, naming its ROADMAP item."""
     if name in ("convnet", "resnet18", "resnet50") and preset is not None:
         raise ValueError(f"the {name} has no presets")
     if name == "convnet":
@@ -48,8 +49,16 @@ def build_model(name: str, *, preset: str | None = None, device=None,
             BertConfig, BertMLM)
         return BertMLM(_config(BertConfig, BertConfig(), preset, overrides),
                        device=device, dtype=dtype)
+    if name == "llama":
+        from distributed_compute_pytorch_tpu_torch.models.llama import (
+            LlamaConfig, LlamaLM)
+        return LlamaLM(_config(LlamaConfig, LlamaConfig(), preset, overrides),
+                       device=device, dtype=dtype)
+    if name == "moe":
+        raise ValueError("model 'moe' is not ported yet (ROADMAP.md queue 1, "
+                         "item 8: models/moe.py)")
     if name != "gpt2":
-        raise ValueError(f"unknown or not yet ported model {name!r}")
+        raise ValueError(f"unknown model {name!r}")
     from distributed_compute_pytorch_tpu_torch.models.gpt2 import (
         GPT2, GPT2Config)
     return GPT2(_config(GPT2Config, GPT2Config.small(), preset, overrides),

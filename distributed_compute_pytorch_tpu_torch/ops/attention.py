@@ -64,9 +64,25 @@ def attention(q, k, v, *, causal: bool = False, scale: float | None = None,
     the flash kernels (forward, and the dQ / dK-dV backward) on CUDA
     tensors, their plain versions on CPU tensors
     (``ops/flash_attention.py::flash_attention`` decides by device).
-    ``kv_mask``: optional ``[b, kv_len]`` key validity, nonzero = attend."""
+    ``kv_mask``: optional ``[b, kv_len]`` key validity, nonzero = attend.
+
+    Grouped-query attention (``k``/``v`` with ``hk`` heads, a divisor of
+    q's ``H``), as the reference's ``models/transformer.py::
+    dispatch_attention`` gives it to its flash and dense engines: K and V
+    are repeated to ``H`` heads with ``repeat_interleave(H // hk, dim=1)``,
+    so query head ``h`` reads kv head ``h // G`` (``jnp.repeat``; a
+    ``repeat``/``tile`` would map it to ``h % hk``). The flash kernels take
+    equal head counts, and autograd's backward of the repeat sums dK and dV
+    over each group."""
     from distributed_compute_pytorch_tpu_torch.ops.flash_attention import (
         flash_attention)
+    H, hk = q.shape[1], k.shape[1]
+    if hk != H:
+        if H % hk:
+            raise ValueError(f"{H} query heads do not group over {hk} kv "
+                             f"heads")
+        k = k.repeat_interleave(H // hk, dim=1)
+        v = v.repeat_interleave(H // hk, dim=1)
     return flash_attention(q, k, v, causal=causal, scale=scale,
                            kv_mask=kv_mask)
 

@@ -52,7 +52,9 @@ def fsdp_units(model: nn.Module) -> list[tuple[str, list[str]]]:
     ``blocks`` ``ModuleList`` is a unit, and the other parameters one
     more, first. GPT-2's and BERT's twelve blocks (the rest: the
     embeddings and the final or the MLM head's LayerNorms and dense
-    layer); a ResNet's residual blocks, 8 for ResNet-18 and 16 for
+    layer); Llama's twelve blocks (the rest: the token embedding, the
+    final RMSNorm and the untied ``lm_head``); a ResNet's residual
+    blocks, 8 for ResNet-18 and 16 for
     ResNet-50 (the rest: the stem, its BatchNorm and the head; the
     BatchNorm running stats are buffers, never sharded). A model without
     blocks (the ConvNet) is one unit."""

@@ -68,6 +68,7 @@ counters among them).
 
 from __future__ import annotations
 
+import inspect
 import time
 from dataclasses import dataclass, field
 
@@ -164,9 +165,13 @@ class ContinuousBatcher:
     block-table KV cache (greedy decoding).
 
     Args:
-      model: a ``models.gpt2.GPT2`` (any model with ``embed``,
-        ``blocks[i].forward/decode_step``, ``readout``, ``kv_cache_spec``)
-        on the batcher's device; it serves in its parameter dtype.
+      model: a ``models.gpt2.GPT2`` or ``models.llama.LlamaLM`` (any
+        model with ``embed``, ``blocks[i].forward/decode_step``,
+        ``readout``, ``kv_cache_spec``) on the batcher's device; it serves
+        in its parameter dtype. A block that ropes (Llama's) ropes the
+        admission window at its logical slots from 0 and each tick at the
+        row's slot ``pos``; the pool holds post-rope keys at kv-head width
+        (quantized as they are, in an int8 pool).
       params: a state dict to load into ``model`` first, or ``None`` to
         serve the model's current weights.
       slots: cache rows decoding concurrently (the static batch).
@@ -212,6 +217,12 @@ class ContinuousBatcher:
         if params is not None:
             model.load_state_dict(params)
         self.model = model
+        # does the block rope internally (Llama)? Then admission hands it
+        # the prompt's logical slots from 0 (reference
+        # ``_block_takes_positions``, ``:495``); GPT-2 embeds its positions
+        # instead, and its blocks are called as they were
+        self._block_takes_positions = "positions" in inspect.signature(
+            model.blocks[0].forward).parameters
         self.B = slots
         self.Tb = prompt_buf
         self.S = segment
@@ -330,11 +341,13 @@ class ContinuousBatcher:
         write quantizes it, as the reference's admission scatter does)."""
         model = self.model
         K, W = prompt.shape
-        x = model.embed(prompt, torch.arange(W, device=self.device))
+        positions = torch.arange(W, device=self.device)
+        x = model.embed(prompt, positions)
         blk, off = blk.reshape(-1), off.reshape(-1)
+        kw = {"positions": positions} if self._block_takes_positions else {}
         for block, cache in zip(model.blocks, self._caches):
             sink: list = []
-            x = block(x, kv_mask=pmask, kv_sink=sink)
+            x = block(x, kv_mask=pmask, kv_sink=sink, **kw)
             (k, v), = sink                     # [K, hk, W, hd] views
             hk, hd = k.shape[1], k.shape[3]
             kv_pool_insert(cache["kv"],

@@ -316,7 +316,7 @@ def test_cli_trains_bert_and_ignores_augment(tmp_path, capsys):
     (["--model", "bert", "--model_preset", "base"], True),
     (["--model", "resnet50", "--dataset", "cifar10", "--augment", "flip"],
      True),
-    (["--model", "llama"], False),
+    (["--model", "moe"], False),
     (["--augment", "rotate"], False),
     (["--dataset", "imagenet"], False),
 ])

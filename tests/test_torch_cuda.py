@@ -1685,3 +1685,112 @@ def test_captured_ladder_step_matches_eager(dev, name):
     assert all(math.isfinite(v) for v in runs[True][0])
     assert all(torch.equal(a, b) for a, b in zip(runs[True][1],
                                                  runs[False][1]))
+
+
+# ---- Llama: grouped-query attention on the card -----------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_on_repeated_kv_matches_dense_autograd(dev, dtype, masked):
+    """Llama's whole-window attention: 12 query heads over 4 kv heads,
+    K/V repeated inside ``attention`` (``repeat_interleave``, head h reads
+    kv head h // 3) into the flash kernels, forward and backward, against
+    autograd through the plain version on K/V repeated the same way; dK
+    and dV come back at kv-head width, summed over each group."""
+    from distributed_compute_pytorch_tpu_torch.ops import attention as A
+    from distributed_compute_pytorch_tpu_torch.ops import flash_attention as F
+    gen = torch.Generator().manual_seed(21)
+    b, t, H, hk, d = 2, 96, 12, 4, 64
+    q0 = _randn(gen, b, t, H * d, dtype=dtype, dev=dev)
+    kv0 = _randn(gen, b, t, 2 * hk * d, dtype=dtype, dev=dev)
+    g = _randn(gen, b, t, H * d, dtype=dtype, dev=dev)
+    mask = None
+    if masked:
+        mask = (torch.arange(t)[None] < torch.tensor([[t], [t - 37]])
+                ).float().to(dev)
+    grads = []
+    for plain in (False, True):
+        q_in, kv_in = (x.clone().requires_grad_() for x in (q0, kv0))
+        q = A.split_heads(q_in, H)
+        k, v = (A.split_heads(x, hk) for x in kv_in.split(hk * d, dim=-1))
+        if plain:
+            k, v = (x.repeat_interleave(H // hk, dim=1) for x in (k, v))
+            o = F.flash_attention_plain(q, k, v, causal=True, kv_mask=mask)
+        else:
+            before = (F.launches, F.dq_launches, F.dkv_launches)
+            o = A.attention(q, k, v, causal=True, kv_mask=mask)
+        A.merge_heads(o).backward(g)
+        if not plain:
+            moved = (F.launches - before[0], F.dq_launches - before[1],
+                     F.dkv_launches - before[2])
+            assert moved == (1, 1, 1), moved
+        grads.append((o.detach(), q_in.grad, kv_in.grad))
+    assert grads[0][2].shape == (b, t, 2 * hk * d)
+    for name, got, want in zip(("o", "dq", "dkv"), *grads):
+        assert torch.isfinite(got).all(), name
+        assert _rel_err(got, want) <= TOL[dtype], name
+        if dtype == torch.bfloat16:
+            assert _row_err(got, want) <= ROW_TOL, name
+
+
+def _llama_pair(dev):
+    """A 2-layer Llama at G = 3 (6 query heads of 64 over 2 kv heads), f32,
+    random weights, on the CPU and a copy on the card."""
+    from distributed_compute_pytorch_tpu_torch.models.llama import (
+        LlamaConfig, LlamaLM)
+    cfg = LlamaConfig(vocab_size=256, max_seq_len=128, num_layers=2,
+                      num_heads=6, num_kv_heads=2, d_model=384, d_ff=512)
+    cpu = LlamaLM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = LlamaLM(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_llama_serve_on_card_matches_cpu(dev, kv_dtype):
+    """The Llama decode tick through the paged pool, float and int8: a
+    Llama at G = 3 served on the card gives the CPU's (the plain path's)
+    greedy tokens in f32, through ``flash_fwd`` on repeated K/V, the
+    admission scatter and the fused ``paged_decode_write`` (or its
+    ``_q8`` form)."""
+    from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
+    from distributed_compute_pytorch_tpu_torch.serve import (
+        ContinuousBatcher, Request)
+    rng = np.random.default_rng(8)
+    reqs = [([int(x) for x in rng.integers(0, 256, rng.integers(1, 11))],
+             int(rng.integers(3, 10))) for _ in range(7)]
+    outs = []
+    counter = ((lambda: D.write_q8_launches) if kv_dtype == "int8"
+               else (lambda: D.write_launches))
+    for model, device in zip(_llama_pair(dev), ("cpu", dev)):
+        before = counter()
+        cb = ContinuousBatcher(model, slots=2, t_max=128, prompt_buf=10,
+                               segment=3, kv_block_tokens=16,
+                               kv_dtype=kv_dtype, device=device)
+        outs.append(cb.serve([Request(list(t), n) for t, n in reqs]))
+        assert cb.last_block_leaks == 0
+    assert counter() > before
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_llama_generate_on_card_matches_cpu(dev, kv_quant):
+    """The Llama decode tick through the dense cache, float and int8:
+    left-padded prompts generated on the card (the captured greedy tick,
+    the fused ``dense_decode_write`` or ``_q8`` at G = 3) give the CPU's
+    tokens in f32."""
+    from distributed_compute_pytorch_tpu_torch import infer
+    from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
+    prompt = np.random.default_rng(9).integers(0, 256, (3, 9))
+    mask = np.ones((3, 9), np.int64)
+    mask[1, :4] = 0
+    mask[2, :8] = 0
+    counter = ((lambda: D.dense_write_q8_launches) if kv_quant
+               else (lambda: D.dense_write_launches))
+    outs = []
+    for model in _llama_pair(dev):
+        before = counter()
+        outs.append(infer.generate(model, prompt, 12, prompt_mask=mask,
+                                   kv_quant=kv_quant).cpu())
+    assert counter() > before
+    assert torch.equal(outs[0], outs[1])

@@ -267,7 +267,8 @@ def test_cli_generate_matches_jax(checkpoint, capsys, extra):
                                   ["--quantize", "int8"],
                                   ["--text_prompt", "hello"],
                                   ["--tokenizer", "byte"],
-                                  ["--model", "llama"], ["--model", "moe"]])
+                                  ["--quantize", "int8-kv"],
+                                  ["--model", "moe"]])
 def test_cli_generate_refuses_unported_flags(flag):
     from distributed_compute_pytorch_tpu_torch.cli_generate import main
     with pytest.raises(SystemExit, match=f"{flag[0]} .*not ported"):

@@ -84,10 +84,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 
 
 @pytest.mark.parametrize("name, kw", [("resnet18", {}), ("resnet50", {}),
-                                      ("bert", {"preset": "tiny"})])
+                                      ("bert", {"preset": "tiny"}),
+                                      ("llama", {"preset": "tiny"})])
 def test_ladder_models_need_cuda_unless_cpu_is_asked(name, kw):
-    """BASELINE's ResNet and BERT rungs follow the device rule: built
-    without a card and without ``device="cpu"``, they raise."""
+    """BASELINE's ResNet and BERT rungs and Llama follow the device rule:
+    built without a card and without ``device="cpu"``, they raise."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     from distributed_compute_pytorch_tpu_torch.models.registry import (

@@ -1,5 +1,6 @@
 """One rank of the port's trainer on a BASELINE ladder model on the CPU,
-for ``tests/test_torch_resnet.py`` and ``tests/test_torch_bert.py``.
+for ``tests/test_torch_resnet.py``, ``tests/test_torch_bert.py`` and
+``tests/test_torch_llama.py``.
 
     python tests/torch_ladder_worker.py OUT RANK WORLD PORT MODEL MESH
 
@@ -16,7 +17,10 @@ and trains through the port's ``Trainer`` from seed 0:
 - ``bert``: BERT-tiny at T = 32 (``pad_token_id`` 0, dropout 0.1) on 64
   ragged sequences of 8-32 real tokens padded with 0, at a global batch of
   16 for two epochs, AdamW (ZeRO-1 at WORLD 2 under ``--shard_update
-  auto``): the global batch's MLM mask and dropout draws.
+  auto``): the global batch's MLM mask and dropout draws;
+- ``llama``: Llama-tiny (GQA 4:2) at T = 32 on 64 ``synthetic_lm``
+  sequences, at a global batch of 16 for two epochs, AdamW (ZeRO-1 under
+  ``--mesh data=2``, FSDP under ``fsdp=2``).
 
 Both evaluate on 40 examples (the last batch padded by 8 rows). Writes
 every step's loss, the final parameters and BatchNorm stats (gathered)
@@ -31,6 +35,7 @@ import subprocess
 import sys
 
 import numpy as np
+import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -39,9 +44,11 @@ from distributed_compute_pytorch_tpu_torch.core import mesh  # noqa: E402
 from distributed_compute_pytorch_tpu_torch.core.config import (  # noqa: E402
     Config)
 from distributed_compute_pytorch_tpu_torch.data.datasets import (  # noqa: E402
-    ArrayDataset, synthetic_images)
+    ArrayDataset, synthetic_images, synthetic_lm)
 from distributed_compute_pytorch_tpu_torch.models.bert import (  # noqa: E402
     BertConfig, BertMLM)
+from distributed_compute_pytorch_tpu_torch.models.llama import (  # noqa: E402
+    LlamaConfig, LlamaLM)
 from distributed_compute_pytorch_tpu_torch.models.resnet import (  # noqa: E402
     ResNet)
 from distributed_compute_pytorch_tpu_torch.train.trainer import (  # noqa: E402
@@ -50,6 +57,7 @@ from distributed_compute_pytorch_tpu_torch.train.trainer import (  # noqa: E402
 T = 32
 BERT = dataclasses.replace(BertConfig.tiny(), max_seq_len=T, pad_token_id=0,
                            dropout_rate=0.1)
+LLAMA = dataclasses.replace(LlamaConfig.tiny(), max_seq_len=T)
 
 
 def ragged_tokens(n: int, seed: int) -> ArrayDataset:
@@ -104,6 +112,13 @@ def main(out: str, rank: int, world: int, port: int, kind: str,
         model = ResNet.build("resnet18", width=8, device="cpu")
         train = synthetic_images(32, (8, 8, 3), 10, 0)
         test = synthetic_images(40, (8, 8, 3), 10, 1)
+    elif kind == "llama":
+        cfg = Config(model="llama", optimizer="adamw", lr=1e-3, epochs=2,
+                     **common)
+        model = LlamaLM(LLAMA, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        train = synthetic_lm(64, T, LLAMA.vocab_size, seed=0)
+        test = synthetic_lm(40, T, LLAMA.vocab_size, seed=1)
     else:
         cfg = Config(model="bert", optimizer="adamw", lr=1e-3, epochs=2,
                      **common)
