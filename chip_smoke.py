@@ -60,8 +60,10 @@ imports nothing of JAX. Phases, one JSON line each:
    forward with plain dense attention. Capture ms, tokens/s, ms a tick
    and allocator calls of every run; the headline speed is the median of
    the graph runs;
-5. serve_profile: the bf16 serve run once more under ``torch.profiler``
-   on each batcher: device time by kernel group, device ops a tick, the
+5. serve_profile: the bf16 serve run's first 8 requests (a quarter, to
+   keep the profiler's post-processing short; the busy share against an
+   unprofiled run of the same 8) under ``torch.profiler`` on each
+   batcher: device time by kernel group, device ops a tick, the
    host's CUDA calls a segment (``cudaLaunchKernel``, ``cudaGraphLaunch``:
    one graph launch a segment, and at least 12 kernel launch calls fewer
    a replayed tick than eager, gated), the device busy share, and the
@@ -100,8 +102,8 @@ imports nothing of JAX. Phases, one JSON line each:
    other counter 0); every int8 run must serve the first int8 run's
    tokens, which are checked teacher-forced, the decoded rows against
    quantized K/V; tokens/s of each run, one profiled run of each batcher
-   (device busy, ops a tick, host calls a segment, launches measured as
-   in 5), both pools' bytes and
+   on the first 8 requests (device busy, ops a tick, host calls a
+   segment, launches measured as in 5), both pools' bytes and
    the share of positions where the int8 pool served the float pool's
    token;
    generate_int8: the generate phase's 16 prompts with ``kv_quant=True``,
@@ -110,6 +112,36 @@ imports nothing of JAX. Phases, one JSON line each:
    counter 0; tokens equal across runs, teacher-forced, the rows past
    each prompt against quantized K/V; tokens/s, a profiled run of each
    mode (launches measured as in 5), and both caches' bytes;
+8b. the serving remainder, after the int8 cells (random weights from seed
+   0, bf16, 16 slots, segment 16, 16-slot blocks):
+   serve_sampled: the serve phase's 32 requests, every odd one sampled
+   (temperature 0.8, top-k 50, top-p 0.95, a seed each), through a
+   captured batcher (greedy and sampled segments, two programs) and an
+   eager one in turns between greedy-only runs (``SAMPLED_TURNS``), every
+   call and both captures under ``set_sync_debug_mode("error")``: tokens
+   bit-identical captured against eager, at segment 8 and in shuffled
+   submission order; the greedy rows the serve phase's tokens; no sampled
+   token outside its row's top-k/top-p set recomputed from teacher-forced
+   logits beyond the margin; launches as scheduled; a profiled captured
+   run (launches against the device, one ``cudaGraphLaunch`` a replay, no
+   kernel launch inside one: no generator prologue); tokens/s beside the
+   greedy runs;
+   serve_prefix: GPT-2 and Llama, float and int8 pools: 32 chat requests
+   (a shared 384-token system prompt and a 5-token role header, then 11-59
+   tokens of their own; 32-128 new) with the radix prefix cache, captured
+   and eager, and without it, each run from a cold cache: captured
+   bit-identical to eager, attaches and copy-on-write copies made, each
+   pool's tokens teacher-forced within the margin (positions equal to the
+   cache-off run's reported), launches as scheduled (a device prefill is
+   a wave with a suffix token), no leak; ``prefill_tokens_saved``,
+   ``cow_copies``, mean TTFT and tokens/s with the cache on against off; a
+   profiled captured run of the GPT-2 cells;
+   serve_chunked: GPT-2: 8 rows decoding 256 tokens ahead of 16 prompts of
+   600-900 tokens, chunked at 128 and unchunked, captured (the eager
+   reference and the profiled run on the 8 rows and 4 long prompts):
+   tokens bit-identical, teacher-forced, launches as scheduled; the decode
+   rows' worst device wall between two segments, chunked against
+   unchunked (``segment_clock``);
 9. train: GPT-2-small at full width and depth (dropout 0.1), bf16 compute
    over f32 masters, ``adamw_fused``, 20 steps on one 8 x 1024 batch
    through ``train/step.py::make_step_fns``, the captured step (its first
@@ -237,6 +269,14 @@ imports nothing of JAX. Phases, one JSON line each:
    (phase 12 on two Llama layers). The kernels phase (3) adds the Llama
    shapes: ``kv_pool_insert`` into a 4-head pool, the four fused ticks at
    4 kv heads (``*_llama``) and ``fused_adamw`` over Llama's 111 leaves.
+   It also holds the serving remainder's shapes: ``flash_fwd_suffix``
+   (``[16, 12, 64, 64]`` queries against 448 keys: 384 gathered prefix
+   slots and the window, bottom-right, under a prefix and suffix mask;
+   with the prefix gather's and the concatenation's time beside it) and
+   ``kv_pool_insert_suffix`` / ``kv_pool_insert_q8_suffix`` (an attach
+   wave's scatter from mid-block into blocks just copied on write, exact),
+   and the ``launch_floor`` line times an empty kernel launch, the floor
+   the slot writes sit at.
 
 When a profiled run's counters and the device's kernel events disagree
 (``counted_profile``), the profile's port kernel events (name, start,
@@ -250,7 +290,8 @@ runs of serve_int8 and generate_int8 for the int8 forms, each measured
 against the device's kernel events; from train_profile's captured run
 for the training kernels, measured the same way; the BERT-shape entries
 ``*_bert`` from the bert phase's profiled captured run; the Llama-shape
-entries ``*_llama`` from the Llama cells' profiled captured runs), the
+entries ``*_llama`` from the Llama cells' profiled captured runs; the
+``*_suffix`` entries from serve_prefix's profiled captured GPT-2 runs), the
 raw ``nvidia-smi`` line, and last the ``{"ok": true, ...}`` line. Any
 failed check exits non-zero before the ``ok`` line. Roofline bounds use
 the H100 SXM data-sheet peaks: 3.35 TB/s HBM, 989 TFLOP/s bf16 (tensor
@@ -400,6 +441,46 @@ def flash_fault(FA, q, k, v, want, mask):
     return fault
 
 
+def flash_case(torch, FA, dt, out, case, q, k, v, mask):
+    """One causal ``flash_fwd`` case against its plain version, recorded in
+    ``out`` under ``case``: bf16 on the tensor-core kernel and f32 on the
+    CUDA-core one (``_tensor_core_path``), the same bits on a second
+    launch, finite, the output to ``TOL`` and ``lse`` to ``LSE_TOL``; in
+    bf16 also row by row to ``ROW_TOL``, which the planted fault
+    (``flash_fault``) must fail."""
+    kw = {"causal": True, "kv_mask": mask}
+    tc0 = FA.tc_launches
+    got, lse = FA.flash_fwd(q, k, v, **kw)
+    tc = FA.tc_launches - tc0
+    want_tc = 1 if dt == "bf16" else 0
+    require(tc == want_tc, f"flash {case} {dt}: tensor-core launches "
+                           f"{tc}, want {want_tc}")
+    again, lse_again = FA.flash_fwd(q, k, v, **kw)
+    want, lse_want = FA.flash_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    require(torch.equal(got, again) and torch.equal(lse, lse_again),
+            f"flash {case} {dt}: two launches gave different bits")
+    require(bool(torch.isfinite(got).all()) and bool(
+        torch.isfinite(lse).all()), f"flash {case} {dt}: non-finite")
+    err = (got.float() - want.float()).abs().max().item()
+    require(err <= TOL[dt], f"flash {case} {dt}: max err {err} > {TOL[dt]}")
+    lse_err = (lse - lse_want).abs().max().item()
+    require(lse_err <= LSE_TOL, f"flash {case} {dt}: lse err {lse_err} > "
+                                f"{LSE_TOL}")
+    out[f"{case}_max_abs_err"] = err
+    out[f"{case}_lse_max_abs_err"] = lse_err
+    out[f"{case}_tensor_core_launches"] = tc
+    out[f"{case}_bit_identical"] = True
+    if dt == "bf16":
+        r = row_err(got, want)
+        f = row_err(flash_fault(FA, q, k, v, want, mask), want)
+        require(r <= ROW_TOL, f"flash {case}: row error {r} > {ROW_TOL}")
+        require(f > ROW_TOL, f"flash {case}: the planted fault's row error "
+                             f"{f} <= {ROW_TOL}: the row check cannot see "
+                             f"a dropped key tile")
+        out[f"{case}_row_err"], out[f"{case}_fault_row_err"] = r, f
+
+
 def check_flash(torch, np, FA, dtype, dt):
     """Admission prefill shapes: 8 rows x 12 heads x t = tk = 256 x 64,
     causal with a ragged pad mask (split-head views of a fused QKV, as the
@@ -413,41 +494,6 @@ def check_flash(torch, np, FA, dtype, dt):
     import torch.nn.functional as F
     gen = torch.Generator().manual_seed(1)
     out = {"path": "tensor cores" if dt == "bf16" else "CUDA cores"}
-
-    def check(case, q, k, v, mask):
-        kw = {"causal": True, "kv_mask": mask}
-        tc0 = FA.tc_launches
-        got, lse = FA.flash_fwd(q, k, v, **kw)
-        tc = FA.tc_launches - tc0
-        want_tc = 1 if dt == "bf16" else 0
-        require(tc == want_tc, f"flash {case} {dt}: tensor-core launches "
-                               f"{tc}, want {want_tc}")
-        again, lse_again = FA.flash_fwd(q, k, v, **kw)
-        want, lse_want = FA.flash_fwd_plain(q, k, v, **kw)
-        torch.cuda.synchronize()
-        require(torch.equal(got, again) and torch.equal(lse, lse_again),
-                f"flash {case} {dt}: two launches gave different bits")
-        require(bool(torch.isfinite(got).all()) and bool(
-            torch.isfinite(lse).all()), f"flash {case} {dt}: non-finite")
-        err = (got.float() - want.float()).abs().max().item()
-        require(err <= TOL[dt], f"flash {case} {dt}: max err {err} > "
-                                f"{TOL[dt]}")
-        lse_err = (lse - lse_want).abs().max().item()
-        require(lse_err <= LSE_TOL, f"flash {case} {dt}: lse err {lse_err} "
-                                    f"> {LSE_TOL}")
-        out[f"{case}_max_abs_err"] = err
-        out[f"{case}_lse_max_abs_err"] = lse_err
-        out[f"{case}_tensor_core_launches"] = tc
-        out[f"{case}_bit_identical"] = True
-        if dt == "bf16":
-            r = row_err(got, want)
-            f = row_err(flash_fault(FA, q, k, v, want, mask), want)
-            require(r <= ROW_TOL, f"flash {case}: row error {r} > {ROW_TOL}")
-            require(f > ROW_TOL, f"flash {case}: the planted fault's row "
-                                 f"error {f} <= {ROW_TOL}: the row check "
-                                 f"cannot see a dropped key tile")
-            out[f"{case}_row_err"], out[f"{case}_fault_row_err"] = r, f
-
     for case, (b, t, tk) in (("prefill", (8, 256, 256)),
                              ("offset", (4, 64, 320))):
         h, d = 12, 64
@@ -458,7 +504,7 @@ def check_flash(torch, np, FA, dtype, dt):
         lengths = torch.randint(tk // 8, tk + 1, (b,), generator=gen)
         lengths[0] = tk
         mask = (torch.arange(tk)[None] < lengths[:, None]).float().cuda()
-        check(case, q, k, v, mask)
+        flash_case(torch, FA, dt, out, case, q, k, v, mask)
         if case != "prefill":
             continue
         # data-dependent work: (query, key) pairs the causal rule AND the
@@ -493,7 +539,7 @@ def check_flash(torch, np, FA, dtype, dt):
     qkv = torch.randn(b, t, 3 * h * d, generator=gen).to("cuda", dtype)
     q, k, v = (x.reshape(b, t, h, d).transpose(1, 2)
                for x in qkv.split(h * d, dim=-1))
-    check("train", q, k, v, None)
+    flash_case(torch, FA, dt, out, "train", q, k, v, None)
     # q, k, v read and o written once, the f32 lse written; causal pairs
     pairs = b * h * t * (t + 1) // 2
     nbytes = q.element_size() * 4 * b * h * t * d + 4 * b * h * t
@@ -1962,9 +2008,10 @@ def serve_int8_phase(torch, np, mods, model, float_outs, phase="serve_int8",
     schedule implies, no float-form launch) and the graph's tokens checked
     teacher-forced, decoded rows against quantized K/V; every int8 run must
     serve the graph's first int8 tokens, every float run the serve phase's.
-    Then, with ``profiles``, one profiled run of each batcher gives its
-    device time, ops a tick, host calls and measured launches
-    (``profiled_serve``), and each unprofiled run's busy share."""
+    Then, with ``profiles``, each batcher serves the first
+    ``PROFILED_REQUESTS`` requests once unprofiled and once profiled: its
+    device time, ops a tick, host calls, measured launches
+    (``profiled_serve``) and busy share."""
     A, FA, CU, DA, serve = mods
     reqs = serve_requests(np, serve, model.config.vocab_size)
     cbs = {label(kv, mode): batcher(serve, model, kv, mode)
@@ -2043,13 +2090,15 @@ def serve_int8_phase(torch, np, mods, model, float_outs, phase="serve_int8",
                                     if cbs[name]._graph}
     new_tokens = sum(r.max_new for r in reqs)
     summaries = {}
+    sub = reqs[:PROFILED_REQUESTS]
     for name, cb in (cbs.items() if profiles else ()):
+        wall = unprofiled_wall(torch, lambda: cb.serve(sub))
         prof, wall_prof, counts, ticks = profiled_serve(
-            torch, (FA, CU, DA), cb, reqs, f"{phase} profile {name}",
+            torch, (FA, CU, DA), cb, sub, f"{phase} profile {name}",
             q8=name.startswith("int8"), tc=True)
         summaries[name] = profile_summary(torch, prof, wall_prof, counts,
                                           ticks, ticks // cb.S, "segment",
-                                          walls[name])
+                                          [wall])
     for kv, eager in (("bf16", None), ("int8", summaries.get("int8_eager"))):
         if summaries:
             check_host_calls(f"{phase} {kv}", summaries[kv], eager,
@@ -2072,11 +2121,728 @@ def serve_int8_phase(torch, np, mods, model, float_outs, phase="serve_int8",
     return rec
 
 
+# ---- the serving remainder: sampling, the prefix cache, chunked prefill ----
+
+# the sampled rows of serve_sampled (every odd request of the serve phase's
+# 32, each with its own seed)
+SAMPLED = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+# serve_prefix: a shared system prompt, then a role header every user turn
+# starts with (a chat template's), so the shared span, 389 slots, ends
+# mid-block and attaches copy-on-write; user turns of 16-64 tokens in all
+PREFIX_SYSTEM, PREFIX_HEADER, PREFIX_BUF = 384, 5, 448
+# serve_chunked: 8 rows decoding (8-token prompts, 256 new tokens) and 16
+# prompts of 600-900 tokens (32 new tokens each) queued behind them; the
+# eager reference and the profiled run take the 8 rows and the first 4
+# long prompts
+CHUNK_DECODE_ROWS, CHUNK_DECODE_NEW, CHUNK_LONG = 8, 256, 16
+CHUNK_BUF, CHUNK_TOKENS, CHUNK_SUBSET = 900, 128, 12
+# serve_sampled's turns: greedy-only runs of the captured batcher around
+# the sampled runs, captured and eager
+SAMPLED_TURNS = ("greedy", "graph", "eager", "graph", "greedy")
+# the requests of each new phase's profiled captured run: a quarter of the
+# work (fewer kernel records in one profiler session)
+PROFILED_REQUESTS = 8
+# the kernels phase's suffix shape: serve_prefix's attach wave, 16 rows of
+# a 64-query window against 384 gathered prefix slots
+SUFFIX_B, SUFFIX_T, SUFFIX_LP = 16, 64, 384
+
+
+def check_flash_suffix(torch, np, FA, dtype, dt):
+    """The suffix prefill of an attach wave: 16 rows x 12 heads of a
+    64-query window (split-head views of a fused QKV) against 448 keys,
+    the 384 gathered prefix slots and the window concatenated as the
+    blocks' ``kv_prefix`` does, causal bottom-right (each query sees the
+    whole prefix and the window up to itself), under a mask of varied
+    prefix lengths (200-384 valid slots) and suffix lengths (16-64). Held
+    as ``check_flash`` holds the admission shape (``flash_case``), and
+    timed beside its bound (the pairs the causal rule and the mask allow,
+    the bytes of valid keys: what this wave needs), its plain version and
+    ``F.scaled_dot_product_attention`` with the same boolean mask."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(5)
+    b, h, t, d, lp = SUFFIX_B, 12, SUFFIX_T, 64, SUFFIX_LP
+    tk = lp + t
+    qkv = torch.randn(b, t, 3 * h * d, generator=gen).to("cuda", dtype)
+    q, kw_, vw = (x.reshape(b, t, h, d).transpose(1, 2)
+                  for x in qkv.split(h * d, dim=-1))
+    prefix = torch.randn(2, b, h, lp, d, generator=gen).to("cuda", dtype)
+    k = torch.cat([prefix[0], kw_], dim=2)
+    v = torch.cat([prefix[1], vw], dim=2)
+    m = torch.randint(200, lp + 1, (b,), generator=gen)
+    sn = torch.randint(16, t + 1, (b,), generator=gen)
+    m[0], sn[0] = lp, t
+    cols = torch.arange(tk)[None]
+    keep = (cols < m[:, None]) | ((cols >= lp) & (cols < lp + sn[:, None]))
+    mask = keep.float().cuda()
+    out = {"path": "tensor cores" if dt == "bf16" else "CUDA cores"}
+    flash_case(torch, FA, dt, out, "suffix", q, k, v, mask)
+    rows = np.arange(t)[:, None] + lp
+    allowed = (np.arange(tk)[None, None] <= rows[None]) & keep.numpy()[
+        :, None, :]
+    pairs = int(allowed.sum()) * h
+    esz = q.element_size()
+    nbytes = esz * (2 * b * h * t * d + 2 * h * d * int((m + sn).sum())) \
+        + 4 * b * tk + 4 * b * h * t
+    out["gflop"] = 4 * d * pairs / 1e9
+    out["bound_ms"], out["bound_by"] = bound(nbytes, 4 * d * pairs, dt)
+    out["ms"] = time_ms(torch, [lambda: FA.flash_fwd(
+        q, k, v, causal=True, kv_mask=mask)])
+    out["tflops"] = out["gflop"] / out["ms"]
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    out["plain_ms"] = time_ms(torch, [lambda: FA.flash_attention_plain(
+        q, k, v, causal=True, kv_mask=mask)])
+    attn_mask = torch.from_numpy(allowed[:, None]).cuda()
+    out["library_ms"] = time_ms(torch, [
+        lambda: F.scaled_dot_product_attention(q, k, v,
+                                               attn_mask=attn_mask)])
+    out["library"] = "F.scaled_dot_product_attention (bool mask)"
+    # what the wave does before the launch, a layer: the prefix gathered
+    # from the pool through the rows' tables (``gather_kv_blocks``, a
+    # copy a paged prefill would not make) and the concatenation
+    from distributed_compute_pytorch_tpu_torch.ops.attention import (
+        gather_kv_blocks)
+    pool = torch.randn(2, 1025, h, 16, d, generator=gen).to("cuda", dtype)
+    tables = (torch.randperm(1024, generator=gen)[:b * lp // 16] + 1).reshape(
+        b, lp // 16).to("cuda", torch.int32)
+    out["gather_ms"] = time_ms(torch, [lambda: gather_kv_blocks(pool,
+                                                                tables)])
+    out["concat_ms"] = time_ms(torch, [lambda: (torch.cat([prefix[0], kw_],
+                                                          dim=2),
+                                                torch.cat([prefix[1], vw],
+                                                          dim=2))])
+    out["gather_bound_ms"] = bound(2 * 2 * b * h * lp * d * esz, 0.0, dt)[0]
+    out["max_abs_err"] = out["suffix_max_abs_err"]
+    out["lse_max_abs_err"] = out["suffix_lse_max_abs_err"]
+    if dt == "bf16":
+        out["row_err"] = out["suffix_row_err"]
+        out["fault_row_err"] = out["suffix_fault_row_err"]
+    out["shape"] = (f"q [{b}, {h}, {t}, {d}] (fused-QKV views) against "
+                    f"{tk} keys ({lp} gathered prefix slots + the window), "
+                    f"causal bottom-right, prefix and suffix mask")
+    return out
+
+
+def check_insert_suffix(torch, CU, dtype, dt, q8):
+    """An attach wave's scatter after its copy-on-write: 16 rows into the
+    pool [2, 1025, 12, 16, 64] (``q8``: int8 with its f32 scales), each
+    row's prefix ending mid-block in a donor block, that block copied into
+    a fresh one as ``serve._copy_blocks`` copies (every leaf), then the
+    row's suffix (16-64 tokens of a 64-token window, pads aimed out of
+    range) written from the prefix's length on: its first token mid-block
+    in the copy, the rest in fresh blocks. Kernel against the plain
+    version on the same pool, exact (every leaf); the copies' slots below
+    the prefix's length must still hold the donor's bytes. Timed as the
+    admission write, beside the indexed write (float)."""
+    gen = torch.Generator().manual_seed(6 + q8)
+    P, H, bt, hd, b, W = 1025, 12, 16, 64, SUFFIX_B, SUFFIX_T
+    if q8:
+        pool = q8_cache(torch, gen, 2, P, H, bt, hd)[0]
+    else:
+        pool = (torch.randn(2, P, H, bt, hd, generator=gen).to("cuda", dtype),)
+    m = torch.randint(200, SUFFIX_LP + 1, (b,), generator=gen)
+    m[m % bt == 0] += 3                      # every prefix ends mid-block
+    sn = torch.randint(16, W + 1, (b,), generator=gen)
+    donors = torch.randperm(P // 2, generator=gen)[:b] + 1
+    fresh = iter((torch.randperm(P // 2 - 1, generator=gen) + P // 2 + 1)
+                 .tolist())
+    copies, blocks, offsets = [], [], []
+    for j in range(b):
+        dst = next(fresh)
+        copies.append((int(donors[j]), dst))
+        first = int(m[j]) // bt              # the copied block's index
+        table = {first: dst}
+        for i in range(W):
+            slot = int(m[j]) + i
+            if i >= int(sn[j]):
+                blocks.append(P)             # pad: dropped
+                offsets.append(0)
+                continue
+            if slot // bt not in table:
+                table[slot // bt] = next(fresh)
+            blocks.append(table[slot // bt])
+            offsets.append(slot % bt)
+    src = torch.tensor([s for s, _ in copies], device="cuda")
+    dst = torch.tensor([d for _, d in copies], device="cuda")
+    for leaf in pool:
+        leaf.index_copy_(1, dst, leaf.index_select(1, src))
+    kv = torch.randn(b * W, 3 * H * hd, generator=gen).to("cuda", dtype)
+    k = kv[:, H * hd:2 * H * hd].reshape(b * W, H, hd)   # fused-QKV views
+    v = kv[:, 2 * H * hd:].reshape(b * W, H, hd)
+    blk = torch.tensor(blocks, dtype=torch.int32, device="cuda")
+    off = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+    want = [x.clone() for x in pool]
+    CU.kv_pool_insert_plain(want[0], k, v, blk, off,
+                            want[1] if q8 else None)
+    got = [x.clone() for x in pool]
+    scale = got[1] if q8 else None
+    CU.kv_pool_insert_cuda(got[0], k, v, blk, off, scale=scale)
+    torch.cuda.synchronize()
+    what = f"insert{'_q8' if q8 else ''}_suffix {dt}"
+    bad = sum(int((g != w_).sum()) for g, w_ in zip(got, want))
+    require(bad == 0, f"{what}: {bad} elements differ from the plain "
+                      f"version")
+    kept = all(torch.equal(g[:, d, :, :int(mj) % bt],
+                           x[:, s, :, :int(mj) % bt])
+               for (s, d), mj in zip(copies, m)
+               for g, x in zip(got, pool))
+    require(kept, f"{what}: a copied block lost its donor's prefix slots")
+    require(not torch.equal(got[0], pool[0]), f"{what}: nothing was written")
+    n_valid = int(sn.sum())
+    esz = k.element_size()
+    nbytes = (2 * n_valid * H * (hd * esz + hd + 4) if q8
+              else 2 * 2 * n_valid * H * hd * esz) + 8 * b * W
+    out = {"elements_differing": bad, "donor_prefix_kept": kept,
+           "max_abs_err": 0.0, "cow_copies": b}
+    out["bound_ms"], out["bound_by"] = bound(nbytes, 0.0, dt)
+    out["ms"] = time_ms(torch, [lambda: CU.kv_pool_insert_cuda(
+        got[0], k, v, blk, off, scale=scale)])
+    out["plain_ms"] = time_ms(torch, [lambda: CU.kv_pool_insert_plain(
+        got[0], k, v, blk, off, scale)])
+    if q8:
+        out["library_ms"], out["library"] = None, Q8_LIBRARY
+    else:
+        keep_l = blk < P
+        upd = torch.stack([k, v], dim=1)[keep_l]          # [n, 2, H, hd]
+        blk_l, off_l = blk[keep_l].long(), off[keep_l].long()
+
+        def index_write():
+            got[0][:, blk_l, :, off_l, :] = upd
+        out["library_ms"] = time_ms(torch, [index_write])
+        out["library"] = "pool[:, blocks, :, offsets, :] = upd"
+    out["shape"] = (f"{'int8 ' if q8 else ''}pool [2, {P}, {H}, {bt}, {hd}]"
+                    f", {b} rows x {W}-token window after {b} copy-on-write "
+                    f"copies, suffixes from mid-block")
+    return out
+
+
+def counted_serve(torch, mods, cb, reqs, what, q8, sync=False):
+    """One ``cb.serve(reqs)`` (under the sync-debug window with ``sync``)
+    with every launch counter zeroed just before and read just after, held
+    to the schedule: ``flash_fwd`` and the pool scatter 12 a device
+    prefill (``stats["prefill_forwards"]``: a wave with no suffix token
+    runs none), the fused tick 12 a tick, in the int8 forms for an int8
+    pool, every other counter 0; no block or slot leaked. Returns the
+    tokens, the wall, the mean time to first token, the launches and the
+    run's stats deltas."""
+    _, FA, CU, DA, _ = mods
+    before, chunk0 = dict(cb.stats), dict(cb.prefill)
+    ticks0 = cb.ticks
+    zero_q8_counts(FA, CU, DA)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    outs = serve_under_sync_check(torch, cb, reqs) if sync else cb.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = q8_counts(FA, CU, DA)
+    delta = {k: cb.stats[k] - before[k] for k in before
+             if k != "block_pool_occupancy"}
+    ticks = cb.ticks - ticks0
+    sfx = "_q8" if q8 else ""
+    want = {k: 0 for k in launches}
+    want.update({"flash_fwd": LAYERS * delta["prefill_forwards"],
+                 "kv_pool_insert" + sfx: LAYERS * delta["prefill_forwards"],
+                 "paged_decode_write" + sfx: LAYERS * ticks})
+    require(launches == want, f"{what}: launches {launches} != the "
+                              f"schedule's {want}")
+    require(all(launches[k] > 0 for k in ("flash_fwd", "kv_pool_insert" + sfx,
+                                          "paged_decode_write" + sfx)),
+            f"{what}: a kernel of the path never launched: {launches}")
+    require(cb.last_block_leaks == 0 and cb.last_slot_leaks == 0,
+            f"{what}: leaked blocks/slots")
+    require(all(len(o) == r.max_new for o, r in zip(outs, reqs)),
+            f"{what}: a request returned fewer than max_new tokens")
+    ttft = [t for t in cb.last_ttft_s if t is not None]
+    return {"outs": outs, "wall_s": wall, "mean_ttft_s": sum(ttft) / len(ttft),
+            "launches": {k: n for k, n in launches.items() if n},
+            "ticks": ticks, "stats": delta,
+            "chunk": {k: cb.prefill[k] - n for k, n in chunk0.items()},
+            "tokens_per_s": sum(map(len, outs)) / wall}
+
+
+def profiled_remainder(torch, mods, cb, reqs, what, q8):
+    """``cb.serve(reqs)`` under :func:`counted_profile`, held to the same
+    schedule as :func:`counted_serve` (every forward on the tensor cores:
+    bf16), and the captured program's host calls: one ``cudaGraphLaunch``
+    a replay, and no kernel launch call inside a replay (no generator
+    prologue). Returns the profile summary."""
+    _, FA, CU, DA, _ = mods
+    before, ticks0, sched, units = dict(cb.stats), cb.ticks, {}, {}
+
+    def run():
+        cb.serve(reqs)
+        fw = cb.stats["prefill_forwards"] - before["prefill_forwards"]
+        ticks = cb.ticks - ticks0
+        units.update(prefill_forwards=fw, ticks=ticks)
+        sfx = "_q8" if q8 else ""
+        sched.update({"flash_fwd": LAYERS * fw, "flash_fwd_tc": LAYERS * fw,
+                      "kv_pool_insert" + sfx: LAYERS * fw,
+                      "paged_decode_write" + sfx: LAYERS * ticks})
+    prof, wall, counts = counted_profile(torch, (FA, CU, DA), run, what,
+                                         sched, waves=units)
+    replays = cb.stats["graph_replays"] - before["graph_replays"]
+    ticks = cb.ticks - ticks0
+    summary = profile_summary(torch, prof, wall, counts, ticks,
+                              ticks // cb.S, "segment", [wall])
+    check_host_calls(what, summary, None, replays, cb.S)
+    host = summary["host_calls"]
+    require(host["kernel_launches_in_replays"] == 0,
+            f"{what}: {host['kernel_launches_in_replays']} kernel launch "
+            f"calls inside the replays (a generator prologue?)")
+    summary["replays"] = replays
+    summary["no_generator_prologue"] = True
+    return summary
+
+
+def remainder_batcher(serve, model, *, kv="bf16", mode="graph", **kw):
+    """A batcher of the serving remainder's phases: 16 slots, segment 16,
+    16-slot blocks, with ``kw``'s horizon and options; ``mode="eager"``
+    keeps every segment eager (the reference the graph is held to)."""
+    cb = serve.ContinuousBatcher(model, slots=16, segment=16,
+                                 kv_block_tokens=16, kv_dtype=kv, **kw)
+    cb._capture = mode == "graph"
+    return cb
+
+
+def sampled_requests(np, serve, vocab: int):
+    """The serve phase's 32 requests, every odd one sampled (``SAMPLED``)
+    with its own seed."""
+    reqs = serve_requests(np, serve, vocab)
+    for i, r in enumerate(reqs):
+        if i % 2:
+            r.temperature, r.top_k, r.top_p = (SAMPLED["temperature"],
+                                                SAMPLED["top_k"],
+                                                SAMPLED["top_p"])
+            r.seed = 1000 + i
+    return reqs
+
+
+def sampled_set_gaps(torch, A, infer, model, reqs, outs):
+    """Teacher-forced: each sampled token's scaled logit below the
+    smallest scaled logit its row's top-k/top-p set keeps, recomputed
+    from one full-sequence forward with plain dense attention (0 when the
+    token is inside the set). Returns (gaps, tokens outside the set)."""
+    gaps, outside = [], 0
+    with torch.no_grad():
+        for r, o in zip(reqs, outs):
+            if r.temperature == 0.0:
+                continue
+            seq = torch.tensor(r.tokens + o[:-1], device="cuda")
+            split = len(r.tokens) - 1
+            logits = reference_logits(torch, A, model, seq[None])[0][
+                split:].float()
+            n = len(o)
+            lg = infer.filter_rows(
+                logits, torch.full((n,), r.temperature, device="cuda"),
+                torch.full((n,), r.top_k or 0, device="cuda"),
+                torch.full((n,), 2.0 if r.top_p is None else r.top_p,
+                           device="cuda"))
+            scaled = logits / r.temperature
+            kept_min = torch.where(lg.isinf(), float("inf"),
+                                   scaled).amin(-1)
+            chosen = scaled.gather(1, torch.tensor(o, device="cuda")[:, None]
+                                   )[:, 0]
+            outside += int(lg.gather(1, torch.tensor(
+                o, device="cuda")[:, None]).isinf().sum())
+            gaps.append((kept_min - chosen).clamp(min=0).cpu())
+    return torch.cat(gaps), outside
+
+
+def serve_sampled_phase(torch, np, infer, mods, model, float_outs):
+    """GPT-2-small bf16: the serve phase's 32 requests on 16 slots, every
+    odd one sampled (``SAMPLED``, its own seed). Gates: the captured runs'
+    tokens bit-identical to the eager loop's (``SAMPLED_TURNS``, every run
+    and both programs' warm-ups and captures under the sync-debug window);
+    the same tokens at segment 8 and in shuffled submission order; the
+    greedy rows the serve phase's greedy tokens; no sampled token outside
+    its row's top-k/top-p set, recomputed from teacher-forced logits,
+    beyond the teacher-forced margin; the launches as scheduled; a
+    profiled captured run's launches held to the device's kernel events,
+    one ``cudaGraphLaunch`` a replay and no generator prologue. Reported:
+    tokens/s beside a greedy-only run of the same batcher, in turns."""
+    A, FA, CU, DA, serve = mods
+    reqs = sampled_requests(np, serve, model.config.vocab_size)
+    greedy = serve_requests(np, serve, model.config.vocab_size)
+    kw = {"t_max": 1024, "prompt_buf": 256}
+    cbs = {mode: remainder_batcher(serve, model, mode=mode, **kw)
+           for mode in TURNS[:2]}
+    cbs["graph_s8"] = serve.ContinuousBatcher(
+        model, slots=16, segment=8, kv_block_tokens=16, **kw)
+    for cb in cbs.values():
+        # each program's first dispatch (eager) and second (the capture)
+        serve_under_sync_check(torch, cb, reqs[:1])      # greedy
+        serve_under_sync_check(torch, cb, reqs[1:2])     # sampled
+    runs, outs = {m: [] for m in ("graph", "eager", "greedy")}, None
+    for run, mode in enumerate(SAMPLED_TURNS):
+        cb = cbs["eager" if mode == "eager" else "graph"]
+        replays0 = cb.stats["graph_replays"]
+        r = counted_serve(torch, mods, cb, greedy if mode == "greedy"
+                          else reqs, f"serve_sampled {mode}", q8=False,
+                          sync=True)
+        runs[mode].append(r)
+        if mode == "greedy":
+            require(r["outs"] == float_outs, "serve_sampled: the greedy run "
+                    "served other tokens than the serve phase")
+            continue
+        if mode == "graph":
+            require(cb.stats["graph_replays"] - replays0
+                    == r["ticks"] // cb.S and cb.stats["graph_captures"] == 2,
+                    "serve_sampled: the graph batcher did not replay every "
+                    "segment of the run")
+        if outs is None:
+            outs = r["outs"]
+            continue
+        require(r["outs"] == outs, f"serve_sampled: the {mode} run (turn "
+                                   f"{run}) served other tokens than the "
+                                   f"first graph run")
+    s8 = counted_serve(torch, mods, cbs["graph_s8"], reqs,
+                       "serve_sampled segment 8", q8=False, sync=True)
+    require(s8["outs"] == outs, "serve_sampled: segment 8 served other "
+                                "tokens than segment 16")
+    perm = np.random.default_rng(7).permutation(len(reqs))
+    shuffled = counted_serve(torch, mods, cbs["graph"],
+                             [reqs[i] for i in perm],
+                             "serve_sampled shuffled", q8=False, sync=True)
+    require([shuffled["outs"][j] for j in np.argsort(perm)] == outs,
+            "serve_sampled: shuffled submission served other tokens")
+    require(all(outs[i] == float_outs[i] for i in range(0, len(reqs), 2)),
+            "serve_sampled: a greedy row beside sampled rows served other "
+            "tokens than the greedy-only run")
+    sampled_rows = [i for i in range(1, len(reqs), 2)]
+    require(any(outs[i] != float_outs[i] for i in sampled_rows),
+            "serve_sampled: every sampled row served its greedy tokens")
+    gaps, outside = sampled_set_gaps(torch, A, infer, model, reqs, outs)
+    worst = gaps.max().item()
+    limit = MARGIN["bf16"] / SAMPLED["temperature"]
+    require(worst <= limit, f"serve_sampled: a sampled token lies {worst} "
+                            f"(scaled logit) outside its row's top-k/top-p "
+                            f"set (margin {limit})")
+    greedy_gaps = served_gaps(torch, A, model, [reqs[i] for i in range(
+        0, len(reqs), 2)], outs[0::2], q8=False)
+    require(greedy_gaps.max().item() <= MARGIN["bf16"],
+            "serve_sampled: a greedy row's token is outside the margin")
+    prof = profiled_remainder(torch, mods, cbs["graph"],
+                              reqs[:PROFILED_REQUESTS],
+                              "serve_sampled profile graph", q8=False)
+    med = {m: statistics.median(r["tokens_per_s"] for r in rs)
+           for m, rs in runs.items()}
+    first = runs["graph"][0]
+    return {
+        "phase": "serve_sampled", "dtype": "bf16", "model": GPT2_NAME,
+        "requests": len(reqs), "sampled_requests": len(sampled_rows),
+        "sampling": SAMPLED, "slots": 16, "segment": 16,
+        "kv_block_tokens": 16, **kw,
+        "turns": list(SAMPLED_TURNS),
+        "headline": "decode_tokens_per_s: the median of the sampled graph "
+                    "runs, beside greedy_tokens_per_s (the greedy-only runs "
+                    "of the same batcher, in turns)",
+        "decode_tokens_per_s": med["graph"],
+        "greedy_tokens_per_s": med["greedy"],
+        "eager_tokens_per_s": med["eager"],
+        "sampled_over_greedy": med["graph"] / med["greedy"],
+        **{f"{m}_tokens_per_s_runs": [r["tokens_per_s"] for r in rs]
+           for m, rs in runs.items()},
+        "mean_ttft_s": statistics.median(r["mean_ttft_s"]
+                                         for r in runs["graph"]),
+        "wall_ms_per_tick": statistics.median(1e3 * r["wall_s"] / r["ticks"]
+                                              for r in runs["graph"]),
+        "launches": first["launches"], "ticks": first["ticks"],
+        "sampled_segments_per_run": first["stats"]["sampled_segments"],
+        "segments_per_run": first["ticks"] // 16,
+        "graph_captures": cbs["graph"].stats["graph_captures"],
+        "graph_capture_ms": {str(k): p.capture_ms for k, p in
+                             cbs["graph"]._programs.items()},
+        "graph_eager_tokens_identical": True,
+        "segment8_tokens_identical": True,
+        "shuffled_order_tokens_identical": True,
+        "greedy_rows_equal_greedy_run": True,
+        "sync_debug": {"mode": "error", "allowed": SYNC_ALLOWED,
+                       "window": "every counted serve call of the phase and "
+                                 "the warm-ups (both programs' captures)",
+                       "raised": False},
+        "teacher_forced_set_worst_gap": worst,
+        "teacher_forced_set_margin": limit,
+        "tokens_outside_set_exactly": outside,
+        "greedy_rows_teacher_forced_worst_gap": greedy_gaps.max().item(),
+        "profile": prof,
+    }
+
+
+def prefix_requests(np, serve, vocab: int):
+    """32 chat requests: one shared system prompt (``PREFIX_SYSTEM``
+    tokens), then a user turn of 16-64 tokens that opens with a shared
+    ``PREFIX_HEADER``-token role header and goes on with tokens of its own;
+    32-128 new tokens."""
+    rng = np.random.default_rng(4)
+    system = rng.integers(0, vocab, PREFIX_SYSTEM).tolist()
+    header = rng.integers(0, vocab, PREFIX_HEADER).tolist()
+    return [serve.Request(system + header + rng.integers(
+        0, vocab, int(n) - PREFIX_HEADER).tolist(), int(m))
+        for n, m in zip(rng.integers(16, 65, 32), rng.integers(32, 129, 32))]
+
+
+def serve_prefix_cell(torch, np, mods, model, kv, name, profile):
+    """One serve_prefix cell (``model`` in bf16, the ``kv`` pool): the 32
+    chat requests through a prefix-cache batcher captured and eager and a
+    batcher without the cache, every run from a cold cache
+    (``clear_prefix_cache``), in turns (off, on graph, on eager, on
+    graph). Gates: the captured runs bit-identical to the eager one; the
+    launches as scheduled; no leak (the tree's references aside); each
+    pool's tokens teacher-forced within the serve phase's margin
+    (``served_gaps``; positions equal to the cache-off run's reported:
+    the suffix waves run other shapes through cuBLAS, so bits need not
+    agree); with ``profile``, a captured run's launches held to the
+    device's kernel events."""
+    A, FA, CU, DA, serve = mods
+    q8 = kv == "int8"
+    reqs = prefix_requests(np, serve, model.config.vocab_size)
+    kw = {"t_max": PREFIX_BUF + 128, "prompt_buf": PREFIX_BUF}
+    cbs = {"off": remainder_batcher(serve, model, kv=kv, **kw),
+           "graph": remainder_batcher(serve, model, kv=kv, prefix_cache=True,
+                                      **kw),
+           "eager": remainder_batcher(serve, model, kv=kv, mode="eager",
+                                      prefix_cache=True, **kw)}
+    for cb in cbs.values():
+        cb.serve(reqs[:1])          # warm-up: the eager run and the capture
+        cb.clear_prefix_cache()
+    runs = {m: [] for m in cbs}
+    for mode in ("off", "graph", "eager", "graph"):
+        cb = cbs[mode]
+        runs[mode].append(counted_serve(torch, mods, cb, reqs,
+                                        f"serve_prefix {name} {mode}", q8))
+        cb.clear_prefix_cache()
+    on = runs["graph"][0]
+    for r in runs["graph"][1:] + runs["eager"]:
+        require(r["outs"] == on["outs"], f"serve_prefix {name}: a captured "
+                                         f"or eager run served other tokens")
+    require(on["stats"]["prefix_hits"] > 0 and on["stats"]["cow_copies"] > 0,
+            f"serve_prefix {name}: no attach or no copy-on-write: "
+            f"{on['stats']}")
+    off = runs["off"][0]
+    gaps = {m: served_gaps(torch, A, model, reqs, r["outs"], q8=q8)
+            for m, r in (("on", on), ("off", off))}
+    for m, g in gaps.items():
+        require(g.max().item() <= MARGIN["bf16"],
+                f"serve_prefix {name} {m}: a served token's logit is "
+                f"{g.max().item()} below the teacher-forced max (margin "
+                f"{MARGIN['bf16']})")
+    same = sum(int(a == b) for o, f in zip(on["outs"], off["outs"])
+               for a, b in zip(o, f))
+    rec = {
+        "cell": name, "kv_dtype": kv, "requests": len(reqs),
+        "shared_prefix_tokens": PREFIX_SYSTEM + PREFIX_HEADER, **kw,
+        "on_tokens_per_s": [r["tokens_per_s"] for r in runs["graph"]],
+        "off_tokens_per_s": off["tokens_per_s"],
+        "on_eager_tokens_per_s": runs["eager"][0]["tokens_per_s"],
+        "on_mean_ttft_s": [r["mean_ttft_s"] for r in runs["graph"]],
+        "off_mean_ttft_s": off["mean_ttft_s"],
+        "on_wall_s": [r["wall_s"] for r in runs["graph"]],
+        "off_wall_s": off["wall_s"],
+        "prefill_tokens_saved": on["stats"]["prefill_tokens_saved"],
+        "prefix_hits": on["stats"]["prefix_hits"],
+        "cow_copies": on["stats"]["cow_copies"],
+        "prefill_forwards": {"on": on["stats"]["prefill_forwards"],
+                             "off": off["stats"]["prefill_forwards"]},
+        "launches": {"on": on["launches"], "off": off["launches"]},
+        "ticks": on["ticks"],
+        "graph_eager_tokens_identical": True,
+        "positions_equal_to_prefix_off": same / sum(map(len, off["outs"])),
+        "teacher_forced_worst_gap": {m: g.max().item()
+                                     for m, g in gaps.items()},
+        "margin": MARGIN["bf16"], "leak_check": 0,
+    }
+    if profile:
+        # a quarter of the work on a warm cache: the first 8 requests'
+        # heads in the tree, then 8 others attach in one wave
+        cb = cbs["graph"]
+        cb.serve(reqs[:PROFILED_REQUESTS])
+        rec["profile"] = profiled_remainder(
+            torch, mods, cb, reqs[PROFILED_REQUESTS:2 * PROFILED_REQUESTS],
+            f"serve_prefix {name} profile graph", q8)
+        cb.clear_prefix_cache()
+    return rec
+
+
+def segment_clock(torch, cb):
+    """After each segment ``cb`` dispatches, a CUDA event on the stream.
+    Returns the list the events go to."""
+    marks = []
+    inner = cb._segment
+
+    def timed(tables, positions0, sampling):
+        toks = inner(tables, positions0, sampling)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        return toks
+    cb._segment = timed
+    return marks
+
+
+def chunked_requests(np, serve, vocab: int):
+    """``CHUNK_DECODE_ROWS`` requests that decode long (8-token prompts,
+    ``CHUNK_DECODE_NEW`` new tokens) ahead of ``CHUNK_LONG`` prompts of
+    600-900 tokens (32 new tokens each)."""
+    rng = np.random.default_rng(5)
+    decode = [serve.Request(rng.integers(0, vocab, 8).tolist(),
+                            CHUNK_DECODE_NEW)
+              for _ in range(CHUNK_DECODE_ROWS)]
+    return decode + [serve.Request(rng.integers(0, vocab, int(n)).tolist(),
+                                   32)
+                     for n in rng.integers(600, CHUNK_BUF + 1, CHUNK_LONG)]
+
+
+def serve_chunked_phase(torch, np, mods, model, smi):
+    """GPT-2-small bf16: 16 prompts of 600-900 tokens queued behind 8 rows
+    that decode 256 tokens each, on 16 slots: the long prompts admit while
+    the 8 rows decode. Chunked (``prefill_chunk_tokens`` 128) and unchunked,
+    captured, in turns (chunked, unchunked, chunked); then, on the 8 rows
+    and the first 4 long prompts, the chunked batcher captured against the
+    eager loop, and a profiled captured run. Gates: the captured chunked
+    runs bit-identical to each other and to the eager one; the launches as
+    scheduled; no leak; chunked and unchunked tokens each teacher-forced
+    within the margin (positions equal reported); the profiled run's
+    launches held to the device's kernel events. Reported: the decode
+    rows' worst device wall between two consecutive segments that carry
+    them (``segment_clock``), chunked against unchunked. The profiled run
+    takes the 4 long prompts alone (a quarter of the records)."""
+    A, FA, CU, DA, serve = mods
+    reqs = chunked_requests(np, serve, model.config.vocab_size)
+    subset = reqs[:CHUNK_SUBSET]
+    kw = {"t_max": CHUNK_BUF + CHUNK_DECODE_NEW, "prompt_buf": CHUNK_BUF}
+    cbs = {"chunked": remainder_batcher(serve, model,
+                                        prefill_chunk_tokens=CHUNK_TOKENS,
+                                        **kw),
+           "chunked_eager": remainder_batcher(
+               serve, model, mode="eager", prefill_chunk_tokens=CHUNK_TOKENS,
+               **kw),
+           "unchunked": remainder_batcher(serve, model, **kw)}
+    for cb in cbs.values():
+        cb.serve(reqs[:1])         # warm-up: the eager run and the capture
+    # the decode rows are admitted by the first wave (their heads fit its
+    # chunk) and are in every plan until their budget is spent: the run's
+    # first segments
+    carried = CHUNK_DECODE_NEW // 16
+    runs, gaps_ms = {"chunked": [], "unchunked": []}, {}
+    for mode in ("chunked", "unchunked", "chunked"):
+        cb = cbs[mode]
+        marks = segment_clock(torch, cb)
+        r = counted_serve(torch, mods, cb, reqs, f"serve_chunked {mode}",
+                          q8=False)
+        del cb._segment
+        gaps = [a.elapsed_time(b) for a, b in zip(marks[:carried - 1],
+                                                  marks[1:carried])]
+        gaps_ms.setdefault(mode, []).append({
+            "worst": max(gaps), "median": statistics.median(gaps),
+            "segments": len(marks), "decode_row_segments": carried,
+            "gaps_ms": gaps})
+        runs[mode].append(r)
+    chunked, again = runs["chunked"]
+    require(again["outs"] == chunked["outs"], "serve_chunked: two captured "
+            "chunked runs served other tokens")
+    require(chunked["chunk"]["chunked_admissions"] > 0
+            and chunked["chunk"]["chunk_waves"] > 0,
+            f"serve_chunked: nothing was chunked: {chunked['chunk']}")
+    small = {mode: counted_serve(torch, mods, cbs[mode], subset,
+                                 f"serve_chunked {mode} subset", q8=False)
+             for mode in ("chunked", "chunked_eager")}
+    require(small["chunked"]["outs"] == small["chunked_eager"]["outs"],
+            "serve_chunked: the captured chunked run served other tokens "
+            "than the eager one")
+    unchunked = runs["unchunked"][0]
+    tf = {m: served_gaps(torch, A, model, reqs, r["outs"], q8=False)
+          for m, r in (("chunked", chunked), ("unchunked", unchunked))}
+    for m, g in tf.items():
+        require(g.max().item() <= MARGIN["bf16"],
+                f"serve_chunked {m}: a served token's logit is "
+                f"{g.max().item()} below the teacher-forced max")
+    same = sum(int(a == b) for o, f in zip(chunked["outs"], unchunked["outs"])
+               for a, b in zip(o, f))
+    prof = profiled_remainder(torch, mods, cbs["chunked"],
+                              subset[CHUNK_DECODE_ROWS:],
+                              "serve_chunked profile chunked long prompts",
+                              q8=False)
+    return {
+        "phase": "serve_chunked", "dtype": "bf16", "model": GPT2_NAME,
+        "card": smi, "decode_rows": CHUNK_DECODE_ROWS,
+        "decode_new": CHUNK_DECODE_NEW, "long_prompts": CHUNK_LONG,
+        "long_prompt_tokens": [len(r.tokens) for r in reqs[
+            CHUNK_DECODE_ROWS:]],
+        "prefill_chunk_tokens": CHUNK_TOKENS, "slots": 16, "segment": 16,
+        "kv_block_tokens": 16, **kw, "subset_requests": CHUNK_SUBSET,
+        "headline": "decode_rows_worst_gap_ms: the decode rows' worst device "
+                    "wall between two segments that carry them, chunked "
+                    "against unchunked (the first captured run of each)",
+        "decode_rows_worst_gap_ms": {
+            m: gaps_ms[m][0]["worst"] for m in ("chunked", "unchunked")},
+        "segment_gaps_ms": gaps_ms,
+        "tokens_per_s": {m: [r["tokens_per_s"] for r in rs]
+                         for m, rs in runs.items()},
+        "wall_s": {m: [r["wall_s"] for r in rs] for m, rs in runs.items()},
+        "mean_ttft_s": {m: [r["mean_ttft_s"] for r in rs]
+                        for m, rs in runs.items()},
+        "subset_wall_s": {m: r["wall_s"] for m, r in small.items()},
+        "prefill_calls": {m: rs[0]["stats"]["prefill_calls"]
+                          for m, rs in runs.items()},
+        "chunk_counters_per_run": chunked["chunk"],
+        "launches": {m: rs[0]["launches"] for m, rs in runs.items()},
+        "graph_eager_tokens_identical": True,
+        "positions_equal_to_unchunked": same / sum(map(len,
+                                                       unchunked["outs"])),
+        "teacher_forced_worst_gap": {m: g.max().item()
+                                     for m, g in tf.items()},
+        "margin": MARGIN["bf16"], "profile": prof,
+    }
+
+
+def serving_remainder_phases(torch, np, infer, serve, mods, gpt2,
+                             float_outs, LlamaLM, LlamaConfig, smi, record):
+    """The serving remainder's cells, after the GPT-2 serve cells:
+    ``serve_sampled`` and ``serve_chunked`` on ``gpt2`` (bf16) and
+    ``serve_prefix`` on GPT-2 and on the default Llama (bf16, random
+    weights from seed 0), float and int8 pools. Each record goes to
+    ``record``; returns the profiled captured runs' launches."""
+    sampled = serve_sampled_phase(torch, np, infer, mods, gpt2, float_outs)
+    record({**sampled, "card": smi})
+    torch.cuda.empty_cache()
+    base = LlamaLM(LlamaConfig()).init(
+        torch.Generator().manual_seed(0)).state_dict()
+    llama = LlamaLM(LlamaConfig(), dtype=torch.bfloat16)
+    llama.load_state_dict(base)
+    del base
+    cells = {}
+    for name, model in (("gpt2", gpt2), ("llama", llama)):
+        for kv in ("bf16", "int8"):
+            cells[f"{name}_{kv}"] = serve_prefix_cell(
+                torch, np, mods, model, kv, f"{name} {kv}",
+                profile=name == "gpt2")
+            torch.cuda.empty_cache()
+    del llama
+    record({"phase": "serve_prefix", "dtype": "bf16", "card": smi,
+            "models": {"gpt2": GPT2_NAME, "llama": LLAMA_NAME},
+            "slots": 16, "segment": 16, "kv_block_tokens": 16,
+            "headline": "per cell: prefill_tokens_saved, cow_copies, the "
+                        "mean time to first token and tokens/s with the "
+                        "prefix cache on (captured) against off",
+            "cells": cells})
+    torch.cuda.empty_cache()
+    chunked = serve_chunked_phase(torch, np, mods, gpt2, smi)
+    record(chunked)
+    torch.cuda.empty_cache()
+    return {
+        "serve_sampled captured, profiled": sampled["profile"]["launches"],
+        "serve_prefix gpt2 bf16 captured, profiled":
+            cells["gpt2_bf16"]["profile"]["launches"],
+        "serve_prefix gpt2 int8 captured, profiled":
+            cells["gpt2_int8"]["profile"]["launches"],
+        "serve_chunked captured, profiled": chunked["profile"]["launches"]}
+
+
 # the kernel entries checked exactly, and the source of each entry whose
 # file is named otherwise
 EXACT = ("kv_pool_insert", "cache_insert", "kv_insert", "kv_insert_rows",
          "kv_pool_insert_q8", "cache_insert_q8", "kv_insert_q8",
-         "kv_insert_rows_q8", "kv_pool_insert_llama")
+         "kv_insert_rows_q8", "kv_pool_insert_llama", "kv_pool_insert_suffix",
+         "kv_pool_insert_q8_suffix")
 # per-kernel fields the kernels line carries where a check records them:
 # the flash kernels' rate, share of their bound, path and row errors; the
 # flash forward at the training shape and its lse
@@ -2098,6 +2864,9 @@ SOURCES = {"cache_insert": "kv_insert", "kv_insert_rows": "kv_insert",
            "flash_fwd_bert": "flash_fwd", "flash_bwd_dq_bert": "flash_bwd_dq",
            "flash_bwd_dkv_bert": "flash_bwd_dkv",
            "kv_pool_insert_llama": "kv_pool_insert",
+           "flash_fwd_suffix": "flash_fwd",
+           "kv_pool_insert_suffix": "kv_pool_insert",
+           "kv_pool_insert_q8_suffix": "kv_pool_insert",
            "paged_decode_write_llama": "paged_decode",
            "paged_decode_write_q8_llama": "paged_decode",
            "dense_decode_write_llama": "dense_decode",
@@ -2506,24 +3275,37 @@ def profiled_serve(torch, counters, cb, reqs, what, q8, tc):
     return prof, wall, counts, cb.ticks - ticks0
 
 
-def profile_phase(torch, np, mods, cbs, dt, walls):
-    """The serve run once more under ``torch.profiler`` on the captured
-    batcher and on the eager one: device time by kernel group, device ops
-    a tick, the host's CUDA calls a segment (one ``cudaGraphLaunch`` a
-    segment on the graph, gated), each unprofiled run's busy share, and
-    each run's launches measured (:func:`counted_profile`: the counters
-    equal the device's kernel events and the schedule, gated)."""
+def unprofiled_wall(torch, fn) -> float:
+    """``fn()``'s wall to a synchronize, on the host clock."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fn()
+    torch.cuda.synchronize()
+    return time.monotonic() - t0
+
+
+def profile_phase(torch, np, mods, cbs, dt):
+    """The serve run's first ``PROFILED_REQUESTS`` requests on the captured
+    batcher and on the eager one, once unprofiled (the wall) and once
+    under ``torch.profiler``: device time by kernel group, device ops a
+    tick, the host's CUDA calls a segment (one ``cudaGraphLaunch`` a
+    segment on the graph, gated), the busy share, and each run's launches
+    measured (:func:`counted_profile`: the counters equal the device's
+    kernel events and the schedule, gated). A quarter of the serve run
+    keeps the profiler's post-processing to a quarter."""
     _, FA, CU, DA, serve = mods
-    reqs = serve_requests(np, serve, cbs["graph"].model.config.vocab_size)
+    reqs = serve_requests(np, serve, cbs["graph"].model.config.vocab_size
+                          )[:PROFILED_REQUESTS]
     rec = {"phase": "serve_profile", "dtype": dt, "requests": len(reqs)}
     summaries = {}
     for mode, cb in cbs.items():
+        wall = unprofiled_wall(torch, lambda: cb.serve(reqs))
         prof, wall_prof, counts, ticks = profiled_serve(
             torch, (FA, CU, DA), cb, reqs, f"serve_profile {dt} {mode}",
             q8=False, tc=dt == "bf16")
         summaries[mode] = profile_summary(torch, prof, wall_prof, counts,
                                           ticks, ticks // cb.S, "segment",
-                                          walls[mode])
+                                          [wall])
     segments = summaries["graph"]["segments"]
     check_host_calls(f"serve_profile {dt}", summaries["graph"],
                      summaries["eager"], segments, cbs["graph"].S)
@@ -3556,11 +4338,7 @@ def llama_profile_serve(torch, np, serve, counters, model, kv_dtype, what):
                           )[:LLAMA_PROFILE_REQUESTS]
     cb = batcher(serve, model, kv_dtype, "graph")
     cb.serve(reqs[:2])
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    cb.serve(reqs)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
+    wall = unprofiled_wall(torch, lambda: cb.serve(reqs))
     prof, wall_prof, counts, ticks = profiled_serve(
         torch, counters, cb, reqs, what, q8=kv_dtype == "int8", tc=True)
     summary = profile_summary(torch, prof, wall_prof, counts, ticks,
@@ -4905,6 +5683,13 @@ def main() -> int:
                 "paged_decode": check_decode(torch, np, DA, dtype, dt)}
             results[dt].update(check_flash_bwd(torch, np, FA, dtype, dt))
             results[dt].update(check_flash_bert(torch, np, FA, dtype, dt))
+            # the serving remainder's shapes: an attach wave's suffix
+            # prefill and its scatter after the copy-on-write
+            results[dt]["flash_fwd_suffix"] = check_flash_suffix(
+                torch, np, FA, dtype, dt)
+            for q8 in (False, True):
+                results[dt][f"kv_pool_insert{'_q8' if q8 else ''}_suffix"] \
+                    = check_insert_suffix(torch, CU, dtype, dt, q8)
             results[dt].update(check_dense_insert(torch, CU, A, dtype, dt,
                                                   int(gen_lens.max())))
             results[dt]["dense_decode"] = check_dense_decode(
@@ -4943,6 +5728,13 @@ def main() -> int:
             for name, res in long_ctx.items():
                 results[dt][name]["long"] = res
             torch.cuda.empty_cache()
+        # the launch floor the slot writes sit at: an empty kernel (a spin
+        # of 0 cycles) back to back, timed as every kernel entry is
+        record({"phase": "launch_floor", "card": smi,
+                "empty_kernel_ms": time_ms(torch, [
+                    lambda: torch.cuda._sleep(0)], iters=200),
+                "of": "torch.cuda._sleep(0), a spin kernel of 0 cycles, "
+                      "200 launches back to back behind the spin (time_ms)"})
         adamw = check_adamw(torch, FAW, GPT2(GPT2Config.small()))
         record({"phase": "kernel", "name": "fused_adamw", "dtype": "f32",
                 "tol": ADAMW_TOL, **adamw})
@@ -4960,11 +5752,11 @@ def main() -> int:
         for dtype, dt in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             model = GPT2(GPT2Config.small(), dtype=dtype)
             model.load_state_dict(base.state_dict())
-            serves[dt], outs, cbs, walls = serve_phase(torch, np, mods,
-                                                       model, dt)
+            serves[dt], outs, cbs, _ = serve_phase(torch, np, mods, model,
+                                                   dt)
             record(serves[dt])
             if dt == "bf16":
-                serve_prof = profile_phase(torch, np, mods, cbs, dt, walls)
+                serve_prof = profile_phase(torch, np, mods, cbs, dt)
                 record(serve_prof)
                 float_served = outs
             del model, outs, cbs
@@ -4996,6 +5788,12 @@ def main() -> int:
         gen8 = generate_int8_phase(torch, np, infer, (A, FA, CU, DA), model,
                                    float_generated)
         record(gen8)
+        torch.cuda.empty_cache()
+        # the serving remainder: per-row sampling in the captured segment,
+        # the radix prefix cache and chunked prefill
+        remainder = serving_remainder_phases(
+            torch, np, infer, serve, mods, model, float_served, LlamaLM,
+            LlamaConfig, smi, record)
         del model, base, float_served, float_generated
         torch.cuda.empty_cache()
 
@@ -5082,6 +5880,10 @@ def main() -> int:
         sources.update({f"{name}_llama": sources[name] for name in (
             "kv_pool_insert", "paged_decode_write", "paged_decode_write_q8",
             "dense_decode_write", "dense_decode_write_q8")})
+        # the serving remainder's shapes: an attach wave's suffix prefill
+        # and its scatter after the copy-on-write
+        sources.update({f"{name}_suffix": sources[name] for name in (
+            "flash_fwd", "kv_pool_insert", "kv_pool_insert_q8")})
         # each kernel's launches on the main path: the captured runs'
         # counts measured under the profiler (``counted_profile``: the
         # counters zeroed just before, equal to the device's kernel events
@@ -5101,7 +5903,13 @@ def main() -> int:
                  {f"{k}_bert": n for k, n in bert_launches.items()}),
                 *((f"{run} captured, profiled",
                    {f"{k}_llama": n for k, n in launches.items()})
-                  for run, launches in llama["launches"].items()))
+                  for run, launches in llama["launches"].items()),
+                # the suffix entries' launches: the prefix cells' profiled
+                # runs (every wave there prefills a suffix after an attach,
+                # the first excepted)
+                *((run, {f"{k}_suffix": n for k, n in launches.items()})
+                  for run, launches in remainder.items()
+                  if run.startswith("serve_prefix")))
         kernels = []
         for name, replaces in sources.items():
             r, r32 = results["bf16"][name], results["f32"][name]

@@ -1,6 +1,6 @@
-"""``dcp-serve`` for the port — continuous-batching greedy inference over a
+"""``dcp-serve`` for the port — continuous-batching inference over a
 request file (the subset of ``distributed_compute_pytorch_tpu/cli_serve.py``
-this slice ports).
+the port has).
 
 Weights come from a JAX v1 checkpoint (``--ckpt_path``, the file
 ``dcp-train`` writes) or are drawn at random from ``--init_seed`` (a
@@ -10,17 +10,33 @@ Requests come from ``--requests FILE`` (``-`` = stdin), one per line:
     12,7,90                                # token ids; --max_new_tokens
     {"tokens": [12,7,90], "max_new": 16}   # per-request budget (+ "id")
 
+JSON requests may also carry their own sampling settings
+(``"temperature"``, ``"top_k"``, ``"top_p"``, ``"seed"``) over the CLI's
+defaults (``--temperature``, ``--top_k``, ``--top_p``; ``--seed S`` gives
+request i the seed S + i, and without it request i samples with seed i),
+so greedy and sampled requests decode side by side in one segment.
+``--prefix_cache`` turns on the radix prefix cache: requests sharing a
+prompt prefix attach to blocks already prefilled, copy-on-write, and
+prefill only their suffix. ``--prefill_chunk_tokens N`` bounds each
+prefill wave to about N suffix tokens (long prompts admit chunk by chunk
+between decode segments). ``--admit_policy skip_fit`` lets a free row take
+the first queued request that fits instead of the queue's head.
+
 Prints one JSON line per request, in input order, as the JAX CLI does:
-``{"id", "prompt", "new", "status": "ok", "cached_prefix": 0}`` (the port
-has no prefix cache yet, so ``cached_prefix`` is always 0).
+``{"id", "prompt", "new", "status": "ok", "cached_prefix"}``, where
+``cached_prefix`` is the prompt length the request attached from the
+prefix cache (0 without it).
 
 ``--model gpt2`` (the default) or ``llama``, at ``--model_preset``'s
-size (``moe`` exits naming its ROADMAP item). Runs on CUDA unless ``--device cpu``. ``--kv_dtype int8`` keeps the
-KV pool in int8 with per-row f32 scales (as the JAX CLI's flag). Example:
+size (``moe`` exits naming its ROADMAP item, as do the JAX CLI's flags of
+later items: ``--speculate``, ``--host_cache_mb``, ``--journal_dir``,
+``--mesh``, ``--replicas``, ``--heartbeat`` and the rest). Runs on CUDA unless
+``--device cpu``. ``--kv_dtype int8`` keeps the KV pool in int8 with
+per-row f32 scales (as the JAX CLI's flag). Example:
 
     python -m distributed_compute_pytorch_tpu_torch.cli_serve --init_seed 0 \\
         --model_preset small --requests prompts.txt --slots 16 --dtype bf16 \\
-        --kv_dtype int8
+        --prefix_cache --temperature 0.8 --top_p 0.95
 """
 
 from __future__ import annotations
@@ -32,11 +48,38 @@ import sys
 from distributed_compute_pytorch_tpu_torch.cli_generate import (
     DTYPES, load_model)
 
+# a JSON request's own sampling settings
+SAMPLING = ("temperature", "top_k", "top_p", "seed")
 
-def _read_requests(path: str, default_new: int) -> list[dict]:
+# the JAX CLI's flags of later items -> the ROADMAP.md item each waits for
+_LATER = {"width buckets, queue 3.5": ("decode_width_buckets",
+                                       "prewarm_widths"),
+          "speculation, queue 3.6": ("speculate",),
+          "tiers and handoff, queue 3.7": ("host_cache_mb",
+                                           "disk_cache_dir"),
+          "the journal and the request lifecycle, queue 3.8": (
+              "journal_dir", "journal_fsync", "supervise", "max_pending",
+              "request_deadline", "drain_deadline", "tick_timeout",
+              "max_recoveries", "fault_at_segment", "fault_mode",
+              "poison_request"),
+          "sharded serving, queue 3.9": ("mesh",),
+          "the serving control plane, queue 1 item 6": (
+              "replicas", "prefill_replicas", "fault_replica", "autoscale",
+              "elastic_window", "upgrade_to", "weights_version"),
+          "telemetry, queue 1 item 4": (
+              "heartbeat", "metrics_jsonl", "trace_path", "flight_recorder",
+              "profile_dir", "profile_segments"),
+          "int8 weights, queue 1.7.1": ("quantize",),
+          "text prompts, queue 1.7.5": ("tokenizer",)}
+_REFUSED = {flag: item for item, flags in _LATER.items() for flag in flags}
+
+
+def _read_requests(path: str, default_new: int, defaults: dict
+                   ) -> list[dict]:
     """Parse the request file: token-id lines or JSON lines with
-    ``tokens`` and optional ``max_new`` / ``id``; sampling settings are
-    refused (not ported yet)."""
+    ``tokens`` and optional ``max_new``, ``id`` and sampling settings
+    (``temperature``, ``top_k``, ``top_p``, ``seed``) over the CLI's
+    ``defaults``."""
     src = sys.stdin if path == "-" else open(path)
     try:
         lines = src.read().splitlines()
@@ -49,6 +92,7 @@ def _read_requests(path: str, default_new: int) -> list[dict]:
         if not line:
             continue
         rid = None
+        sampling = dict(defaults)
         if line.startswith("{"):
             try:
                 obj = json.loads(line)
@@ -62,9 +106,14 @@ def _read_requests(path: str, default_new: int) -> list[dict]:
             if not isinstance(new, int) or new < 1:
                 raise SystemExit(f"requests line {i + 1}: max_new must "
                                  f"be a positive integer, got {new!r}")
-            if obj.get("temperature", 0.0) != 0.0:
-                raise SystemExit(f"requests line {i + 1}: sampling is not "
-                                 f"ported yet (greedy only)")
+            for k in SAMPLING:
+                if k in obj:
+                    sampling[k] = obj[k]
+            if sampling["temperature"] == 0.0 and (
+                    sampling["top_k"] is not None
+                    or sampling["top_p"] is not None):
+                raise SystemExit(f"requests line {i + 1}: top_k/top_p "
+                                 f"require temperature > 0")
             rid = obj.get("id")
             if rid is not None and not isinstance(rid, str):
                 raise SystemExit(f"requests line {i + 1}: 'id' must be a "
@@ -78,7 +127,7 @@ def _read_requests(path: str, default_new: int) -> list[dict]:
             new = default_new
         if not ids:
             raise SystemExit(f"requests line {i + 1}: empty prompt")
-        out.append({"tokens": ids, "max_new": new, "id": rid})
+        out.append({"tokens": ids, "max_new": new, "id": rid, **sampling})
     if not out:
         raise SystemExit("no requests")
     return out
@@ -114,14 +163,51 @@ def main(argv=None) -> int:
                    help="KV pool storage: 'bf16' keeps it in the model's "
                         "--dtype, 'int8' stores int8 K/V with per-row f32 "
                         "scales (about half the bytes)")
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="default sampling temperature (0 = greedy); JSON "
+                        "requests may override it per request")
+    p.add_argument("--top_k", type=int, default=None,
+                   help="default top-k truncation (needs temperature > 0)")
+    p.add_argument("--top_p", type=float, default=None,
+                   help="default nucleus truncation (needs temperature > 0)")
+    p.add_argument("--seed", type=int, default=None,
+                   help="base sampling seed: request i uses seed + i "
+                        "(default: i), so the whole file is deterministic")
+    p.add_argument("--prefix_cache", action="store_true",
+                   help="radix prefix cache over the paged KV pool: "
+                        "requests sharing a prompt prefix attach to blocks "
+                        "already prefilled (copy-on-write) and prefill only "
+                        "their suffix; each line reports its "
+                        "'cached_prefix' length")
+    p.add_argument("--prefill_chunk_tokens", type=int, default=None,
+                   help="chunked prefill: at most about this many suffix "
+                        "tokens a prefill wave; long prompts admit chunk by "
+                        "chunk between decode segments")
+    p.add_argument("--admit_policy", default="fifo",
+                   choices=("fifo", "skip_fit"),
+                   help="admission order: strict FIFO, or skip-fit (a free "
+                        "row takes the first queued request that fits)")
     p.add_argument("--device", default=None,
                    help="'cuda' (default; raises without a card) or 'cpu'")
+    for flag in _REFUSED:
+        p.add_argument(f"--{flag}", nargs="?", const=True, default=None,
+                       help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    for flag, item in _REFUSED.items():
+        if getattr(args, flag) is not None:
+            raise SystemExit(f"--{flag} is not ported yet (ROADMAP.md: "
+                             f"{item})")
     if args.model == "moe":
         raise SystemExit("--model moe is not ported yet (ROADMAP.md: MoE "
                          "serving, queue 3.9, with queue 1 item 8)")
     if args.max_new_tokens < 1:
         raise SystemExit("--max_new_tokens must be >= 1")
+    if args.temperature == 0.0 and (args.top_k is not None
+                                    or args.top_p is not None):
+        raise SystemExit("--top_k/--top_p require --temperature > 0")
+    if args.prefill_chunk_tokens is not None \
+            and args.prefill_chunk_tokens < 1:
+        raise SystemExit("--prefill_chunk_tokens must be >= 1")
 
     from distributed_compute_pytorch_tpu_torch.serve import (
         ContinuousBatcher, Request)
@@ -131,7 +217,10 @@ def main(argv=None) -> int:
                        init_seed=args.init_seed, device=args.device,
                        dtype=args.dtype)
 
-    reqs = _read_requests(args.requests, args.max_new_tokens)
+    reqs = _read_requests(args.requests, args.max_new_tokens,
+                          {"temperature": args.temperature,
+                           "top_k": args.top_k, "top_p": args.top_p,
+                           "seed": None})
     seen = set()
     for i, r in enumerate(reqs):
         rid = r["id"] if r["id"] is not None else f"req-{i:05d}"
@@ -159,12 +248,28 @@ def main(argv=None) -> int:
                                            for r in reqs)
     cb = ContinuousBatcher(model, slots=args.slots, t_max=t_max,
                            prompt_buf=prompt_buf, segment=S,
-                           eos_id=args.eos_id, kv_dtype=args.kv_dtype,
-                           device=model.device)
-    outs = cb.serve([Request(list(r["tokens"]), r["max_new"]) for r in reqs])
-    for r, new in zip(reqs, outs):
+                           eos_id=args.eos_id,
+                           admit_policy=args.admit_policy,
+                           prefix_cache=args.prefix_cache,
+                           prefill_chunk_tokens=args.prefill_chunk_tokens,
+                           kv_dtype=args.kv_dtype, device=model.device)
+
+    def seed(i, r):
+        if r["seed"] is not None:
+            return r["seed"]
+        return None if args.seed is None else args.seed + i
+
+    try:
+        outs = cb.serve([Request(list(r["tokens"]), r["max_new"],
+                                 temperature=r["temperature"],
+                                 top_k=r["top_k"], top_p=r["top_p"],
+                                 seed=seed(i, r))
+                         for i, r in enumerate(reqs)])
+    except ValueError as e:
+        raise SystemExit(f"invalid request: {e}")
+    for r, new, m in zip(reqs, outs, cb.last_cached_prefix):
         print(json.dumps({"id": r["id"], "prompt": r["tokens"], "new": new,
-                          "status": "ok", "cached_prefix": 0}))
+                          "status": "ok", "cached_prefix": m}))
     return 0
 
 

@@ -132,6 +132,87 @@ def _sample(logits, temperature: float, generator=None,
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """``(x * c) mod 2**32`` for int64 ``x`` in ``[0, 2**32)`` and a 32-bit
+    constant, with the product split at 16 bits so nothing overflows 64."""
+    return (((((x >> 16) * c) & 0xFFFF) << 16) + (x & 0xFFFF) * c) & _M32
+
+
+def _fmix32(h):
+    """murmur3's 32-bit finalizer over int64 values in ``[0, 2**32)``: a
+    bijection whose every input bit reaches every output bit."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def row_hash(seeds, positions, vocab: int):
+    """The counter-based hash behind serving's per-row draws: int64
+    ``[B, vocab]`` values in ``[0, 2**32)``, a function of (row seed,
+    logical position, vocab index) alone. ``seeds``, ``positions``: int64
+    ``[B]`` on one device. Integer tensor ops only, so a captured segment
+    replays it with no generator."""
+    h = _fmix32((seeds & _M32) ^ 0x9E3779B9)
+    h = _fmix32(h ^ (positions & _M32))
+    v = _fmix32(torch.arange(vocab, device=seeds.device))
+    return _fmix32(h[:, None] ^ v[None, :])
+
+
+def row_uniforms(seeds, positions, vocab: int):
+    """f64 uniforms ``(k + 0.5) / 2**24`` in ``(0, 1)`` from the top 24
+    bits ``k`` of :func:`row_hash` (exact in f64, never 0 or 1, so the
+    Gumbel noise ``-log(-log(u))`` is finite)."""
+    k = row_hash(seeds, positions, vocab) >> 8
+    return (k.double() + 0.5) / 2.0 ** 24
+
+
+def filter_rows(logits, temperature, top_k, top_p):
+    """The per-row truncation of :func:`sample_rows` (reference
+    ``sample_rows``, ``:197-235``): ``logits [B, V]`` in f32 over each
+    row's temperature (floored at 1e-6), every logit below the row's
+    ``top_k``-th sorted value at ``-inf`` (``top_k`` 0: none), then every
+    logit below the cutoff of the smallest sorted prefix of the top-k-masked
+    distribution whose mass reaches ``top_p`` (the highest token always
+    stays: shifted cumsum; ``top_p`` >= 1: none). Cutoffs are gathered at
+    traced indices: static shapes, no host sync."""
+    V = logits.shape[-1]
+    lg = logits.float() / temperature.clamp(min=1e-6)[:, None]
+    desc = torch.sort(lg, dim=-1, descending=True).values
+    kth = desc.gather(-1, (top_k - 1).clamp(0, V - 1)[:, None])
+    lg = lg.masked_fill((top_k > 0)[:, None] & (lg < kth), float("-inf"))
+    desc = torch.sort(lg, dim=-1, descending=True).values
+    probs = torch.softmax(desc, dim=-1)
+    cum = torch.cumsum(probs, dim=-1) - probs
+    cut = ((cum < top_p[:, None]).sum(-1, keepdim=True) - 1).clamp(0, V - 1)
+    cutoff = desc.gather(-1, cut)
+    return lg.masked_fill((top_p < 1.0)[:, None] & (lg < cutoff),
+                          float("-inf"))
+
+
+def sample_rows(logits, temperature, top_k, top_p, seeds, positions):
+    """Per-row sampling inside one program (reference ``infer.sample_rows``,
+    the serving segment's draw): every knob is a ``[B]`` tensor —
+    ``temperature`` (0 = greedy for that row), ``top_k`` (int64, 0 =
+    none), ``top_p`` (>= 1 = none) — and each row draws by the Gumbel-max
+    rule over :func:`filter_rows`'s masked logits with the noise of
+    :func:`row_uniforms` at (its ``seeds``, its logical ``positions``), so
+    a row's t-th draw depends only on (seed, tokens so far): the same
+    whatever the slots, segment, prefix attach or chunking. Greedy rows
+    take the plain ``argmax``, so a greedy request keeps its standalone
+    tokens beside sampling rows. Returns int64 ``[B]`` tokens."""
+    greedy = torch.argmax(logits, dim=-1)
+    lg = filter_rows(logits, temperature, top_k, top_p)
+    u = row_uniforms(seeds, positions, logits.shape[-1])
+    gumbel = (-torch.log(-torch.log(u))).float()
+    sampled = torch.argmax(lg + gumbel, dim=-1)
+    return torch.where(temperature == 0.0, greedy, sampled)
+
+
 def _check_prompt_mask(m: np.ndarray, shape) -> None:
     if m.shape != tuple(shape):
         raise ValueError(f"prompt_mask shape {m.shape} != prompt shape "

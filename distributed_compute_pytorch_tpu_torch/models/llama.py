@@ -26,8 +26,8 @@ a kv head). Whole windows repeat K/V to the query heads inside
 backward).
 
 Not ported: the reference's speculative ``verify_step`` (ROADMAP queue
-3.6), the prefix cache's ``kv_prefix`` (queue 3.3), and the pipeline,
-ring-attention, tensor-parallel and remat paths (queue 1, item 2).
+3.6), and the pipeline, ring-attention, tensor-parallel and remat paths
+(queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -40,6 +40,8 @@ from torch import nn
 
 from distributed_compute_pytorch_tpu_torch.device import resolve_device
 from distributed_compute_pytorch_tpu_torch.models import layers as L
+from distributed_compute_pytorch_tpu_torch.models.transformer import (
+    concat_kv_prefix)
 from distributed_compute_pytorch_tpu_torch.ops import attention as A
 from distributed_compute_pytorch_tpu_torch.ops.rotary import (
     rope_cos_sin, rotate)
@@ -118,21 +120,29 @@ class LlamaBlock(nn.Module):
         return x + self.down(F.silu(self.gate(h)) * self.up(h))
 
     def forward(self, x, *, train: bool = False, generator=None,
-                kv_mask=None, kv_sink: list | None = None, positions=None):
+                kv_mask=None, kv_sink: list | None = None, positions=None,
+                kv_prefix=None):
         """The reference's ``apply`` (``:161-204``) over a whole ``[b, t,
         d]`` window: ``x + o(attn(attn_norm(x)))``, causal, with the
         optional ``[b, t]`` key validity ``kv_mask``, then the MLP.
         ``positions`` (``[t]`` or ``[b, t]`` integer tensors on ``x``'s
         device) default to ``arange(t)``. ``kv_sink`` receives this
         window's post-rope ``(k, v)`` at kv-head width, what the decode
-        caches store. ``train`` and ``generator`` are taken for the
-        protocol and unused: no dropout."""
+        caches store. ``kv_prefix``: optional ``(k0, v0, prefix_mask)``,
+        cached-prefix K/V at kv-head width, post-rope at their own slots,
+        prepended after ``kv_sink`` took the window's (reference ``:163-194``,
+        the serving prefix cache's suffix prefill); ``positions`` then
+        start at each row's prefix length (``[b, t]``), so the suffix's
+        keys rotate at their absolute slots. ``train`` and ``generator``
+        are taken for the protocol and unused: no dropout."""
         del train, generator
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)
         q, k, v = self.qkv(self.attn_norm(x), positions)
         if kv_sink is not None:
             kv_sink.append((k, v))
+        if kv_prefix is not None:
+            k, v, kv_mask = concat_kv_prefix(kv_prefix, k, v, kv_mask)
         o = A.attention(q, k, v, causal=True, kv_mask=kv_mask)
         return self.mlp(x + self.o(A.merge_heads(o)))
 

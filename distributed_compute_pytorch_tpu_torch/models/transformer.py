@@ -9,13 +9,15 @@ backward), tanh-GELU MLP. Two entry points, as in the reference:
 — a training step (``train=True``: dropout after ``attn_out`` and after
 ``mlp_out``, as the reference places it; never on the attention
 probabilities) or the admission prefill, which captures each layer's K/V
-through ``kv_sink`` — and ``decode_step`` for one decode tick against the
+through ``kv_sink`` and, for a suffix past a cached prefix, attends the
+prefix's K/V through ``kv_prefix`` — and ``decode_step`` for one decode tick against the
 paged pool (serving) or the dense pair cache (generation); a
 non-causal or post-LN block has no decode.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -33,18 +35,38 @@ def _qkv_heads(block, h, num_heads: int):
 def attention_sublayer(block, x, *, num_heads: int, causal: bool = False,
                        dropout_rate: float = 0.0, generator=None,
                        train: bool = False, kv_mask=None,
-                       kv_sink: list | None = None):
+                       kv_sink: list | None = None, kv_prefix=None):
     """Fused-QKV multi-head attention + output projection + dropout
     (reference ``:67-125``). ``kv_mask``: optional ``[b, t]`` key validity
     (nonzero = attend). ``kv_sink``: when given, this window's split-head
     ``(k, v)`` ``[b, h, t, hd]`` are appended to it (the prefill
-    capture)."""
+    capture). ``kv_prefix``: optional ``(k0, v0, prefix_mask)``, K/V
+    already computed (``[b, hk, Lp, hd]``, ``prefix_mask [b, Lp]``, nonzero
+    = valid) prepended to this window's keys after ``kv_sink`` took the
+    window's own: the serving prefix cache's suffix prefill, whose window
+    holds a prompt's unshared suffix. The bottom-right causal alignment
+    (``row >= col - (kv_len - q_len)``) lets each query attend the whole
+    prefix and the window up to itself with no other mask."""
     q, k, v = _qkv_heads(block, x, num_heads)
     if kv_sink is not None:
         kv_sink.append((k, v))
+    if kv_prefix is not None:
+        k, v, kv_mask = concat_kv_prefix(kv_prefix, k, v, kv_mask)
     o = A.attention(q, k, v, causal=causal, kv_mask=kv_mask)
     return L.dropout(block.attn_out(A.merge_heads(o)), dropout_rate,
                      generator, train)
+
+
+def concat_kv_prefix(kv_prefix, k, v, kv_mask):
+    """Prepend cached-prefix K/V and its validity to a window's keys
+    (reference ``_concat_kv_prefix``, ``:127-138``; shared with Llama's
+    block). The window's mask defaults to all-real."""
+    pk, pv, pmask = kv_prefix
+    k2 = torch.cat([pk.to(k.dtype), k], dim=2)
+    v2 = torch.cat([pv.to(v.dtype), v], dim=2)
+    if kv_mask is None:
+        kv_mask = torch.ones(k.shape[0], k.shape[2], device=k.device)
+    return k2, v2, torch.cat([pmask.to(kv_mask.dtype), kv_mask], dim=1)
 
 
 def attention_decode_tick(block, x, cache, pos, *, num_heads: int,
@@ -94,18 +116,21 @@ class TransformerBlock(nn.Module):
         return L.dropout(h, self.dropout_rate, generator, train)
 
     def forward(self, x, *, train: bool = False, generator=None,
-                kv_mask=None, kv_sink: list | None = None):
+                kv_mask=None, kv_sink: list | None = None, kv_prefix=None):
         """The reference's ``apply`` (``:251-271``) over a whole ``[b, t,
         d]`` window: pre-LN ``x + attn(ln1(x))``, then ``+ mlp(ln2(x))``;
         post-LN ``ln1(x + attn(x))``, then ``ln2(x + mlp(x))``. ``train``
         with a ``generator`` (a ``torch.Generator`` on ``x``'s device)
         applies dropout; without a generator nothing is dropped, as the
         reference skips dropout without an rng. ``kv_mask``: optional
-        ``[b, t]`` key validity (nonzero = attend)."""
+        ``[b, t]`` key validity (nonzero = attend). ``kv_sink`` and
+        ``kv_prefix``: :func:`attention_sublayer`'s (the serving
+        admission's capture and its suffix prefill)."""
         train = train and generator is not None
         kw = {"num_heads": self.num_heads, "causal": self.causal,
               "dropout_rate": self.dropout_rate, "generator": generator,
-              "train": train, "kv_mask": kv_mask, "kv_sink": kv_sink}
+              "train": train, "kv_mask": kv_mask, "kv_sink": kv_sink,
+              "kv_prefix": kv_prefix}
         if not self.pre_ln:
             x = self.ln1(x + attention_sublayer(self, x, **kw))
             return self.ln2(x + self._mlp(x, generator, train))

@@ -1794,3 +1794,79 @@ def test_llama_generate_on_card_matches_cpu(dev, kv_quant):
                                    kv_quant=kv_quant).cpu())
     assert counter() > before
     assert torch.equal(outs[0], outs[1])
+
+
+# ---- serving: per-row sampling, the prefix cache, chunked prefill --------
+
+def test_row_sampling_on_card_matches_cpu(dev):
+    """``infer.row_hash`` is integer arithmetic: the card's bits are the
+    CPU's; ``filter_rows`` masks the same logits on both, and
+    ``sample_rows`` draws the same tokens from f32 logits."""
+    from distributed_compute_pytorch_tpu_torch import infer
+    gen = torch.Generator().manual_seed(12)
+    logits = torch.randn(8, 1000, generator=gen) * 3
+    temp = torch.tensor([0.0, 0.5, 0.8, 1.0, 1.3, 0.8, 0.9, 2.0])
+    top_k = torch.tensor([0, 1, 50, 0, 7, 0, 200, 3])
+    top_p = torch.tensor([2.0, 2.0, 0.95, 0.9, 2.0, 0.5, 0.99, 0.8])
+    seeds = torch.arange(8) * 977 + 3
+    pos = torch.arange(8) * 31
+    args = (temp, top_k, top_p)
+    on = [x.to(dev) for x in (logits, *args, seeds, pos)]
+    assert torch.equal(infer.row_hash(seeds, pos, 1000),
+                       infer.row_hash(on[4], on[5], 1000).cpu())
+    assert torch.equal(infer.filter_rows(logits, *args).isinf(),
+                       infer.filter_rows(*on[:4]).isinf().cpu())
+    assert torch.equal(infer.sample_rows(logits, *args, seeds, pos),
+                       infer.sample_rows(*on).cpu())
+
+
+def test_tiny_serve_sampling_prefix_chunked_on_card(dev):
+    """GPT-2-tiny in f32 with the prefix cache and chunked prefill, greedy,
+    ``top_k=1`` and freely sampled rows side by side: the captured
+    segments (both programs) give the eager loop's tokens bit for bit,
+    the capture and every call under ``set_sync_debug_mode("error")``;
+    greedy and ``top_k=1`` rows give the CPU's tokens; the suffix prefill
+    attached and copied on write; no block leaks."""
+    from distributed_compute_pytorch_tpu_torch.serve import (
+        ContinuousBatcher, Request)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = _tiny_on_card(dev, torch.float32)
+    cpu = _tiny_on_card("cpu", torch.float32)
+    rng = np.random.default_rng(15)
+    shared = [int(x) for x in rng.integers(0, 256, 21)]
+    reqs = []
+    for i in range(8):
+        r = Request(shared + [int(x) for x in rng.integers(
+            0, 256, rng.integers(1, 6))], int(rng.integers(4, 10)))
+        if i % 3 == 1:
+            r.temperature, r.top_k, r.seed = 0.7, 1, i
+        elif i % 3 == 2:
+            r.temperature, r.top_p, r.seed = 0.9, 0.9, i
+        reqs.append(r)
+    kw = dict(slots=2, t_max=64, prompt_buf=28, segment=3, kv_block_tokens=8,
+              prefix_cache=True, prefill_chunk_tokens=8)
+    runs = {}
+    for capture in (True, False):
+        cb = ContinuousBatcher(gpu, device=dev, **kw)
+        cb._capture = capture
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            runs[capture] = [cb.serve([Request(list(r.tokens), r.max_new,
+                                               r.temperature, r.top_k,
+                                               r.top_p, r.seed)
+                                       for r in reqs]) for _ in range(2)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert cb.last_block_leaks == 0
+        assert cb.stats["prefix_hits"] > 0 and cb.stats["cow_copies"] > 0
+        assert cb.prefill["chunk_waves"] > 0
+        if capture:
+            assert cb.stats["graph_captures"] == 2
+            assert set(cb._programs) == {False, True}
+    assert runs[True] == runs[False]
+    assert runs[True][0] == runs[True][1]
+    want = ContinuousBatcher(cpu, device="cpu", **kw).serve(reqs)
+    for i, (got, ref) in enumerate(zip(runs[True][0], want)):
+        if i % 3 != 2:
+            assert got == ref, i

@@ -1,7 +1,8 @@
 """Package rules of the port: it imports no JAX (and nothing of the JAX
 package), neither do ``chip_smoke.py``, ``train_probe.py``,
-``ddp_probe.py`` and the CUDA test file, and its entry points refuse to
-run without a card unless the caller asks for the CPU."""
+``ddp_probe.py``, ``serve_probe.py`` and the CUDA test file, and its
+entry points refuse to run without a card unless the caller asks for the
+CPU."""
 
 import ast
 import subprocess
@@ -30,6 +31,7 @@ def _checked_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "train_probe.py",
                                          ROOT / "ddp_probe.py",
+                                         ROOT / "serve_probe.py",
                                          ROOT / "tests/test_torch_cuda.py"]
 
 

@@ -146,8 +146,16 @@ def test_invalid_requests_raise(models):
         cb.serve([Request(list(range(PROMPT_BUF + 1)), 2)])
     with pytest.raises(ValueError, match="empty"):
         cb.serve([Request([], 2)])
-    with pytest.raises(ValueError, match="sampling"):
-        cb.serve([Request([1, 2], 2, temperature=0.7)])
+    # sampling is served now: its settings are checked as the reference
+    # checks them (tests/test_serve.py::test_sampling_validation)
+    with pytest.raises(ValueError, match="temperature"):
+        cb.serve([Request([1, 2], 2, temperature=-0.5)])
+    with pytest.raises(ValueError, match="top_k/top_p"):
+        cb.serve([Request([1, 2], 2, top_k=5)])
+    with pytest.raises(ValueError, match="top_p"):
+        cb.serve([Request([1, 2], 2, temperature=0.5, top_p=1.5)])
+    with pytest.raises(ValueError, match="top_k"):
+        cb.serve([Request([1, 2], 2, temperature=0.5, top_k=0)])
     with pytest.raises(ValueError, match="vocab"):
         cb.serve([Request([1, 999], 2)])
 

@@ -6,6 +6,7 @@ card.
 
     python3 train_probe.py step [--root DIR] [--optimizer adamw]
     python3 train_probe.py fit [--root DIR] [--optimizer adamw_fused]
+        [--modes graph,eager] [--warmup_pool]
     python3 train_probe.py cudnn
 
 ``step`` runs the train cell of ``chip_smoke.py`` (GPT-2-small, bf16
@@ -24,7 +25,13 @@ takes the non-finite guard's flag, the guarded form too.
 tokens, for which three updates of the step fit on the card, for each
 mode: a binary search whose every trial (``trial``) runs in a process of
 its own, so that a trial out of memory leaves nothing behind. A trial
-reports its peak memory allocated and reserved.
+reports its peak memory allocated and reserved. The trials inherit the
+environment (``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` reaches
+them). ``--warmup_pool`` runs the captured step's eager warm-up inside a
+``torch.cuda.MemPool`` and captures its graph into that same pool
+(``capture_begin(pool=...)``), so the blocks the warm-up freed serve the
+capture instead of sitting beside the graph's own pool; it changes this
+process only.
 
 ``cudnn`` prices the port's cuDNN settings: the train and eval steps run
 cuDNN in f32 with its deterministic algorithms
@@ -192,16 +199,48 @@ def step_probe(args) -> dict:
     return rec
 
 
+def _pool_warmup(torch, train_step) -> None:
+    """The captured step's warm-up allocating from the memory pool its graph
+    is then captured into (``--warmup_pool``): the eager update runs inside
+    ``torch.cuda.use_mem_pool`` and ``utils/graphs.py``'s recording
+    captures with ``capture_begin(pool=...)`` on that pool."""
+    import contextlib
+    from distributed_compute_pytorch_tpu_torch.utils import graphs
+    pool = torch.cuda.MemPool()
+    eager = train_step._eager_step
+
+    def warm(*a):
+        with torch.cuda.use_mem_pool(pool):
+            return eager(*a)
+
+    @contextlib.contextmanager
+    def recording(graph, generators=()):
+        for gen in generators:
+            graph.register_generator_state(gen)
+        with torch.cuda.stream(torch.cuda.Stream()):
+            graph.capture_begin(pool=pool.id)
+            try:
+                yield
+            finally:
+                graph.capture_end()
+    train_step._eager_step = warm
+    graphs._recording = recording
+
+
 def trial(args) -> dict:
     """Three updates at ``args.batch`` in ``args.mode``: whether they fit,
     and the peak memory."""
     import torch
     port = _port(args.root)
     weights = _weights(torch, port)
-    rec = {"mode": args.mode, "batch": args.batch}
+    rec = {"mode": args.mode, "batch": args.batch,
+           "warmup_pool": args.warmup_pool,
+           "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF")}
     try:
         setup = _setup(torch, port, args.optimizer, args.mode, args.batch,
                        weights)
+        if args.warmup_pool and args.mode == "graph":
+            _pool_warmup(torch, setup[2])
         del weights
         torch.cuda.reset_peak_memory_stats()
         _run(torch, setup, FIT_STEPS)
@@ -223,7 +262,8 @@ def trial(args) -> dict:
 def _trial(args, mode, batch) -> dict:
     cmd = [sys.executable, os.path.abspath(__file__), "trial", "--root",
            args.root, "--optimizer", args.optimizer, "--mode", mode,
-           "--batch", str(batch)]
+           "--batch", str(batch)] + (["--warmup_pool"] if args.warmup_pool
+                                     else [])
     done = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if done.returncode != 0:
         raise RuntimeError(f"trial {mode} {batch} failed (rc "
@@ -236,7 +276,9 @@ def fit_probe(args) -> dict:
     port[2].build_all()
     rec = {"probe": "fit", "root": os.path.abspath(args.root),
            "optimizer": args.optimizer, "unit": FIT_UNIT, "seq": T,
-           "updates": FIT_STEPS, "modes": {}}
+           "updates": FIT_STEPS, "warmup_pool": args.warmup_pool,
+           "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF"),
+           "modes": {}}
     for mode in args.modes or _modes(port[4]):
         lo, hi, trials = 0, FIT_MAX // FIT_UNIT + 1, []
         while hi - lo > 1:       # lo fits (0: nothing tried), hi does not
@@ -330,6 +372,9 @@ def main() -> int:
                     help="fit: the modes to probe, comma-separated "
                          "(default: every mode the tree has)")
     ap.add_argument("--batch", type=int)
+    ap.add_argument("--warmup_pool", action="store_true",
+                    help="fit/trial: the captured step's warm-up allocates "
+                         "from the pool its graph is captured into")
     ap.add_argument("--out")
     args = ap.parse_args()
     import torch
