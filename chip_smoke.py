@@ -19,7 +19,14 @@ imports nothing of JAX. Phases, one JSON line each:
    fused AdamW; generation for the dense writes and the dense decode),
    with the tolerances below, and timed beside its plain version, its
    roofline bound and (where one exists) one PyTorch library call
-   computing the same function. The int8 forms of the four slot writes
+   computing the same function. The pool write (``kv_pool_insert`` and
+   its int8 form) is timed at the decode tick's 16 rows and at the serve
+   cell's first admission wave, the shape the path launches it at
+   (``*_admission``: 16 rows x a 256-token window, the prompts' tokens
+   live, pads aimed at block P; GPT-2's pool float and int8, Llama's
+   float), each of its entries with the vector width the launch takes
+   (``vec_bytes``) and its template's ``-Xptxas -v`` registers and
+   spills (``ptxas``). The int8 forms of the four slot writes
    (quantizing as they write, exact against ``quantize_kv`` then the
    indexed writes) and of the two decode reads (to TOL, and row by row to
    ``ROW_TOL`` in bf16) at the same shapes. Each of the four decode reads
@@ -283,7 +290,9 @@ When a profiled run's counters and the device's kernel events disagree
 stream, graph ids), the schedule and its waves are written to
 ``chiprun_out/kernel_events_*.json`` before the smoke fails.
 
-Then the ``{"kernels": [...]}`` line (launches from the profiled captured
+Then the ``pool_insert_device_ms`` line (the pool write's device ms
+and launches, float and int8, in every profiled run of the call) and the
+``{"kernels": [...]}`` line (launches from the profiled captured
 bf16 serve run for the serving kernels, from the profiled captured bf16
 generate run for the generation kernels, from the profiled captured int8
 runs of serve_int8 and generate_int8 for the int8 forms, each measured
@@ -291,7 +300,9 @@ against the device's kernel events; from train_profile's captured run
 for the training kernels, measured the same way; the BERT-shape entries
 ``*_bert`` from the bert phase's profiled captured run; the Llama-shape
 entries ``*_llama`` from the Llama cells' profiled captured runs; the
-``*_suffix`` entries from serve_prefix's profiled captured GPT-2 runs), the
+``*_suffix`` entries from serve_prefix's profiled captured GPT-2 runs;
+the ``*_admission`` entries from the serve, serve_int8 and Llama serve
+profiles, whose every pool write is an admission wave's), the
 raw ``nvidia-smi`` line, and last the ``{"ok": true, ...}`` line. Any
 failed check exits non-zero before the ``ok`` line. Roofline bounds use
 the H100 SXM data-sheet peaks: 3.35 TB/s HBM, 989 TFLOP/s bf16 (tensor
@@ -373,6 +384,9 @@ LLAMA_NAME = ("llama (12 x 768, 12 query heads over 4 kv heads, d_ff 2048, "
 # a spin kernel of this many clock cycles (about 50 ms on an H100) holds
 # the stream while the host enqueues the timed calls
 SPIN_CYCLES = 100_000_000
+# the serve cell's admission window: ``prompt_buf`` tokens a row when
+# nothing is resident (``serve._prefill_wave``)
+ADMISSION_WINDOW = 256
 
 
 class SmokeFailure(RuntimeError):
@@ -562,67 +576,175 @@ def check_flash(torch, np, FA, dtype, dt):
     return out
 
 
-def check_insert(torch, CU, dtype, dt, H=12):
+def first_wave_lengths(np):
+    """The token rows of the serve cell's first admission wave: the first
+    16 of ``serve_requests``' prompts (drawn as it draws them), each
+    prefilled but for its last token, which becomes the row's current
+    token (``serve._prefill_wave``)."""
+    return np.random.default_rng(0).integers(16, 251, 32)[:16] - 1
+
+
+def admission_targets(torch, gen, P, bt, lengths, window=ADMISSION_WINDOW):
+    """One admission wave's flattened scatter targets into an empty pool,
+    as ``serve._prefill_wave`` builds them: row j's first ``lengths[j]``
+    tokens into fresh blocks of its own (drawn at random from the pool's
+    blocks 1..P-1), the rest of its ``window``-token row pads aimed at
+    block ``P`` (dropped). Returns int32 ``(blocks, offsets)`` of
+    ``len(lengths) * window`` token rows."""
+    K = len(lengths)
+    fresh = iter((torch.randperm(P - 1, generator=gen) + 1).tolist())
+    blocks = torch.full((K, window), P, dtype=torch.int32)
+    offsets = torch.zeros((K, window), dtype=torch.int32)
+    for j, n in enumerate(int(x) for x in lengths):
+        table = torch.tensor([next(fresh) for _ in range(-(-n // bt))],
+                             dtype=torch.int32)
+        t = torch.arange(n)
+        blocks[j, :n] = table[t // bt]
+        offsets[j, :n] = (t % bt).to(torch.int32)
+    return blocks.reshape(-1), offsets.reshape(-1)
+
+
+def pool_insert_times(torch, CU, pools, k, v, blocks, offsets, dt):
+    """The pool scatter's timed fields at one shape: the kernel's and the
+    plain version's ms cycling over ``pools`` (each ``(pool,)`` or, int8,
+    ``(pool, scale)``; three copies keep it L2-cold, one times it warm),
+    its byte bound (the live rows read once and written once: an int8
+    pool's codes and f32 scales; 8 bytes of lookups a token row, pads
+    included), its share of that bound, the indexed write's ms (float:
+    ``pool[:, blocks, :, offsets, :] = upd`` on the live rows, filtered
+    outside the timed call; int8: none) and the vector width the launch
+    takes (``CU.vec_bytes``)."""
+    q8 = len(pools[0]) == 2
+    _, P, H, bt, hd = pools[0][0].shape
+    keep = (blocks >= 0) & (blocks < P) & (offsets >= 0) & (offsets < bt)
+    n_valid, esz = int(keep.sum()), k.element_size()
+    nbytes = (2 * n_valid * H * (hd * esz + hd + 4) if q8
+              else 2 * 2 * n_valid * H * hd * esz) + 8 * blocks.numel()
+    out = {"live_token_rows": n_valid, "token_rows": blocks.numel()}
+    out["bound_ms"], out["bound_by"] = bound(nbytes, 0.0, dt)
+
+    def scale_of(c):
+        return c[1] if q8 else None
+    out["ms"] = time_ms(torch, [
+        (lambda c=c: CU.kv_pool_insert_cuda(c[0], k, v, blocks, offsets,
+                                            scale=scale_of(c)))
+        for c in pools])
+    out["plain_ms"] = time_ms(torch, [
+        (lambda c=c: CU.kv_pool_insert_plain(c[0], k, v, blocks, offsets,
+                                             scale_of(c))) for c in pools])
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    if q8:
+        out["library_ms"], out["library"] = None, Q8_LIBRARY
+    else:
+        upd = torch.stack([k, v], dim=1)[keep]           # [n, 2, H, hd]
+        blk_l, off_l = blocks[keep].long(), offsets[keep].long()
+
+        def index_write(c):
+            c[0][:, blk_l, :, off_l, :] = upd
+        out["library_ms"] = time_ms(torch, [
+            (lambda c=c: index_write(c)) for c in pools])
+        out["library"] = "pool[:, blocks, :, offsets, :] = upd"
+    out["vec_bytes"] = vb = CU.vec_bytes(pools[0][0], k, v,
+                                         scale=scale_of(pools[0]))
+    if q8:
+        t = ("float", "f") if k.dtype == torch.float32 else (
+            "__nv_bfloat16", "13__nv_bfloat16")
+        out["kernel"] = (f"kv_pool_insert_q8_kernel<{t[0]}, {vb}>",
+                         f"24kv_pool_insert_q8_kernelI{t[1]}Li{vb}EE")
+    else:
+        out["kernel"] = (f"kv_pool_insert_kernel<{vb}>",
+                         f"21kv_pool_insert_kernelILi{vb}EE")
+    return out
+
+
+def kernel_resources(log: str, mangled: str) -> dict:
+    """What ``-Xptxas -v`` says of the entry function whose mangled name
+    holds ``mangled``: its registers and spilled bytes (``{}`` where the
+    build log names no such entry)."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn = m.group(1)
+        if fn is None or mangled not in fn:
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out["spill_stores"], out["spill_loads"] = map(int, m.groups())
+    return out
+
+
+def pool_insert_device_ms(records: list) -> dict:
+    """``{run: {group: {launches, ms}}}`` of the pool scatter's kernel
+    groups in every profile summary (a dict with ``groups_ms``) that the
+    records hold, named by the path of keys to it."""
+    out = {}
+
+    def walk(obj, path):
+        if isinstance(obj, dict):
+            groups = obj.get("groups_ms")
+            if isinstance(groups, dict):
+                hit = {g: groups[g] for g in ("kv_pool_insert",
+                                              "kv_pool_insert_q8")
+                       if g in groups}
+                if hit:
+                    out[" ".join(path)] = hit
+            for key, val in obj.items():
+                walk(val, path + [str(key)])
+    for rec in records:
+        walk(rec, [str(rec.get("phase", ""))])
+    return out
+
+
+def check_insert(torch, np, CU, dtype, dt, H=12):
     """Pool [2, 1025, H, 16, 64] (``H`` kv heads: GPT-2's 12, Llama's 4):
-    a decode tick's 16 rows (two parked rows on the trash block) and one
-    admission wave's flattened scatter (16 rows x 256 window, pad tokens
-    aimed out of range)."""
+    a decode tick's 16 rows (two parked rows on the trash block), and the
+    serve cell's first admission wave, the shape the path launches it at
+    (``admission_targets``: 16 rows x a 256-token window, the prompts'
+    tokens live, the rest pads aimed at block P), both from strided views
+    of a fused QKV row, exact against the plain version. Both timed
+    (``pool_insert_times``). Returns ``(decode entry, admission
+    entry)``."""
     gen = torch.Generator().manual_seed(2)
     P, bt, hd = 1025, 16, 64
-    copies = [torch.randn(2, P, H, bt, hd, generator=gen).to("cuda", dtype)
+    copies = [(torch.randn(2, P, H, bt, hd, generator=gen).to("cuda", dtype),)
               for _ in range(3)]
     out = {}
-    for case, n in (("decode", 16), ("admission", 16 * 256)):
+    for case, n in (("decode", 16), ("admission", 16 * ADMISSION_WINDOW)):
         kv = torch.randn(n, 3 * H * hd, generator=gen).to("cuda", dtype)
         k = kv[:, H * hd:2 * H * hd].reshape(n, H, hd)   # fused-QKV views
         v = kv[:, 2 * H * hd:].reshape(n, H, hd)
-        blocks = (torch.randperm(P - 1, generator=gen)[:n] + 1
-                  if n < P else torch.randint(1, P, (n,), generator=gen))
-        offsets = torch.randint(0, bt, (n,), generator=gen)
         if case == "decode":
+            blocks = torch.randperm(P - 1, generator=gen)[:n] + 1
+            offsets = torch.randint(0, bt, (n,), generator=gen)
             blocks[[3, 11]] = 0                          # parked: trash
-            valid = torch.ones(n, dtype=torch.bool)
         else:
-            # one token per (block, offset): a real wave never aims two
-            # tokens at one slot
-            blocks = torch.arange(n) // bt + 1
-            offsets = torch.arange(n) % bt
-            valid = torch.rand(n, generator=gen) < 0.6
-            blocks[~valid] = P                           # pad: dropped
+            blocks, offsets = admission_targets(torch, gen, P, bt,
+                                                first_wave_lengths(np))
         blocks = blocks.to("cuda", torch.int32)
         offsets = offsets.to("cuda", torch.int32)
-        want = CU.kv_pool_insert_plain(copies[0].clone(), k, v, blocks,
+        want = CU.kv_pool_insert_plain(copies[0][0].clone(), k, v, blocks,
                                        offsets)
-        got = copies[0].clone()
+        got = copies[0][0].clone()
         CU.kv_pool_insert_cuda(got, k, v, blocks, offsets)
         torch.cuda.synchronize()
         # the trash block takes racing garbage writes: compared elsewhere
         err = (got[:, 1:].float() - want[:, 1:].float()).abs().max().item()
         require(err == 0.0, f"insert {case} {dt}: max err {err} != 0")
-        out[f"{case}_max_abs_err"] = err
-        if case != "decode":
-            continue
-        n_valid = int(valid.sum())
-        nbytes = 2 * 2 * n_valid * H * hd * got.element_size() + 8 * n
-        out["bound_ms"], out["bound_by"] = bound(nbytes, 0.0, dt)
-        out["ms"] = time_ms(torch, [
-            (lambda c=c: CU.kv_pool_insert_cuda(c, k, v, blocks, offsets))
-            for c in copies])
-        out["plain_ms"] = time_ms(torch, [
-            (lambda c=c: CU.kv_pool_insert_plain(c, k, v, blocks, offsets))
-            for c in copies])
-        upd = torch.stack([k, v], dim=1)                 # [n, 2, H, hd]
-        blk_l, off_l = blocks.long(), offsets.long()
-
-        def index_write(c):
-            c[:, blk_l, :, off_l, :] = upd
-        out["library_ms"] = time_ms(torch, [
-            (lambda c=c: index_write(c)) for c in copies])
-        out["shape"] = (f"pool [2, {P}, {H}, {bt}, {hd}], {n} decode rows "
-                        f"(2 parked on trash)")
-    out["max_abs_err"] = max(out["decode_max_abs_err"],
-                             out["admission_max_abs_err"])
-    return out
+        out[case] = {"max_abs_err": err, **pool_insert_times(
+            torch, CU, copies, k, v, blocks, offsets, dt)}
+    out["decode"]["shape"] = (f"pool [2, {P}, {H}, {bt}, {hd}], 16 decode "
+                              f"rows (2 parked on trash)")
+    out["admission"]["shape"] = (
+        f"pool [2, {P}, {H}, {bt}, {hd}], the serve cell's first admission "
+        f"wave: 16 rows x a {ADMISSION_WINDOW}-token window, "
+        f"{out['admission']['live_token_rows']} live tokens, the rest pads "
+        f"aimed at block {P}; fused-QKV views")
+    return out["decode"], out["admission"]
 
 
 def decode_extras(torch, name, launch, b_ms, ms, grid, launch_min):
@@ -1116,17 +1238,19 @@ def q8_cache(torch, gen, *shape, copies: int = 1):
     return out
 
 
-def check_insert_q8(torch, CU, dtype, dt):
+def check_insert_q8(torch, np, CU, dtype, dt):
     """The int8 pool [2, 1025, 12, 16, 64] with its scales: a decode tick's
-    16 float rows (two parked on the trash block) and one admission wave's
-    flattened scatter (16 rows x 256 window, pad tokens aimed out of
-    range), quantized as they are written. Both leaves exact against
-    ``quantize_kv`` followed by the indexed writes."""
+    16 float rows (two parked on the trash block) and the serve cell's
+    first admission wave (``admission_targets``: 16 rows x a 256-token
+    window, pads aimed at block P), quantized as they are written. Both
+    leaves exact against ``quantize_kv`` followed by the indexed writes;
+    both timed (``pool_insert_times``). Returns ``(decode entry, admission
+    entry)``."""
     gen = torch.Generator().manual_seed(32)
     P, H, bt, hd = 1025, 12, 16, 64
     copies = q8_cache(torch, gen, 2, P, H, bt, hd, copies=3)
     out = {}
-    for case, n in (("decode", 16), ("admission", 16 * 256)):
+    for case, n in (("decode", 16), ("admission", 16 * ADMISSION_WINDOW)):
         kv = torch.randn(n, 3 * H * hd, generator=gen).to("cuda", dtype)
         k = kv[:, H * hd:2 * H * hd].reshape(n, H, hd)   # fused-QKV views
         v = kv[:, 2 * H * hd:].reshape(n, H, hd)
@@ -1134,13 +1258,9 @@ def check_insert_q8(torch, CU, dtype, dt):
             blocks = torch.randperm(P - 1, generator=gen)[:n] + 1
             offsets = torch.randint(0, bt, (n,), generator=gen)
             blocks[[3, 11]] = 0                          # parked: trash
-            n_valid = n
         else:
-            blocks = torch.arange(n) // bt + 1
-            offsets = torch.arange(n) % bt
-            valid = torch.rand(n, generator=gen) < 0.6
-            blocks[~valid] = P                           # pad: dropped
-            n_valid = int(valid.sum())
+            blocks, offsets = admission_targets(torch, gen, P, bt,
+                                                first_wave_lengths(np))
         blocks = blocks.to("cuda", torch.int32)
         offsets = offsets.to("cuda", torch.int32)
         pool, scale = copies[0]
@@ -1156,26 +1276,18 @@ def check_insert_q8(torch, CU, dtype, dt):
                           f"from quantize-then-write")
         require(not torch.equal(got[0], pool), f"insert_q8 {case} {dt}: "
                                                f"nothing was written")
-        out[f"{case}_elements_differing"] = bad
-        if case != "decode":
-            continue
-        # the float rows read once, the int8 bytes and f32 scales written
-        # once, the block ids and offsets read once
-        nbytes = (2 * n_valid * H * (hd * k.element_size() + hd + 4)
-                  + 8 * n)
-        out["bound_ms"], out["bound_by"] = bound(nbytes, 0.0, dt)
-        out["ms"] = time_ms(torch, [
-            (lambda c=c: CU.kv_pool_insert_cuda(c[0], k, v, blocks, offsets,
-                                                scale=c[1]))
-            for c in copies])
-        out["plain_ms"] = time_ms(torch, [
-            (lambda c=c: CU.kv_pool_insert_plain(c[0], k, v, blocks, offsets,
-                                                 c[1])) for c in copies])
-        out["library_ms"], out["library"] = None, Q8_LIBRARY
-        out["shape"] = (f"int8 pool [2, {P}, {H}, {bt}, {hd}] + f32 scales, "
-                        f"{n} float decode rows (2 parked on trash)")
-    out["max_abs_err"] = 0.0
-    return out
+        out[case] = {"elements_differing": bad, "max_abs_err": 0.0,
+                     **pool_insert_times(torch, CU, copies, k, v, blocks,
+                                         offsets, dt)}
+    out["decode"]["shape"] = (f"int8 pool [2, {P}, {H}, {bt}, {hd}] + f32 "
+                              f"scales, 16 float decode rows (2 parked on "
+                              f"trash)")
+    out["admission"]["shape"] = (
+        f"int8 pool [2, {P}, {H}, {bt}, {hd}] + f32 scales, the serve "
+        f"cell's first admission wave: 16 rows x a {ADMISSION_WINDOW}-token "
+        f"window, {out['admission']['live_token_rows']} live tokens, the "
+        f"rest pads aimed at block {P}; fused-QKV views")
+    return out["decode"], out["admission"]
 
 
 def check_decode_q8(torch, np, DA, dtype, dt):
@@ -2287,28 +2399,9 @@ def check_insert_suffix(torch, CU, dtype, dt, q8):
                for g, x in zip(got, pool))
     require(kept, f"{what}: a copied block lost its donor's prefix slots")
     require(not torch.equal(got[0], pool[0]), f"{what}: nothing was written")
-    n_valid = int(sn.sum())
-    esz = k.element_size()
-    nbytes = (2 * n_valid * H * (hd * esz + hd + 4) if q8
-              else 2 * 2 * n_valid * H * hd * esz) + 8 * b * W
     out = {"elements_differing": bad, "donor_prefix_kept": kept,
-           "max_abs_err": 0.0, "cow_copies": b}
-    out["bound_ms"], out["bound_by"] = bound(nbytes, 0.0, dt)
-    out["ms"] = time_ms(torch, [lambda: CU.kv_pool_insert_cuda(
-        got[0], k, v, blk, off, scale=scale)])
-    out["plain_ms"] = time_ms(torch, [lambda: CU.kv_pool_insert_plain(
-        got[0], k, v, blk, off, scale)])
-    if q8:
-        out["library_ms"], out["library"] = None, Q8_LIBRARY
-    else:
-        keep_l = blk < P
-        upd = torch.stack([k, v], dim=1)[keep_l]          # [n, 2, H, hd]
-        blk_l, off_l = blk[keep_l].long(), off[keep_l].long()
-
-        def index_write():
-            got[0][:, blk_l, :, off_l, :] = upd
-        out["library_ms"] = time_ms(torch, [index_write])
-        out["library"] = "pool[:, blocks, :, offsets, :] = upd"
+           "max_abs_err": 0.0, "cow_copies": b,
+           **pool_insert_times(torch, CU, [tuple(got)], k, v, blk, off, dt)}
     out["shape"] = (f"{'int8 ' if q8 else ''}pool [2, {P}, {H}, {bt}, {hd}]"
                     f", {b} rows x {W}-token window after {b} copy-on-write "
                     f"copies, suffixes from mid-block")
@@ -2842,7 +2935,8 @@ def serving_remainder_phases(torch, np, infer, serve, mods, gpt2,
 EXACT = ("kv_pool_insert", "cache_insert", "kv_insert", "kv_insert_rows",
          "kv_pool_insert_q8", "cache_insert_q8", "kv_insert_q8",
          "kv_insert_rows_q8", "kv_pool_insert_llama", "kv_pool_insert_suffix",
-         "kv_pool_insert_q8_suffix")
+         "kv_pool_insert_q8_suffix", "kv_pool_insert_admission",
+         "kv_pool_insert_q8_admission", "kv_pool_insert_llama_admission")
 # per-kernel fields the kernels line carries where a check records them:
 # the flash kernels' rate, share of their bound, path and row errors; the
 # flash forward at the training shape and its lse
@@ -2851,7 +2945,8 @@ KERNEL_EXTRAS = ("tflops", "bound_share", "path", "train_ms",
                  "train_bound_share", "row_err", "fault_row_err",
                  "lse_max_abs_err", "grid", "same_bits", "one_key_ms",
                  "pair_ms", "read_ms", "pair_bit_identical", "fuses", "long",
-                 "pad_pair_share", "rel_err")
+                 "pad_pair_share", "rel_err", "vec_bytes", "kernel", "ptxas",
+                 "live_token_rows", "token_rows")
 SOURCES = {"cache_insert": "kv_insert", "kv_insert_rows": "kv_insert",
            "kv_pool_insert_q8": "kv_pool_insert",
            "paged_decode_q8": "paged_decode", "cache_insert_q8": "kv_insert",
@@ -2867,6 +2962,9 @@ SOURCES = {"cache_insert": "kv_insert", "kv_insert_rows": "kv_insert",
            "flash_fwd_suffix": "flash_fwd",
            "kv_pool_insert_suffix": "kv_pool_insert",
            "kv_pool_insert_q8_suffix": "kv_pool_insert",
+           "kv_pool_insert_admission": "kv_pool_insert",
+           "kv_pool_insert_q8_admission": "kv_pool_insert",
+           "kv_pool_insert_llama_admission": "kv_pool_insert",
            "paged_decode_write_llama": "paged_decode",
            "paged_decode_write_q8_llama": "paged_decode",
            "dense_decode_write_llama": "dense_decode",
@@ -5677,10 +5775,15 @@ def main() -> int:
         results = {}
         gen_lens = gen_batch(np, GPT2Config.small().vocab_size)[0]
         for dtype, dt in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-            results[dt] = {
-                "flash_fwd": check_flash(torch, np, FA, dtype, dt),
-                "kv_pool_insert": check_insert(torch, CU, dtype, dt),
-                "paged_decode": check_decode(torch, np, DA, dtype, dt)}
+            results[dt] = {"flash_fwd": check_flash(torch, np, FA, dtype,
+                                                    dt)}
+            # the pool scatter at the decode shape and at the admission
+            # wave's, the shape the path launches it at
+            (results[dt]["kv_pool_insert"],
+             results[dt]["kv_pool_insert_admission"]) = check_insert(
+                torch, np, CU, dtype, dt)
+            results[dt]["paged_decode"] = check_decode(torch, np, DA, dtype,
+                                                       dt)
             results[dt].update(check_flash_bwd(torch, np, FA, dtype, dt))
             results[dt].update(check_flash_bert(torch, np, FA, dtype, dt))
             # the serving remainder's shapes: an attach wave's suffix
@@ -5694,8 +5797,9 @@ def main() -> int:
                                                   int(gen_lens.max())))
             results[dt]["dense_decode"] = check_dense_decode(
                 torch, np, DA, A, dtype, dt, gen_lens)
-            results[dt]["kv_pool_insert_q8"] = check_insert_q8(
-                torch, CU, dtype, dt)
+            (results[dt]["kv_pool_insert_q8"],
+             results[dt]["kv_pool_insert_q8_admission"]) = check_insert_q8(
+                torch, np, CU, dtype, dt)
             results[dt]["paged_decode_q8"] = check_decode_q8(
                 torch, np, DA, dtype, dt)
             results[dt].update(check_dense_insert_q8(
@@ -5710,8 +5814,9 @@ def main() -> int:
                     check_dense_decode_write(torch, np, A, CU, DA, dtype, dt,
                                              gen_lens, q8)
             # Llama's shapes: 4 kv heads, G = 3 query heads on each
-            results[dt]["kv_pool_insert_llama"] = check_insert(
-                torch, CU, dtype, dt, H=LLAMA_KV_HEADS)
+            (results[dt]["kv_pool_insert_llama"],
+             results[dt]["kv_pool_insert_llama_admission"]) = check_insert(
+                torch, np, CU, dtype, dt, H=LLAMA_KV_HEADS)
             for q8 in (False, True):
                 sfx = ("_q8" if q8 else "") + "_llama"
                 results[dt]["paged_decode_write" + sfx] = check_decode_write(
@@ -5720,6 +5825,11 @@ def main() -> int:
                     check_dense_decode_write(torch, np, A, CU, DA, dtype, dt,
                                              gen_lens, q8,
                                              hk=LLAMA_KV_HEADS)
+            for res in results[dt].values():
+                if "kernel" in res:      # the pool scatter's template
+                    res["ptxas"] = kernel_resources(
+                        built["ptxas"].get(CU.NAME, ""), res["kernel"][1])
+                    res["kernel"] = res["kernel"][0]
             for name, res in results[dt].items():
                 record({"phase": "kernel", "name": name, "dtype": dt,
                         "tol": 0.0 if name in EXACT else TOL[dt], **res})
@@ -5884,6 +5994,9 @@ def main() -> int:
         # and its scatter after the copy-on-write
         sources.update({f"{name}_suffix": sources[name] for name in (
             "flash_fwd", "kv_pool_insert", "kv_pool_insert_q8")})
+        # the pool scatter at the admission wave's shape
+        sources.update({f"{name}_admission": CU.REPLACES for name in (
+            "kv_pool_insert", "kv_pool_insert_q8", "kv_pool_insert_llama")})
         # each kernel's launches on the main path: the captured runs'
         # counts measured under the profiler (``counted_profile``: the
         # counters zeroed just before, equal to the device's kernel events
@@ -5909,7 +6022,20 @@ def main() -> int:
                 # the first excepted)
                 *((run, {f"{k}_suffix": n for k, n in launches.items()})
                   for run, launches in remainder.items()
-                  if run.startswith("serve_prefix")))
+                  if run.startswith("serve_prefix")),
+                # the admission entries' launches: every pool scatter of a
+                # serve run is an admission wave's
+                ("serve bf16 captured, profiled",
+                 {"kv_pool_insert_admission":
+                      serve_prof["launches"].get("kv_pool_insert")}),
+                ("serve_int8 int8 captured, profiled",
+                 {"kv_pool_insert_q8_admission":
+                      serve8["int8_profile"]["launches"].get(
+                          "kv_pool_insert_q8")}),
+                *((f"{run} captured, profiled",
+                   {"kv_pool_insert_llama_admission":
+                        launches.get("kv_pool_insert")})
+                  for run, launches in llama["launches"].items()))
         kernels = []
         for name, replaces in sources.items():
             r, r32 = results["bf16"][name], results["f32"][name]
@@ -5977,6 +6103,11 @@ def main() -> int:
             "library_ms": adamw_llama["library_ms"],
             "library": adamw_llama["library"], "dtype": "f32",
             "shape": adamw_llama["shape"]})
+        record({"phase": "pool_insert_device_ms", "card": smi,
+                "of": "kv_pool_insert and kv_pool_insert_q8's summed device "
+                      "ms and launches in every profiled run of this call "
+                      "(each profile's groups_ms)",
+                "runs": pool_insert_device_ms(records)})
         record({"kernels": kernels})
     except Exception as e:   # noqa: BLE001 — the smoke's one boundary:
         # report the failed phase and exit non-zero, no ok line

@@ -13,6 +13,9 @@
 // even, as torch.round and jnp.round do) clipped to [-127, 127]. The warp
 // writes the hd int8 bytes, coalesced, and lane 0 the one f32 scale.
 // `quantize_values` is the same from values a caller has already loaded.
+// `group_scale` and `quantize_value` are the grouped form
+// (kv_pool_insert.cu): a row spread over an aligned group of lanes, each
+// holding some of its elements, with the same scale and codes.
 
 #pragma once
 
@@ -60,6 +63,27 @@ __device__ __forceinline__ void quantize_row(const T* __restrict__ src, int hd, 
     x[i] = c < hd ? to_f(src[c]) : 0.f;
   }
   quantize_values(x, hd, lane, dst, scale);
+}
+
+// call from all 32 lanes of a warp; a row's elements lie over an aligned
+// group of `group` lanes (a power of two, at most 32), x: this lane's
+// share as f32, 0 where it holds none. Returns the row's scale, max(absmax
+// / 127, 1e-12), reduced in log2(group) xor shuffles: bit for bit the
+// scale `quantize_values` takes for the same row (max is exact in any
+// order).
+template <int N>
+__device__ __forceinline__ float group_scale(const float (&x)[N], int group) {
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) amax = fmaxf(amax, fabsf(x[i]));
+  for (int s = group >> 1; s > 0; s >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, s));
+  return fmaxf(__fdiv_rn(amax, 127.f), 1e-12f);
+}
+
+// one element's int8 code at scale sc, as `quantize_values` writes it
+__device__ __forceinline__ int8_t quantize_value(float x, float sc) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(__fdiv_rn(x, sc)), -127.f), 127.f));
 }
 
 }  // namespace q8

@@ -68,8 +68,8 @@ cache_insert_q8_launches = kv_insert_q8_launches = 0
 kv_insert_rows_q8_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the int8 forms' scale planes and the widest head dim their kernels take
-# (one warp quantizes one row)
+# the widest head dim the int8 forms' kernels take (a row's codes come from
+# one lane group's registers)
 _Q8_MAX_HD = 128
 
 
@@ -167,7 +167,9 @@ def kv_pool_insert_cuda(pool, k, v, blocks, offsets, *, scale=None):
     pool or scale plane, a dtype other than the pool's (f32/bf16; an int8
     pool takes f32 or bf16 K/V of one dtype), a head dim without unit
     stride (above 128 for int8), non-int32 or non-contiguous block ids and
-    offsets."""
+    offsets; the kernel refuses (raising here) a pool block's plane or an
+    update row's heads that span 2 GiB or more (its offsets inside a warp
+    are 32-bit)."""
     global launches, q8_launches
     _check(pool, k, v, blocks, offsets, scale)
     dt = _check_cuda_floats(NAME, pool, scale, (k, v), (blocks, offsets))
@@ -197,6 +199,19 @@ def kv_pool_insert_cuda(pool, k, v, blocks, offsets, *, scale=None):
     else:
         q8_launches += 1
     return pool
+
+
+def vec_bytes(pool, k, v, *, scale=None) -> int:
+    """The bytes of ``k``/``v`` a thread moves at a time when
+    ``kv_pool_insert_cuda`` launches on these tensors (the int8 form with
+    ``scale``): 16, 8, 4 or one element, the widest that the pointers,
+    strides and ``hd * element_size`` are aligned to. Launches nothing."""
+    dt = _check_cuda_floats(NAME, pool, scale, (k, v), ())
+    _, fn = _build.bind(NAME, "pppiiis", "kv_pool_insert_vec_bytes")
+    return fn(pool.data_ptr(), k.data_ptr(), v.data_ptr(), dt,
+              int(scale is not None), pool.shape[-1],
+              _build.strides_arg(k.stride(0), k.stride(1), v.stride(0),
+                                 v.stride(1)))
 
 
 # ---- dense cache writes (csrc/kv_insert.cu) --------------------------------

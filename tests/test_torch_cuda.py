@@ -154,6 +154,97 @@ def test_kv_pool_insert_matches_plain(dev, dtype):
     assert torch.equal(got, want)
 
 
+def _admission_wave(gen, dtype, dev, H, hd, shift, P=20, bt=16, K=5, W=47):
+    """An admission wave's flattened scatter: ``K`` rows x a ``W``-token
+    window, row j's first tokens (1..W of them) into fresh blocks of its
+    own, the rest pads aimed at block ``P``; then three rows aimed at id
+    -1, at ``P`` and at offset ``bt``, all dropped. ``N = K * W + 3`` is no
+    multiple of a block's four warps. K/V are views at element ``shift`` of
+    a fused ``[N, 2 H hd + 8]`` row (row and head strides 16-byte aligned),
+    so ``shift`` sets the vector width. Returns ``(k, v, blocks,
+    offsets)``."""
+    n = K * W + 3
+    buf = _randn(gen, n, 2 * H * hd + 8, dtype=dtype, dev=dev) * 3
+    k = buf[:, shift:shift + H * hd].reshape(n, H, hd)
+    v = buf[:, shift + H * hd:shift + 2 * H * hd].reshape(n, H, hd)
+    fresh = iter((torch.randperm(P - 1, generator=gen) + 1).tolist())
+    blocks = torch.full((K, W), P, dtype=torch.int32)
+    offsets = torch.zeros((K, W), dtype=torch.int32)
+    for j, m in enumerate(torch.randint(1, W + 1, (K,), generator=gen)):
+        table = torch.tensor([next(fresh) for _ in range(-(-int(m) // bt))],
+                             dtype=torch.int32)
+        t = torch.arange(int(m))
+        blocks[j, :int(m)] = table[t // bt]
+        offsets[j, :int(m)] = (t % bt).to(torch.int32)
+    blocks = torch.cat([blocks.reshape(-1),
+                        torch.tensor([-1, P, 1], dtype=torch.int32)])
+    offsets = torch.cat([offsets.reshape(-1),
+                         torch.tensor([0, 0, bt], dtype=torch.int32)])
+    return k, v, blocks.to(dev), offsets.to(dev)
+
+
+def _want_vec(shift, esize):
+    """The vector width a view at element ``shift`` of ``_admission_wave``'s
+    16-byte aligned rows allows: 16, 8, 4 bytes or one element."""
+    vb = 16
+    while vb > esize and (shift * esize) % vb:
+        vb //= 2
+    return vb
+
+
+# the redesigned pool write at the admission layout, at every vector width
+# (``shift``: element offsets of the views inside their aligned rows), at
+# GPT-2's 12 heads and Llama's 4, head dims 40, 64 and 128
+ADMISSION_CASES = [(H, hd, shift) for H in (12, 4) for hd in (40, 64, 128)
+                   for shift in (0, 4, 2, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,hd,shift", ADMISSION_CASES)
+def test_kv_pool_insert_admission_matches_plain(dev, dtype, H, hd, shift):
+    """Exact against the plain version, the vector width the one the
+    alignment allows, and two launches the same bits."""
+    from distributed_compute_pytorch_tpu_torch.ops import cache_update as C
+    gen = torch.Generator().manual_seed(22)
+    P, bt = 20, 16
+    pool = _randn(gen, 2, P, H, bt, hd, dtype=dtype, dev=dev)
+    k, v, blocks, offsets = _admission_wave(gen, dtype, dev, H, hd, shift)
+    assert C.vec_bytes(pool, k, v) == _want_vec(shift, k.element_size())
+    want = C.kv_pool_insert_plain(pool.clone(), k, v, blocks, offsets)
+    got = [pool.clone(), pool.clone()]
+    before = C.launches
+    for g in got:
+        C.kv_pool_insert_cuda(g, k, v, blocks, offsets)
+    torch.cuda.synchronize()
+    assert C.launches == before + 2
+    assert torch.equal(got[0], want) and torch.equal(got[1], got[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,hd,shift", ADMISSION_CASES)
+def test_int8_pool_insert_admission_matches_plain(dev, dtype, H, hd, shift):
+    """The quantizing form at the admission layout: both leaves exact
+    against quantize-then-write, the vector width the one the alignment
+    allows, two launches the same bits."""
+    from distributed_compute_pytorch_tpu_torch.ops import cache_update as C
+    gen = torch.Generator().manual_seed(23)
+    P, bt = 20, 16
+    pool, scale = _q8_cache(gen, 2, P, H, bt, hd, dev=dev)
+    k, v, blocks, offsets = _admission_wave(gen, dtype, dev, H, hd, shift)
+    assert (C.vec_bytes(pool, k, v, scale=scale)
+            == _want_vec(shift, k.element_size()))
+    want = (pool.clone(), scale.clone())
+    C.kv_pool_insert_plain(want[0], k, v, blocks, offsets, want[1])
+    got = [(pool.clone(), scale.clone()) for _ in range(2)]
+    before = C.q8_launches
+    for g in got:
+        C.kv_pool_insert_cuda(g[0], k, v, blocks, offsets, scale=g[1])
+    torch.cuda.synchronize()
+    assert C.q8_launches == before + 2
+    for g in got:
+        assert torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,hk,hd,bt", [(4, 4, 64, 16), (6, 2, 32, 8),
                                         (2, 2, 128, 4), (8, 1, 64, 16)])

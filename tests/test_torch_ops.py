@@ -23,6 +23,8 @@ from distributed_compute_pytorch_tpu.ops.pallas.cache_update import (
     _pool_scatter, kv_pool_insert_rows_pallas)
 from distributed_compute_pytorch_tpu.ops.pallas.flash_attention import (
     _flash_fwd, flash_attention as jax_flash_attention)
+from distributed_compute_pytorch_tpu.utils.quantize import (
+    quantize_kv as jax_quantize_kv)
 from distributed_compute_pytorch_tpu_torch.ops import attention as A
 from distributed_compute_pytorch_tpu_torch.ops.cache_update import (
     kv_pool_insert, kv_pool_insert_plain)
@@ -185,6 +187,72 @@ def test_pool_insert_plain_is_in_place():
                                torch.from_numpy(blocks),
                                torch.from_numpy(offsets))
     assert out.data_ptr() == t.data_ptr()
+
+
+def _wave_case(rng, H, P=16, bt=8, hd=16, K=3, W=32):
+    """One admission wave's flattened scatter, as ``serve._prefill_wave``
+    builds it: ``K`` rows x a ``W``-token window, row j's suffix of
+    ``sn[j]`` tokens written from its resident length ``m[j]`` on, the
+    rest of its window pads aimed at block ``P``. Row 0 is a fresh prompt
+    (``m`` 0); row 1 starts mid-block (slot 13) in a block copied on write
+    from a donor, as ``serve._copy_blocks`` copies it; row 2 is a short
+    ragged suffix from slot 3. K/V are views of a fused QKV row. Returns
+    the pool (the copy made), ``k``, ``v``, ``blocks`` and ``offsets``."""
+    m, sn = (0, 13, 3), (32, 19, 7)
+    pool = _randn(rng, 2, P, H, bt, hd)
+    fresh = iter(rng.permutation(np.arange(1, P)).tolist())
+    blocks = np.full((K, W), P, np.int32)
+    offsets = np.zeros((K, W), np.int32)
+    for j in range(K):
+        table = {}
+        if m[j] % bt:                    # the copy-on-write of row j's block
+            donor, table[m[j] // bt] = next(fresh), next(fresh)
+            pool[:, table[m[j] // bt]] = pool[:, donor]
+        slots = m[j] + np.arange(sn[j])
+        for i, slot in enumerate(slots):
+            if slot // bt not in table:
+                table[slot // bt] = next(fresh)
+            blocks[j, i], offsets[j, i] = table[slot // bt], slot % bt
+    qkv = _randn(rng, K * W, 3 * H * hd)
+    k = qkv[:, H * hd:2 * H * hd].reshape(K * W, H, hd)
+    v = qkv[:, 2 * H * hd:].reshape(K * W, H, hd)
+    return pool, qkv, k, v, blocks.reshape(-1), offsets.reshape(-1)
+
+
+@pytest.mark.parametrize("H", [2, 4])
+@pytest.mark.parametrize("q8", [False, True])
+def test_pool_insert_plain_matches_jax_scatter_at_admission(H, q8):
+    """The admission wave's layout (``_wave_case``): the plain version
+    (what the CUDA kernel is held to on the card) against the reference's
+    ``_pool_scatter``, exact; the int8 pool against the JAX
+    ``quantize_kv`` followed by ``_pool_scatter`` on each leaf."""
+    rng = np.random.default_rng(4 + H + q8)
+    pool, qkv, k, v, blocks, offsets = _wave_case(rng, H)
+    hd = k.shape[-1]
+    t_qkv = torch.from_numpy(qkv)
+    tk = t_qkv[:, H * hd:2 * H * hd].reshape(k.shape)      # fused-QKV views
+    tv = t_qkv[:, 2 * H * hd:].reshape(v.shape)
+    assert tk.stride() != torch.from_numpy(k.copy()).stride()
+    tb, to = torch.from_numpy(blocks), torch.from_numpy(offsets)
+    if not q8:
+        want = _pool_scatter(jnp.asarray(pool),
+                             jnp.asarray(np.stack([k, v])[:, :, :, None]),
+                             jnp.asarray(blocks), jnp.asarray(offsets))
+        got = torch.from_numpy(pool.copy())
+        kv_pool_insert_plain(got, tk, tv, tb, to)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        return
+    codes = rng.integers(-127, 128, pool.shape).astype(np.int8)
+    scales = rng.random(pool.shape[:-1] + (1,)).astype(np.float32)
+    (qk, sk), (qv, sv) = (jax_quantize_kv(jnp.asarray(x)) for x in (k, v))
+    want = [_pool_scatter(jnp.asarray(leaf),
+                          jnp.stack([a, b])[:, :, :, None],
+                          jnp.asarray(blocks), jnp.asarray(offsets))
+            for leaf, a, b in ((codes, qk, qv), (scales, sk, sv))]
+    got = [torch.from_numpy(codes.copy()), torch.from_numpy(scales.copy())]
+    kv_pool_insert_plain(got[0], tk, tv, tb, to, got[1])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 # ---- paged decode read (kernel 3) ------------------------------------------

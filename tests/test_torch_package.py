@@ -1,6 +1,7 @@
 """Package rules of the port: it imports no JAX (and nothing of the JAX
 package), neither do ``chip_smoke.py``, ``train_probe.py``,
-``ddp_probe.py``, ``serve_probe.py`` and the CUDA test file, and its
+``ddp_probe.py``, ``serve_probe.py``, ``insert_probe.py`` and the CUDA
+test file, and its
 entry points refuse to run without a card unless the caller asks for the
 CPU."""
 
@@ -32,6 +33,7 @@ def _checked_files():
                                          ROOT / "train_probe.py",
                                          ROOT / "ddp_probe.py",
                                          ROOT / "serve_probe.py",
+                                         ROOT / "insert_probe.py",
                                          ROOT / "tests/test_torch_cuda.py"]
 
 
