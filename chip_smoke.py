@@ -90,8 +90,9 @@ imports nothing of JAX. Phases, one JSON line each:
    (eager: a sampled tick is not captured) repeated with the same
    generator seed must repeat its tokens, and ``temperature=1, top_k=1``
    must give the greedy tokens;
-7. generate_profile: the bf16 generate once more under ``torch.profiler``
-   with the captured tick and eagerly (device time by group, ops a tick,
+7. generate_profile: the bf16 generate's 16 prompts with 32 new tokens (a
+   quarter of its work) under ``torch.profiler`` with the captured tick
+   and eagerly (device time by group, ops a tick,
    host calls a tick: one graph launch a replayed tick, gated; busy; the
    launches measured against the device's kernel events, as in 5);
 8. the int8 KV cells, after the float ones:
@@ -118,7 +119,8 @@ imports nothing of JAX. Phases, one JSON line each:
    ``dense_decode_write_q8`` 12 x 127, ``flash_fwd`` 12, every other
    counter 0; tokens equal across runs, teacher-forced, the rows past
    each prompt against quantized K/V; tokens/s, a profiled run of each
-   mode (launches measured as in 5), and both caches' bytes;
+   mode on 32 new tokens a prompt (launches measured as in 5), and both
+   caches' bytes;
 8b. the serving remainder, after the int8 cells (random weights from seed
    0, bf16, 16 slots, segment 16, 16-slot blocks):
    serve_sampled: the serve phase's 32 requests, every odd one sampled
@@ -149,6 +151,31 @@ imports nothing of JAX. Phases, one JSON line each:
    tokens bit-identical, teacher-forced, launches as scheduled; the decode
    rows' worst device wall between two segments, chunked against
    unchunked (``segment_clock``);
+8c. speculation and the width ladder, after the serving remainder:
+   serve_spec: GPT-2-small bf16 and f32, its int8 pool and the default
+   Llama bf16, 16 slots, segment 16, k = 4 drafts (the n-gram proposer),
+   on the serve cell's 32 requests with each prompt a 6-token span
+   repeated to its length. Per cell: a captured batcher held on
+   speculation (auto-disable off) and a captured plain one in turns
+   (spec, plain, plain, spec), each run counted (``flash_fwd`` and the
+   pool scatter 12 a device prefill, the verify kernel
+   ``paged_verify_write`` (``_q8``) 12 a verify step, the fused tick 12 a
+   plain tick, every other counter 0, no leak); an eager held run bit
+   for bit the captured one's; one run of the default ``speculate=4``
+   (auto-disable on); f32: both speculating configurations' tokens equal
+   plain decode's; bf16: every served token teacher-forced within the
+   margin; acceptance, tokens emitted a verify step, tokens/s held
+   against plain; the GPT-2 bf16 cell profiles a quarter of its requests
+   (launches against the device's kernel events, one ``cudaGraphLaunch``
+   a replay, the verify kernel's device ms a step). Then GPT-2 bf16 and
+   f32 the same way on the serve cell's own random prompts, where drafts
+   miss: the eager held run bit for bit the captured one's there too;
+   serve_width: the serve cell captured with the full width ladder (7
+   rungs of 1-64 blocks, every program prewarmed) against one
+   full-width rung, in turns, bf16 and f32: ms a tick, each rung's split
+   count, programs captured and capture ms, reserved memory before and
+   after the prewarm; f32 tokens equal, bf16 teacher-forced within the
+   margin;
 9. train: GPT-2-small at full width and depth (dropout 0.1), bf16 compute
    over f32 masters, ``adamw_fused``, 20 steps on one 8 x 1024 batch
    through ``train/step.py::make_step_fns``, the captured step (its first
@@ -283,7 +310,13 @@ imports nothing of JAX. Phases, one JSON line each:
    ``kv_pool_insert_suffix`` / ``kv_pool_insert_q8_suffix`` (an attach
    wave's scatter from mid-block into blocks just copied on write, exact),
    and the ``launch_floor`` line times an empty kernel launch, the floor
-   the slot writes sit at.
+   the slot writes sit at. And the verify step's entries
+   ``paged_verify_write``, ``_q8`` and ``_llama`` (``check_verify``: the
+   serve shape with a window of 5, one row across the horizon, a parked
+   row; the pool exact and the live rows to TOL against the plain version,
+   two launches the same bits; timed beside its bound, the plain version,
+   5 fused decode ticks back to back and SDPA over the gathered view; its
+   grid and its ``-Xptxas -v`` report).
 
 When a profiled run's counters and the device's kernel events disagree
 (``counted_profile``), the profile's port kernel events (name, start,
@@ -302,7 +335,9 @@ for the training kernels, measured the same way; the BERT-shape entries
 entries ``*_llama`` from the Llama cells' profiled captured runs; the
 ``*_suffix`` entries from serve_prefix's profiled captured GPT-2 runs;
 the ``*_admission`` entries from the serve, serve_int8 and Llama serve
-profiles, whose every pool write is an admission wave's), the
+profiles, whose every pool write is an admission wave's; the
+``paged_verify_write*`` entries from serve_spec's profiled GPT-2 float,
+int8 and Llama runs), the
 raw ``nvidia-smi`` line, and last the ``{"ok": true, ...}`` line. Any
 failed check exits non-zero before the ``ok`` line. Roofline bounds use
 the H100 SXM data-sheet peaks: 3.35 TB/s HBM, 989 TFLOP/s bf16 (tensor
@@ -374,6 +409,10 @@ PARITY_LAYERS, PARITY_STEPS = 2, 5
 # the sampled checks take GEN_SAMPLED_NEW
 GEN_ROWS, GEN_MIN, GEN_MAX, GEN_NEW, GEN_SEED = 16, 16, 250, 128, 1
 GEN_SAMPLED_NEW = 32
+# the generate cells' profiled runs take a quarter of the cell's work: the
+# 16 prompts with this many new tokens (the profiler's post-processing of
+# a full-size run costs 30-40 s)
+GEN_PROFILE_NEW = 32
 # train_parity: gradient leaves kernel vs plain, relative to each leaf's
 # largest magnitude, and the losses, relative
 GRAD_TOL, LOSS_TOL = 1e-3, 1e-4
@@ -2083,7 +2122,9 @@ def q8_counts(FA, CU, DA) -> dict:
             "kv_insert_rows_q8": CU.kv_insert_rows_q8_launches,
             "cache_insert_q8": CU.cache_insert_q8_launches,
             "dense_decode_q8": DA.dense_q8_launches,
-            "dense_decode_write_q8": DA.dense_write_q8_launches}
+            "dense_decode_write_q8": DA.dense_write_q8_launches,
+            "paged_verify_write": DA.verify_launches,
+            "paged_verify_write_q8": DA.verify_q8_launches}
 
 
 def zero_q8_counts(FA, CU, DA) -> None:
@@ -2092,6 +2133,7 @@ def zero_q8_counts(FA, CU, DA) -> None:
     CU.kv_insert_q8_launches = CU.kv_insert_rows_q8_launches = 0
     CU.cache_insert_q8_launches = 0
     DA.write_q8_launches = DA.dense_write_q8_launches = 0
+    DA.verify_launches = DA.verify_q8_launches = 0
 
 
 def pool_bytes(cb) -> int:
@@ -2761,8 +2803,8 @@ def segment_clock(torch, cb):
     marks = []
     inner = cb._segment
 
-    def timed(tables, positions0, sampling):
-        toks = inner(tables, positions0, sampling)
+    def timed(*args):
+        toks = inner(*args)
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         marks.append(ev)
@@ -2930,6 +2972,526 @@ def serving_remainder_phases(torch, np, infer, serve, mods, gpt2,
         "serve_chunked captured, profiled": chunked["profile"]["launches"]}
 
 
+# ---- speculative verify and the width ladder (slice 17) -------------------
+
+# the verify step's kernel entry: the serve shape's window of k + 1 = 5
+VERIFY_W = 5
+# the serve_spec cell: drafts a verify step (n-gram), and the repeated span
+# of its prompts
+SPEC_K, SPEC_SPAN = 4, 6
+SPEC_TURNS = ("spec", "plain", "plain", "spec")
+WIDTH_TURNS = ("buckets", "full", "full", "buckets")
+
+
+def window_rows(torch, A, gen, B, H, hk, W, hd, dtype):
+    """q ``[B, H, W, hd]`` and k, v ``[B, hk, W, hd]`` as a block hands a
+    verify window over: split-head views of one projection's output."""
+    qkv = torch.randn(B, W, (H + 2 * hk) * hd, generator=gen).to("cuda",
+                                                                 dtype)
+    q, k, v = qkv.split([H * hd, hk * hd, hk * hd], dim=-1)
+    return A.split_heads(q, H), A.split_heads(k, hk), A.split_heads(v, hk)
+
+
+def verify_resources(log: str, qpw: int, kl: int) -> dict:
+    """``-Xptxas -v``'s registers and spills of every instantiation of the
+    verify kernel with ``qpw`` queries a warp and ``kl`` lanes a key, keyed
+    by its mangled template arguments (the four dtype forms)."""
+    out, fn = {}, None
+    tag = f"Li{qpw}ELi{kl}E"
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn = m.group(1)
+        if fn is None or "verify_write_kernel" not in fn or tag not in fn:
+            continue
+        key = fn.split("verify_write_kernel", 1)[1].split(tag)[0]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out.setdefault(key, {}).update(zip(("spill_stores",
+                                                "spill_loads"),
+                                               map(int, m.groups())))
+    return out
+
+
+def check_verify(torch, np, A, DA, dtype, dt, q8, ptxas_log, hk=12):
+    """The verify step, ``paged_verify_write`` (``_q8`` with ``q8``), at the
+    serve shape (``check_decode_write``'s: 16 rows, 12 query heads of hd 64
+    over bt 16, nb 64 tables into a [2, 1025, hk, 16, 64] pool; ``hk`` 4:
+    Llama's G = 3) with a window of ``VERIFY_W``: each row's window ends at
+    that check's slot (so the read sees its live keys), row 5's crosses
+    the horizon (3 writes dropped), row 9 parked at slot 0 on an all-trash
+    table (its output left out). Against its plain version on copies of
+    one pool: the pool outside the trash block exact and the live rows
+    within TOL (bf16: ROW_TOL), a second launch the same bits, gated.
+    Timed beside its bound, the plain version, ``VERIFY_W`` fused decode
+    ticks back to back (``paged_decode_write`` at each window slot: what
+    plain decode launches for the same tokens) and, in the float forms,
+    SDPA with a bool staircase mask over the gathered view (the view built
+    outside the timing; GQA's K/V repeated to the query heads); its grid
+    and its ``-Xptxas -v`` report."""
+    gen = torch.Generator().manual_seed(80 + q8 + 2 * (hk != 12))
+    B, H, hd, bt, nb, W = 16, 12, 64, 16, 64, VERIFY_W
+    P, T = B * nb + 1, nb * bt
+    rng = np.random.default_rng(3)
+    table = (rng.permutation(P - 1)[:B * nb] + 1).reshape(B, nb)
+    pos = rng.integers(16, T, B)
+    pos[5] = T - 1
+    pos0 = pos - W
+    pos0[5] = T - 3                                   # across the horizon
+    table[9], pos0[9] = 0, 0                          # parked
+    live = [b for b in range(B) if b != 9]
+    positions = (pos0[:, None] + 1 + np.arange(W)).astype(np.int32)
+    table_t = torch.from_numpy(table.astype(np.int32)).cuda()
+    pos_t = torch.from_numpy(positions).cuda()
+    cols = [pos_t[:, w].contiguous() for w in range(W)]
+    caches = fused_cache(torch, gen, dtype, q8, 2, P, hk, bt, hd)
+    rows = [window_rows(torch, A, gen, B, H, hk, W, hd, dtype)
+            for _ in caches]
+
+    def verify(c, r=rows[0]):
+        return DA.paged_verify_write_cuda(*r, c[0], table_t, pos_t,
+                                          kv_scale=c[1])
+
+    def plain(c, r=rows[0]):
+        return DA.paged_verify_write_plain(*r, c[0], table_t, pos_t,
+                                           kv_scale=c[1])
+
+    def ticks(c, r=rows[0]):
+        for w in range(W):
+            DA.paged_write_decode_cuda(*(x[:, :, w:w + 1] for x in r), c[0],
+                                       table_t, cols[w], kv_scale=c[1])
+
+    name = "paged_verify_write" + ("_q8" if q8 else "")
+    cv, cq = clone_cache(caches[0]), clone_cache(caches[0])
+    got, again = verify(cv), verify(cv)
+    torch.cuda.synchronize()
+    ref = plain(cq)
+    torch.cuda.synchronize()
+    require(torch.equal(cv[0][:, 1:], cq[0][:, 1:]) and (
+        cv[1] is None or torch.equal(cv[1][:, 1:], cq[1][:, 1:])),
+        f"{name} {dt}: the pool differs from the plain write's")
+    require(not torch.equal(cv[0][:, 1:], caches[0][0][:, 1:]),
+            f"{name} {dt}: nothing was written")
+    g, r = got[live], ref[live]
+    require(torch.equal(g, again[live]), f"{name} {dt}: two launches differ")
+    require(bool(torch.isfinite(g).all()), f"{name} {dt}: non-finite")
+    err, r_err = (g.float() - r.float()).abs().max().item(), row_err(g, r)
+    require(err <= TOL[dt], f"{name} {dt}: max err {err} > {TOL[dt]}")
+    require(dt != "bf16" or r_err <= ROW_TOL,
+            f"{name} {dt}: row error {r_err} > {ROW_TOL}")
+    # bytes: q read and o written once; each row's live prefix K/V rows
+    # (and scales) read once with their table entries; the window's float
+    # rows read once, its rows under the horizon written once (with their
+    # table entries); the positions
+    prefix = np.clip(pos0 + 1, 0, T)
+    under = (positions < T).sum(axis=1)
+    esz = rows[0][0].element_size()
+    row = hd * esz if not q8 else hd + 4
+    nbytes = (esz * 2 * B * H * W * hd + 2 * int(prefix.sum()) * hk * row
+              + 4 * int((-(-prefix // bt)).sum()) + 4 * B * W
+              + 2 * B * hk * W * hd * esz + 2 * int(under.sum()) * hk * row
+              + 4 * int(under.sum()))
+    visible = np.minimum(positions + 1, T).sum()      # keys a query sees
+    b_ms, b_by = bound(nbytes, 4.0 * hd * H * float(visible), dt)
+    cyc = list(zip(caches, rows))
+    ms = time_ms(torch, [(lambda c=c, r=r: verify(c, r)) for c, r in cyc])
+    library_ms, library = None, FUSED_LIBRARY
+    if not q8:
+        F = torch.nn.functional
+        slots = torch.arange(T, device="cuda")
+        mask = slots[None, None, None, :] <= pos_t[:, None, :, None].long()
+        views = []
+        for c, (q, _, _) in cyc:
+            kv = A.gather_kv_blocks(c[0], table_t)
+            k_, v_ = (z.repeat_interleave(H // hk, dim=1) for z in kv)
+            views.append((q, k_, v_))
+        library_ms = time_ms(torch, [
+            (lambda q=q, k_=k_, v_=v_: F.scaled_dot_product_attention(
+                q, k_, v_, attn_mask=mask)) for q, k_, v_ in views])
+        library = ("F.scaled_dot_product_attention over the gathered view "
+                   "with a bool staircase mask (the view built outside the "
+                   "timing; it computes the read, not the write)")
+        del views
+    grid = DA.verify_plan(rows[0][0], caches[0][0], table_t,
+                          kv_scale=caches[0][1])
+    kl = 4 if hd <= 32 else 8 if hd <= 64 else 16
+    return {
+        "max_abs_err": err, "row_err": r_err, "same_bits": True,
+        "cache_exact": True, "bound_ms": b_ms, "bound_by": b_by, "ms": ms,
+        "bound_share": b_ms / ms,
+        "plain_ms": time_ms(torch, [(lambda c=c, r=r: plain(c, r))
+                                    for c, r in cyc]),
+        "ticks_ms": time_ms(torch, [(lambda c=c, r=r: ticks(c, r))
+                                    for c, r in cyc]),
+        "library_ms": library_ms, "library": library, "grid": grid,
+        "ptxas": verify_resources(ptxas_log, grid["qpw"], kl),
+        "window": W,
+        "shape": (f"q [{B}, {H}, {W}, {hd}], k, v [{B}, {hk}, {W}, {hd}] "
+                  f"split-head views, {'int8 ' if q8 else ''}pool "
+                  f"[2, {P}, {hk}, {bt}, {hd}]"
+                  f"{' + f32 scales' if q8 else ''}, tables [{B}, {nb}], "
+                  f"{int(prefix.sum())} live prefix keys + {W}-slot windows "
+                  f"({int(np.minimum(positions[:, -1] + 1, T).sum())} live "
+                  f"keys at the last window slot), row 5 across the "
+                  f"horizon, row 9 parked")}
+
+
+def repeated_requests(np, serve, vocab: int):
+    """The serve cell's 32 requests (prompts of 16-250 tokens, budgets of
+    32-128), each prompt a ``SPEC_SPAN``-token span repeated to its length:
+    templated or quoted text, where self-drafting pays."""
+    reqs = serve_requests(np, serve, vocab)
+    rng = np.random.default_rng(17)
+    for r in reqs:
+        span = [int(t) for t in rng.integers(0, vocab, SPEC_SPAN)]
+        r.tokens = (span * (len(r.tokens) // SPEC_SPAN + 1))[:len(r.tokens)]
+    return reqs
+
+
+def spec_batcher(serve, model, *, kv="bf16", mode="graph", spec=SPEC_K,
+                 buckets=1):
+    """The serve cell's batcher (16 slots, segment 16, 16-slot blocks,
+    t_max 1024, prompt_buf 256) with ``speculate=spec`` and
+    ``decode_width_buckets=buckets``; ``mode="eager"`` keeps every program
+    eager."""
+    cb = serve.ContinuousBatcher(model, slots=16, t_max=1024,
+                                 prompt_buf=256, segment=16,
+                                 kv_block_tokens=16, kv_dtype=kv,
+                                 speculate=spec,
+                                 decode_width_buckets=buckets)
+    cb._capture = mode == "graph"
+    return cb
+
+
+def counted_spec_serve(torch, mods, cb, reqs, what, q8):
+    """One ``cb.serve(reqs)`` with every launch counter zeroed just before
+    and read just after, held to the schedule: ``flash_fwd`` and the pool
+    scatter 12 a device prefill, the verify kernel 12 a verify step, the
+    fused tick 12 a plain tick (after an auto-disable), in the int8 forms
+    for an int8 pool, every other counter 0; no leak; every request's
+    whole budget. Returns the tokens, the wall, the run's counts and its
+    speculation counters."""
+    _, FA, CU, DA, _ = mods
+    fw0, ticks0 = cb.stats["prefill_forwards"], cb.ticks
+    v0, spec0 = cb.spec["verify_segments"], dict(cb.spec)
+    zero_q8_counts(FA, CU, DA)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    outs = cb.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = q8_counts(FA, CU, DA)
+    fw = cb.stats["prefill_forwards"] - fw0
+    steps = cb.spec["verify_segments"] - v0
+    plain_ticks = cb.ticks - ticks0 - steps * cb._spec_w
+    sfx = "_q8" if q8 else ""
+    want = {k: 0 for k in launches}
+    want.update({"flash_fwd": LAYERS * fw, "kv_pool_insert" + sfx: LAYERS * fw,
+                 "paged_decode_write" + sfx: LAYERS * plain_ticks,
+                 "paged_verify_write" + sfx: LAYERS * steps})
+    require(launches == want, f"{what}: launches {launches} != the "
+                              f"schedule's {want}")
+    require(cb.last_block_leaks == 0 and cb.last_slot_leaks == 0,
+            f"{what}: leaked blocks/slots")
+    require(all(len(o) == r.max_new for o, r in zip(outs, reqs)),
+            f"{what}: a request returned fewer than max_new tokens")
+    spec = {k: cb.spec[k] - spec0[k] for k in ("proposed", "accepted",
+                                                "emitted_tokens",
+                                                "wasted_verify_tokens",
+                                                "autodisabled")}
+    spec["acceptance_rate"] = spec["accepted"] / max(spec["proposed"], 1)
+    return {"outs": outs, "wall_s": wall, "verify_steps": steps,
+            "plain_ticks": plain_ticks, "spec": spec,
+            "launches": {k: n for k, n in launches.items() if n},
+            "tokens_per_s": sum(map(len, outs)) / wall}
+
+
+def profiled_spec(torch, mods, cb, reqs, what, q8):
+    """``cb.serve(reqs)`` on a captured speculating batcher under
+    :func:`counted_profile`, held to :func:`counted_spec_serve`'s schedule
+    (every forward on the tensor cores: bf16), its host calls (one
+    ``cudaGraphLaunch`` a replay, no kernel launch call inside one), and
+    the verify kernel's device ms a step; the verify kernel must have
+    launched."""
+    _, FA, CU, DA, _ = mods
+    fw0, ticks0 = cb.stats["prefill_forwards"], cb.ticks
+    v0, replays0 = cb.spec["verify_segments"], cb.stats["graph_replays"]
+    sched, units = {}, {}
+    sfx = "_q8" if q8 else ""
+
+    def run():
+        cb.serve(reqs)
+        fw = cb.stats["prefill_forwards"] - fw0
+        steps = cb.spec["verify_segments"] - v0
+        plain_ticks = cb.ticks - ticks0 - steps * cb._spec_w
+        units.update(prefill_forwards=fw, verify_steps=steps,
+                     plain_ticks=plain_ticks)
+        sched.update({k: n for k, n in {
+            "flash_fwd": LAYERS * fw, "flash_fwd_tc": LAYERS * fw,
+            "kv_pool_insert" + sfx: LAYERS * fw,
+            "paged_decode_write" + sfx: LAYERS * plain_ticks,
+            "paged_verify_write" + sfx: LAYERS * steps}.items() if n})
+    prof, wall, counts = counted_profile(torch, (FA, CU, DA), run, what,
+                                         sched, waves=units)
+    replays = cb.stats["graph_replays"] - replays0
+    steps = units["verify_steps"]
+    require(steps > 0, f"{what}: no verify step ran")
+    summary = profile_summary(torch, prof, wall, counts, cb.ticks - ticks0,
+                              replays, "replay", [wall])
+    host = summary["host_calls"]
+    require(host["graph_launches"] == replays,
+            f"{what}: {host['graph_launches']} cudaGraphLaunch calls for "
+            f"{replays} replays")
+    require(host["kernel_launches_in_replays"] == 0,
+            f"{what}: kernel launch calls inside the replays")
+    verify_ms = summary["groups_ms"].get("paged_verify_write",
+                                         {}).get("ms", 0.0)
+    summary.update(replays=replays, units=units,
+                   verify_device_ms_per_step=verify_ms / max(steps, 1),
+                   device_ms_per_step=(summary["device_ms"] or 0.0)
+                   / max(steps + units["plain_ticks"] // cb.S, 1))
+    return summary
+
+
+def spec_cell(torch, np, mods, model, reqs, what, dt, *, kv="bf16",
+              profile=False):
+    """One serve_spec cell. A captured batcher held on speculation
+    (``SpecConfig(k=4)`` with auto-disable off: the verify path's own
+    speed) and a captured plain one in turns (``SPEC_TURNS``), each warmed
+    on two requests first, every run counted (:func:`counted_spec_serve`),
+    each speculating run from ``reset()``; every speculating run's tokens
+    the first's, every plain run's the first plain run's; an eager held
+    batcher's tokens bit for bit the captured one's (gated). Then one run
+    of the default configuration (``speculate=4``: auto-disable on, the
+    CLI's ``--speculate 4``), warmed and reset. f32: both speculating
+    configurations' tokens equal the plain ones (gated); bf16: every
+    served token teacher-forced within the margin (gated), the positions
+    equal to plain decode reported. With ``profile``, the held batcher
+    serves the first ``PROFILED_REQUESTS`` once more under the profiler
+    (:func:`profiled_spec`)."""
+    from distributed_compute_pytorch_tpu_torch.spec_decode import SpecConfig
+    A, _, _, _, serve = mods
+    q8 = kv == "int8"
+    held = SpecConfig(k=SPEC_K, autodisable_window=10 ** 9)
+    cbs = {"spec": spec_batcher(serve, model, kv=kv, spec=held),
+           "plain": spec_batcher(serve, model, kv=kv, spec=None)}
+    for cb in cbs.values():
+        cb.serve(reqs[:2])
+    walls, outs = {m: [] for m in cbs}, {}
+    for mode in SPEC_TURNS:
+        cbs["spec"].reset()
+        run = counted_spec_serve(torch, mods, cbs[mode], reqs,
+                                 f"{what} {mode}", q8)
+        walls[mode].append(run["wall_s"])
+        if mode in outs:
+            require(run["outs"] == outs[mode], f"{what}: a {mode} run "
+                                               f"served other tokens")
+        else:
+            outs[mode] = run["outs"]
+            if mode == "spec":
+                first = run
+    eager = spec_batcher(serve, model, kv=kv, spec=held, mode="eager")
+    eager_run = counted_spec_serve(torch, mods, eager, reqs,
+                                   f"{what} eager", q8)
+    del eager
+    require(eager_run["outs"] == outs["spec"],
+            f"{what}: the captured verify program served other tokens than "
+            f"its eager run")
+    default = spec_batcher(serve, model, kv=kv)
+    default.serve(reqs[:2])
+    default.reset()
+    dflt = counted_spec_serve(torch, mods, default, reqs, f"{what} default",
+                              q8)
+    spec_outs, plain = outs["spec"], outs["plain"]
+    if dt == "f32":
+        require(spec_outs == plain and dflt["outs"] == plain,
+                f"{what}: f32 tokens differ with speculation on")
+    gaps = served_gaps(torch, A, model, reqs, spec_outs, q8=q8)
+    worst = gaps.max().item()
+    require(worst <= MARGIN[dt], f"{what}: a served token's logit is "
+                                 f"{worst} below the teacher-forced max "
+                                 f"(margin {MARGIN[dt]})")
+    new = sum(map(len, spec_outs))
+    rec = {
+        "requests": len(reqs), "kv_dtype": kv, "k": SPEC_K,
+        "turns": list(SPEC_TURNS),
+        "held": "SpecConfig(k=4, autodisable_window=10**9)",
+        **{f"{m}_decode_tokens_per_s": [new / w for w in ws]
+           for m, ws in walls.items()},
+        "spec_over_plain": statistics.median(walls["plain"])
+        / statistics.median(walls["spec"]),
+        "eager_spec_decode_tokens_per_s": eager_run["tokens_per_s"],
+        "held_run": first["spec"], "verify_steps_per_run":
+            first["verify_steps"],
+        "emitted_per_verify_step": first["spec"]["emitted_tokens"]
+        / max(first["verify_steps"], 1),
+        "emitted_per_row_verify": first["spec"]["emitted_tokens"]
+        / max(first["spec"]["proposed"] // SPEC_K, 1),
+        "default_run": {"decode_tokens_per_s": dflt["tokens_per_s"],
+                        "verify_steps": dflt["verify_steps"],
+                        "plain_ticks": dflt["plain_ticks"], **dflt["spec"],
+                        "positions_equal_to_plain": agreement(dflt["outs"],
+                                                              plain)},
+        "cow_copies": cbs["spec"].stats["cow_copies"],
+        "launches": first["launches"], "leaks": 0,
+        "captured_equals_eager": True,
+        "positions_equal_to_plain": agreement(spec_outs, plain),
+        "teacher_forced_worst_gap": worst,
+        "teacher_forced_mean_gap": gaps.mean().item(),
+        "margin": MARGIN[dt],
+        "programs": sorted(str(k) for k in cbs["spec"]._programs)}
+    if profile:
+        cbs["spec"].reset()
+        rec["profile"] = profiled_spec(torch, mods, cbs["spec"],
+                                       reqs[:PROFILED_REQUESTS],
+                                       f"{what} profile", q8)
+    return rec
+
+
+def agreement(outs, ref) -> float:
+    """The share of served positions where ``outs`` has ``ref``'s token."""
+    return (sum(a == b for o, p in zip(outs, ref) for a, b in zip(o, p))
+            / sum(map(len, outs)))
+
+
+def serve_spec_phase(torch, np, mods, models, smi):
+    """GPT-2-small at full width, bf16 and f32, 16 slots, segment 16, k = 4
+    drafts (the n-gram proposer) on :func:`repeated_requests`
+    (:func:`spec_cell`, the bf16 cell profiled on a quarter of its
+    requests); the int8 pool and Llama bf16 on the repeated prompts; then
+    GPT-2 bf16 and f32 on the serve cell's own random prompts, where
+    drafts miss (:func:`spec_cell` again: held speculation captured
+    against its eager run, and ``speculate=4``'s auto-disable).
+    ``models``: ``{"gpt2_bf16", "gpt2_f32", "llama_bf16"}``. Returns the record and the launches of the verify
+    kernel's entries (the profiled bf16 run's, measured against the
+    device; the int8 and Llama cells' first counted run's)."""
+    serve = mods[4]
+    vocab = models["gpt2_bf16"].config.vocab_size
+    reqs = repeated_requests(np, serve, vocab)
+    cells = {}
+    for name, dt, kv in (("gpt2_bf16", "bf16", "bf16"),
+                         ("gpt2_f32", "f32", "bf16"),
+                         ("gpt2_bf16_int8", "bf16", "int8")):
+        cells[name] = spec_cell(torch, np, mods,
+                                models[name.removesuffix("_int8")], reqs,
+                                f"serve_spec {name}", dt, kv=kv,
+                                profile=name == "gpt2_bf16")
+        torch.cuda.empty_cache()
+    llama = models["llama_bf16"]
+    cells["llama_bf16"] = spec_cell(
+        torch, np, mods, llama,
+        repeated_requests(np, serve, llama.config.vocab_size),
+        "serve_spec llama_bf16", "bf16")
+    torch.cuda.empty_cache()
+    # the serve cell's own random prompts: held speculation captured
+    # against its eager run and plain decode, and the default
+    # configuration's auto-disable
+    rand = serve_requests(np, serve, vocab)
+    for name, dt in (("gpt2_bf16_random", "bf16"),
+                     ("gpt2_f32_random", "f32")):
+        cells[name] = spec_cell(torch, np, mods,
+                                models[name.removesuffix("_random")], rand,
+                                f"serve_spec {name}", dt)
+        torch.cuda.empty_cache()
+    rec = {"phase": "serve_spec", "card": smi,
+           "models": {"gpt2": GPT2_NAME, "llama": LLAMA_NAME},
+           "slots": 16, "segment": 16, "kv_block_tokens": 16, "k": SPEC_K,
+           "proposer": "ngram", "prompts": f"the serve cell's lengths and "
+           f"budgets, each prompt a {SPEC_SPAN}-token span repeated "
+           f"(random: the serve cell's own prompts)",
+           "headline": "per cell: held speculation and plain tokens/s "
+                       "captured in turns, acceptance, tokens emitted a "
+                       "verify step, the verify kernel's device ms a step "
+                       "(profiled cell); the default configuration's run",
+           "cells": cells}
+    launches = {
+        "serve_spec gpt2_bf16 captured, profiled":
+            cells["gpt2_bf16"]["profile"]["launches"],
+        "serve_spec gpt2_bf16_int8 captured, counted":
+            cells["gpt2_bf16_int8"]["launches"],
+        "serve_spec llama_bf16 captured, counted":
+            cells["llama_bf16"]["launches"]}
+    return rec, launches
+
+
+def serve_width_phase(torch, np, mods, models, smi):
+    """The serve cell captured with the width ladder on
+    (``decode_width_buckets=None``: 7 rungs of 1-64 blocks, every program
+    prewarmed) against ``decode_width_buckets=1`` in turns
+    (``WIDTH_TURNS``), bf16 and f32: ms a tick, each rung's split count S
+    (``split_plan``), the programs captured and their capture ms, peak
+    reserved memory before and after the prewarm, the width counters.
+    Gates: f32 tokens equal, bf16 every served token teacher-forced within
+    the margin; launches as scheduled; no leak."""
+    A, _, _, DA, serve = mods
+    out = {"phase": "serve_width", "card": smi, "model": GPT2_NAME,
+           "slots": 16, "segment": 16, "kv_block_tokens": 16, "t_max": 1024}
+    for dt in ("bf16", "f32"):
+        model = models[f"gpt2_{dt}"]
+        reqs = serve_requests(np, serve, model.config.vocab_size)
+        cbs = {"buckets": spec_batcher(serve, model, spec=None, buckets=None),
+               "full": spec_batcher(serve, model, spec=None)}
+        torch.cuda.synchronize()
+        reserved0 = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        rungs = cbs["buckets"].prewarm_widths()
+        torch.cuda.synchronize()
+        prewarm_s = time.monotonic() - t0
+        reserved = {"before_prewarm": reserved0,
+                    "after_prewarm": torch.cuda.memory_reserved(),
+                    "peak_with_prewarm": torch.cuda.max_memory_reserved()}
+        cbs["full"].serve(reqs[:2])
+        walls, outs, ticks = {m: [] for m in cbs}, {}, {}
+        for mode in WIDTH_TURNS:
+            run = counted_spec_serve(torch, mods, cbs[mode], reqs,
+                                     f"serve_width {dt} {mode}", False)
+            walls[mode].append(run["wall_s"])
+            ticks[mode] = run["plain_ticks"]
+            if mode in outs:
+                require(run["outs"] == outs[mode],
+                        f"serve_width {dt}: a {mode} run served other tokens")
+            outs.setdefault(mode, run["outs"])
+        got, want = outs["buckets"], outs["full"]
+        agree = agreement(got, want)
+        if dt == "f32":
+            require(got == want, "serve_width f32: tokens differ with the "
+                                 "ladder on")
+        gaps = served_gaps(torch, A, model, reqs, got, q8=False)
+        worst = gaps.max().item()
+        require(worst <= MARGIN[dt], f"serve_width {dt}: a served token's "
+                                     f"logit is {worst} below the "
+                                     f"teacher-forced max")
+        cb = cbs["buckets"]
+        hk, hd = model.kv_cache_spec()
+        q = torch.zeros(16, model.config.num_heads, 1, hd, device="cuda",
+                        dtype=model.dtype)
+        pool = cb._caches[0]["kv"]
+        splits = {w: DA.split_plan(q, pool, table=cb._tables_w[w])["S"]
+                  for w in cb._width_ladder}
+        out[dt] = {
+            "rungs": rungs, "ladder": list(cb._width_ladder),
+            "split_count_per_rung": splits, "turns": list(WIDTH_TURNS),
+            **{f"{m}_wall_ms_per_tick": [1e3 * w / ticks[m] for w in ws]
+               for m, ws in walls.items()},
+            **{f"{m}_decode_tokens_per_s": [sum(map(len, outs[m])) / w
+                                            for w in ws]
+               for m, ws in walls.items()},
+            "programs_captured": len(cb._programs),
+            "capture_ms": {str(k): p.capture_ms
+                           for k, p in cb._programs.items()},
+            "prewarm_s": prewarm_s, "reserved_bytes": reserved,
+            "width": dict(cb.width), "positions_equal_to_full": agree,
+            "teacher_forced_worst_gap": worst, "margin": MARGIN[dt]}
+        del cbs, cb, pool
+        torch.cuda.empty_cache()
+    return out
+
+
 # the kernel entries checked exactly, and the source of each entry whose
 # file is named otherwise
 EXACT = ("kv_pool_insert", "cache_insert", "kv_insert", "kv_insert_rows",
@@ -2946,7 +3508,8 @@ KERNEL_EXTRAS = ("tflops", "bound_share", "path", "train_ms",
                  "lse_max_abs_err", "grid", "same_bits", "one_key_ms",
                  "pair_ms", "read_ms", "pair_bit_identical", "fuses", "long",
                  "pad_pair_share", "rel_err", "vec_bytes", "kernel", "ptxas",
-                 "live_token_rows", "token_rows")
+                 "live_token_rows", "token_rows", "ticks_ms", "window",
+                 "cache_exact")
 SOURCES = {"cache_insert": "kv_insert", "kv_insert_rows": "kv_insert",
            "kv_pool_insert_q8": "kv_pool_insert",
            "paged_decode_q8": "paged_decode", "cache_insert_q8": "kv_insert",
@@ -2968,7 +3531,10 @@ SOURCES = {"cache_insert": "kv_insert", "kv_insert_rows": "kv_insert",
            "paged_decode_write_llama": "paged_decode",
            "paged_decode_write_q8_llama": "paged_decode",
            "dense_decode_write_llama": "dense_decode",
-           "dense_decode_write_q8_llama": "dense_decode"}
+           "dense_decode_write_q8_llama": "dense_decode",
+           "paged_verify_write": "paged_verify",
+           "paged_verify_write_q8": "paged_verify",
+           "paged_verify_write_llama": "paged_verify"}
 # profiler groups: the int8 reads share their float forms' kernel templates
 # (``paged_decode_kernel<T, signed char, ...>``), and so do the fused ticks
 # (``paged_decode_write_kernel<...>``); the int8 writes have kernels of
@@ -2976,7 +3542,8 @@ SOURCES = {"cache_insert": "kv_insert", "kv_insert_rows": "kv_insert",
 KERNEL_NAMES = ("flash_fwd", "kv_pool_insert", "paged_decode",
                 "paged_decode_write", "flash_bwd_dq", "flash_bwd_dkv",
                 "fused_adamw", "kv_insert", "dense_decode",
-                "dense_decode_write", "kv_pool_insert_q8", "kv_insert_q8")
+                "dense_decode_write", "kv_pool_insert_q8", "kv_insert_q8",
+                "paged_verify_write")
 
 
 def _kernel_group(name: str) -> str:
@@ -3031,7 +3598,7 @@ PORT_KERNEL = re.compile(r"\b(\w+?)(_tc)?_kernel(?:<([^>]*)>)?\(")
 PORT_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_adamw",
                 "kv_pool_insert", "kv_pool_insert_q8", "kv_insert",
                 "kv_insert_q8", "paged_decode", "paged_decode_write",
-                "dense_decode", "dense_decode_write")
+                "dense_decode", "dense_decode_write", "paged_verify_write")
 # one kernel serves the three dense writes of a form (``csrc/kv_insert.cu``)
 DENSE_WRITES = ("kv_insert", "kv_insert_rows", "cache_insert")
 
@@ -3051,7 +3618,8 @@ def device_launches(torch, prof) -> dict:
         if not m or m.group(1) not in PORT_KERNELS:
             continue
         name, tc, args = m.groups()
-        if name.startswith(("paged_decode", "dense_decode")) and args and \
+        if name.startswith(("paged_decode", "dense_decode",
+                            "paged_verify")) and args and \
                 args.split(",")[1].strip() == "signed char":
             name += "_q8"
         names = (name, name + "_tc") if tc else (name,)
@@ -3628,8 +4196,9 @@ def generate_int8_phase(torch, np, infer, mods, model, float_out,
     every int8 run's tokens equal to the captured first int8 run's and
     those checked teacher-forced with the rows past the prompt reading
     quantized K/V, every float run's the generate phase's; both caches'
-    bytes; with ``profiles``, one profiled run of the int8 cache captured
-    and eager, its launches measured (``profiled_generate``)."""
+    bytes; with ``profiles``, a profiled run of the int8 cache captured
+    and eager on a quarter of the work, its launches measured
+    (:func:`quarter_generate_profiles`)."""
     A, FA, CU, DA = mods
     lens, prompt_np, mask_np = gen_batch(np, model.config.vocab_size)
     prompt = torch.from_numpy(prompt_np).cuda()
@@ -3686,14 +4255,13 @@ def generate_int8_phase(torch, np, infer, mods, model, float_out,
                    positions_agreeing_with_float_cache=(
                        (out[:, T0:] == float_out[:, T0:]).float().mean()
                        .item()))
-    summaries = {name: profile_summary(torch, *profiled_generate(
-        torch, (FA, CU, DA), lambda: fns[name](prompt, prompt_mask=mask),
-        f"{phase} profile {name}", q8=True), ticks, ticks, "tick",
-        walls[name]) for name in (("int8", "int8_eager") if profiles
-                                  else ())}
+    summaries = {}
     if profiles:
-        check_host_calls(phase, summaries["int8"], summaries["int8_eager"],
-                         ticks - 1, 1)
+        quarter = quarter_generate_profiles(torch, infer, (FA, CU, DA),
+                                            model, prompt, mask, True,
+                                            f"{phase} profile")
+        summaries = {"int8": quarter["graph"],
+                     "int8_eager": quarter["eager"]}
     hk, hd = model.kv_cache_spec()
     slots = 2 * GEN_ROWS * hk * (T0 + GEN_NEW) * LAYERS
     rec.update(
@@ -3720,21 +4288,44 @@ def profiled_generate(torch, counters, fn, what, q8, new=GEN_NEW):
         waves={"prefill_calls": 1, "ticks": new - 1})
 
 
-def generate_profile_phase(torch, counters, fns, batch, walls):
-    """The bf16 generate once more under ``torch.profiler`` with the
-    captured tick and with the eager loop: device time by kernel group,
-    device ops a tick, the host's CUDA calls a tick (one
-    ``cudaGraphLaunch`` a replayed tick, gated), each unprofiled run's
-    busy share, and each run's launches measured
-    (:func:`profiled_generate`)."""
+def quarter_generate_profiles(torch, infer, counters, model, prompt, mask,
+                              kv_quant, what):
+    """The generate cell's 16 prompts with ``GEN_PROFILE_NEW`` new tokens
+    (a quarter of its work) under the profiler, the captured tick and the
+    eager loop: each generate function warmed, one unprofiled run's wall
+    (for the busy share), then :func:`profiled_generate` (launches
+    measured); one ``cudaGraphLaunch`` a replayed tick (gated)."""
+    ticks = GEN_PROFILE_NEW - 1
+    out = {}
+    for mode in TURNS[:2]:
+        fn = infer.make_generate_fn(model, GEN_PROFILE_NEW,
+                                    kv_quant=kv_quant,
+                                    _eager=mode == "eager")
+        fn(prompt, prompt_mask=mask)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        fn(prompt, prompt_mask=mask)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        out[mode] = {"new_per_row": GEN_PROFILE_NEW, **profile_summary(
+            torch, *profiled_generate(
+                torch, counters, lambda: fn(prompt, prompt_mask=mask),
+                f"{what} {mode}", q8=kv_quant, new=GEN_PROFILE_NEW),
+            ticks, ticks, "tick", [wall])}
+    check_host_calls(what, out["graph"], out["eager"], ticks - 1, 1)
+    return out
+
+
+def generate_profile_phase(torch, infer, counters, model, batch):
+    """The bf16 generate's 16 prompts under ``torch.profiler`` with the
+    captured tick and with the eager loop, on a quarter of the cell's work
+    (:func:`quarter_generate_profiles`): device time by kernel group,
+    device ops a tick, the host's CUDA calls a tick, each unprofiled run's
+    busy share, and each run's launches measured."""
     _, prompt, mask, _ = batch
-    ticks = GEN_NEW - 1
-    summaries = {mode: profile_summary(torch, *profiled_generate(
-        torch, counters, lambda: fn(prompt, prompt_mask=mask),
-        f"generate_profile {mode}", q8=False), ticks, ticks, "tick",
-        walls[mode]) for mode, fn in fns.items()}
-    check_host_calls("generate_profile", summaries["graph"],
-                     summaries["eager"], ticks - 1, 1)
+    summaries = quarter_generate_profiles(torch, infer, counters, model,
+                                          prompt, mask, False,
+                                          "generate_profile")
     return {"phase": "generate_profile", "dtype": "bf16",
             **summaries["graph"], "eager": summaries["eager"]}
 
@@ -5825,6 +6416,12 @@ def main() -> int:
                     check_dense_decode_write(torch, np, A, CU, DA, dtype, dt,
                                              gen_lens, q8,
                                              hk=LLAMA_KV_HEADS)
+            # the speculative verify step at the serve shape, W = 5
+            for q8, hk, sfx in ((False, 12, ""), (True, 12, "_q8"),
+                                (False, LLAMA_KV_HEADS, "_llama")):
+                results[dt]["paged_verify_write" + sfx] = check_verify(
+                    torch, np, A, DA, dtype, dt, q8,
+                    built["ptxas"].get(DA.VERIFY_NAME, ""), hk=hk)
             for res in results[dt].values():
                 if "kernel" in res:      # the pool scatter's template
                     res["ptxas"] = kernel_resources(
@@ -5880,8 +6477,8 @@ def main() -> int:
                 torch, np, infer, (A, FA, CU, DA), model, dt)
             record(gens[dt])
             if dt == "bf16":
-                gen_prof = generate_profile_phase(torch, (FA, CU, DA), fns,
-                                                  batch, walls)
+                gen_prof = generate_profile_phase(torch, infer, (FA, CU, DA),
+                                                  model, batch)
                 record(gen_prof)
                 float_generated = batch[3]
             else:
@@ -5904,6 +6501,21 @@ def main() -> int:
         remainder = serving_remainder_phases(
             torch, np, infer, serve, mods, model, float_served, LlamaLM,
             LlamaConfig, smi, record)
+        # speculation and the width ladder (slice 17): GPT-2 bf16 and f32,
+        # Llama bf16 (random weights from seed 0)
+        f32 = GPT2(GPT2Config.small(), dtype=torch.float32)
+        f32.load_state_dict(base.state_dict())
+        llama = LlamaLM(LlamaConfig(), dtype=torch.bfloat16)
+        llama.load_state_dict(LlamaLM(LlamaConfig()).init(
+            torch.Generator().manual_seed(0)).state_dict())
+        spec_models = {"gpt2_bf16": model, "gpt2_f32": f32,
+                       "llama_bf16": llama}
+        spec_rec, spec_launches = serve_spec_phase(torch, np, mods,
+                                                   spec_models, smi)
+        record(spec_rec)
+        record(serve_width_phase(torch, np, mods, spec_models, smi))
+        del spec_models, f32, llama
+        torch.cuda.empty_cache()
         del model, base, float_served, float_generated
         torch.cuda.empty_cache()
 
@@ -5997,6 +6609,9 @@ def main() -> int:
         # the pool scatter at the admission wave's shape
         sources.update({f"{name}_admission": CU.REPLACES for name in (
             "kv_pool_insert", "kv_pool_insert_q8", "kv_pool_insert_llama")})
+        # the verify step: no Pallas call, the JAX package's XLA op
+        sources.update({f"paged_verify_write{sfx}": DA.VERIFY_REPLACES
+                        for sfx in ("", "_q8", "_llama")})
         # each kernel's launches on the main path: the captured runs'
         # counts measured under the profiler (``counted_profile``: the
         # counters zeroed just before, equal to the device's kernel events
@@ -6035,7 +6650,14 @@ def main() -> int:
                 *((f"{run} captured, profiled",
                    {"kv_pool_insert_llama_admission":
                         launches.get("kv_pool_insert")})
-                  for run, launches in llama["launches"].items()))
+                  for run, launches in llama["launches"].items()),
+                # the verify entries' launches: serve_spec's profiled runs
+                *((run, {f"paged_verify_write{sfx}":
+                         n.get("paged_verify_write" + sfx.replace(
+                             "_llama", ""))})
+                  for run, n in spec_launches.items()
+                  for sfx in (("_llama",) if "llama" in run else
+                              ("_q8",) if "int8" in run else ("",))))
         kernels = []
         for name, replaces in sources.items():
             r, r32 = results["bf16"][name], results["f32"][name]

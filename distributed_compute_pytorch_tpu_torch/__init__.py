@@ -23,7 +23,8 @@ ops       ``attention`` (dense reference math and the paged and dense
           dK/dV backward kernels behind the ``FlashAttention`` autograd
           Function), ``cache_update`` (the paged pool and the dense K/V
           slot writes), ``decode_attention`` (the paged and dense decode
-          reads), ``fused_adamw`` (one launch over every parameter);
+          reads, and the speculative verify step), ``fused_adamw`` (one
+          launch over every parameter);
           ``_build`` compiles ``csrc/*.cu``
 train     ``optim`` (Adadelta and SGD with StepLR, AdamW, fused AdamW,
           warmup-cosine), ``step`` (``make_step_fns``: bf16 compute over
@@ -35,8 +36,10 @@ data      ``sampler``, ``datasets`` (MNIST, synthetic), ``loader``
 core      ``config`` (the ``dcp-train`` flag subset), ``mesh`` (the
           process group: ``nccl`` on CUDA, ``gloo`` on the CPU)
 utils     ``logging`` (the reference's lines, rank 0), ``fsio``
-kv_pool   host-side refcounted block pool
-serve     ``ContinuousBatcher`` (greedy)
+kv_pool   host-side refcounted block pool and the radix prefix cache
+serve     ``ContinuousBatcher`` (per-row sampling, the prefix cache,
+          chunked prefill, width buckets, speculative decoding)
+spec_decode  speculation's ``SpecConfig`` and proposers
 infer     ``prefill``, ``generate`` (greedy, top-k / nucleus sampling)
 cli       the ``dcp-train`` subset; cli_serve the ``dcp-serve`` subset;
           cli_generate the ``dcp-generate`` subset

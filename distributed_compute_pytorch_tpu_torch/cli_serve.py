@@ -21,6 +21,11 @@ prefill only their suffix. ``--prefill_chunk_tokens N`` bounds each
 prefill wave to about N suffix tokens (long prompts admit chunk by chunk
 between decode segments). ``--admit_policy skip_fit`` lets a free row take
 the first queued request that fits instead of the queue's head.
+``--speculate K`` drafts K tokens a verify step with the n-gram proposer
+and scores all K + 1 positions in one forward pass (outputs unchanged).
+``--decode_width_buckets N`` keeps the widest N rungs of the table-width
+ladder (1, the default, = the full-width table alone);
+``--prewarm_widths`` builds every rung's programs before serving.
 
 Prints one JSON line per request, in input order, as the JAX CLI does:
 ``{"id", "prompt", "new", "status": "ok", "cached_prefix"}``, where
@@ -29,7 +34,7 @@ prefix cache (0 without it).
 
 ``--model gpt2`` (the default) or ``llama``, at ``--model_preset``'s
 size (``moe`` exits naming its ROADMAP item, as do the JAX CLI's flags of
-later items: ``--speculate``, ``--host_cache_mb``, ``--journal_dir``,
+later items: ``--host_cache_mb``, ``--journal_dir``,
 ``--mesh``, ``--replicas``, ``--heartbeat`` and the rest). Runs on CUDA unless
 ``--device cpu``. ``--kv_dtype int8`` keeps the KV pool in int8 with
 per-row f32 scales (as the JAX CLI's flag). Example:
@@ -52,10 +57,7 @@ from distributed_compute_pytorch_tpu_torch.cli_generate import (
 SAMPLING = ("temperature", "top_k", "top_p", "seed")
 
 # the JAX CLI's flags of later items -> the ROADMAP.md item each waits for
-_LATER = {"width buckets, queue 3.5": ("decode_width_buckets",
-                                       "prewarm_widths"),
-          "speculation, queue 3.6": ("speculate",),
-          "tiers and handoff, queue 3.7": ("host_cache_mb",
+_LATER = {"tiers and handoff, queue 3.7": ("host_cache_mb",
                                            "disk_cache_dir"),
           "the journal and the request lifecycle, queue 3.8": (
               "journal_dir", "journal_fsync", "supervise", "max_pending",
@@ -187,6 +189,21 @@ def main(argv=None) -> int:
                    choices=("fifo", "skip_fit"),
                    help="admission order: strict FIFO, or skip-fit (a free "
                         "row takes the first queued request that fits)")
+    p.add_argument("--speculate", type=int, default=0,
+                   help="speculative decoding: draft K tokens a verify step "
+                        "with the self-drafting n-gram proposer and score "
+                        "all K+1 positions in one forward pass; outputs "
+                        "stay token-identical (0 = off)")
+    p.add_argument("--decode_width_buckets", type=int, default=1,
+                   help="width-bucket ladder depth: decode and verify "
+                        "dispatches take the narrowest power-of-two rung of "
+                        "table blocks covering the live rows; N keeps the "
+                        "widest N rungs (1, the default = the full-width "
+                        "table alone). Outputs are token-identical at any "
+                        "setting")
+    p.add_argument("--prewarm_widths", action="store_true",
+                   help="build (and on the card capture) every width rung's "
+                        "programs before serving")
     p.add_argument("--device", default=None,
                    help="'cuda' (default; raises without a card) or 'cpu'")
     for flag in _REFUSED:
@@ -208,6 +225,11 @@ def main(argv=None) -> int:
     if args.prefill_chunk_tokens is not None \
             and args.prefill_chunk_tokens < 1:
         raise SystemExit("--prefill_chunk_tokens must be >= 1")
+    if args.decode_width_buckets < 1:
+        raise SystemExit("--decode_width_buckets must be >= 1 "
+                         "(1 = a single full-horizon bucket)")
+    if args.speculate < 0:
+        raise SystemExit("--speculate must be >= 0 (0 = off)")
 
     from distributed_compute_pytorch_tpu_torch.serve import (
         ContinuousBatcher, Request)
@@ -252,7 +274,12 @@ def main(argv=None) -> int:
                            admit_policy=args.admit_policy,
                            prefix_cache=args.prefix_cache,
                            prefill_chunk_tokens=args.prefill_chunk_tokens,
-                           kv_dtype=args.kv_dtype, device=model.device)
+                           kv_dtype=args.kv_dtype,
+                           speculate=args.speculate or None,
+                           decode_width_buckets=args.decode_width_buckets,
+                           device=model.device)
+    if args.prewarm_widths:
+        cb.prewarm_widths(sampling=args.temperature > 0)
 
     def seed(i, r):
         if r["seed"] is not None:

@@ -213,6 +213,19 @@ def sample_rows(logits, temperature, top_k, top_p, seeds, positions):
     return torch.where(temperature == 0.0, greedy, sampled)
 
 
+def verify_sample_rows(logits, temperature, top_k, top_p, seeds, n_logical):
+    """:func:`sample_rows` over a speculative verify window (reference
+    ``:241-256``): ``logits [B, W, V]`` -> int64 ``[B, W]``, column ``i``
+    drawn at logical position ``n_logical + i`` with the row's seed. That
+    key is exactly the one plain decode draws with after emitting ``i``
+    window tokens, so column ``i`` is the token plain decode would sample
+    there: at the first draft mismatch it IS the deterministic rejection
+    resample, the whole exactness argument of the accept rule."""
+    return torch.stack([sample_rows(logits[:, i], temperature, top_k, top_p,
+                                    seeds, n_logical + i)
+                        for i in range(logits.shape[1])], dim=1)
+
+
 def _check_prompt_mask(m: np.ndarray, shape) -> None:
     if m.shape != tuple(shape):
         raise ValueError(f"prompt_mask shape {m.shape} != prompt shape "

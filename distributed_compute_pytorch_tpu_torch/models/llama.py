@@ -23,10 +23,11 @@ attends through ``ops/attention.py::cache_write_and_attend`` (the fused
 decode kernels on CUDA, at ``G = num_heads // num_kv_heads`` query heads
 a kv head). Whole windows repeat K/V to the query heads inside
 ``ops/attention.py::attention`` (the flash kernels, forward and
-backward).
+backward). ``verify_step`` ropes a speculative draft window at its
+``[B, W]`` slots and writes and attends it through
+``ops/attention.py::cache_verify_and_attend`` (the verify kernel on CUDA).
 
-Not ported: the reference's speculative ``verify_step`` (ROADMAP queue
-3.6), and the pipeline, ring-attention, tensor-parallel and remat paths
+Not ported: the pipeline, ring-attention, tensor-parallel and remat paths
 (queue 1, item 2).
 """
 
@@ -159,6 +160,18 @@ class LlamaBlock(nn.Module):
         q, k, v = self.qkv(self.attn_norm(x), rope_pos)
         o, cache = A.cache_write_and_attend(q, k, v, cache, pos,
                                             slot_mask=slot_mask)
+        return self.mlp(x + self.o(A.merge_heads(o))), cache
+
+    def verify_step(self, x, cache, positions):
+        """One speculative verify step (reference ``:239-258``): ``x [B, W,
+        d]`` scores a draft window at per-query slots ``positions [B, W]``
+        against the paged pool in one pass. The window's queries and keys
+        rope at their own slots, so the position differences RoPE sees are
+        those of ``W`` sequential :meth:`decode_step` ticks; the staircase
+        read (``cache_verify_and_attend``) keeps the cache at kv-head
+        width, the group folded into the window on the read."""
+        q, k, v = self.qkv(self.attn_norm(x), positions)
+        o, cache = A.cache_verify_and_attend(q, k, v, cache, positions)
         return self.mlp(x + self.o(A.merge_heads(o))), cache
 
 

@@ -10,9 +10,10 @@ backward), tanh-GELU MLP. Two entry points, as in the reference:
 ``mlp_out``, as the reference places it; never on the attention
 probabilities) or the admission prefill, which captures each layer's K/V
 through ``kv_sink`` and, for a suffix past a cached prefix, attends the
-prefix's K/V through ``kv_prefix`` — and ``decode_step`` for one decode tick against the
-paged pool (serving) or the dense pair cache (generation); a
-non-causal or post-LN block has no decode.
+prefix's K/V through ``kv_prefix`` — ``decode_step`` for one decode tick against the
+paged pool (serving) or the dense pair cache (generation), and
+``verify_step`` for one speculative verify step (a draft window against
+the paged pool); a non-causal or post-LN block has neither.
 """
 
 from __future__ import annotations
@@ -86,6 +87,18 @@ def attention_decode_tick(block, x, cache, pos, *, num_heads: int,
     return x + block.attn_out(A.merge_heads(o)), cache
 
 
+def attention_verify_tick(block, x, cache, positions, *, num_heads: int):
+    """The attention half of one speculative verify step (reference
+    ``:166-185``): :func:`attention_decode_tick` over a ``W``-token draft
+    window, ``x [B, W, d]`` at per-query slots ``positions [B, W]``: one
+    fused QKV for the window, then the paged pool's window write and
+    staircase read (``ops/attention.py::cache_verify_and_attend``, in place
+    on the pool). Returns ``(x + attn_residual, cache)``."""
+    q, k, v = _qkv_heads(block, block.ln1(x), num_heads)
+    o, cache = A.cache_verify_and_attend(q, k, v, cache, positions)
+    return x + block.attn_out(A.merge_heads(o)), cache
+
+
 class TransformerBlock(nn.Module):
     """Pre-LN (GPT-2) or post-LN (``pre_ln=False``, BERT) transformer
     block with fused-QKV MHA and a tanh-GELU MLP."""
@@ -149,4 +162,17 @@ class TransformerBlock(nn.Module):
         x, cache = attention_decode_tick(self, x, cache, pos,
                                          num_heads=self.num_heads,
                                          slot_mask=slot_mask)
+        return x + self._mlp(self.ln2(x)), cache
+
+    def verify_step(self, x, cache, positions):
+        """One speculative verify step (reference ``:294-306``): ``x [B, W,
+        d]`` scores a draft window at per-query slots ``positions [B, W]``
+        (consecutive per row) against the paged pool in one pass. Position
+        ``w``'s output depends only on slots ``<= positions[b, w]``, as
+        ``W`` sequential :meth:`decode_step` ticks', which the exact
+        accept rule relies on (``serve.ContinuousBatcher``)."""
+        if not (self.causal and self.pre_ln):
+            raise ValueError("verify needs a causal pre-LN block")
+        x, cache = attention_verify_tick(self, x, cache, positions,
+                                         num_heads=self.num_heads)
         return x + self._mlp(self.ln2(x)), cache

@@ -29,7 +29,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = ("flash_fwd", "kv_pool_insert", "paged_decode", "flash_bwd_dq",
-           "flash_bwd_dkv", "fused_adamw", "kv_insert", "dense_decode")
+           "flash_bwd_dkv", "fused_adamw", "kv_insert", "dense_decode",
+           "paged_verify")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -13,7 +13,11 @@ hand-written kernels:
   pool, or into generation's dense pair cache; for an int8 cache the write
   quantizes), and the read that follows it (the paged read through the
   block table, with no gathered copy of the cache, or the dense read; each
-  also reads the int8 cache with its per-row scales).
+  also reads the int8 cache with its per-row scales);
+- :func:`cache_verify_and_attend` -> ``decode_attention.paged_verify_write``,
+  one launch a layer a speculative verify step: a draft window's K/V
+  written through the block table and its queries attending the pool and
+  the window under the per-query staircase.
 
 Layouts follow the JAX package: ``[batch, heads, seq, head_dim]``.
 """
@@ -105,27 +109,67 @@ def _pos_vector(pos, batch: int, device) -> torch.Tensor:
     return pos.reshape(-1).expand(batch) if pos.ndim == 0 else pos
 
 
+def _multi_pos_valid_mask(pos, t_max: int):
+    """``[B, 1, W, T]`` bool mask for a verify window of queries (reference
+    ``:130-143``): query ``w`` of row ``b`` sits at slot ``pos[b, w]`` and
+    attends the cache slots at or before it, the per-query form of the
+    decode mask (the same at ``W == 1``). Window queries are consecutive
+    slots, so this staircase is the causal rule over prefix and window."""
+    slots = torch.arange(t_max, device=pos.device)
+    return slots[None, None, None, :] <= pos[:, None, :, None]
+
+
+def _valid_slots(q, pos, t_max: int, slot_mask):
+    """The read's slot mask ``[B, 1, q_len, T]`` (or ``[B, 1, 1, T]``):
+    per query under a ``[B, q_len]`` ``pos``, else per row; the optional
+    ``[B, T]`` ``slot_mask`` (nonzero = keep) on top."""
+    if torch.is_tensor(pos) and pos.ndim == 2:
+        valid = _multi_pos_valid_mask(pos, t_max)
+    else:
+        pos = _pos_vector(pos, q.shape[0], q.device)
+        slots = torch.arange(t_max, device=q.device)
+        valid = slots[None, None, None, :] <= pos[:, None, None, None]
+    if slot_mask is not None:
+        valid = valid & (slot_mask != 0)[:, None, None, :]
+    return valid
+
+
+def _fold_groups(q, hk: int, pos):
+    """GQA's folded query (reference ``:183-201``): ``[B, H, q_len, hd]``
+    -> ``[B, hk, G * q_len, hd]``, folded row ``g * q_len + w`` for head
+    ``g`` of the group and query ``w``. Several query positions need a
+    per-query ``[B, q_len]`` pos."""
+    B, H, q_len, hd = q.shape
+    if q_len != 1 and not (torch.is_tensor(pos) and pos.ndim == 2):
+        raise ValueError("GQA cached attention over several query "
+                         "positions needs a per-query [B, q_len] pos")
+    return q.reshape(B, hk, (H // hk) * q_len, hd)
+
+
+def _tile_groups(valid, G: int):
+    """The per-query mask ``[B, 1, W, T]`` tiled over the folded group
+    rows (``jnp.tile``): folded row ``g * W + w`` takes mask row ``w``."""
+    return valid.repeat(1, 1, G, 1) if valid.shape[2] > 1 else valid
+
+
 def cached_attention(q, k_cache, v_cache, pos, *, scale: float | None = None,
                      slot_mask=None):
-    """Single-position decode attention over a dense ``[B, Hk, T, hd]``
-    cache (reference ``:143-204``, the scalar / per-row ``pos`` forms):
-    row ``b`` attends slots ``0..pos[b]`` that the optional ``[B, T]``
-    ``slot_mask`` keeps (nonzero; left-padded prompts mask their pad
-    slots), the rest masked with the finite fill. GQA folds the query's
-    group into its length-1 sequence dim, so the narrow cache is read as
-    is. Returns ``[B, H, 1, hd]``."""
+    """Decode attention over a dense ``[B, Hk, T, hd]`` cache (reference
+    ``:143-204``): ``pos`` a scalar or ``[B]`` (the query at that slot), or
+    ``[B, q_len]`` (a verify window: query ``w`` at slot ``pos[b, w]``);
+    each query attends the slots at or before its own that the optional
+    ``[B, T]`` ``slot_mask`` keeps (nonzero; left-padded prompts mask their
+    pad slots), the rest masked with the finite fill. GQA folds the query's
+    group into its sequence dim, so the narrow cache is read as is.
+    Returns ``[B, H, q_len, hd]``."""
     B, H, q_len, hd = q.shape
     hk, t_max = k_cache.shape[1], k_cache.shape[2]
     grouped = H != hk
     if grouped:
-        if q_len != 1:
-            raise ValueError("GQA cached attention takes one query position")
-        q = q.reshape(B, hk, H // hk, hd)
-    pos = _pos_vector(pos, B, q.device)
-    slots = torch.arange(t_max, device=q.device)
-    valid = slots[None, None, None, :] <= pos[:, None, None, None]
-    if slot_mask is not None:
-        valid = valid & (slot_mask != 0)[:, None, None, :]
+        q = _fold_groups(q, hk, pos)
+    valid = _valid_slots(q, pos, t_max, slot_mask)
+    if grouped:
+        valid = _tile_groups(valid, H // hk)
     out = dot_product_attention(q, k_cache, v_cache, mask=valid, scale=scale)
     return out.reshape(B, H, q_len, hd) if grouped else out
 
@@ -139,24 +183,21 @@ def cached_attention_q8(q, cache, pos, *, scale: float | None = None,
     contractions: ``score_t = (q . k_t) * scale * k_scale_t`` in f32, and
     ``out = sum_t (p_t * v_scale_t) * v_t``, where ``p * v_scale`` is cast
     to ``q.dtype`` before the value product, as the reference does. Masked
-    slots take the finite ``-1e30`` fill. Returns ``[B, H, 1, hd]`` in
+    slots take the finite ``-1e30`` fill. ``pos`` as
+    :func:`cached_attention`'s. Returns ``[B, H, q_len, hd]`` in
     ``q.dtype``."""
     B, H, q_len, hd = q.shape
     k_q, v_q = cache["k"], cache["v"]
     hk, t_max = k_q.shape[1], k_q.shape[2]
     grouped = H != hk
     if grouped:
-        if q_len != 1:
-            raise ValueError("GQA cached attention takes one query position")
-        q = q.reshape(B, hk, H // hk, hd)
+        q = _fold_groups(q, hk, pos)
     sc = hd ** -0.5 if scale is None else scale
     scores = torch.matmul(q.float(), k_q.float().transpose(-1, -2)) * sc
     scores = scores * cache["k_scale"][:, :, None, :, 0]
-    pos = _pos_vector(pos, B, q.device)
-    slots = torch.arange(t_max, device=q.device)
-    valid = slots[None, None, None, :] <= pos[:, None, None, None]
-    if slot_mask is not None:
-        valid = valid & (slot_mask != 0)[:, None, None, :]
+    valid = _valid_slots(q, pos, t_max, slot_mask)
+    if grouped:
+        valid = _tile_groups(valid, H // hk)
     probs = torch.softmax(scores.masked_fill(~valid, NEG_FILL), dim=-1)
     pv = (probs * cache["v_scale"][:, :, None, :, 0]).to(q.dtype)
     out = torch.matmul(pv.float(), v_q.float()).to(q.dtype)
@@ -220,3 +261,40 @@ def cache_write_and_attend(q, k, v, cache, pos, *, slot_mask=None):
     pos = _pos_vector(pos, q.shape[0], q.device)
     return DA.paged_write_decode(q, k, v, cache["kv"], cache["table"], pos,
                                  kv_scale=sc), cache
+
+
+def cache_verify_and_attend(q, k, v, cache, positions):
+    """One speculative VERIFY step against the paged pool (reference
+    ``:356-430``): all ``W`` window positions of every row written and
+    attended in one pass; the write is IN PLACE. ``q, k, v``: ``[B, H(k),
+    W, hd]``, window position ``w`` of row ``b`` at logical slot
+    ``positions[b, w]`` (int32 ``[B, W]``, consecutive per row). ``cache``:
+    ``{"kv": [2, P, hk, bt, hd], "table": int32 [B, nb]}``, with a
+    ``"scale"`` leaf beside an int8 ``"kv"``. Returns ``(o [B, H, W, hd],
+    cache)``.
+
+    The window's K/V land at the (block, offset) each row's table maps its
+    slots to, slots at or past the table's horizon ``nb * bt`` DROPPED (so
+    drafted tokens never write past a row's extent; an int8 pool's rows
+    quantized with ``quantize_kv``); query ``w`` then attends slots ``<=
+    positions[b, w]`` of the gathered view: the prefix and the window's own
+    bottom-right triangle, the same keys and masks as ``W`` sequential
+    decode ticks. Rejected drafts need no undo: the scheduler rewinds the
+    row's position, and the stale K/V past it is never attended. The
+    horizon is the table's, so a width-bucketed caller must hand a table
+    covering ``max(positions) + 1`` slots.
+
+    On CUDA tensors one launch of ``decode_attention.paged_verify_write``
+    (its int8 form with the scale leaf); CPU tensors run its plain
+    version, the scatter then the gathered read. No ``slot_mask``: serving
+    lays prompts out from slot 0."""
+    from distributed_compute_pytorch_tpu_torch.ops import (
+        decode_attention as DA)
+    if set(cache) - {"scale"} != {"kv", "table"}:
+        raise NotImplementedError(
+            f"cache_verify_and_attend takes the paged pool {{'kv', "
+            f"'table'}} (with an optional int8 'scale' leaf); got keys "
+            f"{sorted(cache)}")
+    return DA.paged_verify_write(q, k, v, cache["kv"], cache["table"],
+                                 positions, kv_scale=cache.get("scale")), \
+        cache

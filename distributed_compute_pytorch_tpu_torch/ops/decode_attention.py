@@ -47,11 +47,19 @@ its keys, so the read sees the cache as the unfused write would leave it
 and gives the read-only kernel's bits. Their plain versions are the plain
 write followed by the plain read.
 
+A speculative verify step writes a window of ``W`` fresh rows and reads
+for ``W`` queries a head: ``paged_verify_write`` (``csrc/paged_verify.cu``,
+the port's kernel for the JAX package's XLA op ``cache_verify_and_attend``:
+the window scattered through the table, dropped at the horizon, then the
+gathered read under the per-query staircase), float and int8, one launch a
+layer. Its plain version is that scatter and read.
+
 ``launches`` counts ``paged_decode``'s kernel launches and
 ``dense_launches`` ``dense_decode``'s; the int8 forms count apart, in
 ``q8_launches`` and ``dense_q8_launches``. The fused ticks count in
 ``write_launches`` and ``dense_write_launches`` (int8:
-``write_q8_launches``, ``dense_write_q8_launches``). Plain calls never
+``write_q8_launches``, ``dense_write_q8_launches``), the verify step in
+``verify_launches`` (int8: ``verify_q8_launches``). Plain calls never
 count.
 """
 
@@ -83,6 +91,12 @@ q8_launches = dense_q8_launches = 0
 # paged_decode_write(_q8) and dense_decode_write(_q8) of the same sources
 write_launches = write_q8_launches = 0
 dense_write_launches = dense_write_q8_launches = 0
+
+# the speculative verify step: csrc/paged_verify.cu; no Pallas call (the
+# JAX package's verify is XLA, ops/attention.py:356)
+VERIFY_NAME = "paged_verify"
+VERIFY_REPLACES = "distributed_compute_pytorch_tpu/ops/attention.py:356"
+verify_launches = verify_q8_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -580,4 +594,156 @@ def dense_write_decode_cuda(q, k, v, cache, pos, *, slot_mask=None,
                               "dense_decode_write_q8")
         _build.check(lib, DENSE_NAME, fn(*rows, kv_scale.data_ptr(), *args))
         dense_write_q8_launches += 1
+    return out
+
+
+# ---- the verify step: a window's write and its staircase read, one launch --
+
+def verify_plan(q, pool, table, *, kv_scale=None) -> dict:
+    """The grid the CUDA verify step of ``q [B, H, W, hd]`` over ``pool``
+    through ``table`` takes: ``{"S": splits a (row, kv head, query group),
+    "L": split length, "tile": prefix keys a tile, "stages": tiles in
+    flight, "smem": shared bytes a block, "groups": query groups of up to
+    "qmax" queries, "qpw": queries a warp, "qmax", "blocks": the grid's}``.
+    A function of the shapes only (it builds the kernel if needed)."""
+    import ctypes
+    B, H, W, hd = q.shape
+    hk = pool.shape[2]
+    _, fn = _build.bind(VERIFY_NAME, "iiiiiiip", "paged_verify_plan")
+    vals = (ctypes.c_int * 8)()
+    fn(table.shape[1], pool.shape[3], hd, _DTYPES[q.dtype],
+       int(kv_scale is not None), H // hk, W, vals)
+    plan = dict(zip(("S", "L", "tile", "stages", "smem", "groups", "qpw",
+                     "qmax"), vals))
+    return {**plan, "blocks": plan["S"] * plan["groups"] * hk * B}
+
+
+def _check_verify(q, k, v, pool, table, positions, kv_scale):
+    if q.ndim != 4:
+        raise ValueError(f"q must be [B, H, W, hd], got {tuple(q.shape)}")
+    if pool.ndim != 5 or pool.shape[0] != 2:
+        raise ValueError(f"pool must be [2, P, Hk, bt, hd], got "
+                         f"{tuple(pool.shape)}")
+    B, H, W, hd = q.shape
+    hk = pool.shape[2]
+    if pool.shape[4] != hd or H % hk:
+        raise ValueError(f"q {tuple(q.shape)} does not fit pool "
+                         f"{tuple(pool.shape)}")
+    for name, x in (("k", k), ("v", v)):
+        if tuple(x.shape) != (B, hk, W, hd):
+            raise ValueError(f"{name} must be [B, Hk, W, hd] = "
+                             f"{(B, hk, W, hd)}, got {tuple(x.shape)}")
+    if table.ndim != 2 or table.shape[0] != B or \
+            tuple(positions.shape) != (B, W):
+        raise ValueError("table must be [B, nb] and positions [B, W]")
+    _check_kv_scale(q, pool, kv_scale)
+
+
+def paged_verify_write_plain(q, k, v, pool, table, positions, *,
+                             kv_scale=None):
+    """The verify kernel's plain version, the reference's
+    ``cache_verify_and_attend``: row ``b``'s window K/V written (in place;
+    quantized for an int8 pool) at block ``table[b, positions // bt]``,
+    offset ``positions % bt``, slots at or past ``nb * bt`` dropped, then
+    ``cached_attention`` (``cached_attention_q8``) of the gathered view
+    under the per-query ``positions``."""
+    B, _, W, hd = q.shape
+    P, hk, bt = pool.shape[1], pool.shape[2], pool.shape[3]
+    nb = table.shape[1]
+    pos = positions.long()
+    blk = table.long().gather(1, torch.clamp(pos // bt, 0, nb - 1))
+    blk = torch.where(pos < nb * bt, blk, torch.full_like(blk, P))
+    rows = lambda x: x.transpose(1, 2).reshape(B * W, hk, hd)
+    kv_pool_insert_plain(pool, rows(k), rows(v), blk.reshape(-1),
+                         (pos % bt).reshape(-1), kv_scale)
+    kv = gather_kv_blocks(pool, table)
+    if kv_scale is None:
+        return cached_attention(q, kv[0], kv[1], positions)
+    return cached_attention_q8(
+        q, _q8_view(kv, gather_kv_blocks(kv_scale, table)), positions)
+
+
+def paged_verify_write(q, k, v, pool, table, positions, *, kv_scale=None):
+    """One speculative verify step of a layer: row ``b``'s window ``k``/``v``
+    ``[B, Hk, W, hd]`` go into pool ``[2, P, Hk, bt, hd]`` (in place) at the
+    (block, offset) its ``table`` maps each slot ``positions[b, w]`` to
+    (int32 ``[B, W]``, consecutive per row), dropped at or past ``nb *
+    bt``; then query ``(h, w)`` of ``q [B, H, W, hd]`` attends the row's
+    slots ``0..positions[b, w]`` (capped at the horizon). An int8 pool takes
+    its ``kv_scale`` and float rows, quantized as they are written.
+    Returns ``[B, H, W, hd]``. CUDA tensors launch ``paged_verify_write``
+    (``paged_verify_write_q8``), one launch; CPU tensors run the plain
+    version."""
+    _check_verify(q, k, v, pool, table, positions, kv_scale)
+    if q.device.type == "cpu":
+        return paged_verify_write_plain(q, k, v, pool, table, positions,
+                                        kv_scale=kv_scale)
+    return paged_verify_write_cuda(q, k, v, pool, table, positions,
+                                   kv_scale=kv_scale)
+
+
+def paged_verify_write_cuda(q, k, v, pool, table, positions, *,
+                            kv_scale=None):
+    """Launch the CUDA verify kernel (the int8 form with ``kv_scale``):
+    ``S`` splits of the row's prefix for each (row, kv head, group of up to
+    16 queries), one launch. Any query group size: a group of heads by a
+    window larger than 16 queries takes more groups, each reading the
+    prefix again. Raises on non-CUDA or mixed devices, a query other than
+    f32/bf16 of the pool's dtype (or over an int8 pool), ``k``/``v`` of
+    another dtype, a missing or misshapen scale plane, a non-contiguous or
+    unaligned pool, a head dim not a multiple of 8 or above 128, a tensor
+    without unit head-dim stride, and a table or positions that are not
+    contiguous int32. The window's slots in a row are taken to be
+    consecutive: the kernel reads ``positions[b, 0]`` alone."""
+    global verify_launches, verify_q8_launches
+    _check_verify(q, k, v, pool, table, positions, kv_scale)
+    dev = q.device
+    tensors = (pool, k, v, table, positions) + (
+        () if kv_scale is None else (kv_scale,))
+    if dev.type != "cuda" or any(x.device != dev for x in tensors):
+        raise ValueError(f"{VERIFY_NAME} needs CUDA tensors on one device")
+    if q.dtype not in _DTYPES or (pool.dtype != torch.int8
+                                  and pool.dtype != q.dtype):
+        raise ValueError(f"{VERIFY_NAME} takes an f32/bf16 query over a "
+                         f"pool of its dtype or an int8 pool, got "
+                         f"{q.dtype}, {pool.dtype}")
+    B, H, W, hd = q.shape
+    _, P, hk, bt, _ = pool.shape
+    if hd % 8 or hd > 128:
+        raise ValueError(f"{VERIFY_NAME} needs head_dim % 8 == 0 and <= "
+                         f"128 (got {hd})")
+    if any(x.dtype != q.dtype or x.stride(-1) != 1 for x in (k, v)) \
+            or q.stride(-1) != 1:
+        raise ValueError(f"{VERIFY_NAME} takes q, k and v of one dtype "
+                         f"with unit head-dim stride")
+    if not pool.is_contiguous() or pool.data_ptr() % 16 or (
+            kv_scale is not None and not kv_scale.is_contiguous()):
+        raise ValueError(f"{VERIFY_NAME} needs a contiguous, 16-byte "
+                         f"aligned pool and a contiguous scale plane")
+    for x in (table, positions):
+        if x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError("table/positions must be contiguous int32")
+    G = H // hk
+    plan = verify_plan(q, pool, table, kv_scale=kv_scale)
+    out = torch.empty(B, W, H, hd, dtype=q.dtype, device=dev
+                      ).permute(0, 2, 1, 3)
+    ws, tickets = _merge_scratch(dev, B * hk * plan["groups"], plan["qmax"],
+                                 hd)
+    args = (out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+            table.data_ptr(), positions.data_ptr(), _DTYPES[q.dtype], B, H,
+            G, W, P, bt, hd, table.shape[1],
+            _build.strides_arg(*q.stride()[:3], *out.stride()[:3],
+                               *k.stride()[:3], *v.stride()[:3]),
+            hd ** -0.5, _build.stream_ptr(dev))
+    rows = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pool.data_ptr())
+    if kv_scale is None:
+        lib, fn = _build.bind(VERIFY_NAME, "pppppppppiiiiiiiiisfp",
+                              "paged_verify_write")
+        _build.check(lib, VERIFY_NAME, fn(*rows, *args))
+        verify_launches += 1
+    else:
+        lib, fn = _build.bind(VERIFY_NAME, "ppppppppppiiiiiiiiisfp",
+                              "paged_verify_write_q8")
+        _build.check(lib, VERIFY_NAME, fn(*rows, kv_scale.data_ptr(), *args))
+        verify_q8_launches += 1
     return out

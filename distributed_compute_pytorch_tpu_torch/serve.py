@@ -88,6 +88,33 @@ ticks while finished rows take the next queued request:
   admission wave stays eager (its width varies). On the CPU every
   segment runs eagerly over the same buffers.
 
+- **Width buckets** (``decode_width_buckets``): a dispatch hands its
+  program the block tables cut to the narrowest rung of a ladder (powers
+  of two of blocks, capped at the table's ``nb``; the widest ``N`` rungs
+  kept) that covers the live rows' reach. The port's reads already read
+  only each row's live keys, so a rung sets the decode read's split count
+  and nothing else; each rung is a program (and a captured graph) of its
+  own, from its own static ``[B, nb_w]`` table buffer. The default is one
+  full-width rung. :meth:`ContinuousBatcher.prewarm_widths` captures every
+  rung's program up front.
+- **Speculative decoding** (``speculate``): a proposer (``spec_decode``:
+  the n-gram self-drafter by default) drafts ``k`` tokens a row; ONE
+  verify program scores each row's current token and its drafts at
+  consecutive slots (the blocks' ``verify_step``: one launch of the
+  ``paged_verify_write`` kernel a layer writes the window through the
+  table and attends it under the per-query staircase) and returns the
+  model's own token after each column (argmax, or ``infer.
+  verify_sample_rows`` keyed exactly as plain decode keys that position).
+  The host accepts the longest matching draft prefix plus the model's
+  token at the first mismatch, clamped to the budget and trimmed at eos,
+  and advances each row by what it emitted: the whole rollback, since K/V
+  past a row's position is never attended. Outputs are token-identical to
+  ``speculate=None``; the verify path runs off host mirrors of each row's
+  current token and logical count, and sustained low acceptance switches
+  back to plain segments for good (auto-disable). Verify steps never
+  overlap (the next drafts need this step's tokens); every block under a
+  window's writes is made private first (copy-on-write).
+
 Admission is FIFO by default: a free row always takes the queue head. A
 request whose segment-rounded budget can never fit a row would block the
 head forever, so it is set aside up front, everything else is served,
@@ -95,9 +122,11 @@ then :class:`HorizonError` is raised carrying the completed outputs.
 ``admit_policy="skip_fit"`` keeps that no-leapfrog order among requests
 that fit and skips the others in place, reporting them the same way.
 
-Not ported yet: width buckets, speculation, tiers, handoff, the journal,
-deadlines, cancel, shed, drain, reconstruction and telemetry (the int8
-pool's ``kvq`` counters among them).
+Not ported yet: tiers, handoff, the journal, deadlines, cancel, shed,
+drain, reconstruction and telemetry (the int8 pool's ``kvq`` counters, the
+``spec`` and ``width`` gauges among them; the batcher keeps those two as
+plain counter dicts), and the router's width- and verify-priced load
+estimates.
 """
 
 from __future__ import annotations
@@ -111,7 +140,8 @@ import numpy as np
 import torch
 
 from distributed_compute_pytorch_tpu_torch.device import resolve_device
-from distributed_compute_pytorch_tpu_torch.infer import sample_rows
+from distributed_compute_pytorch_tpu_torch.infer import (
+    sample_rows, verify_sample_rows)
 from distributed_compute_pytorch_tpu_torch.kv_pool import (
     BlockPool, RadixCache)
 from distributed_compute_pytorch_tpu_torch.ops.attention import (
@@ -120,6 +150,8 @@ from distributed_compute_pytorch_tpu_torch.ops.cache_update import (
     kv_pool_insert)
 from distributed_compute_pytorch_tpu_torch.ops.decode_attention import (
     merge_scratch)
+from distributed_compute_pytorch_tpu_torch.spec_decode import (
+    SpecConfig, make_proposer)
 from distributed_compute_pytorch_tpu_torch.utils.graphs import capture
 
 # the reference's default block size for float pools (its Pallas slot
@@ -250,6 +282,13 @@ class ContinuousBatcher:
         (module docstring), rounded up to the block size; ``None`` = off.
       kv_dtype: ``"bf16"`` (the pool in the model's compute dtype, whatever
         it is) or ``"int8"`` (int8 K/V with per-row f32 scales).
+      speculate: speculative decoding (module docstring): an int ``k``
+        (``k`` drafts a verify step from the n-gram proposer) or a
+        ``spec_decode.SpecConfig``; ``None`` = off. Needs a block with
+        ``verify_step``.
+      decode_width_buckets: keep the widest this many rungs of the width
+        ladder (module docstring); ``1`` (default) = the full-width table
+        alone, ``None`` = every rung.
       device: ``None``/``"cuda"`` (raises without CUDA) or ``"cpu"``.
 
     Counters: ``stats`` (prefill waves, their rows and those that ran a
@@ -262,7 +301,14 @@ class ContinuousBatcher:
     ``last_slot_leaks``, ``last_block_leaks`` (pool references the radix
     tree does not account for), ``last_ttft_s``, ``last_cached_prefix``
     (each request's attached length) and ``last_admissions`` (request
-    indices, one list a wave, in admission order).
+    indices, one list a wave, in admission order); ``spec`` (speculation:
+    ``proposed`` and ``accepted`` drafts, ``acceptance_rate``,
+    ``emitted_tokens``, ``wasted_verify_tokens``, ``verify_segments``,
+    ``autodisabled``) and ``width`` (the ladder: ``bucket_growths``, the
+    last ``bucket_blocks`` and ``bucket_occupancy``, ``gathered_block_reads``
+    against ``full_width_block_reads`` (table blocks a dispatch's programs
+    see, row by layer by tick), ``bytes_saved_vs_full``,
+    ``prewarmed_programs``), under the reference's keys.
     """
 
     def __init__(self, model, params=None, *, slots: int, t_max: int,
@@ -272,7 +318,8 @@ class ContinuousBatcher:
                  prefix_cache: bool = False,
                  pool_blocks: int | None = None,
                  prefill_chunk_tokens: int | None = None,
-                 kv_dtype: str = "bf16", device=None):
+                 kv_dtype: str = "bf16", speculate=None,
+                 decode_width_buckets: int | None = 1, device=None):
         self.device = resolve_device(device)
         if kv_dtype not in KV_DTYPES:
             raise ValueError(
@@ -290,6 +337,10 @@ class ContinuousBatcher:
         if prefill_chunk_tokens is not None and prefill_chunk_tokens < 1:
             raise ValueError(f"prefill_chunk_tokens must be >= 1, got "
                              f"{prefill_chunk_tokens}")
+        if decode_width_buckets is not None and decode_width_buckets < 1:
+            raise ValueError(f"decode_width_buckets must be >= 1 (1 = the "
+                             f"full-width table alone), got "
+                             f"{decode_width_buckets}")
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, the batcher on "
                              f"{self.device}")
@@ -307,6 +358,20 @@ class ContinuousBatcher:
                 f"prefix_cache and prefill_chunk_tokens need a block with "
                 f"kv_prefix suffix prefill; "
                 f"{type(model.blocks[0]).__name__} has none")
+        if speculate is not None:
+            if not isinstance(speculate, SpecConfig):
+                speculate = SpecConfig(k=int(speculate))
+            if not hasattr(model.blocks[0], "verify_step"):
+                raise ValueError(
+                    f"speculate needs a block with verify_step; "
+                    f"{type(model.blocks[0]).__name__} has none")
+            self._proposer = make_proposer(speculate)
+        else:
+            self._proposer = None
+        self._spec = speculate
+        self._spec_w = speculate.k + 1 if speculate is not None else 0
+        self._spec_on = speculate is not None
+        self._spec_win = [0, 0]       # (proposed, accepted) this window
         self.B = slots
         self.Tb = prompt_buf
         self.S = segment
@@ -315,6 +380,17 @@ class ContinuousBatcher:
         self.bt = kv_block_tokens or DEFAULT_BLOCK_TOKENS
         self.t_max = -(-t_max // self.bt) * self.bt
         self.nb = self.t_max // self.bt          # table entries per row
+        # the width ladder: powers of two of blocks capped at nb, the
+        # widest ``decode_width_buckets`` kept (reference ``:612-632``)
+        ladder, w = [], 1
+        while w < self.nb:
+            ladder.append(w)
+            w *= 2
+        ladder.append(self.nb)
+        if decode_width_buckets is not None:
+            ladder = ladder[-decode_width_buckets:]
+        self._width_ladder = tuple(ladder)
+        self._cur_width = self._width_ladder[0]
         # chunked prefill: the block-rounded per-wave suffix budget (the
         # chunk is the wave's window, so the scatter stays whole-block)
         self._chunk = (None if prefill_chunk_tokens is None else
@@ -348,8 +424,11 @@ class ContinuousBatcher:
         # by admission: temperature, top-k (0 = none), top-p (>= 1 =
         # none), seed), the segment's tokens
         dev = self.device
-        self._tables_dev = torch.zeros(slots, self.nb, dtype=torch.int32,
-                                       device=dev)
+        # one static table buffer a rung (the full width's is _tables_dev)
+        self._tables_w = {w: torch.zeros(slots, w, dtype=torch.int32,
+                                         device=dev)
+                          for w in self._width_ladder}
+        self._tables_dev = self._tables_w[self.nb]
         self._pos0 = torch.zeros(slots, dtype=torch.int32, device=dev)
         self._cur_tok = torch.zeros(slots, dtype=torch.long, device=dev)
         self._n_logical = torch.zeros(slots, dtype=torch.long, device=dev)
@@ -358,20 +437,40 @@ class ContinuousBatcher:
         self._topp = torch.full((slots,), 2.0, device=dev)
         self._seed = torch.zeros(slots, dtype=torch.long, device=dev)
         self._toks = torch.zeros(slots, segment, dtype=torch.long, device=dev)
+        # the verify program's: each row's window (current token, drafts),
+        # its logical count and the model's own tokens ``true``
+        W = max(self._spec_w, 1)
+        self._vtok = torch.zeros(slots, W, dtype=torch.long, device=dev)
+        self._vnlog = torch.zeros(slots, dtype=torch.long, device=dev)
+        self._vtrue = torch.zeros(slots, W, dtype=torch.long, device=dev)
+        self._wrange = torch.arange(W, dtype=torch.int32, device=dev)
         # their host copies, set at admission
         self._temp_h = np.zeros(slots, np.float32)
         self._topk_h = np.zeros(slots, np.int64)
         self._topp_h = np.full(slots, 2.0, np.float32)
         self._seed_h = np.zeros(slots, np.int64)
-        # on CUDA each segment program (greedy: False, sampled: True) is
-        # captured at its second dispatch (False: the eager loop on the
-        # card, the reference the card's checks hold the graphs to); the
-        # captured programs (``graphs.Program``) and each program's eager
-        # dispatches so far; the merge scratch of its decode reads
+        # host mirrors of _cur_tok/_n_logical (reference ``:736-744``): the
+        # verify path builds its windows on the host and runs off these,
+        # so under speculation the device copies go stale; admission sets
+        # both, and auto-disable pushes the mirrors back before the next
+        # plain segment
+        self._cur_h = np.zeros(slots, np.int64)
+        self._nlog_h = np.zeros(slots, np.int64)
+        # on CUDA each program, keyed (kind "segment" or "verify",
+        # sampling, rung), is captured at its second dispatch (False: the
+        # eager loop on the card, the reference the card's checks hold the
+        # graphs to), all into one memory pool: they replay on one stream,
+        # never at once, and hand back only static buffers. The captured
+        # programs (``graphs.Program``) and each one's eager dispatches so
+        # far; the merge scratch of the segments' decode reads and of the
+        # verify steps' reads (apart: their sizes differ)
         self._capture = dev.type == "cuda"
+        self._mempool = (torch.cuda.graph_pool_handle() if self._capture
+                         else None)
         self._programs: dict = {}
-        self._eager_runs = {False: 0, True: 0}
+        self._eager_runs: dict = {}
         self._scratch: dict = {}
+        self._vscratch: dict = {}
         self._pool = BlockPool(pool_blocks)
         self._tables = np.full((slots, self.nb), BlockPool.TRASH, np.int32)
         self._radix = RadixCache(self._pool, self.bt) if prefix_cache else None
@@ -389,6 +488,18 @@ class ContinuousBatcher:
                       "cow_copies": 0, "block_pool_occupancy": 0.0}
         self.prefill = {"chunked_admissions": 0, "chunk_waves": 0,
                         "chunk_tokens": 0, "stall_ticks": 0}
+        self.spec = {"proposed": 0, "accepted": 0, "acceptance_rate": 0.0,
+                     "wasted_verify_tokens": 0, "verify_segments": 0,
+                     "emitted_tokens": 0, "autodisabled": 0}
+        self.width = {"bucket_blocks": 0, "bucket_occupancy": 0.0,
+                      "gathered_block_reads": 0, "full_width_block_reads": 0,
+                      "bytes_saved_vs_full": 0, "bucket_growths": 0,
+                      "prewarmed_programs": 0}
+        # the bytes one gathered table block stands for in a (row, layer):
+        # both planes of every pool leaf (the unit of bytes_saved_vs_full)
+        self._gather_block_bytes = sum(
+            leaf.element_size() * leaf.numel() // leaf.shape[1]
+            for leaf in self._caches[0].values())
         self.last_slot_leaks = 0   # rows still owned at serve() exit
         self.last_block_leaks = 0  # pool refs unaccounted at serve() exit
         self.last_ttft_s: list = []  # per request: serve start -> 1st token
@@ -397,14 +508,44 @@ class ContinuousBatcher:
 
     @property
     def _graph(self):
-        """The captured greedy segment (``None`` until it is captured)."""
-        return self._programs.get(False)
+        """The captured full-width greedy segment (``None`` until it is
+        captured)."""
+        return self._programs.get(("segment", False, self.nb))
 
     def clear_prefix_cache(self) -> None:
         """Drop every radix entry and the pool references it holds (between
         ``serve`` calls), so the next call starts from a cold cache."""
         if self._radix is not None:
             self._radix.clear()
+
+    def reset(self) -> None:
+        """A fresh session on the same programs (reference ``:1275-1300``):
+        the pool zeroed in place, every block freed, the radix cache
+        dropped, every row rewound, and speculation's auto-disable
+        un-stuck. The static buffers keep their addresses, so captured
+        programs stay valid."""
+        if self._radix is not None:
+            self._radix.clear()
+        self._pool.reset()
+        self._tables[:] = BlockPool.TRASH
+        for cache in self._caches:
+            for leaf in cache.values():
+                leaf.zero_()
+        for buf in (self._cur_tok, self._n_logical, self._temp, self._topk,
+                    self._seed):
+            buf.zero_()
+        self._topp.fill_(2.0)
+        self._row_pos = [0] * self.B
+        self._temp_h[:] = 0.0
+        self._topk_h[:] = 0
+        self._topp_h[:] = 2.0
+        self._seed_h[:] = 0
+        self._cur_h[:] = 0
+        self._nlog_h[:] = 0
+        self._spec_win = [0, 0]
+        self._spec_on = self._spec is not None
+        self._cur_width = self._width_ladder[0]
+        self.ticks = 0
 
     # ---- device work -----------------------------------------------------
 
@@ -501,6 +642,8 @@ class ContinuousBatcher:
                 np.array([len(known) - 1 for _, known in final], np.int64))
             for b, known in final:
                 self._row_pos[b] = len(known) - 2    # head_len - 1
+                self._cur_h[b] = known[-1]           # the host mirrors
+                self._nlog_h[b] = len(known) - 1
 
     def _admit(self, prompt, pmask, positions, blk, off, prefix=None):
         """The admission forward (reference ``_admit_impl``,
@@ -534,40 +677,52 @@ class ContinuousBatcher:
                            v.transpose(1, 2).reshape(K * W, hk, hd),
                            blk, off, scale=cache.get("scale"))
 
-    def _segment(self, tables, positions0, sampling: bool) -> torch.Tensor:
-        """Dispatch ``S`` decode ticks for every row at its OWN position
-        (``positions0 [B]`` = each row's last written slot; tick ``i``
-        writes slot ``positions0 + 1 + i``), drawing with
-        ``infer.sample_rows`` when ``sampling``. Returns the static ``[B,
-        S]`` token buffer, which the next dispatch overwrites (reference
-        ``_segment_impl``). On CUDA each program's first dispatch runs
-        eagerly, its second is captured as a CUDA graph, and it and every
-        later one replay it; a failed capture or replay raises."""
-        self._fill(self._tables_dev, tables)
-        self._fill(self._pos0, np.asarray(positions0, np.int32))
-        self.stats["sampled_segments"] += sampling
-        program = self._programs.get(sampling)
+    def _dispatch(self, key, fn):
+        """Run program ``key`` (kind, sampling, rung) whose work is ``fn``:
+        on CUDA its first dispatch eagerly, its second captured as a CUDA
+        graph (into the batcher's memory pool) and replayed, every later
+        one replayed; on the CPU every dispatch eagerly. A failed capture
+        or replay raises."""
+        program = self._programs.get(key)
         if program is None:
-            if not (self._capture and self._eager_runs[sampling]):
-                self._decode_segment(sampling)
-                self._eager_runs[sampling] += 1
+            if not (self._capture and self._eager_runs.get(key)):
+                fn()
+                self._eager_runs[key] = self._eager_runs.get(key, 0) + 1
                 self.stats["eager_segments"] += 1
-                return self._toks
-            program = self._programs[sampling] = capture(
-                functools.partial(self._decode_segment, sampling))
+                return
+            kw = {} if self._mempool is None else {"pool": self._mempool}
+            program = self._programs[key] = capture(fn, **kw)
             self.stats["graph_captures"] += 1
         program.replay()
         self.stats["graph_replays"] += 1
+
+    def _segment(self, tables, positions0, sampling: bool,
+                 width: int) -> torch.Tensor:
+        """Dispatch ``S`` decode ticks for every row at its OWN position
+        (``positions0 [B]`` = each row's last written slot; tick ``i``
+        writes slot ``positions0 + 1 + i``), drawing with
+        ``infer.sample_rows`` when ``sampling``, over the first ``width``
+        (a rung) table entries of ``tables``.
+        Returns the static ``[B, S]`` token buffer, which the next dispatch
+        overwrites (reference ``_segment_impl``)."""
+        self._fill(self._tables_w[width],
+                   np.ascontiguousarray(tables[:, :width]))
+        self._fill(self._pos0, np.asarray(positions0, np.int32))
+        self.stats["sampled_segments"] += sampling
+        self._dispatch(("segment", sampling, width), functools.partial(
+            self._decode_segment, sampling, width))
         return self._toks
 
-    def _decode_segment(self, sampling: bool = False) -> None:
+    def _decode_segment(self, sampling: bool, width: int) -> None:
         """The segment's work over the static buffers (a captured
-        program): ``S`` ticks, then the carried token and logical position
-        and the ``[B, S]`` tokens written in place. ``sampling`` draws
-        each row's token with its own settings, keyed on (its seed, the
-        logical position of the token it consumes), as the reference
-        folds ``n_logical + i`` into the row's key (``:1494-1500``)."""
+        program): ``S`` ticks through rung ``width``'s table buffer, then
+        the carried token and logical position and the ``[B, S]`` tokens
+        written in place. ``sampling`` draws each row's token with its own
+        settings, keyed on (its seed, the logical position of the token it
+        consumes), as the reference folds ``n_logical + i`` into the row's
+        key (``:1494-1500``)."""
         model = self.model
+        table = self._tables_w[width]
         tok, n_log = self._cur_tok, self._n_logical
         out = []
         with merge_scratch(self._scratch):
@@ -575,8 +730,8 @@ class ContinuousBatcher:
                 pos = self._pos0 + (1 + i)
                 x = model.embed(tok[:, None], n_log[:, None])
                 for block, cache in zip(model.blocks, self._caches):
-                    x, _ = block.decode_step(
-                        x, {**cache, "table": self._tables_dev}, pos)
+                    x, _ = block.decode_step(x, {**cache, "table": table},
+                                             pos)
                 logits = model.readout(x)[:, -1]
                 if sampling:
                     tok = sample_rows(logits, self._temp, self._topk,
@@ -589,11 +744,121 @@ class ContinuousBatcher:
         self._n_logical.copy_(n_log)
         torch.stack(out, dim=1, out=self._toks)
 
+    def _verify(self, tables, toks, positions0, n_logical, sampling: bool,
+                width: int) -> torch.Tensor:
+        """Dispatch ONE verify step (reference ``_verify_impl``,
+        ``:1530-1578``): ``toks [B, W]`` (column 0 each row's current
+        token, then its drafts) at slots ``positions0 + 1 + i`` and logical
+        counts ``n_logical + i``, over rung ``width``'s table. Returns the
+        static ``[B, W]`` buffer of the model's own token after each column
+        (argmax, or ``infer.verify_sample_rows``), which the next dispatch
+        overwrites. Captured as :meth:`_segment` is."""
+        self._fill(self._tables_w[width],
+                   np.ascontiguousarray(tables[:, :width]))
+        self._fill(self._pos0, np.asarray(positions0, np.int32))
+        self._fill(self._vtok, np.asarray(toks, np.int64))
+        self._fill(self._vnlog, np.asarray(n_logical, np.int64))
+        self._dispatch(("verify", sampling, width), functools.partial(
+            self._verify_step, sampling, width))
+        return self._vtrue
+
+    def _verify_step(self, sampling: bool, width: int) -> None:
+        """The verify step's work over the static buffers (a captured
+        program): the window embedded at its logical counts, every block's
+        ``verify_step`` at its slots (one ``paged_verify_write`` launch a
+        layer on the card), the readout, and the ``[B, W]`` ``true`` tokens
+        written in place."""
+        model = self.model
+        table = self._tables_w[width]
+        pos = self._pos0[:, None] + 1 + self._wrange[None, :]
+        x = model.embed(self._vtok, self._vnlog[:, None] + self._wrange)
+        with merge_scratch(self._vscratch):
+            for block, cache in zip(model.blocks, self._caches):
+                x, _ = block.verify_step(x, {**cache, "table": table}, pos)
+        logits = model.readout(x)                       # [B, W, V]
+        if sampling:
+            true = verify_sample_rows(logits, self._temp, self._topk,
+                                      self._topp, self._seed, self._vnlog)
+        else:
+            true = torch.argmax(logits, dim=-1)
+        self._vtrue.copy_(true)
+
+    # ---- width buckets ---------------------------------------------------
+
+    def _bucket_width(self, need_slots: int) -> int:
+        """The narrowest ladder rung (a table width, in blocks) covering
+        ``need_slots`` logical slots, capped at the full table (reference
+        ``:1726-1739``)."""
+        need = min(self.nb, -(-max(1, need_slots) // self.bt))
+        for w in self._width_ladder:
+            if w >= need:
+                return w
+        return self._width_ladder[-1]
+
+    def _note_width(self, nb_w: int, ticks: int, need_blocks: int) -> None:
+        """A dispatch's width accounting (reference ``:1741-1765``): the
+        rung chosen, how full it runs, a growth past the last rung, and the
+        table blocks its programs see against the full width's (a row, a
+        layer, a tick)."""
+        if nb_w > self._cur_width:
+            self.width["bucket_growths"] += 1
+        self._cur_width = nb_w
+        self.width["bucket_blocks"] = nb_w
+        self.width["bucket_occupancy"] = need_blocks / nb_w
+        layers = len(self._caches)
+        reads = self.B * nb_w * layers * ticks
+        full = self.B * self.nb * layers * ticks
+        self.width["gathered_block_reads"] += reads
+        self.width["full_width_block_reads"] += full
+        self.width["bytes_saved_vs_full"] += (
+            (full - reads) * self._gather_block_bytes)
+
+    def prewarm_widths(self, *, sampling: bool = False) -> int:
+        """Build every rung's programs NOW (reference ``:1767-1797``): the
+        decode segment's (and, with speculation, the verify step's) for
+        each ladder rung, over all-trash tables with every row parked at
+        slot 0, so traffic never pays a rung's first eager run and capture
+        mid-stream. On CUDA each program runs once eagerly and is captured
+        (a program already captured is skipped); on the CPU each runs once.
+        The throwaway ticks write only into the trash block; the carried
+        tokens, logical counts and the trash block are rewound after, so
+        the batcher serves as a fresh one does. Returns the number of
+        rungs; ``width["prewarmed_programs"]`` counts the programs built."""
+        kinds = ["segment"] + (["verify"] if self._spec is not None else [])
+        with torch.no_grad():
+            for w in self._width_ladder:
+                tables = np.full((self.B, w), BlockPool.TRASH, np.int32)
+                zeros = [0] * self.B
+                for kind in kinds:
+                    if (kind, sampling, w) in self._programs:
+                        continue
+                    for _ in range(2 if self._capture else 1):
+                        if kind == "segment":
+                            self._segment(tables, zeros, sampling, w)
+                        else:
+                            self._verify(tables, np.zeros(
+                                (self.B, self._spec_w), np.int64), zeros,
+                                zeros, sampling, w)
+                    self.width["prewarmed_programs"] += 1
+            for buf in (self._cur_tok, self._n_logical):
+                buf.zero_()
+            for cache in self._caches:
+                for leaf in cache.values():
+                    leaf[:, BlockPool.TRASH].zero_()
+        return len(self._width_ladder)
+
     # ---- host scheduler --------------------------------------------------
 
     def _rounded_need(self, max_new: int) -> int:
         """Decode slots a request consumes past its head: the
-        segment-rounded budget (a row runs whole segments)."""
+        segment-rounded budget (a row runs whole segments). Under
+        speculation exactly ``max_new`` (reference ``:1712-1722``): a verify
+        step's emission is clamped to the budget, its drafted writes past
+        the row's extent land in trash table entries or drop at the
+        horizon, and a plain tail after auto-disable overshoots only into
+        the row's own tail block or trash."""
+        if self._spec is not None:
+            return max_new
         return -(-max_new // self.S) * self.S
 
     def _fits(self, req: Request) -> bool:
@@ -830,13 +1095,33 @@ class ContinuousBatcher:
                 table[b].pf_known, table[b].pf_done = None, 0
                 self._insert_head(b, known)
 
+        def park_others(active, ticks: int):
+            """The tables a dispatch ships: rows outside ``active`` (free,
+            done, or mid-chunk, whose head is not all written) park at
+            position 0 behind an all-trash table."""
+            tables_now = self._tables.copy()
+            for b in range(self.B):
+                if b not in active:
+                    tables_now[b, :] = BlockPool.TRASH
+                    self._row_pos[b] = 0
+                    if table[b].pf_known is not None:
+                        self.prefill["stall_ticks"] += ticks
+            return tables_now
+
+        def rung(active, ticks: int) -> int:
+            """The narrowest rung covering the live rows' reach: ``ticks``
+            writes past each row's last written slot (reference
+            ``:2480-2491``)."""
+            need = max(self._row_pos[b] for b in active) + ticks + 1
+            nb_w = self._bucket_width(need)
+            self._note_width(nb_w, ticks, min(self.nb, -(-need // self.bt)))
+            return nb_w
+
         def dispatch_segment():
             """Dispatch ONE segment (no fetch), or None when no row has
             budget left. Budget depletion is applied here, at dispatch,
             so the next segment can be decided before this one's tokens
-            arrive. Rows outside the plan (free, done, or mid-chunk, whose
-            head is not all written) park at position 0 behind an
-            all-trash table."""
+            arrive."""
             plan = []
             for b, slot in enumerate(table):
                 if (slot.req_index >= 0 and slot.remaining > 0
@@ -847,33 +1132,171 @@ class ContinuousBatcher:
             if not plan:
                 return None
             active = {b for b, _, _, _ in plan}
-            tables_now = self._tables.copy()
-            for b in range(self.B):
-                if b not in active:
-                    tables_now[b, :] = BlockPool.TRASH
-                    self._row_pos[b] = 0
-                    if table[b].pf_known is not None:
-                        self.prefill["stall_ticks"] += self.S
+            tables_now = park_others(active, self.S)
+            nb_w = rung(active, self.S)
             sampling = bool((self._temp_h[sorted(active)] > 0).any())
             # the fetch's copy of the static token buffer is queued on the
             # stream right after this segment and before the next
             # dispatch's fills and replay, which overwrite the buffer: the
             # stream's order keeps segment N's tokens until they are copied
             fetch = _Fetch(self._segment(tables_now, self._row_pos,
-                                         sampling))
+                                         sampling, nb_w))
             for b in range(self.B):
                 self._row_pos[b] += self.S
             self.ticks += self.S
             for b, _, take, _ in plan:
                 table[b].remaining -= take
-            return fetch, plan
+            return "plain", fetch, plan
+
+        def cow_for_write(plan):
+            """Every block under a verify window's writes (slots ``row_pos +
+            1 .. row_pos + W``) made exclusively the row's before the
+            dispatch (reference ``:2535-2569``): a shared one (a radix
+            entry's tail block past its valid tokens) is copied, the row
+            re-pointed at the copy and its reference to the original
+            dropped, so a rejected draft never touches a block another
+            owner reads."""
+            pairs = []
+            for b, _ri, _d in plan:
+                slot = table[b]
+                lo = (self._row_pos[b] + 1) // self.bt
+                hi = min((self._row_pos[b] + self._spec_w) // self.bt,
+                         self.nb - 1)
+                for idx in range(lo, hi + 1):
+                    blk = int(self._tables[b, idx])
+                    if blk == BlockPool.TRASH or not self._pool.shared(blk):
+                        continue
+                    dst = self._alloc(1)[0]
+                    pairs.append((blk, dst))
+                    self._tables[b, idx] = dst
+                    slot.blocks[slot.blocks.index(blk)] = dst
+                    self._pool.release([blk])
+            if pairs:
+                self.stats["cow_copies"] += len(pairs)
+                self._copy_blocks(pairs)
+
+        def dispatch_verify():
+            """Dispatch ONE verify step (no fetch; reference
+            ``:2571-2660``): ``k`` drafts a live row from its host history
+            (prompt + emitted) behind its current token, scored in one
+            program. The budget moves at harvest, by what the row emits:
+            the next drafts depend on this step's outcome, so verify steps
+            never overlap."""
+            W = self._spec_w
+            toks = np.zeros((self.B, W), np.int64)
+            plan = []
+            for b, slot in enumerate(table):
+                if (slot.req_index >= 0 and slot.remaining > 0
+                        and slot.pf_known is None):
+                    ri = slot.req_index
+                    ctx = list(requests[ri].tokens) + slot.out
+                    drafts = [int(t) for t in
+                              self._proposer.propose(ctx, W - 1)][:W - 1]
+                    if len(drafts) < W - 1:
+                        tail = drafts[-1] if drafts else 0
+                        drafts += [tail] * (W - 1 - len(drafts))
+                    toks[b, 0] = self._cur_h[b]
+                    toks[b, 1:] = drafts
+                    plan.append((b, ri, drafts))
+            if not plan:
+                return None
+            # copy-on-write BEFORE the tables are snapshotted: the window's
+            # first write must land in the copy the row now points at
+            cow_for_write(plan)
+            active = {b for b, _, _ in plan}
+            tables_now = park_others(active, W)
+            # the rung must cover max(row_pos) + W + 1 slots: the program
+            # drops writes at or past its horizon
+            nb_w = rung(active, W)
+            sampling = bool((self._temp_h[sorted(active)] > 0).any())
+            fetch = _Fetch(self._verify(tables_now, toks, self._row_pos,
+                                        self._nlog_h, sampling, nb_w))
+            # no row advances here: harvest_verify moves each by what it
+            # emits (the rollback: K/V past a row's position is never read)
+            self.ticks += W
+            self.spec["verify_segments"] += 1
+            return "spec", fetch, plan
+
+        def maybe_autodisable():
+            """Over each window of ``autodisable_window`` proposed drafts,
+            an acceptance rate under ``autodisable_below`` switches to
+            plain segments for good (reference ``:2662-2690``; sticky until
+            :meth:`reset`). The verify path ran off the host mirrors, so
+            they are pushed into the device's carried token and logical
+            count before the next plain segment."""
+            prop, acc = self._spec_win
+            if prop < self._spec.autodisable_window:
+                return
+            self._spec_win = [0, 0]
+            if acc / prop >= self._spec.autodisable_below:
+                return
+            self._spec_on = False
+            self.spec["autodisabled"] += 1
+            self._fill(self._cur_tok, self._cur_h)
+            self._fill(self._n_logical, self._nlog_h)
+
+        def finish(b, ri, done, now):
+            """A harvested row's tail: its time to first token, the trim at
+            eos, and its row freed when done."""
+            slot = table[b]
+            if ttft[ri] is None and slot.out:
+                ttft[ri] = now - t0
+            if self.eos_id is not None and self.eos_id in slot.out:
+                slot.out = slot.out[:slot.out.index(self.eos_id) + 1]
+                done = True
+            if done:
+                results[ri] = slot.out
+                free_row(b)
+
+        def harvest_verify(fetch, plan):
+            """THE fetch of a verify step (reference ``:2692-2770``): each
+            row emits its longest accepted draft prefix plus the model's
+            token at the first mismatch (the deterministic rejection
+            resample), clamped to its budget, and advances by what it
+            emitted."""
+            true_h = fetch.result()
+            now = time.monotonic()
+            W = self._spec_w
+            for b, ri, drafts in plan:
+                slot = table[b]
+                if results[ri] is not None or slot.req_index != ri:
+                    continue
+                row = true_h[b]
+                j = 0
+                while j < W - 1 and drafts[j] == int(row[j]):
+                    j += 1
+                emit = [int(t) for t in row[:j + 1]][:slot.remaining]
+                self.spec["proposed"] += W - 1
+                self.spec["accepted"] += j
+                self.spec["emitted_tokens"] += len(emit)
+                self.spec["wasted_verify_tokens"] += W - len(emit)
+                self._spec_win[0] += W - 1
+                self._spec_win[1] += j
+                slot.remaining -= len(emit)
+                slot.out.extend(emit)
+                self._row_pos[b] += len(emit)
+                self._nlog_h[b] += len(emit)
+                if emit:
+                    self._cur_h[b] = emit[-1]
+                finish(b, ri, slot.remaining <= 0, now)
+            if self.spec["proposed"]:
+                self.spec["acceptance_rate"] = (self.spec["accepted"]
+                                                / self.spec["proposed"])
+            maybe_autodisable()
+
+        def dispatch_next():
+            """Speculative verify while speculation is configured and not
+            auto-disabled, plain segments otherwise."""
+            if self._spec is not None and self._spec_on:
+                return dispatch_verify()
+            return dispatch_segment()
 
         def dispatch_or_chunk():
-            """:func:`dispatch_segment`, extending mid-chunk rows while no
+            """:func:`dispatch_next`, extending mid-chunk rows while no
             row can decode (each chunk wave advances them by a block at
             least, so this ends)."""
             while True:
-                seg = dispatch_segment()
+                seg = dispatch_next()
                 if seg is not None or not any(
                         s.req_index >= 0 and s.pf_known is not None
                         for s in table):
@@ -881,8 +1304,11 @@ class ContinuousBatcher:
                 chunk_wave()
 
         def harvest(seg, overlapped: bool):
-            """THE one device->host fetch per segment."""
-            fetch, plan = seg
+            """THE one device->host fetch per dispatch."""
+            kind, fetch, plan = seg
+            if kind == "spec":
+                harvest_verify(fetch, plan)
+                return
             if overlapped:
                 self.stats["fetches_overlapped"] += 1
             toks = fetch.result()
@@ -892,20 +1318,15 @@ class ContinuousBatcher:
                 if results[ri] is not None or slot.req_index != ri:
                     continue   # finished (eos) while this was in flight
                 slot.out.extend(int(t) for t in toks[b, :take])
-                if ttft[ri] is None and slot.out:
-                    ttft[ri] = now - t0
-                if self.eos_id is not None and self.eos_id in slot.out:
-                    slot.out = slot.out[:slot.out.index(self.eos_id) + 1]
-                    done = True
-                if done:
-                    results[ri] = slot.out
-                    free_row(b)
+                finish(b, ri, done, now)
 
         admit_wave()
         chunk_wave()
         seg = dispatch_or_chunk()
         while seg is not None:
-            nxt = dispatch_segment()      # overlap: N+1 before fetching N
+            # overlap: plain segment N+1 before fetching N; a verify step
+            # waits (its drafts need this harvest's tokens)
+            nxt = dispatch_segment() if seg[0] == "plain" else None
             harvest(seg, overlapped=nxt is not None)
             admit_wave()                  # freed rows -> next wave
             chunk_wave()                  # mid-chunk rows -> next chunk

@@ -30,6 +30,13 @@ Three more things a capture does not carry over on its own:
   records on a side stream with ``capture_begin`` / ``capture_end`` alone:
   no sync (a capture and a replay pass
   ``torch.cuda.set_sync_debug_mode("error")``), no emptied cache.
+- **Python's garbage collector.** A collection that runs inside a capture
+  may free what a dead object held (another batcher's graphs, its pinned
+  fetch buffers), and those frees call the runtime in ways a capture in
+  progress does not allow: the capture is invalidated and
+  ``capture_end`` raises. :func:`capture` holds the collector off for the
+  capture's length; what it would have collected waits for the next
+  collection.
 - **Random numbers.** A capture records a generator's draws at offsets
   from a seed and offset that the graph reads from device memory. The
   generators a program draws from are registered with the graph
@@ -44,6 +51,7 @@ Nothing falls back: a capture or a replay that fails raises.
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 
 import torch
@@ -107,27 +115,37 @@ def record(graph, recording, fn) -> Program:
 
 
 @contextlib.contextmanager
-def _recording(graph, generators=()):
+def _recording(graph, generators=(), pool=None):
     """Capture the block's CUDA work into ``graph`` on a side stream (a
-    capture may not run on the default stream) and into the graph's
-    private memory pool, with ``generators`` registered with the graph."""
+    capture may not run on the default stream) and into the memory pool
+    ``pool`` (``torch.cuda.graph_pool_handle()``, which graphs that never
+    replay at once and hand back only buffers allocated outside them may
+    share), by default a private one, with ``generators`` registered with
+    the graph, and Python's garbage collector off."""
     for gen in generators:
         graph.register_generator_state(gen)
-    with torch.cuda.stream(torch.cuda.Stream()):
-        graph.capture_begin()
-        try:
-            yield
-        finally:
-            graph.capture_end()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.stream(torch.cuda.Stream()):
+            graph.capture_begin(pool=pool)
+            try:
+                yield
+            finally:
+                graph.capture_end()
+    finally:
+        if collecting:
+            gc.enable()
 
 
-def capture(fn, generators=()) -> Program:
+def capture(fn, generators=(), pool=None) -> Program:
     """``fn``'s CUDA work captured into a new ``torch.cuda.CUDAGraph``
     (:func:`_recording`; ``generators``: the CUDA generators it draws
-    from), with :func:`record`'s launch counts and the capture's
-    host time in ``capture_ms``."""
+    from; ``pool``: a shared memory pool, default the graph's own), with
+    :func:`record`'s launch counts and the capture's host time in
+    ``capture_ms``."""
     graph = torch.cuda.CUDAGraph()
     t0 = time.perf_counter()
-    program = record(graph, _recording(graph, generators), fn)
+    program = record(graph, _recording(graph, generators, pool), fn)
     program.capture_ms = 1e3 * (time.perf_counter() - t0)
     return program

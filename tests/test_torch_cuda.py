@@ -1771,7 +1771,8 @@ def test_captured_ladder_step_matches_eager(dev, name):
         torch.cuda.synchronize()
         runs[eager] = ([v.item() for v in losses], _convnet_bits(state))
         if not eager:
-            assert train_step.stats["graph_replays"] == 4
+            # the second update is captured and replayed, the rest replay
+            assert train_step.stats["graph_replays"] == 5
     assert runs[True][0] == runs[False][0]
     assert all(math.isfinite(v) for v in runs[True][0])
     assert all(torch.equal(a, b) for a, b in zip(runs[True][1],
@@ -1954,10 +1955,167 @@ def test_tiny_serve_sampling_prefix_chunked_on_card(dev):
         assert cb.prefill["chunk_waves"] > 0
         if capture:
             assert cb.stats["graph_captures"] == 2
-            assert set(cb._programs) == {False, True}
+            assert set(cb._programs) == {("segment", False, cb.nb),
+                                         ("segment", True, cb.nb)}
     assert runs[True] == runs[False]
     assert runs[True][0] == runs[True][1]
     want = ContinuousBatcher(cpu, device="cpu", **kw).serve(reqs)
     for i, (got, ref) in enumerate(zip(runs[True][0], want)):
         if i % 3 != 2:
             assert got == ref, i
+
+
+# ---- slice 17: speculative verify and the width ladder ------------------
+
+
+def _window_rows(gen, B, H, hk, W, hd, dtype, dev):
+    """q, k, v ``[B, H(k), W, hd]`` as a block hands them over: split-head
+    views of one fused QKV projection of a W-token window (strided)."""
+    from distributed_compute_pytorch_tpu_torch.ops import attention as A
+    qkv = _randn(gen, B, W, (H + 2 * hk) * hd, dtype=dtype, dev=dev)
+    q, k, v = qkv.split([H * hd, hk * hd, hk * hd], dim=-1)
+    return A.split_heads(q, H), A.split_heads(k, hk), A.split_heads(v, hk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("H,hk,hd,W", [(4, 4, 64, 5), (6, 2, 64, 5),
+                                       (8, 2, 40, 5), (2, 2, 128, 17)])
+def test_paged_verify_matches_plain(dev, dtype, q8, H, hk, hd, W):
+    """``paged_verify_write`` against its plain version at a capacity of 4
+    splits, G x W = 5, 15, 20 (two query groups) and 17 (a window longer
+    than a block of 16 slots): rows whose windows start at slot 0, cross
+    a split's first key and a block edge, end just under the horizon and
+    cross it (writes dropped); a parked all-trash row (its output left
+    out). The pool and scales outside the trash block exact, two launches
+    the same bits, live rows within TOL (bf16: ROW_TOL), the counter moved
+    by 2."""
+    from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
+    gen = torch.Generator().manual_seed(70)
+    B, bt, nb = 6, 16, 64
+    cap, P = nb * bt, B * nb + 1
+    q, k, v = _window_rows(gen, B, H, hk, W, hd, dtype, dev)
+    pool, scale = _decode_cache(gen, q8, dtype, dev, 2, P, hk, bt, hd)
+    table = (torch.randperm(P - 1, generator=gen)[:B * nb] + 1).reshape(
+        B, nb).to(torch.int32)
+    table[4] = 0                                   # parked: all trash
+    pos0 = torch.tensor([-1, 255, cap - 1 - W, 17 * bt - 3, 0, cap - 3])
+    positions = (pos0[:, None] + 1 + torch.arange(W)).to(torch.int32)
+    table, positions = table.to(dev), positions.to(dev)
+    plan = D.verify_plan(q, pool, table, kv_scale=scale)
+    assert plan["S"] == 4 and plan["groups"] == -(-(H // hk) * W // 16)
+    live = [0, 1, 2, 3, 5]
+    copies = [(pool.clone(), None if scale is None else scale.clone())
+              for _ in range(3)]
+    counter = (lambda: D.verify_q8_launches) if q8 else (
+        lambda: D.verify_launches)
+    before = counter()
+    got = D.paged_verify_write_cuda(q, k, v, copies[0][0], table, positions,
+                                    kv_scale=copies[0][1])
+    again = D.paged_verify_write_cuda(q, k, v, copies[1][0], table,
+                                      positions, kv_scale=copies[1][1])
+    torch.cuda.synchronize()
+    assert counter() == before + 2
+    want = D.paged_verify_write_plain(q, k, v, copies[2][0], table,
+                                      positions, kv_scale=copies[2][1])
+    for c, s in copies[1:]:
+        assert torch.equal(c[:, 1:], copies[0][0][:, 1:])
+        assert s is None or torch.equal(s[:, 1:], copies[0][1][:, 1:])
+    assert not torch.equal(copies[0][0][:, 1:], pool[:, 1:])   # it wrote
+    assert torch.equal(got[live], again[live])
+    g, w = got[live].float(), want[live].float()
+    assert torch.isfinite(g).all()
+    torch.testing.assert_close(g, w, atol=TOL[dtype], rtol=TOL[dtype])
+    if dtype == torch.bfloat16:
+        assert _row_err(g, w) <= ROW_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_captured_spec_and_buckets_match_eager(dev, dtype, kv_dtype):
+    """GPT-2-tiny with ``speculate=3`` and the full width ladder, a
+    batcher captured (every rung prewarmed) and one kept eager: the same
+    tokens in two serve calls, under ``set_sync_debug_mode("error")``; the
+    verify kernel launched 2 layers x verify steps. In f32 the tokens also
+    equal spec-off, full-width serving on the card and on the CPU."""
+    from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
+    from distributed_compute_pytorch_tpu_torch.serve import (
+        ContinuousBatcher, Request)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = _tiny_on_card(dev, dtype)
+    rng = np.random.default_rng(8)
+    reqs = [([int(x) for x in rng.integers(0, 256, 3)] * 3, 12)
+            for _ in range(3)]
+    reqs += [([int(x) for x in rng.integers(0, 256, rng.integers(1, 11))],
+              int(rng.integers(3, 40))) for _ in range(4)]
+    kw = dict(slots=2, t_max=64, prompt_buf=10, segment=3,
+              kv_block_tokens=8, kv_dtype=kv_dtype)
+    counter = "verify_q8_launches" if kv_dtype == "int8" else \
+        "verify_launches"
+    runs = {}
+    for capture in (True, False):
+        cb = ContinuousBatcher(gpu, device=dev, speculate=3,
+                               decode_width_buckets=None, **kw)
+        cb._capture = capture
+        if capture:
+            assert cb.prewarm_widths() == len(cb._width_ladder) == 4
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            runs[capture] = []
+            for _ in range(2):
+                n0, v0 = getattr(D, counter), cb.spec["verify_segments"]
+                runs[capture].append(cb.serve([Request(list(t), n)
+                                               for t, n in reqs]))
+                torch.cuda.synchronize()
+                assert getattr(D, counter) - n0 == 2 * (
+                    cb.spec["verify_segments"] - v0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert cb.last_block_leaks == 0 and cb.spec["accepted"] > 0
+        assert cb.width["bucket_growths"] >= 1
+        if capture:
+            assert ("verify", False, cb.nb) in cb._programs
+    assert runs[True] == runs[False]
+    assert runs[True][0] == runs[True][1]
+    if dtype == torch.float32:
+        plain = ContinuousBatcher(gpu, device=dev, **kw).serve(
+            [Request(list(t), n) for t, n in reqs])
+        assert runs[True][0] == plain
+        cpu = _tiny_on_card("cpu", torch.float32)
+        assert ContinuousBatcher(cpu, device="cpu", speculate=3,
+                                 decode_width_buckets=None, **kw).serve(
+            [Request(list(t), n) for t, n in reqs]) == plain
+
+
+
+def test_capture_holds_the_collector_off(dev):
+    """A collection inside a capture that frees a dead batcher destroys its
+    CUDA graphs, and destroying a graph invalidates the capture in
+    progress. So ``graphs.capture`` keeps Python's automatic collector off
+    for the capture's length, and on again after it, also after a capture
+    that raises; the captured work replays."""
+    import gc
+
+    from distributed_compute_pytorch_tpu_torch.utils.graphs import capture
+    x = torch.ones(8, device=dev)
+    seen = []
+
+    def work():
+        seen.append(gc.isenabled())
+        x.mul_(2)
+
+    assert gc.isenabled()
+    work()
+    program = capture(work)
+    assert seen == [True, False] and gc.isenabled()
+
+    def fails():
+        raise RuntimeError("inside the capture")
+
+    with pytest.raises(RuntimeError, match="inside the capture"):
+        capture(fails)
+    assert gc.isenabled()
+    program.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.full_like(x, 4.0))

@@ -303,9 +303,10 @@ def test_two_programs_capture_schedule_on_a_stand_in_graph(models,
     assert cb.serve(_clone(reqs)) == want
     assert cb.serve(_clone(reqs)) == want
     assert cb.stats["eager_segments"] == cb.stats["graph_captures"] == 2
-    assert set(cb._programs) == {False, True}
+    assert set(cb._programs) == {("segment", False, cb.nb),
+                                 ("segment", True, cb.nb)}
     assert cb.stats["graph_replays"] == cb.ticks // cb.S - 2
-    assert cb._graph is cb._programs[False]
+    assert cb._graph is cb._programs[("segment", False, cb.nb)]
 
 
 # ------------------------------------------------------------------- CLI
@@ -372,13 +373,12 @@ def test_cli_serve_refuses_truncation_without_temperature(capsys):
               "-", "--device", "cpu", "--top_p", "0.9"])
 
 
-@pytest.mark.parametrize("flag,item", [("--speculate", "3.6"),
+@pytest.mark.parametrize("flag,item", [("--disk_cache_dir", "3.7"),
                                        ("--host_cache_mb", "3.7"),
                                        ("--journal_dir", "3.8"),
-                                       ("--prewarm_widths", "3.5")])
+                                       ("--mesh", "3.9")])
 def test_cli_serve_refuses_flags_of_later_items(flag, item):
     from distributed_compute_pytorch_tpu_torch.cli_serve import main
     with pytest.raises(SystemExit, match=rf"{flag}.*not ported.*{item}"):
         main(["--init_seed", "0", "--model_preset", "tiny", "--requests",
-              "-", "--device", "cpu", flag]
-             + ([] if flag == "--prewarm_widths" else ["2"]))
+              "-", "--device", "cpu", flag, "2"])
