@@ -315,8 +315,9 @@ imports nothing of JAX. Phases, one JSON line each:
    serve shape with a window of 5, one row across the horizon, a parked
    row; the pool exact and the live rows to TOL against the plain version,
    two launches the same bits; timed beside its bound, the plain version,
-   5 fused decode ticks back to back and SDPA over the gathered view; its
-   grid and its ``-Xptxas -v`` report).
+   5 fused decode ticks back to back and SDPA over the gathered view, and
+   its fixed cost ``one_key_ms``, every row's prefix at one key; its grid
+   and its ``-Xptxas -v`` report).
 
 When a profiled run's counters and the device's kernel events disagree
 (``counted_profile``), the profile's port kernel events (name, start,
@@ -2992,19 +2993,22 @@ def window_rows(torch, A, gen, B, H, hk, W, hd, dtype):
     return A.split_heads(q, H), A.split_heads(k, hk), A.split_heads(v, hk)
 
 
-def verify_resources(log: str, qpw: int, kl: int) -> dict:
+def verify_resources(log: str, dpt: int) -> dict:
     """``-Xptxas -v``'s registers and spills of every instantiation of the
-    verify kernel with ``qpw`` queries a warp and ``kl`` lanes a key, keyed
-    by its mangled template arguments (the four dtype forms)."""
+    verify kernel for head dims up to ``dpt`` (32, 64 or 128), keyed by
+    its mangled template arguments (the four dtype forms; the f32 forms'
+    8 or 16 query rows)."""
     out, fn = {}, None
-    tag = f"Li{qpw}ELi{kl}E"
+    tag = f"Li{dpt}E"
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             fn = m.group(1)
-        if fn is None or "verify_write_kernel" not in fn or tag not in fn:
+        if fn is None or "verify_write_kernelI" not in fn:
             continue
-        key = fn.split("verify_write_kernel", 1)[1].split(tag)[0]
+        key = fn.split("verify_write_kernelI", 1)[1].split("EEv", 1)[0]
+        if tag not in key:
+            continue
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             out.setdefault(key, {})["registers"] = int(m.group(1))
@@ -3031,8 +3035,9 @@ def check_verify(torch, np, A, DA, dtype, dt, q8, ptxas_log, hk=12):
     ticks back to back (``paged_decode_write`` at each window slot: what
     plain decode launches for the same tokens) and, in the float forms,
     SDPA with a bool staircase mask over the gathered view (the view built
-    outside the timing; GQA's K/V repeated to the query heads); its grid
-    and its ``-Xptxas -v`` report."""
+    outside the timing; GQA's K/V repeated to the query heads); its fixed
+    cost ``one_key_ms`` (the same launch with every row's prefix at one key,
+    its window at slots 1..W); its grid and its ``-Xptxas -v`` report."""
     gen = torch.Generator().manual_seed(80 + q8 + 2 * (hk != 12))
     B, H, hd, bt, nb, W = 16, 12, 64, 16, 64, VERIFY_W
     P, T = B * nb + 1, nb * bt
@@ -3116,9 +3121,14 @@ def check_verify(torch, np, A, DA, dtype, dt, q8, ptxas_log, hk=12):
                    "with a bool staircase mask (the view built outside the "
                    "timing; it computes the read, not the write)")
         del views
+    one_key = torch.from_numpy(
+        (1 + np.arange(W))[None].repeat(B, 0).astype(np.int32)).cuda()
+    one_key_ms = time_ms(torch, [
+        (lambda c=c, r=r: DA.paged_verify_write_cuda(
+            *r, c[0], table_t, one_key, kv_scale=c[1])) for c, r in cyc])
     grid = DA.verify_plan(rows[0][0], caches[0][0], table_t,
                           kv_scale=caches[0][1])
-    kl = 4 if hd <= 32 else 8 if hd <= 64 else 16
+    dpt = 32 if hd <= 32 else 64 if hd <= 64 else 128
     return {
         "max_abs_err": err, "row_err": r_err, "same_bits": True,
         "cache_exact": True, "bound_ms": b_ms, "bound_by": b_by, "ms": ms,
@@ -3127,8 +3137,8 @@ def check_verify(torch, np, A, DA, dtype, dt, q8, ptxas_log, hk=12):
                                     for c, r in cyc]),
         "ticks_ms": time_ms(torch, [(lambda c=c, r=r: ticks(c, r))
                                     for c, r in cyc]),
-        "library_ms": library_ms, "library": library, "grid": grid,
-        "ptxas": verify_resources(ptxas_log, grid["qpw"], kl),
+        "library_ms": library_ms, "library": library, "one_key_ms": one_key_ms,
+        "grid": grid, "ptxas": verify_resources(ptxas_log, dpt),
         "window": W,
         "shape": (f"q [{B}, {H}, {W}, {hd}], k, v [{B}, {hk}, {W}, {hd}] "
                   f"split-head views, {'int8 ' if q8 else ''}pool "

@@ -604,17 +604,19 @@ def verify_plan(q, pool, table, *, kv_scale=None) -> dict:
     through ``table`` takes: ``{"S": splits a (row, kv head, query group),
     "L": split length, "tile": prefix keys a tile, "stages": tiles in
     flight, "smem": shared bytes a block, "groups": query groups of up to
-    "qmax" queries, "qpw": queries a warp, "qmax", "blocks": the grid's}``.
-    A function of the shapes only (it builds the kernel if needed)."""
+    "qmax" queries, "qmax", "chunk": keys a warp takes at once, "tc": 1 for
+    the tensor-core form (bf16), 0 for the CUDA-core form (f32), "blocks":
+    the grid's}``. A function of the shapes only (it builds the kernel if
+    needed)."""
     import ctypes
     B, H, W, hd = q.shape
     hk = pool.shape[2]
-    _, fn = _build.bind(VERIFY_NAME, "iiiiiiip", "paged_verify_plan")
-    vals = (ctypes.c_int * 8)()
+    _, fn = _build.bind(VERIFY_NAME, "iiiiiiiiip", "paged_verify_plan")
+    vals = (ctypes.c_int * 9)()
     fn(table.shape[1], pool.shape[3], hd, _DTYPES[q.dtype],
-       int(kv_scale is not None), H // hk, W, vals)
-    plan = dict(zip(("S", "L", "tile", "stages", "smem", "groups", "qpw",
-                     "qmax"), vals))
+       int(kv_scale is not None), H // hk, W, B, hk, vals)
+    plan = dict(zip(("S", "L", "tile", "stages", "smem", "groups", "qmax",
+                     "chunk", "tc"), vals))
     return {**plan, "blocks": plan["S"] * plan["groups"] * hk * B}
 
 
@@ -686,7 +688,8 @@ def paged_verify_write_cuda(q, k, v, pool, table, positions, *,
                             kv_scale=None):
     """Launch the CUDA verify kernel (the int8 form with ``kv_scale``):
     ``S`` splits of the row's prefix for each (row, kv head, group of up to
-    16 queries), one launch. Any query group size: a group of heads by a
+    16 queries), one launch; a bf16 query takes the tensor-core form, an
+    f32 query the CUDA-core form. Any query group size: a group of heads by a
     window larger than 16 queries takes more groups, each reading the
     prefix again. Raises on non-CUDA or mixed devices, a query other than
     f32/bf16 of the pool's dtype (or over an int8 pool), ``k``/``v`` of

@@ -1980,31 +1980,38 @@ def _window_rows(gen, B, H, hk, W, hd, dtype, dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("q8", [False, True])
 @pytest.mark.parametrize("H,hk,hd,W", [(4, 4, 64, 5), (6, 2, 64, 5),
-                                       (8, 2, 40, 5), (2, 2, 128, 17)])
+                                       (8, 2, 40, 5), (2, 2, 128, 17),
+                                       (4, 4, 64, 1), (12, 4, 64, 9),
+                                       (4, 4, 32, 5), (4, 2, 128, 5)])
 def test_paged_verify_matches_plain(dev, dtype, q8, H, hk, hd, W):
     """``paged_verify_write`` against its plain version at a capacity of 4
-    splits, G x W = 5, 15, 20 (two query groups) and 17 (a window longer
-    than a block of 16 slots): rows whose windows start at slot 0, cross
-    a split's first key and a block edge, end just under the horizon and
-    cross it (writes dropped); a parked all-trash row (its output left
-    out). The pool and scales outside the trash block exact, two launches
-    the same bits, live rows within TOL (bf16: ROW_TOL), the counter moved
-    by 2."""
+    splits, G x W = 5, 15, 20 (two query groups), 17 (a window longer than
+    a block of 16 slots, and than the 16-row window chunk), 1 (W = 1) and
+    27 (Llama's 3 heads at k = 8, two query groups), hd 32, 40, 64 and
+    128: rows whose windows start at slot 0, cross a split's first key and
+    a block edge, end just under the horizon and cross it (writes
+    dropped), and follow a last split that ends in a partial key tile (206
+    keys: three 64-key tiles and 14) with the window across the next
+    tile's first slots and a block edge; a parked all-trash row (its
+    output left out). The pool and scales outside the trash block exact,
+    two launches the same bits, live rows within TOL (bf16: ROW_TOL), the
+    counter moved by 2."""
     from distributed_compute_pytorch_tpu_torch.ops import decode_attention as D
     gen = torch.Generator().manual_seed(70)
-    B, bt, nb = 6, 16, 64
+    B, bt, nb = 7, 16, 64
     cap, P = nb * bt, B * nb + 1
     q, k, v = _window_rows(gen, B, H, hk, W, hd, dtype, dev)
     pool, scale = _decode_cache(gen, q8, dtype, dev, 2, P, hk, bt, hd)
     table = (torch.randperm(P - 1, generator=gen)[:B * nb] + 1).reshape(
         B, nb).to(torch.int32)
     table[4] = 0                                   # parked: all trash
-    pos0 = torch.tensor([-1, 255, cap - 1 - W, 17 * bt - 3, 0, cap - 3])
+    pos0 = torch.tensor([-1, 255, cap - 1 - W, 17 * bt - 3, 0, cap - 3,
+                         52 * bt - 3])
     positions = (pos0[:, None] + 1 + torch.arange(W)).to(torch.int32)
     table, positions = table.to(dev), positions.to(dev)
     plan = D.verify_plan(q, pool, table, kv_scale=scale)
     assert plan["S"] == 4 and plan["groups"] == -(-(H // hk) * W // 16)
-    live = [0, 1, 2, 3, 5]
+    live = [0, 1, 2, 3, 5, 6]
     copies = [(pool.clone(), None if scale is None else scale.clone())
               for _ in range(3)]
     counter = (lambda: D.verify_q8_launches) if q8 else (

@@ -3,7 +3,8 @@
 eager run serves, run by run and step by step, on one CUDA card; and which
 frees inside a CUDA graph capture invalidate the capture.
 
-    python3 verify_probe.py [--part steps|capture|all] [--out FILE]
+    python3 verify_probe.py [--part steps|capture|kernel|all] [--root DIR]
+                            [--out FILE]
 
 ``steps``: GPT-2-small (random weights from seed 0), bf16 and f32, on the
 serve cell's 32 requests (``chip_smoke.serve_requests``) and on their
@@ -27,6 +28,17 @@ inside a fresh batcher's first capture; whether the capture survives.
 Also how many ``serve._Fetch`` objects a finished ``serve`` leaves as
 cyclic garbage, and how many unreachable objects a collection then finds.
 
+``kernel`` (not part of ``all``): the verify kernel's six entries of
+``chip_smoke.py`` (``check_verify``: ``paged_verify_write``, ``_q8`` and
+``_llama`` in bf16 and f32, each gated against its plain version and
+timed beside its bound, fixed cost, plain version, fused ticks and SDPA)
+for the port of the checkout ``--root`` names (default: this one), such
+as a parent commit unpacked with ``git archive`` into a directory that
+``.gitignore`` lists. One process a tree, so that one card call can time
+two trees in turns (parent, change, change, parent). That checkout builds
+its kernels into its own ``build/``; the checks and the timing are this
+file's ``chip_smoke.py``'s either way.
+
 Prints the card's name and power limit (``nvidia-smi``) on one line and
 the result as one JSON object on the last; ``--out`` writes it to a file
 too.
@@ -40,6 +52,8 @@ import json
 import subprocess
 import sys
 import time
+
+from pathlib import Path
 
 import numpy as np
 
@@ -351,10 +365,38 @@ def capture_part() -> list:
     return out
 
 
+def kernel_part(torch, root: Path) -> dict:
+    """``check_verify``'s six entries for the port under ``root``."""
+    sys.path.insert(0, str(root))
+    from distributed_compute_pytorch_tpu_torch.ops import _build
+    from distributed_compute_pytorch_tpu_torch.ops import attention as A
+    from distributed_compute_pytorch_tpu_torch.ops import (
+        decode_attention as DA)
+    if Path(DA.__file__).resolve().parents[2] != root:
+        raise RuntimeError(f"imported {DA.__file__}, not {root}'s port")
+    built = _build.build_all()
+    ptxas = built["ptxas"].get(DA.VERIFY_NAME, "")
+    kernels = {}
+    for dtype, dt in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        kernels[dt] = {
+            "paged_verify_write" + sfx: C.check_verify(
+                torch, np, A, DA, dtype, dt, q8, ptxas, hk=hk)
+            for q8, hk, sfx in ((False, 12, ""), (True, 12, "_q8"),
+                                (False, C.LLAMA_KV_HEADS, "_llama"))}
+        torch.cuda.empty_cache()
+    return {"root": str(root), "built": built["built"],
+            "build_seconds": built["seconds"],
+            "launch_floor_ms": C.time_ms(
+                torch, [lambda: torch.cuda._sleep(0)], iters=200),
+            "kernels": kernels}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--part", default="all",
-                    choices=("steps", "capture", "all"))
+                    choices=("steps", "capture", "kernel", "all"))
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parent),
+                    help="the checkout whose port the kernel part times")
     ap.add_argument("--case", choices=tuple(CASES), help=argparse.SUPPRESS)
     ap.add_argument("--out")
     args = ap.parse_args()
@@ -367,12 +409,15 @@ def main() -> int:
         torch.cuda.synchronize()
         print(json.dumps(res or {}))
         return 0
-    from distributed_compute_pytorch_tpu_torch.ops import _build
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.monotonic()
-    _build.build_all()
     smi = C.nvidia_smi()
-    result = {"card": smi}
+    result = {"card": smi, "device": torch.cuda.get_device_name(0)}
+    if args.part == "kernel":
+        result.update(kernel_part(torch, Path(args.root).resolve()))
+    else:
+        from distributed_compute_pytorch_tpu_torch.ops import _build
+        _build.build_all()
     if args.part in ("steps", "all"):
         result["steps"] = steps_part(torch)
     if args.part in ("capture", "all"):
