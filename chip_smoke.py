@@ -176,6 +176,31 @@ imports nothing of JAX. Phases, one JSON line each:
    count, programs captured and capture ms, reserved memory before and
    after the prewarm; f32 tokens equal, bf16 teacher-forced within the
    margin;
+8d. the KV tiers and the prefix handoff, after serve_width:
+   serve_tier: GPT-2-small bf16 and f32, its int8 pool and the default
+   Llama bf16, 16 slots, segment 16, 16-slot blocks, the prefix cache on
+   over the legal minimum pool (513 blocks), on 64 chat requests
+   round-robin over 32 distinct 384-token system prompts (the serve_prefix
+   header and 8-24 tokens of their own after each; 32-64 new): bf16 tier
+   off, a 512 MB host tier captured and eager in turns, a 32 MB host tier
+   over a disk tier, an all-resident pool, the int8 pool and Llama with the
+   host tier; f32 tier off, host, disk and a second disk call after every
+   part on disk was corrupted (the first 48 requests). Gates: launches as
+   scheduled, no device, slot or host block leaked, every promotion of the
+   instrumented runs bit for bit the bytes its demotion took (a device
+   digest of each leaf, int8 scales included, a disk round trip
+   included), captured equal to eager, f32 tier-on tokens equal tier-off
+   tokens (the corrupted run's too, its CRC misses counted), bf16
+   teacher-forced within the margin, every tier run inside the sync-debug
+   window and no CPU-side wait on a tier copy still running in any (the
+   disk writer thread waits for a spill's copy), an
+   ``export_prefix``/``import_prefix`` round trip serving the exporter's
+   tokens. Reported: tokens/s and mean TTFT of each run, the tier
+   counters, a promotion's and a demotion's device ms against the bytes
+   over the pinned H2D and D2H rates measured in the call, the handoff's
+   bytes and ms, and profiled captured runs (bf16 and int8, a quarter of
+   the requests each: second visits after a call of the first ones) with
+   their launches held to the device's kernel events;
 9. train: GPT-2-small at full width and depth (dropout 0.1), bf16 compute
    over f32 masters, ``adamw_fused``, 20 steps on one 8 x 1024 batch
    through ``train/step.py::make_step_fns``, the captured step (its first
@@ -211,7 +236,9 @@ imports nothing of JAX. Phases, one JSON line each:
    parameters, moments and count;
 13. train_cli: the port's trainer CLI for one epoch of ``synthetic-lm``
    at GPT-2-small widths (the captured step), then ``--resume --epochs
-   2``.
+   2``. Run after resnet50, side by side with convnet_cli and phase 21
+   (``cli_phases``): their processes share the card and the host, so
+   their ``first_s`` / ``resumed_s`` are walls under one another's load.
 14. convnet: the reference's own workload (BASELINE config 0): the MNIST
    ConvNet at batch 128, f32, on mnist's synthetic stand-in (60,000 x 28
    x 28 x 1; 469 steps an epoch) through ``make_step_fns`` with Adadelta
@@ -236,6 +263,7 @@ imports nothing of JAX. Phases, one JSON line each:
 16. convnet_cli: the trainer CLI on the ConvNet, mnist and Adadelta for
    one epoch, then ``--resume --epochs 2``, then one epoch as a one-rank
    ``nccl`` world (``--coordinator``/``--num_processes``/``--process_id``);
+   run beside train_cli and phase 21 (``cli_phases``);
 17. train_ddp (run right after train_profile, while the train phase's
    first run is kept): the train cell's captured step (GPT-2-small, bf16,
    dropout 0.1, 20 updates) under a one-process ``nccl`` group in the two
@@ -262,12 +290,13 @@ imports nothing of JAX. Phases, one JSON line each:
    kernel events; one ``cudaGraphLaunch`` a replay, only the generator
    prologue's ``fill_`` launches beside it) and the readout's GEMMs;
 19. resnet18: BASELINE config 1 on one card: ResNet-18 (CIFAR stem), f32,
-   batch 128, ``--augment flip-crop``, SGD + StepLR, one epoch of
-   CIFAR-10's synthetic stand-in (390 steps), captured and eager in turns
-   (every run's losses, parameters, slots, count and BatchNorm stats
-   bit-identical to the first's), a profiled run of each mode (one graph
-   launch a replay, no port kernel), the test accuracy, then the captured
-   epoch under a one-rank ``nccl`` group, bit for bit the ungrouped one;
+   batch 128, ``--augment flip-crop``, SGD + StepLR, the first quarter
+   (97 steps) of an epoch of CIFAR-10's synthetic stand-in (390 steps),
+   captured and eager in turns (every run's losses, parameters, slots,
+   count and BatchNorm stats bit-identical to the first's), a profiled run
+   of each mode (one graph launch a replay, no port kernel), the test
+   accuracy, then the captured quarter epoch under a one-rank ``nccl``
+   group, bit for bit the ungrouped one;
 20. resnet50: BASELINE config 2 on one card: ResNet-50 (ImageNet stem),
    one batch of 64 224 x 224 x 3 images of 1000 classes, bf16 over f32
    masters: 20 captured against 20 eager updates, bit-identical; samples/s,
@@ -3502,6 +3531,443 @@ def serve_width_phase(torch, np, mods, models, smi):
     return out
 
 
+# ---- the KV tiers and the prefix handoff (slice 19) ----------------------
+
+# serve_tier: distinct 384-token system prompts (serve_prefix's header and a
+# user turn of 8-24 tokens after each), the requests round-robin over them,
+# 32-64 new tokens each. At the legal minimum pool (the 16 rows' worst-case
+# extents, 513 blocks) 8 prompts never leave the card: rows attached to a
+# prompt share its 24 blocks, so the rows' reservation holds every prompt
+# beside them; 32 outgrow it, and each prompt's second request finds it
+# evicted (tier off) or demoted (tier on)
+TIER_PROMPTS, TIER_REQUESTS, TIER_USER, TIER_NEW = 32, 64, (8, 24), (32, 64)
+TIER_T_MAX = PREFIX_BUF + TIER_NEW[1]
+# the host tier holds every prompt's entry; the disk run's holds one or two
+TIER_HOST_MB, TIER_DISK_HOST_MB = 512, 32
+# the host cell's turns: tier off, then tier on captured and eager
+TIER_TURNS = ("off", "graph", "eager", "graph")
+# the profiled run: a quarter of the requests, second visits of their
+# prompts after a call of every first visit, so its rehits promote
+TIER_PROFILED = TIER_REQUESTS // 4
+# an entry's blocks at most: the longest head, whole 16-slot blocks
+TIER_ENTRY_BLOCKS = -(-(PREFIX_SYSTEM + PREFIX_HEADER + TIER_USER[1]) // 16)
+# the f32 runs' requests: every first visit and half the second ones
+TIER_F32_REQUESTS = TIER_PROMPTS + TIER_PROMPTS // 2
+
+
+def tier_requests(np, serve, vocab: int):
+    """``TIER_REQUESTS`` chat requests round-robin over ``TIER_PROMPTS``
+    system prompts (module constants above)."""
+    rng = np.random.default_rng(19)
+    systems = [rng.integers(0, vocab, PREFIX_SYSTEM).tolist()
+               for _ in range(TIER_PROMPTS)]
+    header = rng.integers(0, vocab, PREFIX_HEADER).tolist()
+    return [serve.Request(systems[i % TIER_PROMPTS] + header + rng.integers(
+        0, vocab, int(rng.integers(TIER_USER[0], TIER_USER[1] + 1))).tolist(),
+        int(rng.integers(TIER_NEW[0], TIER_NEW[1] + 1)))
+        for i in range(TIER_REQUESTS)]
+
+
+def tier_batcher(serve, model, *, kv="bf16", mode="graph", resident=False,
+                 **tier):
+    """A serve_tier batcher: the serving remainder's settings with the
+    prefix cache on, over the legal minimum pool (16 rows' worst case plus
+    the trash block), or with ``resident`` one large enough that nothing is
+    evicted (every request's entry beside every prompt's)."""
+    pool = 16 * (TIER_T_MAX // 16) + 1
+    if resident:
+        pool += TIER_REQUESTS * 3 + TIER_PROMPTS * TIER_ENTRY_BLOCKS
+    return remainder_batcher(serve, model, kv=kv, mode=mode,
+                             t_max=TIER_T_MAX, prompt_buf=PREFIX_BUF,
+                             prefix_cache=True, pool_blocks=pool, **tier)
+
+
+class TierBits:
+    """Holds ``cb``'s promotions to its demotions bit for bit: at each
+    demotion a digest of the entry's bytes as gathered from the pool, at
+    each promotion a digest of the bytes it left in the pool, both on the
+    device (no host sync inside a serve call); :meth:`check` compares them
+    after the run. The digest of each leaf (kv, and an int8 pool's scales),
+    viewed as int32 words ``x``: ``sum(x * w)`` and ``sum(x)`` in int64
+    (exact modulo 2^64 in any summation order), ``w`` a fixed odd-multiplier
+    sequence."""
+
+    def __init__(self, torch, cb):
+        self.torch, self.demoted, self.pairs, self._w = torch, {}, [], {}
+        demote, promote = cb._tier_demote, cb._promote_entry
+
+        def tracked_demote(entry, doomed):
+            self.demoted[entry.tokens] = self.digest(
+                cb._peek_blocks(entry.blocks))
+            return demote(entry, doomed)
+
+        def tracked_promote(entry):
+            ok = promote(entry)
+            if ok and entry.tokens in self.demoted:   # not an import
+                self.pairs.append((self.demoted[entry.tokens], self.digest(
+                    cb._peek_blocks(entry.blocks))))
+            return ok
+        cb._tier_demote, cb._promote_entry = tracked_demote, tracked_promote
+
+    def digest(self, content: dict):
+        torch, out = self.torch, []
+        for name in sorted(content):
+            x = content[name].contiguous().view(torch.int32).reshape(-1)
+            n = x.numel()
+            if n not in self._w:
+                self._w[n] = (torch.arange(n, device=x.device) * 2654435761
+                              + 12345) % 2147483629 + 1
+            x = x.long()
+            out += [(x * self._w[n]).sum(), x.sum()]
+        return torch.stack(out)
+
+    def check(self, start: int, what: str) -> int:
+        """The promotions since pair ``start``, each equal to its demotion
+        (gated); returns their number."""
+        pairs = self.pairs[start:]
+        if pairs:
+            got = self.torch.stack([p[1] for p in pairs])
+            want = self.torch.stack([p[0] for p in pairs])
+            bad = int((got != want).any(dim=1).sum())
+            require(bad == 0, f"{what}: {bad} of {len(pairs)} promoted "
+                              f"entries differ from their demoted bytes")
+        return len(pairs)
+
+
+def tier_serve(torch, mods, cb, reqs, what, q8, bits=None, clear=True):
+    """One counted serve call (:func:`counted_serve`, under the sync-debug
+    window) from a cold cache, every tier cleared first (with
+    ``clear``): launches as scheduled, no device, slot or host block leaked;
+    with ``bits`` (a :class:`TierBits` on ``cb``) every promotion of the run
+    bit-exact. Returns the run's record with its tier counters' deltas."""
+    if clear:
+        cb.clear_prefix_cache()
+    tier0 = dict(cb.tier)
+    waits0 = cb._tier.host.waits if cb._tier is not None else 0
+    start = len(bits.pairs) if bits is not None else 0
+    r = counted_serve(torch, mods, cb, reqs, what, q8, sync=True)
+    require(cb.last_host_block_leaks == 0, f"{what}: "
+            f"{cb.last_host_block_leaks} host blocks leaked")
+    r["tier"] = {k: cb.tier[k] - tier0[k] for k in tier0
+                 if k != "host_pool_occupancy"}
+    r["tier"]["host_pool_occupancy"] = cb.tier["host_pool_occupancy"]
+    if cb._tier is not None:
+        # the sync-debug mode does not see an event wait, so the tier counts
+        # the CPU-side waits that found a copy still running: a serve call
+        # makes none (a disk spill's wait is the disk writer thread's)
+        r["tier"]["host_waits"] = cb._tier.host.waits - waits0
+        require(r["tier"]["host_waits"] == 0,
+                f"{what}: {r['tier']['host_waits']} host waits on a copy")
+    if bits is not None:
+        n = bits.check(start, what)
+        require(n == r["tier"]["promotions"] > 0, f"{what}: {n} promotions "
+                f"checked of {r['tier']['promotions']}")
+        r["bit_exact_promotions"] = n
+    return r
+
+
+def tier_summary(r) -> dict:
+    """A run's reported numbers."""
+    keep = ("tokens_per_s", "mean_ttft_s", "wall_s", "ticks",
+            "bit_exact_promotions")
+    return {**{k: r[k] for k in keep if k in r},
+            "prefix_hits": r["stats"]["prefix_hits"],
+            "prefill_tokens_saved": r["stats"]["prefill_tokens_saved"],
+            "prefill_forwards": r["stats"]["prefill_forwards"],
+            "tier": r["tier"]}
+
+
+def tier_profile(torch, mods, cb, reqs, what, q8) -> dict:
+    """``profiled_remainder`` on a quarter of ``reqs``, the first
+    ``TIER_PROFILED`` second visits of a prompt, after a serve call of every
+    prompt's first visit has warmed the tree, so the profiled run's rehits
+    promote; with the run's demotions and promotions."""
+    cb.clear_prefix_cache()
+    cb.serve(reqs[:TIER_PROMPTS])
+    tier0 = dict(cb.tier)
+    prof = profiled_remainder(
+        torch, mods, cb, reqs[TIER_PROMPTS:TIER_PROMPTS + TIER_PROFILED],
+        what, q8)
+    for k in ("demotions", "promotions"):
+        prof[k] = cb.tier[k] - tier0[k]
+    require(prof["promotions"] > 0, f"{what}: no promotion")
+    cb.clear_prefix_cache()
+    return prof
+
+
+def tier_copy_times(torch, cb, req) -> dict:
+    """A promotion's and a demotion's device ms for one prompt's entry (the
+    gather and D2H into the pinned host blocks; the H2D from them and the
+    scatter into the pool), by :func:`time_ms`, against their bounds: the
+    entry's bytes over this card's pinned D2H and H2D rates, measured on a
+    pinned buffer of the same bytes in the same call."""
+    cb.clear_prefix_cache()
+    cb.serve([req])
+    (e,) = cb._radix.entries
+    host = cb._tier.host
+    content = cb._peek_blocks(e.blocks)
+    nbytes = sum(int(v.nbytes) for v in content.values())
+    hb = host.alloc(len(e.blocks))
+
+    def demote():
+        c = cb._peek_blocks(e.blocks)
+        host.write(hb, c if "scale" in c else c["kv"])
+
+    def promote():
+        cb._scatter_blocks(e.blocks, host.load(hb))
+    demote_ms = time_ms(torch, [demote], iters=10)
+    promote_ms = time_ms(torch, [promote], iters=10)
+    torch.cuda.synchronize()
+    host.release(hb)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    pin = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    h2d = time_ms(torch, [lambda: dev.copy_(pin, non_blocking=True)],
+                  iters=10)
+    d2h = time_ms(torch, [lambda: pin.copy_(dev, non_blocking=True)],
+                  iters=10)
+    cb.clear_prefix_cache()
+    return {"entry_blocks": len(e.blocks), "entry_bytes": nbytes,
+            "demote_ms": demote_ms, "promote_ms": promote_ms,
+            "demote_bound_ms": d2h, "promote_bound_ms": h2d,
+            "bound_by": "bytes over the pinned D2H / H2D rate",
+            "pinned_d2h_gb_s": nbytes / d2h / 1e6,
+            "pinned_h2d_gb_s": nbytes / h2d / 1e6,
+            "demote_copies_a_call": len(content) * sum(
+                1 for i, b in enumerate(hb) if i == 0 or hb[i - 1] + 1 != b),
+            "of": "time_ms over 10 calls: demote = _peek_blocks + "
+                  "HostBlockPool.write, promote = HostBlockPool.load + "
+                  "_scatter_blocks; bounds: one pinned copy of the same "
+                  "bytes each way"}
+
+
+def tier_handoff(torch, src, dst, req) -> dict:
+    """``export_prefix`` on ``src`` (one prompt's entry on the card) and
+    ``import_prefix`` into ``dst`` (a host tier, cold): bytes and host ms
+    each way, then the prompt on ``dst`` attaches the imported prefix
+    (promoted from its host tier) and serves ``src``'s tokens bit for bit
+    (gated), with the prefill tokens it saved."""
+    src.clear_prefix_cache()
+    dst.clear_prefix_cache()
+    src.serve([req])
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    pay = src.export_prefix(req.tokens)
+    export_ms = (time.monotonic() - t0) * 1e3
+    require(pay is not None and pay["n_tokens"] == len(req.tokens) - 1,
+            "serve_tier handoff: nothing exported")
+    t0 = time.monotonic()
+    require(dst.import_prefix(pay), "serve_tier handoff: import declined")
+    torch.cuda.synchronize()
+    import_ms = (time.monotonic() - t0) * 1e3
+    saved0 = dst.stats["prefill_tokens_saved"]
+    got = dst.serve([req])
+    want = src.serve([req])
+    require(got == want, "serve_tier handoff: the importer served other "
+                         "tokens than the exporter")
+    saved = dst.stats["prefill_tokens_saved"] - saved0
+    require(saved == pay["n_tokens"], f"serve_tier handoff: {saved} "
+            f"prefill tokens saved of {pay['n_tokens']}")
+    out = {"n_tokens": pay["n_tokens"],
+           "bytes": int(pay["kv"].nbytes) + int(
+               pay["scale"].nbytes if "scale" in pay else 0),
+           "export_ms": export_ms, "import_ms": import_ms,
+           "prefill_tokens_saved": saved, "tokens_equal_exporter": True,
+           "importer_promotions": dst.tier["promotions"]}
+    src.clear_prefix_cache()
+    dst.clear_prefix_cache()
+    return out
+
+
+def corrupt_parts(directory: str) -> int:
+    """Flip a byte in the middle of every part file under ``directory``;
+    returns their number."""
+    parts = [os.path.join(directory, n) for n in os.listdir(directory)
+             if n.startswith("part-") and n.endswith(".npz")]
+    for p in parts:
+        with open(p, "r+b") as f:
+            f.seek(os.path.getsize(p) // 2)
+            b = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([b[0] ^ 0xFF]))
+    return len(parts)
+
+
+def serve_tier_phase(torch, np, mods, models, smi):
+    """GPT-2-small (bf16 and f32) and the default Llama (bf16), 16 slots,
+    segment 16, 16-slot blocks, the prefix cache on over the legal minimum
+    pool, on ``tier_requests``. bf16: tier off, then a 512 MB host tier
+    captured and eager in turns (``TIER_TURNS``); a 32 MB host tier over a
+    disk tier; a pool where nothing is evicted; the int8 pool with the host
+    tier; Llama with the host tier. f32, on the first
+    ``TIER_F32_REQUESTS``: tier off, the host tier, the disk tier, then a
+    second disk-tier call after every part on disk was corrupted. Gates:
+    every run's launches as scheduled (the port's kernels: ``flash_fwd``,
+    ``kv_pool_insert`` (``_q8``) and ``paged_decode_write`` (``_q8``)), no
+    device, slot or host block leaked; every promotion of the instrumented
+    runs (eager host, disk, int8, Llama, f32 host) bit-exact to its
+    demotion (``TierBits``); the captured host runs bit-identical to the
+    eager one; f32 tier-on tokens equal tier-off tokens, the corrupted
+    run's too, with its CRC misses counted; bf16 tokens teacher-forced
+    within the margin; every tier run passes the sync-debug window, and no
+    run's CPU side waits on a tier copy still running
+    (``HostBlockPool.waits``); the handoff round
+    trip's importer serves the exporter's tokens. Reported: tokens/s and
+    mean TTFT of each run, the tier counters, the promotion's and
+    demotion's device ms against their bounds, the handoff's bytes and ms,
+    and a profiled captured host run's launches on a quarter of the
+    requests."""
+    A, _, _, _, serve = mods
+    out = {"phase": "serve_tier", "card": smi,
+           "models": {"gpt2": GPT2_NAME, "llama": LLAMA_NAME},
+           "slots": 16, "segment": 16, "kv_block_tokens": 16,
+           "t_max": TIER_T_MAX, "prompt_buf": PREFIX_BUF,
+           "system_prompts": TIER_PROMPTS, "requests": TIER_REQUESTS,
+           "host_cache_mb": TIER_HOST_MB,
+           "disk_run_host_cache_mb": TIER_DISK_HOST_MB,
+           "sync_debug": "every counted serve call (off, host, disk, "
+                         "resident, int8, Llama, f32) under "
+                         "set_sync_debug_mode('error'), with no CPU-side "
+                         "wait on a tier copy still running (gated)",
+           "headline": "tokens/s and mean TTFT with the host tier "
+                       "(captured) against tier off and all-resident; at "
+                       "this traffic a prompt's prefill costs about what "
+                       "its promotion does, so it measures the tier's "
+                       "overhead, not what the tier can save"}
+    tmp = tempfile.mkdtemp(prefix="serve_tier_")
+    model = models["gpt2_bf16"]
+    reqs = tier_requests(np, serve, model.config.vocab_size)
+    cbs = {"off": tier_batcher(serve, model),
+           "graph": tier_batcher(serve, model, host_cache_mb=TIER_HOST_MB),
+           "eager": tier_batcher(serve, model, mode="eager",
+                                 host_cache_mb=TIER_HOST_MB)}
+    for cb in cbs.values():
+        cb.serve(reqs[:1])        # warm-up: the eager run and the capture
+        cb.clear_prefix_cache()
+    bits = TierBits(torch, cbs["eager"])
+    runs = {m: [] for m in cbs}
+    for mode in TIER_TURNS:
+        runs[mode].append(tier_serve(
+            torch, mods, cbs[mode], reqs, f"serve_tier bf16 {mode}", False,
+            bits=bits if mode == "eager" else None))
+    on, off = runs["graph"][0], runs["off"][0]
+    for r in runs["graph"][1:] + runs["eager"]:
+        require(r["outs"] == on["outs"], "serve_tier bf16: a captured or "
+                                         "eager host-tier run served other "
+                                         "tokens")
+    require(on["tier"]["promotions"] > 0 and on["tier"]["demotions"] > 0,
+            f"serve_tier bf16: no demotion or promotion: {on['tier']}")
+    bf16 = {"off": tier_summary(off),
+            "host_graph": [tier_summary(r) for r in runs["graph"]],
+            "host_eager": tier_summary(runs["eager"][0]),
+            "graph_eager_tokens_identical": True,
+            "positions_equal_to_tier_off": agreement(on["outs"],
+                                                     off["outs"])}
+    gaps = {"host": served_gaps(torch, A, model, reqs, on["outs"], q8=False),
+            "off": served_gaps(torch, A, model, reqs, off["outs"], q8=False)}
+    # a run serving tokens already checked reuses their gaps
+    checked = {"host": on["outs"], "off": off["outs"]}
+    # the export/import round trip: the captured host batcher exports one
+    # prompt's entry, the eager one imports it
+    bf16["handoff"] = tier_handoff(torch, cbs["graph"], cbs["eager"],
+                                   reqs[0])
+    bf16["copy_times"] = tier_copy_times(torch, cbs["graph"], reqs[0])
+    bf16["profile"] = tier_profile(torch, mods, cbs["graph"], reqs,
+                                   "serve_tier profile graph", False)
+    del cbs, bits
+    torch.cuda.empty_cache()
+
+    # host over disk, all-resident, the int8 pool, Llama: one captured run
+    # each after its warm-up
+    cells = {"disk": (model, "bf16", {"host_cache_mb": TIER_DISK_HOST_MB,
+                                      "disk_cache_dir": os.path.join(
+                                          tmp, "bf16")}),
+             "resident": (model, "bf16", {"resident": True}),
+             "int8": (model, "int8", {"host_cache_mb": TIER_HOST_MB}),
+             "llama": (models["llama_bf16"], "bf16",
+                       {"host_cache_mb": TIER_HOST_MB})}
+    for name, (m, kv, kw) in cells.items():
+        cell_reqs = (reqs if m is model else
+                     tier_requests(np, serve, m.config.vocab_size))
+        cb = tier_batcher(serve, m, kv=kv, **kw)
+        cb.serve(cell_reqs[:1])
+        tb = TierBits(torch, cb) if cb._tier is not None else None
+        what = f"serve_tier {name}"
+        r = tier_serve(torch, mods, cb, cell_reqs, what, kv == "int8",
+                       bits=tb)
+        if name == "resident":
+            require(r["tier"]["demotions"] == 0 and len(cb._radix.entries)
+                    == TIER_REQUESTS, f"{what}: an entry was evicted")
+        elif name == "disk":
+            require(r["tier"]["disk_spills"] > 0 and r["tier"]["disk_hits"]
+                    > 0, f"{what}: no spill or no disk hit: {r['tier']}")
+        same = next((k for k, o in checked.items()
+                     if m is model and kv == "bf16" and o == r["outs"]), None)
+        gaps[name] = (gaps[same] if same is not None else served_gaps(
+            torch, A, m, cell_reqs, r["outs"], q8=kv == "int8"))
+        bf16[name] = tier_summary(r)
+        if m is model:
+            bf16[name]["positions_equal_to_tier_off"] = agreement(
+                r["outs"], off["outs"])
+        if name == "int8":
+            bf16[name]["profile"] = tier_profile(
+                torch, mods, cb, reqs, "serve_tier int8 profile graph", True)
+        del cb, tb
+        torch.cuda.empty_cache()
+    for name, g in gaps.items():
+        require(g.max().item() <= MARGIN["bf16"],
+                f"serve_tier {name}: a served token's logit is "
+                f"{g.max().item()} below the teacher-forced max (margin "
+                f"{MARGIN['bf16']})")
+    bf16["teacher_forced_worst_gap"] = {k: g.max().item()
+                                        for k, g in gaps.items()}
+    bf16["margin"] = MARGIN["bf16"]
+    out["bf16"] = bf16
+
+    # f32, on the first visits and half the second ones: tier-on tokens
+    # equal tier-off tokens; a corrupted disk part is a miss that changes no
+    # token
+    model = models["gpt2_f32"]
+    reqs = reqs[:TIER_F32_REQUESTS]
+    disk_dir = os.path.join(tmp, "f32")
+    cbs = {"off": tier_batcher(serve, model),
+           "host": tier_batcher(serve, model, host_cache_mb=TIER_HOST_MB),
+           "disk": tier_batcher(serve, model, host_cache_mb=TIER_DISK_HOST_MB,
+                                disk_cache_dir=disk_dir)}
+    f32 = {}
+    for name, cb in cbs.items():
+        cb.serve(reqs[:1])
+        tb = TierBits(torch, cb) if cb._tier is not None else None
+        r = tier_serve(torch, mods, cb, reqs, f"serve_tier f32 {name}",
+                       False, bits=tb)
+        if name != "off":
+            require(r["outs"] == f32["off_outs"], f"serve_tier f32 {name}: "
+                    f"tier-on tokens differ from tier-off tokens")
+        f32[f"{name}_outs"] = r["outs"]
+        f32[name] = tier_summary(r)
+    cb = cbs["disk"]
+    parts = corrupt_parts(disk_dir)
+    r = tier_serve(torch, mods, cb, reqs, "serve_tier f32 corrupted", False,
+                   clear=False)
+    require(r["tier"]["disk_crc_miss"] > 0, f"serve_tier f32: no CRC miss "
+            f"after {parts} parts were corrupted: {r['tier']}")
+    require(r["outs"] == f32["off_outs"], "serve_tier f32: a corrupted part "
+                                          "changed a token")
+    f32["corrupted"] = {**tier_summary(r), "parts_corrupted": parts,
+                        "tokens_equal_tier_off": True}
+    for k in [k for k in f32 if k.endswith("_outs")]:
+        del f32[k]
+    f32["tier_on_tokens_equal_tier_off"] = True
+    out["f32"] = f32
+    del cbs, cb
+    torch.cuda.empty_cache()
+    # each kernel's launches in the profiled runs: the float pool's, the
+    # int8 pool's for the int8 forms
+    launches = [bf16["profile"]["launches"],
+                bf16["int8"]["profile"]["launches"]]
+    return out, {k: launches[0].get(k) or launches[1].get(k)
+                 for k in {*launches[0], *launches[1]}}
+
+
 # the kernel entries checked exactly, and the source of each entry whose
 # file is named otherwise
 EXACT = ("kv_pool_insert", "cache_insert", "kv_insert", "kv_insert_rows",
@@ -5345,8 +5811,9 @@ def convnet_bits(state) -> list:
 
 def convnet_run(torch, feed, setup, mode, what, steps=CONVNET_STEPS,
                 batch=CONVNET_BATCH) -> tuple[dict, list]:
-    """One epoch of ``feed`` (``steps`` batches of ``batch``) through
-    ``setup``'s step, the state updated
+    """One epoch of ``feed`` (``steps`` batches of ``batch``; fewer than
+    the epoch's ends the run early) through ``setup``'s step, the state
+    updated
     in place. In the captured mode every update from the second on (the
     capture and each replay) runs under ``set_sync_debug_mode("error")``.
     Rates by the host clock from a synchronize after the first
@@ -5358,6 +5825,8 @@ def convnet_run(torch, feed, setup, mode, what, steps=CONVNET_STEPS,
     t0 = time.perf_counter()
     t_steady = t0
     for i, (x, y) in enumerate(feed.epoch(0)):
+        if i == steps:
+            break
         if i == CONVNET_SKIP:
             torch.cuda.synchronize()
             t_steady = time.perf_counter()
@@ -5376,7 +5845,7 @@ def convnet_run(torch, feed, setup, mode, what, steps=CONVNET_STEPS,
             and all(math.isfinite(v) for v in losses),
             f"{what}: {len(losses)} steps, losses {losses[:3]}...")
     steady = steps - CONVNET_SKIP
-    rec = {"mode": mode, "epoch_s": t1 - t0,
+    rec = {"mode": mode, "steps": steps, "epoch_s": t1 - t0,
            "step_ms": 1e3 * (t1 - t_steady) / steady,
            "samples_per_s": steady * batch / (t1 - t_steady)}
     if mode == "graph":
@@ -5708,13 +6177,15 @@ BERT_B, BERT_T, BERT_MIN, BERT_SEED = 16, 512, 128, 13
 # last partial batch dropped), SGD lr 0.1, momentum 0.9, StepLR 0.7 a
 # epoch, ``flip-crop``, f32
 R18_BATCH, R18_LR, R18_STEPS = 128, 0.1, 390
+# each resnet18 run takes the epoch's first quarter (cut from the whole
+# epoch to keep the smoke inside its time when serve_tier came in)
+R18_RUN_STEPS = R18_STEPS // 4
 # the ResNet-50 cell (BASELINE config 2 on one card): one fixed batch of
 # R50_BATCH 224 x 224 x 3 images of 1000 classes (numpy seed 0), bf16
 # over f32 masters, SGD, R50_STEPS updates a run
 R50_BATCH, R50_STEPS, R50_LR = 64, 20, 0.1
-# the resnet18 phase's runs: an epoch captured, then one eager (each
-# epoch is 390 steps; the eager one is host-bound at about twice the
-# captured one's time)
+# the resnet18 phase's runs: a quarter epoch captured, then one eager (the
+# eager one is host-bound at about twice the captured one's time)
 R18_TURNS = ("graph", "eager")
 # ResNet-18's collectives a step under a one-rank group (replicated
 # update): the gradient all-reduce and each of its 20 BatchNorms' sums,
@@ -6026,14 +6497,15 @@ def batch_stat_accuracy(torch, test_feed, setup, batches: int = 8) -> float:
 
 def resnet18_phase(torch, rm, mesh, smi):
     """BASELINE config 1 on one card: ResNet-18 (CIFAR stem), f32, batch
-    128, ``flip-crop``, SGD + StepLR, one epoch of CIFAR-10's synthetic
-    stand-in (390 steps), captured and eager in turns (``R18_TURNS``), every
+    128, ``flip-crop``, SGD + StepLR, the first quarter (``R18_RUN_STEPS``)
+    of an epoch of CIFAR-10's synthetic stand-in (390 steps), captured and
+    eager in turns (``R18_TURNS``), every
     run's losses, parameters, momentum slots, count and BatchNorm stats
     bit-identical to the first's (gated); a profiled run of each mode
     (one ``cudaGraphLaunch`` a replay and only the generator prologue
     inside, no port kernel: :func:`convnet_profile`); the test accuracy;
-    then the captured epoch under a one-rank ``nccl`` group, bit for bit
-    the ungrouped one."""
+    then the captured quarter epoch under a one-rank ``nccl`` group, bit
+    for bit the ungrouped one."""
     import socket
     from distributed_compute_pytorch_tpu_torch.data.datasets import (
         load_dataset)
@@ -6056,7 +6528,7 @@ def resnet18_phase(torch, rm, mesh, smi):
         setup = resnet_setup(rm, weights, mode, **kw)
         what = f"resnet18 {mode} run {turn + 1}"
         rec, losses = convnet_run(torch, feed, setup, mode, what,
-                                  steps=steps, batch=R18_BATCH)
+                                  steps=R18_RUN_STEPS, batch=R18_BATCH)
         bits = convnet_bits(setup[2])
         if first is None:
             first = (losses, bits)
@@ -6091,7 +6563,7 @@ def resnet18_phase(torch, rm, mesh, smi):
         setup = resnet_setup(rm, weights, "graph", **kw)
         grouped, losses = convnet_run(torch, feed, setup, "graph",
                                       "resnet18 one-rank nccl",
-                                      steps=steps, batch=R18_BATCH)
+                                      steps=R18_RUN_STEPS, batch=R18_BATCH)
         require(losses == first[0], "resnet18 one-rank nccl: losses differ "
                                     "from the ungrouped captured run's")
         require(same_bits(torch, convnet_bits(setup[2]), first[1]),
@@ -6297,6 +6769,21 @@ def ladder_cli_phase(torch, interop, smi):
             recs[name]["checkpoint_mb"] = os.path.getsize(ckpt) / 1e6
             recs[name]["checkpoint_leaves"] = len(sd)
     return recs
+
+
+def cli_phases(torch, interop, models, smi) -> list:
+    """train_cli, convnet_cli and the ladder's CLIs at once, a thread each
+    (the CLI phases are mostly process start-up, so side by side they
+    take about the longest one's wall): their records in that order; the
+    first phase that failed raises."""
+    from concurrent.futures import ThreadPoolExecutor
+    GPT2, GPT2Config, ConvNet = models
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(cli_phase, torch, interop, GPT2, GPT2Config),
+                pool.submit(convnet_cli_phase, torch, interop, ConvNet, smi),
+                pool.submit(ladder_cli_phase, torch, interop, smi)]
+        train, conv, ladder = [job.result() for job in jobs]
+    return [train, conv, *ladder.values()]
 
 
 def main() -> int:
@@ -6524,6 +7011,11 @@ def main() -> int:
                                                    spec_models, smi)
         record(spec_rec)
         record(serve_width_phase(torch, np, mods, spec_models, smi))
+        # the KV tiers and the prefix handoff (slice 19): GPT-2 bf16 and
+        # f32, its int8 pool, Llama bf16
+        tier_rec, tier_launches = serve_tier_phase(torch, np, mods,
+                                                   spec_models, smi)
+        record(tier_rec)
         del spec_models, f32, llama
         torch.cuda.empty_cache()
         del model, base, float_served, float_generated
@@ -6544,7 +7036,6 @@ def main() -> int:
         record(parity_phase(torch, np, tm, A, FA, FAW, dataclasses.replace(
             GPT2Config.small(), num_layers=PARITY_LAYERS, dropout_rate=0.0)))
         torch.cuda.empty_cache()
-        record(cli_phase(torch, interop, GPT2, GPT2Config))
 
         # the reference's workload (the port's step runs cuDNN in f32
         # with its deterministic algorithms: ``step.cudnn_f32``)
@@ -6556,7 +7047,6 @@ def main() -> int:
         record(convnet_ddp_phase(torch, cm, mesh, data, weights, first,
                                  conv_prof, batch, smi))
         del data, first, weights, conv_prof, batch
-        record(convnet_cli_phase(torch, interop, ConvNet, smi))
         torch.cuda.empty_cache()
 
         # BASELINE's rungs 1-3: BERT-base (the flash kernels non-causal
@@ -6573,7 +7063,8 @@ def main() -> int:
             ResNet.build, "resnet50", num_classes=1000), build_optimizer,
             make_step_fns, build_augment), smi))
         torch.cuda.empty_cache()
-        for rec in ladder_cli_phase(torch, interop, smi).values():
+        for rec in cli_phases(torch, interop, (GPT2, GPT2Config, ConvNet),
+                              smi):
             record(rec)
 
         # Llama (slice 14): RoPE, RMSNorm, SwiGLU and grouped-query
@@ -6686,6 +7177,7 @@ def main() -> int:
                 "generate_int8_launches":
                     gen8["int8_profile"]["launches"].get(name),
                 "train_launches": train_launches.get(name),
+                "serve_tier_launches": tier_launches.get(name),
                 "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
                 "tol": 0.0 if name in EXACT else TOL["bf16"],
                 "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -26,6 +26,12 @@ and scores all K + 1 positions in one forward pass (outputs unchanged).
 ``--decode_width_buckets N`` keeps the widest N rungs of the table-width
 ladder (1, the default, = the full-width table alone);
 ``--prewarm_widths`` builds every rung's programs before serving.
+``--host_cache_mb N`` (with ``--prefix_cache``) keeps evicted prefixes in
+an N MB host-memory tier (pinned on the card) instead of discarding them,
+and promotes them back with one copy on their next hit;
+``--disk_cache_dir D`` (with ``--host_cache_mb``) spills that tier's least
+recently used prefixes to CRC-checked parts in D, which a later run on the
+same directory adopts (outputs unchanged either way).
 
 Prints one JSON line per request, in input order, as the JAX CLI does:
 ``{"id", "prompt", "new", "status": "ok", "cached_prefix"}``, where
@@ -34,14 +40,14 @@ prefix cache (0 without it).
 
 ``--model gpt2`` (the default) or ``llama``, at ``--model_preset``'s
 size (``moe`` exits naming its ROADMAP item, as do the JAX CLI's flags of
-later items: ``--host_cache_mb``, ``--journal_dir``,
-``--mesh``, ``--replicas``, ``--heartbeat`` and the rest). Runs on CUDA unless
+later items: ``--journal_dir``, ``--mesh``, ``--replicas``,
+``--heartbeat`` and the rest). Runs on CUDA unless
 ``--device cpu``. ``--kv_dtype int8`` keeps the KV pool in int8 with
 per-row f32 scales (as the JAX CLI's flag). Example:
 
     python -m distributed_compute_pytorch_tpu_torch.cli_serve --init_seed 0 \\
         --model_preset small --requests prompts.txt --slots 16 --dtype bf16 \\
-        --prefix_cache --temperature 0.8 --top_p 0.95
+        --prefix_cache --host_cache_mb 512 --temperature 0.8 --top_p 0.95
 """
 
 from __future__ import annotations
@@ -57,9 +63,7 @@ from distributed_compute_pytorch_tpu_torch.cli_generate import (
 SAMPLING = ("temperature", "top_k", "top_p", "seed")
 
 # the JAX CLI's flags of later items -> the ROADMAP.md item each waits for
-_LATER = {"tiers and handoff, queue 3.7": ("host_cache_mb",
-                                           "disk_cache_dir"),
-          "the journal and the request lifecycle, queue 3.8": (
+_LATER = {"the journal and the request lifecycle, queue 3.8": (
               "journal_dir", "journal_fsync", "supervise", "max_pending",
               "request_deadline", "drain_deadline", "tick_timeout",
               "max_recoveries", "fault_at_segment", "fault_mode",
@@ -204,6 +208,20 @@ def main(argv=None) -> int:
     p.add_argument("--prewarm_widths", action="store_true",
                    help="build (and on the card capture) every width rung's "
                         "programs before serving")
+    p.add_argument("--host_cache_mb", type=float, default=None,
+                   help="hierarchical KV: a host-RAM tier of this many MB "
+                        "under the radix prefix cache (pinned on the card). "
+                        "Evicted prefixes demote D2H instead of being "
+                        "discarded and promote back with one asynchronous "
+                        "H2D copy on their next hit. Outputs stay "
+                        "token-identical. Requires --prefix_cache")
+    p.add_argument("--disk_cache_dir", type=str, default=None,
+                   help="optional third tier below --host_cache_mb: the "
+                        "host tier's least recently used prefixes spill to "
+                        "CRC-checked part-NNNNN.npz entries in this "
+                        "directory (a corrupt part is a cache miss, never a "
+                        "failure), which a later run on the directory "
+                        "adopts")
     p.add_argument("--device", default=None,
                    help="'cuda' (default; raises without a card) or 'cpu'")
     for flag in _REFUSED:
@@ -214,6 +232,14 @@ def main(argv=None) -> int:
         if getattr(args, flag) is not None:
             raise SystemExit(f"--{flag} is not ported yet (ROADMAP.md: "
                              f"{item})")
+    if args.host_cache_mb is not None and not args.prefix_cache:
+        raise SystemExit("--host_cache_mb spills the radix prefix cache: "
+                         "it requires --prefix_cache")
+    if args.host_cache_mb is not None and args.host_cache_mb <= 0:
+        raise SystemExit("--host_cache_mb must be > 0")
+    if args.disk_cache_dir is not None and args.host_cache_mb is None:
+        raise SystemExit("--disk_cache_dir is the tier below host RAM: it "
+                         "requires --host_cache_mb")
     if args.model == "moe":
         raise SystemExit("--model moe is not ported yet (ROADMAP.md: MoE "
                          "serving, queue 3.9, with queue 1 item 8)")
@@ -277,6 +303,8 @@ def main(argv=None) -> int:
                            kv_dtype=args.kv_dtype,
                            speculate=args.speculate or None,
                            decode_width_buckets=args.decode_width_buckets,
+                           host_cache_mb=args.host_cache_mb,
+                           disk_cache_dir=args.disk_cache_dir,
                            device=model.device)
     if args.prewarm_widths:
         cb.prewarm_widths(sampling=args.temperature > 0)

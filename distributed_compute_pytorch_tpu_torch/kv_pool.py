@@ -32,9 +32,9 @@ shared span (same weights, tokens and positions), and a row only appends
 at slots at or past its own head, which a later match never reads (a
 match is capped by the entry's recorded token count).
 
-The tier states (``TIER_*``) come along because ``RadixCache`` carries
-them; the spill tiers themselves (the reference's ``kv_tier.py``) are not
-ported, so every entry here stays ``TIER_DEVICE``.
+The tier states (``TIER_*``) mark where an entry's bytes are: on the
+device, or demoted by ``kv_tier.py``'s host and disk tiers (which set
+them) when a batcher has a host tier.
 """
 
 from __future__ import annotations
@@ -277,7 +277,7 @@ class RadixCache:
         """Tier-aware longest-prefix lookup: ``(m, entry)`` where the
         entry may be DEVICE-resident (attach its ``blocks`` directly)
         or demoted to HOST/DISK (the caller promotes it before
-        attaching; the port has no spill tier yet). Device entries
+        attaching, ``kv_tier.py``). Device entries
         win over demoted ones covering the same prefix (promotion is
         never paid when resident bytes exist). Stamps LRU like
         :meth:`match`; acquires nothing."""

@@ -115,6 +115,25 @@ ticks while finished rows take the next queued request:
   overlap (the next drafts need this step's tokens); every block under a
   window's writes is made private first (copy-on-write).
 
+- **KV tiers and the prefix handoff** (``host_cache_mb`` /
+  ``host_cache_blocks``, ``disk_cache_dir``; ``kv_tier.py``): with a host
+  tier, an evicted radix entry is DEMOTED instead of discarded — its
+  blocks gathered on the card and copied D2H into a pinned host block pool
+  (asynchronously: nothing waits for the card) — and keeps its place in
+  the tree; an admission that matches it PROMOTES it — fresh pool blocks,
+  an H2D copy from the pinned pool (or from a disk part), scattered into
+  the pool in place — before the wave's copy-on-write and prefill are
+  enqueued, so stream order lands the bytes before any reader. Promoted
+  blocks are fresh allocations, so the in-flight argument above holds for
+  them unchanged. A host tier under pressure spills its least recently
+  used entries to CRC-checked parts on disk (a corrupt part is a miss):
+  the spill copies the entry out through the card into fresh pinned
+  memory, stream-ordered, and the disk writer thread waits for that
+  copy, so the scheduler waits for nothing; a new batcher on the same
+  directory adopts its parts (warm restart).
+  :meth:`ContinuousBatcher.export_prefix` / :meth:`ContinuousBatcher.
+  import_prefix` move a cached prefix between batchers as bytes.
+
 Admission is FIFO by default: a free row always takes the queue head. A
 request whose segment-rounded budget can never fit a row would block the
 head forever, so it is set aside up front, everything else is served,
@@ -122,11 +141,11 @@ then :class:`HorizonError` is raised carrying the completed outputs.
 ``admit_policy="skip_fit"`` keeps that no-leapfrog order among requests
 that fit and skips the others in place, reporting them the same way.
 
-Not ported yet: tiers, handoff, the journal, deadlines, cancel, shed,
-drain, reconstruction and telemetry (the int8 pool's ``kvq`` counters, the
-``spec`` and ``width`` gauges among them; the batcher keeps those two as
-plain counter dicts), and the router's width- and verify-priced load
-estimates.
+Not ported yet: the journal, deadlines, cancel, shed, drain,
+reconstruction, ``reload_weights`` and telemetry (the int8 pool's other
+``kvq`` counters, and the gauges of ``spec``, ``width``, ``tier``, ``kvq``
+and ``fleet``, which the batcher keeps as plain counter dicts), and the
+router's width- and verify-priced load estimates.
 """
 
 from __future__ import annotations
@@ -143,7 +162,10 @@ from distributed_compute_pytorch_tpu_torch.device import resolve_device
 from distributed_compute_pytorch_tpu_torch.infer import (
     sample_rows, verify_sample_rows)
 from distributed_compute_pytorch_tpu_torch.kv_pool import (
-    BlockPool, RadixCache)
+    TIER_DEVICE, TIER_HOST, BlockPool, PoolExhausted, RadixCache)
+from distributed_compute_pytorch_tpu_torch.kv_tier import (
+    TIER_STATS, DiskTier, HostBlockPool, KVTierManager, _crc, as_bits,
+    dtype_name, host_blocks_for_mb, to_numpy, to_torch)
 from distributed_compute_pytorch_tpu_torch.ops.attention import (
     gather_kv_blocks)
 from distributed_compute_pytorch_tpu_torch.ops.cache_update import (
@@ -289,6 +311,12 @@ class ContinuousBatcher:
       decode_width_buckets: keep the widest this many rungs of the width
         ladder (module docstring); ``1`` (default) = the full-width table
         alone, ``None`` = every rung.
+      host_cache_mb, host_cache_blocks: the host tier (module docstring),
+        sized in MB of K/V (scales included) or in blocks; needs
+        ``prefix_cache``.
+      disk_cache_dir: the disk tier's directory, below a host tier; parts
+        already there whose geometry, dtype and weights version match are
+        adopted.
       device: ``None``/``"cuda"`` (raises without CUDA) or ``"cpu"``.
 
     Counters: ``stats`` (prefill waves, their rows and those that ran a
@@ -308,7 +336,13 @@ class ContinuousBatcher:
     last ``bucket_blocks`` and ``bucket_occupancy``, ``gathered_block_reads``
     against ``full_width_block_reads`` (table blocks a dispatch's programs
     see, row by layer by tick), ``bytes_saved_vs_full``,
-    ``prewarmed_programs``), under the reference's keys.
+    ``prewarmed_programs``); ``tier`` (demotions, promotions, host and
+    disk hits, disk spills, CRC misses and adoptions, bytes D2H and H2D,
+    ``promote_overlap_ms``, peak ``host_pool_occupancy``) and
+    ``last_host_block_leaks``; the handoff's ``prefill["handoff_*"]``,
+    ``kvq`` (``bytes_saved_d2h``, ``bytes_saved_handoff``,
+    ``handoff_dtype_declined``) and ``fleet["version_declined"]``, under
+    the reference's keys.
     """
 
     def __init__(self, model, params=None, *, slots: int, t_max: int,
@@ -319,8 +353,28 @@ class ContinuousBatcher:
                  pool_blocks: int | None = None,
                  prefill_chunk_tokens: int | None = None,
                  kv_dtype: str = "bf16", speculate=None,
-                 decode_width_buckets: int | None = 1, device=None):
+                 decode_width_buckets: int | None = 1,
+                 host_cache_mb: float | None = None,
+                 host_cache_blocks: int | None = None,
+                 disk_cache_dir: str | None = None, device=None):
         self.device = resolve_device(device)
+        if host_cache_mb is not None and host_cache_mb <= 0:
+            raise ValueError(
+                f"host_cache_mb must be > 0, got {host_cache_mb}")
+        if host_cache_blocks is not None and host_cache_blocks < 1:
+            raise ValueError(
+                f"host_cache_blocks must be >= 1, got {host_cache_blocks}")
+        tier_on = (host_cache_mb is not None or host_cache_blocks is not None
+                   or disk_cache_dir is not None)
+        if tier_on and not prefix_cache:
+            raise ValueError(
+                "host_cache_mb/host_cache_blocks/disk_cache_dir extend the "
+                "radix prefix cache — they require prefix_cache=True")
+        if (disk_cache_dir is not None and host_cache_mb is None
+                and host_cache_blocks is None):
+            raise ValueError(
+                "disk_cache_dir needs a host tier to stage through (set "
+                "host_cache_mb or host_cache_blocks)")
         if kv_dtype not in KV_DTYPES:
             raise ValueError(
                 f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
@@ -474,6 +528,35 @@ class ContinuousBatcher:
         self._pool = BlockPool(pool_blocks)
         self._tables = np.full((slots, self.nb), BlockPool.TRASH, np.int32)
         self._radix = RadixCache(self._pool, self.bt) if prefix_cache else None
+        self.kv_dtype = kv_dtype
+        # the version of the weights that computed the pool's K/V: stamped
+        # into disk sidecars and handoff payloads, and checked on adoption
+        # and import
+        self.weights_version = 0
+        # hierarchical KV (kv_tier.py): a host block pool (pinned on CUDA)
+        # and an optional CRC-checked disk tier below it, that eviction
+        # demotes into and admission promotes from (reference ``:702-725``)
+        self._tier = None
+        self._tier_promote_t0 = None
+        self.tier = dict(TIER_STATS)
+        self.fleet = {"version_declined": 0}
+        if tier_on:
+            leaf = self._caches[0]["kv"]
+            q8 = kv_dtype == "int8"
+            hb = (host_cache_blocks if host_cache_blocks is not None
+                  else host_blocks_for_mb(host_cache_mb, len(self._caches),
+                                          hk, self.bt, hd, leaf.element_size(),
+                                          scale_itemsize=4 if q8 else 0))
+            self._tier = KVTierManager(
+                self._radix,
+                HostBlockPool(hb, len(self._caches), hk, self.bt, hd,
+                              leaf.dtype,
+                              scale_dtype=torch.float32 if q8 else None,
+                              device=self.device),
+                DiskTier(disk_cache_dir, async_writes=True)
+                if disk_cache_dir else None, stats=self.tier)
+            self._tier.weights_version = self.weights_version
+            self._tier.fleet_stats = self.fleet
         # per-row slot of the last written token (host-tracked: admission
         # rewinds a row to its head length - 1; each segment advances
         # every row by S; parked rows sit at 0 writing into trash)
@@ -487,7 +570,13 @@ class ContinuousBatcher:
                       "cached_prefix_tokens": 0, "prefill_tokens_saved": 0,
                       "cow_copies": 0, "block_pool_occupancy": 0.0}
         self.prefill = {"chunked_admissions": 0, "chunk_waves": 0,
-                        "chunk_tokens": 0, "stall_ticks": 0}
+                        "chunk_tokens": 0, "stall_ticks": 0,
+                        "handoff_exports": 0, "handoff_imports": 0,
+                        "handoff_declined": 0, "handoff_bytes": 0}
+        # the int8 pool's byte savings on the tier's and the handoff's
+        # copies, and handoffs declined for a pool-dtype mismatch
+        self.kvq = {"bytes_saved_d2h": 0, "bytes_saved_handoff": 0,
+                    "handoff_dtype_declined": 0}
         self.spec = {"proposed": 0, "accepted": 0, "acceptance_rate": 0.0,
                      "wasted_verify_tokens": 0, "verify_segments": 0,
                      "emitted_tokens": 0, "autodisabled": 0}
@@ -505,6 +594,21 @@ class ContinuousBatcher:
         self.last_ttft_s: list = []  # per request: serve start -> 1st token
         self.last_cached_prefix: list = []  # per request: attached length
         self.last_admissions: list = []     # request indices, a list a wave
+        self.last_host_block_leaks = 0  # host blocks unaccounted at exit
+        # a restarted disk tier re-enters the radix (reference ``:762-779``):
+        # parts whose sidecars carry their prefix tokens and match this
+        # pool's geometry, dtype and weights version become TIER_DISK
+        # entries, promoted on their first hit
+        if self._tier is not None and self._tier.disk is not None:
+            L = len(self._caches)
+            name = dtype_name(self._caches[0]["kv"].dtype)
+
+            def expect(n):
+                shape = (L, 2, -(-n // self.bt), hk, self.bt)
+                if kv_dtype == "int8":
+                    return (*shape, hd), name, (*shape, 1), "float32"
+                return (*shape, hd), name
+            self._tier.adopt_disk_index(expect)
 
     @property
     def _graph(self):
@@ -513,19 +617,21 @@ class ContinuousBatcher:
         return self._programs.get(("segment", False, self.nb))
 
     def clear_prefix_cache(self) -> None:
-        """Drop every radix entry and the pool references it holds (between
-        ``serve`` calls), so the next call starts from a cold cache."""
+        """Drop every radix entry and the pool references it holds, and zero
+        and sweep every tier below it (between ``serve`` calls), so the next
+        call starts from a cold cache."""
         if self._radix is not None:
             self._radix.clear()
+        if self._tier is not None:
+            self._tier.reset()
 
     def reset(self) -> None:
         """A fresh session on the same programs (reference ``:1275-1300``):
         the pool zeroed in place, every block freed, the radix cache
         dropped, every row rewound, and speculation's auto-disable
-        un-stuck. The static buffers keep their addresses, so captured
-        programs stay valid."""
-        if self._radix is not None:
-            self._radix.clear()
+        un-stuck, every tier zeroed and swept. The static buffers keep their
+        addresses, so captured programs stay valid."""
+        self.clear_prefix_cache()
         self._pool.reset()
         self._tables[:] = BlockPool.TRASH
         for cache in self._caches:
@@ -546,6 +652,150 @@ class ContinuousBatcher:
         self._spec_on = self._spec is not None
         self._cur_width = self._width_ladder[0]
         self.ticks = 0
+
+    # ---- the prefix handoff ----------------------------------------------
+
+    def prefix_match_len(self, tokens) -> int:
+        """Affinity probe (reference ``:1006-1021``): how many of
+        ``tokens``'s prompt-head tokens the radix cache holds, in ANY tier
+        (a demoted prefix is one copy from the device). Read-only: no LRU
+        stamp, no refcount. 0 with the cache off."""
+        if self._radix is None or len(tokens) < 2:
+            return 0
+        return self._radix.longest_match_len(list(tokens)[:-1])
+
+    def export_prefix(self, tokens) -> dict | None:
+        """Handoff export (reference ``:1023-1079``): the longest cached
+        prefix of ``tokens``'s prompt head as portable bytes — ``{"tokens",
+        "n_tokens", "kv" [L, 2, nb, hk, bt, hd], "crc", "bt", "kv_dtype",
+        "weights_version"}``, plus ``"scale"`` and ``"scale_crc"`` for an
+        int8 pool — for another batcher's :meth:`import_prefix`. Numpy in
+        the reference's layout; a bf16 pool's ``kv`` is its ``uint16`` bit
+        patterns (so its ``crc`` is the reference's for the same bits).
+        Read-only: a device entry is gathered and copied D2H (this host
+        call waits for that copy), a demoted one read without releasing
+        its tier copy. None = nothing to export (cache off, no match, or a
+        disk part failing its CRC): the caller prefills instead."""
+        if self._radix is None or len(tokens) < 2:
+            return None
+        head = list(tokens)[:-1]
+        m, entry = self._radix.match_entry(head)
+        m = min(m, len(head))
+        if m < 1:
+            return None
+        k = -(-m // self.bt)
+        if entry.tier == TIER_DEVICE:
+            content = self._host_copy(self._peek_blocks(entry.blocks[:k]))
+        elif entry.tier == TIER_HOST:
+            content = self._tier.host.read(entry.host_blocks[:k])
+        else:                               # TIER_DISK
+            self._tier.disk.drain()         # the part as written: numpy
+            got, _corrupt = self._tier.disk.get(entry.disk_key)
+            if got is None:
+                return None                 # CRC miss: the caller prefills
+            content = {name: leaf[:, :, :k]
+                       for name, leaf in self._as_content(got).items()}
+        content = self._as_content(content)
+        kv = content["kv"]
+        total = sum(int(leaf.nbytes) for leaf in content.values())
+        self.prefill["handoff_exports"] += 1
+        self.prefill["handoff_bytes"] += total
+        payload = {"tokens": tuple(head[:m]), "n_tokens": m,
+                   "kv": kv, "crc": _crc(kv), "bt": self.bt,
+                   "kv_dtype": self.kv_dtype,
+                   "weights_version": self.weights_version}
+        if "scale" in content:
+            payload["scale"] = content["scale"]
+            payload["scale_crc"] = _crc(content["scale"])
+            # the float payload would be 2 bytes an element of kv alone
+            self.kvq["bytes_saved_handoff"] += int(kv.nbytes) * 2 - total
+        return payload
+
+    @staticmethod
+    def _as_content(content) -> dict:
+        """Tier and handoff content as a dict: a bare array is the float
+        pool's ``kv``-only form (reference ``:1090-1095``)."""
+        return content if isinstance(content, dict) else {"kv": content}
+
+    def import_prefix(self, payload) -> bool:
+        """Handoff import (reference ``:1097-1195``): land an
+        :meth:`export_prefix` payload (this package's or the reference's) in
+        this batcher's prefix cache, so the next admission of the same
+        prompt attaches instead of prefilling. With a host tier the bytes
+        enter as a demoted entry (promoted on the first match); without
+        one they are scattered into fresh pool blocks. False = declined,
+        nothing changed: a ``kv_dtype`` stamp mismatch
+        (``kvq["handoff_dtype_declined"]``), a ``weights_version`` mismatch
+        (``fleet["version_declined"]``), or a block size, shape, element
+        type, ``crc`` or (int8) scale shape or ``scale_crc`` mismatch, or no
+        room; each counts ``prefill["handoff_declined"]``, none raises."""
+        if self._radix is None or not payload:
+            return False
+        if payload.get("kv_dtype", "bf16") != self.kv_dtype:
+            self.kvq["handoff_dtype_declined"] += 1
+            self.prefill["handoff_declined"] += 1
+            return False
+        if int(payload.get("weights_version", 0)) != self.weights_version:
+            self.fleet["version_declined"] += 1
+            self.prefill["handoff_declined"] += 1
+            return False
+        kv = payload.get("kv")
+        scale = payload.get("scale")
+        n = int(payload.get("n_tokens", 0))
+        toks = tuple(payload.get("tokens", ()))
+        leaf = self._caches[0]["kv"]
+        k = -(-n // self.bt)
+        want = (len(self._caches), 2, k, leaf.shape[2], self.bt,
+                leaf.shape[4])
+        swant = (*want[:-1], 1)
+        # the pool's element type as numpy holds it (bf16: uint16 bits)
+        elem = dtype_name(leaf.dtype)
+        elem = "uint16" if elem == "bfloat16" else elem
+        if kv is not None:
+            kv = as_bits(kv)
+        if (kv is None or n < 1 or len(toks) != n
+                or payload.get("bt") != self.bt
+                or tuple(kv.shape) != want
+                or str(kv.dtype) != elem
+                or payload.get("crc") != _crc(kv)
+                or (self.kv_dtype == "int8"
+                    and (scale is None or tuple(scale.shape) != swant
+                         or payload.get("scale_crc") != _crc(scale)))
+                or (self.kv_dtype != "int8" and scale is not None)):
+            self.prefill["handoff_declined"] += 1
+            return False
+        content = {"kv": np.ascontiguousarray(kv)}
+        if scale is not None:
+            content["scale"] = np.ascontiguousarray(scale, np.float32)
+        total = sum(int(a.nbytes) for a in content.values())
+        saved = int(kv.nbytes) * 2 - total if scale is not None else 0
+        if self._tier is not None:
+            entry = self._radix.insert_demoted(toks)
+            if entry is None:      # already cached here: a handoff hit
+                self.prefill["handoff_imports"] += 1
+                return True
+            if self._tier.store(entry, content if scale is not None
+                                else content["kv"]):
+                self.prefill["handoff_imports"] += 1
+                self.prefill["handoff_bytes"] += total
+                self.kvq["bytes_saved_handoff"] += saved
+                return True
+            # no host room even after spilling: drop the placeholder and
+            # take the direct-device path
+            self._tier._remove(entry)
+        try:
+            blocks = self._alloc(k)
+        except PoolExhausted:
+            self.prefill["handoff_declined"] += 1
+            return False
+        self._scatter_blocks(blocks, content)
+        # the tree owns the references from here; drop the alloc's
+        self._radix.insert(toks, blocks)
+        self._pool.release(blocks)
+        self.prefill["handoff_imports"] += 1
+        self.prefill["handoff_bytes"] += total
+        self.kvq["bytes_saved_handoff"] += saved
+        return True
 
     # ---- device work -----------------------------------------------------
 
@@ -582,6 +832,60 @@ class ContinuousBatcher:
         for cache in self._caches:
             for leaf in cache.values():
                 leaf.index_copy_(1, dst, leaf.index_select(1, src))
+
+    def _peek_blocks(self, blocks) -> dict:
+        """Pool ``blocks`` across every layer, gathered on the device (the
+        reference's XLA gather, ``:1081-1088``): ``{"kv"[, "scale"]}``, each
+        one fresh block-major ``[n, L, 2, hk, bt, hd]`` tensor (the host
+        slab's layout: a run of host blocks is one D2H copy) filled by one
+        ``index_select`` a layer and handed back as its ``[L, 2, n, hk, bt,
+        hd]`` view; enqueued on the stream, so before any later write into
+        those blocks."""
+        idx = self._to_device(np.asarray(blocks, np.int64))
+        out = {}
+        for name, leaf in self._caches[0].items():
+            buf = torch.empty(len(blocks), len(self._caches), 2,
+                              *leaf.shape[2:], dtype=leaf.dtype,
+                              device=leaf.device)
+            for li, cache in enumerate(self._caches):
+                torch.index_select(cache[name], 1, idx,
+                                   out=buf[:, li].transpose(0, 1))
+            out[name] = buf.movedim(0, 2)
+        return out
+
+    def _host_copy(self, content: dict) -> dict:
+        """Device content as numpy (bf16 as ``uint16`` bits), for an export:
+        on CUDA through pinned memory and an event this host call waits on
+        (between ``serve`` calls)."""
+        if self.device.type == "cpu":
+            return {k: to_numpy(v) for k, v in content.items()}
+        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                for k, v in content.items()}
+        for k, v in content.items():
+            host[k].copy_(v, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        ev.synchronize()
+        return {k: to_numpy(v) for k, v in host.items()}
+
+    def _scatter_blocks(self, blocks, content: dict) -> None:
+        """Write ``content`` (``{"kv"[, "scale"]}``, ``[L, 2, n, ...]``:
+        device tensors from the host tier, numpy from the disk tier or a
+        handoff, or a spill's pinned CPU tensors not yet written to disk)
+        into pool ``blocks`` of every layer, IN PLACE (the reference rebinds
+        its caches to ``_promote_c``'s output; the captured programs here
+        hold the pool's addresses). Int8 bytes and scales land as they are.
+        On CUDA host content is staged through pinned memory (a pinned
+        tensor is its own stage) and every copy is ``non_blocking``,
+        enqueued before the wave that reads the blocks."""
+        dst = self._to_device(np.asarray(blocks, np.int64))
+        for name, src in content.items():
+            if not isinstance(src, torch.Tensor):
+                src = to_torch(src, self._caches[0][name].dtype)
+            if src.device.type != self.device.type:
+                src = src.pin_memory().to(self.device, non_blocking=True)
+            for li, cache in enumerate(self._caches):
+                cache[name].index_copy_(1, dst, src[li])
 
     def _prefill_wave(self, entries):
         """ONE multi-row prefill of ``entries`` ``(row, known, from_m,
@@ -895,10 +1199,57 @@ class ContinuousBatcher:
         """``n`` fresh blocks, evicting least-recently-used radix entries
         first when the free list runs short (reference ``:1580-1594``;
         eviction frees refcount-0 blocks only, so live rows keep theirs);
-        raises ``PoolExhausted`` if that is not enough."""
+        with a tier, eviction DEMOTES the victim to host memory instead of
+        discarding it. Raises ``PoolExhausted`` if that is not enough."""
         if self._pool.free_count < n and self._radix is not None:
-            self._radix.evict_for(n)
+            self._radix.evict_for(n, on_evict=(
+                self._tier_demote if self._tier is not None else None))
         return self._pool.alloc(n)
+
+    def _tier_demote(self, entry, doomed) -> bool:
+        """``RadixCache.evict_for``'s demotion hook (reference
+        ``:1595-1611``): the WHOLE entry's blocks gathered on the device and
+        copied D2H into the host tier, asynchronously — the gather is
+        enqueued before any write that reuses the freed blocks, and nothing
+        waits for the card. ``doomed`` is the hook's contract only: a block
+        a live row shares survives on the device only as long as that row.
+        True = demoted in place of discarded."""
+        content = self._peek_blocks(entry.blocks)
+        if "scale" in content:
+            self.kvq["bytes_saved_d2h"] += (
+                int(content["kv"].nbytes) - int(content["scale"].nbytes))
+            return self._tier.store(entry, content)
+        return self._tier.store(entry, content["kv"])
+
+    def _promote_entry(self, entry) -> bool:
+        """Restore a demoted entry to the device pool (reference
+        ``:1613-1648``): fresh blocks (whose allocation may demote colder
+        entries, never this one: the tier pins it), its bytes taken from
+        the host tier (an H2D copy from the pinned slabs) or the disk tier,
+        scattered into the blocks in place — enqueued now, before the
+        wave's copy-on-write, prefill and first read. False = declined
+        (pool pressure) or the disk part failed its CRC: the caller
+        prefills instead, tokens unchanged."""
+        k = -(-entry.n_tokens // self.bt)
+        self._tier.pin = entry
+        try:
+            blocks = self._alloc(k)
+        except PoolExhausted:
+            return False
+        finally:
+            self._tier.pin = None
+        content = self._tier.fetch(entry)
+        if content is None:                  # disk CRC miss: entry gone
+            self._pool.release(blocks)
+            return False
+        t0 = time.monotonic()
+        self._scatter_blocks(blocks, self._as_content(content))
+        entry.blocks = blocks                # the tree owns the refs now
+        entry.tier = TIER_DEVICE
+        self.tier["promotions"] += 1
+        if self._tier_promote_t0 is None:
+            self._tier_promote_t0 = t0
+        return True
 
     def _assign_blocks(self, b: int, slot: _Slot, known: list,
                        remaining: int):
@@ -914,7 +1265,13 @@ class ContinuousBatcher:
         nblocks = -(-extent // self.bt)
         m, src = 0, []
         if self._radix is not None:
-            m, src = self._radix.match(head)
+            # a demoted prefix is still a hit: promote it (reference
+            # ``:1660-1676``); a declined promotion is a plain miss
+            m, entry = self._radix.match_entry(head)
+            if m and entry.tier != TIER_DEVICE and not self._promote_entry(
+                    entry):
+                m = 0
+            src = list(entry.blocks) if m else []
             m = min(m, len(head))
             src = src[:-(-m // self.bt)] if m else []
         f, r = divmod(m, self.bt)
@@ -1057,6 +1414,14 @@ class ContinuousBatcher:
             self._prefill_wave(entries)
             self.stats["prefill_calls"] += 1
             self.stats["prefill_rows"] += len(take)
+            if self._tier_promote_t0 is not None:
+                # the wave's promotion copies were enqueued in
+                # _assign_blocks and ran while the host built and enqueued
+                # this prefill: the overlapped window (reference
+                # ``:2373-2381``)
+                self.tier["promote_overlap_ms"] += (
+                    time.monotonic() - self._tier_promote_t0) * 1e3
+                self._tier_promote_t0 = None
             # mid-chunk rows defer their insert until the head is whole: a
             # partial head in the tree would hand attachers unwritten
             # blocks
@@ -1347,6 +1712,17 @@ class ContinuousBatcher:
         # radix tree's (and the pinned trash block)
         self.last_block_leaks = self._pool.leak_check(
             self._radix.held() if self._radix is not None else None)
+        # ... and the host pool: every allocated host block owned by
+        # exactly one demoted entry, with the disk writer drained so the
+        # part directory is whole when serve returns (reference
+        # ``:2991-3000``)
+        if self._tier is not None:
+            if self._tier.disk is not None:
+                self._tier.disk.drain()
+            self.last_host_block_leaks = self._tier.leak_check()
+            self.tier["host_pool_occupancy"] = max(
+                self.tier["host_pool_occupancy"],
+                self._tier.host.high_water / self._tier.host.num_blocks)
         self.stats["block_pool_occupancy"] = max(
             self.stats["block_pool_occupancy"],
             self._pool.high_water / self._pool.num_blocks)

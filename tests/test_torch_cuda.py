@@ -2126,3 +2126,185 @@ def test_capture_holds_the_collector_off(dev):
     program.replay()
     torch.cuda.synchronize()
     assert torch.equal(x, torch.full_like(x, 4.0))
+
+
+# ---- slice 19: the KV tiers and the prefix handoff ----------------------
+
+
+def _tier_heads(seed, n=3, ln=17):
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(0, 256, ln)] for _ in range(n)]
+
+
+def _tier_reqs(heads, seed):
+    from distributed_compute_pytorch_tpu_torch.serve import Request
+    r = np.random.default_rng(seed)
+    return [Request(h + [int(t) for t in r.integers(0, 256, 2)], 6)
+            for h in heads]
+
+
+# the starved pool of the CPU tier tests: 8-slot blocks, 4 a row, 7 usable
+_TIER = dict(slots=1, t_max=32, prompt_buf=24, segment=4, kv_block_tokens=8,
+             prefix_cache=True, pool_blocks=8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_tier_demote_promote_under_sync_debug_error(dev, dtype, kv_dtype):
+    """GPT-2-tiny with a host tier through the starved pool, captured, every
+    serve call under ``set_sync_debug_mode("error")``: demotions and
+    promotions happen and none waits for the card; the tokens equal an
+    eager tier-on run's, and in f32 the tier-off run's; each rehit's promoted bytes (int8: bytes and
+    scales) equal the head's bytes before its demotion, bit for bit; no
+    device or host block leaks."""
+    from distributed_compute_pytorch_tpu_torch.serve import ContinuousBatcher
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = _tiny_on_card(dev, dtype)
+    A, B, C = _tier_heads(3)
+    stream = [A, B, C, A, B, C, A]
+    off = ContinuousBatcher(gpu, device=dev, **_TIER, kv_dtype=kv_dtype)
+    want = [off.serve(_tier_reqs([h], i)) for i, h in enumerate(stream)]
+    on = ContinuousBatcher(gpu, device=dev, **_TIER, kv_dtype=kv_dtype,
+                           host_cache_blocks=64)
+    demoted, pairs = {}, []
+    demote, promote = on._tier_demote, on._promote_entry
+
+    def tracked_demote(entry, doomed):
+        demoted[id(entry)] = {k: v.clone() for k, v in
+                              on._peek_blocks(entry.blocks).items()}
+        return demote(entry, doomed)
+
+    def tracked_promote(entry):
+        ok = promote(entry)
+        if ok:
+            pairs.append((demoted[id(entry)], on._peek_blocks(entry.blocks)))
+        return ok
+    on._tier_demote, on._promote_entry = tracked_demote, tracked_promote
+    got = []
+    for i, h in enumerate(stream):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got.append(on.serve(_tier_reqs([h], i)))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert pairs
+    for was, now in pairs:
+        for k, v in was.items():
+            assert torch.equal(v, now[k]), k
+    eager = ContinuousBatcher(gpu, device=dev, **_TIER, kv_dtype=kv_dtype,
+                              host_cache_blocks=64)
+    eager._capture = False
+    assert got == [eager.serve(_tier_reqs([h], i))
+                   for i, h in enumerate(stream)]
+    if dtype == torch.float32:
+        # bf16: an attach's suffix prefill runs other GEMM shapes than a
+        # whole prefill, so tokens need not agree bit for bit
+        assert got == want
+    assert on.tier["demotions"] >= 3 and on.tier["promotions"] >= 3
+    assert on._tier.host.waits == 0
+    assert on.last_block_leaks == 0 and on.last_host_block_leaks == 0
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_disk_spill_under_sync_debug_error(dev, tmp_path, kv_dtype):
+    """GPT-2-tiny in f32 with a one-head host tier over a disk tier, every
+    serve call under ``set_sync_debug_mode("error")``: heads spill to disk
+    and promote from it, no CPU-side wait finds a copy still running
+    (``host.waits``: the sync-debug mode does not see an event wait, and
+    the spill's wait is the disk writer thread's), the tokens equal the
+    tier-off run's, and every part left on disk reads back with the CRCs
+    the writer computed."""
+    from distributed_compute_pytorch_tpu_torch.serve import ContinuousBatcher
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = _tiny_on_card(dev, torch.float32)
+    stream = _tier_heads(17) * 2
+    off = ContinuousBatcher(gpu, device=dev, **_TIER, kv_dtype=kv_dtype)
+    want = [off.serve(_tier_reqs([h], i)) for i, h in enumerate(stream)]
+    on = ContinuousBatcher(gpu, device=dev, **_TIER, kv_dtype=kv_dtype,
+                           host_cache_blocks=3, disk_cache_dir=str(tmp_path))
+    got = []
+    for i, h in enumerate(stream):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got.append(on.serve(_tier_reqs([h], i)))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert got == want
+    assert on.tier["disk_spills"] >= 1 and on.tier["disk_hits"] >= 1
+    assert on.tier["disk_crc_miss"] == 0 and on._tier.host.waits == 0
+    assert on.last_block_leaks == 0 and on.last_host_block_leaks == 0
+    disk = on._tier.disk
+    disk.drain()
+    for key in disk.index:
+        content, corrupt = disk.get(key)
+        assert content is not None and not corrupt, key
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_demote_then_promote_same_entry_in_one_pass(dev, kv_dtype):
+    """A demotion followed at once by a promotion of the same entry, with
+    no wait between them and the D2H held back behind a spin kernel: the
+    H2D reads the host blocks after the D2H has filled them (one stream),
+    so the entry lands in other pool blocks bit-exact."""
+    from distributed_compute_pytorch_tpu_torch.serve import ContinuousBatcher
+    gpu = _tiny_on_card(dev, torch.bfloat16)
+    on = ContinuousBatcher(gpu, device=dev, **_TIER, kv_dtype=kv_dtype,
+                           host_cache_blocks=16)
+    (A,) = _tier_heads(5, 1)
+    on.serve(_tier_reqs([A], 0))
+    (e,) = on._radix.entries
+    before = {k: v.clone() for k, v in on._peek_blocks(e.blocks).items()}
+    old = list(e.blocks)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.cuda._sleep(200_000_000)       # ~0.1 s on the stream
+        on._radix.evict_for(on._pool.num_blocks, on._tier_demote)
+        assert e.tier == "host"
+        on._pool.alloc(len(old))             # the promotion lands elsewhere
+        assert on._promote_entry(e)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert e.tier == "device" and not set(e.blocks) & set(old)
+    after = on._peek_blocks(e.blocks)
+    for k, v in before.items():
+        assert torch.equal(v, after[k]), k
+    assert on._tier.leak_check() == 0
+
+
+def test_import_into_host_blocks_released_by_promotion(dev):
+    """A promotion's H2D copy held back behind a spin kernel, its host
+    blocks released at once (a move); an import then writes another
+    prefix's payload into those same host blocks: the write waits for the
+    copy, so the promoted entry keeps its own bytes and the imported one
+    promotes bit-exact later."""
+    from distributed_compute_pytorch_tpu_torch.serve import ContinuousBatcher
+    gpu = _tiny_on_card(dev, torch.bfloat16)
+    A, B = _tier_heads(7, 2)
+    src = ContinuousBatcher(gpu, device=dev, **_TIER)
+    src.serve(_tier_reqs([B], 1))
+    payload = src.export_prefix(B + [1])
+    on = ContinuousBatcher(gpu, device=dev, **_TIER, host_cache_blocks=3)
+    on.serve(_tier_reqs([A], 0))
+    (e,) = on._radix.entries
+    before = {k: v.clone() for k, v in on._peek_blocks(e.blocks).items()}
+    on._radix.evict_for(on._pool.num_blocks, on._tier_demote)
+    hb = list(e.host_blocks)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    assert on._promote_entry(e)
+    assert on.import_prefix(payload)
+    (f,) = [x for x in on._radix.entries if x is not e]
+    assert f.tier == "host" and f.host_blocks == hb
+    torch.cuda.synchronize()
+    after = on._peek_blocks(e.blocks)
+    for k, v in before.items():
+        assert torch.equal(v, after[k]), k
+    assert on._promote_entry(f)
+    got = on._peek_blocks(f.blocks)["kv"].cpu()
+    want = torch.from_numpy(payload["kv"].view(np.int16)).view(
+        torch.bfloat16)
+    assert torch.equal(got, want)
+    assert on._tier.leak_check() == 0
