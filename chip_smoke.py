@@ -201,6 +201,31 @@ imports nothing of JAX. Phases, one JSON line each:
    bytes and ms, and profiled captured runs (bf16 and int8, a quarter of
    the requests each: second visits after a call of the first ones) with
    their launches held to the device's kernel events;
+8e. the request lifecycle and the journal, after serve_tier:
+   serve_faults: GPT-2-small bf16 and f32, its int8 pool, the default
+   Llama and speculation (k 4, n-gram, the spec cell's repeated prompts),
+   16 slots, segment 16, 16-slot blocks, on the serve cell's first 16
+   requests, each drill beside a clean ``serve_detailed`` run of the same
+   requests: a raised harvest at segment 4 (captured and eager in turns,
+   then int8, Llama, speculation and f32), a 1.5 s device-side spin under
+   a 0.5 s tick watchdog and a 0.05 s slow tick, a poison row, a cancel,
+   two deadlines, ``max_pending`` shedding and a drain in one call, the
+   journal off and under each fsync policy, an in-process crash recovered
+   from the journal by a new batcher and deduped by a third (f32), and
+   ``cli_serve --supervise 2 --journal_dir`` SIGKILLed once (f32, beside
+   an unkilled CLI run). Gates: statuses as designed, no slot or block
+   leaked, every pool leaf and static buffer at its address and no new
+   capture after a reconstruction (every later segment a replay), captured
+   equal to eager, f32 tokens equal to the clean run, bf16, int8 and Llama
+   teacher-forced within the margin, a drilled journaled call inside the
+   sync-debug window, the killed CLI's lines equal the unkilled one's, and
+   a profiled drilled run (the 4 longest budgets, the raise at segment 3)
+   with its launches held to the device's kernel events. Reported: each
+   run's tokens/s, mean TTFT, faults, reconstructions, rows re-prefilled
+   and ``recovery_s``, the watchdog's wall from the spin's enqueue to the
+   fault's handling, the journal's tokens/s, ms a tick, frames, bytes and
+   fsyncs per policy, the recovery run's wall and TTFT, the supervisor's
+   restart wall;
 9. train: GPT-2-small at full width and depth (dropout 0.1), bf16 compute
    over f32 masters, ``adamw_fused``, 20 steps on one 8 x 1024 batch
    through ``train/step.py::make_step_fns``, the captured step (its first
@@ -3968,6 +3993,577 @@ def serve_tier_phase(torch, np, mods, models, smi):
                  for k in {*launches[0], *launches[1]}}
 
 
+# ---- the request lifecycle and the write-ahead journal ------------------
+
+# serve_faults: the serve cell's first 16 requests on its batcher (16 slots:
+# one admission wave), a raise or a hang at segment 4
+FAULT_REQUESTS, FAULT_AT = 16, 4
+# the hang drill: a device-side spin of HANG_S under a watchdog of
+# TICK_TIMEOUT_S, then a host-side slow tick of SLOW_S
+HANG_S, TICK_TIMEOUT_S, SLOW_S = 1.5, 0.5, 0.05
+# the cut drill: the first 20 requests under max_pending 2 (the last two
+# shed at submission, two queued), request 0 cancelled at segment 2, the two
+# longest budgets of the rest with a deadline of 0.3 s, a drain flipped at
+# segment 6 with a 2 s deadline; each segment's host hook naps 0.05 s so the
+# deadlines fall mid-stream
+CUT_REQUESTS, CUT_PENDING, CUT_CANCEL_AT = 20, 2, 2
+CUT_DEADLINE_S, CUT_NAP_S, DRAIN_AT, DRAIN_DEADLINE_S = 0.3, 0.05, 6, 2.0
+# the in-process crash: a BaseException from the host hook at segment 5
+CRASH_AT = 5
+# the journal's price: off, then each fsync policy, on clean runs
+FSYNC_TURNS = (None, "os", "every_harvest", "every_frame")
+# the process kill: the CLI on the first 16 requests over 4 slots (four
+# waves, so the serve outlasts the poll), GPT-2-small in f32 on the card,
+# SIGKILLed once (a CPU rehearsal sets "tiny" and "--device cpu")
+KILL_REQUESTS, KILL_SLOTS, KILL_PRESET, KILL_DEVICE = 16, 4, "small", ()
+# the profiled drilled run: the 4 longest budgets, the raise at segment 3
+FAULT_PROFILED = 4
+
+
+class Crash(BaseException):
+    """A crash the serve loop cannot catch (it catches ``Exception``): to
+    the journal, a kill (its frames just stop)."""
+
+
+def fault_batcher(serve, model, *, kv="bf16", mode="graph", **kw):
+    """The serve cell's batcher (16 slots, segment 16, 16-slot blocks, t_max
+    1024, prompt_buf 256) with the lifecycle options ``kw``."""
+    return remainder_batcher(serve, model, kv=kv, mode=mode, t_max=1024,
+                             prompt_buf=256, **kw)
+
+
+def addresses(cb) -> list:
+    """Every pool leaf's and static buffer's device address."""
+    bufs = [leaf for c in cb._caches for leaf in c.values()]
+    bufs += [cb._cur_tok, cb._n_logical, cb._pos0, cb._toks, cb._temp,
+             cb._seed, *cb._tables_w.values()]
+    return [t.data_ptr() for t in bufs]
+
+
+def at(cb, n: int) -> int:
+    """The batcher's segment count ``n`` segments into its next call: the
+    chaos hooks count ``stats["segments"]``, which runs over the batcher's
+    life (warm-ups included)."""
+    return cb.stats["segments"] + n
+
+
+def fresh(reqs, ids=None):
+    return [dataclasses.replace(r, request_id=None if ids is None else
+                                f"{ids}-{i:02d}") for i, r in enumerate(reqs)]
+
+
+def drilled(torch, cb, reqs, what, *, chaos=None, graphs=True, sync=False,
+            **kw):
+    """One ``cb.serve_detailed(reqs)`` (inside the sync-debug window with
+    ``sync``): no slot or block leaked; every pool leaf and static buffer at
+    its address; on a captured batcher (``graphs``) no new capture and
+    every segment of the call a replay. Returns its results, wall,
+    tokens/s, mean TTFT and the lifecycle counters' deltas."""
+    addrs, s0 = addresses(cb), dict(cb.stats)
+    torch.cuda.synchronize()
+    if sync:
+        torch.cuda.set_sync_debug_mode("error")
+    t0 = time.monotonic()
+    try:
+        res = cb.serve_detailed(reqs, chaos=chaos, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    require(cb.last_slot_leaks == 0 and cb.last_block_leaks == 0,
+            f"{what}: leaked slots or blocks")
+    require(addresses(cb) == addrs, f"{what}: a pool leaf or static buffer "
+                                    f"moved")
+    d = {k: cb.stats[k] - s0[k] for k in (
+        "segments", "faults", "reconstructions", "reconstruction_rows",
+        "recovery_s", "prefill_forwards", "graph_captures", "graph_replays")}
+    if graphs and cb._capture:
+        require(d["graph_captures"] == 0 and d["graph_replays"]
+                == d["segments"], f"{what}: captures {d['graph_captures']}, "
+                f"replays {d['graph_replays']} of {d['segments']} segments")
+    ttft = [r.ttft_s for r in res if r.ttft_s is not None]
+    return {"res": res, "outs": [r.tokens for r in res], "wall_s": wall,
+            "tokens_per_s": sum(len(r.tokens) for r in res) / wall,
+            "mean_ttft_s": sum(ttft) / len(ttft) if ttft else None,
+            "stats": d}
+
+
+def fault_summary(r) -> dict:
+    keep = ("wall_s", "tokens_per_s", "mean_ttft_s", "watchdog_wall_s")
+    return {**{k: r[k] for k in keep if k in r}, **r["stats"],
+            "statuses": {s: sum(x.status == s for x in r["res"])
+                         for s in sorted({x.status for x in r["res"]})}}
+
+
+def all_ok(r, what, faults, reconstructions=None):
+    st = r["stats"]
+    rec = faults if reconstructions is None else reconstructions
+    require(all(x.ok for x in r["res"]), f"{what}: statuses "
+            f"{[x.status for x in r['res']]} ({[x.error for x in r['res']]})")
+    require((st["faults"], st["reconstructions"]) == (faults, rec),
+            f"{what}: {st['faults']} faults, {st['reconstructions']} "
+            f"reconstructions, want {faults} and {rec}")
+    if rec:
+        require(st["reconstruction_rows"] > 0 and st["recovery_s"] > 0,
+                f"{what}: no row re-prefilled")
+
+
+class Stamps:
+    """Wraps ``cb._reconstruct`` to stamp the host clock at each entry (the
+    moment the fault was handled)."""
+
+    def __init__(self, cb):
+        self.cb, self.t = cb, []
+        inner = cb._reconstruct
+
+        def stamped(*a):
+            self.t.append(time.monotonic())
+            return inner(*a)
+        cb._reconstruct = stamped
+
+    def close(self):
+        del self.cb._reconstruct
+
+
+def children(pid: int) -> list:
+    """The pids whose parent is ``pid`` (from ``/proc/*/stat``)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    stat = f.read()
+            except OSError:
+                continue
+            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+                out.append(int(d))
+    return out
+
+
+def cli_kill_drill(np, serve, vocab, tmp, smi) -> dict:
+    """``cli_serve --supervise 2 --journal_dir D`` on the first
+    ``KILL_REQUESTS`` requests on ``KILL_SLOTS`` slots (f32, random weights
+    from seed 0), its
+    serving child SIGKILLed once the journal holds a delta, beside an
+    unkilled CLI run of the same file started at the same time: both exit
+    0, the supervisor restarted the child, and the output lines are equal.
+    Reported: the walls, the kill's moment and the supervisor's restart
+    wall (the kill to the supervisor's exit)."""
+    import signal
+    reqs = serve_requests(np, serve, vocab)[:KILL_REQUESTS]
+    path = os.path.join(tmp, "kill_requests.jsonl")
+    with open(path, "w") as f:
+        for i, r in enumerate(reqs):
+            f.write(json.dumps({"id": f"k{i:02d}", "tokens": r.tokens,
+                                "max_new": r.max_new}) + "\n")
+    wal_dir = os.path.join(tmp, "kill_wal")
+    cmd = [sys.executable, "-m", "distributed_compute_pytorch_tpu_torch."
+           "cli_serve", "--init_seed", "0", "--model_preset", KILL_PRESET,
+           "--dtype", "f32", "--requests", path, "--slots", str(KILL_SLOTS),
+           "--segment", "16", "--journal_fsync", "os", *KILL_DEVICE]
+    t0 = time.monotonic()
+    ref = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True, cwd=ROOT)
+    sup = subprocess.Popen(cmd + ["--journal_dir", wal_dir, "--supervise",
+                                  "2"], stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True, cwd=ROOT)
+    wal = os.path.join(wal_dir, "serve.wal")
+    killed = None
+    try:
+        while killed is None and sup.poll() is None \
+                and time.monotonic() - t0 < 300:
+            if os.path.exists(wal):
+                with open(wal, "rb") as f:
+                    journaled = b'"kind":"delta"' in f.read()
+                kids = children(sup.pid) if journaled else []
+                try:
+                    os.kill(kids[0], signal.SIGKILL)
+                    killed = time.monotonic()
+                except (IndexError, ProcessLookupError):
+                    pass                  # no delta yet, or between children
+            time.sleep(0.005)
+        sup_out, sup_err = sup.communicate(timeout=300)
+        t_sup = time.monotonic()
+        ref_out, ref_err = ref.communicate(timeout=300)
+        t_ref = time.monotonic()
+    finally:
+        for p in (ref, sup):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    require(killed is not None, "serve_faults kill: the child never "
+                                "journaled a delta")
+    require(ref.returncode == 0, f"serve_faults kill: the unkilled CLI "
+            f"exited {ref.returncode}: {ref_err[-2000:]}")
+    require(sup.returncode == 0, f"serve_faults kill: the supervised CLI "
+            f"exited {sup.returncode}: {sup_err[-2000:]}")
+    require("serve process died" in sup_err, "serve_faults kill: the "
+            "supervisor never restarted the child")
+    got = [json.loads(ln) for ln in sup_out.splitlines()]
+    want = [json.loads(ln) for ln in ref_out.splitlines()]
+    require(len(want) == KILL_REQUESTS and got == want,
+            "serve_faults kill: the recovered CLI's lines differ from the "
+            "unkilled CLI's")
+    return {"card": smi, "requests": KILL_REQUESTS, "slots": KILL_SLOTS,
+            "dtype": "f32",
+            "command": " ".join(cmd[1:]) + " --journal_dir D --supervise 2",
+            "unkilled_wall_s": t_ref - t0, "killed_at_s": killed - t0,
+            "supervised_wall_s": t_sup - t0,
+            "supervisor_restart_wall_s": t_sup - killed,
+            "restarts": sup_err.count("serve process died"),
+            "lines_equal_unkilled": True}
+
+
+def serve_faults_phase(torch, np, mods, models, smi):
+    """The request lifecycle and the journal on the serve cell's batcher
+    (16 slots, segment 16, 16-slot blocks), GPT-2-small bf16 and f32, its
+    int8 pool, the default Llama and speculation (k 4, n-gram, on the spec
+    cell's repeated prompts), on the serve cell's first 16 requests. Each
+    drill against a clean ``serve_detailed`` run of the same requests in
+    this call. 1. a raised harvest at segment 4, captured and eager in
+    turns (and int8, Llama, speculation, f32): reconstruction; 2. a
+    device-side spin of 1.5 s under a 0.5 s watchdog, then a slow tick;
+    3. a poison row, evicted; 4. a cancel, two deadlines, ``max_pending``
+    shedding and a drain; 5. an in-process crash with the journal on, a new
+    batcher recovering from it and a third deduping everything; 6. the CLI
+    under ``--supervise`` SIGKILLed (``cli_kill_drill``). Gates: statuses
+    as designed; no slot or block leaked; after each reconstruction every
+    pool leaf and static buffer at its address, no new capture, every later
+    segment a replay; captured tokens equal to eager (the hang's eager run:
+    its launch queue fills behind the spin and blocks the overlapped
+    dispatch, so its watchdog may not fire; its tokens are the captured
+    drill's if it faulted, else the clean run's); f32 tokens equal to
+    the clean run; bf16, int8 and Llama within the teacher-forced margin; a
+    drilled journaled call inside the sync-debug window; the killed CLI's
+    lines equal the unkilled one's; the profiled drilled run's launches as
+    scheduled and equal to the device's kernel events. Returns the record
+    and that run's launches."""
+    from distributed_compute_pytorch_tpu_torch import serve_journal as SJ
+    from distributed_compute_pytorch_tpu_torch import serve_lifecycle as SL
+    A, FA, CU, DA, serve = mods
+    tmp = tempfile.mkdtemp(prefix="serve_faults_")
+    out = {"phase": "serve_faults", "card": smi,
+           "models": {"gpt2": GPT2_NAME, "llama": LLAMA_NAME},
+           "slots": 16, "segment": 16, "kv_block_tokens": 16, "t_max": 1024,
+           "prompt_buf": 256, "requests": FAULT_REQUESTS,
+           "fault_at_segment": FAULT_AT, "margin": MARGIN["bf16"]}
+    model = models["gpt2_bf16"]
+    vocab = model.config.vocab_size
+    reqs = serve_requests(np, serve, vocab)[:FAULT_REQUESTS]
+    gaps = {}
+
+    def margin_gate(name, m, rs, r, q8=False):
+        ok = [(q, x.tokens) for q, x in zip(rs, r["res"]) if x.tokens]
+        g = served_gaps(torch, A, m, [q for q, _ in ok], [t for _, t in ok],
+                        q8=q8)
+        gaps[name] = g.max().item()
+        require(gaps[name] <= MARGIN["bf16"], f"serve_faults {name}: a "
+                f"served token's logit is {gaps[name]} below the "
+                f"teacher-forced max (margin {MARGIN['bf16']})")
+
+    # 1. the raise, captured and eager in turns, against the clean run
+    cbs = {m: fault_batcher(serve, model, mode=m) for m in ("graph", "eager")}
+    for cb in cbs.values():
+        cb.serve(fresh(reqs[:1]))         # warm-up: the eager run, capture
+    clean = drilled(torch, cbs["graph"], fresh(reqs), "serve_faults clean")
+    all_ok(clean, "serve_faults clean", 0)
+    runs = {"graph": [], "eager": []}
+    for mode in TURNS:
+        what = f"serve_faults raise {mode}"
+        r = drilled(torch, cbs[mode], fresh(reqs), what,
+                    chaos=SL.ChaosInjector(
+                        fault_at_segment=at(cbs[mode], FAULT_AT)))
+        all_ok(r, what, 1)
+        runs[mode].append(r)
+    raised = runs["graph"][0]
+    require(all(r["outs"] == raised["outs"] for m in runs for r in runs[m]),
+            "serve_faults raise: a captured or eager run served other tokens")
+    margin_gate("clean", model, reqs, clean)
+    margin_gate("raise", model, reqs, raised)
+    out["bf16"] = {
+        "clean": fault_summary(clean),
+        "raise_graph": [fault_summary(r) for r in runs["graph"]],
+        "raise_eager": [fault_summary(r) for r in runs["eager"]],
+        "graph_eager_tokens_identical": True,
+        "pool_addresses_and_captures_unchanged": True,
+        "positions_equal_to_clean": agreement(raised["outs"],
+                                              clean["outs"])}
+    # the drilled journaled call in the sync-debug window
+    cb = cbs["graph"]
+    cb._journal = SJ.ServeJournal(os.path.join(tmp, "sync"), fsync="os")
+    r = drilled(torch, cb, fresh(reqs), "serve_faults raise journaled sync",
+                chaos=SL.ChaosInjector(fault_at_segment=at(cb, FAULT_AT)),
+                sync=True)
+    all_ok(r, "serve_faults raise journaled sync", 1)
+    cb._journal.close()
+    cb._journal = None
+    out["bf16"]["journaled_raise_sync_debug"] = {
+        **fault_summary(r), "sync_debug": SYNC_ALLOWED}
+
+    # 2. the watchdog: a device-side spin, then a slow tick; 3. a poison
+    # row, the newest admission, evicted after its second fault; captured
+    # and eager
+
+    class TimedChaos(SL.ChaosInjector):
+        def in_fetch(self, segments):     # on the card: at the dispatch
+            s = super().in_fetch(segments)
+            if s:
+                self.t_hang = time.monotonic()
+            return s
+    victim = FAULT_REQUESTS - 1
+    drills = {}
+    for mode, cb in cbs.items():
+        cb.tick_timeout_s = TICK_TIMEOUT_S
+        stamps = Stamps(cb)
+        chaos = TimedChaos(fault_at_segment=at(cb, FAULT_AT),
+                           fault_mode="hang", hang_s=HANG_S)
+        hang = drilled(torch, cb, fresh(reqs), f"serve_faults hang {mode}",
+                       chaos=chaos)
+        all_ok(hang, f"serve_faults hang {mode}", 1)
+        hang["watchdog_wall_s"] = (stamps.t[0] - chaos.t_hang
+                                   if stamps.t else None)
+        stamps.close()
+        slow = drilled(torch, cb, fresh(reqs), f"serve_faults slow {mode}",
+                       chaos=SL.ChaosInjector(
+                           fault_at_segment=at(cb, FAULT_AT),
+                           fault_mode="slow", slow_s=SLOW_S))
+        all_ok(slow, f"serve_faults slow {mode}", 0)
+        require(slow["outs"] == clean["outs"], f"serve_faults slow {mode}: "
+                                               f"a slow tick changed a token")
+        cb.tick_timeout_s = None
+        poison = drilled(torch, cb, fresh(reqs), f"serve_faults poison "
+                         f"{mode}", chaos=SL.ChaosInjector(
+                             fault_mode="poison", poison_request=victim,
+                             fault_count=10))
+        st = [x.status for x in poison["res"]]
+        require(st[victim] == "failed"
+                and "poison" in poison["res"][victim].error
+                and st.count("ok") == FAULT_REQUESTS - 1
+                and poison["stats"]["faults"] == 2
+                and poison["stats"]["reconstructions"] == 2,
+                f"serve_faults poison {mode}: statuses {st}, stats "
+                f"{poison['stats']}")
+        drills[mode] = {"hang": hang, "slow": slow, "poison": poison}
+    require(drills["eager"]["hang"]["outs"] == drills["graph"]["hang"]["outs"],
+            "serve_faults hang: captured and eager tokens differ")
+    require(drills["graph"]["poison"]["outs"]
+            == drills["eager"]["poison"]["outs"],
+            "serve_faults poison: captured and eager tokens differ")
+    for name in ("hang", "poison"):
+        margin_gate(name, model, reqs, drills["graph"][name])
+    for mode, d in drills.items():
+        out["bf16"][f"hang_{mode}"] = {
+            **fault_summary(d["hang"]), "hang_s": HANG_S,
+            "tick_timeout_s": TICK_TIMEOUT_S,
+            "spin": "torch.cuda._sleep on the stream after the segment, "
+                    "before its fetch's event"}
+        out["bf16"][f"slow_{mode}"] = {**fault_summary(d["slow"]),
+                                       "slow_s": SLOW_S}
+        out["bf16"][f"poison_{mode}"] = {**fault_summary(d["poison"]),
+                                         "poison_request": victim}
+
+    # 4. cut requests: cancel, deadlines, shed, drain (captured)
+    cb = cbs["graph"]
+    cut = fresh(serve_requests(np, serve, vocab)[:CUT_REQUESTS])
+    timed = sorted(range(1, FAULT_REQUESTS), key=lambda i: -cut[i].max_new)[:2]
+    for i in timed:
+        cut[i].deadline_s = CUT_DEADLINE_S
+
+    class Guard:
+        preempted = False
+    guard, flipped, base = Guard(), {}, at(cb, 0)
+
+    def hook(s):
+        if s - base == CUT_CANCEL_AT:
+            cb.cancel(0)
+        if s - base == DRAIN_AT:
+            guard.preempted = True
+            flipped["t"] = time.monotonic()
+        time.sleep(CUT_NAP_S)
+    cb.max_pending = CUT_PENDING
+    r = drilled(torch, cb, cut, "serve_faults cut",
+                chaos=SL.ChaosInjector(on_segment=hook), drain=guard,
+                drain_deadline_s=DRAIN_DEADLINE_S)
+    cb.max_pending = None
+    res = r["res"]
+    tail = FAULT_REQUESTS + CUT_PENDING
+    want = ["cancelled" if i == 0 else "timeout" if i in timed else
+            "shed" if i >= tail else None for i in range(CUT_REQUESTS)]
+    for i, (x, w) in enumerate(zip(res, want)):
+        partial = 0 < len(x.tokens) < cut[i].max_new
+        if w in ("cancelled", "timeout"):
+            require(x.status == w and partial, f"serve_faults cut: request "
+                    f"{i} {x.status} with {len(x.tokens)} tokens, want {w} "
+                    f"and a partial stream")
+        elif w == "shed":
+            require(x.status == "shed" and "max_pending" in x.error
+                    and not x.tokens, f"serve_faults cut: request {i} "
+                    f"{x.status}, want shed at submission")
+        else:
+            require(x.ok or (x.status == "shed" and "draining" in x.error),
+                    f"serve_faults cut: request {i} {x.status} ({x.error})")
+    require("t" in flipped and time.monotonic() - flipped["t"]
+            < DRAIN_DEADLINE_S + 5, "serve_faults cut: the drain never "
+                                    "flipped or overstayed")
+    margin_gate("cut", model, cut, r)
+    out["bf16"]["cut"] = {
+        **fault_summary(r), "max_pending": CUT_PENDING,
+        "cancelled_at_segment": CUT_CANCEL_AT, "deadline_requests": timed,
+        "deadline_s": CUT_DEADLINE_S, "drain_at_segment": DRAIN_AT,
+        "drain_deadline_s": DRAIN_DEADLINE_S, "host_nap_s": CUT_NAP_S,
+        "statuses_by_request": [x.status for x in res]}
+
+    # the journal's price on clean runs: off and each fsync policy
+    price = {}
+    for policy in FSYNC_TURNS:
+        jr = None if policy is None else SJ.ServeJournal(
+            os.path.join(tmp, f"price_{policy}"), fsync=policy)
+        cb._journal = jr
+        r = drilled(torch, cb, fresh(reqs), f"serve_faults journal {policy}")
+        all_ok(r, f"serve_faults journal {policy}", 0)
+        require(r["outs"] == clean["outs"], f"serve_faults journal "
+                f"{policy}: the journal changed a token")
+        ticks = r["stats"]["segments"] * cb.S
+        price[policy or "off"] = {
+            "tokens_per_s": r["tokens_per_s"], "wall_s": r["wall_s"],
+            "ms_per_tick": 1e3 * r["wall_s"] / ticks,
+            **({} if jr is None else {k: jr.stats[k] for k in (
+                "frames", "bytes", "fsyncs")})}
+        if jr is not None:
+            jr.close()
+    cb._journal = None
+    out["bf16"]["journal_price"] = price
+    del cbs, cb
+    torch.cuda.empty_cache()
+
+    # the raise under the int8 pool, Llama and speculation
+    spec_reqs = repeated_requests(np, serve, vocab)[:FAULT_REQUESTS]
+    llama = models["llama_bf16"]
+    llama_reqs = serve_requests(np, serve, llama.config.vocab_size)[
+        :FAULT_REQUESTS]
+    cells = {"int8": (model, reqs, dict(kv="int8"), True),
+             "llama": (llama, llama_reqs, {}, False),
+             "spec": (model, spec_reqs, dict(speculate=SPEC_K), False)}
+    for name, (m, rs, kw, q8) in cells.items():
+        cb = fault_batcher(serve, m, **kw)
+        cb.serve(fresh(rs[:1]))
+        c = drilled(torch, cb, fresh(rs), f"serve_faults {name} clean",
+                    graphs=name != "spec")
+        r = drilled(torch, cb, fresh(rs), f"serve_faults {name} raise",
+                    graphs=name != "spec",
+                    chaos=SL.ChaosInjector(fault_at_segment=at(cb, FAULT_AT)))
+        all_ok(r, f"serve_faults {name} raise", 1)
+        margin_gate(name, m, rs, r, q8=q8)
+        out[name] = {"clean": fault_summary(c), "raise": fault_summary(r),
+                     "positions_equal_to_clean": agreement(r["outs"],
+                                                           c["outs"])}
+        if name == "spec":
+            out[name]["verify_segments"] = cb.spec["verify_segments"]
+            require(cb.spec["verify_segments"] > 0, "serve_faults spec: no "
+                                                    "verify step")
+        del cb
+        torch.cuda.empty_cache()
+
+    # the profiled drilled run (bf16, captured)
+    cb = fault_batcher(serve, model)
+    longest = sorted(reqs, key=lambda q: -q.max_new)[:FAULT_PROFILED]
+    cb.serve(fresh(longest[:1]))
+    before, ticks0, sched, units = dict(cb.stats), cb.ticks, {}, {}
+
+    def run():
+        res = cb.serve_detailed(fresh(longest), chaos=SL.ChaosInjector(
+            fault_at_segment=at(cb, FAULT_AT - 1)))
+        require(all(x.ok for x in res) and cb.stats["reconstructions"]
+                == before["reconstructions"] + 1,
+                "serve_faults profile: the drill did not reconstruct")
+        fw = cb.stats["prefill_forwards"] - before["prefill_forwards"]
+        ticks = cb.ticks - ticks0
+        units.update(prefill_forwards=fw, ticks=ticks)
+        sched.update({"flash_fwd": LAYERS * fw, "flash_fwd_tc": LAYERS * fw,
+                      "kv_pool_insert": LAYERS * fw,
+                      "paged_decode_write": LAYERS * ticks})
+    prof, wall, counts = counted_profile(torch, (FA, CU, DA), run,
+                                         "serve_faults profile", sched,
+                                         waves=units)
+    ticks = cb.ticks - ticks0
+    out["profile"] = profile_summary(torch, prof, wall, counts, ticks,
+                                     ticks // cb.S, "segment", [wall])
+    out["profile"]["waves"] = units
+    del cb, prof
+    torch.cuda.empty_cache()
+
+    # f32: the raise and the crash, tokens equal to the clean run
+    f32 = models["gpt2_f32"]
+    cb = fault_batcher(serve, f32)
+    cb.serve(fresh(reqs[:1]))
+    c = drilled(torch, cb, fresh(reqs), "serve_faults f32 clean")
+    r = drilled(torch, cb, fresh(reqs), "serve_faults f32 raise",
+                chaos=SL.ChaosInjector(fault_at_segment=at(cb, FAULT_AT)))
+    all_ok(r, "serve_faults f32 raise", 1)
+    require(r["outs"] == c["outs"], "serve_faults f32 raise: tokens differ "
+                                    "from the clean run")
+    out["f32"] = {"clean": fault_summary(c), "raise": fault_summary(r),
+                  "raise_tokens_equal_clean": True}
+    del cb
+    wal = os.path.join(tmp, "crash")
+
+    cb1 = fault_batcher(serve, f32, journal_dir=wal)
+    cb1.serve([dataclasses.replace(reqs[0], request_id="warm-1")])
+    crash_at = at(cb1, CRASH_AT)
+
+    def crash(seg):
+        if seg >= crash_at:
+            raise Crash(f"injected process death at segment {seg}")
+    try:
+        cb1.serve_detailed(fresh(reqs, "f"),
+                           chaos=SL.ChaosInjector(on_segment=crash))
+        require(False, "serve_faults crash: the crash did not propagate")
+    except Crash:
+        pass
+    frames1 = cb1.journal["frames"]
+    cb1._journal.close()
+    del cb1
+    torch.cuda.empty_cache()
+    man = SJ.recover(wal)
+    require(len(man.incomplete) > 0 and any(s.emitted for s in
+                                            man.incomplete.values()),
+            "serve_faults crash: no session open with emitted tokens")
+    cb2 = fault_batcher(serve, f32, journal_dir=wal)
+    cb2.serve([dataclasses.replace(reqs[0], request_id="warm-2")])
+    rec = drilled(torch, cb2, fresh(reqs, "f"), "serve_faults recovery",
+                  recovery=man)
+    all_ok(rec, "serve_faults recovery", 0)
+    require(rec["outs"] == c["outs"], "serve_faults recovery: tokens differ "
+                                      "from the uncrashed run")
+    recovered = dict(cb2.journal)
+    cb2._journal.close()
+    del cb2
+    torch.cuda.empty_cache()
+    cb3 = fault_batcher(serve, f32)
+    dedup = drilled(torch, cb3, fresh(reqs, "f"), "serve_faults dedup",
+                    recovery=SJ.recover(wal))
+    require(dedup["stats"]["segments"] == 0 and dedup["outs"] == c["outs"]
+            and cb3.journal["deduped_completions"] == FAULT_REQUESTS,
+            f"serve_faults dedup: {dedup['stats']}, "
+            f"{cb3.journal['deduped_completions']} deduped")
+    out["f32"]["crash"] = {
+        "crash_at_segment": CRASH_AT, "frames_before_crash": frames1,
+        "sessions": len(man.sessions), "incomplete": len(man.incomplete),
+        "emitted_tokens_recovered": sum(len(s.emitted)
+                                        for s in man.incomplete.values()),
+        "recovery": {**fault_summary(rec), **{k: recovered[k] for k in (
+            "recovered_sessions", "deduped_completions",
+            "recovery_replay_tokens")}},
+        "dedup": fault_summary(dedup), "tokens_equal_uncrashed": True}
+    del cb3
+    torch.cuda.empty_cache()
+
+    # 6. the process kill under the supervisor
+    out["kill"] = cli_kill_drill(np, serve, vocab, tmp, smi)
+    out["teacher_forced_worst_gap"] = gaps
+    return out, out["profile"]["launches"]
+
+
 # the kernel entries checked exactly, and the source of each entry whose
 # file is named otherwise
 EXACT = ("kv_pool_insert", "cache_insert", "kv_insert", "kv_insert_rows",
@@ -7016,6 +7612,11 @@ def main() -> int:
         tier_rec, tier_launches = serve_tier_phase(torch, np, mods,
                                                    spec_models, smi)
         record(tier_rec)
+        # the request lifecycle and the journal: GPT-2 bf16 and
+        # f32, its int8 pool, Llama bf16, speculation
+        faults_rec, faults_launches = serve_faults_phase(
+            torch, np, mods, spec_models, smi)
+        record(faults_rec)
         del spec_models, f32, llama
         torch.cuda.empty_cache()
         del model, base, float_served, float_generated
@@ -7178,6 +7779,7 @@ def main() -> int:
                     gen8["int8_profile"]["launches"].get(name),
                 "train_launches": train_launches.get(name),
                 "serve_tier_launches": tier_launches.get(name),
+                "serve_faults_launches": faults_launches.get(name),
                 "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
                 "tol": 0.0 if name in EXACT else TOL["bf16"],
                 "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],

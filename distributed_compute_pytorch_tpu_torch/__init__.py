@@ -30,7 +30,8 @@ train     ``optim`` (Adadelta and SGD with StepLR, AdamW, fused AdamW,
           warmup-cosine), ``step`` (``make_step_fns``: bf16 compute over
           f32 masters, step-level accumulation, model state, data
           parallelism), ``checkpoint`` (v1 ``.npz``, params and model
-          state in the JAX layout), ``trainer``
+          state in the JAX layout), ``trainer``, ``elastic`` (the
+          preemption guard and restart backoff serving uses)
 data      ``sampler``, ``datasets`` (MNIST, synthetic), ``loader``
           (``DeviceFeeder``, a rank's rows of each global batch)
 core      ``config`` (the ``dcp-train`` flag subset), ``mesh`` (the
@@ -38,7 +39,12 @@ core      ``config`` (the ``dcp-train`` flag subset), ``mesh`` (the
 utils     ``logging`` (the reference's lines, rank 0), ``fsio``
 kv_pool   host-side refcounted block pool and the radix prefix cache
 serve     ``ContinuousBatcher`` (per-row sampling, the prefix cache,
-          chunked prefill, width buckets, speculative decoding)
+          chunked prefill, width buckets, speculative decoding, the KV
+          tiers, the request lifecycle of ``serve_detailed`` and session
+          reconstruction)
+serve_lifecycle  ``RequestResult``, statuses, ``ChaosInjector``, the
+          tick watchdog's ``TickTimeout``
+serve_journal  the write-ahead session journal and ``recover``
 spec_decode  speculation's ``SpecConfig`` and proposers
 infer     ``prefill``, ``generate`` (greedy, top-k / nucleus sampling)
 cli       the ``dcp-train`` subset; cli_serve the ``dcp-serve`` subset;

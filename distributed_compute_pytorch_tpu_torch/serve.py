@@ -134,26 +134,60 @@ ticks while finished rows take the next queued request:
   :meth:`ContinuousBatcher.export_prefix` / :meth:`ContinuousBatcher.
   import_prefix` move a cached prefix between batchers as bytes.
 
+- **The request lifecycle** (:meth:`ContinuousBatcher.serve_detailed`,
+  ``serve_lifecycle.py``): a ``RequestResult`` per request — ``ok``,
+  ``failed``, ``timeout`` (``Request.deadline_s``), ``cancelled``
+  (:meth:`ContinuousBatcher.cancel`, the drain deadline) or ``shed``
+  (``max_pending`` overflow, a drain's queue) — with whatever tokens
+  reached the host. Open-loop arrivals (``Request.arrival_s``) are admitted
+  no sooner than they arrive. The lifecycle's transitions are host
+  bookkeeping between device calls; a row cut while its next segment is in
+  flight is freed as a row at eos is (the argument above holds: reuse of
+  its blocks is enqueued after that segment, and the harvest skips its
+  plan entry).
+- **Session reconstruction**: a raised harvest, or one past
+  ``tick_timeout_s`` (the tick watchdog: the harvest polls its event and
+  raises ``TickTimeout``, no thread, no blocking sync; on the card an
+  eager or capturing segment first waits for the one in flight under the
+  same budget, since its launches could block the host behind a hung
+  device, so with the watchdog on only replays overlap), rebuilds every live
+  row from host state — the pool and the static buffers zeroed IN PLACE
+  (the captured programs keep their addresses and replay on), then
+  ``prompt + harvested tokens`` re-prefilled — at most ``max_recoveries``
+  a call, evicting the newest admission when a fault survives one. A
+  segment the watchdog cut stays on the stream: the zeroing and the
+  re-prefill are enqueued behind it, and the next harvest's clock starts
+  once it is done, so a hang that never ends blocks the process (the
+  journal and the CLI's ``--supervise`` recover its sessions).
+- **The write-ahead journal** (``journal_dir`` / ``journal``,
+  ``serve_journal.py``): an admit frame before a request's first device
+  work, a delta frame a harvest (after the eos trim), an end frame at its
+  terminal event, committed at each harvest; ``serve_detailed(recovery=)``
+  dedups a journal's completed requests and re-admits its open sessions as
+  prompt + emitted continuations (the seed materialised first).
+
 Admission is FIFO by default: a free row always takes the queue head. A
 request whose segment-rounded budget can never fit a row would block the
-head forever, so it is set aside up front, everything else is served,
-then :class:`HorizonError` is raised carrying the completed outputs.
-``admit_policy="skip_fit"`` keeps that no-leapfrog order among requests
-that fit and skips the others in place, reporting them the same way.
+head forever, so it fails up front, everything else is served; the legacy
+:meth:`ContinuousBatcher.serve` then raises :class:`HorizonError` carrying
+the completed outputs. ``admit_policy="skip_fit"`` keeps that no-leapfrog
+order among requests that fit and skips the others in place, reporting
+them the same way.
 
-Not ported yet: the journal, deadlines, cancel, shed, drain,
-reconstruction, ``reload_weights`` and telemetry (the int8 pool's other
-``kvq`` counters, and the gauges of ``spec``, ``width``, ``tier``, ``kvq``
-and ``fleet``, which the batcher keeps as plain counter dicts), and the
-router's width- and verify-priced load estimates.
+Not ported yet: ``reload_weights`` and telemetry (the int8 pool's other
+``kvq`` counters, the gauges of ``spec``, ``width``, ``tier``, ``kvq``,
+``journal`` and ``fleet``, which the batcher keeps as plain counter dicts,
+the SLO histograms, heartbeats and flight records), and the router's
+width- and verify-priced load estimates.
 """
 
 from __future__ import annotations
 
 import functools
 import inspect
+import threading
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -172,6 +206,10 @@ from distributed_compute_pytorch_tpu_torch.ops.cache_update import (
     kv_pool_insert)
 from distributed_compute_pytorch_tpu_torch.ops.decode_attention import (
     merge_scratch)
+from distributed_compute_pytorch_tpu_torch.serve_journal import (
+    JOURNAL_STATS, ServeJournal)
+from distributed_compute_pytorch_tpu_torch.serve_lifecycle import (
+    CANCELLED, FAILED, OK, SHED, TIMEOUT, RequestResult, TickTimeout, spin)
 from distributed_compute_pytorch_tpu_torch.spec_decode import (
     SpecConfig, make_proposer)
 from distributed_compute_pytorch_tpu_torch.utils.graphs import capture
@@ -182,6 +220,9 @@ from distributed_compute_pytorch_tpu_torch.utils.graphs import capture
 DEFAULT_BLOCK_TOKENS = 8
 KV_DTYPES = ("bf16", "int8")
 ADMIT_POLICIES = ("fifo", "skip_fit")
+# the tick watchdog's poll interval: the timed harvest checks its segment's
+# event this often (``_Fetch.result``)
+POLL_S = 1e-4
 
 
 @dataclass
@@ -193,7 +234,16 @@ class Request:
     optional ``top_k`` / ``top_p`` truncation (both need a temperature
     above 0). ``seed`` fixes the request's sampling stream; ``None`` means
     the request's index in the ``serve`` call, so a whole call is
-    deterministic by default."""
+    deterministic by default.
+
+    ``deadline_s`` is a wall-clock budget from submission (the
+    ``serve_detailed`` call): a request still queued when it expires ends
+    ``timeout`` with no device work, one in flight is cut at the next
+    segment boundary with its partial stream. ``arrival_s`` is an
+    open-loop arrival offset from the call's start: the request is not
+    admitted before it (0 = everything arrives at submission).
+    ``request_id`` is the stable identity journal recovery dedups by
+    (``None`` = ``req-{i}``, the request's position in the call)."""
 
     tokens: list
     max_new: int
@@ -201,6 +251,9 @@ class Request:
     top_k: int | None = None
     top_p: float | None = None
     seed: int | None = None
+    deadline_s: float | None = None
+    arrival_s: float = 0.0
+    request_id: str | None = None
 
 
 @dataclass
@@ -210,6 +263,7 @@ class _Slot:
     req_index: int = -1        # position in the request list (-1 = free)
     remaining: int = 0
     out: list = field(default_factory=list)
+    admit_seq: int = -1        # admission order (poison-row eviction)
     blocks: list = field(default_factory=list)   # owned pool block refs
     # chunked prefill: the known tokens of a row admitted mid-prompt and
     # how many logical head tokens (attached prefix included) are
@@ -222,6 +276,7 @@ class _Slot:
         self.req_index = -1
         self.remaining = 0
         self.out = []
+        self.admit_seq = -1
         self.blocks = []
         self.pf_known = None
         self.pf_done = 0
@@ -256,17 +311,38 @@ class _Fetch:
             # the CPU runs the copy now; the next segment reuses ``toks``
             self._host, self._event = toks.clone(), None
 
-    def result(self) -> np.ndarray:
-        if self._event is not None:
-            # the harvest's wait for its own segment, the serve loop's one
-            # intended host sync: allowed even under
-            # torch.cuda.set_sync_debug_mode("error"), and only here
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode(0)
-            try:
-                self._event.synchronize()
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
+    def done(self) -> bool:
+        """Has the copy landed? (``event.query()``: no sync.)"""
+        return self._event is None or self._event.query()
+
+    def result(self, timeout_s: float | None = None,
+               hang_s: float = 0.0) -> np.ndarray:
+        """The tokens. Without ``timeout_s`` the wait is the event's
+        ``synchronize``; with it (the tick watchdog) the wait polls
+        ``event.query()`` every ``POLL_S`` and raises
+        :class:`~serve_lifecycle.TickTimeout` once ``timeout_s`` is spent:
+        no thread, no blocking sync. ``hang_s`` (a CPU chaos drill) holds
+        the data back that long, inside the poll."""
+        if timeout_s is None:
+            if hang_s:
+                time.sleep(hang_s)
+            if self._event is not None:
+                # the harvest's wait for its own segment, the serve loop's
+                # one intended host sync: allowed even under
+                # torch.cuda.set_sync_debug_mode("error"), and only here
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode(0)
+                try:
+                    self._event.synchronize()
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            return self._host.numpy()
+        t0 = time.monotonic()
+        while not (self.done() and time.monotonic() - t0 >= hang_s):
+            if time.monotonic() - t0 >= timeout_s:
+                raise TickTimeout(f"tick harvest exceeded {timeout_s:g}s "
+                                  f"(hung device)")
+            time.sleep(POLL_S)
         return self._host.numpy()
 
 
@@ -317,17 +393,32 @@ class ContinuousBatcher:
       disk_cache_dir: the disk tier's directory, below a host tier; parts
         already there whose geometry, dtype and weights version match are
         adopted.
+      max_pending: bounded admission: ``serve_detailed`` accepts at most
+        ``slots + max_pending`` requests and sheds the rest at submission;
+        ``None`` = unbounded.
+      tick_timeout_s: the tick watchdog's budget a harvest (module
+        docstring); ``None`` = off.
+      max_recoveries: reconstructions a call before the remaining requests
+        fail with the device's error (default 2).
+      journal, journal_dir, journal_fsync: the write-ahead session journal
+        (a shared ``serve_journal.ServeJournal``, or one opened in
+        ``journal_dir`` with its fsync policy, which stamps this pool's
+        ``kv_dtype`` and ``weights_version`` in a config frame).
       device: ``None``/``"cuda"`` (raises without CUDA) or ``"cpu"``.
 
     Counters: ``stats`` (prefill waves, their rows and those that ran a
-    device forward (``prefill_forwards``), overlapped fetches,
-    eager, captured, replayed and sampled segments, and the prefix cache's
+    device forward (``prefill_forwards``), dispatched ``segments`` (verify
+    steps included; the chaos hooks count these), ``fetches`` and the
+    overlapped ones, eager, captured, replayed and sampled segments,
+    ``faults``, ``reconstructions``, ``reconstruction_rows`` and
+    ``recovery_s``, and the prefix cache's
     ``prefix_hits``, ``cached_prefix_tokens``, ``prefill_tokens_saved``,
     ``cow_copies`` and peak ``block_pool_occupancy``), ``prefill`` (the
     chunk counters: ``chunked_admissions``, ``chunk_waves``,
-    ``chunk_tokens``, ``stall_ticks``), and after each ``serve`` call
+    ``chunk_tokens``, ``stall_ticks``), and after each serve call
     ``last_slot_leaks``, ``last_block_leaks`` (pool references the radix
-    tree does not account for), ``last_ttft_s``, ``last_cached_prefix``
+    tree does not account for), ``last_ttft_s`` (each request's arrival to
+    its first harvested token), ``last_cached_prefix``
     (each request's attached length) and ``last_admissions`` (request
     indices, one list a wave, in admission order); ``spec`` (speculation:
     ``proposed`` and ``accepted`` drafts, ``acceptance_rate``,
@@ -341,8 +432,10 @@ class ContinuousBatcher:
     ``promote_overlap_ms``, peak ``host_pool_occupancy``) and
     ``last_host_block_leaks``; the handoff's ``prefill["handoff_*"]``,
     ``kvq`` (``bytes_saved_d2h``, ``bytes_saved_handoff``,
-    ``handoff_dtype_declined``) and ``fleet["version_declined"]``, under
-    the reference's keys.
+    ``handoff_dtype_declined``), ``fleet["version_declined"]`` and
+    ``journal`` (``serve_journal.JOURNAL_STATS``: frames, bytes, fsyncs,
+    torn tails, recovered sessions, deduped completions, replayed tokens),
+    under the reference's keys.
     """
 
     def __init__(self, model, params=None, *, slots: int, t_max: int,
@@ -356,8 +449,24 @@ class ContinuousBatcher:
                  decode_width_buckets: int | None = 1,
                  host_cache_mb: float | None = None,
                  host_cache_blocks: int | None = None,
-                 disk_cache_dir: str | None = None, device=None):
+                 disk_cache_dir: str | None = None,
+                 max_pending: int | None = None,
+                 tick_timeout_s: float | None = None,
+                 max_recoveries: int = 2, journal=None,
+                 journal_dir: str | None = None,
+                 journal_fsync: str = "every_harvest", device=None):
         self.device = resolve_device(device)
+        if max_pending is not None and max_pending < 0:
+            raise ValueError(f"max_pending must be >= 0, got {max_pending}")
+        if tick_timeout_s is not None and tick_timeout_s <= 0:
+            raise ValueError(
+                f"tick_timeout_s must be > 0, got {tick_timeout_s}")
+        if max_recoveries < 0:
+            raise ValueError(
+                f"max_recoveries must be >= 0, got {max_recoveries}")
+        self.max_pending = max_pending
+        self.tick_timeout_s = tick_timeout_s
+        self.max_recoveries = max_recoveries
         if host_cache_mb is not None and host_cache_mb <= 0:
             raise ValueError(
                 f"host_cache_mb must be > 0, got {host_cache_mb}")
@@ -563,12 +672,14 @@ class ContinuousBatcher:
         self._row_pos = [0] * slots
         self.ticks = 0
         self.stats = {"prefill_calls": 0, "prefill_rows": 0,
-                      "prefill_forwards": 0,
+                      "prefill_forwards": 0, "segments": 0, "fetches": 0,
                       "fetches_overlapped": 0, "eager_segments": 0,
                       "graph_captures": 0, "graph_replays": 0,
                       "sampled_segments": 0, "prefix_hits": 0,
                       "cached_prefix_tokens": 0, "prefill_tokens_saved": 0,
-                      "cow_copies": 0, "block_pool_occupancy": 0.0}
+                      "cow_copies": 0, "block_pool_occupancy": 0.0,
+                      "faults": 0, "reconstructions": 0,
+                      "reconstruction_rows": 0, "recovery_s": 0.0}
         self.prefill = {"chunked_admissions": 0, "chunk_waves": 0,
                         "chunk_tokens": 0, "stall_ticks": 0,
                         "handoff_exports": 0, "handoff_imports": 0,
@@ -591,10 +702,33 @@ class ContinuousBatcher:
             for leaf in self._caches[0].values())
         self.last_slot_leaks = 0   # rows still owned at serve() exit
         self.last_block_leaks = 0  # pool refs unaccounted at serve() exit
-        self.last_ttft_s: list = []  # per request: serve start -> 1st token
+        self.last_ttft_s: list = []  # per request: arrival -> 1st token
         self.last_cached_prefix: list = []  # per request: attached length
         self.last_admissions: list = []     # request indices, a list a wave
         self.last_host_block_leaks = 0  # host blocks unaccounted at exit
+        # the request lifecycle: cancel() marks a request of the call in
+        # flight (from any thread), police() reads the marks between device
+        # calls
+        self._cancel_mu = threading.Lock()
+        self._cancelled: set[int] = set()
+        # segments cut by the tick watchdog (and segments dispatched past a
+        # fault), still on the stream: kept until their events complete, so
+        # their pinned buffers live as long as their copies, and never read
+        self._stale: list[_Fetch] = []
+        # the write-ahead session journal (serve_journal.py): a shared
+        # writer wins over journal_dir; one opened here stamps this pool's
+        # kv_dtype and weights_version in a config frame. Its counters are
+        # the writer's (``journal``); these are used only without a writer
+        if journal is None and journal_dir is not None:
+            journal = ServeJournal(journal_dir, fsync=journal_fsync)
+            journal.config({"kv_dtype": kv_dtype,
+                            "weights_version": self.weights_version})
+        self._journal = journal
+        self._no_journal_stats = dict(JOURNAL_STATS)
+        # recovery replays' admission records for the duration of one
+        # _run: sub-request index -> (request id, original prompt, tokens
+        # already emitted), so the admit frame records the true session
+        self._replay_admits: dict = {}
         # a restarted disk tier re-enters the radix (reference ``:762-779``):
         # parts whose sidecars carry their prefix tokens and match this
         # pool's geometry, dtype and weights version become TIER_DISK
@@ -887,15 +1021,16 @@ class ContinuousBatcher:
             for li, cache in enumerate(self._caches):
                 cache[name].index_copy_(1, dst, src[li])
 
-    def _prefill_wave(self, entries):
+    def _prefill_wave(self, entries, window: int | None = None):
         """ONE multi-row prefill of ``entries`` ``(row, known, from_m,
         upto)`` (reference ``:3025-3130``): each entry's head tokens
         ``known[from_m:upto]`` at logical positions ``from_m..upto-1``
         (past its resident prefix: the attached length at admission, or
         chunked prefill's progress mark) from column 0 of a ``window``-wide
-        batch, their K/V scattered to the row's blocks. ``window`` is
-        ``prompt_buf`` when nothing is resident, the chunk with chunking
-        on, else the block-rounded longest suffix. An entry reaching its
+        batch, their K/V scattered to the row's blocks. ``window`` defaults
+        to ``prompt_buf`` when nothing is resident, the chunk with chunking
+        on, else the block-rounded longest suffix; reconstruction passes
+        the width its grown heads need. An entry reaching its
         head (``upto == len(known) - 1``) finalises: its last known token
         becomes the row's current token and the row rewinds to ``head_len
         - 1``; a mid-chunk entry stays parked. A wave with no suffix token
@@ -903,9 +1038,9 @@ class ContinuousBatcher:
         bt = self.bt
         suffixes = [upto - m for _, _, m, upto in entries]
         max_m = max(m for _, _, m, _ in entries)
-        if self._chunk is not None:
+        if window is None and self._chunk is not None:
             window = self._chunk
-        else:
+        elif window is None:
             window = (self.Tb if max_m == 0 else
                       max(bt, -(-max(suffixes) // bt) * bt))
         Lp = -(-max_m // bt) * bt        # the gathered prefix, whole blocks
@@ -949,6 +1084,82 @@ class ContinuousBatcher:
                 self._cur_h[b] = known[-1]           # the host mirrors
                 self._nlog_h[b] = len(known) - 1
 
+    def _reconstruct(self, table, requests, fin, free_row) -> None:
+        """Device-failure session reconstruction (reference
+        ``:3131-3213``): rebuild every live row's K/V by re-prefilling
+        ``prompt + harvested tokens`` from host state, then resume decode.
+
+        The host knows each live row's whole prefix and its true remaining
+        budget; re-prefilling it at the same logical positions reproduces
+        the lost K/V, and a row's draws depend on (seed, logical position)
+        alone, so the resumed stream is the uninterrupted one (exactly in
+        f32; in bf16 the one-wave prefill rounds otherwise than the ticks
+        that wrote those keys). Tokens generated but never harvested are
+        recomputed.
+
+        The reference rebinds its caches to fresh zeros; here the captured
+        segment, verify and width programs hold the pool's and the static
+        buffers' addresses, so each is zeroed IN PLACE (``zero_``: the
+        pool's leaves, the int8 scales with them, the device block tables
+        and the carried tokens and logical counts) and the programs replay
+        afterwards, uncaptured again. Everything is enqueued on the stream
+        behind whatever is still running there (a segment the watchdog cut
+        included), so stream order keeps the zeroing and the re-prefill
+        after its writes. The radix cache is cleared before the pool resets
+        (its entries point at zeroed blocks) and the tiers reset with it (a
+        stale entry promoted later would attach to the pre-fault K/V).
+
+        Rows whose grown head no longer fits (window + segment-rounded
+        remaining > ``t_max``) end ``failed`` with their partial stream.
+        Rows re-prefill in waves grouped by window: ``prompt_buf`` while the
+        head fits it, else the next block-aligned width; a row that was
+        mid-chunk replays its whole head in one wave."""
+        if self._radix is not None:
+            self._radix.clear()
+        if self._tier is not None:
+            self._tier.reset()
+        for slot in table:
+            slot.blocks = []
+        self._pool.reset()
+        self._tables[:] = BlockPool.TRASH
+        for cache in self._caches:
+            for leaf in cache.values():
+                leaf.zero_()
+        for buf in (self._cur_tok, self._n_logical, self._pos0,
+                    *self._tables_w.values()):
+            buf.zero_()              # the trash block's id is 0
+        self._row_pos = [0] * self.B
+        waves: dict[int, list] = {}
+        for b, slot in enumerate(table):
+            if slot.req_index < 0:
+                continue
+            slot.pf_known, slot.pf_done = None, 0
+            req = requests[slot.req_index]
+            known = list(req.tokens) + list(slot.out)
+            head = len(known) - 1
+            W = self.Tb if head <= self.Tb else -(-head // self.bt) * self.bt
+            remaining = req.max_new - len(slot.out)
+            if W + self._rounded_need(remaining) > self.t_max:
+                fin(slot.req_index, FAILED, slot.out,
+                    f"reconstruction needs window {W} + "
+                    f"{self._rounded_need(remaining)} decode slots > "
+                    f"t_max={self.t_max} (raise t_max for "
+                    f"fault-tolerance headroom)")
+                free_row(b)
+                continue
+            waves.setdefault(W, []).append((b, slot, known, remaining))
+        for W, rows in sorted(waves.items()):
+            for b, slot, known, remaining in rows:
+                # the radix is empty: always fresh blocks, never dead K/V
+                self._assign_blocks(b, slot, known, remaining)
+            self._prefill_wave([(b, known, 0, len(known) - 1)
+                                for b, _, known, _ in rows], W)
+            for b, slot, known, remaining in rows:
+                # the in-flight plan's budget decrement died with the
+                # segment: the host's count is the truth
+                slot.remaining = remaining
+            self.stats["reconstruction_rows"] += len(rows)
+
     def _admit(self, prompt, pmask, positions, blk, off, prefix=None):
         """The admission forward (reference ``_admit_impl``,
         ``:1340-1441``): every block's ``forward`` over the wave's suffix
@@ -981,14 +1192,25 @@ class ContinuousBatcher:
                            v.transpose(1, 2).reshape(K * W, hk, hd),
                            blk, off, scale=cache.get("scale"))
 
-    def _dispatch(self, key, fn):
+    @property
+    def journal(self) -> dict:
+        """The journal's counters (``serve_journal.JOURNAL_STATS``): the
+        writer's own dict, or the batcher's when it has no writer (a
+        ``recovery=`` call still counts its dedups and replays)."""
+        return (self._no_journal_stats if self._journal is None
+                else self._journal.stats)
+
+    def _dispatch(self, key, fn, wait=None):
         """Run program ``key`` (kind, sampling, rung) whose work is ``fn``:
         on CUDA its first dispatch eagerly, its second captured as a CUDA
         graph (into the batcher's memory pool) and replayed, every later
         one replayed; on the CPU every dispatch eagerly. A failed capture
-        or replay raises."""
+        or replay raises. ``wait`` is called before an eager run or a
+        capture, never before a replay (one launch)."""
         program = self._programs.get(key)
         if program is None:
+            if wait is not None:
+                wait()
             if not (self._capture and self._eager_runs.get(key)):
                 fn()
                 self._eager_runs[key] = self._eager_runs.get(key, 0) + 1
@@ -1001,12 +1223,13 @@ class ContinuousBatcher:
         self.stats["graph_replays"] += 1
 
     def _segment(self, tables, positions0, sampling: bool,
-                 width: int) -> torch.Tensor:
+                 width: int, wait=None) -> torch.Tensor:
         """Dispatch ``S`` decode ticks for every row at its OWN position
         (``positions0 [B]`` = each row's last written slot; tick ``i``
         writes slot ``positions0 + 1 + i``), drawing with
         ``infer.sample_rows`` when ``sampling``, over the first ``width``
-        (a rung) table entries of ``tables``.
+        (a rung) table entries of ``tables``; ``wait`` as in
+        :meth:`_dispatch`.
         Returns the static ``[B, S]`` token buffer, which the next dispatch
         overwrites (reference ``_segment_impl``)."""
         self._fill(self._tables_w[width],
@@ -1014,7 +1237,7 @@ class ContinuousBatcher:
         self._fill(self._pos0, np.asarray(positions0, np.int32))
         self.stats["sampled_segments"] += sampling
         self._dispatch(("segment", sampling, width), functools.partial(
-            self._decode_segment, sampling, width))
+            self._decode_segment, sampling, width), wait)
         return self._toks
 
     def _decode_segment(self, sampling: bool, width: int) -> None:
@@ -1193,6 +1416,10 @@ class ContinuousBatcher:
         if bad:
             return (f"token ids {bad[:8]} outside the model vocab "
                     f"[0, {vocab})")
+        if r.deadline_s is not None and r.deadline_s <= 0:
+            return f"deadline_s must be > 0, got {r.deadline_s}"
+        if r.arrival_s < 0:
+            return f"arrival_s must be >= 0, got {r.arrival_s}"
         return None
 
     def _alloc(self, n: int) -> list:
@@ -1303,17 +1530,37 @@ class ContinuousBatcher:
             self._radix.insert(head, [int(x)
                                       for x in self._tables[b, :nb_head]])
 
+
+    # ---- the request lifecycle ---------------------------------------------
+
+    def cancel(self, request_index: int) -> None:
+        """Cancel one request of the serve call in flight, by its index in
+        that call's list (reference ``:1895``). Thread-safe: a front end
+        calls it from another thread, a drill from a chaos ``on_segment``
+        hook. A queued request ends ``cancelled`` with no device work; one
+        in flight is cut at the next segment boundary with its partial
+        tokens. Unknown or finished indices are ignored; the marks clear
+        when a new serve call starts."""
+        with self._cancel_mu:
+            self._cancelled.add(int(request_index))
+
     def serve(self, requests: list[Request]) -> list[list[int]]:
         """Run every request through the pool; returns each request's
-        generated tokens (trimmed at eos), in request order. Invalid
-        requests raise ``ValueError``; requests that can never fit a row
-        raise :class:`HorizonError` after the rest complete."""
+        generated tokens (trimmed at eos), in request order. The legacy
+        all-or-nothing surface over the same engine as
+        :meth:`serve_detailed` (reference ``:1907-1938``): invalid requests
+        raise ``ValueError``; requests that can never fit a row raise
+        :class:`HorizonError` after the rest complete."""
         for r in requests:
             err = self._validate_one(r)
             if err is not None:
                 raise ValueError(err)
         with torch.no_grad():
-            outputs, rejected = self._run(requests)
+            results = self._run(requests)
+        outputs = [r.tokens if r.status == OK else [] for r in results]
+        rejected = [i for i, r in enumerate(results)
+                    if r.status != OK and r.error is not None
+                    and "horizon" in r.error]
         if rejected:
             worst = max(self._rounded_need(requests[i].max_new)
                         for i in rejected)
@@ -1325,43 +1572,306 @@ class ContinuousBatcher:
                 f"on this error's .outputs)", outputs)
         return outputs
 
-    def _run(self, requests: list[Request]):
-        """The overlapped dispatch/harvest loop. Returns ``(outputs,
-        horizon-rejected indices)``."""
+    def serve_detailed(self, requests: list[Request], *, drain=None,
+                       drain_deadline_s: float | None = None,
+                       chaos=None, recovery=None) -> list:
+        """Fault-tolerant serving (reference ``:1940``): a
+        :class:`~serve_lifecycle.RequestResult` per request, in request
+        order; nothing raises the call away and no completed work is
+        discarded.
+
+        Validation failures and horizon-infeasible budgets come back
+        ``failed`` with no device work; ``Request.deadline_s`` expiry
+        returns the partial stream ``timeout``; :meth:`cancel` returns
+        ``cancelled``; ``max_pending`` overflow is ``shed`` at submission.
+
+        ``drain``: any object with a ``preempted`` attribute
+        (``train/elastic.PreemptionGuard``, so SIGTERM drives it). Once it
+        is set, admission stops (queued requests are ``shed``), rows in
+        flight run on within ``drain_deadline_s`` (None = unbounded) and
+        end ``ok``; rows still live at that deadline end ``cancelled`` with
+        their partial streams.
+
+        A raised harvest, or one past ``tick_timeout_s`` (the watchdog),
+        triggers session reconstruction (:meth:`_reconstruct`), at most
+        ``max_recoveries`` a call; a fault that survives a reconstruction
+        evicts the newest admission as a suspected poison row. A hang that
+        never ends cannot be recovered in-process: the stream stays busy,
+        so the next harvest waits behind it (the journal and the CLI's
+        ``--supervise`` recover the sessions in a new process). An error
+        raised while reconstructing (a sticky CUDA error: every later call
+        fails) propagates out of the call; nothing moves to the CPU.
+        ``chaos`` (:class:`~serve_lifecycle.ChaosInjector`) injects faults
+        for drills.
+
+        ``recovery``: a :class:`~serve_journal.RecoveryManifest` of an
+        earlier process's journal. Requests it shows completed return their
+        recorded stream with no device work (dedup by request id);
+        incomplete ones re-enter admission as prompt + emitted-so-far
+        continuations with the journaled seed."""
+        with torch.no_grad():
+            if recovery is not None and getattr(recovery, "sessions", None):
+                return self._run_recovered(
+                    requests, recovery, drain=drain,
+                    drain_deadline_s=drain_deadline_s, chaos=chaos)
+            return self._run(requests, drain=drain,
+                             drain_deadline_s=drain_deadline_s, chaos=chaos)
+
+    def _run_recovered(self, requests, recovery, **kw) -> list:
+        """Split a resubmitted request list against a recovery manifest
+        (reference ``:1993-2075``): journal-completed requests dedup (their
+        recorded stream is the result), incomplete ones become continuation
+        replays (prompt + emitted, the remaining budget, the journaled
+        seed), the rest pass through. Replayed sessions' results carry the
+        whole stream (recorded prefix + new suffix), ``recoveries`` + 1."""
+        n = len(requests)
+        pre: list = [None] * n
+        sub: list[Request] = []
+        sub_meta: list[tuple[int, list]] = []   # (original index, emitted)
+        replay_admits: dict = {}
+        for i, r in enumerate(requests):
+            rid = r.request_id or f"req-{i}"
+            # the positional default seed materialised NOW, before dedup
+            # shifts positions: a sampled replay must draw under the seed
+            # the original run used
+            seed = r.seed
+            if seed is None and r.temperature > 0.0:
+                seed = i
+            sess = recovery.sessions.get(rid)
+            if sess is None or sess.prompt is None:
+                sub_meta.append((i, []))
+                sub.append(replace(r, request_id=rid, seed=seed))
+                continue
+            if sess.completed:
+                self.journal["deduped_completions"] += 1
+                pre[i] = RequestResult(status=sess.status,
+                                       tokens=list(sess.emitted),
+                                       error=sess.error, request_id=rid)
+                continue
+            emitted = [int(t) for t in sess.emitted]
+            seed = sess.seed if sess.seed is not None else seed
+            prompt = [int(t) for t in sess.prompt]
+            remaining = r.max_new - len(emitted)
+            cont = prompt + emitted
+            self.journal["recovered_sessions"] += 1
+            self.journal["recovery_replay_tokens"] += len(emitted)
+            if emitted and remaining < 1:
+                # the crash fell between the last delta and the end frame
+                pre[i] = RequestResult(status=OK, tokens=emitted[:r.max_new],
+                                       request_id=rid)
+                continue
+            if emitted and len(cont) <= self.Tb:
+                # the emitted tokens become prompt: same (seed, logical
+                # position) schedule, so the stream continues
+                sub_meta.append((i, emitted))
+                replay_admits[len(sub)] = (rid, prompt, emitted)
+                sub.append(replace(r, tokens=cont, max_new=remaining,
+                                   seed=seed, request_id=rid, arrival_s=0.0))
+            else:
+                # replay from scratch (nothing emitted, or the continuation
+                # outgrows the prompt window): same seed, same stream
+                sub_meta.append((i, []))
+                sub.append(replace(r, request_id=rid, seed=seed,
+                                   arrival_s=0.0))
+        self._replay_admits = replay_admits
+        try:
+            sub_results = self._run(sub, **kw)
+        finally:
+            self._replay_admits = {}
+        for (i, emitted), res in zip(sub_meta, sub_results):
+            if emitted:
+                res = replace(res, tokens=emitted + list(res.tokens),
+                              recoveries=res.recoveries + 1)
+            pre[i] = res
+        return pre
+
+    def _run(self, requests: list[Request], *, drain=None,
+             drain_deadline_s: float | None = None, chaos=None) -> list:
+        """The scheduler behind :meth:`serve` and :meth:`serve_detailed`
+        (reference ``:2077``): the overlapped dispatch/harvest loop with the
+        request lifecycle, the drain, fault recovery, the journal and the
+        block accounting at its host-side decision points. Returns a
+        :class:`~serve_lifecycle.RequestResult` per request."""
         t0 = time.monotonic()
+        with self._cancel_mu:
+            self._cancelled.clear()
         n = len(requests)
         results: list = [None] * n
-        ttft: list = [None] * n
+        ticks_charged = [0] * n
+        recs = [0] * n
         cached = [0] * n
         admissions: list = []
+        arrive_at = [t0 + requests[i].arrival_s for i in range(n)]
+        admit_at: list = [None] * n
+        first_tok_at: list = [None] * n
+        jr = self._journal
+        jids = [requests[i].request_id or f"req-{i}" for i in range(n)]
+        cuda = self.device.type == "cuda"
+
+        def fin(i, status, tokens, error=None):
+            """Request ``i``'s terminal event; the first one wins."""
+            if results[i] is not None:
+                return
+            now = time.monotonic()
+            latency = max(0.0, now - arrive_at[i])
+            ttft = (first_tok_at[i] - arrive_at[i]
+                    if first_tok_at[i] is not None else None)
+            tokens = list(tokens)
+            results[i] = RequestResult(
+                status=status, tokens=tokens, error=error,
+                ticks=ticks_charged[i], latency_s=latency,
+                recoveries=recs[i], cached_prefix_tokens=cached[i],
+                queue_wait_s=(admit_at[i] - arrive_at[i]
+                              if admit_at[i] is not None else None),
+                ttft_s=ttft,
+                tpot_s=((latency - ttft) / (len(tokens) - 1)
+                        if ttft is not None and len(tokens) > 1 else None),
+                request_id=jids[i])
+            if jr is not None:
+                jr.end(jids[i], status, error=error)
+
+        # submission: validation failures are results, not raises
+        valid = []
+        for i, r in enumerate(requests):
+            err = self._validate_one(r)
+            if err is not None:
+                fin(i, FAILED, [], err)
+            else:
+                valid.append(i)
+        deadline_at = [None] * n
+        for i in valid:
+            if requests[i].deadline_s is not None:
+                deadline_at[i] = t0 + requests[i].deadline_s
+
+        def horizon_msg(req):
+            return (f"per-row horizon exhausted: prompt_buf={self.Tb} + "
+                    f"segment-rounded max_new "
+                    f"({self._rounded_need(req.max_new)}) exceeds "
+                    f"t_max={self.t_max}")
+
         if self.admit_policy == "fifo":
             # a request that can never fit would block the head forever:
-            # set it aside now
-            queue = [i for i in range(n) if self._fits(requests[i])]
+            # it fails now
+            queue = []
+            for i in valid:
+                if self._fits(requests[i]):
+                    queue.append(i)
+                else:
+                    fin(i, FAILED, [], horizon_msg(requests[i]))
         else:
             # skip_fit: never-fitting requests are skipped in place at
-            # admission and reported at the end
-            queue = list(range(n))
+            # admission and fail at the end
+            queue = list(valid)
+        # bounded admission: overload sheds at submission
+        if self.max_pending is not None:
+            cap = self.B + self.max_pending
+            if len(queue) > cap:
+                for i in queue[cap:]:
+                    fin(i, SHED, [],
+                        f"shed: admission queue full ({len(queue)} "
+                        f"requests > slots ({self.B}) + max_pending "
+                        f"({self.max_pending}))")
+                queue = queue[:cap]
+        # write-ahead admission records, before any device work; a replayed
+        # session records its true shape (original prompt + emitted)
+        if jr is not None:
+            for qi in queue:
+                r = requests[qi]
+                rep = self._replay_admits.get(qi)
+                if rep is not None:
+                    rid, prompt, emitted = rep
+                    total_new = r.max_new + len(emitted)
+                else:
+                    rid, prompt, emitted = jids[qi], list(r.tokens), []
+                    total_new = r.max_new
+                jr.admit(rid, prompt, total_new, temperature=r.temperature,
+                         top_k=r.top_k, top_p=r.top_p,
+                         seed=(r.seed if r.seed is not None else
+                               qi if r.temperature > 0.0 else None),
+                         deadline_s=r.deadline_s, emitted=emitted)
+            jr.commit()
+
         table = [_Slot() for _ in range(self.B)]
+        admit_seq = [0]
+        draining = {"on": False, "deadline": None}
+        fault_state = {"recoveries": 0, "consecutive": 0}
 
         def free_row(b):
+            """Release row ``b``'s pool references and park its table at
+            trash; every terminal row transition comes here. A row freed
+            while its next segment is in flight is safe as one freed at
+            eos is (module docstring): any reuse of its blocks is enqueued
+            after that segment, and the harvest skips its plan entry."""
             slot = table[b]
             if slot.blocks:
                 self._pool.release(slot.blocks)
             self._tables[b, :] = BlockPool.TRASH
             slot.free()
 
+        def police():
+            """The lifecycle's host transitions between device calls
+            (reference ``:2232-2288``): drain start (admission stops, the
+            queue is shed), cancels and deadlines, queued and in flight,
+            and the drain deadline. Host bookkeeping only."""
+            now = time.monotonic()
+            if (drain is not None and getattr(drain, "preempted", False)
+                    and not draining["on"]):
+                draining["on"] = True
+                if drain_deadline_s is not None:
+                    draining["deadline"] = now + drain_deadline_s
+                for i in queue:
+                    fin(i, SHED, [], "shed: draining (admission stopped)")
+                queue.clear()
+            with self._cancel_mu:
+                cancelled = set(self._cancelled)
+            for i in list(queue):
+                if i in cancelled:
+                    queue.remove(i)
+                    fin(i, CANCELLED, [], "cancelled while queued")
+                elif deadline_at[i] is not None and now >= deadline_at[i]:
+                    queue.remove(i)
+                    fin(i, TIMEOUT, [], f"deadline_s="
+                        f"{requests[i].deadline_s} expired while queued")
+            for b, slot in enumerate(table):
+                i = slot.req_index
+                if i < 0:
+                    continue
+                if i in cancelled:
+                    fin(i, CANCELLED, slot.out, "cancelled in flight")
+                    free_row(b)
+                elif deadline_at[i] is not None and now >= deadline_at[i]:
+                    fin(i, TIMEOUT, slot.out, f"deadline_s="
+                        f"{requests[i].deadline_s} expired in flight")
+                    free_row(b)
+            if (draining["on"] and draining["deadline"] is not None
+                    and now > draining["deadline"]):
+                for b, slot in enumerate(table):
+                    if slot.req_index >= 0:
+                        fin(slot.req_index, CANCELLED, slot.out,
+                            f"drain deadline ({drain_deadline_s}s) expired")
+                        free_row(b)
+
         def pick_admissions(k_free: int) -> list[int]:
-            """The next requests to admit (reference ``:2290-2309``): the
-            queue's head for FIFO; for skip_fit the first ones that fit,
-            in queue order."""
-            if self.admit_policy == "fifo":
-                take = queue[:k_free]
-                del queue[:len(take)]
+            """The next requests to admit (reference ``:2290-2309``), none
+            while draining: the queue's arrived head for FIFO (an unarrived
+            head blocks the wave: no leapfrog), for skip_fit the first
+            arrived ones that fit, in queue order."""
+            take: list[int] = []
+            if draining["on"]:
                 return take
-            take = [i for i in queue if self._fits(requests[i])][:k_free]
-            for i in take:
-                queue.remove(i)
+            now = time.monotonic()
+            if self.admit_policy == "fifo":
+                while (queue and len(take) < k_free
+                       and arrive_at[queue[0]] <= now):
+                    take.append(queue.pop(0))
+            else:
+                i = 0
+                while i < len(queue) and len(take) < k_free:
+                    if (self._fits(requests[queue[i]])
+                            and arrive_at[queue[i]] <= now):
+                        take.append(queue.pop(i))
+                    else:
+                        i += 1
             return take
 
         def admit_wave():
@@ -1375,10 +1885,12 @@ class ContinuousBatcher:
             if not take:
                 return
             admissions.append(take)
+            now = time.monotonic()
             entries, cow_all = [], []
             budget = self._chunk
             for b, ri in zip(free, take):
                 req, slot = requests[ri], table[b]
+                admit_at[ri] = now
                 self._temp_h[b] = req.temperature
                 self._topk_h[b] = req.top_k or 0
                 self._topp_h[b] = 2.0 if req.top_p is None else req.top_p
@@ -1386,6 +1898,8 @@ class ContinuousBatcher:
                                    else req.seed) & 0xFFFFFFFF
                 slot.req_index, slot.out = ri, []
                 slot.remaining = req.max_new
+                slot.admit_seq = admit_seq[0]
+                admit_seq[0] += 1
                 m, cow = self._assign_blocks(b, slot, list(req.tokens),
                                              req.max_new)
                 cow_all.extend(cow)
@@ -1482,11 +1996,27 @@ class ContinuousBatcher:
             self._note_width(nb_w, ticks, min(self.nb, -(-need // self.bt)))
             return nb_w
 
-        def dispatch_segment():
+        def dispatched(out: torch.Tensor) -> _Fetch:
+            """A dispatch's bookkeeping after its launches: the segment
+            count, a chaos drill's device-side hang (a spin enqueued before
+            the fetch's event, on the card) and the host hook, then the
+            fetch of ``out``."""
+            self.stats["segments"] += 1
+            if chaos is not None and cuda:
+                hang_s = chaos.in_fetch(self.stats["segments"])
+                if hang_s:
+                    spin(torch, hang_s)
+            fetch = _Fetch(out)
+            if chaos is not None and chaos.on_segment is not None:
+                chaos.on_segment(self.stats["segments"])
+            return fetch
+
+        def dispatch_segment(wait=None):
             """Dispatch ONE segment (no fetch), or None when no row has
             budget left. Budget depletion is applied here, at dispatch,
             so the next segment can be decided before this one's tokens
-            arrive."""
+            arrive. ``wait`` runs before an eager launch or a capture (it
+            may raise: nothing after it has run)."""
             plan = []
             for b, slot in enumerate(table):
                 if (slot.req_index >= 0 and slot.remaining > 0
@@ -1504,14 +2034,15 @@ class ContinuousBatcher:
             # stream right after this segment and before the next
             # dispatch's fills and replay, which overwrite the buffer: the
             # stream's order keeps segment N's tokens until they are copied
-            fetch = _Fetch(self._segment(tables_now, self._row_pos,
-                                         sampling, nb_w))
+            out = self._segment(tables_now, self._row_pos, sampling, nb_w,
+                                wait)
             for b in range(self.B):
                 self._row_pos[b] += self.S
             self.ticks += self.S
-            for b, _, take, _ in plan:
+            for b, ri, take, _ in plan:
                 table[b].remaining -= take
-            return "plain", fetch, plan
+                ticks_charged[ri] += take
+            return "plain", dispatched(out), plan
 
         def cow_for_write(plan):
             """Every block under a verify window's writes (slots ``row_pos +
@@ -1574,13 +2105,14 @@ class ContinuousBatcher:
             # drops writes at or past its horizon
             nb_w = rung(active, W)
             sampling = bool((self._temp_h[sorted(active)] > 0).any())
-            fetch = _Fetch(self._verify(tables_now, toks, self._row_pos,
-                                        self._nlog_h, sampling, nb_w))
-            # no row advances here: harvest_verify moves each by what it
-            # emits (the rollback: K/V past a row's position is never read)
+            out = self._verify(tables_now, toks, self._row_pos,
+                               self._nlog_h, sampling, nb_w)
+            # no row advances here: the verify harvest moves each by what
+            # it emits (the rollback: K/V past a row's position is never
+            # read)
             self.ticks += W
             self.spec["verify_segments"] += 1
-            return "spec", fetch, plan
+            return "spec", dispatched(out), plan
 
         def maybe_autodisable():
             """Over each window of ``autodisable_window`` proposed drafts,
@@ -1600,17 +2132,52 @@ class ContinuousBatcher:
             self._fill(self._cur_tok, self._cur_h)
             self._fill(self._n_logical, self._nlog_h)
 
-        def finish(b, ri, done, now):
-            """A harvested row's tail: its time to first token, the trim at
-            eos, and its row freed when done."""
+        def watch(fetch, hang_s: float = 0.0) -> np.ndarray:
+            """``fetch``'s tokens under the tick watchdog. Segments cut
+            earlier and still on the stream run ahead of this one, so the
+            clock starts once they are done (their time was charged to the
+            harvest that timed out): a hang that never ends blocks here."""
+            while self._stale:
+                if self._stale[0].done():
+                    self._stale.pop(0)
+                else:
+                    time.sleep(POLL_S)
+            try:
+                return fetch.result(self.tick_timeout_s, hang_s)
+            except TickTimeout:
+                self._stale.append(fetch)
+                raise
+
+        def fetch_tokens(fetch, plan_requests) -> np.ndarray:
+            """THE wait of a harvest, the loop's one host sync: the chaos
+            hooks, then the fetch, under the tick watchdog when it is
+            set."""
+            self.stats["fetches"] += 1
+            self._stale = [f for f in self._stale if not f.done()]
+            if chaos is not None:
+                chaos.pre_fetch(self.stats["segments"], plan_requests)
+            hang_s = (chaos.in_fetch(self.stats["segments"])
+                      if chaos is not None and not cuda else 0.0)
+            if self.tick_timeout_s is None:
+                return fetch.result(hang_s=hang_s)
+            return watch(fetch, hang_s)
+
+        def deliver(b, ri, emit, done, now):
+            """A harvested row's tokens: the first token's time, the eos
+            trim, the journal delta (post-trim: only delivered tokens), and
+            the row's end when done."""
             slot = table[b]
-            if ttft[ri] is None and slot.out:
-                ttft[ri] = now - t0
+            prev = len(slot.out)
+            slot.out.extend(emit)
+            if slot.out and first_tok_at[ri] is None:
+                first_tok_at[ri] = now
             if self.eos_id is not None and self.eos_id in slot.out:
                 slot.out = slot.out[:slot.out.index(self.eos_id) + 1]
                 done = True
+            if jr is not None and len(slot.out) > prev:
+                jr.delta(jids[ri], slot.out[prev:])
             if done:
-                results[ri] = slot.out
+                fin(ri, OK, slot.out)
                 free_row(b)
 
         def harvest_verify(fetch, plan):
@@ -1619,13 +2186,13 @@ class ContinuousBatcher:
             token at the first mismatch (the deterministic rejection
             resample), clamped to its budget, and advances by what it
             emitted."""
-            true_h = fetch.result()
+            true_h = fetch_tokens(fetch, [ri for _, ri, _ in plan])
             now = time.monotonic()
             W = self._spec_w
             for b, ri, drafts in plan:
                 slot = table[b]
                 if results[ri] is not None or slot.req_index != ri:
-                    continue
+                    continue   # cut or done while this was in flight
                 row = true_h[b]
                 j = 0
                 while j < W - 1 and drafts[j] == int(row[j]):
@@ -1637,13 +2204,15 @@ class ContinuousBatcher:
                 self.spec["wasted_verify_tokens"] += W - len(emit)
                 self._spec_win[0] += W - 1
                 self._spec_win[1] += j
+                ticks_charged[ri] += W
                 slot.remaining -= len(emit)
-                slot.out.extend(emit)
                 self._row_pos[b] += len(emit)
                 self._nlog_h[b] += len(emit)
                 if emit:
                     self._cur_h[b] = emit[-1]
-                finish(b, ri, slot.remaining <= 0, now)
+                deliver(b, ri, emit, slot.remaining <= 0, now)
+            if jr is not None:
+                jr.commit()        # the harvest is the durability boundary
             if self.spec["proposed"]:
                 self.spec["acceptance_rate"] = (self.spec["accepted"]
                                                 / self.spec["proposed"])
@@ -1656,18 +2225,6 @@ class ContinuousBatcher:
                 return dispatch_verify()
             return dispatch_segment()
 
-        def dispatch_or_chunk():
-            """:func:`dispatch_next`, extending mid-chunk rows while no
-            row can decode (each chunk wave advances them by a block at
-            least, so this ends)."""
-            while True:
-                seg = dispatch_next()
-                if seg is not None or not any(
-                        s.req_index >= 0 and s.pf_known is not None
-                        for s in table):
-                    return seg
-                chunk_wave()
-
         def harvest(seg, overlapped: bool):
             """THE one device->host fetch per dispatch."""
             kind, fetch, plan = seg
@@ -1676,38 +2233,137 @@ class ContinuousBatcher:
                 return
             if overlapped:
                 self.stats["fetches_overlapped"] += 1
-            toks = fetch.result()
+            toks = fetch_tokens(fetch, [ri for _, ri, _, _ in plan])
             now = time.monotonic()
             for b, ri, take, done in plan:
-                slot = table[b]
-                if results[ri] is not None or slot.req_index != ri:
-                    continue   # finished (eos) while this was in flight
-                slot.out.extend(int(t) for t in toks[b, :take])
-                finish(b, ri, done, now)
+                if results[ri] is not None or table[b].req_index != ri:
+                    # finished (eos), cut (cancel, deadline, drain) or its
+                    # row re-admitted while this was in flight: the ticks
+                    # are overlap waste, never tokens
+                    continue
+                deliver(b, ri, [int(t) for t in toks[b, :take]], done, now)
+            if jr is not None:
+                jr.commit()        # the harvest is the durability boundary
 
+        def handle_fault(e: Exception) -> bool:
+            """A harvest raised or hung (reference ``:2841-2892``): recover
+            by reconstruction, at most ``max_recoveries`` a call; a fault
+            that survives a reconstruction evicts the newest admission as a
+            suspected poison row first. False once the budget is spent:
+            every remaining request fails with the error."""
+            self.stats["faults"] += 1
+            fault_state["consecutive"] += 1
+            err = f"{type(e).__name__}: {e}"
+            t_fault = time.monotonic()
+            if fault_state["recoveries"] >= self.max_recoveries:
+                msg = (f"device lost after {fault_state['recoveries']} "
+                       f"recovery attempt(s) ({err})")
+                for b, slot in enumerate(table):
+                    if slot.req_index >= 0:
+                        fin(slot.req_index, FAILED, slot.out, msg)
+                        free_row(b)
+                for i in queue:
+                    fin(i, FAILED, [], msg)
+                queue.clear()
+                return False
+            fault_state["recoveries"] += 1
+            if fault_state["consecutive"] >= 2:
+                live = [b for b, s in enumerate(table) if s.req_index >= 0]
+                if live:
+                    victim = max(live, key=lambda b: table[b].admit_seq)
+                    fin(table[victim].req_index, FAILED, table[victim].out,
+                        f"evicted as suspected poison row after repeated "
+                        f"faults ({err})")
+                    free_row(victim)
+            for slot in table:
+                if slot.req_index >= 0:
+                    recs[slot.req_index] += 1
+            self._reconstruct(table, requests, fin, free_row)
+            self.stats["reconstructions"] += 1
+            self.stats["recovery_s"] += time.monotonic() - t_fault
+            return True
+
+        def dispatch_or_wait():
+            """:func:`dispatch_next` across mid-chunk rows and open-loop
+            arrival gaps (reference ``:2894-2940``): while no row can
+            decode, mid-chunk rows extend (each chunk wave advances one by
+            a block at least, so this ends); with nothing live and future
+            arrivals queued, nap to the earliest in bounded steps
+            (``police`` keeps cancels, deadlines and drain live) and admit.
+            The overlapped dispatch never calls this."""
+            while True:
+                seg = dispatch_next()
+                if seg is not None:
+                    return seg
+                if any(s.req_index >= 0 and s.pf_known is not None
+                       for s in table):
+                    chunk_wave()
+                    police()
+                    continue
+                if draining["on"]:
+                    return None
+                now = time.monotonic()
+                future = [arrive_at[i] for i in queue if arrive_at[i] > now]
+                if not future:
+                    return None
+                time.sleep(min(min(future) - now, 0.02))
+                police()
+                admit_wave()
+                chunk_wave()
+
+        police()
         admit_wave()
         chunk_wave()
-        seg = dispatch_or_chunk()
+        seg = dispatch_or_wait()
         while seg is not None:
-            # overlap: plain segment N+1 before fetching N; a verify step
-            # waits (its drafts need this harvest's tokens)
-            nxt = dispatch_segment() if seg[0] == "plain" else None
-            harvest(seg, overlapped=nxt is not None)
+            nxt = None
+            waited = []
+            try:
+                if seg[0] == "plain":
+                    # overlap: plain segment N+1 before fetching N; a
+                    # verify step waits (its drafts need this harvest).
+                    # Under the watchdog on the card an eager or capturing
+                    # N+1 first waits for N under the watchdog: its
+                    # thousands of launches would fill the launch queue
+                    # behind a hung N and block the host in a launch,
+                    # where no poll runs (a replay is one launch)
+                    nxt = dispatch_segment(
+                        (lambda f=seg[1]: waited.append(watch(f)))
+                        if cuda and self.tick_timeout_s is not None
+                        else None)
+                harvest(seg, overlapped=nxt is not None and not waited)
+                fault_state["consecutive"] = 0
+            except Exception as e:  # noqa: BLE001 — the fault path: chaos,
+                # the watchdog or a runtime error at the harvest. Degrade
+                # per request; an error while reconstructing propagates
+                if nxt is not None:
+                    self._stale.append(nxt[1])
+                nxt = None
+                if not handle_fault(e):
+                    break
+            police()
             admit_wave()                  # freed rows -> next wave
             chunk_wave()                  # mid-chunk rows -> next chunk
             if nxt is None:
-                nxt = dispatch_or_chunk()  # revived by fresh admissions
+                nxt = dispatch_or_wait()  # fresh admissions, a
+                # reconstruction, or the next arrival
             seg = nxt
 
-        # whatever never entered the queue or is still in it can never be
-        # admitted: horizon rejects, reported by ``serve``
-        queued = set(queue)
-        rejected = [i for i in range(n) if results[i] is None
-                    and (i in queued or not self._fits(requests[i]))]
-        leaked = [b for b, s in enumerate(table) if s.req_index >= 0]
+        # whatever is still queued can never be admitted: skip_fit's
+        # never-fitting requests fail with their horizon error
+        for i in queue:
+            req = requests[i]
+            fin(i, FAILED, [], horizon_msg(req) if not self._fits(req) else
+                "not served (scheduler exited with work queued)")
+        leaked = [b for b, s in enumerate(table) if s.req_index >= 0
+                  and results[s.req_index] is None]
         self.last_slot_leaks = len(leaked)
         for b in leaked:
-            free_row(b)
+            fin(table[b].req_index, FAILED, table[b].out,
+                "slot leak (scheduler bug)")
+        for b, s in enumerate(table):
+            if s.req_index >= 0:
+                free_row(b)
         # with every row freed, the only live pool references are the
         # radix tree's (and the pinned trash block)
         self.last_block_leaks = self._pool.leak_check(
@@ -1726,7 +2382,14 @@ class ContinuousBatcher:
         self.stats["block_pool_occupancy"] = max(
             self.stats["block_pool_occupancy"],
             self._pool.high_water / self._pool.num_blocks)
-        self.last_ttft_s = ttft
+        for i in range(n):
+            if results[i] is None:
+                fin(i, FAILED, [], "not served (scheduler bug)")
+        if jr is not None:
+            jr.commit()   # the exit path's end frames reach the log too
+        self.last_ttft_s = [None if first_tok_at[i] is None
+                            else first_tok_at[i] - arrive_at[i]
+                            for i in range(n)]
         self.last_cached_prefix = cached
         self.last_admissions = admissions
-        return [r if r is not None else [] for r in results], rejected
+        return results

@@ -53,10 +53,13 @@ from distributed_compute_pytorch_tpu_torch.models.registry import build_model
 from distributed_compute_pytorch_tpu_torch.models.transformer import (
     TransformerBlock)
 from distributed_compute_pytorch_tpu_torch.train import checkpoint
+from distributed_compute_pytorch_tpu_torch.train import (
+    trainer as trainer_module)
 from distributed_compute_pytorch_tpu_torch.train.optim import build_optimizer
 from distributed_compute_pytorch_tpu_torch.train.step import make_step_fns
 
 from torch_ladder_worker import run_world
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 B, T, STEPS = 8, 32, 10
 FWD_TOL, LOSS_TOL, PARAM_TOL, DDP_TOL = 1e-5, 1e-4, 1e-4, 1e-5
@@ -296,11 +299,18 @@ def test_checkpoint_round_trip_and_jax_reads(tokens, tmp_path):
     assert jax.tree.structure(got) == jax.tree.structure(jp)
 
 
-def test_cli_trains_bert_and_ignores_augment(tmp_path, capsys):
+def test_cli_trains_bert_and_ignores_augment(tmp_path, capsys, monkeypatch):
+    """The BERT CLI: ``--augment`` warned about and ignored, 4 steps an
+    epoch (the ``synthetic-lm`` splits cut to 256 sequences of 32 tokens),
+    the eval line, then a resume."""
+    load = trainer_module.load_dataset
+    monkeypatch.setattr(trainer_module, "load_dataset",
+                        lambda name, split, **kw: load(name, split, n=256,
+                                                       seq_len=T, **kw))
     ck = str(tmp_path / "ck.npz")
     base = ["--device", "cpu", "--model", "bert", "--model_preset", "tiny",
             "--dataset", "synthetic-lm", "--optimizer", "adamw",
-            "--batch_size", "512", "--log_every", "2", "--ckpt_path", ck]
+            "--batch_size", "64", "--log_every", "2", "--ckpt_path", ck]
     assert cli.main(base + ["--epochs", "1", "--augment", "flip-crop"]) == 0
     out = capsys.readouterr().out
     assert "WARNING: --augment flip-crop needs image (rank-4) inputs" in out

@@ -2308,3 +2308,113 @@ def test_import_into_host_blocks_released_by_promotion(dev):
         torch.bfloat16)
     assert torch.equal(got, want)
     assert on._tier.leak_check() == 0
+
+
+# ---- slice 20: the request lifecycle on the card ------------------------
+
+
+def _tiny_gpt2(dev, dtype=torch.float32, layers=2):
+    from distributed_compute_pytorch_tpu_torch.models.gpt2 import (
+        GPT2, GPT2Config)
+    cfg = GPT2Config(vocab_size=256, max_seq_len=128, num_layers=layers,
+                     num_heads=4, d_model=64, d_ff=128)
+    cpu = GPT2(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = GPT2(cfg, device=dev, dtype=dtype)
+    gpu.load_state_dict(cpu.state_dict())
+    return gpu
+
+
+def _drill_requests(Request):
+    rng = np.random.default_rng(5)
+    return [Request([int(x) for x in rng.integers(0, 256, rng.integers(2, 9))],
+                    int(rng.integers(12, 25))) for _ in range(5)]
+
+
+def _addresses(cb):
+    """Every pool leaf's and static buffer's device address."""
+    bufs = [leaf for c in cb._caches for leaf in c.values()]
+    bufs += [cb._cur_tok, cb._n_logical, cb._pos0, cb._toks,
+             *cb._tables_w.values()]
+    return [t.data_ptr() for t in bufs]
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_captured_reconstruction_in_place_equals_eager(dev, kv_dtype):
+    """A raised harvest mid-stream on the card: the captured batcher's
+    tokens equal the eager batcher's under the same drill and a clean run's
+    (f32); the reconstruction zeroed the pool in place (every leaf's and
+    static buffer's address unchanged), captured nothing new, and every
+    later segment was a replay."""
+    from distributed_compute_pytorch_tpu_torch.serve import (
+        ContinuousBatcher, Request)
+    from distributed_compute_pytorch_tpu_torch.serve_lifecycle import (
+        ChaosInjector)
+    model = _tiny_gpt2(dev)
+    reqs = _drill_requests(Request)
+    outs = {}
+    for mode in ("graph", "eager"):
+        cb = ContinuousBatcher(model, slots=2, t_max=128, prompt_buf=10,
+                               segment=3, kv_dtype=kv_dtype, device=dev)
+        cb._capture = mode == "graph"
+        clean = cb.serve(list(reqs))          # warm-up: the capture
+        addrs, caps = _addresses(cb), cb.stats["graph_captures"]
+        replays, seg0 = cb.stats["graph_replays"], cb.stats["segments"]
+        res = cb.serve_detailed(list(reqs), chaos=ChaosInjector(
+            fault_at_segment=3))
+        assert cb.stats["reconstructions"] == 1
+        assert all(r.ok for r in res) and [r.tokens for r in res] == clean
+        assert _addresses(cb) == addrs
+        assert cb.stats["graph_captures"] == caps
+        if mode == "graph":
+            assert caps == 1
+            assert (cb.stats["graph_replays"] - replays
+                    == cb.stats["segments"] - seg0)
+        assert cb.last_slot_leaks == 0 and cb.last_block_leaks == 0
+        outs[mode] = [r.tokens for r in res]
+    assert outs["graph"] == outs["eager"]
+
+
+@pytest.mark.parametrize("mode", ["graph", "eager"])
+def test_watchdog_fires_on_a_device_spin_not_on_a_slow_tick(dev, mode):
+    """The tick watchdog on the card, captured and eager: a spin of 1.5 s
+    enqueued on the stream before a segment's fetch makes the loop raise
+    ``TickTimeout`` at the 0.5 s budget (polling the event: no blocking
+    sync), the reconstruction waits behind the spin and the streams equal
+    the clean run; a slow tick (a host sleep under the budget) triggers
+    nothing. Twelve layers and 16-tick segments give the eager loop
+    thousands of launches a segment, more than the launch queue holds
+    behind the spin: the overlapped dispatch must wait under the watchdog
+    rather than block in a launch. ``_Fetch.result`` alone: a spin past
+    the budget raises."""
+    import time
+
+    from distributed_compute_pytorch_tpu_torch.serve import (
+        ContinuousBatcher, Request, _Fetch)
+    from distributed_compute_pytorch_tpu_torch.serve_lifecycle import (
+        ChaosInjector, TickTimeout, spin)
+    model = _tiny_gpt2(dev, layers=12)
+    reqs = _drill_requests(Request)
+    cb = ContinuousBatcher(model, slots=2, t_max=128, prompt_buf=10,
+                           segment=16, tick_timeout_s=0.5, device=dev)
+    cb._capture = mode == "graph"
+    clean = cb.serve(list(reqs))
+    seg0 = cb.stats["segments"]
+    t0 = time.monotonic()
+    res = cb.serve_detailed(list(reqs), chaos=ChaosInjector(
+        fault_at_segment=seg0 + 2, fault_mode="hang", hang_s=1.5))
+    assert (cb.stats["faults"], cb.stats["reconstructions"]) == (1, 1)
+    assert cb.stats["recovery_s"] > 0 and time.monotonic() - t0 < 10.0
+    assert [r.tokens for r in res] == clean and all(r.ok for r in res)
+    res = cb.serve_detailed(list(reqs), chaos=ChaosInjector(
+        fault_at_segment=cb.stats["segments"] + 1, fault_mode="slow",
+        slow_s=0.05))
+    assert cb.stats["faults"] == 1 and [r.tokens for r in res] == clean
+    assert cb.last_slot_leaks == 0 and cb.last_block_leaks == 0
+    x = torch.ones(4, device=dev)
+    spin(torch, 1.0)
+    fetch = _Fetch(x)
+    t0 = time.monotonic()
+    with pytest.raises(TickTimeout):
+        fetch.result(timeout_s=0.2)
+    assert 0.2 <= time.monotonic() - t0 < 0.9
+    assert fetch.result().tolist() == [1.0] * 4

@@ -57,6 +57,7 @@ from distributed_compute_pytorch_tpu_torch.train.optim import build_optimizer
 from distributed_compute_pytorch_tpu_torch.train.step import make_step_fns
 
 from torch_ladder_worker import run_world
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 FWD_TOL, LOSS_TOL, STEP_TOL, DDP_TOL = 1e-5, 1e-4, 1e-4, 1e-5
 B, S, STEPS = 16, 8, 10

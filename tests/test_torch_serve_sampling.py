@@ -380,10 +380,14 @@ def test_cli_serve_refuses_truncation_without_temperature(capsys):
 def test_cli_serve_refuses_flags_of_later_items(flag, item):
     """A flag of a later item exits naming it; the tier flags (item 3.7,
     ported) exit on their own checks here: each needs the flag below it
-    (``--prefix_cache``, ``--host_cache_mb``), as the JAX CLI's do."""
+    (``--prefix_cache``, ``--host_cache_mb``), as the JAX CLI's do; the
+    journal's (item 3.8, ported) is taken, and the line exits on the next
+    check instead (a zero ``--max_new_tokens``)."""
     from distributed_compute_pytorch_tpu_torch.cli_serve import main
-    want = (rf"{flag}.*requires" if item == "3.7"
-            else rf"{flag}.*not ported.*{item}")
+    want = {"3.7": rf"{flag}.*requires",
+            "3.8": r"^--max_new_tokens must be"}.get(
+        item, rf"{flag}.*not ported.*{item}")
+    extra = ["--max_new_tokens", "0"] if item == "3.8" else []
     with pytest.raises(SystemExit, match=want):
         main(["--init_seed", "0", "--model_preset", "tiny", "--requests",
-              "-", "--device", "cpu", flag, "2"])
+              "-", "--device", "cpu", flag, "2", *extra])

@@ -55,10 +55,14 @@ from distributed_compute_pytorch_tpu_torch.interop import (
     gpt2_params_from_jax, load_gpt2_params)
 from distributed_compute_pytorch_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from distributed_compute_pytorch_tpu_torch.train import checkpoint
+from distributed_compute_pytorch_tpu_torch.train import (
+    trainer as trainer_module)
 from distributed_compute_pytorch_tpu_torch.train.optim import (
     build_optimizer, warmup_cosine_decay)
 from distributed_compute_pytorch_tpu_torch.train.step import make_step_fns
 from distributed_compute_pytorch_tpu_torch.train.trainer import Trainer
+
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 B, T = 8, 32
 TOL = 1e-4
@@ -231,14 +235,16 @@ def test_bad_policy_raises_at_build_time():
 
 
 def _poisoning_trainer(tmp_path, poisoned, policy="skip"):
-    """A GPT-2-tiny ``synthetic-lm`` trainer (16 steps an epoch) whose
-    step ``b`` runs with ``wte[POISON] = inf`` when ``poisoned(b)``: the
-    real guard skips it; the element is restored after the step."""
+    """A GPT-2-tiny ``synthetic-lm`` trainer (16 steps an epoch: 256
+    sequences of 32 tokens in batches of 16, and a one-batch test split)
+    whose step ``b`` runs with ``wte[POISON] = inf`` when ``poisoned(b)``:
+    the real guard skips it; the element is restored after the step."""
     cfg = Config(device="cpu", model="gpt2", model_preset="tiny",
-                 dataset="synthetic-lm", optimizer="adamw", batch_size=128,
+                 dataset="synthetic-lm", optimizer="adamw", batch_size=16,
                  epochs=1, log_every=4, nonfinite_policy=policy,
                  ckpt_path=str(tmp_path / "ck.npz"))
-    tr = Trainer(cfg)
+    tr = Trainer(cfg, train_data=synthetic_lm(256, T, 256, seed=0),
+                 eval_data=synthetic_lm(16, T, 256, seed=1))
     step, calls = tr.train_step, []
 
     def poisoning_step(state, x, y):
@@ -299,10 +305,16 @@ def test_trainer_goes_on_through_scattered_skips(tmp_path):
                for p in tr.state.params.values())
 
 
-def test_cli_takes_nonfinite_policy_skip(tmp_path, capsys):
+def test_cli_takes_nonfinite_policy_skip(tmp_path, capsys, monkeypatch):
+    """``--nonfinite_policy skip`` through the CLI: 8 clean steps (the
+    ``synthetic-lm`` splits cut to 256 sequences of 32 tokens), no skip."""
+    load = trainer_module.load_dataset
+    monkeypatch.setattr(trainer_module, "load_dataset",
+                        lambda name, split, **kw: load(name, split, n=256,
+                                                       seq_len=T, **kw))
     assert cli.main(["--device", "cpu", "--model", "gpt2",
                      "--model_preset", "tiny", "--dataset", "synthetic-lm",
-                     "--optimizer", "adamw_fused", "--batch_size", "256",
+                     "--optimizer", "adamw_fused", "--batch_size", "32",
                      "--epochs", "1", "--log_every", "4",
                      "--nonfinite_policy", "skip",
                      "--ckpt_path", str(tmp_path / "ck.npz")]) == 0
